@@ -1,0 +1,303 @@
+// Decode attention over the int8 KV cache, with the current token's k/v as
+// extra operands and the in-place append of its quantized row.
+//
+// Replaces: neural_speed_tpu/ops/flash.py, _mha_kernel_hblk with
+// extra_kv=True, fused_append=True (launched by _mha_packed_hblk from
+// mha), contiguous cache.
+//
+// What it computes, per slot b and KV head hk, for the n_rep query heads of
+// that group (one token per slot):
+//   * kv_len includes the current token; the cache is read only below
+//     kv_len_cache = kv_len - 1 when pos == kv_len - 1 (a live slot), else
+//     below kv_len (a spectator whose query is parked at max_len - 1);
+//     columns also satisfy c <= pos (causal);
+//   * scores s = (bf16(q) . k_code) * k_scale * sm_scale; the online softmax
+//     is seeded with the UNQUANTIZED current k/v (f32);
+//   * P * v_scale is rounded to bf16 before the product with the V codes;
+//     out = acc / l, 0 where no column is valid;
+//   * live slots get the current k/v quantized (amax / 127 by division,
+//     codes rint(x / scale) clipped to +-127, scale stored as bf16) and
+//     written at row kv_len - 1; spectators are left untouched.
+//
+// Bound: bytes.  Each step reads the int8 K and V of every live column
+// once (about 0.5 GB per Llama-2-7B step at ctx 2000, B = 1).
+// Design: flash-decoding.  B * Hkv = 32 blocks cannot fill 132 SMs, so the
+// sequence is split into chunks of `chunk` columns across blocks
+// (gridDim.x); each block keeps its partial max / sum / accumulator, and a
+// second kernel (one block per (b, hk)) merges the partials with the seed
+// column, writes the output and performs the append.  The append cannot race
+// with the reads: the new row sits at kv_len - 1 >= kv_len_cache, which no
+// block reads, and exactly one block writes it.  Within a block, a thread
+// scores one column (its 128 K bytes as 16-byte loads) and, after the
+// softmax step, owns one of the D output features; the V codes of each
+// 128-column sub-chunk are staged in shared memory with coalesced loads.
+//
+// Compiled without --use_fast_math: the quantization must match
+// kv_cache.quantize_kv bit for bit (IEEE division, round half to even).
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int THREADS = 128;
+constexpr int NW = THREADS / 32;
+constexpr int MAX_REP = 8;
+
+// R: a power of two >= n_rep, so the per-row arrays have compile-time
+// indices and stay in registers.
+template <int D, int R>
+__global__ void __launch_bounds__(THREADS)
+flash_decode_split(const __nv_bfloat16* __restrict__ q,
+                   const int8_t* __restrict__ kc, const int8_t* __restrict__ vc,
+                   const __nv_bfloat16* __restrict__ ks,
+                   const __nv_bfloat16* __restrict__ vs,
+                   const int* __restrict__ pos, const int* __restrict__ kv_lens,
+                   float* __restrict__ part_m, float* __restrict__ part_l,
+                   float* __restrict__ part_acc, int B, int H, int Hkv, int S,
+                   int layer, int chunk, float sm_scale) {
+  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int splits = gridDim.x;
+  const int n_rep = H / Hkv;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int p = pos[b], kvl = kv_lens[b];
+  const int kvl_cache = kvl - (p == kvl - 1 ? 1 : 0);
+  const int c_end = min(min(kvl_cache, p + 1), S);
+  const int c0 = split * chunk;
+  const int c1 = min(c0 + chunk, c_end);
+
+  __shared__ float qs[R][D];
+  __shared__ float ps[R][THREADS];
+  __shared__ __align__(16) int8_t vsm[THREADS * D];  // V codes of a sub-chunk
+  __shared__ float red_max[R][NW];
+  __shared__ float red_sum[R][NW];
+
+  for (int i = tid; i < n_rep * D; i += THREADS) {
+    const int r = i / D, d = i % D;
+    qs[r][d] = __bfloat162float(q[((size_t)b * H + hk * n_rep + r) * D + d]);
+  }
+  __syncthreads();
+
+  const size_t row0 = ((size_t)layer * B + b) * Hkv + hk;  // [L, B, Hkv] row
+  const int8_t* kb = kc + row0 * S * D;
+  const int8_t* vb = vc + row0 * S * D;
+  const __nv_bfloat16* ksb = ks + row0 * S;
+  const __nv_bfloat16* vsb = vs + row0 * S;
+
+  float m_run[R], l_run[R], acc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    m_run[r] = -FLT_MAX;
+    l_run[r] = 0.f;
+    acc[r] = 0.f;
+  }
+
+  for (int cs = c0; cs < c1; cs += THREADS) {
+    const int c = cs + tid;
+    const bool valid = c < c1;
+    // stage this sub-chunk's V codes with coalesced 16-byte loads; they are
+    // in flight while the scores are computed
+    const int ncols = min(THREADS, c1 - cs);
+    for (int i = tid; i < ncols * (D / 16); i += THREADS)
+      reinterpret_cast<int4*>(vsm)[i] =
+          reinterpret_cast<const int4*>(vb + (size_t)cs * D)[i];
+    float s[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[r] = 0.f;
+    float vsc = 0.f;
+    if (valid) {
+      const int8_t* kr = kb + (size_t)c * D;
+#pragma unroll
+      for (int d0 = 0; d0 < D; d0 += 16) {
+        const int4 raw = *reinterpret_cast<const int4*>(kr + d0);
+        const int8_t* kv8 = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const float kv = (float)kv8[j];
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            if (r < n_rep) s[r] = fmaf(qs[r][d0 + j], kv, s[r]);
+        }
+      }
+      const float ksc = __bfloat162float(ksb[c]);
+      vsc = __bfloat162float(vsb[c]);
+#pragma unroll
+      for (int r = 0; r < R; ++r) s[r] = s[r] * ksc * sm_scale;
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r >= n_rep) continue;
+      const float mx = nst::warp_max(valid ? s[r] : -FLT_MAX);
+      if (lane == 0) red_max[r][warp] = mx;
+    }
+    __syncthreads();
+    float alpha[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r >= n_rep) continue;
+      float bmax = -FLT_MAX;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) bmax = fmaxf(bmax, red_max[r][w]);
+      const float m_new = fmaxf(m_run[r], bmax);
+      alpha[r] = expf(m_run[r] - m_new);
+      const float pr = valid ? expf(s[r] - m_new) : 0.f;
+      ps[r][tid] = nst::round_bf16(pr * vsc);
+      const float sm = nst::warp_sum(pr);
+      if (lane == 0) red_sum[r][warp] = sm;
+      m_run[r] = m_new;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r >= n_rep) continue;
+      float bsum = 0.f;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) bsum += red_sum[r][w];
+      l_run[r] = alpha[r] * l_run[r] + bsum;
+      if (tid < D) {
+        float a = 0.f;
+        for (int j = 0; j < ncols; ++j)
+          a = fmaf(ps[r][j], (float)vsm[j * D + tid], a);
+        acc[r] = acc[r] * alpha[r] + a;
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (r >= n_rep) continue;
+    const size_t pi = ((size_t)b * H + hk * n_rep + r) * splits + split;
+    if (tid == 0) {
+      part_m[pi] = m_run[r];
+      part_l[pi] = l_run[r];
+    }
+    if (tid < D) part_acc[pi * D + tid] = acc[r];
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_decode_combine(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k_new,
+                     const __nv_bfloat16* __restrict__ v_new,
+                     int8_t* __restrict__ kc, int8_t* __restrict__ vc,
+                     __nv_bfloat16* __restrict__ ks,
+                     __nv_bfloat16* __restrict__ vs,
+                     const int* __restrict__ pos,
+                     const int* __restrict__ kv_lens,
+                     const float* __restrict__ part_m,
+                     const float* __restrict__ part_l,
+                     const float* __restrict__ part_acc,
+                     __nv_bfloat16* __restrict__ out, int B, int H, int Hkv,
+                     int S, int layer, int splits, int fused_append,
+                     float sm_scale) {
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int n_rep = H / Hkv;
+  const int tid = threadIdx.x;
+  const int p = pos[b], kvl = kv_lens[b];
+  const bool ok = p == kvl - 1;
+  const bool valid0 = ok && p >= 0;
+  __shared__ float sh[NW];
+
+  const size_t nidx = ((size_t)b * Hkv + hk) * D;
+  const float kn = tid < D ? __bfloat162float(k_new[nidx + tid]) : 0.f;
+  const float vn = tid < D ? __bfloat162float(v_new[nidx + tid]) : 0.f;
+
+  for (int r = 0; r < n_rep; ++r) {
+    const int h = hk * n_rep + r;
+    const float qv = tid < D ? __bfloat162float(q[((size_t)b * H + h) * D + tid])
+                             : 0.f;
+    const float s0 = nst::block_sum<NW>(qv * kn, sh) * sm_scale;
+    const size_t pi = ((size_t)b * H + h) * splits;
+    float m = valid0 ? s0 : -FLT_MAX;
+    for (int i = 0; i < splits; ++i) m = fmaxf(m, part_m[pi + i]);
+    const float e0 = valid0 ? expf(s0 - m) : 0.f;
+    float l = e0;
+    float a = e0 * vn;
+    for (int i = 0; i < splits; ++i) {
+      const float e = expf(part_m[pi + i] - m);
+      l += part_l[pi + i] * e;
+      if (tid < D) a += part_acc[(pi + i) * D + tid] * e;
+    }
+    const float inv = l == 0.f ? 0.f : 1.f / l;
+    if (tid < D) out[((size_t)b * H + h) * D + tid] = __float2bfloat16_rn(a * inv);
+  }
+
+  if (!(fused_append && ok)) return;
+  const int row = max(kvl - 1, 0);
+  const size_t at = ((size_t)layer * B + b) * Hkv + hk;
+  const float kamax = nst::block_max<NW>(fabsf(kn), sh);
+  const float vamax = nst::block_max<NW>(fabsf(vn), sh);
+  const float ksc = fmaxf(kamax, 1e-8f) / 127.0f;
+  const float vsc = fmaxf(vamax, 1e-8f) / 127.0f;
+  if (tid < D) {
+    kc[(at * S + row) * D + tid] =
+        (int8_t)fminf(fmaxf(rintf(kn / ksc), -127.f), 127.f);
+    vc[(at * S + row) * D + tid] =
+        (int8_t)fminf(fmaxf(rintf(vn / vsc), -127.f), 127.f);
+  }
+  if (tid == 0) {
+    ks[at * S + row] = __float2bfloat16_rn(ksc);
+    vs[at * S + row] = __float2bfloat16_rn(vsc);
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k_new, const void* v_new,
+                   void* kc, void* vc, void* ks, void* vs, const void* pos,
+                   const void* kv_lens, void* part_m, void* part_l,
+                   void* part_acc, void* out, int B, int H, int Hkv, int S,
+                   int layer, int chunk, int fused_append, float sm_scale,
+                   cudaStream_t st) {
+  const int splits = (S + chunk - 1) / chunk;
+  const int n_rep = H / Hkv;
+  auto bq = static_cast<const __nv_bfloat16*>(q);
+  auto split_kernel = n_rep <= 1   ? flash_decode_split<D, 1>
+                      : n_rep <= 2 ? flash_decode_split<D, 2>
+                      : n_rep <= 4 ? flash_decode_split<D, 4>
+                                   : flash_decode_split<D, MAX_REP>;
+  split_kernel<<<dim3(splits, Hkv, B), THREADS, 0, st>>>(
+      bq, static_cast<const int8_t*>(kc), static_cast<const int8_t*>(vc),
+      static_cast<const __nv_bfloat16*>(ks),
+      static_cast<const __nv_bfloat16*>(vs), static_cast<const int*>(pos),
+      static_cast<const int*>(kv_lens), static_cast<float*>(part_m),
+      static_cast<float*>(part_l), static_cast<float*>(part_acc), B, H, Hkv, S,
+      layer, chunk, sm_scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_decode_combine<D><<<dim3(Hkv, B), THREADS, 0, st>>>(
+      bq, static_cast<const __nv_bfloat16*>(k_new),
+      static_cast<const __nv_bfloat16*>(v_new), static_cast<int8_t*>(kc),
+      static_cast<int8_t*>(vc), static_cast<__nv_bfloat16*>(ks),
+      static_cast<__nv_bfloat16*>(vs), static_cast<const int*>(pos),
+      static_cast<const int*>(kv_lens), static_cast<const float*>(part_m),
+      static_cast<const float*>(part_l), static_cast<const float*>(part_acc),
+      static_cast<__nv_bfloat16*>(out), B, H, Hkv, S, layer, splits,
+      fused_append, sm_scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int nst_flash_decode(const void* q, const void* k_new,
+                                const void* v_new, void* kc, void* vc,
+                                void* ks, void* vs, const void* pos,
+                                const void* kv_lens, void* part_m,
+                                void* part_l, void* part_acc, void* out,
+                                int B, int H, int Hkv, int S, int D, int layer,
+                                int chunk, int fused_append, float sm_scale,
+                                void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (D == 128)
+    err = launch<128>(q, k_new, v_new, kc, vc, ks, vs, pos, kv_lens, part_m,
+                      part_l, part_acc, out, B, H, Hkv, S, layer, chunk,
+                      fused_append, sm_scale, st);
+  else if (D == 64)
+    err = launch<64>(q, k_new, v_new, kc, vc, ks, vs, pos, kv_lens, part_m,
+                     part_l, part_acc, out, B, H, Hkv, S, layer, chunk,
+                     fused_append, sm_scale, st);
+  else
+    err = cudaErrorInvalidValue;
+  return (int)err;
+}

@@ -1,0 +1,258 @@
+// Prefill flash attention over the int8 KV cache.
+//
+// Replaces: neural_speed_tpu/ops/flash.py, _mha_kernel as launched by
+// _mha_packed from mha (int8 cache, causal, no ALiBi / softcap).
+//
+// What it computes, for query row t of head h in slot b (KV head
+// h / n_rep): the columns c with c < kv_len[b] and c <= pos[b, t] are
+// valid; s = (bf16(q) . k_code) * k_scale * sm_scale; an online softmax over
+// column tiles; P * v_scale rounded to bf16 before the product with the V
+// codes, accumulated in f32; out = acc / l, and 0 for a row with no valid
+// column (padded rows carry position -1).  At prefill the cache is appended
+// first, so this reads the quantized K/V of the prompt itself.
+//
+// Bound: operations (4 * T^2/2 * D per head with causal skipping, ~34 GFLOP
+// per Llama-2-7B layer at T = 2048, on the bf16 tensor cores).
+// Design: the natural [B, T, H, D] layout (no GQA row packing: a block
+// takes 64 rows of one query head, and the K/V tile of its KV head).  Four
+// warps, 16 rows each, run nvcuda::wmma bf16 16x16x16 products with f32
+// accumulation for Q K^T and P V.  Int8 K/V codes are exact in bf16, so each
+// 64-column tile is converted to bf16 in shared memory once per block.
+// Column tiles past kv_len or above the tile's last position are skipped.
+// The running max / sum live in registers (two lanes per row) and the
+// output accumulator in shared memory.  No TMA/wgmma pipeline yet.
+
+#include <mma.h>
+
+#include "common.cuh"
+
+using namespace nvcuda;
+
+namespace {
+
+constexpr int THREADS = 128;
+constexpr int NWARP = THREADS / 32;
+constexpr int BT = 64;  // query rows per block
+constexpr int BC = 64;  // cache columns per tile
+constexpr int LDP = BC + 8;
+
+template <int D>
+struct Smem {
+  static constexpr int LDH = D + 8;  // bf16 tiles
+  static constexpr int LDF = D + 4;  // f32 tiles
+  static constexpr size_t q_off = 0;
+  static constexpr size_t k_off = q_off + sizeof(__nv_bfloat16) * BT * LDH;
+  static constexpr size_t v_off = k_off + sizeof(__nv_bfloat16) * BC * LDH;
+  static constexpr size_t ksc_off = v_off + sizeof(__nv_bfloat16) * BC * LDH;
+  static constexpr size_t vsc_off = ksc_off + sizeof(float) * BC;
+  static constexpr size_t pos_off = vsc_off + sizeof(float) * BC;
+  static constexpr size_t p_off = pos_off + sizeof(int) * BT;
+  static constexpr size_t f_off = p_off + sizeof(__nv_bfloat16) * NWARP * 16 * LDP;
+  static constexpr size_t o_off = f_off + sizeof(float) * NWARP * 16 * LDF;
+  static constexpr size_t red_off = o_off + sizeof(float) * NWARP * 16 * LDF;
+  static constexpr size_t bytes = red_off + sizeof(float) * NWARP;
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
+                     const int8_t* __restrict__ kc,
+                     const int8_t* __restrict__ vc,
+                     const __nv_bfloat16* __restrict__ ks,
+                     const __nv_bfloat16* __restrict__ vs,
+                     const int* __restrict__ pos,
+                     const int* __restrict__ kv_lens,
+                     __nv_bfloat16* __restrict__ out, int B, int T, int H,
+                     int Hkv, int S, int layer, float sm_scale) {
+  using L = Smem<D>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  auto Qs = reinterpret_cast<__nv_bfloat16*>(smem + L::q_off);
+  auto Ks = reinterpret_cast<__nv_bfloat16*>(smem + L::k_off);
+  auto Vs = reinterpret_cast<__nv_bfloat16*>(smem + L::v_off);
+  auto ksc = reinterpret_cast<float*>(smem + L::ksc_off);
+  auto vsc = reinterpret_cast<float*>(smem + L::vsc_off);
+  auto posS = reinterpret_cast<int*>(smem + L::pos_off);
+  auto red = reinterpret_cast<float*>(smem + L::red_off);
+
+  const int t0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (H / Hkv);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  auto Pw = reinterpret_cast<__nv_bfloat16*>(smem + L::p_off) + warp * 16 * LDP;
+  auto Fw = reinterpret_cast<float*>(smem + L::f_off) + warp * 16 * L::LDF;
+  auto Ow = reinterpret_cast<float*>(smem + L::o_off) + warp * 16 * L::LDF;
+
+  // Q tile (bf16, 16-byte chunks) and row positions
+  constexpr int QCH = D / 8;
+  for (int i = tid; i < BT * QCH; i += THREADS) {
+    const int r = i / QCH, ch = i % QCH;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (t0 + r < T)
+      v = *reinterpret_cast<const uint4*>(
+          q + (((size_t)b * T + t0 + r) * H + h) * D + ch * 8);
+    *reinterpret_cast<uint4*>(Qs + r * L::LDH + ch * 8) = v;
+  }
+  int my_pos = -1;
+  if (tid < BT) {
+    my_pos = t0 + tid < T ? pos[(size_t)b * T + t0 + tid] : -1;
+    posS[tid] = my_pos;
+  }
+  for (int i = lane; i < 16 * L::LDF; i += 32) Ow[i] = 0.f;
+  const int pmax = (int)nst::block_max<NWARP>((float)my_pos, red);
+  const int c_end = min(min(kv_lens[b], pmax + 1), S);
+
+  const int r = lane / 2, half = lane % 2;  // this lane's row / column half
+  const int row_pos = posS[warp * 16 + r];
+  float m_run = -FLT_MAX, l_run = 0.f;
+  const size_t row0 = ((size_t)layer * B + b) * Hkv + hk;
+
+  for (int c0 = 0; c0 < c_end; c0 += BC) {
+    __syncthreads();
+    constexpr int KCH = D / 16;
+    for (int i = tid; i < BC * KCH; i += THREADS) {
+      const int c = i / KCH, ch = i % KCH;
+      const size_t src = (row0 * S + c0 + c) * D + ch * 16;
+      const int4 kraw = *reinterpret_cast<const int4*>(kc + src);
+      const int4 vraw = *reinterpret_cast<const int4*>(vc + src);
+      const int8_t* k8 = reinterpret_cast<const int8_t*>(&kraw);
+      const int8_t* v8 = reinterpret_cast<const int8_t*>(&vraw);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        Ks[c * L::LDH + ch * 16 + j] = __float2bfloat16_rn((float)k8[j]);
+        Vs[c * L::LDH + ch * 16 + j] = __float2bfloat16_rn((float)v8[j]);
+      }
+    }
+    if (tid < BC) {
+      ksc[tid] = __bfloat162float(ks[row0 * S + c0 + tid]);
+      vsc[tid] = __bfloat162float(vs[row0 * S + c0 + tid]);
+    }
+    __syncthreads();
+
+    // scores: 16 rows x 64 columns per warp
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> sacc[BC / 16];
+#pragma unroll
+    for (int j = 0; j < BC / 16; ++j) wmma::fill_fragment(sacc[j], 0.f);
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major> a;
+      wmma::load_matrix_sync(a, Qs + (warp * 16) * L::LDH + kd * 16, L::LDH);
+#pragma unroll
+      for (int j = 0; j < BC / 16; ++j) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                       wmma::col_major> kb;
+        wmma::load_matrix_sync(kb, Ks + (j * 16) * L::LDH + kd * 16, L::LDH);
+        wmma::mma_sync(sacc[j], a, kb, sacc[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < BC / 16; ++j)
+      wmma::store_matrix_sync(Fw + j * 16, sacc[j], L::LDF, wmma::mem_row_major);
+    __syncwarp();
+
+    // online softmax: lanes 2r, 2r+1 share row r, 32 columns each
+    float sv[32];
+    float mloc = -FLT_MAX;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int cc = half * 32 + i;
+      const int c = c0 + cc;
+      const bool valid = c < c_end && c <= row_pos;
+      const float x = Fw[r * L::LDF + cc] * ksc[cc] * sm_scale;
+      sv[i] = valid ? x : -FLT_MAX;
+      if (valid) mloc = fmaxf(mloc, x);
+    }
+    mloc = fmaxf(mloc, __shfl_xor_sync(0xffffffffu, mloc, 1));
+    const float m_new = fmaxf(m_run, mloc);
+    const float alpha = expf(m_run - m_new);
+    float lsum = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int cc = half * 32 + i;
+      const int c = c0 + cc;
+      const bool valid = c < c_end && c <= row_pos;
+      const float p = valid ? expf(sv[i] - m_new) : 0.f;
+      lsum += p;
+      Pw[r * LDP + cc] = __float2bfloat16_rn(p * vsc[cc]);
+    }
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
+    l_run = alpha * l_run + lsum;
+    m_run = m_new;
+    __syncwarp();
+
+    // P V: 16 rows x D per warp, into Fw, then O = O * alpha + PV
+#pragma unroll
+    for (int jd = 0; jd < D / 16; ++jd) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
+      wmma::fill_fragment(o, 0.f);
+#pragma unroll
+      for (int kk = 0; kk < BC / 16; ++kk) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                       wmma::row_major> pa;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                       wmma::row_major> vb;
+        wmma::load_matrix_sync(pa, Pw + kk * 16, LDP);
+        wmma::load_matrix_sync(vb, Vs + (kk * 16) * L::LDH + jd * 16, L::LDH);
+        wmma::mma_sync(o, pa, vb, o);
+      }
+      wmma::store_matrix_sync(Fw + jd * 16, o, L::LDF, wmma::mem_row_major);
+    }
+    __syncwarp();
+    for (int i = 0; i < D / 2; ++i) {
+      const int col = half * (D / 2) + i;
+      Ow[r * L::LDF + col] = Ow[r * L::LDF + col] * alpha + Fw[r * L::LDF + col];
+    }
+    __syncwarp();
+  }
+
+  const int t = t0 + warp * 16 + r;
+  if (t < T) {
+    const float inv = l_run == 0.f ? 0.f : 1.f / l_run;
+    __nv_bfloat16* dst = out + (((size_t)b * T + t) * H + h) * D;
+    for (int i = 0; i < D / 2; ++i) {
+      const int col = half * (D / 2) + i;
+      dst[col] = __float2bfloat16_rn(Ow[r * L::LDF + col] * inv);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* kc, const void* vc,
+                   const void* ks, const void* vs, const void* pos,
+                   const void* kv_lens, void* out, int B, int T, int H,
+                   int Hkv, int S, int layer, float sm_scale,
+                   cudaStream_t st) {
+  const size_t bytes = Smem<D>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_prefill_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((T + BT - 1) / BT, H, B);
+  flash_prefill_kernel<D><<<grid, THREADS, bytes, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(kc),
+      static_cast<const int8_t*>(vc), static_cast<const __nv_bfloat16*>(ks),
+      static_cast<const __nv_bfloat16*>(vs), static_cast<const int*>(pos),
+      static_cast<const int*>(kv_lens), static_cast<__nv_bfloat16*>(out), B, T,
+      H, Hkv, S, layer, sm_scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int nst_flash_prefill(const void* q, const void* kc, const void* vc,
+                                 const void* ks, const void* vs,
+                                 const void* pos, const void* kv_lens,
+                                 void* out, int B, int T, int H, int Hkv,
+                                 int S, int D, int layer, float sm_scale,
+                                 void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (D == 128)
+    err = launch<128>(q, kc, vc, ks, vs, pos, kv_lens, out, B, T, H, Hkv, S,
+                      layer, sm_scale, st);
+  else if (D == 64)
+    err = launch<64>(q, kc, vc, ks, vs, pos, kv_lens, out, B, T, H, Hkv, S,
+                     layer, sm_scale, st);
+  else
+    err = cudaErrorInvalidValue;
+  return (int)err;
+}

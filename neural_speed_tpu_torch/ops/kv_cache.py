@@ -1,0 +1,126 @@
+"""Int8 KV cache (port of `neural_speed_tpu/ops/kv_cache.py`, contiguous slots).
+
+Layout as in the JAX package: codes `[L, B, H_kv, S, D]` int8 and
+per-(token, head) bf16 scales `[L, B, H_kv, S]`.  Codes are
+always computed against the float32 scale; only the stored scale rounds.
+
+JAX's functional updates with buffer donation become in-place writes here:
+`append_layer` and `set_lengths` mutate the cache they are given and
+return it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+KV_SCALE_EPS = 1e-8
+
+
+@dataclasses.dataclass
+class KVCache:
+    """k, v: [L, B, H_kv, S, D] int8; k_scale, v_scale: [L, B, H_kv, S];
+    lengths: [B] int32 tokens stored per slot."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: torch.Tensor
+    v_scale: torch.Tensor
+    lengths: torch.Tensor
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[3]
+
+
+def init_cache(layers: int, batch: int, max_len: int, kv_heads: int,
+               head_dim: int, device=None) -> KVCache:
+    """Zeroed int8 cache with bf16 scales on `device` (the card unless the
+    CPU is asked for); the bf16 (unquantized) layout is not ported."""
+    from .._build import resolve_device
+
+    dev = resolve_device(device)
+    shape = (layers, batch, kv_heads, max_len, head_dim)
+    return KVCache(
+        torch.zeros(shape, dtype=torch.int8, device=dev),
+        torch.zeros(shape, dtype=torch.int8, device=dev),
+        torch.zeros(shape[:-1], dtype=torch.bfloat16, device=dev),
+        torch.zeros(shape[:-1], dtype=torch.bfloat16, device=dev),
+        torch.zeros((batch,), dtype=torch.int32, device=dev))
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) symmetric int8: x [..., D] -> codes, f32 scale
+    [..., 1].  `scale = amax / 127` is a division and the codes round half
+    to even, exactly as the JAX package and the decode kernel do."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True).clamp_min(KV_SCALE_EPS)
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar multiplies
+    # by the reciprocal, which can differ in the last bit
+    scale = amax / torch.full_like(amax, 127.0)
+    codes = torch.clamp(torch.round(xf / scale), -127, 127)
+    return codes.to(torch.int8), scale
+
+
+def _write_rows(dst: torch.Tensor, layer: int, rows: torch.Tensor,
+                upd: torch.Tensor, keep: torch.Tensor) -> None:
+    """dst[layer, b, :, rows[b, i]] = upd[b, :, i] where keep[b, i], in place.
+    dst: [L, B, H, S(, D)]; rows/keep: [B, T]; upd: [B, H, T(, D)]."""
+    d = dst[layer]
+    extra = d.shape[3:]
+    b, h = d.shape[0], d.shape[1]
+    idx = rows[:, None, :].expand(b, h, rows.shape[1])
+    idx = idx.reshape(b, h, -1, *([1] * len(extra))).expand(
+        b, h, rows.shape[1], *extra).long()
+    cur = torch.gather(d, 2, idx)
+    sel = keep[:, None, :].reshape(b, 1, -1, *([1] * len(extra)))
+    d.scatter_(2, idx, torch.where(sel, upd.to(d.dtype), cur))
+
+
+def append_layer(cache: KVCache, layer: int, k_new: torch.Tensor,
+                 v_new: torch.Tensor, positions: torch.Tensor,
+                 active: Optional[torch.Tensor] = None) -> KVCache:
+    """Write `[B, T, H, D]` keys/values at `positions [B, T]`, in place.
+
+    T > 1 (prefill): each active slot's whole T-row window is written from
+    `positions[:, 0]`, padding rows included (attention masks them by
+    kv_len).  A window that would overhang the cache end is clipped down and
+    rolled so the real rows still land at the true start while the rows
+    below it keep their contents.  T == 1 (decode): one row at the clipped
+    position.  Inactive slots are left untouched."""
+    b, t = positions.shape
+    dev = positions.device
+    if active is None:
+        active = torch.ones((b,), dtype=torch.bool, device=dev)
+    ar = torch.arange(t, device=dev)
+    if t == 1:
+        rows = positions[:, :1].clamp(0, cache.max_len - 1)
+        keep = active[:, None]
+        src = ar[None, :].expand(b, t)
+    else:
+        start_true = positions[:, 0].clamp_min(0)
+        start = positions[:, 0].clamp(0, cache.max_len - t)
+        shift = start_true - start
+        rows = start[:, None] + ar[None, :]
+        keep = active[:, None] & (ar[None, :] >= shift[:, None])
+        src = (ar[None, :] - shift[:, None]).clamp_min(0)
+    kt = k_new.transpose(1, 2)                               # [B, H, T, D]
+    vt = v_new.transpose(1, 2)
+    kc, ks = quantize_kv(kt)
+    vc, vs = quantize_kv(vt)
+    gather_t = lambda a: torch.gather(
+        a, 2, src[:, None, :, None].expand(-1, a.shape[1], -1, a.shape[3]))
+    kc, ks, vc, vs = gather_t(kc), gather_t(ks), gather_t(vc), gather_t(vs)
+    _write_rows(cache.k, layer, rows, kc, keep)
+    _write_rows(cache.v, layer, rows, vc, keep)
+    _write_rows(cache.k_scale, layer, rows, ks[..., 0], keep)
+    _write_rows(cache.v_scale, layer, rows, vs[..., 0], keep)
+    return cache
+
+
+def set_lengths(cache: KVCache, lengths: torch.Tensor) -> KVCache:
+    """Set the stored lengths, in place."""
+    cache.lengths = lengths.to(torch.int32)
+    return cache

@@ -1,0 +1,81 @@
+"""Synthetic quantized models (port of `neural_speed_tpu/utils/synthetic.py`).
+
+Random packed bits are valid int4 planes, so a Llama-2-7B-shaped model is
+drawn directly on the target device with a seeded `torch.Generator`: nothing
+is quantized and nothing is drawn on the host.  The draws differ from the
+JAX package's `jax.random` streams; tests carry the JAX parameters across
+with `models.params.params_from_numpy` instead.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from .._build import resolve_device
+from ..models.arch import ArchConfig
+from ..ops.qtypes import QSpec, QType, plane_widths
+from ..ops.quantize import QTensor
+
+_SCALE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def synth_qtensor(gen: torch.Generator, k: int, n: int, spec: QSpec,
+                  scale: float = 0.02) -> QTensor:
+    """Random symmetric INT pack `[K, N]` on `gen`'s device: uniform plane
+    words, group scales uniform in [0.5, 1.5) * scale."""
+    if spec.qtype != QType.INT or spec.bits == 8 or not spec.symmetric:
+        raise NotImplementedError("only symmetric INT planes are ported")
+    dev = gen.device
+    g = spec.effective_group(k)
+    data = tuple(
+        torch.randint(-2 ** 31, 2 ** 31, (k * w // 32, n), generator=gen,
+                      device=dev, dtype=torch.int32)
+        for w in plane_widths(spec.bits))
+    scales = ((torch.rand((k // g, n), generator=gen, device=dev) + 0.5)
+              * scale).to(_SCALE_DTYPES[spec.scale_dtype])
+    return QTensor(data, scales, None, None, spec, (k, n))
+
+
+def synth_params(cfg: ArchConfig, spec: QSpec, seed: int = 0,
+                 dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
+    """Random llama-path params on `device` (the card unless the CPU is
+    asked for)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    e = cfg.hidden_size
+
+    def lin(k, n):
+        return {"w": synth_qtensor(gen, k, n, spec)}
+
+    def ones():
+        return {"weight": torch.ones((e,), dtype=torch.float32, device=dev)}
+
+    p: Dict[str, Any] = {
+        "embed": {"weight": (torch.randn((cfg.vocab_size, e), generator=gen,
+                                         device=dev) * 0.02).to(dtype)},
+        "layers": [],
+        "final_norm": ones(),
+        "lm_head": lin(e, cfg.vocab_size),
+    }
+    for _ in range(cfg.n_layers):
+        p["layers"].append({
+            "attn_norm": ones(), "ffn_norm": ones(),
+            "q": lin(e, cfg.q_dim), "k": lin(e, cfg.kv_dim),
+            "v": lin(e, cfg.kv_dim), "o": lin(cfg.q_dim, e),
+            "ffn": {"gate": lin(e, cfg.intermediate_size),
+                    "up": lin(e, cfg.intermediate_size),
+                    "down": lin(cfg.intermediate_size, e)},
+        })
+    return p
+
+
+def llama2_7b_arch(vocab: int = 32000) -> ArchConfig:
+    """Llama-2-7B shape (the JAX package's headline benchmark config)."""
+    return ArchConfig(
+        name="llama", vocab_size=vocab, hidden_size=4096, n_layers=32,
+        n_heads=32, n_kv_heads=32, intermediate_size=11008,
+        max_position_embeddings=4096,
+    )

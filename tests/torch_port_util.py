@@ -1,0 +1,79 @@
+"""Helpers for the tests that hold the PyTorch port against the JAX package.
+
+They turn JAX pytrees (params with `QTensor` leaves, `KVCache`s) into the
+numpy trees that `neural_speed_tpu_torch.models.params.params_from_numpy`
+takes, with its dtype conventions: bfloat16 as uint16 bit patterns, uint32
+plane words as int32 views.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+import jax.numpy as jnp
+
+
+def to_numpy(a) -> np.ndarray:
+    """A JAX / numpy array as numpy, bf16 as uint16 bits, uint32 as int32."""
+    a = np.asarray(a)
+    if a.dtype == jnp.bfloat16:
+        return a.view(np.uint16)
+    if a.dtype == np.uint32:
+        return a.view(np.int32)
+    return a
+
+
+def tree_to_numpy(node):
+    """JAX params (dicts / lists / QTensors / arrays) -> numpy tree."""
+    from neural_speed_tpu.ops.quantize import QTensor
+
+    if isinstance(node, QTensor):
+        spec = dataclasses.asdict(node.spec)
+        spec["qtype"] = node.spec.qtype.value
+        opt = lambda a: None if a is None else to_numpy(a)
+        return {"data": [to_numpy(p) for p in node.data],
+                "scales": to_numpy(node.scales), "zeros": opt(node.zeros),
+                "sscale": opt(node.sscale), "spec": spec,
+                "shape": tuple(node.shape), "k_shards": node.k_shards}
+    if isinstance(node, dict):
+        return {k: tree_to_numpy(v) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [tree_to_numpy(v) for v in node]
+    return to_numpy(node)
+
+
+def torch_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A port tensor as numpy in the same conventions as `to_numpy`."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def bf16_to_f32(a: np.ndarray) -> np.ndarray:
+    """uint16 bf16 bit patterns -> float32 values."""
+    return (a.astype(np.uint32) << 16).view(np.float32)
+
+
+def jax_bf16(a: np.ndarray):
+    """float32 numpy values -> a JAX bf16 array (rounded to nearest even)."""
+    return jnp.asarray(a, jnp.float32).astype(jnp.bfloat16)
+
+
+def torch_bf16(a) -> torch.Tensor:
+    """A JAX bf16 array -> the port's bf16 tensor with the same bits."""
+    return torch.from_numpy(to_numpy(a).view(np.int16).copy()).view(
+        torch.bfloat16)
+
+
+def assert_cache_equal(jax_cache, port_cache) -> None:
+    """Codes, scales and lengths of two caches, byte for byte."""
+    for name in ("k", "v", "k_scale", "v_scale"):
+        want = to_numpy(getattr(jax_cache, name))
+        got = torch_to_numpy(getattr(port_cache, name))
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    np.testing.assert_array_equal(torch_to_numpy(port_cache.lengths),
+                                  np.asarray(jax_cache.lengths))
