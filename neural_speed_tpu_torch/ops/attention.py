@@ -2,8 +2,11 @@
 `neural_speed_tpu/ops/attention.py::attention_cache`).
 
 The flash route (`flash.mha`) is the default on both devices.
-`use_flash=False` asks for `_attention_ref_hsd`, the JAX package's XLA
-reference math (float32 throughout over the dequantized cache).
+`use_flash=False`, or extra k/v that the decode kernel cannot take, asks for
+`_attention_ref_hsd`, the JAX package's XLA reference math (float32
+throughout over the dequantized cache).  That reference is a plain version
+with no kernel behind it, so it runs on CPU tensors only and raises on the
+card.
 """
 
 from __future__ import annotations
@@ -47,6 +50,12 @@ def attention_cache(q: torch.Tensor, cache, layer_idx: int,
                         extra_kv=extra_kv)
         if out is not None:
             return out
+    if q.device.type != "cpu":
+        raise ValueError(
+            f"attention_cache: the float32 reference route (use_flash="
+            f"{use_flash}, extra_kv for {q.shape[1]} tokens and "
+            f"{q.shape[2] // cache.k.shape[2]} query heads per KV head) has no "
+            f"kernel; it runs on CPU tensors only, got q on {q.device}")
     _build.plain_dispatches["attention_ref"] += 1
     k_all = cache.k[layer_idx].float() * cache.k_scale[layer_idx].float()[..., None]
     v_all = cache.v[layer_idx].float() * cache.v_scale[layer_idx].float()[..., None]

@@ -161,15 +161,15 @@ def decode_cuda(q, k_new, v_new, k, v, ks, vs, layer, pos, kv_lens, scale,
     hkv, s = k.shape[2], k.shape[3]
     dev = q.device
     _check_cache(k, v, ks, vs, layer, pos, kv_lens, q)
-    if not (t == 1 and h % hkv == 0 and h // hkv <= 8
+    if not (q.is_cuda and t == 1 and h % hkv == 0 and h // hkv <= 8
             and q.dtype == k_new.dtype == v_new.dtype == out_dtype
             == torch.bfloat16
             and k_new.shape == v_new.shape == (b, 1, hkv, d)):
         raise ValueError(
-            "kernel B takes bf16 q [B, 1, H, D] with H / Hkv <= 8, bf16 "
-            f"k_new / v_new [B, 1, Hkv, D], and writes bf16; got q {q.dtype} "
-            f"{tuple(q.shape)}, k_new {k_new.dtype} {tuple(k_new.shape)}, "
-            f"out {out_dtype}")
+            "kernel B takes CUDA tensors: bf16 q [B, 1, H, D] with H / Hkv "
+            "<= 8, bf16 k_new / v_new [B, 1, Hkv, D], and writes bf16; got q "
+            f"{q.dtype} {tuple(q.shape)} on {q.device}, k_new {k_new.dtype} "
+            f"{tuple(k_new.shape)}, out {out_dtype}")
     q3 = q.contiguous()
     kn, vn = k_new.contiguous(), v_new.contiguous()
     pos32 = pos.to(torch.int32).contiguous()
@@ -198,12 +198,12 @@ def prefill_cuda(q, k, v, ks, vs, layer, q_positions, kv_lens, scale,
     hkv, s = k.shape[2], k.shape[3]
     dev = q.device
     _check_cache(k, v, ks, vs, layer, q_positions, kv_lens, q)
-    if not (q_positions.shape == (b, t) and h % hkv == 0
+    if not (q.is_cuda and q_positions.shape == (b, t) and h % hkv == 0
             and q.dtype == out_dtype == torch.bfloat16):
         raise ValueError(
-            f"kernel C takes bf16 q [B, T, H, D] with H a multiple of Hkv and "
-            f"positions [B, T], and writes bf16; got q {q.dtype} "
-            f"{tuple(q.shape)}, Hkv {hkv}, positions "
+            f"kernel C takes CUDA tensors: bf16 q [B, T, H, D] with H a "
+            f"multiple of Hkv and positions [B, T], and writes bf16; got q "
+            f"{q.dtype} {tuple(q.shape)} on {q.device}, Hkv {hkv}, positions "
             f"{tuple(q_positions.shape)}, out {out_dtype}")
     q4 = q.contiguous()
     pos32 = q_positions.to(torch.int32).contiguous()
@@ -250,19 +250,19 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if extra_kv is not None:
         args = (q, extra_kv[0], extra_kv[1], k, v, k_scale, v_scale, layer,
                 q_positions[:, 0], kv_lens, scale, fused_append, out_dtype)
-        if q.is_cuda:
-            out = decode_cuda(*args)
-        else:
+        if q.device.type == "cpu":
             _build.plain_dispatches["flash_decode"] += 1
             out = decode_plain(*args)
+        else:
+            out = decode_cuda(*args)
     else:
         args = (q, k, v, k_scale, v_scale, layer, q_positions, kv_lens,
                 scale, out_dtype)
-        if q.is_cuda:
-            out = prefill_cuda(*args)
-        else:
+        if q.device.type == "cpu":
             _build.plain_dispatches["flash_prefill"] += 1
             out = prefill_plain(*args)
+        else:
+            out = prefill_cuda(*args)
     if fused_append:
         return out, (k, v, k_scale, v_scale)
     return out

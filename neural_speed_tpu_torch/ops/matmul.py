@@ -124,9 +124,9 @@ def qmatmul(x: torch.Tensor, qt: QTensor, out_dtype=None) -> torch.Tensor:
         x = torch.nn.functional.pad(x, (0, qt.shape[0] - x.shape[-1]))
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    if x2.is_cuda:
-        out = qmatmul_cuda(x2, qt, out_dtype)
-    else:
+    if x2.device.type == "cpu":
         _build.plain_dispatches["qmatmul"] += 1
         out = qmatmul_plain(x2, qt, out_dtype)
+    else:
+        out = qmatmul_cuda(x2, qt, out_dtype)
     return out.reshape(*lead, qt.shape[1])

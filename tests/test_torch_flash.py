@@ -150,3 +150,25 @@ def test_kernel_wrappers_refuse_what_the_kernels_cannot_index():
         with pytest.raises(ValueError):
             tfl._check_cache(k, k, ks, ks, args["layer"], args["pos"],
                              args["lens"], args["q"])
+
+
+def test_off_the_cpu_no_plain_version_runs():
+    """Only CPU tensors run the plain versions and the f32 reference: a
+    tensor on another device (meta here, which no kernel takes) reaches the
+    kernels' checks, and the reference route raises, for prefill, decode
+    with extra k/v, and `use_flash=False`."""
+    meta = lambda shape, dtype: torch.zeros(shape, dtype=dtype, device="meta")
+    k = meta((L, B, HKV, S, D), torch.int8)
+    ks = meta((L, B, HKV, S), torch.bfloat16)
+    cache = KVCache(k, k, ks, ks, meta((B,), torch.int32))
+    lens = meta((B,), torch.int32)
+    kn = meta((B, 1, HKV, D), torch.bfloat16)
+    before = dict(_build.plain_dispatches)
+    for t, kw in ((4, {}), (1, dict(extra_kv=(kn, kn))),
+                  (1, dict(extra_kv=(kn, kn), fused_append=True)),
+                  (4, dict(use_flash=False))):
+        q = meta((B, t, H, D), torch.bfloat16)
+        pos = meta((B, t), torch.int32)
+        with pytest.raises(ValueError):
+            tat.attention_cache(q, cache, 1, pos, lens, **kw)
+    assert dict(_build.plain_dispatches) == before

@@ -93,3 +93,17 @@ def test_kernel_eligibility():
     asym = dataclasses.replace(
         tqt, zeros=torch.zeros_like(tqt.scales, dtype=torch.uint8))
     assert not tm.kernel_eligible(asym)      # symmetric packs only
+
+
+def test_qmatmul_off_the_cpu_goes_to_the_kernel_or_raises():
+    """Only a CPU tensor runs the plain version: a tensor on another device
+    (meta here, which no kernel takes) reaches kernel A's checks and raises,
+    and no plain dispatch is counted."""
+    _, tqt = _pack(256, 192)
+    meta = dataclasses.replace(tqt, data=[w.to("meta") for w in tqt.data],
+                               scales=tqt.scales.to("meta"))
+    x = torch.zeros((4, 256), dtype=torch.bfloat16, device="meta")
+    before = _build.plain_dispatches["qmatmul"]
+    with pytest.raises(ValueError, match="kernel A"):
+        tm.qmatmul(x, meta)
+    assert _build.plain_dispatches["qmatmul"] == before
