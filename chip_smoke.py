@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py                 # all phases (needs one card)
     python3 chip_smoke.py --kernels-only  # build + kernel checks only
+    python3 chip_smoke.py --profile       # all phases + a torch.profiler
+                                          # trace of the main path
 
 Phases, each raising on failure so the run exits non-zero:
 
@@ -10,14 +12,17 @@ Phases, each raising on failure so the run exits non-zero:
    from `neural_speed_tpu_torch/csrc/*.cu` with `nvcc` (sm_90a);
 2. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, with the stated tolerance, and time kernel, plain
-   version and a library yardstick (torch.profiler device time);
+   version and a library yardstick (CUDA events around each call, cold L2,
+   host time excluded: see `time_ms`);
 3. a tiny model through `Engine` on the card against the same model on the
    CPU (plain versions): logits within tolerance, identical greedy ids at
    every step;
 4. the main path: a Llama-2-7B-shaped int4 model (full width and depth,
    random weights from a seed, drawn on the card) serves 4 ragged requests,
    then the bench shape (B = 1, a 1975-token prefill, 64 greedy steps); every
-   kernel's launch counter must be > 0 and no plain version may run.
+   kernel's launch counter must be > 0 and no plain version may run.  With
+   `--profile`, torch.profiler then traces one prefill and 8 decode steps
+   (device time by kernel group, idle share).
 
 It prints a `kernels` JSON line, then as its last line
 `{"ok": true, "device": {...}}`.  It imports nothing of JAX.
@@ -29,6 +34,7 @@ import argparse
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -71,23 +77,64 @@ def _kernel_events(prof):
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
+_TIMING = {}
+
+
+def _flush_l2() -> None:
+    """Read a 256 MB buffer, which evicts the card's 50 MB L2 with clean
+    lines: the next call finds its inputs in device memory, as the main
+    path finds each layer's weights and cache."""
+    if "buf" not in _TIMING:
+        _TIMING["buf"] = torch.ones(64 << 20, device="cuda")
+    _TIMING["buf"].amax()
+
+
+def _sleep_cycles_per_ms() -> float:
+    if "cycles" not in _TIMING:
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(1000)
+        a.record()
+        torch.cuda._sleep(50_000_000)
+        b.record()
+        b.synchronize()
+        _TIMING["cycles"] = 50_000_000 / a.elapsed_time(b)
+    return _TIMING["cycles"]
+
+
 def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Device time of one fn() call: the time of the CUDA kernels it
-    launches, from torch.profiler, summed over `reps` calls and divided by
-    `reps`.  Host time between launches is not counted.  Raises if the
-    profiler records no device time."""
+    """Device time of one fn() call: the median over `reps` calls of CUDA
+    events recorded just before and just after the call, each call after an
+    L2 flush.  A sleep kernel holds the stream while the host enqueues every
+    call, so the host's time between launches is not counted.  If the sleep
+    ends before the host is done, it is doubled and the calls are timed
+    again; after four tries this raises."""
+    event = lambda: torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
     for _ in range(warmup):
+        _flush_l2()
+        event().record()
         fn()
+        event().record()
+    host_ms = (time.perf_counter() - t0) * 1e3 / warmup
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    sleep_ms = 2 * reps * host_ms + 1.0
+    for _ in range(4):
+        gate = event()
+        spans = [(event(), event()) for _ in range(reps)]
+        torch.cuda._sleep(int(sleep_ms * _sleep_cycles_per_ms()))
+        gate.record()
+        for start, end in spans:
+            _flush_l2()
+            start.record()
             fn()
+            end.record()
+        ahead = not gate.query()
         torch.cuda.synchronize()
-    ev = _kernel_events(prof)
-    if not ev:
-        raise RuntimeError("torch.profiler recorded no CUDA kernel")
-    return sum(e.time_range.elapsed_us() for e in ev) / reps / 1e3
+        if ahead:
+            return statistics.median(s.elapsed_time(e) for s, e in spans)
+        sleep_ms *= 2
+    raise RuntimeError(f"time_ms: the host did not get ahead of the device "
+                       f"within a {sleep_ms / 2:.1f} ms sleep")
 
 
 def _category(kernel_name: str) -> str:
@@ -420,7 +467,7 @@ def check_tiny_model() -> None:
 # ---------------------------------------------------------------------------
 
 
-def serve_7b() -> dict:
+def serve_7b(profile: bool) -> dict:
     from neural_speed_tpu_torch import _build
     from neural_speed_tpu_torch.models.transformer import fuse_params
     from neural_speed_tpu_torch.ops import kv_cache as kvc
@@ -520,25 +567,29 @@ def serve_7b() -> dict:
         f"{n_steps / dt:.2f} tok/s over {n_steps} steps; launches "
         f"{bench_counts}")
 
-    # where the time goes: one traced prefill and 8 traced decode steps
-    kvc.set_lengths(cache, start)
-    prof_prefill = profile_window(
-        lambda: prefill_step(eng.params, eng.cfg, cache, ids, lens1, start),
-        "prefill", 1)
-    prof_decode = profile_window(
-        lambda: decode_n_steps(eng.params, eng.cfg, cache, tok, active, 8),
-        "decode", 8)
-    return dict(ttft_ms=ttft * 1e3, decode_ms_per_token=dt / n_steps * 1e3,
-                tok_s=n_steps / dt, ragged_prefill_ms=ttft4 * 1e3,
-                ragged_decode_ms=ragged_decode_s * 1e3, ragged_steps=steps,
-                ragged_counts=ragged_counts, bench_counts=bench_counts,
-                profile_prefill=prof_prefill, profile_decode=prof_decode)
+    res = dict(ttft_ms=ttft * 1e3, decode_ms_per_token=dt / n_steps * 1e3,
+               tok_s=n_steps / dt, ragged_prefill_ms=ttft4 * 1e3,
+               ragged_decode_ms=ragged_decode_s * 1e3, ragged_steps=steps,
+               ragged_counts=ragged_counts, bench_counts=bench_counts)
+    if profile:
+        # where the time goes: one traced prefill and 8 traced decode steps
+        kvc.set_lengths(cache, start)
+        res["profile_prefill"] = profile_window(
+            lambda: prefill_step(eng.params, eng.cfg, cache, ids, lens1,
+                                 start), "prefill", 1)
+        res["profile_decode"] = profile_window(
+            lambda: decode_n_steps(eng.params, eng.cfg, cache, tok, active,
+                                   8), "decode", 8)
+    return res
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks")
+    ap.add_argument("--profile", action="store_true",
+                    help="also trace one prefill and 8 decode steps of the "
+                         "main path with torch.profiler")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -577,7 +628,7 @@ def main() -> int:
         check_tiny_model()
         log("phase 4: Llama-2-7B-shaped int4 serving")
         _build.reset_counts()
-        summary = serve_7b()
+        summary = serve_7b(args.profile)
         counts = dict(_build.launches)
         for k in ("qmatmul", "flash_decode", "flash_prefill"):
             for part in ("ragged_counts", "bench_counts"):

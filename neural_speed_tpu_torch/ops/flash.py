@@ -44,7 +44,7 @@ def _softmax_pv(sc: torch.Tensor, valid: torch.Tensor, vsc: torch.Tensor,
     """Exact-max softmax with the kernels' rounding points.  sc/valid:
     [..., R, S]; vsc: [..., 1, S]; vf: [..., S, D]; optional seed column
     s0/valid0 [..., R] with value row v0 [..., 1, D].  Returns acc, l."""
-    neg = torch.tensor(float("-inf"), device=sc.device)
+    neg = sc.new_full((), float("-inf"))    # a fill: no host-device copy
     m = torch.where(valid, sc, neg).amax(dim=-1)
     if s0 is not None:
         m = torch.maximum(m, torch.where(valid0, s0, neg))
