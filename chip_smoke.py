@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py                 # all phases (needs one card)
     python3 chip_smoke.py --kernels-only  # build + kernel checks only
+    python3 chip_smoke.py --kernels-only --only qmatmul_lut
+                                          # ... of the kernels so named
     python3 chip_smoke.py --profile       # all phases + a torch.profiler
                                           # trace of the main path
 
@@ -15,14 +17,19 @@ Phases, each raising on failure so the run exits non-zero:
    version and a library yardstick (CUDA events around each call, cold L2,
    host time excluded: see `time_ms`);
 3. a tiny model through `Engine` on the card against the same model on the
-   CPU (plain versions): logits within tolerance, identical greedy ids at
-   every step;
+   CPU (plain versions), once in int4 and once per configuration of phase
+   5: logits within tolerance, identical greedy ids at every step;
 4. the main path: a Llama-2-7B-shaped int4 model (full width and depth,
    random weights from a seed, drawn on the card) serves 4 ragged requests,
    then the bench shape (B = 1, a 1975-token prefill, 64 greedy steps); every
    kernel's launch counter must be > 0 and no plain version may run.  With
    `--profile`, torch.profiler then traces one prefill and 8 decode steps
-   (device time by kernel group, idle share).
+   (device time by kernel group, idle share);
+5. the same path in the other weight formats: the 32-layer model packed as
+   nf4, asymmetric int5, fp8_e4m3, and int4 / int3 with int8 compute
+   (`Engine(comp="int8")`), each serving B = 1, a 1975-token prefill and 32
+   greedy steps; the expected matmul kernels (and only they) must have
+   launched at prefill and at decode, and no plain version may run.
 
 It prints a `kernels` JSON line, then as its last line
 `{"ok": true, "device": {...}}`.  It imports nothing of JAX.
@@ -31,6 +38,7 @@ It prints a `kernels` JSON line, then as its last line
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
 import os
@@ -61,9 +69,11 @@ def peaks_for(name: str):
     return PEAKS["H100 SXM"]
 
 
-def bound(nbytes: float, flops: float, name: str):
+def bound(nbytes: float, flops: float, name: str, int8: bool = False):
+    """The least ms for the work: bytes at the memory rate against
+    operations at the dense bf16 peak, or at the int8 peak (twice it)."""
     bw, fl = peaks_for(name)
-    tb, tf = nbytes / bw * 1e3, flops / fl * 1e3
+    tb, tf = nbytes / bw * 1e3, flops / (2 * fl if int8 else fl) * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -104,8 +114,10 @@ def _sleep_cycles_per_ms() -> float:
 def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     """Device time of one fn() call: the median over `reps` calls of CUDA
     events recorded just before and just after the call, each call after an
-    L2 flush.  A sleep kernel holds the stream while the host enqueues every
-    call, so the host's time between launches is not counted.  If the sleep
+    L2 flush.  Before each call a sleep kernel holds the stream while the
+    host enqueues the call, so the host's time between launches is not
+    counted (one sleep per call: CUDA's launch queue holds about a thousand
+    launches, and a plain version may make hundreds).  If a sleep
     ends before the host is done, it is doubled and the calls are timed
     again; after four tries this raises."""
     event = lambda: torch.cuda.Event(enable_timing=True)
@@ -117,24 +129,25 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         event().record()
     host_ms = (time.perf_counter() - t0) * 1e3 / warmup
     torch.cuda.synchronize()
-    sleep_ms = 2 * reps * host_ms + 1.0
+    sleep_ms = 2 * host_ms + 0.5
     for _ in range(4):
-        gate = event()
-        spans = [(event(), event()) for _ in range(reps)]
-        torch.cuda._sleep(int(sleep_ms * _sleep_cycles_per_ms()))
-        gate.record()
-        for start, end in spans:
+        spans, ahead = [], True
+        for _ in range(reps):
+            gate, start, end = event(), event(), event()
             _flush_l2()
+            torch.cuda._sleep(int(sleep_ms * _sleep_cycles_per_ms()))
+            gate.record()
             start.record()
             fn()
             end.record()
-        ahead = not gate.query()
+            ahead = ahead and not gate.query()
+            spans.append((start, end))
         torch.cuda.synchronize()
         if ahead:
             return statistics.median(s.elapsed_time(e) for s, e in spans)
         sleep_ms *= 2
     raise RuntimeError(f"time_ms: the host did not get ahead of the device "
-                       f"within a {sleep_ms / 2:.1f} ms sleep")
+                       f"within a {sleep_ms / 2:.1f} ms sleep per call")
 
 
 def _category(kernel_name: str) -> str:
@@ -220,10 +233,10 @@ class Checks:
         self.records = {}
 
     def add(self, name, route, source, replaces, shape, cmp, ms, plain_ms,
-            lib_ms, nbytes, flops, main=False):
+            lib_ms, nbytes, flops, main=False, int8=False):
         """One case of a kernel's check; the `main` case gives the kernel's
         times in the kernels line."""
-        b_ms, b_by = bound(nbytes, flops, self.card)
+        b_ms, b_by = bound(nbytes, flops, self.card, int8)
         log(f"  {name} {shape}: max_abs_err={cmp['err']:.3e}, largest "
             f"error / scale {cmp['rel']:.3e}, largest error / tolerance "
             f"{cmp['worst']:.3f} (tolerance {cmp['tol']}) "
@@ -279,6 +292,224 @@ def check_qmatmul(chk: Checks, gen: torch.Generator) -> None:
                     "neural_speed_tpu/ops/matmul.py:127", f"M={m} K={k} N={n}",
                     cmp, ms, plain_ms, lib_ms, nbytes, 2.0 * m * n * k,
                     main=(m, k, n) == (1, 4096, 22016))
+
+
+# The Llama-2-7B projections: qkv, o, gate/up, down, head.  The down
+# projection's K = 11008 is K-repadded at load time to the pack period x 128.
+SHAPES_7B = {"qkv": (4096, 12288), "o": (4096, 4096), "gateup": (4096, 22016),
+             "down": (11008, 4096), "head": (4096, 32000)}
+
+
+def _shape(name: str, spec):
+    from neural_speed_tpu_torch.ops.matmul import kernel_k_multiple
+
+    k, n = SHAPES_7B[name]
+    period = kernel_k_multiple(spec) * 128
+    return -(-k // period) * period, n
+
+
+def _fmt_name(qt) -> str:
+    spec = qt.spec
+    name = spec.qtype.value if spec.qtype.value != "int" else f"int{spec.bits}"
+    if spec.lut is not None:
+        name += "+lut"
+    if qt.zeros is not None:
+        name += "/f32off" if qt.zeros.is_floating_point() else "/asym"
+    return name + ("/f32s" if qt.scales.dtype == torch.float32 else "")
+
+
+def _float_offsets(gen, qt):
+    """The pack with ggml float offsets m (w = s * code + m) in place of its
+    symmetric offset."""
+    import dataclasses
+
+    m = (torch.rand(qt.scales.shape, generator=gen, device="cuda") - 0.5) * 0.2
+    return dataclasses.replace(qt, zeros=m)
+
+
+def check_fp_formats(chk: Checks, gen: torch.Generator) -> None:
+    """Kernels F and P against `qmatmul_plain` at the 7B shapes."""
+    from neural_speed_tpu_torch.ops import matmul
+    from neural_speed_tpu_torch.ops.qtypes import FP4_LUT, named_qspec
+    from neural_speed_tpu_torch.ops.quantize import dequantize
+    from neural_speed_tpu_torch.utils.synthetic import synth_qtensor
+    import dataclasses
+
+    bf = dict(group_size=128, scale_dtype="bfloat16")
+    nf4 = named_qspec("nf4", **bf)
+    # a converter's table: the fp4 values reversed, float32 scales
+    fp4 = dataclasses.replace(named_qspec("fp4", 128),
+                              lut=tuple(float(v) for v in FP4_LUT[::-1]))
+    int5 = named_qspec("int5", symmetric=False, **bf)
+    e4m3 = named_qspec("fp8_e4m3", **bf)
+    sm = (1, 2048)
+    lut_cases = [(nf4, name, (1, 4, 2048), False) for name in SHAPES_7B]
+    lut_cases.append((fp4, "o", sm, False))
+    planar_cases = [(int5, name, (1, 4, 2048), False)
+                    for name in ("qkv", "gateup", "down", "head")]
+    planar_cases += [
+        (e4m3, "o", (1, 4, 2048), False), (e4m3, "down", sm, False),
+        (e4m3, "gateup", sm, False),
+        (named_qspec("int3", **bf), "o", sm, False),
+        (named_qspec("int7", **bf), "o", sm, False),
+        (named_qspec("int7", **bf), "down", (4,), False),
+        (named_qspec("int6", 128), "o", sm, False),
+        (named_qspec("fp8_e5m2", 128), "o", sm, False),
+        (named_qspec("int4", 128), "o", sm, True)]
+    kernels = (
+        ("qmatmul_lut", matmul.qmatmul_lut_cuda, lut_cases,
+         "neural_speed_tpu_torch/csrc/qmatmul_lut.cu",
+         "neural_speed_tpu/ops/matmul.py:217", nf4),
+        ("qmatmul_planar", matmul.qmatmul_planar_cuda, planar_cases,
+         "neural_speed_tpu_torch/csrc/qmatmul_planar.cuh",
+         "neural_speed_tpu/ops/matmul.py:376", int5))
+    for kname, launch, cases, source, replaces, main_spec in kernels:
+        for spec, shape_name, ms_list, offsets in cases:
+            k, n = _shape(shape_name, spec)
+            qt = synth_qtensor(gen, k, n, spec)
+            if offsets:
+                qt = _float_offsets(gen, qt)
+            w_bf16 = dequantize(qt, torch.bfloat16)
+            for m in ms_list:
+                x = torch.randn((m, k), generator=gen, device="cuda").to(
+                    torch.bfloat16)
+                got = launch(x, qt)
+                want = matmul.qmatmul_plain(x, qt)
+                torch.cuda.synchronize()
+                # as kernel A: both versions take the same dequantized
+                # values (float32 at M <= 32, rounded once to bf16 above), so
+                # only the order of the float32 sums and the bf16 rounding
+                # of the output differ -> two bf16 ulps of the largest output
+                cmp = compare(got, want, 2, per_row=False)
+                del got, want
+                ms = time_ms(lambda: launch(x, qt))
+                plain_ms = time_ms(lambda: matmul.qmatmul_plain(x, qt), reps=3)
+                lib_ms = time_ms(lambda: torch.matmul(x, w_bf16))
+                nbytes = m * k * 2 + qt.nbytes() + m * n * 2
+                chk.add(kname, "cuda", source, replaces,
+                        f"{_fmt_name(qt)} M={m} K={k} N={n}", cmp, ms,
+                        plain_ms, lib_ms, nbytes, 2.0 * m * n * k,
+                        main=(spec is main_spec and m == 1
+                              and shape_name == "gateup"))
+            del qt, w_bf16
+            torch.cuda.empty_cache()
+
+
+def compare_f32(got: torch.Tensor, want: torch.Tensor, groups: int) -> dict:
+    """|got - want| against `groups` float32 ulps (2**-23 relative) of the
+    largest |want|: the integer partials of kernels G and H are exact, so
+    only the order of the float32 sum over the K groups differs, and each of
+    its additions rounds by at most half an ulp of a partial sum in either
+    version."""
+    diff = (got - want).abs()
+    scale = want.abs().amax()
+    tol = groups * 2.0 ** -23 * scale + ATOL * 1e-3
+    return dict(err=diff.max().item(),
+                rel=(diff / scale.clamp_min(ATOL)).max().item(),
+                worst=(diff / tol).max().item(),
+                tol=f"{groups} float32 ulps of the largest |output| of the "
+                    "tensor")
+
+
+def check_int8_formats(chk: Checks, gen: torch.Generator) -> None:
+    """Kernels G and H against `qmatmul_int8_plain` at the 7B shapes."""
+    from neural_speed_tpu_torch.ops import matmul
+    from neural_speed_tpu_torch.ops.qtypes import named_qspec
+    from neural_speed_tpu_torch.ops.quantize import unpack_codes
+    from neural_speed_tpu_torch.utils.synthetic import synth_qtensor
+
+    bf = dict(group_size=128, scale_dtype="bfloat16")
+    int4, int3 = named_qspec("int4", **bf), named_qspec("int3", **bf)
+    all_m, two_m = (32, 2048, 1975), (32, 2048)
+    g_cases = [(int4, name, all_m, False) for name in SHAPES_7B]
+    g_cases += [(named_qspec("int4", symmetric=False, **bf), "o", two_m, False),
+                (named_qspec("int8", **bf), "o", two_m, False),
+                (named_qspec("int8", 128), "qkv", (1975,), False),
+                (int4, "o", two_m, True)]
+    h_cases = [(int3, name, all_m, False) for name in SHAPES_7B]
+    h_cases += [(named_qspec("int5", symmetric=False, **bf), "o", two_m, False),
+                (named_qspec("int6", 128), "o", two_m, False),
+                (int3, "o", two_m, True)]
+    kernels = (
+        ("qmatmul_int8", g_cases, "neural_speed_tpu_torch/csrc/qmatmul_int8.cu",
+         "neural_speed_tpu/ops/matmul.py:814", int4),
+        ("qmatmul_int8_planar", h_cases,
+         "neural_speed_tpu_torch/csrc/qmatmul_int8_planar.cu",
+         "neural_speed_tpu/ops/matmul.py:880", int3))
+    for kname, cases, source, replaces, main_spec in kernels:
+        for spec, shape_name, ms_list, per_token in cases:
+            k, n = _shape(shape_name, spec)
+            qt = synth_qtensor(gen, k, n, spec)
+            codes = unpack_codes(qt.data, spec.bits, k).to(torch.int32)
+            zero = (spec.code_offset if qt.zeros is None else
+                    torch.repeat_interleave(qt.zeros.to(torch.int32), 128, 0))
+            w_int8 = (codes - zero).to(torch.int8)
+            del codes, zero
+            for m in ms_list:
+                x = torch.randn((m, k), generator=gen, device="cuda")
+                xq, ascale = matmul._act_quant(x, k if per_token else 128)
+                if per_token:
+                    ascale = None
+                got = matmul.qmatmul_int8_cuda(xq, ascale, qt)
+                want = matmul.qmatmul_int8_plain(xq, ascale, qt)
+                torch.cuda.synchronize()
+                cmp = compare_f32(got, want, k // 128)
+                del got, want
+                ms = time_ms(lambda: matmul.qmatmul_int8_cuda(xq, ascale, qt))
+                plain_ms = time_ms(
+                    lambda: matmul.qmatmul_int8_plain(xq, ascale, qt), reps=3)
+                try:  # the library call refuses some shapes (M <= 16, ...)
+                    torch._int_mm(xq, w_int8)
+                    lib_ms = time_ms(lambda: torch._int_mm(xq, w_int8))
+                except RuntimeError:
+                    lib_ms = None
+                nbytes = (m * k + (0 if per_token else m * (k // 128) * 4)
+                          + qt.nbytes() + m * n * 4)
+                chk.add(kname, "cuda", source, replaces,
+                        f"{_fmt_name(qt)}{' per-token' if per_token else ''} "
+                        f"M={m} K={k} N={n}", cmp, ms, plain_ms, lib_ms,
+                        nbytes, 2.0 * m * n * k, int8=True,
+                        main=(spec is main_spec and m == 2048
+                              and shape_name == "gateup" and not per_token))
+            del qt, w_int8
+            torch.cuda.empty_cache()
+
+
+def check_ragged_shapes(chk: Checks, gen: torch.Generator) -> None:
+    """Kernels F, P, G, H at shapes off the tiles: N = 264 (a multiple of 8
+    only), g = 64, M = 5 and M = 37 (a partial row tile), K the pack period x
+    g.  Correctness only: these are not main-path shapes, so nothing is
+    timed and nothing enters the kernels line."""
+    from neural_speed_tpu_torch.ops import matmul
+    from neural_speed_tpu_torch.ops.qtypes import named_qspec
+    from neural_speed_tpu_torch.utils.synthetic import synth_qtensor
+
+    n, worst = 264, {}
+    for name, sym in (("nf4", True), ("int3", False), ("int6", True),
+                      ("int7", False), ("fp8_e4m3", True), ("int4", True),
+                      ("int8", True), ("int2", False)):
+        spec = named_qspec(name, 64, sym)
+        k = 3 * matmul.kernel_k_multiple(spec) * 64
+        qt = synth_qtensor(gen, k, n, spec)
+        for m in (5, 37):
+            x = torch.randn((m, k), generator=gen, device="cuda")
+            if matmul.kernel_for(qt):
+                xb = x.to(torch.bfloat16)
+                cmp = compare(matmul.qmatmul(xb, qt),
+                              matmul.qmatmul_plain(xb, qt), 2, per_row=False)
+                worst[f"{name} M={m}"] = cmp["worst"]
+            if matmul.int8_kernel_for(qt):
+                xq, ascale = matmul._act_quant(x, 64)
+                cmp = compare_f32(matmul.qmatmul_int8_cuda(xq, ascale, qt),
+                                  matmul.qmatmul_int8_plain(xq, ascale, qt),
+                                  k // 64)
+                worst[f"{name} int8 M={m}"] = cmp["worst"]
+    torch.cuda.synchronize()
+    log("  ragged shapes (N=264, g=64), largest error / tolerance: "
+        + json.dumps({k: round(v, 3) for k, v in worst.items()}))
+    bad = {k: v for k, v in worst.items() if not v <= 1.0}
+    if bad:
+        raise AssertionError(f"ragged shapes beyond the tolerance: {bad}")
 
 
 def _random_cache(gen, layers, b, hkv, s, d):
@@ -420,46 +651,79 @@ def check_flash_prefill(chk: Checks, gen: torch.Generator) -> None:
 # ---------------------------------------------------------------------------
 
 
-def check_tiny_model() -> None:
+def format_configs():
+    """The configurations of the formats path (phases 3 and 5): label, the
+    model's one `QSpec` (g = 128 at full width; phase 3 uses g = 64), the
+    int8-compute switch, and the matmul kernels its prefill and its decode
+    steps must launch."""
+    from neural_speed_tpu_torch.ops.qtypes import named_qspec
+
+    bf = dict(scale_dtype="bfloat16")
+    return [
+        ("nf4", lambda g: named_qspec("nf4", g, **bf), None,
+         ("qmatmul_lut",), ("qmatmul_lut",)),
+        ("int5 asymmetric", lambda g: named_qspec("int5", g, False, **bf), None,
+         ("qmatmul_planar",), ("qmatmul_planar",)),
+        ("fp8_e4m3", lambda g: named_qspec("fp8_e4m3", g, **bf), None,
+         ("qmatmul_planar",), ("qmatmul_planar",)),
+        ("int4 + comp=int8", lambda g: named_qspec("int4", g, **bf), "int8",
+         ("qmatmul_int8", "qmatmul"), ("qmatmul",)),
+        ("int3 + comp=int8", lambda g: named_qspec("int3", g, **bf), "int8",
+         ("qmatmul_int8_planar", "qmatmul_planar"), ("qmatmul_planar",)),
+    ]
+
+
+# Params seed and number of checked steps (prefill + greedy decode steps) of
+# the tiny model per configuration: seeds whose greedy streams keep every
+# checked step's top-2 margin on the CPU above twice the logit tolerance, so
+# that equal ids at every step is a real check.  Asymmetric int5 draws
+# uniform zero points, which makes large logits with narrow margins: no seed
+# below 400 keeps 9 clear steps, so it is held for 5.
+TINY_SEEDS = {"int4": (15, 9), "nf4": (268, 9), "int5 asymmetric": (84, 5),
+              "fp8_e4m3": (562, 9), "int4 + comp=int8": (172, 9),
+              "int3 + comp=int8": (1, 9)}
+
+
+def check_tiny_model(label: str, spec, comp) -> None:
     from neural_speed_tpu_torch.models.arch import ArchConfig
-    from neural_speed_tpu_torch.ops.qtypes import QSpec, QType
     from neural_speed_tpu_torch.runtime.engine import Engine
     from neural_speed_tpu_torch.utils.synthetic import synth_params
 
+    seed, checks = TINY_SEEDS[label]
     cfg = ArchConfig(name="llama", vocab_size=512, hidden_size=512,
                      n_layers=2, n_heads=8, n_kv_heads=4,
                      intermediate_size=1408, max_position_embeddings=256)
-    spec = QSpec(QType.INT, 4, 64, True, scale_dtype="bfloat16")
-    # seed 15: every greedy step's top-2 margin on the CPU is more than
-    # twice the logit tolerance, so equal ids at every step is a real check
-    params = synth_params(cfg, spec, seed=15, device="cpu")
-    eng = {dev: Engine(params, cfg, max_batch=3, max_len=256, device=dev)
+    params = synth_params(cfg, spec, seed=seed, device="cpu")
+    eng = {dev: Engine(params, cfg, max_batch=3, max_len=256, device=dev,
+                       comp=comp)
            for dev in ("cuda", "cpu")}
     prompts = [list(range(3, 40)), [7, 8, 9], list(range(100, 190))]
     logits = {dev: e.prefill(prompts).float().cpu() for dev, e in eng.items()}
     active = torch.tensor([True, False, True])
-    for step in range(9):
+    for step in range(checks):
         # bf16 logits: a few bf16 ulps (2**-8 relative) of the largest logit
         tol = 0.02 * logits["cpu"][active].abs().max().item()
         diff = (logits["cuda"] - logits["cpu"])[active].abs().max().item()
         if diff > tol:
-            raise AssertionError(f"tiny model step {step}: logits differ by "
-                                 f"{diff} > {tol}")
+            raise AssertionError(f"tiny model ({label}) step {step}: logits "
+                                 f"differ by {diff} > {tol}")
         top2 = logits["cpu"][active].topk(2, dim=-1).values
         margin = (top2[:, 0] - top2[:, 1]).min().item()
         if margin <= 2 * tol:
-            raise AssertionError(f"tiny model step {step}: top-2 margin "
-                                 f"{margin} within twice the tolerance {tol}")
+            raise AssertionError(f"tiny model ({label}, params seed {seed}) "
+                                 f"step {step}: top-2 margin {margin} within "
+                                 f"twice the tolerance {tol}")
         ids = {dev: lg.argmax(-1) for dev, lg in logits.items()}
         if not torch.equal(ids["cuda"][active], ids["cpu"][active]):
-            raise AssertionError(f"tiny model step {step}: greedy ids differ")
-        if step < 8:
+            raise AssertionError(f"tiny model ({label}) step {step}: greedy "
+                                 "ids differ")
+        if step < checks - 1:
             toks = ids["cpu"].to(torch.int32)
             logits = {dev: e.decode(toks, active).float().cpu()
                       for dev, e in eng.items()}
-    log("  tiny model: logits within 2% of the largest logit of the CPU "
-        "plain path and greedy ids equal at all 9 steps (top-2 margin above "
-        "twice that at each)")
+    log(f"  tiny model ({label}, params seed {seed}): logits within 2% of the "
+        f"largest logit of the CPU plain path and greedy ids equal at all "
+        f"{checks} steps (top-2 margin above twice that at each)")
 
 
 # ---------------------------------------------------------------------------
@@ -583,14 +847,112 @@ def serve_7b(profile: bool) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the formats path, full width and depth
+# ---------------------------------------------------------------------------
+
+
+def serve_7b_formats() -> dict:
+    """The 32-layer Llama-2-7B-shaped model through `Engine`, B = 1, a
+    1975-token prefill and 32 greedy steps, once per weight format.  Counts
+    are set to 0 just before each configuration is driven and read just
+    after."""
+    from neural_speed_tpu_torch import _build
+    from neural_speed_tpu_torch.ops.quantize import QTensor
+    from neural_speed_tpu_torch.runtime.engine import Engine, decode_n_steps
+    from neural_speed_tpu_torch.utils.synthetic import (llama2_7b_arch,
+                                                        synth_params)
+
+    cfg = llama2_7b_arch()
+    gen = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (1975,), generator=gen).tolist()
+    n_steps = 32
+    results = {}
+
+    def weight_bytes(node):
+        if isinstance(node, QTensor):
+            return node.nbytes()
+        if isinstance(node, dict):
+            return sum(weight_bytes(v) for v in node.values())
+        if isinstance(node, list):
+            return sum(weight_bytes(v) for v in node)
+        return node.numel() * node.element_size()
+
+    for label, make_spec, comp, prefill_kernels, decode_kernels in \
+            format_configs():
+        eng = Engine(synth_params(cfg, make_spec(128), seed=0), cfg,
+                     max_batch=1, max_len=2048, comp=comp)
+        nbytes = weight_bytes(eng.params)
+        eng.prefill([prompt[:40]])                    # warm: first launches
+        _build.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        logits = eng.prefill([prompt])
+        torch.cuda.synchronize()
+        ttft = time.time() - t0
+        prefill_counts = dict(_build.launches)
+        if logits.shape != (1, cfg.vocab_size) or not torch.isfinite(
+                logits).all():
+            raise AssertionError(f"{label}: bad prefill logits")
+        tok = logits.argmax(-1).to(torch.int32)
+        on = torch.ones((1,), dtype=torch.bool, device="cuda")
+        t0 = time.time()
+        toks, eng.cache = decode_n_steps(eng.params, eng.cfg, eng.cache, tok,
+                                         on, n_steps, eng.comp)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        counts = dict(_build.launches)
+        logits = eng.decode(toks[:, -1], on)          # one more, for its logits
+        decode_counts = {k: v - prefill_counts.get(k, 0)
+                         for k, v in counts.items()}
+        if not torch.isfinite(logits).all() or not (
+                (toks >= 0) & (toks < cfg.vocab_size)).all():
+            raise AssertionError(f"{label}: bad decode logits or ids")
+        if eng.cache.lengths.tolist() != [1975 + n_steps + 1]:
+            raise AssertionError(f"{label}: cache length "
+                                 f"{eng.cache.lengths.tolist()}")
+        for part, have, need in (("prefill", prefill_counts, prefill_kernels),
+                                 ("decode", decode_counts, decode_kernels)):
+            matmuls = {k for k, v in have.items()
+                       if k.startswith("qmatmul") and v > 0}
+            if matmuls != set(need):
+                raise AssertionError(f"{label}: {part} launched {have}, "
+                                     f"expected the matmul kernels {need}")
+        for k in ("flash_prefill",):
+            if prefill_counts.get(k, 0) <= 0:
+                raise AssertionError(f"{label}: {k} was not launched")
+        if decode_counts.get("flash_decode", 0) <= 0:
+            raise AssertionError(f"{label}: flash_decode was not launched")
+        if sum(_build.plain_dispatches.values()):
+            raise AssertionError(f"{label}: a plain version ran: "
+                                 f"{dict(_build.plain_dispatches)}")
+        log(f"  {label}: weights {nbytes / 2 ** 30:.3f} GiB on the card; TTFT "
+            f"{ttft * 1e3:.2f} ms (1975 tokens, B=1); decode "
+            f"{dt / n_steps * 1e3:.3f} ms/token over {n_steps} steps; launches "
+            f"per prefill {prefill_counts}, per {n_steps} decode steps "
+            f"{decode_counts}; plain dispatches 0")
+        results[label] = dict(weight_bytes=nbytes, ttft_ms=ttft * 1e3,
+                              decode_ms_per_token=dt / n_steps * 1e3,
+                              prefill_counts=prefill_counts,
+                              decode_counts=decode_counts)
+        del eng
+        torch.cuda.empty_cache()
+    return results
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks")
+    ap.add_argument("--only", default="",
+                    help="with --kernels-only: check only the kernels whose "
+                         "name contains this (qmatmul_lut, flash, ...)")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one prefill and 8 decode steps of the "
                          "main path with torch.profiler")
     args = ap.parse_args()
+    if args.only and not args.kernels_only:
+        ap.error("--only needs --kernels-only")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -610,26 +972,39 @@ def main() -> int:
 
     log("phase 1: build")
     _build.kernels.build()
-    log(f"  built {sorted(_build.kernels.build())} in "
-        f"{_build.kernels.build_seconds:.1f} s")
+    log(f"  built in {_build.kernels.build_seconds:.1f} s; seconds until each "
+        f"source's nvcc ended: " + json.dumps(
+            {k: round(v, 1) for k, v in _build.kernels.source_seconds.items()}))
     with open(os.path.join(OUT_DIR, "chip_smoke_build.log"), "w") as f:
         f.write(_build.kernels.build_log)
 
     log("phase 2: kernels against their plain versions")
     chk = Checks(name)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    check_flash_decode(chk, gen)
-    check_flash_prefill(chk, gen)
-    check_qmatmul(chk, gen)
+    for names, check in (("flash_decode", check_flash_decode),
+                        ("flash_prefill", check_flash_prefill),
+                        ("qmatmul_int4", check_qmatmul),
+                        ("qmatmul_lut qmatmul_planar", check_fp_formats),
+                        ("qmatmul_int8 qmatmul_int8_planar",
+                         check_int8_formats),
+                        ("ragged qmatmul_lut qmatmul_planar qmatmul_int8 "
+                         "qmatmul_int8_planar", check_ragged_shapes)):
+        if args.only in names:
+            check(chk, gen)
     torch.cuda.empty_cache()
     summary = {}
     if not args.kernels_only:
+        from neural_speed_tpu_torch.ops.qtypes import named_qspec
+
         log("phase 3: tiny model on the card against the CPU")
-        check_tiny_model()
+        check_tiny_model("int4", named_qspec("int4", 64,
+                                             scale_dtype="bfloat16"), None)
+        for label, make_spec, comp, _, _ in format_configs():
+            check_tiny_model(label, make_spec(64), comp)
         log("phase 4: Llama-2-7B-shaped int4 serving")
         _build.reset_counts()
         summary = serve_7b(args.profile)
-        counts = dict(_build.launches)
+        counts = collections.Counter(_build.launches)
         for k in ("qmatmul", "flash_decode", "flash_prefill"):
             for part in ("ragged_counts", "bench_counts"):
                 if summary[part].get(k, 0) <= 0:
@@ -637,27 +1012,33 @@ def main() -> int:
         if sum(_build.plain_dispatches.values()):
             raise AssertionError("a plain version ran on the main path: "
                                  f"{dict(_build.plain_dispatches)}")
-        log(f"  main path launches {counts}; plain-version dispatches "
+        log(f"  main path launches {dict(counts)}; plain-version dispatches "
             f"{dict(_build.plain_dispatches)}")
+        log("phase 5: Llama-2-7B-shaped serving in the other weight formats")
+        summary["formats"] = serve_7b_formats()
+        for res in summary["formats"].values():
+            counts.update(res["prefill_counts"])
+            counts.update(res["decode_counts"])
+        log(f"  launches over both paths {dict(counts)}")
     else:
         counts = {}
 
-    launches_of = {"qmatmul_int4": "qmatmul", "flash_decode": "flash_decode",
-                   "flash_prefill": "flash_prefill"}
+    launches_of = {"qmatmul_int4": "qmatmul"}
     kernels = []
     for rec in chk.records.values():
         main = next(c for c in rec["cases"] if c["main"])
         kernels.append(dict(
             name=rec["name"], route=rec["route"], source=rec["source"],
             replaces=rec["replaces"],
-            launches=counts.get(launches_of[rec["name"]], 0),
+            launches=counts.get(launches_of.get(rec["name"], rec["name"]), 0),
             max_abs_err=max(c["max_abs_err"] for c in rec["cases"]),
             ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], library_ms=main["library_ms"],
             shape=main["shape"], cases=rec["cases"]))
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump(dict(card=card_line, kernels=kernels, e2e=summary), f,
-                  indent=1)
+        json.dump(dict(card=card_line,
+                       build_s=_build.kernels.build_seconds,
+                       kernels=kernels, e2e=summary), f, indent=1)
     log(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "cases"}
                                 for r in kernels]}))
     log(json.dumps({"ok": True, "device": {

@@ -58,6 +58,7 @@ class _Library:
         self._libs: Optional[Dict[str, ctypes.CDLL]] = None
         self._lock = threading.Lock()
         self.build_seconds: Optional[float] = None
+        self.source_seconds: Dict[str, float] = {}
         self.build_log: str = ""
 
     def _nvcc(self) -> str:
@@ -79,17 +80,28 @@ class _Library:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         sources = sorted(CSRC.glob("*.cu"))
         nvcc = self._nvcc()
-        procs = {}
+        procs, logs_of = {}, {}
         for src in sources:
             out = BUILD_DIR / f"lib{src.stem}.so"
             cmd = [nvcc, *NVCC_FLAGS, "-o", str(out), str(src)]
+            # each compiler writes to a file: a pipe nobody reads would block
+            # it once full, while the loop below only polls
+            logs_of[src.stem] = open(BUILD_DIR / f"lib{src.stem}.log", "w+")
             procs[src.stem] = subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                cmd, stdout=logs_of[src.stem], stderr=subprocess.STDOUT,
                 text=True)
+        pending = dict(procs)
+        while pending:  # note when each compiler ends: the slowest sets the build
+            for name in [n for n, p in pending.items() if p.poll() is not None]:
+                self.source_seconds[name] = time.time() - t0
+                del pending[name]
+            time.sleep(0.05)
         logs, failed = [], []
         for name, proc in procs.items():
-            text, _ = proc.communicate()
-            logs.append(f"== {name} ==\n{text}")
+            with logs_of[name] as f:
+                f.seek(0)
+                text = f.read()
+            logs.append(f"== {name} ({self.source_seconds[name]:.1f} s) ==\n{text}")
             if proc.returncode != 0:
                 failed.append(name)
         self.build_log = "\n".join(logs)

@@ -8,7 +8,12 @@ its string value.  Dtype conventions:
 
 * bfloat16 arrays arrive as their uint16 bit patterns and become
   `torch.bfloat16` views;
-* uint32 plane words arrive as their int32 bit views and stay int32.
+* uint32 plane words arrive as their int32 bit views and stay int32;
+* fp8 rows arrive as their uint8 bit patterns and stay uint8 (the port's
+  storage for FP8 codes);
+* uint8 zero points, float32 offsets, int8 double-quantized scales with
+  their float32 `sscale`, and a custom `spec["lut"]` carry across as they
+  are.
 """
 
 from __future__ import annotations

@@ -16,7 +16,7 @@ import torch
 from ..ops import kv_cache as kvc
 from ..ops import flash
 from ..ops.attention import attention_cache
-from ..ops.matmul import kernel_k_multiple, qmatmul
+from ..ops.matmul import kernel_k_multiple, qmatmul, qmatmul_int8
 from ..ops.norms import rms_norm
 from ..ops.quantize import QTensor, concat_n, repad_k
 from ..ops.rope import apply_rope, rope_cos_sin, rope_inv_freq
@@ -45,12 +45,23 @@ def check_supported(cfg: ArchConfig) -> None:
         raise NotImplementedError(f"not ported yet: {bad}")
 
 
-def linear(x: torch.Tensor, p: Params) -> torch.Tensor:
+COMP_MODES = (None, "int8", "int8t")
+INT8_MIN_ROWS = 32
+
+
+def linear(x: torch.Tensor, p: Params,
+           comp: Optional[str] = None) -> torch.Tensor:
     """p = {"w": QTensor | [K, N] tensor, "b": optional [N]}; output in x's
-    dtype (dense weights: float32 accumulation, then the cast)."""
+    dtype (dense weights: float32 accumulation, then the cast).  `comp`
+    "int8" / "int8t" (one activation scale per token) sends steps of at
+    least 32 rows through `qmatmul_int8`; decode stays on the weight-only
+    path, where activation quantization would add error and save no bytes."""
     w = p["w"]
     if isinstance(w, QTensor):
-        out = qmatmul(x, w)
+        if comp is not None and x.numel() // x.shape[-1] >= INT8_MIN_ROWS:
+            out = qmatmul_int8(x, w, per_token=comp == "int8t")
+        else:
+            out = qmatmul(x, w)
     else:
         out = (x.float() @ w.to(x.dtype).float()).to(x.dtype)
     b = p.get("b")
@@ -63,13 +74,14 @@ def norm(x: torch.Tensor, p: Params, cfg: ArchConfig) -> torch.Tensor:
     return rms_norm(x, p["weight"], cfg.norm_eps)
 
 
-def ffn(x: torch.Tensor, p: Params, cfg: ArchConfig) -> torch.Tensor:
+def ffn(x: torch.Tensor, p: Params, cfg: ArchConfig,
+        comp: Optional[str] = None) -> torch.Tensor:
     """Gated SiLU MLP; fused gate+up when `fuse_params` made one."""
     if "gateup" in p:
-        gate, up = torch.chunk(linear(x, p["gateup"]), 2, dim=-1)
+        gate, up = torch.chunk(linear(x, p["gateup"], comp), 2, dim=-1)
     else:
-        gate, up = linear(x, p["gate"]), linear(x, p["up"])
-    return linear(torch.nn.functional.silu(gate) * up, p["down"])
+        gate, up = linear(x, p["gate"], comp), linear(x, p["up"], comp)
+    return linear(torch.nn.functional.silu(gate) * up, p["down"], comp)
 
 
 def kv_append_mode(cfg: ArchConfig) -> str:
@@ -92,17 +104,18 @@ def _defer_append(cfg: ArchConfig, t: int) -> bool:
 def decoder_layer(x: torch.Tensor, lp: Params, cfg: ArchConfig,
                   layer_idx: int, cache: kvc.KVCache,
                   positions: torch.Tensor, kv_lens: torch.Tensor,
-                  cos: torch.Tensor, sin: torch.Tensor
+                  cos: torch.Tensor, sin: torch.Tensor,
+                  comp: Optional[str] = None
                   ) -> Tuple[torch.Tensor, kvc.KVCache]:
     b, t, _ = x.shape
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     attn_in = norm(x, lp["attn_norm"], cfg)
     if "qkv" in lp:
-        q, k, v = torch.split(linear(attn_in, lp["qkv"]),
+        q, k, v = torch.split(linear(attn_in, lp["qkv"], comp),
                               [h * d, hkv * d, hkv * d], dim=-1)
     else:
-        q, k, v = (linear(attn_in, lp[n]) for n in ("q", "k", "v"))
+        q, k, v = (linear(attn_in, lp[n], comp) for n in ("q", "k", "v"))
     q = apply_rope(q.reshape(b, t, h, d), cos, sin, cfg.rope_style,
                    cfg.rot_dim)
     k = apply_rope(k.reshape(b, t, hkv, d), cos, sin, cfg.rope_style,
@@ -126,19 +139,24 @@ def decoder_layer(x: torch.Tensor, lp: Params, cfg: ArchConfig,
                                  active=active)
         attn_out = attention_cache(q, cache, layer_idx, positions, kv_lens,
                                    **attn_kwargs)
-    h1 = x + linear(attn_out.reshape(b, t, h * d), lp["o"])
-    return h1 + ffn(norm(h1, lp["ffn_norm"], cfg), lp["ffn"], cfg), cache
+    h1 = x + linear(attn_out.reshape(b, t, h * d), lp["o"], comp)
+    return (h1 + ffn(norm(h1, lp["ffn_norm"], cfg), lp["ffn"], cfg, comp),
+            cache)
 
 
 def forward(params: Params, cfg: ArchConfig, token_ids: torch.Tensor,
             positions: torch.Tensor, cache: kvc.KVCache,
             kv_lens: torch.Tensor,
-            logits_positions: Optional[torch.Tensor] = None
+            logits_positions: Optional[torch.Tensor] = None,
+            comp: Optional[str] = None
             ) -> Tuple[torch.Tensor, kvc.KVCache]:
     """Embed `token_ids [B, T]`, run every layer (appending to `cache` in
     place) and return float32 logits `[B, T, vocab]`, or `[B, R, vocab]` at
-    the rows `logits_positions [B, R]` only (the LM head is then a GEMV)."""
+    the rows `logits_positions [B, R]` only (the LM head is then a GEMV).
+    `comp`: the int8-compute switch of `linear`."""
     check_supported(cfg)
+    if comp not in COMP_MODES:
+        raise ValueError(f"comp must be one of {COMP_MODES}, got {comp!r}")
     x = params["embed"]["weight"][token_ids]
     rot = cfg.rot_dim or cfg.head_dim
     inv_freq, mscale = rope_inv_freq(rot, cfg.rope_base, cfg.rope_scaling,
@@ -146,7 +164,7 @@ def forward(params: Params, cfg: ArchConfig, token_ids: torch.Tensor,
     cos, sin = rope_cos_sin(positions, inv_freq, mscale)
     for i, lp in enumerate(params["layers"]):
         x, cache = decoder_layer(x, lp, cfg, i, cache, positions, kv_lens,
-                                 cos, sin)
+                                 cos, sin, comp)
     if logits_positions is not None:
         idx = logits_positions[:, :, None].expand(-1, -1, x.shape[-1])
         x = torch.gather(x, 1, idx.long())
@@ -159,7 +177,7 @@ def forward(params: Params, cfg: ArchConfig, token_ids: torch.Tensor,
     else:
         # the head's output is cast to x's dtype first, as in the JAX
         # package, so greedy ids see the same rounding
-        logits = linear(x, head).float()[..., :cfg.vocab_size]
+        logits = linear(x, head, comp).float()[..., :cfg.vocab_size]
     if cfg.logit_scale != 1.0:
         logits = logits * cfg.logit_scale
     return logits, cache
@@ -199,9 +217,11 @@ def _fuse_group(parts) -> Optional[Params]:
 
 
 def _kernel_pack(val: QTensor) -> QTensor:
-    """Load-time K-repad to the pack period x group (llama's 11008 FFN-down
-    K becomes 11264 at g = 128), as the JAX package does, so the carried
-    weights keep its shapes."""
+    """Load-time K-repad to the pack period x group, for every family
+    (llama's 11008 FFN-down K becomes 11264 at g = 128 for one 4-bit plane,
+    12288 where a 1- or 2-bit plane sets the period; FP8 and INT8 rows need
+    none).  Odd widths stay planar: kernel P reads them as stored, so the
+    JAX package's `widen_bits` fallback is not taken."""
     g = val.spec.effective_group(val.shape[0])
     return repad_k(val, kernel_k_multiple(val.spec) * g)
 

@@ -1,26 +1,43 @@
 """Quantized matmul `x @ dequant(W)` (port of `neural_speed_tpu/ops/matmul.py`).
 
-`qmatmul` is the entry.  A CUDA tensor goes through kernel A
-(`csrc/qmatmul.cu`, int4 / symmetric / bf16 scales, the format of the main
-path) or raises; a CPU tensor goes through `qmatmul_plain`, the plain
-PyTorch version of the same function.
+`qmatmul` and `qmatmul_int8` are the entries.  A CPU tensor goes through the
+plain PyTorch versions (`qmatmul_plain`, `qmatmul_int8_plain`).  A CUDA
+tensor goes through the kernel that takes the pack, or raises naming the
+format; it never runs a plain version:
 
-Compute dtype (the TPU kernel's `_compute_dtype` rule): float32 when
-M <= 32 (decode; the dequantized value `s * (code - offset)` is exact in
-float32), bfloat16 above (prefill: the dequantized weight is rounded to
-bf16 before a dot that accumulates in float32, as the JAX package's
+* kernel A (`csrc/qmatmul.cu`): one int4 plane, symmetric, bf16 scales;
+* kernel F (`csrc/qmatmul_lut.cu`): NF4 / FP4 codes through a 16-entry table
+  (the canonical one or a converter's `spec.lut`);
+* kernel P (`csrc/qmatmul_planar.cuh`, one library per format): INT 3/5/6/7
+  as 4/2/1-bit planes, FP8 e4m3 / e5m2 rows, and ggml float offsets
+  `w = s * code + m`;
+* kernel G (`csrc/qmatmul_int8.cu`): int8 activations x one-plane INT 4/8
+  weights, int32 accumulation per K group, float32 rescale;
+* kernel H (`csrc/qmatmul_int8_planar.cu`): the same over INT 2/3/5/6/7
+  planes, with the zero-point correction through the row sum of the
+  quantized activations.
+
+F and P take bf16 or float32 scales (double-quantized scales decode to
+float32 outside the kernel), any M >= 1, g a multiple of 8 that divides K,
+K a multiple of the pack period x g (`kernel_k_multiple`) and N % 8 == 0.
+
+Compute dtype of `qmatmul` (the TPU kernel's `_compute_dtype` rule): float32
+when M <= 32 (decode; the dequantized value is exact in float32), bfloat16
+above (prefill: the dequantized weight is computed in float32 and rounded
+once to bf16 before a dot that accumulates in float32, as the JAX package's
 `qmatmul_xla` does).  The output takes `out_dtype`, default x's dtype.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 
 from .. import _build
 from .qtypes import QSpec, QType, plane_widths
-from .quantize import QTensor, dequantize
+from .quantize import QTensor, dequantize, lut_values, unpack_codes
 
 GEMV_MAX_M = 32
 
@@ -67,14 +84,16 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _gemv_splits(k: int, n: int, n_sm: int) -> int:
-    """K splits for the GEMV: about four blocks per SM, each over a multiple
-    of 8 word rows and at most 160 (x's slice stays within 48 KB of shared
-    memory at 8 rows of x)."""
-    kw = k // 8
-    col_blocks = -(-n // 512)
+def _gemv_splits(k: int, n: int, n_sm: int, bands: int = 8,
+                 block_cols: int = 512) -> int:
+    """K splits for a GEMV over a pack whose words hold `bands` K sub-bands
+    and whose blocks cover `block_cols` columns: about four blocks per SM,
+    each over a multiple of 8 word rows and at most 1280 / bands (x's slice
+    stays within 48 KB of shared memory at 8 rows of x)."""
+    kw = k // bands
+    col_blocks = -(-n // block_cols)
     rows = -(-kw // max(1, -(-4 * n_sm // col_blocks)))
-    rows = min(max(8, -(-rows // 8) * 8), 160)
+    rows = min(max(8, -(-rows // 8) * 8), 1280 // bands // 8 * 8)
     return -(-kw // rows)
 
 
@@ -117,6 +136,194 @@ def qmatmul_cuda(x2: torch.Tensor, qt: QTensor, out_dtype=None) -> torch.Tensor:
     return out
 
 
+def planes_of(spec: QSpec) -> tuple:
+    """Widths of the pack's planes (one 8-bit plane for byte rows)."""
+    if spec.is_fp8:
+        return (8,)
+    return (4,) if spec.is_lut else plane_widths(spec.bits)
+
+
+def _finest_bands(spec: QSpec) -> int:
+    """K sub-bands per word of the pack's narrowest plane (1 for byte rows)."""
+    if spec.is_fp8:
+        return 1
+    if spec.is_lut:
+        return 8
+    return 32 // min(plane_widths(spec.bits))
+
+
+def _float_zeros(qt: QTensor) -> bool:
+    return qt.zeros is not None and qt.zeros.is_floating_point()
+
+
+def kernel_for(qt: QTensor) -> str:
+    """Which `qmatmul` kernel takes the pack's format: "A", "F", "P", or ""
+    when none does (shapes and devices are the wrappers' checks)."""
+    spec = qt.spec
+    if spec.is_lut:
+        return "F"
+    if spec.is_fp8:
+        return "P"
+    if _float_zeros(qt):
+        return "P" if 3 <= spec.bits <= 7 else ""
+    if spec.bits in (3, 5, 6, 7):
+        return "P"
+    return "A" if kernel_eligible(qt) else ""
+
+
+def _describe(qt: QTensor) -> str:
+    spec = qt.spec
+    zeros = ("none" if qt.zeros is None else
+             str(qt.zeros.dtype).replace("torch.", ""))
+    return (f"{spec.qtype.value}{spec.bits} symmetric={spec.symmetric} "
+            f"group={spec.group_size} scales="
+            f"{str(qt.scales.dtype).replace('torch.', '')}"
+            f"{'+sscale' if qt.sscale is not None else ''} zeros={zeros} "
+            f"k_shards={qt.k_shards} shape={tuple(qt.shape)}")
+
+
+def _kernel_scales(qt: QTensor) -> torch.Tensor:
+    """The scales as a kernel reads them: bf16 or float32 as stored;
+    double-quantized scales decode to float32 here."""
+    if qt.sscale is not None or qt.scales.dtype not in (torch.bfloat16,
+                                                        torch.float32):
+        return qt.effective_scales(torch.float32).contiguous()
+    return qt.scales
+
+
+def _cuda_ok(*tensors) -> bool:
+    dev = tensors[0].device
+    return all(t.is_cuda and t.device == dev and t.is_contiguous()
+               and t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _planes_ok(qt: QTensor) -> bool:
+    k, n = qt.shape
+    widths = planes_of(qt.spec)
+    if widths == (8,):
+        return (len(qt.data) == 1 and qt.data[0].dtype == torch.uint8
+                and qt.data[0].shape == (k, n))
+    return (len(qt.data) == len(widths) and all(
+        d.dtype == torch.int32 and d.shape == (k * w // 32, n)
+        for d, w in zip(qt.data, widths)))
+
+
+def _fp_shape_ok(qt: QTensor) -> bool:
+    """Shapes kernels F and P take: g % 8 == 0 dividing K (or one group),
+    N % 8 == 0, whole 8-row chunks per band, groups that do not straddle a
+    band of the narrowest plane."""
+    k, n = qt.shape
+    g = qt.spec.effective_group(k)
+    bands = _finest_bands(qt.spec)
+    return (qt.k_shards == 1 and n % 8 == 0 and g % 8 == 0 and k % g == 0
+            and k % (bands * 8) == 0 and (g >= k or (k // bands) % g == 0)
+            and qt.scales.shape == (k // g, n)
+            and (qt.zeros is None or qt.zeros.shape == (k // g, n)))
+
+
+_FMT_FP8 = {QType.FP8_E4M3: "e4m3", QType.FP8_E5M2: "e5m2"}
+_ZMODES = {"none": 0, "sym": 1, "int": 2, "float": 3}
+
+
+def _band_major(x2: torch.Tensor, bands: int) -> torch.Tensor:
+    """x with K reordered so that the `bands` values one word row feeds are
+    adjacent (k' = row * bands + band): the GEMMs of kernels F and P then
+    read contiguous K tiles of x, whatever the pack's band stride."""
+    if bands == 1:
+        return x2
+    m, k = x2.shape
+    return x2.view(m, bands, k // bands).transpose(1, 2).reshape(m, k)
+
+
+def _fp_launch(name: str, lib: str, x2: torch.Tensor, qt: QTensor, planes,
+               extra_ptrs, extra_ints) -> torch.Tensor:
+    """Shared launch of kernels F and P (entries `nst_<name>_gemv/_gemm` of
+    the library `lib`): the split-K GEMV for M <= 32, the tensor-core GEMM
+    above."""
+    m, k = x2.shape
+    n = qt.shape[1]
+    g = qt.spec.effective_group(k)
+    scales = _kernel_scales(qt)
+    bands = _finest_bands(qt.spec)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
+    s_bf16 = int(scales.dtype == torch.bfloat16)
+    ptrs = [p.data_ptr() for p in planes] + [scales.data_ptr()] + extra_ptrs
+    stream = _build.stream_handle()
+    if m <= GEMV_MAX_M:
+        # multi-plane packs: one column per thread, 128 per block
+        splits = _gemv_splits(k, n, _sm_count(x2.device.index or 0), bands,
+                              128 if len(planes_of(qt.spec)) > 1 else 512)
+        partial = (torch.empty((splits, m, n), dtype=torch.float32,
+                               device=x2.device) if splits > 1 else out)
+        fn = _build.kernels.fn(lib, f"nst_{name}_gemv", len(ptrs) + 3,
+                               6 + len(extra_ints))
+        code = fn(x2.data_ptr(), *ptrs, partial.data_ptr(), out.data_ptr(),
+                  m, k, n, g, splits, s_bf16, *extra_ints, stream)
+    else:
+        xk = _band_major(x2, bands)
+        fn = _build.kernels.fn(lib, f"nst_{name}_gemm", len(ptrs) + 2,
+                               5 + len(extra_ints))
+        code = fn(xk.data_ptr(), *ptrs, out.data_ptr(), m, k, n, g, s_bf16,
+                  *extra_ints, stream)
+    _build.check(code, name)
+    _build.launches[name] += 1
+    return out
+
+
+def _fp_checks(letter: str, x2: torch.Tensor, qt: QTensor, out_dtype,
+               tensors) -> None:
+    ok = (kernel_for(qt) == letter and _planes_ok(qt) and _fp_shape_ok(qt)
+          and x2.dtype == torch.bfloat16 and out_dtype == torch.bfloat16
+          and x2.shape[1] == qt.shape[0] and _cuda_ok(x2, *tensors))
+    if not ok:
+        raise ValueError(
+            f"kernel {letter} takes contiguous, 16-byte aligned CUDA "
+            f"tensors: bf16 x [M, K], bf16 or float32 scales, g % 8 == 0, "
+            f"K a multiple of the pack period x g, N % 8 == 0, and writes "
+            f"bf16; got x {x2.dtype} {tuple(x2.shape)} on {x2.device}, out "
+            f"{out_dtype}, pack {_describe(qt)} on {qt.data[0].device}")
+
+
+def qmatmul_lut_cuda(x2: torch.Tensor, qt: QTensor,
+                     out_dtype=None) -> torch.Tensor:
+    """Kernel F on `x2 [M, K]` bf16: NF4 / FP4 codes through the 16-entry
+    table, a kernel argument cached per (table, device); output bf16."""
+    out_dtype = out_dtype or x2.dtype
+    scales = _kernel_scales(qt)
+    _fp_checks("F", x2, qt, out_dtype, (*qt.data, scales))
+    table = lut_values(qt.spec, torch.float32, x2.device)
+    return _fp_launch("qmatmul_lut", "qmatmul_lut", x2, qt, qt.data,
+                      [table.data_ptr()], [])
+
+
+def qmatmul_planar_cuda(x2: torch.Tensor, qt: QTensor,
+                        out_dtype=None) -> torch.Tensor:
+    """Kernel P on `x2 [M, K]` bf16: odd-width planes, FP8 rows, float
+    offsets; output bf16."""
+    out_dtype = out_dtype or x2.dtype
+    scales = _kernel_scales(qt)
+    zeros = qt.zeros
+    if zeros is not None and zeros.dtype not in (torch.uint8, torch.float32):
+        zeros = zeros.float().contiguous()
+    _fp_checks("P", x2, qt, out_dtype,
+               (*qt.data, scales) + (() if zeros is None else (zeros,)))
+    spec = qt.spec
+    if zeros is None:
+        zmode = "none" if spec.is_fp8 else "sym"
+    else:
+        zmode = "float" if zeros.is_floating_point() else "int"
+    # one library per format: csrc/qmatmul_planar_<format>.cu
+    fmt = _FMT_FP8[spec.qtype] if spec.is_fp8 else f"int{spec.bits}"
+    planes = list(qt.data) + [qt.data[0]] * (3 - len(qt.data))
+    return _fp_launch("qmatmul_planar", f"qmatmul_planar_{fmt}", x2, qt,
+                      planes, [0 if zeros is None else zeros.data_ptr()],
+                      [_ZMODES[zmode]])
+
+
+_QMATMUL_KERNELS = {"A": qmatmul_cuda, "F": qmatmul_lut_cuda,
+                    "P": qmatmul_planar_cuda}
+
+
 def qmatmul(x: torch.Tensor, qt: QTensor, out_dtype=None) -> torch.Tensor:
     """Quantized matmul `x @ dequant(qt)`: `[..., K] -> [..., N]`.  A K-padded
     pack (`quantize.repad_k`) gets its activations zero-padded."""
@@ -128,5 +335,175 @@ def qmatmul(x: torch.Tensor, qt: QTensor, out_dtype=None) -> torch.Tensor:
         _build.plain_dispatches["qmatmul"] += 1
         out = qmatmul_plain(x2, qt, out_dtype)
     else:
-        out = qmatmul_cuda(x2, qt, out_dtype)
+        launch = _QMATMUL_KERNELS.get(kernel_for(qt))
+        if launch is None:
+            raise ValueError(
+                f"no CUDA kernel takes this pack yet: {_describe(qt)}; "
+                f"kernel A takes int4 / symmetric / bf16 scales, F takes "
+                f"NF4 / FP4, P takes INT 3/5/6/7, FP8 and float offsets")
+        out = launch(x2, qt, out_dtype)
     return out.reshape(*lead, qt.shape[1])
+
+
+# ---------------------------------------------------------------------------
+# int8 compute: dynamic int8 activations x int weights, int32 accumulation
+# ---------------------------------------------------------------------------
+
+
+def _act_quant(xf: torch.Tensor, g: int):
+    """Per-token, per-group symmetric int8 activation quantization:
+    `[M, K]` float32 -> (int8 `[M, K]`, float32 scales `[M, K/g]`); g >= K
+    gives one scale per token.  Divisions are by tensors (IEEE on the card
+    too)."""
+    m, k = xf.shape
+    g = min(g, k)
+    xg = xf.reshape(m, k // g, g)
+    amax = xg.abs().amax(dim=-1).clamp_min(1e-8)
+    ascale = amax / amax.new_full((), 127.0)
+    xq = torch.clamp(torch.round(xg / ascale[..., None]), -127, 127).to(
+        torch.int8).reshape(m, k)
+    return xq, ascale
+
+
+def int8_kernel_for(qt: QTensor) -> str:
+    """"G" (one plane, widths 4 and 8), "H" (planes of 2/3/5/6/7) or "" when
+    `qmatmul_int8` hands the pack to `qmatmul`: non-INT packs, float
+    offsets, 8-bit asymmetric (code - zero point overflows int8) and 1-bit
+    (values are 2 * code - 1, not code - offset)."""
+    spec = qt.spec
+    if (spec.qtype != QType.INT or _float_zeros(qt) or spec.bits == 1
+            or (spec.bits == 8 and qt.zeros is not None)):
+        return ""
+    return "G" if spec.bits in (4, 8) else "H"
+
+
+def qmatmul_int8_plain(xq: torch.Tensor, ascale: Optional[torch.Tensor],
+                       qt: QTensor) -> torch.Tensor:
+    """Plain version of kernels G and H: per K group, the integer product of
+    `xq [M, K]` int8 with `code - zero point` (or `code - offset`), rescaled
+    in float32 by `ascale[m, g] * wscale[g, n]` and summed over the groups
+    in order.  `ascale=None` (one scale per token) leaves the activation
+    scale to the caller.  The integer partials are exact: they are taken in
+    float32 where every partial sum stays below 2**24, else in float64."""
+    spec = qt.spec
+    k, n = qt.shape
+    g = spec.effective_group(k)
+    m = xq.shape[0]
+    codes = unpack_codes(qt.data, spec.bits, k, qt.k_shards).to(torch.int32)
+    if qt.zeros is None:
+        wvals = codes - spec.code_offset
+    else:
+        wvals = codes - torch.repeat_interleave(qt.zeros.to(torch.int32), g,
+                                                dim=0)
+    idt = torch.float32 if g * 127 * 255 < 2 ** 24 else torch.float64
+    wv = wvals.to(idt).reshape(k // g, g, n)
+    xg = xq.to(idt).reshape(m, k // g, g).transpose(0, 1).contiguous()
+    wscale = qt.effective_scales(torch.float32)
+    out = torch.zeros((m, n), dtype=torch.float32, device=xq.device)
+    for gi in range(k // g):
+        d = (xg[gi] @ wv[gi]).float()
+        if ascale is None:
+            out.addcmul_(d, wscale[gi][None, :])
+        else:
+            out.addcmul_(d, wscale[gi][None, :] * ascale[:, gi, None])
+    return out
+
+
+def _chunk_rows(g: int, kw: int) -> int:
+    """Rows of one K chunk of kernels G and H: the largest multiple of 8, at
+    most 128, that divides both the group and a band's rows, so a chunk
+    lies inside one group.  0 when there is none."""
+    import math
+
+    common = math.gcd(g, kw)
+    for rows in range(128, 0, -8):
+        if common % rows == 0:
+            return rows
+    return 0
+
+
+def qmatmul_int8_cuda(xq: torch.Tensor, ascale: Optional[torch.Tensor],
+                      qt: QTensor) -> torch.Tensor:
+    """Kernel G or H on `xq [M, K]` int8 with `ascale [M, K/g]` float32 (or
+    None: per token); output float32 `[M, N]`."""
+    spec = qt.spec
+    letter = int8_kernel_for(qt)
+    m, k = xq.shape
+    n = qt.shape[1]
+    g = spec.effective_group(k)
+    groups = max(k // max(g, 1), 1)
+    scales = _kernel_scales(qt)
+    widths = plane_widths(spec.bits) if letter else ()
+    chunks = [_chunk_rows(g, k * w // 32 if w < 8 else k) for w in widths]
+    tensors = (xq, *qt.data, scales) + tuple(
+        t for t in (ascale, qt.zeros) if t is not None)
+    ok = (letter and _planes_ok(qt) and qt.k_shards == 1
+          and xq.dtype == torch.int8 and k == qt.shape[0] and n % 8 == 0
+          and g % 8 == 0 and k % g == 0 and all(chunks)
+          and scales.shape == (groups, n)
+          and (qt.zeros is None or (qt.zeros.dtype == torch.uint8
+                                    and qt.zeros.shape == (groups, n)))
+          and (ascale is None or (ascale.dtype == torch.float32
+                                  and ascale.shape == (m, groups)))
+          and _cuda_ok(*tensors))
+    if not ok:
+        raise ValueError(
+            f"kernels G and H take contiguous, 16-byte aligned CUDA tensors: "
+            f"int8 x [M, K], float32 activation scales [M, K/g], an INT "
+            f"2..8 pack with no or uint8 zero points (8-bit: symmetric), "
+            f"g % 8 == 0 dividing K and the bands, N % 8 == 0; got x "
+            f"{xq.dtype} {tuple(xq.shape)} on {xq.device}, pack "
+            f"{_describe(qt)} on {qt.data[0].device}")
+    name = "qmatmul_int8" if letter == "G" else "qmatmul_int8_planar"
+    out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
+    planes = list(qt.data) + [qt.data[0]] * (3 - len(qt.data))
+    chunks += [0] * (3 - len(chunks))
+    route, splits, partial = "gemm", 1, out
+    if m <= GEMV_MAX_M:
+        # N / 128 column blocks x M / 8 row groups: split the word rows of
+        # every plane so that about eight blocks land on each SM
+        route = "gemv"
+        blocks = -(-n // 128) * -(-m // 8)
+        most = min(k * w // 32 if w < 8 else k for w in widths) // 8
+        splits = max(1, min(-(-8 * _sm_count(xq.device.index or 0) // blocks),
+                            most, 64))
+        if splits > 1:
+            partial = torch.empty((splits, m, n), dtype=torch.float32,
+                                  device=xq.device)
+    fn = _build.kernels.fn(name, f"nst_{name}_{route}", 9, 10)
+    code = fn(xq.data_ptr(), 0 if ascale is None else ascale.data_ptr(),
+              *(p.data_ptr() for p in planes), scales.data_ptr(),
+              0 if qt.zeros is None else qt.zeros.data_ptr(), out.data_ptr(),
+              partial.data_ptr(), m, k, n, g, spec.bits, *chunks,
+              int(scales.dtype == torch.bfloat16), splits,
+              _build.stream_handle())
+    _build.check(code, name)
+    _build.launches[name] += 1
+    return out
+
+
+def qmatmul_int8(x: torch.Tensor, qt: QTensor, out_dtype=None,
+                 per_token: bool = False) -> torch.Tensor:
+    """int8 compute: dynamic per-token int8 activation quantization (one
+    scale per K group, or per token with `per_token`), then an int8 x
+    int-weight product accumulated in int32 per group and rescaled in
+    float32.  Packs the integer kernels do not take (`int8_kernel_for`) go
+    to `qmatmul`."""
+    if not int8_kernel_for(qt):
+        return qmatmul(x, qt, out_dtype)
+    out_dtype = out_dtype or x.dtype
+    k, n = qt.shape
+    g = qt.spec.effective_group(k)
+    lead = x.shape[:-1]
+    if x.shape[-1] != k:  # K-padded pack
+        x = torch.nn.functional.pad(x, (0, k - x.shape[-1]))
+    xq, ascale = _act_quant(x.reshape(-1, k).float(), k if per_token else g)
+    grouped = None if per_token else ascale
+    if xq.device.type == "cpu":
+        _build.plain_dispatches["qmatmul_int8"] += 1
+        out = qmatmul_int8_plain(xq, grouped, qt)
+    else:
+        out = qmatmul_int8_cuda(xq, grouped, qt)
+    if per_token:
+        out = out * ascale
+    return out.reshape(*lead, n).to(out_dtype)

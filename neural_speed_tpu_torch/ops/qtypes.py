@@ -117,3 +117,25 @@ def plane_widths(bits: int) -> tuple[int, ...]:
             out.append(w)
             bits -= w
     return tuple(out)
+
+
+def named_qspec(name: str, group_size: int = 128, symmetric: bool = True,
+                scale_dtype: str = "float32",
+                double_quant: bool = False) -> QSpec:
+    """Build a QSpec from a user-facing dtype string (int1..int8, nf4, fp4,
+    fp8 / fp8_e4m3, fp8_e5m2)."""
+    name = name.lower()
+    if name.startswith("int"):
+        return QSpec(QType.INT, int(name[3:]), group_size, symmetric,
+                     scale_dtype, double_quant)
+    if name == "nf4":
+        return QSpec(QType.NF4, 4, group_size, True, scale_dtype, double_quant)
+    if name in ("fp4", "fp4_e2m1"):
+        return QSpec(QType.FP4, 4, group_size, True, scale_dtype, double_quant)
+    if name in ("fp8", "fp8_e4m3"):
+        return QSpec(QType.FP8_E4M3, 8, group_size, True, scale_dtype,
+                     double_quant)
+    if name == "fp8_e5m2":
+        return QSpec(QType.FP8_E5M2, 8, group_size, True, scale_dtype,
+                     double_quant)
+    raise ValueError(f"unknown quant dtype {name!r}")

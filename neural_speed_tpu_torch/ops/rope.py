@@ -7,6 +7,7 @@ batching mixes sequences at unrelated offsets.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -38,11 +39,20 @@ def rope_inv_freq(rot_dim: int, base: float = 10000.0,
                   scaling: Optional[RopeScaling] = None,
                   seq_len: Optional[int] = None,
                   device=None) -> Tuple[torch.Tensor, float]:
-    """Per-dim inverse frequencies (float32) + attention magnitude scale."""
+    """Per-dim inverse frequencies (float32) + attention magnitude scale.
+    Cached per arguments and device (`forward` asks once per step): the
+    returned tensor is shared, so callers must not write to it."""
+    return _rope_inv_freq(rot_dim, float(base), scaling, seq_len,
+                          str(torch.device(device or "cpu")))
+
+
+@functools.lru_cache(maxsize=64)
+def _rope_inv_freq(rot_dim: int, base: float, scaling: Optional[RopeScaling],
+                   seq_len: Optional[int],
+                   device: str) -> Tuple[torch.Tensor, float]:
     half = rot_dim // 2
     exponents = torch.arange(0, half, dtype=torch.float32, device=device) / half
-    inv = 1.0 / (torch.tensor(base, dtype=torch.float32, device=device)
-                 ** exponents)
+    inv = 1.0 / (exponents.new_full((), base) ** exponents)
     s = scaling
     if s is None or s.kind == "none":
         return inv, 1.0
@@ -50,8 +60,7 @@ def rope_inv_freq(rot_dim: int, base: float = 10000.0,
         return inv / s.factor, 1.0
     if s.kind == "ntk":
         base2 = base * (s.factor ** (rot_dim / (rot_dim - 2)))
-        return 1.0 / (torch.tensor(base2, dtype=torch.float32,
-                                   device=device) ** exponents), 1.0
+        return 1.0 / (exponents.new_full((), base2) ** exponents), 1.0
     if s.kind == "yarn":
         lo = _yarn_find_correction_dim(s.beta_fast, rot_dim, base,
                                        s.original_max_position)

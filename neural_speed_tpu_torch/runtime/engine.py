@@ -10,13 +10,15 @@ Python loop that keeps the argmax on the device.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from .._build import resolve_device
 from ..models.arch import ArchConfig
-from ..models.transformer import forward, fuse_params, kv_append_mode
+from ..models.transformer import (COMP_MODES, forward, fuse_params,
+                                  kv_append_mode)
 from ..ops import kv_cache as kvc
 
 
@@ -34,7 +36,7 @@ DEFAULT_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096)
 @torch.inference_mode()
 def prefill_step(params: Dict[str, Any], cfg: ArchConfig, cache: kvc.KVCache,
                  token_ids: torch.Tensor, lengths: torch.Tensor,
-                 start_pos: torch.Tensor
+                 start_pos: torch.Tensor, comp: Optional[str] = None
                  ) -> Tuple[torch.Tensor, kvc.KVCache]:
     """Evaluate a padded prompt chunk `[B, T]`; returns float32 logits at the
     last real token of each row `[B, vocab]` and the cache (written in
@@ -50,21 +52,22 @@ def prefill_step(params: Dict[str, Any], cfg: ArchConfig, cache: kvc.KVCache,
     kv_lens = torch.where(active, start_pos + lengths, cache.lengths)
     last = (lengths - 1).clamp(0, t - 1)
     logits, cache = forward(params, cfg, token_ids, pos, cache, kv_lens,
-                            logits_positions=last[:, None])
+                            logits_positions=last[:, None], comp=comp)
     kvc.set_lengths(cache, kv_lens)
     return logits[:, 0], cache
 
 
 @torch.inference_mode()
 def decode_step(params: Dict[str, Any], cfg: ArchConfig, cache: kvc.KVCache,
-                tokens: torch.Tensor, active: torch.Tensor
+                tokens: torch.Tensor, active: torch.Tensor,
+                comp: Optional[str] = None
                 ) -> Tuple[torch.Tensor, kvc.KVCache]:
     """One decode token for every active slot; logits `[B, vocab]`."""
     lens = cache.lengths
     pos = torch.where(active, lens, torch.full_like(lens, cache.max_len - 1))
     kv_lens = lens + active.to(torch.int32)
     logits, cache = forward(params, cfg, tokens[:, None], pos[:, None], cache,
-                            kv_lens)
+                            kv_lens, comp=comp)
     kvc.set_lengths(cache, kv_lens)
     return logits[:, 0], cache
 
@@ -72,13 +75,14 @@ def decode_step(params: Dict[str, Any], cfg: ArchConfig, cache: kvc.KVCache,
 @torch.inference_mode()
 def decode_n_steps(params: Dict[str, Any], cfg: ArchConfig,
                    cache: kvc.KVCache, tokens: torch.Tensor,
-                   active: torch.Tensor, n_steps: int
+                   active: torch.Tensor, n_steps: int,
+                   comp: Optional[str] = None
                    ) -> Tuple[torch.Tensor, kvc.KVCache]:
     """Greedy-decode `n_steps` tokens; the argmax stays on the device.
     Returns ids `[B, n_steps]`."""
     toks = []
     for _ in range(n_steps):
-        logits, cache = decode_step(params, cfg, cache, tokens, active)
+        logits, cache = decode_step(params, cfg, cache, tokens, active, comp)
         tokens = torch.argmax(logits, dim=-1).to(torch.int32)
         toks.append(tokens)
     return torch.stack(toks, dim=1), cache
@@ -95,13 +99,23 @@ def _to_device(node, dev):
 class Engine:
     """Owns params and the KV cache for one model instance, on `device` (the
     card unless the CPU is asked for).  The cache is always the int8 one with
-    bf16 scales (the JAX Engine's `kv_quantized=True`)."""
+    bf16 scales (the JAX Engine's `kv_quantized=True`).
+
+    `comp` selects int8 compute for steps of at least 32 rows: None, "int8"
+    (activation scales per token and K group) or "int8t" (per token).  The
+    default "env" reads `NST_COMP` once, here, as the JAX package's switch."""
 
     def __init__(self, params: Dict[str, Any], cfg: ArchConfig,
                  max_batch: int = 1, max_len: int = 2048,
                  buckets: Tuple[int, ...] = DEFAULT_BUCKETS,
-                 fuse: bool = True, device=None):
+                 fuse: bool = True, device=None, comp: Optional[str] = "env"):
         self.device = resolve_device(device)
+        if comp == "env":
+            comp = os.environ.get("NST_COMP")
+            comp = comp if comp in ("int8", "int8t") else None
+        if comp not in COMP_MODES:
+            raise ValueError(f"comp must be one of {COMP_MODES}, got {comp!r}")
+        self.comp = comp
         params = _to_device(params, self.device)
         if fuse:
             params = fuse_params(params, cfg)
@@ -138,14 +152,14 @@ class Engine:
         kvc.set_lengths(self.cache, zeros)
         logits, self.cache = prefill_step(
             self.params, self.cfg, self.cache, ids.to(self.device),
-            lens.to(self.device), zeros)
+            lens.to(self.device), zeros, self.comp)
         return logits
 
     def decode(self, tokens: torch.Tensor, active: torch.Tensor
                ) -> torch.Tensor:
         logits, self.cache = decode_step(self.params, self.cfg, self.cache,
                                          tokens.to(self.device),
-                                         active.to(self.device))
+                                         active.to(self.device), self.comp)
         return logits
 
     def generate_greedy(self, prompt: List[int], max_new_tokens: int,

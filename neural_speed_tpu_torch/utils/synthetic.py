@@ -1,7 +1,8 @@
 """Synthetic quantized models (port of `neural_speed_tpu/utils/synthetic.py`).
 
-Random packed bits are valid int4 planes, so a Llama-2-7B-shaped model is
-drawn directly on the target device with a seeded `torch.Generator`: nothing
+Random packed bits are valid planes of every family (INT planes, NF4/FP4
+codes, INT8 bytes; FP8 bytes come from a cast random normal), so a
+Llama-2-7B-shaped model is drawn directly on the target device with a seeded `torch.Generator`: nothing
 is quantized and nothing is drawn on the host.  The draws differ from the
 JAX package's `jax.random` streams; tests carry the JAX parameters across
 with `models.params.params_from_numpy` instead.
@@ -23,19 +24,34 @@ _SCALE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def synth_qtensor(gen: torch.Generator, k: int, n: int, spec: QSpec,
                   scale: float = 0.02) -> QTensor:
-    """Random symmetric INT pack `[K, N]` on `gen`'s device: uniform plane
-    words, group scales uniform in [0.5, 1.5) * scale."""
-    if spec.qtype != QType.INT or spec.bits == 8 or not spec.symmetric:
-        raise NotImplementedError("only symmetric INT planes are ported")
+    """Random pack `[K, N]` of any family on `gen`'s device: uniform plane
+    words (INT widths below 8, NF4/FP4), uniform bytes (INT8), a random
+    normal cast to the fp8 type (FP8, so no NaN/inf code is drawn); group
+    scales uniform in [0.5, 1.5) * scale; uniform uint8 zero points for
+    asymmetric specs."""
     dev = gen.device
     g = spec.effective_group(k)
-    data = tuple(
-        torch.randint(-2 ** 31, 2 ** 31, (k * w // 32, n), generator=gen,
-                      device=dev, dtype=torch.int32)
-        for w in plane_widths(spec.bits))
+    if spec.qtype == QType.INT and spec.bits == 8:
+        data = (torch.randint(0, 256, (k, n), generator=gen, device=dev,
+                              dtype=torch.uint8),)
+    elif spec.is_fp8:
+        dt = (torch.float8_e4m3fn if spec.qtype == QType.FP8_E4M3
+              else torch.float8_e5m2)
+        data = (torch.randn((k, n), generator=gen, device=dev).to(dt).view(
+            torch.uint8),)
+    else:
+        bits = 4 if spec.is_lut else spec.bits
+        data = tuple(
+            torch.randint(-2 ** 31, 2 ** 31, (k * w // 32, n), generator=gen,
+                          device=dev, dtype=torch.int32)
+            for w in plane_widths(bits))
     scales = ((torch.rand((k // g, n), generator=gen, device=dev) + 0.5)
               * scale).to(_SCALE_DTYPES[spec.scale_dtype])
-    return QTensor(data, scales, None, None, spec, (k, n))
+    zeros = None
+    if spec.qtype == QType.INT and not spec.symmetric:
+        zeros = torch.randint(0, 2 ** spec.bits, (k // g, n), generator=gen,
+                              device=dev, dtype=torch.uint8)
+    return QTensor(data, scales, zeros, None, spec, (k, n))
 
 
 def synth_params(cfg: ArchConfig, spec: QSpec, seed: int = 0,

@@ -82,6 +82,27 @@ def test_engine_without_device_raises_without_a_card(monkeypatch):
                      n_heads=2, n_kv_heads=2, intermediate_size=128)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine({}, cfg)
+    for comp in (None, "int8", "int8t"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Engine({}, cfg, comp=comp)
+        assert Engine({"layers": []}, cfg, device="cpu", comp=comp).comp == comp
+    with pytest.raises(ValueError, match="comp must be one of"):
+        Engine({"layers": []}, cfg, device="cpu", comp="int4")
+
+
+def test_engine_comp_default_reads_the_environment_once(monkeypatch):
+    from neural_speed_tpu_torch.models.arch import ArchConfig
+    from neural_speed_tpu_torch.runtime.engine import Engine
+
+    cfg = ArchConfig(name="llama", vocab_size=64, hidden_size=64, n_layers=1,
+                     n_heads=2, n_kv_heads=2, intermediate_size=128)
+    monkeypatch.setenv("NST_COMP", "int8t")
+    eng = Engine({"layers": []}, cfg, device="cpu")
+    monkeypatch.setenv("NST_COMP", "int8")
+    assert eng.comp == "int8t"             # pinned at construction
+    assert Engine({"layers": []}, cfg, device="cpu", comp=None).comp is None
+    monkeypatch.delenv("NST_COMP")
+    assert Engine({"layers": []}, cfg, device="cpu").comp is None
 
 
 def test_other_entry_points_raise_without_a_card(monkeypatch):
@@ -90,7 +111,7 @@ def test_other_entry_points_raise_without_a_card(monkeypatch):
     from neural_speed_tpu_torch.models.arch import ArchConfig
     from neural_speed_tpu_torch.models.params import params_from_numpy
     from neural_speed_tpu_torch.ops.kv_cache import init_cache
-    from neural_speed_tpu_torch.ops.qtypes import QSpec
+    from neural_speed_tpu_torch.ops.qtypes import QSpec, named_qspec
     from neural_speed_tpu_torch.utils.synthetic import synth_params
 
     _no_card(monkeypatch)
@@ -98,12 +119,23 @@ def test_other_entry_points_raise_without_a_card(monkeypatch):
                      n_heads=2, n_kv_heads=2, intermediate_size=128)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         synth_params(cfg, QSpec())
+    for name in ("nf4", "int5", "fp8_e4m3", "int8"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            synth_params(cfg, named_qspec(name, 32))
+        p = synth_params(cfg, named_qspec(name, 32), device="cpu")
+        assert p["lm_head"]["w"].data[0].device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_cache(1, 1, 128, 2, 32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_numpy({"w": np.zeros((2,), np.float32)})
     # asking for the CPU is always allowed
     assert init_cache(1, 1, 128, 2, 32, device="cpu").k.device.type == "cpu"
+
+
+def test_convert_subpackage_falls_under_the_import_checks():
+    assert "neural_speed_tpu_torch.convert.quant_config" in _modules()
+    assert any(p.endswith("convert/quant_config.py") for p in (
+        str(q.relative_to(REPO)) for q in PKG.rglob("*.py")))
 
 
 def test_chip_smoke_refuses_without_a_card():

@@ -3,7 +3,7 @@
 They turn JAX pytrees (params with `QTensor` leaves, `KVCache`s) into the
 numpy trees that `neural_speed_tpu_torch.models.params.params_from_numpy`
 takes, with its dtype conventions: bfloat16 as uint16 bit patterns, uint32
-plane words as int32 views.
+plane words as int32 views, fp8 rows as their uint8 bit patterns.
 """
 
 from __future__ import annotations
@@ -17,10 +17,13 @@ import jax.numpy as jnp
 
 
 def to_numpy(a) -> np.ndarray:
-    """A JAX / numpy array as numpy, bf16 as uint16 bits, uint32 as int32."""
+    """A JAX / numpy array as numpy, bf16 as uint16 bits, uint32 as int32,
+    fp8 as uint8 bits."""
     a = np.asarray(a)
     if a.dtype == jnp.bfloat16:
         return a.view(np.uint16)
+    if a.dtype in (jnp.float8_e4m3fn, jnp.float8_e5m2):
+        return a.view(np.uint8)
     if a.dtype == np.uint32:
         return a.view(np.int32)
     return a
@@ -77,3 +80,33 @@ def assert_cache_equal(jax_cache, port_cache) -> None:
         np.testing.assert_array_equal(got, want, err_msg=name)
     np.testing.assert_array_equal(torch_to_numpy(port_cache.lengths),
                                   np.asarray(jax_cache.lengths))
+
+
+def port_qtensor(jqt):
+    """A JAX `QTensor` carried across to the port, on the CPU."""
+    from neural_speed_tpu_torch.models.params import params_from_numpy
+
+    return params_from_numpy({"w": tree_to_numpy(jqt)}, device="cpu")["w"]
+
+
+def assert_qtensor_equal(jqt, tqt) -> None:
+    """Planes, scales, zeros, sscale (bit for bit), spec fields, shape and
+    k_shards of a JAX `QTensor` and a port `QTensor`."""
+    assert tuple(tqt.shape) == tuple(jqt.shape)
+    assert tqt.k_shards == jqt.k_shards
+    want_spec = dataclasses.asdict(jqt.spec)
+    want_spec["qtype"] = jqt.spec.qtype.value
+    got_spec = dataclasses.asdict(tqt.spec)
+    got_spec["qtype"] = tqt.spec.qtype.value
+    assert got_spec == want_spec
+    assert len(tqt.data) == len(jqt.data)
+    for i, (g, w) in enumerate(zip(tqt.data, jqt.data)):
+        np.testing.assert_array_equal(torch_to_numpy(g), to_numpy(w),
+                                      err_msg=f"plane {i}")
+    for name in ("scales", "zeros", "sscale"):
+        g, w = getattr(tqt, name), getattr(jqt, name)
+        assert (g is None) == (w is None), name
+        if g is not None:
+            got, want = torch_to_numpy(g), to_numpy(w)
+            assert got.dtype == want.dtype, name
+            np.testing.assert_array_equal(got, want, err_msg=name)
