@@ -15,10 +15,14 @@ Phases, each raising on failure so the run exits non-zero:
 2. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, with the stated tolerance, and time kernel, plain
    version and a library yardstick (CUDA events around each call, cold L2,
-   host time excluded: see `time_ms`);
+   host time excluded: see `time_ms`).  The paged attention kernels run
+   over a shuffled page table, at page sizes 128 and 16, and must also
+   equal the contiguous kernels over the gathered layer bit for bit;
 3. a tiny model through `Engine` on the card against the same model on the
    CPU (plain versions), once in int4 and once per configuration of phase
-   5: logits within tolerance, identical greedy ids at every step;
+   5: logits within tolerance, identical greedy ids at every step; then a
+   tiny `PagedEngine` the same way, through a release and a refill into
+   fragmented pages;
 4. the main path: a Llama-2-7B-shaped int4 model (full width and depth,
    random weights from a seed, drawn on the card) serves 4 ragged requests,
    then the bench shape (B = 1, a 1975-token prefill, 64 greedy steps); every
@@ -29,7 +33,15 @@ Phases, each raising on failure so the run exits non-zero:
    nf4, asymmetric int5, fp8_e4m3, and int4 / int3 with int8 compute
    (`Engine(comp="int8")`), each serving B = 1, a 1975-token prefill and 32
    greedy steps; the expected matmul kernels (and only they) must have
-   launched at prefill and at decode, and no plain version may run.
+   launched at prefill and at decode, and no plain version may run;
+6. the phase-4 model (the same params) through `PagedEngine` at page size
+   128: (a) the 4 ragged requests on a 40-page pool, every logit equal to
+   phase 4's bit for bit and the pool returned in full after
+   `release_slot`; (b) the bench shape (TTFT, ms/token, launches); (c) the
+   ragged requests through 8-step decode windows as a scheduler drives
+   them, greedy (ids equal to (a)) and sampled with the default
+   `SamplingParams`.  Both paged kernels must launch, neither contiguous
+   attention kernel, and no plain version.
 
 It prints a `kernels` JSON line, then as its last line
 `{"ok": true, "device": {...}}`.  It imports nothing of JAX.
@@ -646,6 +658,181 @@ def check_flash_prefill(chk: Checks, gen: torch.Generator) -> None:
         torch.cuda.empty_cache()
 
 
+def _random_pool(gen, layers, b, hkv, s, d, ps):
+    """A page pool of random codes and scales for `b` slots of `s` rows,
+    with a shuffled table: a random permutation of every page but the
+    trash page (the last), so a fault in the page indexing cannot hide
+    behind an identity-like table."""
+    from neural_speed_tpu_torch.ops.paged_kv import PagedKVCache
+
+    nb = s // ps
+    n_pages = b * nb + 1
+    codes = lambda: torch.randint(-127, 128, (layers, hkv, n_pages, ps, d),
+                                  generator=gen, device="cuda",
+                                  dtype=torch.int8)
+    scales = lambda: ((torch.rand((layers, hkv, n_pages, 1, ps),
+                                  generator=gen, device="cuda") + 0.5) * 0.02
+                      ).to(torch.bfloat16)
+    tables = torch.randperm(n_pages - 1, generator=gen, device="cuda")
+    return PagedKVCache(codes(), codes(), scales(), scales(),
+                        tables.reshape(b, nb).to(torch.int32),
+                        torch.zeros((b,), dtype=torch.int32, device="cuda"))
+
+
+def _clone_pool(c):
+    import dataclasses
+
+    return dataclasses.replace(c, **{n: getattr(c, n).clone() for n in (
+        "k_pages", "v_pages", "k_scale", "v_scale")})
+
+
+def _gathered(pool, layer):
+    """The layer in the contiguous cache's layout, as layer 0 of a stacked
+    cache: codes [1, B, H, S, D], scales [1, B, H, S]."""
+    from neural_speed_tpu_torch.ops.paged_kv import gather_layer_codes
+
+    return [a[None].contiguous() for a in gather_layer_codes(
+        pool.k_pages, pool.v_pages, pool.k_scale, pool.v_scale,
+        pool.page_tables, layer)]
+
+
+def check_flash_decode_paged(chk: Checks, gen: torch.Generator) -> None:
+    """The paged decode kernel at kernel B's shapes over a shuffled pool,
+    at page size 128 (the main path's) and 16."""
+    from neural_speed_tpu_torch.ops import flash
+    from neural_speed_tpu_torch.ops.paged_kv import gathered_layer
+
+    b, h, hkv, d, s, layer = 4, 32, 32, 128, 2048, 1
+    kv_lens = torch.tensor([1976, 1500, 37, 900], dtype=torch.int32,
+                           device="cuda")
+    pos = torch.tensor([1975, 1499, 36, s - 1], dtype=torch.int32,
+                       device="cuda")
+    scale = 1.0 / math.sqrt(d)
+    for ps in (128, 16):
+        q = (torch.randn((b, 1, h, d), generator=gen, device="cuda")
+             ).to(torch.bfloat16)
+        kn, vn = ((torch.randn((b, 1, hkv, d), generator=gen, device="cuda")
+                   ).to(torch.bfloat16) for _ in range(2))
+        pool = _random_pool(gen, 2, b, hkv, s, d, ps)
+        ck = _gathered(pool, layer)
+        pk, pp = _clone_pool(pool), _clone_pool(pool)
+        args = lambda c, fused=True: (
+            q, kn, vn, c.k_pages, c.v_pages, c.k_scale, c.v_scale,
+            c.page_tables, layer, pos, kv_lens, scale, fused, torch.bfloat16)
+        # the contiguous kernel over the gathered layer, no append: the
+        # paged kernel must give its outputs bit for bit
+        same = torch.equal(
+            flash.decode_paged_cuda(*args(pool, False)),
+            flash.decode_cuda(q, kn, vn, *ck, 0, pos, kv_lens, scale, False,
+                              torch.bfloat16))
+        got = flash.decode_paged_cuda(*args(pk))
+        want = flash.decode_paged_plain(*args(pp))
+        torch.cuda.synchronize()
+        # as kernel B: within 4 bf16 ulps of the largest output of the row
+        cmp = compare(got, want, 4, per_row=True)
+        if not cmp["worst"] <= 1.0:
+            raise AssertionError(f"flash_decode_paged (page size {ps}): "
+                                 f"error beyond the tolerance ({cmp})")
+        if not same:
+            raise AssertionError(f"flash_decode_paged (page size {ps}) "
+                                 "differs from kernel B over the same rows")
+        n = pool.n_pages - 1                    # every page but the trash
+        for name in ("k_pages", "v_pages", "k_scale", "v_scale"):
+            a, c = getattr(pk, name)[:, :, :n], getattr(pp, name)[:, :, :n]
+            if not torch.equal(a, c):
+                bad = (a != c).nonzero()
+                raise AssertionError(
+                    f"flash_decode_paged (page size {ps}): pool {name} "
+                    f"differs from the plain version at {bad.shape[0]} "
+                    f"places, first {bad[:4].tolist()}")
+        changed = (pk.k_pages != pool.k_pages).any(-1).sum().item()
+        if changed != 3 * hkv:                  # one row per live slot, head
+            raise AssertionError(f"flash_decode_paged (page size {ps}) "
+                                 f"changed {changed} K rows, not {3 * hkv}")
+        ms = time_ms(lambda: flash.decode_paged_cuda(*args(pk)))
+        plain_ms = time_ms(lambda: flash.decode_paged_plain(*args(pp)),
+                           reps=3)
+        kd, vd = gathered_layer(pool, layer)
+        live = torch.arange(s, device="cuda")[None] < torch.where(
+            pos == kv_lens - 1, kv_lens - 1, kv_lens)[:, None]
+        qs = q.transpose(1, 2)
+        lib_ms = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qs, kd, vd, attn_mask=live[:, None, None, :]))
+        cols = live.sum().item()
+        nbytes = (cols * hkv * (2 * d + 4) + pool.page_tables.numel() * 4
+                  + 2 * b * h * d * 2 + 2 * b * hkv * d * 2
+                  + 3 * hkv * (2 * d + 4))
+        chk.add("flash_decode_paged", "cuda",
+                "neural_speed_tpu_torch/csrc/flash_decode.cu",
+                "neural_speed_tpu/ops/flash.py:1196",
+                f"B={b} H={h} S={s} page size {ps}, shuffled table, "
+                f"kv_len=1976/1500/37/900(spectator)", cmp, ms, plain_ms,
+                lib_ms, nbytes, 4.0 * cols * h * d, main=ps == 128)
+        del pool, pk, pp, ck, kd, vd
+        torch.cuda.empty_cache()
+
+
+def check_flash_prefill_paged(chk: Checks, gen: torch.Generator) -> None:
+    """The paged prefill kernel at kernel C's shapes over a shuffled pool:
+    the ragged batch and the bench shape at page size 128, the bench shape
+    at 16."""
+    from neural_speed_tpu_torch.ops import flash
+    from neural_speed_tpu_torch.ops.paged_kv import gathered_layer
+
+    t, h, hkv, d, s, layer = 2048, 32, 32, 128, 2048, 0
+    scale = 1.0 / math.sqrt(d)
+    for lens, ps in (([1975, 900, 300, 37], 128), ([1975], 128),
+                     ([1975], 16)):
+        b = len(lens)
+        pool = _random_pool(gen, 1, b, hkv, s, d, ps)
+        kv_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        ar = torch.arange(t, device="cuda", dtype=torch.int32)[None]
+        pos = torch.where(ar < kv_lens[:, None], ar,
+                          torch.full_like(ar, s - 1))
+        q = (torch.randn((b, t, h, d), generator=gen, device="cuda")
+             ).to(torch.bfloat16)
+        args = (q, pool.k_pages, pool.v_pages, pool.k_scale, pool.v_scale,
+                pool.page_tables, layer, pos, kv_lens, scale, torch.bfloat16)
+        got = flash.prefill_paged_cuda(*args)
+        same = torch.equal(got, flash.prefill_cuda(
+            q, *_gathered(pool, layer), 0, pos, kv_lens, scale,
+            torch.bfloat16))
+        want = flash.prefill_paged_plain(*args)
+        torch.cuda.synchronize()
+        # as kernel C: within 4 bf16 ulps of the largest output of the row
+        cmp = compare(got, want, 4, per_row=True)
+        if not cmp["worst"] <= 1.0:
+            raise AssertionError(f"flash_prefill_paged (page size {ps}): "
+                                 f"error beyond the tolerance ({cmp})")
+        if not same:
+            raise AssertionError(f"flash_prefill_paged (page size {ps}) "
+                                 "differs from kernel C over the same rows")
+        del got, want
+        torch.cuda.empty_cache()
+        ms = time_ms(lambda: flash.prefill_paged_cuda(*args))
+        plain_ms = time_ms(lambda: flash.prefill_paged_plain(*args), reps=3)
+        kd, vd = gathered_layer(pool, layer)
+        col = torch.arange(s, device="cuda")
+        mask = ((col[None, None] < kv_lens[:, None, None])
+                & (col[None, None] <= pos[:, :, None]))          # [B, T, S]
+        qs = q.transpose(1, 2)
+        lib_ms = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qs, kd, vd, attn_mask=mask[:, None]))
+        pairs = mask.sum().item()
+        nbytes = (2 * b * t * h * d * 2 + sum(lens) * hkv * (2 * d + 4)
+                  + pool.page_tables.numel() * 4)
+        chk.add("flash_prefill_paged", "cuda",
+                "neural_speed_tpu_torch/csrc/flash_prefill.cu",
+                "neural_speed_tpu/ops/flash.py:1111",
+                f"B={b} T={t} (real rows {'/'.join(map(str, lens))}) H={h} "
+                f"S={s} page size {ps}, shuffled table", cmp, ms, plain_ms,
+                lib_ms, nbytes, 4.0 * pairs * h * d, main=b == 1 and ps == 128)
+        del pool, q, kd, vd, mask
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phase 3: a tiny model on the card against the CPU
 # ---------------------------------------------------------------------------
@@ -684,41 +871,49 @@ TINY_SEEDS = {"int4": (15, 9), "nf4": (268, 9), "int5 asymmetric": (84, 5),
               "int3 + comp=int8": (1, 9)}
 
 
+TINY_CFG = dict(name="llama", vocab_size=512, hidden_size=512, n_layers=2,
+                n_heads=8, n_kv_heads=4, intermediate_size=1408,
+                max_position_embeddings=256)
+TINY_PROMPTS = [list(range(3, 40)), [7, 8, 9], list(range(100, 190))]
+
+
+def _hold_tiny(logits, active, what) -> torch.Tensor:
+    """Card logits against CPU logits of the active rows: within 2% of the
+    largest logit (a few bf16 ulps), with the CPU's top-2 margin above twice
+    that, and equal greedy ids.  Returns the CPU's ids."""
+    tol = 0.02 * logits["cpu"][active].abs().max().item()
+    diff = (logits["cuda"] - logits["cpu"])[active].abs().max().item()
+    if diff > tol:
+        raise AssertionError(f"{what}: logits differ by {diff} > {tol}")
+    top2 = logits["cpu"][active].topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).min().item()
+    if margin <= 2 * tol:
+        raise AssertionError(f"{what}: top-2 margin {margin} within twice "
+                             f"the tolerance {tol}")
+    ids = {dev: lg.argmax(-1) for dev, lg in logits.items()}
+    if not torch.equal(ids["cuda"][active], ids["cpu"][active]):
+        raise AssertionError(f"{what}: greedy ids differ")
+    return ids["cpu"].to(torch.int32)
+
+
 def check_tiny_model(label: str, spec, comp) -> None:
     from neural_speed_tpu_torch.models.arch import ArchConfig
     from neural_speed_tpu_torch.runtime.engine import Engine
     from neural_speed_tpu_torch.utils.synthetic import synth_params
 
     seed, checks = TINY_SEEDS[label]
-    cfg = ArchConfig(name="llama", vocab_size=512, hidden_size=512,
-                     n_layers=2, n_heads=8, n_kv_heads=4,
-                     intermediate_size=1408, max_position_embeddings=256)
+    cfg = ArchConfig(**TINY_CFG)
     params = synth_params(cfg, spec, seed=seed, device="cpu")
     eng = {dev: Engine(params, cfg, max_batch=3, max_len=256, device=dev,
                        comp=comp)
            for dev in ("cuda", "cpu")}
-    prompts = [list(range(3, 40)), [7, 8, 9], list(range(100, 190))]
-    logits = {dev: e.prefill(prompts).float().cpu() for dev, e in eng.items()}
+    logits = {dev: e.prefill(TINY_PROMPTS).float().cpu()
+              for dev, e in eng.items()}
     active = torch.tensor([True, False, True])
     for step in range(checks):
-        # bf16 logits: a few bf16 ulps (2**-8 relative) of the largest logit
-        tol = 0.02 * logits["cpu"][active].abs().max().item()
-        diff = (logits["cuda"] - logits["cpu"])[active].abs().max().item()
-        if diff > tol:
-            raise AssertionError(f"tiny model ({label}) step {step}: logits "
-                                 f"differ by {diff} > {tol}")
-        top2 = logits["cpu"][active].topk(2, dim=-1).values
-        margin = (top2[:, 0] - top2[:, 1]).min().item()
-        if margin <= 2 * tol:
-            raise AssertionError(f"tiny model ({label}, params seed {seed}) "
-                                 f"step {step}: top-2 margin {margin} within "
-                                 f"twice the tolerance {tol}")
-        ids = {dev: lg.argmax(-1) for dev, lg in logits.items()}
-        if not torch.equal(ids["cuda"][active], ids["cpu"][active]):
-            raise AssertionError(f"tiny model ({label}) step {step}: greedy "
-                                 "ids differ")
+        toks = _hold_tiny(logits, active, f"tiny model ({label}, params seed "
+                          f"{seed}) step {step}")
         if step < checks - 1:
-            toks = ids["cpu"].to(torch.int32)
             logits = {dev: e.decode(toks, active).float().cpu()
                       for dev, e in eng.items()}
     log(f"  tiny model ({label}, params seed {seed}): logits within 2% of the "
@@ -726,18 +921,85 @@ def check_tiny_model(label: str, spec, comp) -> None:
         f"{checks} steps (top-2 margin above twice that at each)")
 
 
+# The paged tiny model holds the int4 configuration's first 5 steps, then
+# refills slot 1 and holds 3 more steps of every slot: slots 0 and 2 stay
+# within the 9 steps whose margins TINY_SEEDS cleared, and the refill
+# prompt is one whose stream keeps clear margins (searched on the CPU).
+TINY_PAGED_STEPS = 5
+TINY_REFILL = [412, 12, 413, 240, 264, 323, 147, 501, 28, 143, 196, 292, 209,
+               67, 24, 1, 25, 77, 511, 98, 334, 384, 120, 145, 223, 135, 498,
+               91, 459, 408, 432, 60, 201, 321, 252, 341, 346, 339, 32, 491,
+               284, 462, 139, 185, 450, 96]
+
+
+def check_tiny_paged() -> None:
+    """A tiny `PagedEngine` (page size 16, a pool of 24 pages for 3 slots of
+    256 rows) on the card against the same engine on the CPU: the int4
+    configuration's first steps, then slot 1 is released and
+    a new prompt prefilled into the freed, fragmented pages
+    (`prepare_prefill` / `run_prefill`, the other slots spectators), then
+    3 steps with all three slots live.  Held as `check_tiny_model`."""
+    from neural_speed_tpu_torch.models.arch import ArchConfig
+    from neural_speed_tpu_torch.ops.qtypes import named_qspec
+    from neural_speed_tpu_torch.runtime.engine import PagedEngine
+    from neural_speed_tpu_torch.utils.synthetic import synth_params
+
+    seed, checks = TINY_SEEDS["int4"][0], TINY_PAGED_STEPS
+    cfg = ArchConfig(**TINY_CFG)
+    params = synth_params(cfg, named_qspec("int4", 64, scale_dtype="bfloat16"),
+                          seed=seed, device="cpu")
+    eng = {dev: PagedEngine(params, cfg, max_batch=3, max_len=256,
+                            page_size=16, n_pages=24, device=dev)
+           for dev in ("cuda", "cpu")}
+    logits = {dev: e.prefill(TINY_PROMPTS).float().cpu()
+              for dev, e in eng.items()}
+    active = torch.tensor([True, False, True])
+    what = f"tiny paged model (params seed {seed})"
+    for step in range(checks):
+        toks = _hold_tiny(logits, active, f"{what} step {step}")
+        if step < checks - 1:
+            logits = {dev: e.decode(toks, active).float().cpu()
+                      for dev, e in eng.items()}
+    t = 64
+    ids = torch.zeros((3, t), dtype=torch.int32)
+    ids[1, :len(TINY_REFILL)] = torch.tensor(TINY_REFILL)
+    lens = torch.tensor([0, len(TINY_REFILL), 0], dtype=torch.int32)
+    starts = torch.zeros((3,), dtype=torch.int32)
+    for e in eng.values():
+        e.release_slot(1)
+        e.prepare_prefill([1], [len(TINY_REFILL)], starts=starts)
+    if not (eng["cuda"]._tables == eng["cpu"]._tables).all():
+        raise AssertionError(f"{what}: page tables differ")
+    refill = {dev: e.run_prefill(ids, lens, starts).float().cpu()
+              for dev, e in eng.items()}
+    toks[1] = _hold_tiny(refill, torch.tensor([False, True, False]),
+                         f"{what} refill")[1]
+    everyone = torch.ones((3,), dtype=torch.bool)
+    for step in range(3):
+        logits = {dev: e.decode(toks, everyone).float().cpu()
+                  for dev, e in eng.items()}
+        toks = _hold_tiny(logits, everyone, f"{what} after the refill, step "
+                          f"{step}")
+    for e in eng.values():
+        for slot in range(3):
+            e.release_slot(slot)
+        if e._alloc.available != e.n_pages - 1:
+            raise AssertionError(f"{what}: the pool was not returned")
+    log(f"  {what}: {checks} steps, a release and a refill into fragmented "
+        f"pages, 3 more steps: logits within 2% of the largest logit of the "
+        f"CPU plain path and greedy ids equal at every step")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
 
-def serve_7b(profile: bool) -> dict:
-    from neural_speed_tpu_torch import _build
+def params_7b():
+    """The Llama-2-7B-shaped int4 model (g = 128, bf16 scales, random
+    weights from seed 0), fused, on the card: phases 4 and 6 share it."""
     from neural_speed_tpu_torch.models.transformer import fuse_params
-    from neural_speed_tpu_torch.ops import kv_cache as kvc
     from neural_speed_tpu_torch.ops.qtypes import QSpec, QType
-    from neural_speed_tpu_torch.runtime.engine import (Engine, decode_n_steps,
-                                                       prefill_step)
     from neural_speed_tpu_torch.utils.synthetic import (llama2_7b_arch,
                                                         synth_params)
 
@@ -748,22 +1010,28 @@ def serve_7b(profile: bool) -> dict:
     torch.cuda.synchronize()
     log(f"  7B-shaped params ({cfg.n_layers} layers) on the card in "
         f"{time.time() - t0:.1f} s")
-    eng = Engine(params, cfg, max_batch=4, max_len=2048, fuse=False)
+    return params, cfg
 
-    # four ragged requests; slots go idle at different steps
-    _build.reset_counts()
-    lens = [1975, 900, 300, 37]
-    budgets = [24, 8, 16, 4]
-    gen = torch.Generator().manual_seed(0)
-    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
-               for n in lens]
+
+# The four ragged requests of phases 4 and 6: prompt lengths and budgets.
+RAGGED_LENS = [1975, 900, 300, 37]
+RAGGED_BUDGETS = [24, 8, 16, 4]
+
+
+def serve_ragged(eng, prompts, what: str) -> dict:
+    """Prefill the ragged requests, then greedy steps (`eng.decode`) until
+    every budget is spent; slots go idle at different steps.  Returns the
+    ids, every step's logits (kept on the card) and the times."""
+    budgets = RAGGED_BUDGETS
     torch.cuda.synchronize()
     t0 = time.time()
     logits = eng.prefill(prompts)
     torch.cuda.synchronize()
-    ttft4 = time.time() - t0
-    if logits.shape != (4, cfg.vocab_size) or not torch.isfinite(logits).all():
-        raise AssertionError("ragged prefill: bad logits")
+    ttft = time.time() - t0
+    if logits.shape != (4, eng.cfg.vocab_size) or not torch.isfinite(
+            logits).all():
+        raise AssertionError(f"{what} prefill: bad logits")
+    all_logits = [logits]
     tok = logits.argmax(-1).to(torch.int32)
     out = [[int(x)] for x in tok]
     steps = 0
@@ -774,18 +1042,42 @@ def serve_7b(profile: bool) -> dict:
             break
         logits = eng.decode(tok, active)
         if not torch.isfinite(logits[active.cuda()]).all():
-            raise AssertionError("ragged decode: non-finite logits")
+            raise AssertionError(f"{what} decode: non-finite logits")
+        all_logits.append(logits)
         tok = logits.argmax(-1).to(torch.int32)
         for i in range(4):
             if active[i]:
                 out[i].append(int(tok[i]))
         steps += 1
     torch.cuda.synchronize()
-    ragged_decode_s = time.time() - t0
+    decode_s = time.time() - t0
     lengths = eng.cache.lengths.tolist()
-    want = [n + b - 1 for n, b in zip(lens, budgets)]
+    want = [n + b - 1 for n, b in zip(RAGGED_LENS, budgets)]
     if lengths != want:
-        raise AssertionError(f"ragged: cache lengths {lengths} != {want}")
+        raise AssertionError(f"{what}: cache lengths {lengths} != {want}")
+    return dict(ids=out, logits=all_logits, ttft_s=ttft, decode_s=decode_s,
+                steps=steps)
+
+
+def serve_7b(params, cfg, profile: bool):
+    """Phase 4.  Returns the summary and, for phase 6, the ragged run's
+    prompts, ids and logits and the bench shape's prompt."""
+    from neural_speed_tpu_torch import _build
+    from neural_speed_tpu_torch.ops import kv_cache as kvc
+    from neural_speed_tpu_torch.runtime.engine import (Engine, decode_n_steps,
+                                                       prefill_step)
+
+    eng = Engine(params, cfg, max_batch=4, max_len=2048, fuse=False)
+
+    # four ragged requests; slots go idle at different steps
+    _build.reset_counts()
+    lens, budgets = RAGGED_LENS, RAGGED_BUDGETS
+    gen = torch.Generator().manual_seed(0)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in lens]
+    ragged = serve_ragged(eng, prompts, "ragged")
+    ttft4, ragged_decode_s, steps = (ragged["ttft_s"], ragged["decode_s"],
+                                     ragged["steps"])
     ragged_counts = dict(_build.launches)
     log(f"  ragged: 4 requests (prompts {lens}, budgets {budgets}) prefill "
         f"{ttft4 * 1e3:.1f} ms, {steps} decode steps in "
@@ -844,7 +1136,7 @@ def serve_7b(profile: bool) -> dict:
         res["profile_decode"] = profile_window(
             lambda: decode_n_steps(eng.params, eng.cfg, cache, tok, active,
                                    8), "decode", 8)
-    return res
+    return res, dict(prompts=prompts, ragged=ragged, bench_ids=ids)
 
 
 # ---------------------------------------------------------------------------
@@ -940,6 +1232,194 @@ def serve_7b_formats() -> dict:
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 6: paged serving, full width and depth
+# ---------------------------------------------------------------------------
+
+
+def _serve_windows(params, cfg, prompts, sp, seed: int, width: int = 8):
+    """The ragged requests as a continuous-batching scheduler drives a
+    paged engine: `prepare_prefill` / `run_prefill`, the first token sampled
+    from the prefill logits, then windows of `width` steps
+    (`prepare_decode(active, width)` -> `run_decode_window` ->
+    `commit_lens`) until every budget is spent.  Returns the ids, the
+    number of windows, the decode seconds and the engine's final lengths."""
+    import numpy as np
+
+    from neural_speed_tpu_torch.ops import sampling as smp
+    from neural_speed_tpu_torch.runtime.engine import PagedEngine
+
+    eng = PagedEngine(params, cfg, max_batch=4, max_len=2048, page_size=128,
+                      n_pages=40, fuse=False)
+    lens = np.array(RAGGED_LENS, np.int32)
+    budgets = np.array(RAGGED_BUDGETS)
+    ids = torch.zeros((4, 2048), dtype=torch.int32)
+    st = smp.init_state(seed, 4, cfg.vocab_size, window=sp.penalty_window,
+                        tau=sp.mirostat_tau)
+    for i, p in enumerate(prompts):
+        ids[i, :len(p)] = torch.tensor(p, dtype=torch.int32)
+        st = smp.observe_prompt_slot(st, i, p)
+    starts = np.zeros((4,), np.int32)
+    eng.prepare_prefill(range(4), lens, starts=starts)
+    logits = eng.run_prefill(ids, torch.from_numpy(lens),
+                             torch.from_numpy(starts))
+    last, st = smp.sample(logits, st, sp)
+    out = [[int(x)] for x in last.tolist()]
+    slot_len = lens.astype(np.int64)
+    windows = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    while True:
+        active = np.array([len(o) < b for o, b in zip(out, budgets)])
+        if not active.any():
+            break
+        rem = np.where(active, budgets - np.array([len(o) for o in out]), 0)
+        eng.prepare_decode(active, width)
+        buf, em, last, _act, _bud, st = eng.run_decode_window(
+            st, last, torch.from_numpy(active),
+            torch.from_numpy(rem.astype(np.int32)), width, width, sp, None)
+        em, buf = em.cpu().numpy(), buf.cpu().numpy()
+        for slot in np.nonzero(active)[0]:
+            out[slot] += buf[slot, :em[slot]].tolist()
+        slot_len += np.where(active, em, 0)
+        eng.commit_lens(slot_len)
+        windows += 1
+    torch.cuda.synchronize()
+    decode_s = time.time() - t0
+    lengths = eng.cache.lengths.tolist()
+    for slot in range(4):
+        eng.release_slot(slot)
+    if eng._alloc.available != eng.n_pages - 1:
+        raise AssertionError("windows: the pool was not returned")
+    return out, windows, decode_s, lengths
+
+
+def serve_7b_paged(params, cfg, ref: dict, profile: bool) -> dict:
+    """Phase 6: the phase-4 model through `PagedEngine` (page size 128).
+    (a) the ragged requests step by step on a 40-page pool (4 x 2048 / 128
+    = 64 pages would hold every slot's full length), held bit for bit
+    against phase 4's logits and ids; (b) the bench shape; (c) the ragged
+    requests through decode windows, greedy (ids equal to (a)) and sampled
+    with the default `SamplingParams` (ids in range, each request's budget
+    emitted, lengths as expected)."""
+    import numpy as np
+
+    from neural_speed_tpu_torch import _build
+    from neural_speed_tpu_torch.ops import kv_cache as kvc
+    from neural_speed_tpu_torch.ops import sampling as smp
+    from neural_speed_tpu_torch.runtime.engine import (PagedEngine,
+                                                       decode_n_steps,
+                                                       prefill_step)
+
+    res = {}
+    # (a) the ragged requests, each step through eng.decode (one table
+    # upload per step)
+    eng = PagedEngine(params, cfg, max_batch=4, max_len=2048, page_size=128,
+                      n_pages=40, fuse=False)
+    got = serve_ragged(eng, ref["prompts"], "paged ragged")
+    want = ref["ragged"]
+    if got["ids"] != want["ids"]:
+        raise AssertionError(f"paged ragged: ids {got['ids']} differ from "
+                             f"phase 4's {want['ids']}")
+    for step, (a, b) in enumerate(zip(got["logits"], want["logits"])):
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"paged ragged step {step}: logits differ from phase 4's by "
+                f"up to {(a - b).abs().max().item()}")
+    pages = eng.n_pages - 1 - eng._alloc.available
+    for slot in range(4):
+        eng.release_slot(slot)
+    if eng._alloc.available != eng.n_pages - 1:
+        raise AssertionError("paged ragged: the pool was not returned")
+    del eng
+    res["ragged"] = dict(prefill_ms=got["ttft_s"] * 1e3,
+                         decode_ms=got["decode_s"] * 1e3, steps=got["steps"],
+                         pages_used=pages)
+    log(f"  (a) ragged: prefill {got['ttft_s'] * 1e3:.1f} ms, {got['steps']} "
+        f"decode steps in {got['decode_s'] * 1e3:.1f} ms on {pages} of 40 "
+        f"pages; logits of the prefill and of all {got['steps']} steps equal "
+        f"phase 4's bit for bit, ids equal; the pool returned in full")
+
+    # (b) the bench shape: B = 1, a 1975-token prefill, 64 greedy steps
+    eng = PagedEngine(params, cfg, max_batch=1, max_len=2048, page_size=128,
+                      n_pages=16, fuse=False)
+    prompt = ref["bench_ids"][0, :1975].tolist()
+    eng.prefill([prompt])                                   # warm
+    eng.release_slot(0)
+    before = dict(_build.launches)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    logits = eng.prefill([prompt])
+    torch.cuda.synchronize()
+    ttft = time.time() - t0
+    per_prefill = {k: v - before.get(k, 0) for k, v in _build.launches.items()
+                   if v - before.get(k, 0)}
+    tok = logits.argmax(-1).to(torch.int32)
+    on = torch.ones((1,), dtype=torch.bool, device="cuda")
+    lens1 = torch.tensor([1975], dtype=torch.int32, device="cuda")
+    n_steps = 64
+    # the pages of all 64 steps are claimed up front, as a decode window's
+    # are; the warm steps roll back
+    eng.prepare_decode(np.array([True]), n_steps)
+    decode_n_steps(params, eng.cfg, eng.cache, tok, on, 4)  # warm
+    kvc.set_lengths(eng.cache, lens1)
+    before = dict(_build.launches)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    toks, _ = decode_n_steps(params, eng.cfg, eng.cache, tok, on, n_steps)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    per_step = {k: (v - before.get(k, 0)) / n_steps
+                for k, v in _build.launches.items() if v - before.get(k, 0)}
+    if toks.shape != (1, n_steps) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError("paged bench decode: bad token ids")
+    if eng.cache.lengths.tolist() != [1975 + n_steps]:
+        raise AssertionError(f"paged bench: cache length "
+                             f"{eng.cache.lengths.tolist()}")
+    res["bench"] = dict(ttft_ms=ttft * 1e3,
+                        decode_ms_per_token=dt / n_steps * 1e3,
+                        launches_per_prefill=per_prefill,
+                        launches_per_decode_step=per_step)
+    log(f"  (b) bench shape: TTFT {ttft * 1e3:.2f} ms (1975 tokens, B=1); "
+        f"decode {dt / n_steps * 1e3:.3f} ms/token over {n_steps} steps; "
+        f"launches per prefill {per_prefill}, per decode step {per_step}")
+    if profile:
+        kvc.set_lengths(eng.cache, lens1)
+        res["profile_decode"] = profile_window(
+            lambda: decode_n_steps(params, eng.cfg, eng.cache, tok, on, 8),
+            "decode_paged", 8)
+        zero = torch.zeros((1,), dtype=torch.int32, device="cuda")
+        res["profile_prefill"] = profile_window(
+            lambda: prefill_step(params, eng.cfg, eng.cache,
+                                 ref["bench_ids"], lens1, zero),
+            "prefill_paged", 1)
+    del eng
+
+    # (c) decode windows of 8 steps, greedy and then sampled
+    greedy = smp.SamplingParams(do_sample=False, repetition_penalty=1.0)
+    want_len = [n + b - 1 for n, b in zip(RAGGED_LENS, RAGGED_BUDGETS)]
+    for label, sp in (("greedy", greedy), ("sampled", smp.SamplingParams())):
+        ids, windows, decode_s, lengths = _serve_windows(
+            params, cfg, ref["prompts"], sp, seed=0)
+        if label == "greedy" and ids != want["ids"]:
+            raise AssertionError(f"windows (greedy): ids {ids} differ from "
+                                 f"the step-by-step run's {want['ids']}")
+        if [len(x) for x in ids] != RAGGED_BUDGETS or not all(
+                0 <= i < cfg.vocab_size for x in ids for i in x):
+            raise AssertionError(f"windows ({label}): ids {ids}")
+        if lengths != want_len:
+            raise AssertionError(f"windows ({label}): cache lengths "
+                                 f"{lengths} != {want_len}")
+        res[f"windows_{label}"] = dict(windows=windows,
+                                       decode_ms=decode_s * 1e3)
+        log(f"  (c) windows of 8 ({label}{', ' + repr(sp) if label == 'sampled' else ''}): "
+            f"{windows} windows in {decode_s * 1e3:.1f} ms; every request "
+            f"emitted its budget, lengths {lengths}"
+            + ("; ids equal (a)'s" if label == "greedy" else ""))
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -983,6 +1463,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     for names, check in (("flash_decode", check_flash_decode),
                         ("flash_prefill", check_flash_prefill),
+                        ("flash_decode_paged", check_flash_decode_paged),
+                        ("flash_prefill_paged", check_flash_prefill_paged),
                         ("qmatmul_int4", check_qmatmul),
                         ("qmatmul_lut qmatmul_planar", check_fp_formats),
                         ("qmatmul_int8 qmatmul_int8_planar",
@@ -1001,9 +1483,11 @@ def main() -> int:
                                              scale_dtype="bfloat16"), None)
         for label, make_spec, comp, _, _ in format_configs():
             check_tiny_model(label, make_spec(64), comp)
+        check_tiny_paged()
         log("phase 4: Llama-2-7B-shaped int4 serving")
+        params, cfg = params_7b()
         _build.reset_counts()
-        summary = serve_7b(args.profile)
+        summary, ref = serve_7b(params, cfg, args.profile)
         counts = collections.Counter(_build.launches)
         for k in ("qmatmul", "flash_decode", "flash_prefill"):
             for part in ("ragged_counts", "bench_counts"):
@@ -1019,7 +1503,26 @@ def main() -> int:
         for res in summary["formats"].values():
             counts.update(res["prefill_counts"])
             counts.update(res["decode_counts"])
-        log(f"  launches over both paths {dict(counts)}")
+        log("phase 6: Llama-2-7B-shaped int4 serving through PagedEngine")
+        _build.reset_counts()
+        summary["paged"] = serve_7b_paged(params, cfg, ref, args.profile)
+        paged_counts = dict(_build.launches)
+        for k in ("flash_decode_paged", "flash_prefill_paged"):
+            if paged_counts.get(k, 0) <= 0:
+                raise AssertionError(f"phase 6: {k} was not launched")
+        for k in ("flash_decode", "flash_prefill"):
+            if paged_counts.get(k, 0):
+                raise AssertionError(f"phase 6: the contiguous kernel {k} "
+                                     "ran on the paged path")
+        if sum(_build.plain_dispatches.values()):
+            raise AssertionError("phase 6: a plain version ran: "
+                                 f"{dict(_build.plain_dispatches)}")
+        summary["paged"]["launches"] = paged_counts
+        log(f"  paged path launches {paged_counts}; plain-version "
+            f"dispatches {dict(_build.plain_dispatches)}")
+        counts.update(paged_counts)
+        del params, ref
+        log(f"  launches over the three paths {dict(counts)}")
     else:
         counts = {}
 

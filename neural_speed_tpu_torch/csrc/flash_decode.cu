@@ -2,8 +2,9 @@
 // extra operands and the in-place append of its quantized row.
 //
 // Replaces: neural_speed_tpu/ops/flash.py, _mha_kernel_hblk with
-// extra_kv=True, fused_append=True (launched by _mha_packed_hblk from
-// mha), contiguous cache.
+// extra_kv=True, fused_append=True, launched by _mha_packed_hblk from mha
+// over the contiguous cache (nst_flash_decode) and by _mha_paged_hblk from
+// mha_paged over the page pool (nst_flash_decode_paged).
 //
 // What it computes, per slot b and KV head hk, for the n_rep query heads of
 // that group (one token per slot):
@@ -32,6 +33,13 @@
 // softmax step, owns one of the D output features; the V codes of each
 // 128-column sub-chunk are staged in shared memory with coalesced loads.
 //
+// Paged: the kernels are templates over the cache addressing
+// (common.cuh): every column's row is resolved through the slot's page
+// table, per column, so a 128-column sub-chunk may span pages (8 of them at
+// page size 16); the arithmetic and its order are the contiguous kernel's.
+// The append writes a live slot's row at table[b, (kv_len - 1) / ps]; a
+// spectator writes nothing (the JAX kernel parks it on the trash page).
+//
 // Compiled without --use_fast_math: the quantization must match
 // kv_cache.quantize_kv bit for bit (IEEE division, round half to even).
 
@@ -45,15 +53,15 @@ constexpr int MAX_REP = 8;
 
 // R: a power of two >= n_rep, so the per-row arrays have compile-time
 // indices and stay in registers.
-template <int D, int R>
+template <int D, int R, class Cache>
 __global__ void __launch_bounds__(THREADS)
-flash_decode_split(const __nv_bfloat16* __restrict__ q,
+flash_decode_split(Cache cache, const __nv_bfloat16* __restrict__ q,
                    const int8_t* __restrict__ kc, const int8_t* __restrict__ vc,
                    const __nv_bfloat16* __restrict__ ks,
                    const __nv_bfloat16* __restrict__ vs,
                    const int* __restrict__ pos, const int* __restrict__ kv_lens,
                    float* __restrict__ part_m, float* __restrict__ part_l,
-                   float* __restrict__ part_acc, int B, int H, int Hkv, int S,
+                   float* __restrict__ part_acc, int H, int Hkv, int S,
                    int layer, int chunk, float sm_scale) {
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int splits = gridDim.x;
@@ -77,11 +85,7 @@ flash_decode_split(const __nv_bfloat16* __restrict__ q,
   }
   __syncthreads();
 
-  const size_t row0 = ((size_t)layer * B + b) * Hkv + hk;  // [L, B, Hkv] row
-  const int8_t* kb = kc + row0 * S * D;
-  const int8_t* vb = vc + row0 * S * D;
-  const __nv_bfloat16* ksb = ks + row0 * S;
-  const __nv_bfloat16* vsb = vs + row0 * S;
+  const auto rows = cache.rows(layer, b, hk);
 
   float m_run[R], l_run[R], acc[R];
 #pragma unroll
@@ -98,14 +102,15 @@ flash_decode_split(const __nv_bfloat16* __restrict__ q,
     // in flight while the scores are computed
     const int ncols = min(THREADS, c1 - cs);
     for (int i = tid; i < ncols * (D / 16); i += THREADS)
-      reinterpret_cast<int4*>(vsm)[i] =
-          reinterpret_cast<const int4*>(vb + (size_t)cs * D)[i];
+      reinterpret_cast<int4*>(vsm)[i] = *reinterpret_cast<const int4*>(
+          vc + rows(cs + i / (D / 16)) * D + (i % (D / 16)) * 16);
     float s[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) s[r] = 0.f;
     float vsc = 0.f;
     if (valid) {
-      const int8_t* kr = kb + (size_t)c * D;
+      const size_t rc = rows(c);
+      const int8_t* kr = kc + rc * D;
 #pragma unroll
       for (int d0 = 0; d0 < D; d0 += 16) {
         const int4 raw = *reinterpret_cast<const int4*>(kr + d0);
@@ -118,8 +123,8 @@ flash_decode_split(const __nv_bfloat16* __restrict__ q,
             if (r < n_rep) s[r] = fmaf(qs[r][d0 + j], kv, s[r]);
         }
       }
-      const float ksc = __bfloat162float(ksb[c]);
-      vsc = __bfloat162float(vsb[c]);
+      const float ksc = __bfloat162float(ks[rc]);
+      vsc = __bfloat162float(vs[rc]);
 #pragma unroll
       for (int r = 0; r < R; ++r) s[r] = s[r] * ksc * sm_scale;
     }
@@ -175,9 +180,9 @@ flash_decode_split(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
+template <int D, class Cache>
 __global__ void __launch_bounds__(THREADS)
-flash_decode_combine(const __nv_bfloat16* __restrict__ q,
+flash_decode_combine(Cache cache, const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k_new,
                      const __nv_bfloat16* __restrict__ v_new,
                      int8_t* __restrict__ kc, int8_t* __restrict__ vc,
@@ -188,8 +193,8 @@ flash_decode_combine(const __nv_bfloat16* __restrict__ q,
                      const float* __restrict__ part_m,
                      const float* __restrict__ part_l,
                      const float* __restrict__ part_acc,
-                     __nv_bfloat16* __restrict__ out, int B, int H, int Hkv,
-                     int S, int layer, int splits, int fused_append,
+                     __nv_bfloat16* __restrict__ out, int H, int Hkv,
+                     int layer, int splits, int fused_append,
                      float sm_scale) {
   const int hk = blockIdx.x, b = blockIdx.y;
   const int n_rep = H / Hkv;
@@ -224,57 +229,76 @@ flash_decode_combine(const __nv_bfloat16* __restrict__ q,
   }
 
   if (!(fused_append && ok)) return;
-  const int row = max(kvl - 1, 0);
-  const size_t at = ((size_t)layer * B + b) * Hkv + hk;
+  const size_t at = cache.rows(layer, b, hk)(max(kvl - 1, 0));
   const float kamax = nst::block_max<NW>(fabsf(kn), sh);
   const float vamax = nst::block_max<NW>(fabsf(vn), sh);
   const float ksc = fmaxf(kamax, 1e-8f) / 127.0f;
   const float vsc = fmaxf(vamax, 1e-8f) / 127.0f;
   if (tid < D) {
-    kc[(at * S + row) * D + tid] =
-        (int8_t)fminf(fmaxf(rintf(kn / ksc), -127.f), 127.f);
-    vc[(at * S + row) * D + tid] =
-        (int8_t)fminf(fmaxf(rintf(vn / vsc), -127.f), 127.f);
+    kc[at * D + tid] = (int8_t)fminf(fmaxf(rintf(kn / ksc), -127.f), 127.f);
+    vc[at * D + tid] = (int8_t)fminf(fmaxf(rintf(vn / vsc), -127.f), 127.f);
   }
   if (tid == 0) {
-    ks[at * S + row] = __float2bfloat16_rn(ksc);
-    vs[at * S + row] = __float2bfloat16_rn(vsc);
+    ks[at] = __float2bfloat16_rn(ksc);
+    vs[at] = __float2bfloat16_rn(vsc);
   }
 }
 
-template <int D>
-cudaError_t launch(const void* q, const void* k_new, const void* v_new,
-                   void* kc, void* vc, void* ks, void* vs, const void* pos,
-                   const void* kv_lens, void* part_m, void* part_l,
-                   void* part_acc, void* out, int B, int H, int Hkv, int S,
-                   int layer, int chunk, int fused_append, float sm_scale,
-                   cudaStream_t st) {
+template <int D, class Cache>
+cudaError_t launch(Cache cache, const void* q, const void* k_new,
+                   const void* v_new, void* kc, void* vc, void* ks, void* vs,
+                   const void* pos, const void* kv_lens, void* part_m,
+                   void* part_l, void* part_acc, void* out, int B, int H,
+                   int Hkv, int S, int layer, int chunk, int fused_append,
+                   float sm_scale, cudaStream_t st) {
   const int splits = (S + chunk - 1) / chunk;
   const int n_rep = H / Hkv;
   auto bq = static_cast<const __nv_bfloat16*>(q);
-  auto split_kernel = n_rep <= 1   ? flash_decode_split<D, 1>
-                      : n_rep <= 2 ? flash_decode_split<D, 2>
-                      : n_rep <= 4 ? flash_decode_split<D, 4>
-                                   : flash_decode_split<D, MAX_REP>;
+  auto split_kernel = n_rep <= 1   ? flash_decode_split<D, 1, Cache>
+                      : n_rep <= 2 ? flash_decode_split<D, 2, Cache>
+                      : n_rep <= 4 ? flash_decode_split<D, 4, Cache>
+                                   : flash_decode_split<D, MAX_REP, Cache>;
   split_kernel<<<dim3(splits, Hkv, B), THREADS, 0, st>>>(
-      bq, static_cast<const int8_t*>(kc), static_cast<const int8_t*>(vc),
+      cache, bq, static_cast<const int8_t*>(kc), static_cast<const int8_t*>(vc),
       static_cast<const __nv_bfloat16*>(ks),
       static_cast<const __nv_bfloat16*>(vs), static_cast<const int*>(pos),
       static_cast<const int*>(kv_lens), static_cast<float*>(part_m),
-      static_cast<float*>(part_l), static_cast<float*>(part_acc), B, H, Hkv, S,
+      static_cast<float*>(part_l), static_cast<float*>(part_acc), H, Hkv, S,
       layer, chunk, sm_scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_decode_combine<D><<<dim3(Hkv, B), THREADS, 0, st>>>(
-      bq, static_cast<const __nv_bfloat16*>(k_new),
+  flash_decode_combine<D, Cache><<<dim3(Hkv, B), THREADS, 0, st>>>(
+      cache, bq, static_cast<const __nv_bfloat16*>(k_new),
       static_cast<const __nv_bfloat16*>(v_new), static_cast<int8_t*>(kc),
       static_cast<int8_t*>(vc), static_cast<__nv_bfloat16*>(ks),
       static_cast<__nv_bfloat16*>(vs), static_cast<const int*>(pos),
       static_cast<const int*>(kv_lens), static_cast<const float*>(part_m),
       static_cast<const float*>(part_l), static_cast<const float*>(part_acc),
-      static_cast<__nv_bfloat16*>(out), B, H, Hkv, S, layer, splits,
-      fused_append, sm_scale);
+      static_cast<__nv_bfloat16*>(out), H, Hkv, layer, splits, fused_append,
+      sm_scale);
   return cudaGetLastError();
+}
+
+template <class Cache>
+int launch_d(Cache cache, int D, const void* q, const void* k_new,
+             const void* v_new, void* kc, void* vc, void* ks, void* vs,
+             const void* pos, const void* kv_lens, void* part_m, void* part_l,
+             void* part_acc, void* out, int B, int H, int Hkv, int S,
+             int layer, int chunk, int fused_append, float sm_scale,
+             void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (D == 128)
+    err = launch<128>(cache, q, k_new, v_new, kc, vc, ks, vs, pos, kv_lens,
+                      part_m, part_l, part_acc, out, B, H, Hkv, S, layer,
+                      chunk, fused_append, sm_scale, st);
+  else if (D == 64)
+    err = launch<64>(cache, q, k_new, v_new, kc, vc, ks, vs, pos, kv_lens,
+                     part_m, part_l, part_acc, out, B, H, Hkv, S, layer,
+                     chunk, fused_append, sm_scale, st);
+  else
+    err = cudaErrorInvalidValue;
+  return (int)err;
 }
 
 }  // namespace
@@ -287,17 +311,22 @@ extern "C" int nst_flash_decode(const void* q, const void* k_new,
                                 int B, int H, int Hkv, int S, int D, int layer,
                                 int chunk, int fused_append, float sm_scale,
                                 void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (D == 128)
-    err = launch<128>(q, k_new, v_new, kc, vc, ks, vs, pos, kv_lens, part_m,
-                      part_l, part_acc, out, B, H, Hkv, S, layer, chunk,
-                      fused_append, sm_scale, st);
-  else if (D == 64)
-    err = launch<64>(q, k_new, v_new, kc, vc, ks, vs, pos, kv_lens, part_m,
-                     part_l, part_acc, out, B, H, Hkv, S, layer, chunk,
-                     fused_append, sm_scale, st);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  return launch_d(nst::ContigCache{B, Hkv, S}, D, q, k_new, v_new, kc, vc, ks,
+                  vs, pos, kv_lens, part_m, part_l, part_acc, out, B, H, Hkv,
+                  S, layer, chunk, fused_append, sm_scale, stream);
+}
+
+// The pool [L, Hkv, P, ps, D] with scales [L, Hkv, P, 1, ps] and int32
+// tables [B, n_blocks]; the logical length is n_blocks * ps.
+extern "C" int nst_flash_decode_paged(
+    const void* q, const void* k_new, const void* v_new, void* kc, void* vc,
+    void* ks, void* vs, const void* tables, const void* pos,
+    const void* kv_lens, void* part_m, void* part_l, void* part_acc, void* out,
+    int B, int H, int Hkv, int P, int ps, int n_blocks, int D, int layer,
+    int chunk, int fused_append, float sm_scale, void* stream) {
+  return launch_d(
+      nst::PagedCache{static_cast<const int*>(tables), Hkv, P, ps, n_blocks},
+      D, q, k_new, v_new, kc, vc, ks, vs, pos, kv_lens, part_m, part_l,
+      part_acc, out, B, H, Hkv, n_blocks * ps, layer, chunk, fused_append,
+      sm_scale, stream);
 }

@@ -1,7 +1,9 @@
 // Prefill flash attention over the int8 KV cache.
 //
 // Replaces: neural_speed_tpu/ops/flash.py, _mha_kernel as launched by
-// _mha_packed from mha (int8 cache, causal, no ALiBi / softcap).
+// _mha_packed from mha over the contiguous cache (nst_flash_prefill) and by
+// _mha_paged from mha_paged over the page pool (nst_flash_prefill_paged);
+// int8 cache, causal, no ALiBi / softcap.
 //
 // What it computes, for query row t of head h in slot b (KV head
 // h / n_rep): the columns c with c < kv_len[b] and c <= pos[b, t] are
@@ -21,6 +23,10 @@
 // Column tiles past kv_len or above the tile's last position are skipped.
 // The running max / sum live in registers (two lanes per row) and the
 // output accumulator in shared memory.  No TMA/wgmma pipeline yet.
+// Paged: the kernel is a template over the cache addressing (common.cuh);
+// each column of a tile is resolved through the slot's page table (a
+// 64-column tile spans 4 pages at page size 16), and the arithmetic and its
+// order are the contiguous kernel's.
 
 #include <mma.h>
 
@@ -53,16 +59,16 @@ struct Smem {
   static constexpr size_t bytes = red_off + sizeof(float) * NWARP;
 };
 
-template <int D>
+template <int D, class Cache>
 __global__ void __launch_bounds__(THREADS)
-flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
+flash_prefill_kernel(Cache cache, const __nv_bfloat16* __restrict__ q,
                      const int8_t* __restrict__ kc,
                      const int8_t* __restrict__ vc,
                      const __nv_bfloat16* __restrict__ ks,
                      const __nv_bfloat16* __restrict__ vs,
                      const int* __restrict__ pos,
                      const int* __restrict__ kv_lens,
-                     __nv_bfloat16* __restrict__ out, int B, int T, int H,
+                     __nv_bfloat16* __restrict__ out, int T, int H,
                      int Hkv, int S, int layer, float sm_scale) {
   using L = Smem<D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -103,14 +109,14 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
   const int r = lane / 2, half = lane % 2;  // this lane's row / column half
   const int row_pos = posS[warp * 16 + r];
   float m_run = -FLT_MAX, l_run = 0.f;
-  const size_t row0 = ((size_t)layer * B + b) * Hkv + hk;
+  const auto rows = cache.rows(layer, b, hk);
 
   for (int c0 = 0; c0 < c_end; c0 += BC) {
     __syncthreads();
     constexpr int KCH = D / 16;
     for (int i = tid; i < BC * KCH; i += THREADS) {
       const int c = i / KCH, ch = i % KCH;
-      const size_t src = (row0 * S + c0 + c) * D + ch * 16;
+      const size_t src = rows(c0 + c) * D + ch * 16;
       const int4 kraw = *reinterpret_cast<const int4*>(kc + src);
       const int4 vraw = *reinterpret_cast<const int4*>(vc + src);
       const int8_t* k8 = reinterpret_cast<const int8_t*>(&kraw);
@@ -122,8 +128,9 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
     if (tid < BC) {
-      ksc[tid] = __bfloat162float(ks[row0 * S + c0 + tid]);
-      vsc[tid] = __bfloat162float(vs[row0 * S + c0 + tid]);
+      const size_t rc = rows(c0 + tid);
+      ksc[tid] = __bfloat162float(ks[rc]);
+      vsc[tid] = __bfloat162float(vs[rc]);
     }
     __syncthreads();
 
@@ -215,25 +222,44 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
-cudaError_t launch(const void* q, const void* kc, const void* vc,
+template <int D, class Cache>
+cudaError_t launch(Cache cache, const void* q, const void* kc, const void* vc,
                    const void* ks, const void* vs, const void* pos,
                    const void* kv_lens, void* out, int B, int T, int H,
                    int Hkv, int S, int layer, float sm_scale,
                    cudaStream_t st) {
   const size_t bytes = Smem<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_prefill_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      flash_prefill_kernel<D, Cache>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   dim3 grid((T + BT - 1) / BT, H, B);
-  flash_prefill_kernel<D><<<grid, THREADS, bytes, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(kc),
-      static_cast<const int8_t*>(vc), static_cast<const __nv_bfloat16*>(ks),
+  flash_prefill_kernel<D, Cache><<<grid, THREADS, bytes, st>>>(
+      cache, static_cast<const __nv_bfloat16*>(q),
+      static_cast<const int8_t*>(kc), static_cast<const int8_t*>(vc),
+      static_cast<const __nv_bfloat16*>(ks),
       static_cast<const __nv_bfloat16*>(vs), static_cast<const int*>(pos),
-      static_cast<const int*>(kv_lens), static_cast<__nv_bfloat16*>(out), B, T,
+      static_cast<const int*>(kv_lens), static_cast<__nv_bfloat16*>(out), T,
       H, Hkv, S, layer, sm_scale);
   return cudaGetLastError();
+}
+
+template <class Cache>
+int launch_d(Cache cache, int D, const void* q, const void* kc,
+             const void* vc, const void* ks, const void* vs, const void* pos,
+             const void* kv_lens, void* out, int B, int T, int H, int Hkv,
+             int S, int layer, float sm_scale, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (D == 128)
+    err = launch<128>(cache, q, kc, vc, ks, vs, pos, kv_lens, out, B, T, H,
+                      Hkv, S, layer, sm_scale, st);
+  else if (D == 64)
+    err = launch<64>(cache, q, kc, vc, ks, vs, pos, kv_lens, out, B, T, H,
+                     Hkv, S, layer, sm_scale, st);
+  else
+    err = cudaErrorInvalidValue;
+  return (int)err;
 }
 
 }  // namespace
@@ -244,15 +270,19 @@ extern "C" int nst_flash_prefill(const void* q, const void* kc, const void* vc,
                                  void* out, int B, int T, int H, int Hkv,
                                  int S, int D, int layer, float sm_scale,
                                  void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (D == 128)
-    err = launch<128>(q, kc, vc, ks, vs, pos, kv_lens, out, B, T, H, Hkv, S,
-                      layer, sm_scale, st);
-  else if (D == 64)
-    err = launch<64>(q, kc, vc, ks, vs, pos, kv_lens, out, B, T, H, Hkv, S,
-                     layer, sm_scale, st);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  return launch_d(nst::ContigCache{B, Hkv, S}, D, q, kc, vc, ks, vs, pos,
+                  kv_lens, out, B, T, H, Hkv, S, layer, sm_scale, stream);
+}
+
+// The pool [L, Hkv, P, ps, D] with scales [L, Hkv, P, 1, ps] and int32
+// tables [B, n_blocks]; the logical length is n_blocks * ps.
+extern "C" int nst_flash_prefill_paged(
+    const void* q, const void* kc, const void* vc, const void* ks,
+    const void* vs, const void* tables, const void* pos, const void* kv_lens,
+    void* out, int B, int T, int H, int Hkv, int P, int ps, int n_blocks,
+    int D, int layer, float sm_scale, void* stream) {
+  return launch_d(
+      nst::PagedCache{static_cast<const int*>(tables), Hkv, P, ps, n_blocks},
+      D, q, kc, vc, ks, vs, pos, kv_lens, out, B, T, H, Hkv, n_blocks * ps,
+      layer, sm_scale, stream);
 }

@@ -3,7 +3,8 @@
 Params are a plain dict; linear leaves are a `QTensor` (int-packed, fed to
 `qmatmul`) or a dense `[K, N]` tensor.  Positions and per-slot kv lengths
 are explicit, as in the JAX package, so continuous batching can mix slots
-at unrelated offsets.  The KV cache is written in place.
+at unrelated offsets.  The KV cache (contiguous `KVCache` or paged
+`PagedKVCache`) is written in place.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 
 from ..ops import kv_cache as kvc
 from ..ops import flash
+from ..ops import paged_kv as pkv
 from ..ops.attention import attention_cache
 from ..ops.matmul import kernel_k_multiple, qmatmul, qmatmul_int8
 from ..ops.norms import rms_norm
@@ -96,9 +98,26 @@ def kv_append_mode(cfg: ArchConfig) -> str:
 
 
 def _defer_append(cfg: ArchConfig, t: int) -> bool:
-    """Single-token decode with the current k/v as attention operands."""
+    """Single-token decode with the current k/v as attention operands.  The
+    JAX package defers on a paged cache only in "fused" mode; the port has
+    no other deferring mode, so the rule is the same for both caches."""
     return (kv_append_mode(cfg) == "fused"
             and flash.extra_kv_eligible(t, cfg.n_heads, cfg.n_kv_heads))
+
+
+def _cache_append(cache, layer_idx: int, k: torch.Tensor, v: torch.Tensor,
+                  positions: torch.Tensor, active: torch.Tensor):
+    """KV append by cache type, in place: on the page pool one token per
+    slot goes through `append_decode` and longer spans through
+    `append_span`, which resolves every row through the table and parks
+    padding on the trash page."""
+    if isinstance(cache, pkv.PagedKVCache):
+        if positions.shape[1] == 1:
+            return pkv.append_decode(cache, layer_idx, k, v, positions,
+                                     active)
+        return pkv.append_span(cache, layer_idx, k, v, positions,
+                               active=active)
+    return kvc.append_layer(cache, layer_idx, k, v, positions, active=active)
 
 
 def decoder_layer(x: torch.Tensor, lp: Params, cfg: ArchConfig,
@@ -135,8 +154,7 @@ def decoder_layer(x: torch.Tensor, lp: Params, cfg: ArchConfig,
     if fused is not None:
         attn_out, cache = fused
     else:
-        cache = kvc.append_layer(cache, layer_idx, k, v, positions,
-                                 active=active)
+        cache = _cache_append(cache, layer_idx, k, v, positions, active)
         attn_out = attention_cache(q, cache, layer_idx, positions, kv_lens,
                                    **attn_kwargs)
     h1 = x + linear(attn_out.reshape(b, t, h * d), lp["o"], comp)

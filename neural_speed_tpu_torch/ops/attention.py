@@ -1,12 +1,14 @@
-"""Attention over one layer of the KV cache (port of the contiguous branch of
-`neural_speed_tpu/ops/attention.py::attention_cache`).
+"""Attention over one layer of the KV cache (port of
+`neural_speed_tpu/ops/attention.py::attention_cache`, over the contiguous
+int8 cache and the paged int8 pool).
 
 The flash route (`flash.mha`) is the default on both devices.
 `use_flash=False`, or extra k/v that the decode kernel cannot take, asks for
 `_attention_ref_hsd`, the JAX package's XLA reference math (float32
 throughout over the dequantized cache).  That reference is a plain version
 with no kernel behind it, so it runs on CPU tensors only and raises on the
-card.
+card.  Over a `PagedKVCache` the flash route is `flash.mha_paged`, and the
+reference route reads the layer gathered through the page tables.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 
 from .. import _build
 from . import flash
+from . import paged_kv as pkv
 
 NEG_INF = -1e9
 
@@ -27,12 +30,16 @@ def attention_cache(q: torch.Tensor, cache, layer_idx: int,
                     scale: Optional[float] = None, causal: bool = True,
                     out_dtype=None, use_flash: bool = True, extra_kv=None,
                     fused_append: bool = False):
-    """q [B, T, H, D] over layer `layer_idx` of the int8 cache.  With
-    `fused_append` returns (out, cache) — the cache written in place — or
-    None when the decode kernel cannot take the call."""
+    """q [B, T, H, D] over layer `layer_idx` of the int8 cache or page
+    pool.  With `fused_append` returns (out, cache) — the cache written in
+    place — or None when the decode kernel cannot take the call."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     out_dtype = out_dtype or q.dtype
+    if isinstance(cache, pkv.PagedKVCache):
+        return _attention_paged(q, cache, layer_idx, q_positions, kv_lens,
+                                scale, causal, out_dtype, use_flash,
+                                fused_append, extra_kv)
     if fused_append:
         if extra_kv is None or not use_flash:
             return None
@@ -68,6 +75,31 @@ def attention_cache(q: torch.Tensor, cache, layer_idx: int,
         oh = oh[:, None, :, None]
         k_all = k_all * (1.0 - oh) + oh * k_new.transpose(1, 2).float()
         v_all = v_all * (1.0 - oh) + oh * v_new.transpose(1, 2).float()
+    return _attention_ref_hsd(q, k_all, v_all, q_positions, kv_lens,
+                              scale=scale, causal=causal, out_dtype=out_dtype)
+
+
+def _attention_paged(q, cache, layer_idx, q_positions, kv_lens, scale, causal,
+                     out_dtype, use_flash, fused_append, extra_kv):
+    """The `PagedKVCache` branch of `attention_cache`."""
+    if fused_append:
+        if not use_flash:
+            return None
+        res = flash.mha_paged(q, cache, layer_idx, q_positions, kv_lens,
+                              scale=scale, causal=causal, out_dtype=out_dtype,
+                              extra_kv=extra_kv, fused_append=True)
+        return None if res is None else (res[0], cache)
+    if use_flash:
+        return flash.mha_paged(q, cache, layer_idx, q_positions, kv_lens,
+                               scale=scale, causal=causal,
+                               out_dtype=out_dtype)
+    if q.device.type != "cpu":
+        raise ValueError(
+            f"attention_cache: the float32 reference route over the page "
+            f"pool (use_flash=False) has no kernel; it runs on CPU tensors "
+            f"only, got q on {q.device}")
+    _build.plain_dispatches["attention_ref"] += 1
+    k_all, v_all = pkv.gathered_layer(cache, layer_idx, torch.float32)
     return _attention_ref_hsd(q, k_all, v_all, q_positions, kv_lens,
                               scale=scale, causal=causal, out_dtype=out_dtype)
 

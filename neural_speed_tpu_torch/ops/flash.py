@@ -10,6 +10,13 @@ absolute query positions and per-slot kv lengths.  Two routes:
 * everything else (prefill chunks; decode after a plain append): kernel C
   (`csrc/flash_prefill.cu`).
 
+`mha_paged` is the same over one layer of the paged pool (`paged_kv.py`):
+the paged twins of kernels B and C (`nst_flash_decode_paged`,
+`nst_flash_prefill_paged`, in the same sources) resolve every cache row
+through the slot's page table and otherwise do the same arithmetic in the
+same order, so at equal logical contents they give the contiguous
+kernels' outputs bit for bit.
+
 CUDA tensors launch the kernel or raise; CPU tensors run the plain
 versions below, which repeat each kernel's rounding points: q and
 `P * v_scale` are rounded to bf16, the scores and sums are float32, and a
@@ -23,6 +30,7 @@ import torch
 
 from .. import _build
 from .kv_cache import quantize_kv
+from .paged_kv import gather_layer_codes, physical_rows, write_pool_rows
 
 DECODE_CHUNK = 256   # cache columns per block of kernel B
 
@@ -125,6 +133,44 @@ def prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _normalize(acc, l).permute(0, 2, 1, 3).to(out_dtype)
 
 
+def decode_paged_plain(q: torch.Tensor, k_new: torch.Tensor,
+                       v_new: torch.Tensor, k_pages: torch.Tensor,
+                       v_pages: torch.Tensor, ks: torch.Tensor,
+                       vs: torch.Tensor, tables: torch.Tensor, layer: int,
+                       pos: torch.Tensor, kv_lens: torch.Tensor, scale: float,
+                       fused_append: bool, out_dtype) -> torch.Tensor:
+    """Plain version of the paged decode kernel: `decode_plain` over the
+    layer gathered through the tables; with `fused_append` the live slots'
+    quantized rows go to the pool at table[b, (kv_len - 1) // ps]."""
+    cache = [a[None] for a in gather_layer_codes(k_pages, v_pages, ks, vs,
+                                                 tables, layer)]
+    out = decode_plain(q, k_new, v_new, *cache, 0, pos, kv_lens, scale,
+                       False, out_dtype)
+    if fused_append:
+        live = pos == kv_lens - 1
+        ps = k_pages.shape[3]
+        last = (kv_lens - 1).clamp(0, tables.shape[1] * ps - 1)
+        row = physical_rows(tables, last[:, None], ps)[:, 0]
+        trash = k_pages.shape[2] * ps - 1
+        row = torch.where(live, row, torch.full_like(row, trash))
+        write_pool_rows(k_pages, v_pages, ks, vs, layer, row, k_new[:, 0],
+                        v_new[:, 0])
+    return out
+
+
+def prefill_paged_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                        v_pages: torch.Tensor, ks: torch.Tensor,
+                        vs: torch.Tensor, tables: torch.Tensor, layer: int,
+                        q_positions: torch.Tensor, kv_lens: torch.Tensor,
+                        scale: float, out_dtype) -> torch.Tensor:
+    """Plain version of the paged prefill kernel: `prefill_plain` over the
+    layer gathered through the tables."""
+    cache = [a[None] for a in gather_layer_codes(k_pages, v_pages, ks, vs,
+                                                 tables, layer)]
+    return prefill_plain(q, *cache, 0, q_positions, kv_lens, scale,
+                         out_dtype)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -219,6 +265,107 @@ def prefill_cuda(q, k, v, ks, vs, layer, q_positions, kv_lens, scale,
     return out
 
 
+def _check_pool(kp, vp, ks, vs, tables, layer, pos, kv_lens, q) -> None:
+    """The page pool, tables, positions and lengths the paged kernels
+    index."""
+    b, t, _, d = q.shape
+    ok = (kp.dim() == 5 and kp.shape == vp.shape and kp.shape[4] == d
+          and ks.shape == vs.shape == kp.shape[:3] + (1, kp.shape[3])
+          and 0 <= layer < kp.shape[0] and kp.shape[3] % 16 == 0
+          and tables.dim() == 2 and tables.shape[0] == b
+          and tables.dtype == torch.int32
+          and all(a.device == q.device and a.is_contiguous()
+                  for a in (kp, vp, ks, vs, tables))
+          and kp.dtype == torch.int8 and vp.dtype == torch.int8
+          and ks.dtype == torch.bfloat16 and vs.dtype == torch.bfloat16
+          and d in (64, 128)
+          and pos.shape in ((b,), (b, t)) and kv_lens.shape == (b,)
+          and pos.device == kv_lens.device == q.device)
+    if not ok:
+        raise ValueError(
+            f"the paged attention kernels read an int8 [L, Hkv, P, ps, D] "
+            f"pool with bf16 [L, Hkv, P, 1, ps] scales and a page size that "
+            f"is a multiple of 16, int32 page tables [B, n_blocks], all on "
+            f"q's device, head_dim 64 or 128, a layer index below L and "
+            f"positions / kv_lens of the batch; got q {tuple(q.shape)} on "
+            f"{q.device}, pool {kp.dtype} {tuple(kp.shape)} on {kp.device} "
+            f"(page size {kp.shape[3] if kp.dim() == 5 else None}), scales "
+            f"{ks.dtype} {tuple(ks.shape)}, tables {tables.dtype} "
+            f"{tuple(tables.shape)} on {tables.device}, layer {layer}, "
+            f"positions {tuple(pos.shape)}, kv_lens {tuple(kv_lens.shape)}")
+
+
+def decode_paged_cuda(q, k_new, v_new, kp, vp, ks, vs, tables, layer, pos,
+                      kv_lens, scale, fused_append, out_dtype) -> torch.Tensor:
+    """The paged decode kernel (paged twin of kernel B).  Shapes as
+    `decode_paged_plain`."""
+    b, t, h, d = q.shape
+    hkv, n_pages, ps = kp.shape[1], kp.shape[2], kp.shape[3]
+    n_blocks = tables.shape[1]
+    dev = q.device
+    _check_pool(kp, vp, ks, vs, tables, layer, pos, kv_lens, q)
+    if not (q.is_cuda and t == 1 and h % hkv == 0 and h // hkv <= 8
+            and q.dtype == k_new.dtype == v_new.dtype == out_dtype
+            == torch.bfloat16
+            and k_new.shape == v_new.shape == (b, 1, hkv, d)):
+        raise ValueError(
+            "the paged decode kernel takes CUDA tensors: bf16 q [B, 1, H, D] "
+            "with H / Hkv <= 8, bf16 k_new / v_new [B, 1, Hkv, D], and writes "
+            f"bf16; got q {q.dtype} {tuple(q.shape)} on {q.device}, k_new "
+            f"{k_new.dtype} {tuple(k_new.shape)}, out {out_dtype}")
+    q3 = q.contiguous()
+    kn, vn = k_new.contiguous(), v_new.contiguous()
+    pos32 = pos.to(torch.int32).contiguous()
+    lens32 = kv_lens.to(torch.int32).contiguous()
+    splits = -(-(n_blocks * ps) // DECODE_CHUNK)
+    part_m = torch.empty((b, h, splits), dtype=torch.float32, device=dev)
+    part_l = torch.empty_like(part_m)
+    part_acc = torch.empty((b, h, splits, d), dtype=torch.float32, device=dev)
+    out = torch.empty((b, 1, h, d), dtype=torch.bfloat16, device=dev)
+    fn = _build.kernels.fn("flash_decode", "nst_flash_decode_paged", 14, 10,
+                           1)
+    code = fn(q3.data_ptr(), kn.data_ptr(), vn.data_ptr(), kp.data_ptr(),
+              vp.data_ptr(), ks.data_ptr(), vs.data_ptr(), tables.data_ptr(),
+              pos32.data_ptr(), lens32.data_ptr(), part_m.data_ptr(),
+              part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(), b, h,
+              hkv, n_pages, ps, n_blocks, d, layer, DECODE_CHUNK,
+              int(fused_append), float(scale), _build.stream_handle())
+    _build.check(code, "flash_decode_paged")
+    _build.launches["flash_decode_paged"] += 1
+    return out
+
+
+def prefill_paged_cuda(q, kp, vp, ks, vs, tables, layer, q_positions,
+                       kv_lens, scale, out_dtype) -> torch.Tensor:
+    """The paged prefill kernel (paged twin of kernel C).  Shapes as
+    `prefill_paged_plain`."""
+    b, t, h, d = q.shape
+    hkv, n_pages, ps = kp.shape[1], kp.shape[2], kp.shape[3]
+    n_blocks = tables.shape[1]
+    _check_pool(kp, vp, ks, vs, tables, layer, q_positions, kv_lens, q)
+    if not (q.is_cuda and q_positions.shape == (b, t) and h % hkv == 0
+            and q.dtype == out_dtype == torch.bfloat16):
+        raise ValueError(
+            f"the paged prefill kernel takes CUDA tensors: bf16 q "
+            f"[B, T, H, D] with H a multiple of Hkv and positions [B, T], "
+            f"and writes bf16; got q {q.dtype} {tuple(q.shape)} on "
+            f"{q.device}, Hkv {hkv}, positions {tuple(q_positions.shape)}, "
+            f"out {out_dtype}")
+    q4 = q.contiguous()
+    pos32 = q_positions.to(torch.int32).contiguous()
+    lens32 = kv_lens.to(torch.int32).contiguous()
+    out = torch.empty((b, t, h, d), dtype=torch.bfloat16, device=q.device)
+    fn = _build.kernels.fn("flash_prefill", "nst_flash_prefill_paged", 9, 9,
+                           1)
+    code = fn(q4.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks.data_ptr(),
+              vs.data_ptr(), tables.data_ptr(), pos32.data_ptr(),
+              lens32.data_ptr(), out.data_ptr(), b, t, h, hkv, n_pages, ps,
+              n_blocks, d, layer, float(scale), _build.stream_handle())
+    _build.check(code, "flash_prefill_paged")
+    _build.launches["flash_prefill_paged"] += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # entry
 # ---------------------------------------------------------------------------
@@ -265,4 +412,50 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out = prefill_cuda(*args)
     if fused_append:
         return out, (k, v, k_scale, v_scale)
+    return out
+
+
+def mha_paged(q: torch.Tensor, cache, layer: int, q_positions: torch.Tensor,
+              kv_lens: torch.Tensor, *, scale: float, causal: bool = True,
+              alibi=None, logit_softcap: float = 0.0, out_dtype=None,
+              extra_kv=None, fused_append: bool = False):
+    """Flash attention over one layer of a `PagedKVCache`.  extra_kv (one
+    token per slot) goes to the paged decode kernel, which with
+    `fused_append` also writes the live slots' quantized rows through the
+    table; everything else to the paged prefill kernel.  Returns the output
+    `[B, T, H, D]`, or `(out, (k_pages, v_pages, k_scale, v_scale))` with
+    `fused_append` (the pool written in place), or None where the JAX entry
+    does (extra_kv the decode kernel cannot take).  Unlike the JAX entry,
+    which leaves page sizes that are not a multiple of 128 to XLA, the
+    kernels take any multiple of 16 and raise otherwise."""
+    if not causal or alibi is not None or logit_softcap:
+        raise NotImplementedError("only causal attention without ALiBi or "
+                                  "softcap is ported")
+    if not cache.quantized:
+        raise NotImplementedError("only the int8 paged pool is ported")
+    b, t, h, d = q.shape
+    out_dtype = out_dtype or q.dtype
+    if extra_kv is not None and not extra_kv_eligible(t, h, cache.kv_heads):
+        return None
+    if fused_append and extra_kv is None:
+        return None
+    pool = (cache.k_pages, cache.v_pages, cache.k_scale, cache.v_scale,
+            cache.page_tables)
+    if extra_kv is not None:
+        args = (q, extra_kv[0], extra_kv[1], *pool, layer, q_positions[:, 0],
+                kv_lens, scale, fused_append, out_dtype)
+        if q.device.type == "cpu":
+            _build.plain_dispatches["flash_decode_paged"] += 1
+            out = decode_paged_plain(*args)
+        else:
+            out = decode_paged_cuda(*args)
+    else:
+        args = (q, *pool, layer, q_positions, kv_lens, scale, out_dtype)
+        if q.device.type == "cpu":
+            _build.plain_dispatches["flash_prefill_paged"] += 1
+            out = prefill_paged_plain(*args)
+        else:
+            out = prefill_paged_cuda(*args)
+    if fused_append:
+        return out, pool[:4]
     return out

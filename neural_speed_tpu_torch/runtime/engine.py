@@ -1,10 +1,14 @@
 """Generation engine (port of `neural_speed_tpu/runtime/engine.py`: prefill,
-decode and greedy generation over the int8 KV cache).
+decode and greedy generation over the int8 KV cache, `PagedEngine` over the
+paged pool, and the serving steps a continuous-batching scheduler drives:
+`run_prefill`, `run_decode_chunk`, `run_decode_window`).
 
 JAX's jitted steps with a donated cache become plain functions that write
 the cache in place.  Prefill pads prompts to length buckets, as the JAX
-package does, so the same shapes reach the kernels.  The decode loop is a
-Python loop that keeps the argmax on the device.
+package does, so the same shapes reach the kernels.  JAX's `lax.scan` and
+`while_loop` over decode steps become Python loops over `forward`; the
+tokens stay on the device, and the window loop reads one flag per step to
+stop where JAX's loop condition does.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ import dataclasses
 import os
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .._build import resolve_device
@@ -20,6 +25,8 @@ from ..models.arch import ArchConfig
 from ..models.transformer import (COMP_MODES, forward, fuse_params,
                                   kv_append_mode)
 from ..ops import kv_cache as kvc
+from ..ops import paged_kv as pkv
+from ..ops import sampling as smp
 
 
 def pad_to_bucket(length: int, buckets: Tuple[int, ...]) -> int:
@@ -86,6 +93,81 @@ def decode_n_steps(params: Dict[str, Any], cfg: ArchConfig,
         tokens = torch.argmax(logits, dim=-1).to(torch.int32)
         toks.append(tokens)
     return torch.stack(toks, dim=1), cache
+
+
+@torch.inference_mode()
+def decode_sample_chunk(params: Dict[str, Any], cfg: ArchConfig, cache,
+                        sampler: smp.SamplerState, tokens: torch.Tensor,
+                        active: torch.Tensor, n_steps: int,
+                        sp: smp.SamplingParams, comp: Optional[str] = None):
+    """Decode and sample `n_steps` tokens for the active slots (inactive
+    slots repeat their token).  Returns (tokens [B, n_steps], cache,
+    sampler)."""
+    toks, out = tokens.to(torch.int32), []
+    for _ in range(n_steps):
+        lens = cache.lengths
+        pos = torch.where(active, lens,
+                          torch.full_like(lens, cache.max_len - 1))
+        kv_lens = lens + active.to(torch.int32)
+        logits, cache = forward(params, cfg, toks[:, None], pos[:, None],
+                                cache, kv_lens, comp=comp)
+        kvc.set_lengths(cache, kv_lens)
+        nxt, sampler = smp.sample(logits[:, 0], sampler, sp, active=active)
+        toks = torch.where(active, nxt, toks)
+        out.append(toks)
+    return torch.stack(out, dim=1), cache, sampler
+
+
+def decode_window(params: Dict[str, Any], cfg: ArchConfig, cache,
+                  sampler: smp.SamplerState, tokens: torch.Tensor,
+                  active: torch.Tensor, budget: torch.Tensor, n_steps: int,
+                  cap: int, sp: smp.SamplingParams, eos_id: int,
+                  comp: Optional[str] = None):
+    """Decode and sample up to `n_steps` (<= cap) tokens with per-slot EOS
+    and budget stops inside the loop (`run_window_loop`).  Returns
+    (toks_buf [B, cap], emitted [B], last_tokens [B], active [B],
+    budget [B], cache, sampler)."""
+    def step_fn(cache, toks_2d, pos, kv_lens):
+        return forward(params, cfg, toks_2d, pos, cache, kv_lens, comp=comp)
+
+    return run_window_loop(step_fn, cache.max_len, cache, sampler, tokens,
+                           active, budget, n_steps, cap, sp, eos_id)
+
+
+@torch.inference_mode()
+def run_window_loop(step_fn, max_len: int, cache, sampler, tokens, active,
+                    budget, n_steps: int, cap: int, sp, eos_id: int):
+    """The EOS-aware decode-window loop.  It runs while `i < n_steps` and
+    any slot is active, exactly JAX's `while_loop` condition (one host read
+    of that flag per step); each step writes column i of the buffer for
+    every row, inactive rows included, as JAX's does.
+    step_fn(cache, tokens [B, 1], pos [B, 1], kv_lens [B]) ->
+    (logits [B, 1, V], cache)."""
+    b = tokens.shape[0]
+    dev = tokens.device
+    toks = tokens.to(torch.int32)
+    act = active.to(torch.bool)
+    bud = budget.to(torch.int32)
+    buf = torch.zeros((b, cap), dtype=torch.int32, device=dev)
+    em = torch.zeros((b,), dtype=torch.int32, device=dev)
+    i = 0
+    while i < n_steps and bool(act.any()):
+        lens = cache.lengths
+        pos = torch.where(act, lens, torch.full_like(lens, max_len - 1))
+        kv_lens = lens + act.to(torch.int32)
+        logits, cache = step_fn(cache, toks[:, None], pos[:, None], kv_lens)
+        kvc.set_lengths(cache, kv_lens)
+        nxt, sampler = smp.sample(logits[:, 0], sampler, sp, active=act)
+        nxt = torch.where(act, nxt, toks)
+        buf[:, min(i, cap - 1)] = nxt       # JAX clamps the slice start
+        step = act.to(torch.int32)
+        em = em + step
+        bud = bud - step
+        done = (nxt == eos_id) | (bud <= 0)
+        act = act & ~done
+        toks = nxt
+        i += 1
+    return buf, em, toks, act, bud, cache, sampler
 
 
 def _to_device(node, dev):
@@ -162,6 +244,45 @@ class Engine:
                                          active.to(self.device), self.comp)
         return logits
 
+    # -- the serving steps a continuous-batching scheduler drives ---------
+    def run_prefill(self, ids: torch.Tensor, lens: torch.Tensor,
+                    starts: torch.Tensor) -> torch.Tensor:
+        """Padded prefill batch `[B, T]` from per-slot offsets `starts`;
+        returns last-real-token logits `[B, V]`."""
+        logits, self.cache = prefill_step(
+            self.params, self.cfg, self.cache, ids.to(self.device),
+            lens.to(self.device), starts.to(self.device), self.comp)
+        return logits
+
+    def run_decode_chunk(self, sampler: smp.SamplerState,
+                         tokens: torch.Tensor, active: torch.Tensor,
+                         chunk: int, sp: smp.SamplingParams):
+        """`chunk` decode+sample steps; returns (tokens [B, chunk],
+        sampler)."""
+        toks, self.cache, sampler = decode_sample_chunk(
+            self.params, self.cfg, self.cache, sampler,
+            tokens.to(self.device), active.to(self.device), chunk, sp,
+            self.comp)
+        return toks, sampler
+
+    def run_decode_window(self, sampler: smp.SamplerState, tokens, active,
+                          budget, n_steps: int, cap: int,
+                          sp: smp.SamplingParams, eos_id: Optional[int]):
+        """Up to `n_steps` decode+sample steps with per-slot EOS / budget
+        stops; returns (toks_buf [B, cap], emitted [B], last_tokens [B],
+        active [B], budget [B], sampler)."""
+        dev = self.device
+        buf, em, toks, act, bud, self.cache, sampler = decode_window(
+            self.params, self.cfg, self.cache, sampler,
+            torch.as_tensor(tokens).to(dev), torch.as_tensor(active).to(dev),
+            torch.as_tensor(budget).to(dev), int(n_steps), cap, sp,
+            -1 if eos_id is None else int(eos_id), self.comp)
+        return buf, em, toks, act, bud, sampler
+
+    def reorder_slots(self, src) -> None:
+        raise NotImplementedError("beam search (reorder_slots) is not "
+                                  "ported yet")
+
     def generate_greedy(self, prompt: List[int], max_new_tokens: int,
                         eos_id: Optional[int] = None) -> List[int]:
         """Single-sequence greedy decode (slot 0)."""
@@ -178,3 +299,142 @@ class Engine:
                 torch.full((self.max_batch,), tok, dtype=torch.int32), active)
             tok = int(torch.argmax(logits[0]))
         return out
+
+
+class PagedEngine(Engine):
+    """Engine over the paged int8 pool (`ops/paged_kv.py`): memory follows
+    the tokens in flight.  The engine owns the host-side `PageAllocator`:
+    prefill reserves a contiguous page run per prompt, decode growth claims
+    one page whenever a slot crosses a page boundary.  Windowed decode
+    reserves the whole window per active slot (`prepare_decode`), and the
+    scheduler snaps the host length mirror back to what was emitted
+    (`commit_lens`); the overshoot pages stay mapped and free at
+    `release_slot`.
+
+    As in the JAX package, `prefill` reserves new runs without releasing a
+    slot's old pages, so repeated `prefill` / `generate_greedy` calls on one
+    engine leak pages; a caller that reuses slots calls `release_slot`
+    first.  Prefix caching and beam forks (`reorder_slots`) are not ported
+    yet."""
+
+    def __init__(self, params: Dict[str, Any], cfg: ArchConfig,
+                 max_batch: int = 1, max_len: int = 2048,
+                 buckets: Tuple[int, ...] = DEFAULT_BUCKETS,
+                 fuse: bool = True, n_pages: Optional[int] = None,
+                 page_size: int = 128, prefix_cache: bool = False,
+                 device=None, comp: Optional[str] = "env"):
+        if prefix_cache:
+            raise NotImplementedError("prefix caching is not ported yet")
+        self.page_size = page_size
+        # +1: the last physical page is the trash page that padding rows
+        # and inactive slots write to; it is never allocated
+        self.n_pages = (n_pages or (max_batch * max_len) // page_size) + 1
+        self._alloc = pkv.PageAllocator(self.n_pages - 1)
+        self._tables = np.zeros((max_batch, max_len // page_size), np.int32)
+        self._lens = np.zeros((max_batch,), np.int64)
+        # blocks actually mapped per slot: may exceed ceil(_lens / ps) after
+        # commit_lens rolled a window back; freed at release_slot
+        self._mapped = np.zeros((max_batch,), np.int64)
+        super().__init__(params, cfg, max_batch, max_len, buckets, fuse,
+                         device, comp)
+
+    def new_cache(self) -> pkv.PagedKVCache:
+        return pkv.init_paged_cache(
+            self.cfg.n_layers, self.max_batch, self.max_len,
+            self.cfg.n_kv_heads, self.cfg.head_dim, self.n_pages,
+            self.page_size, device=self.device)
+
+    def _sync_tables(self) -> None:
+        """One host-to-device copy of the page tables."""
+        self.cache.page_tables.copy_(torch.from_numpy(self._tables))
+
+    def _ensure_pages(self, slot: int, new_len: int) -> None:
+        """Claim the blocks past the slot's mapped high-water mark (a slot
+        rolled back by commit_lens reuses its still-mapped pages)."""
+        need = -(-new_len // self.page_size)
+        for blk in range(int(self._mapped[slot]), need):
+            page = self._alloc.alloc_page()
+            if page is None:
+                raise RuntimeError("paged KV pool exhausted")
+            self._tables[slot, blk] = page
+        self._mapped[slot] = max(self._mapped[slot], need)
+
+    def prefill(self, prompts: List[List[int]]) -> torch.Tensor:
+        b = len(prompts)
+        if b > self.max_batch:
+            raise ValueError(f"{b} prompts for {self.max_batch} slots")
+        self.prepare_prefill(range(b), [len(p) for p in prompts])
+        return super().prefill(prompts)
+
+    def decode(self, tokens: torch.Tensor, active: torch.Tensor
+               ) -> torch.Tensor:
+        self.prepare_decode(np.asarray(torch.as_tensor(active).cpu()), 1)
+        return super().decode(tokens, active)
+
+    # -- scheduler hooks ------------------------------------------------
+    def prepare_prefill(self, slots, lens, starts=None) -> None:
+        """Reserve page runs and tables for prompts about to prefill."""
+        ps = self.page_size
+        for slot, ln in zip(slots, lens):
+            start = 0 if starts is None else int(starts[slot])
+            blk0 = start // ps
+            n_blocks = -(-(start + int(ln)) // ps)
+            run = n_blocks - blk0
+            if run > 0:
+                first = self._alloc.alloc_run(run)
+                if first is None:
+                    raise RuntimeError("paged KV pool exhausted (prefill)")
+                self._tables[slot, blk0:n_blocks] = first + np.arange(run)
+            self._lens[slot] = start + int(ln)
+            self._mapped[slot] = max(int(self._mapped[slot]), n_blocks)
+        self._sync_tables()
+
+    def prepare_decode(self, active_np, chunk: int = 1) -> None:
+        """Claim growth pages for the next `chunk` decode tokens."""
+        for slot in np.nonzero(np.asarray(active_np))[0]:
+            self._ensure_pages(int(slot), int(self._lens[slot]) + chunk)
+            self._lens[slot] += chunk
+        self._sync_tables()
+
+    def prepare_rows(self, target_lens) -> None:
+        """Reserve pages up to per-slot target lengths; provisional until
+        commit_lens."""
+        changed = False
+        for slot, tgt in enumerate(target_lens):
+            tgt = int(tgt)
+            if tgt > int(self._lens[slot]):
+                self._ensure_pages(slot, tgt)
+                self._lens[slot] = tgt
+                changed = True
+        if changed:
+            self._sync_tables()
+
+    def commit_lens(self, lens) -> None:
+        """Snap the host length mirror to the accepted lengths (pages stay
+        mapped; see _ensure_pages)."""
+        self._lens[:] = np.asarray(lens, np.int64)
+
+    def release_slot(self, slot: int) -> None:
+        """Free every mapped block of a finished slot."""
+        n_blocks = int(self._mapped[slot])
+        self._alloc.free_pages(self._tables[slot, :n_blocks].tolist())
+        self._tables[slot, :n_blocks] = 0
+        self._lens[slot] = 0
+        self._mapped[slot] = 0
+
+
+# -- scheduler hooks: no-ops on the contiguous engine --------------------
+
+def _noop(*a, **k):
+    return None
+
+
+Engine.prepare_prefill = _noop
+Engine.prepare_decode = _noop
+Engine.prepare_rows = _noop
+Engine.prefix = None
+Engine.prefix_lookup = lambda self, prompt: (0, [])
+Engine.adopt_prefix = _noop
+Engine.note_prefilled = _noop
+Engine.commit_lens = _noop
+Engine.release_slot = _noop

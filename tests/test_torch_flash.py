@@ -114,6 +114,35 @@ def test_prefill_matches_jax_and_masked_rows_are_zero():
     assert np.all(got[1] == 0) and np.all(want[1] == 0)
 
 
+def test_prefill_matches_jax_natural_layout(monkeypatch):
+    """The JAX natural-layout prefill (`_mha_packed_nat`, behind
+    NST_FLASH_NATQ=1, at a token count that tiles its row block: t % 128
+    == 0 with 2 query heads per KV head) against the port's `mha`, whose
+    kernel C reads q and writes the output in the natural [B, T, H, D]
+    layout by construction.  Same tolerance as the packed route."""
+    monkeypatch.setenv("NST_FLASH_NATQ", "1")
+    calls = []
+    nat = jfl._mha_packed_nat
+    monkeypatch.setattr(jfl, "_mha_packed_nat",
+                        lambda *a, **k: calls.append(1) or nat(*a, **k))
+    rng = np.random.default_rng(4)
+    kc, vc, ks, vs = _cache(rng)
+    t = 128
+    kv_lens = np.array([t, 100, 77], np.int32)
+    ar = np.arange(t)
+    pos = np.stack([ar, np.where(ar < 100, ar, S - 1),
+                    np.where(ar < 77, ar, S - 1)]).astype(np.int32)
+    q = jax_bf16(rng.standard_normal((B, t, H, D)).astype(np.float32))
+    scale = 1.0 / math.sqrt(D)
+    out_j = jfl.mha(q, kc, vc, ks, vs, jnp.asarray(pos), jnp.asarray(kv_lens),
+                    scale=scale, layer=1)
+    assert calls, "the JAX natural-layout launcher did not run"
+    tk, tv, tks, tvs = _to_torch([kc, vc, ks, vs])
+    out_t = tfl.mha(torch_bf16(q), tk, tv, tks, tvs, torch.from_numpy(pos),
+                    torch.from_numpy(kv_lens), scale=scale, layer=1)
+    _close(out_t, out_j)
+
+
 def test_attention_cache_flash_route_matches_reference():
     """attention_cache's default (flash) route against its f32 reference
     route over the same cache: bf16 rounding of q and P * v_scale only."""

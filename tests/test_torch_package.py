@@ -111,7 +111,10 @@ def test_other_entry_points_raise_without_a_card(monkeypatch):
     from neural_speed_tpu_torch.models.arch import ArchConfig
     from neural_speed_tpu_torch.models.params import params_from_numpy
     from neural_speed_tpu_torch.ops.kv_cache import init_cache
+    from neural_speed_tpu_torch.ops.paged_kv import init_paged_cache
     from neural_speed_tpu_torch.ops.qtypes import QSpec, named_qspec
+    from neural_speed_tpu_torch.ops.sampling import init_state
+    from neural_speed_tpu_torch.runtime.engine import PagedEngine
     from neural_speed_tpu_torch.utils.synthetic import synth_params
 
     _no_card(monkeypatch)
@@ -128,8 +131,21 @@ def test_other_entry_points_raise_without_a_card(monkeypatch):
         init_cache(1, 1, 128, 2, 32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_numpy({"w": np.zeros((2,), np.float32)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_paged_cache(1, 1, 128, 2, 32, 3, 16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagedEngine({}, cfg, max_len=128, page_size=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_state(0, 1, 64)
     # asking for the CPU is always allowed
     assert init_cache(1, 1, 128, 2, 32, device="cpu").k.device.type == "cpu"
+    pool = init_paged_cache(1, 1, 128, 2, 32, 3, 16, device="cpu")
+    assert pool.k_pages.device.type == "cpu" and pool.max_len == 128
+    eng = PagedEngine({"layers": []}, cfg, max_len=128, page_size=16,
+                      device="cpu")
+    assert eng.cache.page_tables.device.type == "cpu"
+    assert eng.n_pages == 128 // 16 + 1         # the trash page on top
+    assert init_state(0, 1, 64, device="cpu").counts.device.type == "cpu"
 
 
 def test_convert_subpackage_falls_under_the_import_checks():
