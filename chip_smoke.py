@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                 # all phases (needs one card)
     python3 chip_smoke.py --kernels-only  # build + kernel checks only
-    python3 chip_smoke.py --kernels-only --only qmatmul_lut
+    python3 chip_smoke.py --kernels-only --only qmatmul_lut,flash
                                           # ... of the kernels so named
     python3 chip_smoke.py --profile       # all phases + a torch.profiler
                                           # trace of the main path
@@ -15,14 +15,18 @@ Phases, each raising on failure so the run exits non-zero:
 2. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, with the stated tolerance, and time kernel, plain
    version and a library yardstick (CUDA events around each call, cold L2,
-   host time excluded: see `time_ms`).  The paged attention kernels run
+   host time excluded: see `time_ms`).  The attention kernels run at 32
+   and at 8 KV heads (n_rep 1 and 4).  The paged attention kernels run
    over a shuffled page table, at page sizes 128 and 16, and must also
-   equal the contiguous kernels over the gathered layer bit for bit;
+   equal the contiguous kernels over the gathered layer bit for bit.  The
+   grouped MoE kernel runs at Mixtral-8x7B's expert shapes over routes
+   from `route_tokens` (uniform, one expert taking every token, one
+   expert empty, a B = 4 decode step) and as the single-token GEMV;
 3. a tiny model through `Engine` on the card against the same model on the
-   CPU (plain versions), once in int4 and once per configuration of phase
-   5: logits within tolerance, identical greedy ids at every step; then a
-   tiny `PagedEngine` the same way, through a release and a refill into
-   fragmented pages;
+   CPU (plain versions), once in int4, once per configuration of phase
+   5 and as a tiny Mixtral at B = 3 and B = 1: logits within tolerance,
+   identical greedy ids at every step; then a tiny `PagedEngine` the same
+   way, through a release and a refill into fragmented pages;
 4. the main path: a Llama-2-7B-shaped int4 model (full width and depth,
    random weights from a seed, drawn on the card) serves 4 ragged requests,
    then the bench shape (B = 1, a 1975-token prefill, 64 greedy steps); every
@@ -41,7 +45,15 @@ Phases, each raising on failure so the run exits non-zero:
    ragged requests through 8-step decode windows as a scheduler drives
    them, greedy (ids equal to (a)) and sampled with the default
    `SamplingParams`.  Both paged kernels must launch, neither contiguous
-   attention kernel, and no plain version.
+   attention kernel, and no plain version;
+7. a Mixtral-8x7B-shaped int4 model (full width and depth, 8 experts
+   top-2, random weights from a seed, drawn on the card): (a) the ragged
+   requests through `Engine`, (b) the bench shape (B = 1: the MoE layers
+   take the single-token path), (c) (a) through `PagedEngine`, every logit
+   equal to (a)'s bit for bit.  It prints the weight GiB, TTFT, ms/token
+   and launches per kernel; the grouped kernel and kernel A must launch in
+   prefill and decode, no plain version may run, and the MoE layers of a
+   B = 4 and a B = 1 decode step must not synchronise the host.
 
 It prints a `kernels` JSON line, then as its last line
 `{"ok": true, "device": {...}}`.  It imports nothing of JAX.
@@ -163,11 +175,13 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 
 
 def _category(kernel_name: str) -> str:
-    for key, cat in (("int4", "qmatmul"), ("splitk", "qmatmul"),
-                     ("flash_decode", "flash_decode"),
-                     ("flash_prefill", "flash_prefill")):
+    if "int4" in kernel_name or "splitk" in kernel_name:
+        # kernel 11's instances: GROUPED = true, float32 output
+        grouped = "true" in kernel_name or "<float>" in kernel_name
+        return "qmatmul_grouped" if grouped else "qmatmul"
+    for key in ("flash_decode", "flash_prefill"):
         if key in kernel_name:
-            return cat
+            return key
     return "other"
 
 
@@ -524,6 +538,129 @@ def check_ragged_shapes(chk: Checks, gen: torch.Generator) -> None:
         raise AssertionError(f"ragged shapes beyond the tolerance: {bad}")
 
 
+def compare_rows(got: torch.Tensor, want: torch.Tensor, rel: float) -> dict:
+    """|got - want| against `rel` times the largest |want| of the element's
+    row (float32 outputs whose versions sum exact products in another
+    order)."""
+    diff = (got.float() - want.float()).abs()
+    scale = want.float().abs().amax(-1, keepdim=True)
+    tol = rel * scale + ATOL
+    return dict(err=diff.max().item(),
+                rel=(diff / scale.clamp_min(ATOL)).max().item(),
+                worst=(diff / tol).max().item(),
+                tol=f"{rel:.3g} of the largest |output| of its row")
+
+
+# Mixtral-8x7B's expert projections (K, N): gate and up, down.
+MOE_SHAPES = {"gate/up": (4096, 14336), "down": (14336, 4096)}
+N_EXPERTS, TOP_K = 8, 2
+
+
+def _route_eids(kind: str, gen: torch.Generator, n_tok: int) -> torch.Tensor:
+    """Router picks (token-major, each token's two experts distinct):
+    uniform, every token on expert 3 (its second pick elsewhere), or
+    expert 5 empty."""
+    dev = gen.device
+    if kind == "one expert":
+        other = torch.randint(0, N_EXPERTS - 1, (n_tok,), generator=gen,
+                              device=dev)
+        second = (3 + 1 + other) % N_EXPERTS
+        return torch.stack([torch.full_like(second, 3), second], 1).reshape(-1)
+    pool = N_EXPERTS - (kind == "one empty")
+    picks = torch.rand((n_tok, pool), generator=gen, device=dev).argsort(
+        -1)[:, :TOP_K]
+    if kind == "one empty":
+        picks = picks + (picks >= 5).long()
+    return picks.reshape(-1)
+
+
+def check_grouped(chk: Checks, gen: torch.Generator) -> None:
+    """Kernel 11 against its plain versions at Mixtral-8x7B's expert shapes
+    (E = 8, int4 g128, bf16 scales).  The GEMM over the routes of 2048
+    tokens x top-2 (uniform, one expert taking every token, one expert
+    empty: padding blocks and empty segments), of a B = 4 decode step
+    (8 rows in 9 blocks of 128, mostly padding) and of 2048 tokens at
+    bm = 64; the GEMV over 2 rows, an expert each (the single-token
+    decode).  Outputs are float32 sums of exact products in another order:
+    within 2**-12 of the row's largest |output|.  Library yardstick: a loop
+    of torch.matmul over the experts' segments on bf16 weights dequantized
+    beforehand."""
+    from neural_speed_tpu_torch.ops import moe
+    from neural_speed_tpu_torch.ops.qtypes import named_qspec
+    from neural_speed_tpu_torch.ops.quantize import dequantize
+    from neural_speed_tpu_torch.utils.synthetic import synth_stacked
+
+    spec = named_qspec("int4", 128, scale_dtype="bfloat16")
+    rel = 2.0 ** -12
+    cases = [("uniform", 2048, 128), ("one expert", 2048, 128),
+             ("one empty", 2048, 128), ("uniform", 4, 128),
+             ("uniform", 2048, 64)]
+    for proj, (k, n) in MOE_SHAPES.items():
+        st = synth_stacked(gen, N_EXPERTS, k, n, spec)
+        w_bf16 = [dequantize(st.expert(e), torch.bfloat16)
+                  for e in range(N_EXPERTS)]
+        expert_bytes = st.nbytes() // N_EXPERTS
+        for kind, n_tok, bm in cases:
+            eid = _route_eids(kind, gen, n_tok)
+            r = moe.route_tokens(eid, N_EXPERTS, TOP_K, bm)
+            x = torch.randn((n_tok, k), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            xs = torch.cat([x, x.new_zeros((1, k))]).index_select(0, r.src)
+            run = lambda: moe.grouped_qmatmul_cuda(xs, st, r.block_expert, bm,
+                                                   r.block_rows)
+            got = run()
+            want = moe.grouped_qmatmul_plain(xs, st, r.block_expert, bm)
+            torch.cuda.synchronize()
+            cmp = compare_rows(got, want, rel)
+            del got, want
+            counts = torch.bincount(eid, minlength=N_EXPERTS).tolist()
+            seg, off = [], 0
+            for e, c in enumerate(counts):
+                seg.append((off, c, e))
+                off += -(-c // bm) * bm
+            lib = lambda: [torch.matmul(xs[o:o + c], w_bf16[e])
+                           for o, c, e in seg if c]
+            ms = time_ms(run)
+            plain_ms = time_ms(lambda: moe.grouped_qmatmul_plain(
+                xs, st, r.block_expert, bm), reps=3)
+            lib_ms = time_ms(lib)
+            rows = n_tok * TOP_K
+            touched = sum(1 for c in counts if c)
+            nbytes = (touched * expert_bytes + rows * k * 2
+                      + xs.shape[0] * n * 4)
+            chk.add("qmatmul_grouped", "cuda",
+                    "neural_speed_tpu_torch/csrc/qmatmul_grouped.cu",
+                    "neural_speed_tpu/ops/moe.py:304",
+                    f"GEMM {proj} {kind} {n_tok} tokens x top-2 bm={bm} "
+                    f"M_pad={xs.shape[0]} K={k} N={n}", cmp, ms, plain_ms,
+                    lib_ms, nbytes, 2.0 * rows * n * k,
+                    main=(proj, kind, n_tok, bm) == ("gate/up", "uniform",
+                                                     2048, 128))
+            del xs, r
+        # the single-token decode: two rows, an expert each
+        x2 = torch.randn((1, k), generator=gen, device="cuda").to(
+            torch.bfloat16).expand(TOP_K, k).contiguous()
+        row_e = torch.tensor([6, 1], dtype=torch.int32, device="cuda")
+        run = lambda: moe.grouped_qmatmul_rows_cuda(x2, st, row_e)
+        got = run()
+        want = moe.grouped_qmatmul_rows_plain(x2, st, row_e)
+        torch.cuda.synchronize()
+        cmp = compare_rows(got, want, rel)
+        ms = time_ms(run)
+        plain_ms = time_ms(lambda: moe.grouped_qmatmul_rows_plain(
+            x2, st, row_e), reps=3)
+        lib_ms = time_ms(lambda: [torch.matmul(x2[j:j + 1], w_bf16[e])
+                                  for j, e in enumerate((6, 1))])
+        nbytes = TOP_K * (expert_bytes + k * 2 + n * 4)
+        chk.add("qmatmul_grouped", "cuda",
+                "neural_speed_tpu_torch/csrc/qmatmul_grouped.cu",
+                "neural_speed_tpu/ops/moe.py:304",
+                f"GEMV {proj} 2 rows, experts 6 and 1, K={k} N={n}", cmp, ms,
+                plain_ms, lib_ms, nbytes, 2.0 * TOP_K * n * k)
+        del st, w_bf16
+        torch.cuda.empty_cache()
+
+
 def _random_cache(gen, layers, b, hkv, s, d):
     from neural_speed_tpu_torch.ops.kv_cache import KVCache
 
@@ -550,10 +687,20 @@ def _dequant_layer(c, layer):
     return k.to(torch.bfloat16), v.to(torch.bfloat16)
 
 
+# KV heads of the attention checks: Llama-2-7B's 32 (n_rep = 1) and
+# Mixtral-8x7B's 8 (n_rep = 4), under 32 query heads.
+KV_HEADS = (32, 8)
+
+
 def check_flash_decode(chk: Checks, gen: torch.Generator) -> None:
+    for hkv in KV_HEADS:
+        _check_flash_decode(chk, gen, hkv)
+
+
+def _check_flash_decode(chk: Checks, gen: torch.Generator, hkv: int) -> None:
     from neural_speed_tpu_torch.ops import flash
 
-    b, h, hkv, d, s, layer = 4, 32, 32, 128, 2048, 1
+    b, h, d, s, layer = 4, 32, 128, 2048, 1
     cache = _random_cache(gen, 2, b, hkv, s, d)
     # slots 0-2 live (new token at kv_len - 1), slot 3 a spectator parked
     # at max_len - 1 over its 900 stored rows
@@ -598,25 +745,27 @@ def check_flash_decode(chk: Checks, gen: torch.Generator) -> None:
     mask = live[:, None, None, :]
     qs = q.transpose(1, 2)
     lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qs, kd, vd, attn_mask=mask))
+        qs, kd, vd, attn_mask=mask, enable_gqa=hkv != h))
     cols = live.sum().item()
     nbytes = (cols * hkv * (2 * d + 4) + 2 * b * h * d * 2
               + 2 * b * hkv * d * 2 + 3 * hkv * (2 * d + 4))
     chk.add("flash_decode", "cuda", "neural_speed_tpu_torch/csrc/flash_decode.cu",
             "neural_speed_tpu/ops/flash.py:267",
-            f"B={b} H={h} S={s} kv_len=1976/1500/37/900(spectator)",
-            cmp, ms, plain_ms, lib_ms, nbytes, 4.0 * cols * h * d, main=True)
+            f"B={b} H={h} Hkv={hkv} S={s} kv_len=1976/1500/37/900(spectator)",
+            cmp, ms, plain_ms, lib_ms, nbytes, 4.0 * cols * h * d,
+            main=hkv == 32)
 
 
 def check_flash_prefill(chk: Checks, gen: torch.Generator) -> None:
     from neural_speed_tpu_torch.ops import flash
 
-    t, h, hkv, d, s, layer = 2048, 32, 32, 128, 2048, 0
+    t, h, d, s, layer = 2048, 32, 128, 2048, 0
     scale = 1.0 / math.sqrt(d)
     # the main path's two prefills at the 2048 bucket: the ragged batch of
     # four, and the bench shape (its headline case); padding rows sit on
     # the trash position s - 1
-    for lens in ([1975, 900, 300, 37], [1975]):
+    for lens, hkv in ((lens, hkv) for hkv in KV_HEADS
+                      for lens in ([1975, 900, 300, 37], [1975])):
         b = len(lens)
         cache = _random_cache(gen, 1, b, hkv, s, d)
         kv_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -645,15 +794,15 @@ def check_flash_prefill(chk: Checks, gen: torch.Generator) -> None:
         qs = q.transpose(1, 2)
         lib_ms = time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
-                qs, kd, vd, attn_mask=mask[:, None]))
+                qs, kd, vd, attn_mask=mask[:, None], enable_gqa=hkv != h))
         pairs = mask.sum().item()
         nbytes = 2 * b * t * h * d * 2 + sum(lens) * hkv * (2 * d + 4)
         chk.add("flash_prefill", "cuda",
                 "neural_speed_tpu_torch/csrc/flash_prefill.cu",
                 "neural_speed_tpu/ops/flash.py:142",
                 f"B={b} T={t} (real rows {'/'.join(map(str, lens))}) H={h} "
-                f"S={s}", cmp, ms, plain_ms, lib_ms, nbytes,
-                4.0 * pairs * h * d, main=b == 1)
+                f"Hkv={hkv} S={s}", cmp, ms, plain_ms, lib_ms, nbytes,
+                4.0 * pairs * h * d, main=b == 1 and hkv == 32)
         del cache, q, kd, vd, mask
         torch.cuda.empty_cache()
 
@@ -702,13 +851,14 @@ def check_flash_decode_paged(chk: Checks, gen: torch.Generator) -> None:
     from neural_speed_tpu_torch.ops import flash
     from neural_speed_tpu_torch.ops.paged_kv import gathered_layer
 
-    b, h, hkv, d, s, layer = 4, 32, 32, 128, 2048, 1
+    b, h, d, s, layer = 4, 32, 128, 2048, 1
     kv_lens = torch.tensor([1976, 1500, 37, 900], dtype=torch.int32,
                            device="cuda")
     pos = torch.tensor([1975, 1499, 36, s - 1], dtype=torch.int32,
                        device="cuda")
     scale = 1.0 / math.sqrt(d)
-    for ps in (128, 16):
+    # Mixtral's 8 KV heads at the main path's page size only
+    for ps, hkv in ((128, 32), (16, 32), (128, 8)):
         q = (torch.randn((b, 1, h, d), generator=gen, device="cuda")
              ).to(torch.bfloat16)
         kn, vn = ((torch.randn((b, 1, hkv, d), generator=gen, device="cuda")
@@ -758,7 +908,8 @@ def check_flash_decode_paged(chk: Checks, gen: torch.Generator) -> None:
         qs = q.transpose(1, 2)
         lib_ms = time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
-                qs, kd, vd, attn_mask=live[:, None, None, :]))
+                qs, kd, vd, attn_mask=live[:, None, None, :],
+                enable_gqa=hkv != h))
         cols = live.sum().item()
         nbytes = (cols * hkv * (2 * d + 4) + pool.page_tables.numel() * 4
                   + 2 * b * h * d * 2 + 2 * b * hkv * d * 2
@@ -766,9 +917,10 @@ def check_flash_decode_paged(chk: Checks, gen: torch.Generator) -> None:
         chk.add("flash_decode_paged", "cuda",
                 "neural_speed_tpu_torch/csrc/flash_decode.cu",
                 "neural_speed_tpu/ops/flash.py:1196",
-                f"B={b} H={h} S={s} page size {ps}, shuffled table, "
-                f"kv_len=1976/1500/37/900(spectator)", cmp, ms, plain_ms,
-                lib_ms, nbytes, 4.0 * cols * h * d, main=ps == 128)
+                f"B={b} H={h} Hkv={hkv} S={s} page size {ps}, shuffled "
+                f"table, kv_len=1976/1500/37/900(spectator)", cmp, ms,
+                plain_ms, lib_ms, nbytes, 4.0 * cols * h * d,
+                main=ps == 128 and hkv == 32)
         del pool, pk, pp, ck, kd, vd
         torch.cuda.empty_cache()
 
@@ -780,10 +932,11 @@ def check_flash_prefill_paged(chk: Checks, gen: torch.Generator) -> None:
     from neural_speed_tpu_torch.ops import flash
     from neural_speed_tpu_torch.ops.paged_kv import gathered_layer
 
-    t, h, hkv, d, s, layer = 2048, 32, 32, 128, 2048, 0
+    t, h, d, s, layer = 2048, 32, 128, 2048, 0
     scale = 1.0 / math.sqrt(d)
-    for lens, ps in (([1975, 900, 300, 37], 128), ([1975], 128),
-                     ([1975], 16)):
+    for lens, ps, hkv in (([1975, 900, 300, 37], 128, 32), ([1975], 128, 32),
+                          ([1975], 16, 32), ([1975, 900, 300, 37], 128, 8),
+                          ([1975], 128, 8)):
         b = len(lens)
         pool = _random_pool(gen, 1, b, hkv, s, d, ps)
         kv_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -819,7 +972,7 @@ def check_flash_prefill_paged(chk: Checks, gen: torch.Generator) -> None:
         qs = q.transpose(1, 2)
         lib_ms = time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
-                qs, kd, vd, attn_mask=mask[:, None]))
+                qs, kd, vd, attn_mask=mask[:, None], enable_gqa=hkv != h))
         pairs = mask.sum().item()
         nbytes = (2 * b * t * h * d * 2 + sum(lens) * hkv * (2 * d + 4)
                   + pool.page_tables.numel() * 4)
@@ -827,8 +980,9 @@ def check_flash_prefill_paged(chk: Checks, gen: torch.Generator) -> None:
                 "neural_speed_tpu_torch/csrc/flash_prefill.cu",
                 "neural_speed_tpu/ops/flash.py:1111",
                 f"B={b} T={t} (real rows {'/'.join(map(str, lens))}) H={h} "
-                f"S={s} page size {ps}, shuffled table", cmp, ms, plain_ms,
-                lib_ms, nbytes, 4.0 * pairs * h * d, main=b == 1 and ps == 128)
+                f"Hkv={hkv} S={s} page size {ps}, shuffled table", cmp, ms,
+                plain_ms, lib_ms, nbytes, 4.0 * pairs * h * d,
+                main=b == 1 and ps == 128 and hkv == 32)
         del pool, q, kd, vd, mask
         torch.cuda.empty_cache()
 
@@ -865,10 +1019,14 @@ def format_configs():
 # checked step's top-2 margin on the CPU above twice the logit tolerance, so
 # that equal ids at every step is a real check.  Asymmetric int5 draws
 # uniform zero points, which makes large logits with narrow margins: no seed
-# below 400 keeps 9 clear steps, so it is held for 5.
+# below 400 keeps 9 clear steps, so it is held for 5.  The tiny Mixtral's
+# seed also keeps every routing decision of a real token on the CPU at
+# least 3.6 bf16 ulps of the row's largest router logit from a tie, at
+# B = 3 and B = 1 (1 in 240 seeds searched did both over 6 steps).
 TINY_SEEDS = {"int4": (15, 9), "nf4": (268, 9), "int5 asymmetric": (84, 5),
               "fp8_e4m3": (562, 9), "int4 + comp=int8": (172, 9),
-              "int3 + comp=int8": (1, 9)}
+              "int3 + comp=int8": (1, 9), "mixtral int4": (89, 6),
+              "mixtral int4 B=1": (89, 6)}
 
 
 TINY_CFG = dict(name="llama", vocab_size=512, hidden_size=512, n_layers=2,
@@ -896,20 +1054,36 @@ def _hold_tiny(logits, active, what) -> torch.Tensor:
     return ids["cpu"].to(torch.int32)
 
 
-def check_tiny_model(label: str, spec, comp) -> None:
+# The tiny Mixtral of phase 3: the llama above with 8 query heads over 2 KV
+# heads (Mixtral's n_rep = 4) and 4 experts, top-2; shorter prompts, so
+# that fewer routing decisions have to keep clear margins.  At B = 3 every
+# MoE layer takes the grouped path, at B = 1 the single-token path.
+TINY_MOE = dict(TINY_CFG, name="mixtral", n_kv_heads=2)
+TINY_MOE_PROMPTS = [list(range(3, 20)), [7, 8, 9], list(range(100, 130))]
+
+
+def tiny_moe_cfg():
+    from neural_speed_tpu_torch.models.arch import ArchConfig, MoEConfig
+
+    return ArchConfig(**TINY_MOE, moe=MoEConfig(num_experts=4, top_k=2))
+
+
+def check_tiny_model(label: str, spec, comp, cfg=None,
+                     prompts=TINY_PROMPTS) -> None:
     from neural_speed_tpu_torch.models.arch import ArchConfig
     from neural_speed_tpu_torch.runtime.engine import Engine
     from neural_speed_tpu_torch.utils.synthetic import synth_params
 
     seed, checks = TINY_SEEDS[label]
-    cfg = ArchConfig(**TINY_CFG)
+    cfg = cfg or ArchConfig(**TINY_CFG)
     params = synth_params(cfg, spec, seed=seed, device="cpu")
-    eng = {dev: Engine(params, cfg, max_batch=3, max_len=256, device=dev,
+    b = len(prompts)
+    eng = {dev: Engine(params, cfg, max_batch=b, max_len=256, device=dev,
                        comp=comp)
            for dev in ("cuda", "cpu")}
-    logits = {dev: e.prefill(TINY_PROMPTS).float().cpu()
+    logits = {dev: e.prefill(prompts).float().cpu()
               for dev, e in eng.items()}
-    active = torch.tensor([True, False, True])
+    active = torch.tensor([True, False, True][:b])
     for step in range(checks):
         toks = _hold_tiny(logits, active, f"tiny model ({label}, params seed "
                           f"{seed}) step {step}")
@@ -1144,13 +1318,24 @@ def serve_7b(params, cfg, profile: bool):
 # ---------------------------------------------------------------------------
 
 
+def weight_bytes(node) -> int:
+    """Bytes of a params tree on the card (packed planes, scales, zeros and
+    dense tensors)."""
+    if hasattr(node, "nbytes") and callable(node.nbytes):
+        return node.nbytes()
+    if isinstance(node, dict):
+        return sum(weight_bytes(v) for v in node.values())
+    if isinstance(node, list):
+        return sum(weight_bytes(v) for v in node)
+    return node.numel() * node.element_size()
+
+
 def serve_7b_formats() -> dict:
     """The 32-layer Llama-2-7B-shaped model through `Engine`, B = 1, a
     1975-token prefill and 32 greedy steps, once per weight format.  Counts
     are set to 0 just before each configuration is driven and read just
     after."""
     from neural_speed_tpu_torch import _build
-    from neural_speed_tpu_torch.ops.quantize import QTensor
     from neural_speed_tpu_torch.runtime.engine import Engine, decode_n_steps
     from neural_speed_tpu_torch.utils.synthetic import (llama2_7b_arch,
                                                         synth_params)
@@ -1160,15 +1345,6 @@ def serve_7b_formats() -> dict:
     prompt = torch.randint(0, cfg.vocab_size, (1975,), generator=gen).tolist()
     n_steps = 32
     results = {}
-
-    def weight_bytes(node):
-        if isinstance(node, QTensor):
-            return node.nbytes()
-        if isinstance(node, dict):
-            return sum(weight_bytes(v) for v in node.values())
-        if isinstance(node, list):
-            return sum(weight_bytes(v) for v in node)
-        return node.numel() * node.element_size()
 
     for label, make_spec, comp, prefill_kernels, decode_kernels in \
             format_configs():
@@ -1420,13 +1596,207 @@ def serve_7b_paged(params, cfg, ref: dict, profile: bool) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 7: Mixtral-8x7B serving, full width and depth
+# ---------------------------------------------------------------------------
+
+
+def _moe_without_sync(step, n_layers: int, what: str) -> None:
+    """Run `step()` with every `moe_ffn` call under
+    `torch.cuda.set_sync_debug_mode("error")`: an operation in the MoE
+    layer that synchronises the host raises.  The rest of the step (table
+    uploads, the argmax) runs in the default mode."""
+    from neural_speed_tpu_torch.models import transformer
+
+    inner = transformer.moe_ffn
+    calls = []
+
+    def checked(*a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return inner(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            calls.append(1)
+
+    transformer.moe_ffn = checked
+    try:
+        step()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        raise AssertionError(f"{what}: the MoE layer synchronised the host: "
+                             f"{e}") from e
+    finally:
+        transformer.moe_ffn = inner
+    if len(calls) != n_layers:
+        raise AssertionError(f"{what}: {len(calls)} MoE calls checked, not "
+                             f"{n_layers}")
+    log(f"  {what}: {len(calls)} moe_ffn calls under sync debug mode "
+        f"\"error\", none synchronised")
+
+
+def serve_mixtral(profile: bool) -> dict:
+    """Phase 7: a Mixtral-8x7B-shaped int4 model (g = 128, bf16 scales,
+    32 layers at full width, 8 experts top-2, random weights from seed 0
+    drawn on the card).  (a) the four ragged requests through `Engine`;
+    (b) the bench shape, B = 1: a 1975-token prefill and 64 greedy steps,
+    where every MoE layer takes the single-token path; (c) (a) through
+    `PagedEngine` at page size 128, every logit equal to (a)'s bit for bit.
+    The MoE layers of one B = 4 step of (a) and one step of (b) run under
+    the sync check.  Counts are set to 0 just before each part is driven
+    and read just after."""
+    from neural_speed_tpu_torch import _build
+    from neural_speed_tpu_torch.models.transformer import fuse_params
+    from neural_speed_tpu_torch.ops import kv_cache as kvc
+    from neural_speed_tpu_torch.ops.qtypes import named_qspec
+    from neural_speed_tpu_torch.runtime.engine import (Engine, PagedEngine,
+                                                       decode_n_steps,
+                                                       prefill_step)
+    from neural_speed_tpu_torch.utils.synthetic import (mixtral_8x7b_arch,
+                                                        synth_params)
+
+    cfg = mixtral_8x7b_arch()
+    spec = named_qspec("int4", 128, scale_dtype="bfloat16")
+    t0 = time.time()
+    params = fuse_params(synth_params(cfg, spec, seed=0), cfg)
+    torch.cuda.synchronize()
+    nbytes = weight_bytes(params)
+    log(f"  Mixtral-8x7B-shaped params ({cfg.n_layers} layers, "
+        f"{cfg.moe.num_experts} experts) on the card in "
+        f"{time.time() - t0:.1f} s: weights {nbytes / 2 ** 30:.3f} GiB")
+    res = dict(weight_bytes=nbytes)
+
+    def must_launch(counts, names, what):
+        for k in names:
+            if counts.get(k, 0) <= 0:
+                raise AssertionError(f"{what}: {k} was not launched: {counts}")
+        if sum(_build.plain_dispatches.values()):
+            raise AssertionError(f"{what}: a plain version ran: "
+                                 f"{dict(_build.plain_dispatches)}")
+
+    # (a) the ragged requests through Engine
+    eng = Engine(params, cfg, max_batch=4, max_len=2048, fuse=False)
+    gen = torch.Generator().manual_seed(0)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in RAGGED_LENS]
+    _build.reset_counts()
+    ragged = serve_ragged(eng, prompts, "mixtral ragged")
+    counts = dict(_build.launches)
+    must_launch(counts, ("qmatmul", "qmatmul_grouped", "flash_prefill",
+                         "flash_decode"), "mixtral ragged")
+    res["ragged"] = dict(prefill_ms=ragged["ttft_s"] * 1e3,
+                         decode_ms=ragged["decode_s"] * 1e3,
+                         steps=ragged["steps"], launches=counts)
+    log(f"  (a) ragged: 4 requests (prompts {RAGGED_LENS}, budgets "
+        f"{RAGGED_BUDGETS}) prefill {ragged['ttft_s'] * 1e3:.1f} ms, "
+        f"{ragged['steps']} decode steps in {ragged['decode_s'] * 1e3:.1f} ms;"
+        f" launches {counts}")
+    everyone = torch.ones((4,), dtype=torch.bool)
+    tok = ragged["logits"][-1].argmax(-1).to(torch.int32)
+    _moe_without_sync(lambda: eng.decode(tok, everyone), cfg.n_layers,
+                      "(a) one B = 4 decode step")
+    del eng
+    torch.cuda.empty_cache()
+
+    # (b) the bench shape: B = 1, a 1975-token prefill, 64 greedy steps
+    cache = kvc.init_cache(cfg.n_layers, 1, 2048, cfg.n_kv_heads,
+                           cfg.head_dim)
+    ids = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen).to(
+        torch.int32).cuda()
+    lens1 = torch.tensor([1975], dtype=torch.int32, device="cuda")
+    start = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    prefill_step(params, cfg, cache, ids, lens1, start)          # warm
+    kvc.set_lengths(cache, start)
+    _build.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    logits, cache = prefill_step(params, cfg, cache, ids, lens1, start)
+    torch.cuda.synchronize()
+    ttft = time.time() - t0
+    per_prefill = dict(_build.launches)
+    must_launch(per_prefill, ("qmatmul", "qmatmul_grouped", "flash_prefill"),
+                "mixtral bench prefill")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("mixtral bench prefill: non-finite logits")
+    tok = logits.argmax(-1).to(torch.int32)
+    on = torch.ones((1,), dtype=torch.bool, device="cuda")
+    decode_n_steps(params, cfg, cache, tok, on, 4)                # warm
+    kvc.set_lengths(cache, lens1)
+    n_steps = 64
+    _build.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    toks, cache = decode_n_steps(params, cfg, cache, tok, on, n_steps)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    per_step = {k: v / n_steps for k, v in _build.launches.items()}
+    must_launch(per_step, ("qmatmul", "qmatmul_grouped", "flash_decode"),
+                "mixtral bench decode")
+    if toks.shape != (1, n_steps) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError("mixtral bench decode: bad token ids")
+    if cache.lengths.tolist() != [1975 + n_steps]:
+        raise AssertionError(f"mixtral bench: cache length "
+                             f"{cache.lengths.tolist()}")
+    res["bench"] = dict(ttft_ms=ttft * 1e3,
+                        decode_ms_per_token=dt / n_steps * 1e3,
+                        launches_per_prefill=per_prefill,
+                        launches_per_decode_step=per_step)
+    log(f"  (b) bench shape: TTFT {ttft * 1e3:.2f} ms (1975 tokens, B=1); "
+        f"decode {dt / n_steps * 1e3:.3f} ms/token over {n_steps} steps; "
+        f"launches per prefill {per_prefill}, per decode step {per_step}")
+    _moe_without_sync(
+        lambda: decode_n_steps(params, cfg, cache, toks[:, -1], on, 1),
+        cfg.n_layers, "(b) one B = 1 decode step")
+    if profile:
+        kvc.set_lengths(cache, lens1)
+        res["profile_decode"] = profile_window(
+            lambda: decode_n_steps(params, cfg, cache, tok, on, 8),
+            "decode_mixtral", 8)
+        res["profile_prefill"] = profile_window(
+            lambda: prefill_step(params, cfg, cache, ids, lens1, start),
+            "prefill_mixtral", 1)
+    del cache
+    torch.cuda.empty_cache()
+
+    # (c) (a) through PagedEngine, page size 128
+    eng = PagedEngine(params, cfg, max_batch=4, max_len=2048, page_size=128,
+                      n_pages=40, fuse=False)
+    _build.reset_counts()
+    got = serve_ragged(eng, prompts, "mixtral paged ragged")
+    counts = dict(_build.launches)
+    must_launch(counts, ("qmatmul", "qmatmul_grouped", "flash_prefill_paged",
+                         "flash_decode_paged"), "mixtral paged ragged")
+    if got["ids"] != ragged["ids"]:
+        raise AssertionError(f"mixtral paged ragged: ids {got['ids']} differ "
+                             f"from (a)'s {ragged['ids']}")
+    for step, (a, b) in enumerate(zip(got["logits"], ragged["logits"])):
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"mixtral paged ragged step {step}: logits differ from (a)'s "
+                f"by up to {(a - b).abs().max().item()}")
+    for slot in range(4):
+        eng.release_slot(slot)
+    if eng._alloc.available != eng.n_pages - 1:
+        raise AssertionError("mixtral paged ragged: the pool was not returned")
+    res["paged_ragged"] = dict(prefill_ms=got["ttft_s"] * 1e3,
+                               decode_ms=got["decode_s"] * 1e3,
+                               steps=got["steps"], launches=counts)
+    log(f"  (c) paged ragged: prefill {got['ttft_s'] * 1e3:.1f} ms, "
+        f"{got['steps']} decode steps in {got['decode_s'] * 1e3:.1f} ms; "
+        f"logits of the prefill and of all {got['steps']} steps equal (a)'s "
+        f"bit for bit, ids equal; launches {counts}")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks")
     ap.add_argument("--only", default="",
                     help="with --kernels-only: check only the kernels whose "
-                         "name contains this (qmatmul_lut, flash, ...)")
+                         "name contains this (qmatmul_lut, flash, ...; "
+                         "several, comma-separated)")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one prefill and 8 decode steps of the "
                          "main path with torch.profiler")
@@ -1470,8 +1840,9 @@ def main() -> int:
                         ("qmatmul_int8 qmatmul_int8_planar",
                          check_int8_formats),
                         ("ragged qmatmul_lut qmatmul_planar qmatmul_int8 "
-                         "qmatmul_int8_planar", check_ragged_shapes)):
-        if args.only in names:
+                         "qmatmul_int8_planar", check_ragged_shapes),
+                        ("qmatmul_grouped", check_grouped)):
+        if any(o in names for o in args.only.split(",")):
             check(chk, gen)
     torch.cuda.empty_cache()
     summary = {}
@@ -1483,6 +1854,11 @@ def main() -> int:
                                              scale_dtype="bfloat16"), None)
         for label, make_spec, comp, _, _ in format_configs():
             check_tiny_model(label, make_spec(64), comp)
+        int4 = named_qspec("int4", 64, scale_dtype="bfloat16")
+        check_tiny_model("mixtral int4", int4, None, tiny_moe_cfg(),
+                         TINY_MOE_PROMPTS)
+        check_tiny_model("mixtral int4 B=1", int4, None, tiny_moe_cfg(),
+                         TINY_MOE_PROMPTS[:1])
         check_tiny_paged()
         log("phase 4: Llama-2-7B-shaped int4 serving")
         params, cfg = params_7b()
@@ -1522,7 +1898,16 @@ def main() -> int:
             f"dispatches {dict(_build.plain_dispatches)}")
         counts.update(paged_counts)
         del params, ref
-        log(f"  launches over the three paths {dict(counts)}")
+        torch.cuda.empty_cache()
+        log("phase 7: Mixtral-8x7B-shaped int4 serving")
+        summary["mixtral"] = serve_mixtral(args.profile)
+        for part in ("ragged", "paged_ragged"):
+            counts.update(summary["mixtral"][part]["launches"])
+        bench = summary["mixtral"]["bench"]
+        counts.update(bench["launches_per_prefill"])
+        counts.update({k: round(v * 64) for k, v in
+                       bench["launches_per_decode_step"].items()})
+        log(f"  launches over the four paths {dict(counts)}")
     else:
         counts = {}
 

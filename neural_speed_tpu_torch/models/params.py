@@ -4,7 +4,9 @@
 packed weight arrives as a dict with the keys
 `{"data": [...], "scales", "zeros", "sscale", "spec": {...}, "shape"}`
 (optionally `"k_shards"`); `spec` holds the `QSpec` fields with `qtype` as
-its string value.  Dtype conventions:
+its string value.  A stack of MoE experts arrives as the same dict with
+`"n_experts"` added (planes `[E, KW, N]`, scales `[E, K/g, N]`) and becomes
+a `StackedExperts`.  Dtype conventions:
 
 * bfloat16 arrays arrive as their uint16 bit patterns and become
   `torch.bfloat16` views;
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from .._build import resolve_device
+from ..ops.moe import StackedExperts
 from ..ops.qtypes import QSpec, QType
 from ..ops.quantize import QTensor
 
@@ -50,14 +53,25 @@ def _is_qtensor(node: Any) -> bool:
     return isinstance(node, dict) and "data" in node and "spec" in node
 
 
+def _is_stacked(node: Any) -> bool:
+    return _is_qtensor(node) and "n_experts" in node
+
+
 def params_from_numpy(tree: Any, device=None) -> Any:
     """The port's params for `tree`, on `device` (the card unless the CPU is
     asked for)."""
     dev = resolve_device(device)
+    opt = lambda a: None if a is None else tensor_from_numpy(a, dev)
 
     def walk(node):
+        if _is_stacked(node):  # before _is_qtensor, which it also passes
+            return StackedExperts(
+                tuple(tensor_from_numpy(p, dev) for p in node["data"]),
+                tensor_from_numpy(node["scales"], dev), opt(node.get("zeros")),
+                qspec_from_dict(node["spec"]),
+                tuple(int(s) for s in node["shape"]), int(node["n_experts"]),
+                int(node.get("k_shards", 1)))
         if _is_qtensor(node):
-            opt = lambda a: None if a is None else tensor_from_numpy(a, dev)
             return QTensor(
                 tuple(tensor_from_numpy(p, dev) for p in node["data"]),
                 tensor_from_numpy(node["scales"], dev), opt(node.get("zeros")),

@@ -1,4 +1,5 @@
-"""Decoder forward (port of the llama path of `neural_speed_tpu/models/transformer.py`).
+"""Decoder forward (port of the llama path of `neural_speed_tpu/models/transformer.py`,
+with its mixture-of-experts FFN: mixtral).
 
 Params are a plain dict; linear leaves are a `QTensor` (int-packed, fed to
 `qmatmul`) or a dense `[K, N]` tensor.  Positions and per-slot kv lengths
@@ -16,6 +17,7 @@ import torch
 
 from ..ops import kv_cache as kvc
 from ..ops import flash
+from ..ops import moe as moe_ops
 from ..ops import paged_kv as pkv
 from ..ops.attention import attention_cache
 from ..ops.matmul import kernel_k_multiple, qmatmul, qmatmul_int8
@@ -28,9 +30,10 @@ Params = Dict[str, Any]
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise for configurations outside the ported llama path."""
+    """Raise for configurations outside the ported llama path (with or
+    without its MoE FFN)."""
     unsupported = {
-        "moe": cfg.moe is not None, "norm": cfg.norm != "rms",
+        "norm": cfg.norm != "rms",
         "gemma_norm": cfg.gemma_norm, "embedding_ln": cfg.embedding_ln,
         "post_attn_norm": cfg.post_attn_norm,
         "post_ffn_norm": cfg.post_ffn_norm, "clip_qkv": bool(cfg.clip_qkv),
@@ -84,6 +87,131 @@ def ffn(x: torch.Tensor, p: Params, cfg: ArchConfig,
     else:
         gate, up = linear(x, p["gate"], comp), linear(x, p["up"], comp)
     return linear(torch.nn.functional.silu(gate) * up, p["down"], comp)
+
+
+def _expert_view(stacked: dict, e: int) -> Params:
+    """ffn()-shaped param dict for one expert of a stacked MoE block."""
+    return {key: {"w": st.expert(e)} for key, st in stacked.items()}
+
+
+def _moe_grouped(x: torch.Tensor, stacked: dict, topi: torch.Tensor,
+                 probs: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Grouped expert dispatch for multi-token steps: token rows sorted by
+    expert into block-aligned segments, the FFN chain as grouped GEMMs, then
+    a gather-combine.  Rounding points as the JAX package's: float32 grouped
+    outputs and activation, `mid` cast to x's dtype, float32 combine, the
+    result cast to x's dtype."""
+    b, t, h = x.shape
+    n = b * t
+    kk = topi.shape[-1]
+    eid = topi.reshape(n * kk)
+    max_k = max(st.local_view().shape[0] for st in stacked.values())
+    bm = moe_ops.choose_bm(max_k, x.dtype)
+    r = moe_ops.route_tokens(eid, cfg.moe.num_experts, kk, bm)
+
+    xz = torch.cat([x.reshape(n, h), x.new_zeros((1, h))], dim=0)
+    xs = xz.index_select(0, r.src)                       # [M_pad, H]
+
+    def gq(a, st):
+        return moe_ops.grouped_qmatmul(a, st, r.block_expert, bm,
+                                       r.block_rows)
+
+    if "gateup" in stacked:
+        gate, up = torch.chunk(gq(xs, stacked["gateup"]), 2, dim=-1)
+        mid = torch.nn.functional.silu(gate) * up
+    else:
+        mid = (torch.nn.functional.silu(gq(xs, stacked["gate"]))
+               * gq(xs, stacked["up"]))
+    y = gq(mid.to(x.dtype), stacked["down"])             # [M_pad, H] f32
+    y_asg = y.index_select(0, r.dest_by_a).reshape(n, kk, h)
+    p = probs.reshape(n, kk).float()
+    out = y_asg[:, 0] * p[:, 0:1]
+    for j in range(1, kk):
+        out = out + y_asg[:, j] * p[:, j:j + 1]
+    return out.reshape(b, t, h).to(x.dtype)
+
+
+def _moe_single(x: torch.Tensor, stacked: dict, topi: torch.Tensor,
+                probs: torch.Tensor) -> torch.Tensor:
+    """B*T == 1: the JAX package's `lax.switch` over the selected experts,
+    as one per-row grouped launch per projection (row j = x, expert
+    topi[j]); outputs rounded to x's dtype where `linear`'s are, then summed
+    in float32 in the order j = 0, 1, ...  The expert ids stay on the
+    device."""
+    kk = topi.shape[-1]
+    h = x.shape[-1]
+    rows = x.reshape(1, h).expand(kk, h)
+    row_e = topi.reshape(kk).to(torch.int32)
+
+    def gq(a, st):
+        return moe_ops.grouped_qmatmul_rows(a, st, row_e).to(x.dtype)
+
+    if "gateup" in stacked:
+        gate, up = torch.chunk(gq(rows, stacked["gateup"]), 2, dim=-1)
+    else:
+        gate, up = gq(rows, stacked["gate"]), gq(rows, stacked["up"])
+    contrib = gq(torch.nn.functional.silu(gate) * up, stacked["down"]).float()
+    p = probs.reshape(kk).float()
+    out = torch.zeros((h,), dtype=torch.float32, device=x.device)
+    for j in range(kk):
+        out = out + contrib[j] * p[j]
+    return out.reshape(x.shape).to(x.dtype)
+
+
+def _top_k(logits: torch.Tensor, k: int):
+    """`lax.top_k`: the k largest along the last axis, ties to the lower
+    index (a stable descending sort; `torch.topk` leaves tie order open)."""
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_ffn(x: torch.Tensor, p: Params, cfg: ArchConfig,
+            ep_axis_name: Optional[str] = None,
+            comp: Optional[str] = None) -> torch.Tensor:
+    """Top-k expert mixing (mixtral; grok's router rule too).  Paths:
+
+    * B*T == 1 over stacked experts: `_moe_single`;
+    * multi-token over stacked experts (`fuse_params`): `_moe_grouped`;
+    * experts that do not stack: every expert over every token (kernels A,
+      F, P through `ffn`), weighted by the router; at B*T == 1 the selected
+      outputs are picked on the device and summed in the order of top_k.
+
+    Expert parallelism (`ep_axis_name`) is not ported."""
+    if ep_axis_name is not None:
+        raise NotImplementedError("expert parallelism is not ported yet")
+    m = cfg.moe
+    b, t, _ = x.shape
+    router_logits = linear(x, p["router"]).float()             # [B, T, E]
+    topv, topi = _top_k(router_logits, m.top_k)
+    if m.renorm:
+        # mixtral: softmax over the selected experts' logits
+        probs = torch.softmax(topv, dim=-1)
+    else:
+        # grok: the global softmax's probabilities of the selected experts
+        probs = torch.gather(torch.softmax(router_logits, dim=-1), -1, topi)
+    stacked = p.get("experts_stacked")
+
+    if stacked is not None:
+        if b * t == 1:
+            return _moe_single(x, stacked, topi, probs)
+        return _moe_grouped(x, stacked, topi, probs, cfg)
+
+    contribs = [ffn(x, ep, cfg, comp).float() for ep in p["experts"]]
+    if b * t == 1:
+        sel = torch.stack(contribs).reshape(m.num_experts, -1).index_select(
+            0, topi.reshape(-1))                                # [top_k, H]
+        pr = probs.reshape(-1)
+        out = torch.zeros_like(sel[0])
+        for j in range(m.top_k):
+            out = out + sel[j] * pr[j]
+        return out.reshape(x.shape).to(x.dtype)
+    onehot = (topi[..., None] == torch.arange(
+        m.num_experts, device=x.device)).float()                # [B,T,k,E]
+    weights = torch.einsum("btk,btke->bte", probs, onehot)
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for e, contrib in enumerate(contribs):
+        out = out + contrib * weights[..., e:e + 1]
+    return out.to(x.dtype)
 
 
 def kv_append_mode(cfg: ArchConfig) -> str:
@@ -158,8 +286,16 @@ def decoder_layer(x: torch.Tensor, lp: Params, cfg: ArchConfig,
         attn_out = attention_cache(q, cache, layer_idx, positions, kv_lens,
                                    **attn_kwargs)
     h1 = x + linear(attn_out.reshape(b, t, h * d), lp["o"], comp)
-    return (h1 + ffn(norm(h1, lp["ffn_norm"], cfg), lp["ffn"], cfg, comp),
-            cache)
+    ffn_in = norm(h1, lp["ffn_norm"], cfg)
+    if cfg.moe is None:
+        return h1 + ffn(ffn_in, lp["ffn"], cfg, comp), cache
+    mp = lp["moe"]
+    if cfg.moe.pre_norm:
+        ffn_in = norm(ffn_in, mp["pre_norm"], cfg)
+    ffn_out = moe_ffn(ffn_in, mp, cfg, comp=comp)
+    if cfg.moe.post_norm:
+        ffn_out = norm(ffn_out, mp["post_norm"], cfg)
+    return h1 + ffn_out, cache
 
 
 def forward(params: Params, cfg: ArchConfig, token_ids: torch.Tensor,
@@ -254,11 +390,47 @@ def _repad_tree(node):
     return node
 
 
+def _fuse_gateup(ffn_p: Optional[Params]) -> Optional[Params]:
+    if ffn_p is None or "gate" not in ffn_p or "up" not in ffn_p:
+        return ffn_p
+    f = _fuse_group([ffn_p["gate"], ffn_p["up"]])
+    if f is None:
+        return ffn_p
+    ffn_p = {k: v for k, v in ffn_p.items() if k not in ("gate", "up")}
+    ffn_p["gateup"] = f
+    return ffn_p
+
+
+def _stack_expert_ffns(experts) -> Optional[Dict[str, Any]]:
+    """Stack each projection of the expert FFNs, or None when any expert
+    is not stackable (mixed structures, biases, act-order perms, dense
+    weights)."""
+    if not experts:
+        return None
+    keys = set(experts[0].keys())
+    if keys not in ({"gateup", "down"}, {"gate", "up", "down"},
+                    {"up", "down"}):
+        return None
+    stacked = {}
+    for key in keys:
+        parts = [ep.get(key) for ep in experts]
+        if any(pp is None or set(pp) - {"w"}
+               or not isinstance(pp.get("w"), QTensor) for pp in parts):
+            return None
+        st = moe_ops.stack_experts([pp["w"] for pp in parts])
+        if st is None:
+            return None
+        stacked[key] = st
+    return stacked
+
+
 def fuse_params(params: Params, cfg: ArchConfig) -> Params:
     """Fuse per-layer Q/K/V and gate/up projections into single packed
-    weights (one kernel launch instead of three / two, same math) and
-    K-repad packed weights.  The LM head keeps its N: the JAX package's
-    512-lane N-repad is a TPU choice the port drops."""
+    weights (one kernel launch instead of three / two, same math), K-repad
+    packed weights, then stack a layer's list of MoE experts into
+    `experts_stacked` where they stack (after the repad, as the JAX
+    package).  The LM head keeps its N: the JAX package's 512-lane N-repad
+    is a TPU choice the port drops."""
     out = dict(params)
     layers = []
     for lp in params.get("layers", []):
@@ -268,14 +440,20 @@ def fuse_params(params: Params, cfg: ArchConfig) -> Params:
             if f is not None:
                 lp["qkv"] = f
                 del lp["q"], lp["k"], lp["v"]
-        ffn_p = lp.get("ffn")
-        if ffn_p is not None and "gate" in ffn_p and "up" in ffn_p:
-            f = _fuse_group([ffn_p["gate"], ffn_p["up"]])
-            if f is not None:
-                ffn_p = {k: v for k, v in ffn_p.items()
-                         if k not in ("gate", "up")}
-                ffn_p["gateup"] = f
-                lp["ffn"] = ffn_p
+        if "ffn" in lp:
+            lp["ffn"] = _fuse_gateup(lp["ffn"])
+        moe_p = lp.get("moe")
+        if isinstance(moe_p, dict) and "experts" in moe_p:
+            lp["moe"] = dict(moe_p, experts=[_fuse_gateup(e)
+                                             for e in moe_p["experts"]])
         layers.append(lp)
     out["layers"] = layers
-    return _repad_tree(out)
+    out = _repad_tree(out)
+    for lp in out["layers"]:
+        moe_p = lp.get("moe")
+        if isinstance(moe_p, dict) and "experts" in moe_p:
+            st = _stack_expert_ffns(moe_p["experts"])
+            if st is not None:
+                moe_p["experts_stacked"] = st
+                del moe_p["experts"]
+    return out

@@ -2,8 +2,10 @@
 
 Random packed bits are valid planes of every family (INT planes, NF4/FP4
 codes, INT8 bytes; FP8 bytes come from a cast random normal), so a
-Llama-2-7B-shaped model is drawn directly on the target device with a seeded `torch.Generator`: nothing
-is quantized and nothing is drawn on the host.  The draws differ from the
+Llama-2-7B- or Mixtral-8x7B-shaped model is drawn directly on the target
+device with a seeded `torch.Generator`: nothing is quantized and nothing is
+drawn on the host.  A MoE layer's experts are drawn straight into their
+`[E, ...]` stacks, layer by layer.  The draws differ from the
 JAX package's `jax.random` streams; tests carry the JAX parameters across
 with `models.params.params_from_numpy` instead.
 """
@@ -16,10 +18,40 @@ import torch
 
 from .._build import resolve_device
 from ..models.arch import ArchConfig
+from ..models.configs import MIXTRAL_8X7B_HF, mixtral_arch
+from ..ops.moe import StackedExperts
 from ..ops.qtypes import QSpec, QType, plane_widths
 from ..ops.quantize import QTensor
 
 _SCALE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _draw_pack(gen: torch.Generator, lead: tuple, k: int, n: int,
+               spec: QSpec, scale: float):
+    """Planes, scales and zeros of a random pack `[*lead, K, N]`."""
+    dev = gen.device
+    g = spec.effective_group(k)
+    if spec.qtype == QType.INT and spec.bits == 8:
+        data = (torch.randint(0, 256, (*lead, k, n), generator=gen,
+                              device=dev, dtype=torch.uint8),)
+    elif spec.is_fp8:
+        dt = (torch.float8_e4m3fn if spec.qtype == QType.FP8_E4M3
+              else torch.float8_e5m2)
+        data = (torch.randn((*lead, k, n), generator=gen, device=dev).to(
+            dt).view(torch.uint8),)
+    else:
+        bits = 4 if spec.is_lut else spec.bits
+        data = tuple(
+            torch.randint(-2 ** 31, 2 ** 31, (*lead, k * w // 32, n),
+                          generator=gen, device=dev, dtype=torch.int32)
+            for w in plane_widths(bits))
+    scales = ((torch.rand((*lead, k // g, n), generator=gen, device=dev)
+               + 0.5) * scale).to(_SCALE_DTYPES[spec.scale_dtype])
+    zeros = None
+    if spec.qtype == QType.INT and not spec.symmetric:
+        zeros = torch.randint(0, 2 ** spec.bits, (*lead, k // g, n),
+                              generator=gen, device=dev, dtype=torch.uint8)
+    return data, scales, zeros
 
 
 def synth_qtensor(gen: torch.Generator, k: int, n: int, spec: QSpec,
@@ -29,35 +61,25 @@ def synth_qtensor(gen: torch.Generator, k: int, n: int, spec: QSpec,
     normal cast to the fp8 type (FP8, so no NaN/inf code is drawn); group
     scales uniform in [0.5, 1.5) * scale; uniform uint8 zero points for
     asymmetric specs."""
-    dev = gen.device
-    g = spec.effective_group(k)
-    if spec.qtype == QType.INT and spec.bits == 8:
-        data = (torch.randint(0, 256, (k, n), generator=gen, device=dev,
-                              dtype=torch.uint8),)
-    elif spec.is_fp8:
-        dt = (torch.float8_e4m3fn if spec.qtype == QType.FP8_E4M3
-              else torch.float8_e5m2)
-        data = (torch.randn((k, n), generator=gen, device=dev).to(dt).view(
-            torch.uint8),)
-    else:
-        bits = 4 if spec.is_lut else spec.bits
-        data = tuple(
-            torch.randint(-2 ** 31, 2 ** 31, (k * w // 32, n), generator=gen,
-                          device=dev, dtype=torch.int32)
-            for w in plane_widths(bits))
-    scales = ((torch.rand((k // g, n), generator=gen, device=dev) + 0.5)
-              * scale).to(_SCALE_DTYPES[spec.scale_dtype])
-    zeros = None
-    if spec.qtype == QType.INT and not spec.symmetric:
-        zeros = torch.randint(0, 2 ** spec.bits, (k // g, n), generator=gen,
-                              device=dev, dtype=torch.uint8)
+    data, scales, zeros = _draw_pack(gen, (), k, n, spec, scale)
     return QTensor(data, scales, zeros, None, spec, (k, n))
+
+
+def synth_stacked(gen: torch.Generator, n_experts: int, k: int, n: int,
+                  spec: QSpec, scale: float = 0.02) -> StackedExperts:
+    """`n_experts` random packs `[K, N]` drawn as one `[E, ...]` stack (the
+    draws of `synth_qtensor` with a leading axis), so no per-expert copy is
+    made.  FP8 and other packs `stack_experts` refuses stay per-expert
+    lists in real models; here they stack all the same."""
+    data, scales, zeros = _draw_pack(gen, (n_experts,), k, n, spec, scale)
+    return StackedExperts(data, scales, zeros, spec, (k, n), n_experts)
 
 
 def synth_params(cfg: ArchConfig, spec: QSpec, seed: int = 0,
                  dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
     """Random llama-path params on `device` (the card unless the CPU is
-    asked for)."""
+    asked for).  A MoE config gets the JAX package's tree: a float32 router
+    `[H, E]` and `experts_stacked` with `gate` / `up` / `down`."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -76,15 +98,29 @@ def synth_params(cfg: ArchConfig, spec: QSpec, seed: int = 0,
         "final_norm": ones(),
         "lm_head": lin(e, cfg.vocab_size),
     }
+    inter = cfg.intermediate_size
     for _ in range(cfg.n_layers):
-        p["layers"].append({
-            "attn_norm": ones(), "ffn_norm": ones(),
-            "q": lin(e, cfg.q_dim), "k": lin(e, cfg.kv_dim),
-            "v": lin(e, cfg.kv_dim), "o": lin(cfg.q_dim, e),
-            "ffn": {"gate": lin(e, cfg.intermediate_size),
-                    "up": lin(e, cfg.intermediate_size),
-                    "down": lin(cfg.intermediate_size, e)},
-        })
+        lp = {"attn_norm": ones(), "ffn_norm": ones(),
+              "q": lin(e, cfg.q_dim), "k": lin(e, cfg.kv_dim),
+              "v": lin(e, cfg.kv_dim), "o": lin(cfg.q_dim, e)}
+        if cfg.moe is None:
+            lp["ffn"] = {"gate": lin(e, inter), "up": lin(e, inter),
+                         "down": lin(inter, e)}
+        else:
+            n_exp = cfg.moe.num_experts
+            lp["moe"] = {
+                "router": {"w": torch.randn((e, n_exp), generator=gen,
+                                            device=dev) * 0.02},
+                "experts_stacked": {
+                    "gate": synth_stacked(gen, n_exp, e, inter, spec),
+                    "up": synth_stacked(gen, n_exp, e, inter, spec),
+                    "down": synth_stacked(gen, n_exp, inter, e, spec)},
+            }
+            if cfg.moe.pre_norm:
+                lp["moe"]["pre_norm"] = ones()
+            if cfg.moe.post_norm:
+                lp["moe"]["post_norm"] = ones()
+        p["layers"].append(lp)
     return p
 
 
@@ -95,3 +131,9 @@ def llama2_7b_arch(vocab: int = 32000) -> ArchConfig:
         n_heads=32, n_kv_heads=32, intermediate_size=11008,
         max_position_embeddings=4096,
     )
+
+
+def mixtral_8x7b_arch() -> ArchConfig:
+    """Mixtral-8x7B shape (its published config.json): 32 layers, hidden
+    4096, 32 heads over 8 KV heads, 8 experts of width 14336, top-2."""
+    return mixtral_arch(MIXTRAL_8X7B_HF)

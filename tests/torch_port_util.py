@@ -30,9 +30,20 @@ def to_numpy(a) -> np.ndarray:
 
 
 def tree_to_numpy(node):
-    """JAX params (dicts / lists / QTensors / arrays) -> numpy tree."""
+    """JAX params (dicts / lists / QTensors / StackedExperts / arrays) ->
+    numpy tree.  A `StackedExperts` becomes a packed-weight dict with an
+    `n_experts` key."""
+    from neural_speed_tpu.ops.moe import StackedExperts
     from neural_speed_tpu.ops.quantize import QTensor
 
+    if isinstance(node, StackedExperts):
+        spec = dataclasses.asdict(node.spec)
+        spec["qtype"] = node.spec.qtype.value
+        return {"data": [to_numpy(p) for p in node.data],
+                "scales": to_numpy(node.scales),
+                "zeros": None if node.zeros is None else to_numpy(node.zeros),
+                "spec": spec, "shape": tuple(node.shape),
+                "n_experts": node.n_experts, "k_shards": node.k_shards}
     if isinstance(node, QTensor):
         spec = dataclasses.asdict(node.spec)
         spec["qtype"] = node.spec.qtype.value
