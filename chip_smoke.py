@@ -19,14 +19,19 @@ Phases, each raising on failure so the run exits non-zero:
    and at 8 KV heads (n_rep 1 and 4).  The paged attention kernels run
    over a shuffled page table, at page sizes 128 and 16, and must also
    equal the contiguous kernels over the gathered layer bit for bit.  The
-   grouped MoE kernel runs at Mixtral-8x7B's expert shapes over routes
-   from `route_tokens` (uniform, one expert taking every token, one
-   expert empty, a B = 4 decode step) and as the single-token GEMV;
+   grouped MoE kernels (kernel 11 and the grouped instances of F and P)
+   run at Mixtral-8x7B's expert shapes over routes from `route_tokens`
+   (uniform, one expert taking every token, one expert empty, a B = 4
+   decode step) and as the single-token GEMV.  P's one-plane INT instances
+   run on the GPTQ / AWQ and GGUF packs (uint8 zero points, float32 and
+   double-quantized scales, widths 1, 2, 4 and 8);
 3. a tiny model through `Engine` on the card against the same model on the
    CPU (plain versions), once in int4, once per configuration of phase
    5 and as a tiny Mixtral at B = 3 and B = 1: logits within tolerance,
    identical greedy ids at every step; then a tiny `PagedEngine` the same
-   way, through a release and a refill into fragmented pages;
+   way, through a release and a refill into fragmented pages; then the
+   converted checkpoints: a GPTQ act-order llama, GGUF Q4_0 / Q8_0 /
+   Q4_K_M / Q2_K llamas, a GGUF Q4_0 and an nf4 Mixtral;
 4. the main path: a Llama-2-7B-shaped int4 model (full width and depth,
    random weights from a seed, drawn on the card) serves 4 ragged requests,
    then the bench shape (B = 1, a 1975-token prefill, 64 greedy steps); every
@@ -53,7 +58,18 @@ Phases, each raising on failure so the run exits non-zero:
    equal to (a)'s bit for bit.  It prints the weight GiB, TTFT, ms/token
    and launches per kernel; the grouped kernel and kernel A must launch in
    prefill and decode, no plain version may run, and the MoE layers of a
-   B = 4 and a B = 1 decode step must not synchronise the host.
+   B = 4 and a B = 1 decode step must not synchronise the host;
+8. quantized checkpoints drawn from a seed in their published layouts and
+   converted by the port's loaders, each serving the bench shape (B = 1, a
+   1975-token prefill, 32 greedy steps): Llama-2-7B as GPTQ int4 g128
+   act-order (AutoGPTQ v1 layout, repacked on the card; also the ragged
+   requests through `Engine` and `PagedEngine`, bit-equal), as GGUF Q4_0
+   through a file (`GGUFWriter`, `load_gguf_model`), as GGUF Q8_0 and
+   Q2_K; Mixtral-8x7B as GGUF Q4_0 (the ragged requests too, and the MoE
+   layers of a B = 4 and a B = 1 step under the sync check) and as nf4.
+   Each run prints weight GiB, TTFT, ms/token and launches per kernel; the
+   expected matmul kernels (and only they) must launch at prefill and at
+   decode, and no plain version may run.
 
 It prints a `kernels` JSON line, then as its last line
 `{"ok": true, "device": {...}}`.  It imports nothing of JAX.
@@ -175,6 +191,11 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 
 
 def _category(kernel_name: str) -> str:
+    if "nstfp::" in kernel_name:
+        # F, P and P's one-plane INT instances; the grouped ones take
+        # GROUPED = true and write float32
+        grouped = "true" in kernel_name or "<float>" in kernel_name
+        return "qmatmul_grouped_fp" if grouped else "qmatmul_fp"
     if "int4" in kernel_name or "splitk" in kernel_name:
         # kernel 11's instances: GROUPED = true, float32 output
         grouped = "true" in kernel_name or "<float>" in kernel_name
@@ -421,6 +442,103 @@ def check_fp_formats(chk: Checks, gen: torch.Generator) -> None:
             torch.cuda.empty_cache()
 
 
+def _double_quant(gen, qt):
+    """The pack with double-quantized scales: int8 codes in [1, 127] and a
+    float32 secondary scale per column."""
+    import dataclasses
+
+    k, n = qt.shape
+    g = qt.spec.effective_group(k)
+    codes = torch.randint(1, 128, (k // g, n), generator=gen, device="cuda",
+                          dtype=torch.int8)
+    sscale = (torch.rand((1, n), generator=gen, device="cuda") + 0.5) * 2e-4
+    spec = dataclasses.replace(qt.spec, double_quant=True)
+    return dataclasses.replace(qt, scales=codes, sscale=sscale, spec=spec)
+
+
+def _int_cases():
+    """P's one-plane INT instances ("qmatmul_int": row 1's packs that kernel
+    A does not take) and kernel P's new float-offset widths (row 3), as
+    (kernel, spec, shape names, M values, pack transform)."""
+    from neural_speed_tpu_torch.ops.qtypes import named_qspec
+
+    five = tuple(SHAPES_7B)
+    all_m, two_m = (1, 4, 2048), (1, 2048)
+    gptq = named_qspec("int4", 128, False)             # GPTQ / AWQ
+    q4_0 = named_qspec("int4", 32)                     # GGUF Q4_0
+    q8_0 = named_qspec("int8", 32)                     # GGUF Q8_0
+    return [
+        ("qmatmul_int", gptq, five, all_m, None),
+        ("qmatmul_int", q4_0, five, all_m, None),
+        ("qmatmul_int", q8_0, five, two_m, None),
+        ("qmatmul_int", named_qspec("int8", 128, False), five, two_m, None),
+        ("qmatmul_int", named_qspec("int2", 128, False), five, two_m, None),
+        ("qmatmul_int", named_qspec("int1", 128, scale_dtype="bfloat16"),
+         five, two_m, None),
+        ("qmatmul_int", named_qspec("int4", 128), ("gateup", "o"), all_m,
+         _double_quant),
+        ("qmatmul_planar", named_qspec("int2", 16, False), ("gateup", "down"),
+         all_m, _float_offsets),                       # GGUF Q2_K
+        ("qmatmul_planar", named_qspec("int2", 128, False), ("o",), two_m,
+         _float_offsets),
+        ("qmatmul_planar", named_qspec("int8", 16, False), ("o",), two_m,
+         _float_offsets),
+        ("qmatmul_planar", named_qspec("int8", 128, False), ("gateup",),
+         two_m, _float_offsets)]
+
+
+def check_int_formats(chk: Checks, gen: torch.Generator) -> None:
+    """P's one-plane INT instances (INT 1/2/4/8 with uint8 zero points,
+    float32 or double-quantized scales) and kernel P's float offsets at
+    widths 2 and 8 against `qmatmul_plain` at the 7B shapes, through
+    `qmatmul` (the route the main path takes)."""
+    from neural_speed_tpu_torch.ops import matmul
+    from neural_speed_tpu_torch.ops.quantize import dequantize
+    from neural_speed_tpu_torch.utils.synthetic import synth_qtensor
+
+    sources = {
+        "qmatmul_int": ("neural_speed_tpu_torch/csrc/qmatmul_planar.cuh",
+                        "neural_speed_tpu/ops/matmul.py:127"),
+        "qmatmul_planar": ("neural_speed_tpu_torch/csrc/qmatmul_planar.cuh",
+                           "neural_speed_tpu/ops/matmul.py:376")}
+    for kname, spec, shape_names, ms_list, transform in _int_cases():
+        for shape_name in shape_names:
+            k, n = _shape(shape_name, spec)
+            qt = synth_qtensor(gen, k, n, spec)
+            if transform is not None:
+                qt = transform(gen, qt)
+            letter = {"qmatmul_int": "I", "qmatmul_planar": "P"}[kname]
+            if matmul.kernel_for(qt) != letter:
+                raise AssertionError(f"{_fmt_name(qt)} routes to "
+                                     f"{matmul.kernel_for(qt)!r}, not {letter}")
+            w_bf16 = dequantize(qt, torch.bfloat16)
+            for m in ms_list:
+                x = torch.randn((m, k), generator=gen, device="cuda").to(
+                    torch.bfloat16)
+                got = matmul.qmatmul(x, qt)
+                want = matmul.qmatmul_plain(x, qt)
+                torch.cuda.synchronize()
+                # as kernels F and P: the same dequantized values in both
+                # versions, float32 sums in another order and one bf16
+                # rounding of the output -> two bf16 ulps of the largest output
+                cmp = compare(got, want, 2, per_row=False)
+                del got, want
+                ms = time_ms(lambda: matmul.qmatmul(x, qt))
+                plain_ms = time_ms(lambda: matmul.qmatmul_plain(x, qt), reps=3)
+                lib_ms = time_ms(lambda: torch.matmul(x, w_bf16))
+                nbytes = m * k * 2 + qt.nbytes() + m * n * 2
+                dq = "/dq" if qt.sscale is not None else ""
+                chk.add(kname, "cuda", *sources[kname],
+                        f"{_fmt_name(qt)}{dq} g={spec.group_size} M={m} K={k} "
+                        f"N={n}", cmp, ms, plain_ms, lib_ms, nbytes,
+                        2.0 * m * n * k,
+                        main=(kname == "qmatmul_int" and spec.group_size == 128
+                              and spec.bits == 4 and not spec.symmetric
+                              and m == 1 and shape_name == "gateup"))
+            del qt, w_bf16
+            torch.cuda.empty_cache()
+
+
 def compare_f32(got: torch.Tensor, want: torch.Tensor, groups: int) -> dict:
     """|got - want| against `groups` float32 ulps (2**-23 relative) of the
     largest |want|: the integer partials of kernels G and H are exact, so
@@ -502,10 +620,12 @@ def check_int8_formats(chk: Checks, gen: torch.Generator) -> None:
 
 
 def check_ragged_shapes(chk: Checks, gen: torch.Generator) -> None:
-    """Kernels F, P, G, H at shapes off the tiles: N = 264 (a multiple of 8
-    only), g = 64, M = 5 and M = 37 (a partial row tile), K the pack period x
-    g.  Correctness only: these are not main-path shapes, so nothing is
-    timed and nothing enters the kernels line."""
+    """Kernels F, P (and its one-plane INT instances), G, H at shapes off
+    the tiles: N = 264 (a multiple of 8 only), g = 64, M = 5 and M = 37 (a
+    partial row tile), K the pack period x g; and groups of 128 that
+    straddle the bands of the pack.  Correctness only: these are not
+    main-path shapes, so nothing is timed and nothing enters the kernels
+    line."""
     from neural_speed_tpu_torch.ops import matmul
     from neural_speed_tpu_torch.ops.qtypes import named_qspec
     from neural_speed_tpu_torch.utils.synthetic import synth_qtensor
@@ -513,7 +633,8 @@ def check_ragged_shapes(chk: Checks, gen: torch.Generator) -> None:
     n, worst = 264, {}
     for name, sym in (("nf4", True), ("int3", False), ("int6", True),
                       ("int7", False), ("fp8_e4m3", True), ("int4", True),
-                      ("int8", True), ("int2", False)):
+                      ("int8", True), ("int2", False), ("int1", True),
+                      ("int8", False), ("int4", False)):
         spec = named_qspec(name, 64, sym)
         k = 3 * matmul.kernel_k_multiple(spec) * 64
         qt = synth_qtensor(gen, k, n, spec)
@@ -523,15 +644,30 @@ def check_ragged_shapes(chk: Checks, gen: torch.Generator) -> None:
                 xb = x.to(torch.bfloat16)
                 cmp = compare(matmul.qmatmul(xb, qt),
                               matmul.qmatmul_plain(xb, qt), 2, per_row=False)
-                worst[f"{name} M={m}"] = cmp["worst"]
+                worst[f"{name}{'' if sym else '/asym'} M={m}"] = cmp["worst"]
             if matmul.int8_kernel_for(qt):
                 xq, ascale = matmul._act_quant(x, 64)
                 cmp = compare_f32(matmul.qmatmul_int8_cuda(xq, ascale, qt),
                                   matmul.qmatmul_int8_plain(xq, ascale, qt),
                                   k // 64)
-                worst[f"{name} int8 M={m}"] = cmp["worst"]
+                worst[f"{name}{'' if sym else '/asym'} int8 M={m}"] = \
+                    cmp["worst"]
     torch.cuda.synchronize()
-    log("  ragged shapes (N=264, g=64), largest error / tolerance: "
+    # groups that straddle a band of the pack (K = 11008 before the load-time
+    # repad: 1376 word rows per band at 8 bands, 344 at 32, against g = 128)
+    for name, sym in (("int4", False), ("nf4", True), ("int5", True),
+                      ("int1", True)):
+        spec = named_qspec(name, 128, sym)
+        k = 11008 if name != "int1" else 11264
+        qt = synth_qtensor(gen, k, n, spec)
+        xb = torch.randn((5, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        cmp = compare(matmul.qmatmul(xb, qt), matmul.qmatmul_plain(xb, qt), 2,
+                      per_row=False)
+        worst[f"{name}{'' if sym else '/asym'} g=128 K={k} M=5"] = cmp["worst"]
+    torch.cuda.synchronize()
+    log("  ragged shapes (N=264, g=64; straddling groups), largest error / "
+        "tolerance: "
         + json.dumps({k: round(v, 3) for k, v in worst.items()}))
     bad = {k: v for k, v in worst.items() if not v <= 1.0}
     if bad:
@@ -574,40 +710,39 @@ def _route_eids(kind: str, gen: torch.Generator, n_tok: int) -> torch.Tensor:
     return picks.reshape(-1)
 
 
-def check_grouped(chk: Checks, gen: torch.Generator) -> None:
-    """Kernel 11 against its plain versions at Mixtral-8x7B's expert shapes
-    (E = 8, int4 g128, bf16 scales).  The GEMM over the routes of 2048
-    tokens x top-2 (uniform, one expert taking every token, one expert
-    empty: padding blocks and empty segments), of a B = 4 decode step
-    (8 rows in 9 blocks of 128, mostly padding) and of 2048 tokens at
-    bm = 64; the GEMV over 2 rows, an expert each (the single-token
-    decode).  Outputs are float32 sums of exact products in another order:
-    within 2**-12 of the row's largest |output|.  Library yardstick: a loop
-    of torch.matmul over the experts' segments on bf16 weights dequantized
-    beforehand."""
+GROUPED_ROUTES = [("uniform", 2048, 128), ("one expert", 2048, 128),
+                  ("one empty", 2048, 128), ("uniform", 4, 128),
+                  ("uniform", 2048, 64)]
+
+
+def _check_stack(chk: Checks, gen: torch.Generator, kname: str, source: str,
+                 spec, routes, gemm, gemv, main: bool,
+                 projs=tuple(MOE_SHAPES)) -> None:
+    """One grouped kernel on one stack format at Mixtral's expert shapes:
+    the GEMM (`gemm`) over `routes` (kind, tokens, bm) and the 2-row GEMV
+    (`gemv`), each against its plain version.  Outputs are float32 sums of
+    exact products in another order: within 2**-12 of the row's largest
+    |output|.  Library yardstick: a loop of torch.matmul over the experts'
+    segments on bf16 weights dequantized beforehand."""
     from neural_speed_tpu_torch.ops import moe
-    from neural_speed_tpu_torch.ops.qtypes import named_qspec
     from neural_speed_tpu_torch.ops.quantize import dequantize
     from neural_speed_tpu_torch.utils.synthetic import synth_stacked
 
-    spec = named_qspec("int4", 128, scale_dtype="bfloat16")
     rel = 2.0 ** -12
-    cases = [("uniform", 2048, 128), ("one expert", 2048, 128),
-             ("one empty", 2048, 128), ("uniform", 4, 128),
-             ("uniform", 2048, 64)]
-    for proj, (k, n) in MOE_SHAPES.items():
+    for proj in projs:
+        k, n = MOE_SHAPES[proj]
         st = synth_stacked(gen, N_EXPERTS, k, n, spec)
+        fmt = _fmt_name(st.expert(0))
         w_bf16 = [dequantize(st.expert(e), torch.bfloat16)
                   for e in range(N_EXPERTS)]
         expert_bytes = st.nbytes() // N_EXPERTS
-        for kind, n_tok, bm in cases:
+        for kind, n_tok, bm in routes:
             eid = _route_eids(kind, gen, n_tok)
             r = moe.route_tokens(eid, N_EXPERTS, TOP_K, bm)
             x = torch.randn((n_tok, k), generator=gen, device="cuda").to(
                 torch.bfloat16)
             xs = torch.cat([x, x.new_zeros((1, k))]).index_select(0, r.src)
-            run = lambda: moe.grouped_qmatmul_cuda(xs, st, r.block_expert, bm,
-                                                   r.block_rows)
+            run = lambda: gemm(xs, st, r.block_expert, bm, r.block_rows)
             got = run()
             want = moe.grouped_qmatmul_plain(xs, st, r.block_expert, bm)
             torch.cuda.synchronize()
@@ -628,20 +763,18 @@ def check_grouped(chk: Checks, gen: torch.Generator) -> None:
             touched = sum(1 for c in counts if c)
             nbytes = (touched * expert_bytes + rows * k * 2
                       + xs.shape[0] * n * 4)
-            chk.add("qmatmul_grouped", "cuda",
-                    "neural_speed_tpu_torch/csrc/qmatmul_grouped.cu",
-                    "neural_speed_tpu/ops/moe.py:304",
-                    f"GEMM {proj} {kind} {n_tok} tokens x top-2 bm={bm} "
-                    f"M_pad={xs.shape[0]} K={k} N={n}", cmp, ms, plain_ms,
-                    lib_ms, nbytes, 2.0 * rows * n * k,
-                    main=(proj, kind, n_tok, bm) == ("gate/up", "uniform",
-                                                     2048, 128))
+            chk.add(kname, "cuda", source, "neural_speed_tpu/ops/moe.py:304",
+                    f"GEMM {fmt} g={spec.group_size} {proj} {kind} {n_tok} "
+                    f"tokens x top-2 bm={bm} M_pad={xs.shape[0]} K={k} N={n}",
+                    cmp, ms, plain_ms, lib_ms, nbytes, 2.0 * rows * n * k,
+                    main=main and (proj, kind, n_tok, bm) == (
+                        "gate/up", "uniform", 2048, 128))
             del xs, r
         # the single-token decode: two rows, an expert each
         x2 = torch.randn((1, k), generator=gen, device="cuda").to(
             torch.bfloat16).expand(TOP_K, k).contiguous()
         row_e = torch.tensor([6, 1], dtype=torch.int32, device="cuda")
-        run = lambda: moe.grouped_qmatmul_rows_cuda(x2, st, row_e)
+        run = lambda: gemv(x2, st, row_e)
         got = run()
         want = moe.grouped_qmatmul_rows_plain(x2, st, row_e)
         torch.cuda.synchronize()
@@ -652,13 +785,55 @@ def check_grouped(chk: Checks, gen: torch.Generator) -> None:
         lib_ms = time_ms(lambda: [torch.matmul(x2[j:j + 1], w_bf16[e])
                                   for j, e in enumerate((6, 1))])
         nbytes = TOP_K * (expert_bytes + k * 2 + n * 4)
-        chk.add("qmatmul_grouped", "cuda",
-                "neural_speed_tpu_torch/csrc/qmatmul_grouped.cu",
-                "neural_speed_tpu/ops/moe.py:304",
-                f"GEMV {proj} 2 rows, experts 6 and 1, K={k} N={n}", cmp, ms,
-                plain_ms, lib_ms, nbytes, 2.0 * TOP_K * n * k)
+        chk.add(kname, "cuda", source, "neural_speed_tpu/ops/moe.py:304",
+                f"GEMV {fmt} g={spec.group_size} {proj} 2 rows, experts 6 "
+                f"and 1, K={k} N={n}", cmp, ms, plain_ms, lib_ms, nbytes,
+                2.0 * TOP_K * n * k)
         del st, w_bf16
         torch.cuda.empty_cache()
+
+
+def check_grouped(chk: Checks, gen: torch.Generator) -> None:
+    """Kernel 11 against its plain versions at Mixtral-8x7B's expert shapes
+    (E = 8, int4 g128, bf16 scales): the GEMM over the routes of 2048
+    tokens x top-2 (uniform, one expert taking every token, one expert
+    empty: padding blocks and empty segments), of a B = 4 decode step
+    (8 rows in 9 blocks of 128, mostly padding) and of 2048 tokens at
+    bm = 64; the GEMV over 2 rows, an expert each (the single-token
+    decode)."""
+    from neural_speed_tpu_torch.ops import moe
+    from neural_speed_tpu_torch.ops.qtypes import named_qspec
+
+    _check_stack(chk, gen, "qmatmul_grouped",
+                 "neural_speed_tpu_torch/csrc/qmatmul_grouped.cu",
+                 named_qspec("int4", 128, scale_dtype="bfloat16"),
+                 GROUPED_ROUTES, moe.grouped_qmatmul_cuda,
+                 moe.grouped_qmatmul_rows_cuda, main=True)
+
+
+def check_grouped_fp(chk: Checks, gen: torch.Generator) -> None:
+    """The grouped instances of kernels F and P against their plain
+    versions at Mixtral-8x7B's expert shapes, over kernel 11's routes: the
+    stacks of a GGUF Q4_0 Mixtral (int4 symmetric, float32 scales, g = 32),
+    int4 asymmetric with float32 scales, int8 and nf4 over every route;
+    int1 and int2 over the uniform route (gate/up).  Tolerance as kernel
+    11's."""
+    from neural_speed_tpu_torch.ops import moe
+    from neural_speed_tpu_torch.ops.qtypes import named_qspec
+
+    bf = dict(scale_dtype="bfloat16")
+    both, uniform = tuple(MOE_SHAPES), GROUPED_ROUTES[:1]
+    stacks = [(named_qspec("int4", 32), GROUPED_ROUTES, True, both),
+              (named_qspec("int4", 128, False), GROUPED_ROUTES, False, both),
+              (named_qspec("int8", 128, **bf), GROUPED_ROUTES, False, both),
+              (named_qspec("nf4", 128, **bf), GROUPED_ROUTES, False, both),
+              (named_qspec("int2", 128, **bf), uniform, False, ("gate/up",)),
+              (named_qspec("int1", 128, **bf), uniform, False, ("gate/up",))]
+    for spec, routes, main, projs in stacks:
+        _check_stack(chk, gen, "qmatmul_grouped_fp",
+                     "neural_speed_tpu_torch/csrc/qmatmul_grouped_fp.cuh",
+                     spec, routes, moe.grouped_qmatmul_fp_cuda,
+                     moe.grouped_qmatmul_rows_fp_cuda, main, projs)
 
 
 def _random_cache(gen, layers, b, hkv, s, d):
@@ -1022,11 +1197,18 @@ def format_configs():
 # below 400 keeps 9 clear steps, so it is held for 5.  The tiny Mixtral's
 # seed also keeps every routing decision of a real token on the CPU at
 # least 3.6 bf16 ulps of the row's largest router logit from a tie, at
-# B = 3 and B = 1 (1 in 240 seeds searched did both over 6 steps).
+# B = 3 and B = 1 (1 in 240 seeds searched did both over 6 steps).  The
+# converted checkpoints (`check_tiny_checkpoints`) were searched the same
+# way over seeds 0-399: their uniform codes give flat logits, so the GGUF
+# Q8_0 llama is held for the 7 steps its best seed keeps clear, and the
+# nf4 Mixtral, whose router gaps are narrow, for 4.
 TINY_SEEDS = {"int4": (15, 9), "nf4": (268, 9), "int5 asymmetric": (84, 5),
               "fp8_e4m3": (562, 9), "int4 + comp=int8": (172, 9),
               "int3 + comp=int8": (1, 9), "mixtral int4": (89, 6),
-              "mixtral int4 B=1": (89, 6)}
+              "mixtral int4 B=1": (89, 6), "gptq act-order": (2, 9),
+              "gguf Q4_0": (4, 9), "gguf Q8_0": (10, 7),
+              "gguf Q4_K_M": (166, 9), "gguf Q2_K": (60, 9),
+              "mixtral gguf Q4_0": (7, 6), "mixtral nf4": (87, 4)}
 
 
 TINY_CFG = dict(name="llama", vocab_size=512, hidden_size=512, n_layers=2,
@@ -1069,14 +1251,20 @@ def tiny_moe_cfg():
 
 
 def check_tiny_model(label: str, spec, comp, cfg=None,
-                     prompts=TINY_PROMPTS) -> None:
+                     prompts=TINY_PROMPTS, params_fn=None) -> None:
+    """A tiny model through `Engine` on the card and on the CPU: params from
+    `synth_params(cfg, spec)` or, for a converted checkpoint, from
+    `params_fn(cfg, generator)` (drawn on the CPU), seeded per label."""
     from neural_speed_tpu_torch.models.arch import ArchConfig
     from neural_speed_tpu_torch.runtime.engine import Engine
     from neural_speed_tpu_torch.utils.synthetic import synth_params
 
     seed, checks = TINY_SEEDS[label]
     cfg = cfg or ArchConfig(**TINY_CFG)
-    params = synth_params(cfg, spec, seed=seed, device="cpu")
+    if params_fn is None:
+        params = synth_params(cfg, spec, seed=seed, device="cpu")
+    else:
+        params = params_fn(cfg, torch.Generator().manual_seed(seed))
     b = len(prompts)
     eng = {dev: Engine(params, cfg, max_batch=b, max_len=256, device=dev,
                        comp=comp)
@@ -1162,6 +1350,175 @@ def check_tiny_paged() -> None:
     log(f"  {what}: {checks} steps, a release and a refill into fragmented "
         f"pages, 3 more steps: logits within 2% of the largest logit of the "
         f"CPU plain path and greedy ids equal at every step")
+
+
+# ---------------------------------------------------------------------------
+# quantized checkpoints drawn from a seed (phases 3 and 8)
+# ---------------------------------------------------------------------------
+
+# GPTQ's act-order config (AutoGPTQ v1 layout, int4, g = 128)
+GPTQ_HF = {"quantization_config": {"quant_method": "gptq", "bits": 4,
+                                   "group_size": 128, "desc_act": True}}
+
+
+def gptq_params(cfg, gen: torch.Generator, scale: float = 0.01):
+    """An act-order GPTQ checkpoint in AutoGPTQ v1 layout drawn on `gen`'s
+    device (uniform `qweight` / `qzeros` words, float16 `scales`, a random
+    group permutation as `g_idx` per linear; bf16 embedding and head),
+    converted by `params_from_quantized_state_dict` on that device."""
+    from neural_speed_tpu_torch.convert.gptq import \
+        params_from_quantized_state_dict
+
+    dev = gen.device
+    h, v = cfg.hidden_size, cfg.vocab_size
+    ones = lambda: torch.ones((h,), device=dev)
+    words = lambda r, c: torch.randint(-2 ** 31, 2 ** 31, (r, c), generator=gen,
+                                       device=dev, dtype=torch.int32)
+    sd = {"model.embed_tokens.weight": (torch.randn(
+              (v, h), generator=gen, device=dev) * 0.02).to(torch.bfloat16),
+          "model.norm.weight": ones(),
+          "lm_head.weight": (torch.randn((v, h), generator=gen, device=dev)
+                             * 0.02).to(torch.bfloat16)}
+    projs = [("self_attn.q_proj", h, cfg.q_dim), ("self_attn.k_proj", h,
+             cfg.kv_dim), ("self_attn.v_proj", h, cfg.kv_dim),
+             ("self_attn.o_proj", cfg.q_dim, h),
+             ("mlp.gate_proj", h, cfg.intermediate_size),
+             ("mlp.up_proj", h, cfg.intermediate_size),
+             ("mlp.down_proj", cfg.intermediate_size, h)]
+    for i in range(cfg.n_layers):
+        pre = f"model.layers.{i}."
+        sd[pre + "input_layernorm.weight"] = ones()
+        sd[pre + "post_attention_layernorm.weight"] = ones()
+        for name, k, n in projs:
+            sd[pre + name + ".qweight"] = words(k // 8, n)
+            sd[pre + name + ".qzeros"] = words(k // 128, n // 8)
+            sd[pre + name + ".scales"] = ((torch.rand(
+                (k // 128, n), generator=gen, device=dev) + 0.5) * scale).half()
+            sd[pre + name + ".g_idx"] = (torch.arange(k, device=dev) // 128)[
+                torch.randperm(k, generator=gen, device=dev)].to(torch.int32)
+    return params_from_quantized_state_dict(sd, cfg, GPTQ_HF)
+
+
+def _ggml():
+    from neural_speed_tpu_torch.convert import gguf
+
+    return gguf
+
+
+# ggml block types' float16 fields: (byte offset, magnitude), drawn so that
+# the weights are of the order of the int4 models' (|w| up to ~0.1)
+GGML_FP16 = {"Q4_0": [(0, 0.01)], "Q8_0": [(0, 6e-4)],
+             "Q4_K": [(0, 1e-4), (2, 1e-3)], "Q6_K": [(208, 2e-5)],
+             "Q2_K": [(80, 2e-3), (82, 3e-3)]}
+
+
+def draw_blocks(gen: torch.Generator, ttype: str, rows: int, row_len: int):
+    """Block bytes of a ggml tensor [rows, row_len] on `gen`'s device:
+    uniform bytes, with each float16 field drawn finite."""
+    g = _ggml()
+    code = getattr(g, f"GGML_{ttype}")
+    be, bb = g.ggml_block_info(code)
+    nb = rows * row_len // be
+    dev = gen.device
+    raw = torch.randint(0, 256, (nb, bb), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    for off, mag in GGML_FP16[ttype]:
+        d = ((torch.rand((nb,), generator=gen, device=dev) + 0.5) * mag).half()
+        raw[:, off:off + 2] = d.view(torch.uint8).reshape(nb, 2)
+    return raw.reshape(-1)
+
+
+def gguf_linear(gen, ttype: str, k: int, n: int) -> dict:
+    """A linear [K, N] from ggml block bytes drawn on the card or the CPU,
+    through `gguf_tensor_to_qtensor` (ggml orientation: N rows of K)."""
+    g = _ggml()
+    raw = draw_blocks(gen, ttype, n, k)
+    return {"w": g.gguf_tensor_to_qtensor(raw, (k, n),
+                                          getattr(g, f"GGML_{ttype}"))}
+
+
+def gguf_params(cfg, gen: torch.Generator, types: dict) -> dict:
+    """A llama or mixtral GGUF model drawn as block bytes per tensor and
+    decoded on `gen`'s device (`types`: ggml type per role, `attn_q`,
+    `attn_k`, `attn_v`, `attn_output`, `ffn_gate`, `ffn_up`, `ffn_down`,
+    `output`).  A MoE layer's experts are fused and stacked layer by layer
+    (`fuse_params`), so the per-expert packs of one layer at most are live
+    beside the stacks."""
+    from neural_speed_tpu_torch.models.transformer import fuse_params
+
+    dev = gen.device
+    h, inter = cfg.hidden_size, cfg.intermediate_size
+    ones = lambda: {"weight": torch.ones((h,), device=dev)}
+    p = {"embed": {"weight": (torch.randn((cfg.vocab_size, h), generator=gen,
+                                          device=dev) * 0.02).to(
+                                              torch.bfloat16)},
+         "layers": [], "final_norm": ones(),
+         "lm_head": gguf_linear(gen, types["output"], h, cfg.vocab_size)}
+    for _ in range(cfg.n_layers):
+        lp = {"attn_norm": ones(), "ffn_norm": ones(),
+              "q": gguf_linear(gen, types["attn_q"], h, cfg.q_dim),
+              "k": gguf_linear(gen, types["attn_k"], h, cfg.kv_dim),
+              "v": gguf_linear(gen, types["attn_v"], h, cfg.kv_dim),
+              "o": gguf_linear(gen, types["attn_output"], cfg.q_dim, h)}
+        ffn = lambda: {"gate": gguf_linear(gen, types["ffn_gate"], h, inter),
+                       "up": gguf_linear(gen, types["ffn_up"], h, inter),
+                       "down": gguf_linear(gen, types["ffn_down"], inter, h)}
+        if cfg.moe is None:
+            lp["ffn"] = ffn()
+        else:
+            n_exp = cfg.moe.num_experts
+            lp["moe"] = {"router": {"w": torch.randn(
+                (h, n_exp), generator=gen, device=dev) * 0.02},
+                "experts": [ffn() for _ in range(n_exp)]}
+            lp = fuse_params({"layers": [lp]}, cfg)["layers"][0]
+        p["layers"].append(lp)
+    return p
+
+
+LLAMA_GGUF = {
+    "Q4_0": dict(attn_q="Q4_0", attn_k="Q4_0", attn_v="Q4_0",
+                 attn_output="Q4_0", ffn_gate="Q4_0", ffn_up="Q4_0",
+                 ffn_down="Q4_0", output="Q6_K"),
+    "Q8_0": dict(attn_q="Q8_0", attn_k="Q8_0", attn_v="Q8_0",
+                 attn_output="Q8_0", ffn_gate="Q8_0", ffn_up="Q8_0",
+                 ffn_down="Q8_0", output="Q8_0"),
+    # llama.cpp's Q4_K_M: Q6_K for attn_v and ffn_down (and the head)
+    "Q4_K_M": dict(attn_q="Q4_K", attn_k="Q4_K", attn_v="Q6_K",
+                   attn_output="Q4_K", ffn_gate="Q4_K", ffn_up="Q4_K",
+                   ffn_down="Q6_K", output="Q6_K"),
+    "Q2_K": dict(attn_q="Q2_K", attn_k="Q2_K", attn_v="Q2_K",
+                 attn_output="Q2_K", ffn_gate="Q2_K", ffn_up="Q2_K",
+                 ffn_down="Q2_K", output="Q6_K"),
+}
+
+
+# The tiny llama of the GGUF checkpoints: an FFN of 1536, a multiple of the
+# K-quants' 256-element super-blocks.
+TINY_GGUF = dict(TINY_CFG, intermediate_size=1536)
+
+
+def check_tiny_checkpoints() -> None:
+    """Phase 3's converted checkpoints, drawn on the CPU from a seed in
+    their published layouts: a GPTQ act-order llama; GGUF llamas as Q4_0,
+    Q8_0, Q4_K_M (Q4_K, with Q6_K for attn_v, ffn_down and the head) and
+    Q2_K; a tiny Mixtral as GGUF Q4_0 (experts stacked from the per-tensor
+    packs) and as nf4.  Each through `Engine` on the card against the
+    CPU, held as `check_tiny_model`."""
+    from neural_speed_tpu_torch.models.arch import ArchConfig
+    from neural_speed_tpu_torch.ops.qtypes import named_qspec
+
+    check_tiny_model("gptq act-order", None, None, ArchConfig(**TINY_CFG),
+                     params_fn=gptq_params)
+    for name in ("Q4_0", "Q8_0", "Q4_K_M", "Q2_K"):
+        check_tiny_model(f"gguf {name}", None, None, ArchConfig(**TINY_GGUF),
+                         params_fn=lambda c, g, t=LLAMA_GGUF[name]:
+                         gguf_params(c, g, t))
+    check_tiny_model("mixtral gguf Q4_0", None, None, tiny_moe_cfg(),
+                     TINY_MOE_PROMPTS, params_fn=lambda c, g: gguf_params(
+                         c, g, LLAMA_GGUF["Q4_0"]))
+    check_tiny_model("mixtral nf4", named_qspec("nf4", 64,
+                                                scale_dtype="bfloat16"),
+                     None, tiny_moe_cfg(), TINY_MOE_PROMPTS)
 
 
 # ---------------------------------------------------------------------------
@@ -1789,6 +2146,334 @@ def serve_mixtral(profile: bool) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 8: quantized checkpoints, full width and depth
+# ---------------------------------------------------------------------------
+
+
+def _bench_engine(label: str, eng, prompt, n_steps: int, prefill_kernels,
+                  decode_kernels, sync_moe: bool = False,
+                  profile: str = "") -> dict:
+    """The bench shape through `eng` (B = 1): a warm prefill, the timed
+    1975-token prefill, `n_steps` greedy steps (`decode_n_steps`).  The
+    matmul kernels launched at prefill and at decode must be exactly the
+    expected ones, the attention kernels must launch and no plain version
+    may run.  Counts are set to 0 just before the timed prefill and read
+    just after the decode steps.  With `profile` (a file label),
+    torch.profiler then traces one prefill and 8 decode steps."""
+    from neural_speed_tpu_torch import _build
+    from neural_speed_tpu_torch.runtime.engine import decode_n_steps
+
+    cfg = eng.cfg
+    eng.prefill([prompt[:40]])                    # warm: first launches
+    _build.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    logits = eng.prefill([prompt])
+    torch.cuda.synchronize()
+    ttft = time.time() - t0
+    prefill_counts = dict(_build.launches)
+    if logits.shape != (1, cfg.vocab_size) or not torch.isfinite(
+            logits).all():
+        raise AssertionError(f"{label}: bad prefill logits")
+    tok = logits.argmax(-1).to(torch.int32)
+    on = torch.ones((1,), dtype=torch.bool, device="cuda")
+    t0 = time.time()
+    toks, eng.cache = decode_n_steps(eng.params, eng.cfg, eng.cache, tok, on,
+                                     n_steps, eng.comp)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    counts = dict(_build.launches)
+    decode_counts = {k: v - prefill_counts.get(k, 0) for k, v in
+                     counts.items()}
+    if sync_moe:
+        _moe_without_sync(lambda: eng.decode(toks[:, -1], on), cfg.n_layers,
+                          f"{label}: one B = 1 decode step")
+    logits = eng.decode(toks[:, -1], on)          # one more, for its logits
+    if not torch.isfinite(logits).all() or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"{label}: bad decode logits or ids")
+    for part, have, need in (("prefill", prefill_counts, prefill_kernels),
+                             ("decode", decode_counts, decode_kernels)):
+        matmuls = {k for k, v in have.items()
+                   if k.startswith("qmatmul") and v > 0}
+        if matmuls != set(need):
+            raise AssertionError(f"{label}: {part} launched {have}, "
+                                 f"expected the matmul kernels {need}")
+    if prefill_counts.get("flash_prefill", 0) <= 0 or decode_counts.get(
+            "flash_decode", 0) <= 0:
+        raise AssertionError(f"{label}: an attention kernel was not "
+                             f"launched: {prefill_counts} {decode_counts}")
+    if sum(_build.plain_dispatches.values()):
+        raise AssertionError(f"{label}: a plain version ran: "
+                             f"{dict(_build.plain_dispatches)}")
+    nbytes = weight_bytes(eng.params)
+    log(f"  {label}: weights {nbytes / 2 ** 30:.3f} GiB; TTFT "
+        f"{ttft * 1e3:.2f} ms (1975 tokens, B=1); decode "
+        f"{dt / n_steps * 1e3:.3f} ms/token over {n_steps} steps; launches "
+        f"per prefill {prefill_counts}, per {n_steps} decode steps "
+        f"{decode_counts}; plain dispatches 0")
+    res = dict(weight_bytes=nbytes, ttft_ms=ttft * 1e3,
+               decode_ms_per_token=dt / n_steps * 1e3,
+               prefill_counts=prefill_counts, decode_counts=decode_counts)
+    if profile:
+        res["profile_decode"] = profile_window(
+            lambda: decode_n_steps(eng.params, eng.cfg, eng.cache,
+                                   toks[:, -1], on, 8, eng.comp),
+            f"decode_{profile}", 8)
+        res["profile_prefill"] = profile_window(
+            lambda: eng.prefill([prompt]), f"prefill_{profile}", 1)
+    return res
+
+
+def _ragged_equal(label: str, params, cfg, prompts, need) -> dict:
+    """The four ragged requests through `Engine`, then through
+    `PagedEngine` (page size 128, 40 pages), every logit equal bit for bit;
+    `need`: the matmul kernels that must launch."""
+    from neural_speed_tpu_torch import _build
+    from neural_speed_tpu_torch.runtime.engine import Engine, PagedEngine
+
+    out = {}
+    runs = {}
+    for name, make in (("Engine", lambda: Engine(
+            params, cfg, max_batch=4, max_len=2048, fuse=False)),
+            ("PagedEngine", lambda: PagedEngine(
+                params, cfg, max_batch=4, max_len=2048, page_size=128,
+                n_pages=40, fuse=False))):
+        eng = make()
+        _build.reset_counts()
+        runs[name] = serve_ragged(eng, prompts, f"{label} {name} ragged")
+        counts = dict(_build.launches)
+        for k in need:
+            if counts.get(k, 0) <= 0:
+                raise AssertionError(f"{label} {name} ragged: {k} was not "
+                                     f"launched: {counts}")
+        if sum(_build.plain_dispatches.values()):
+            raise AssertionError(f"{label} {name}: a plain version ran")
+        out[name] = dict(prefill_ms=runs[name]["ttft_s"] * 1e3,
+                         decode_ms=runs[name]["decode_s"] * 1e3,
+                         steps=runs[name]["steps"], launches=counts)
+        if name == "PagedEngine":
+            for slot in range(4):
+                eng.release_slot(slot)
+        del eng
+        torch.cuda.empty_cache()
+    a, b = runs["Engine"], runs["PagedEngine"]
+    if a["ids"] != b["ids"]:
+        raise AssertionError(f"{label}: PagedEngine's ids {b['ids']} differ "
+                             f"from Engine's {a['ids']}")
+    for step, (x, y) in enumerate(zip(a["logits"], b["logits"])):
+        if not torch.equal(x, y):
+            raise AssertionError(
+                f"{label} ragged step {step}: PagedEngine's logits differ "
+                f"from Engine's by up to {(x - y).abs().max().item()}")
+    log(f"  {label} ragged (prompts {RAGGED_LENS}, budgets "
+        f"{RAGGED_BUDGETS}): Engine prefill {out['Engine']['prefill_ms']:.1f}"
+        f" ms, {a['steps']} steps in {out['Engine']['decode_ms']:.1f} ms; "
+        f"PagedEngine {out['PagedEngine']['prefill_ms']:.1f} ms, "
+        f"{out['PagedEngine']['decode_ms']:.1f} ms; every logit of the "
+        f"prefill and of all {a['steps']} steps equal bit for bit; launches "
+        f"{out['Engine']['launches']}")
+    return out
+
+
+def _write_gguf_7b(path: str, cfg, gen) -> None:
+    """A Llama-2-7B GGUF file in llama.cpp's Q4_0 layout (every projection
+    and `token_embd` Q4_0, `output` Q6_K, norms F32), its block bytes drawn
+    on the card, written with the port's `GGUFWriter`."""
+    import numpy as np
+
+    g = _ggml()
+    h, inter = cfg.hidden_size, cfg.intermediate_size
+    w = g.GGUFWriter(path)
+    for key, val in (("general.architecture", "llama"),
+                     ("general.name", "chip_smoke Llama-2-7B Q4_0"),
+                     ("llama.vocab_size", cfg.vocab_size),
+                     ("llama.embedding_length", h),
+                     ("llama.block_count", cfg.n_layers),
+                     ("llama.attention.head_count", cfg.n_heads),
+                     ("llama.attention.head_count_kv", cfg.n_kv_heads),
+                     ("llama.feed_forward_length", inter),
+                     ("llama.context_length", cfg.max_position_embeddings),
+                     ("llama.attention.layer_norm_rms_epsilon", 1e-5),
+                     ("llama.rope.freq_base", 10000.0)):
+        w.add(key, val)
+
+    def put(name, ttype, rows, row_len):
+        shape = np.broadcast_to(np.uint8(0), (rows, row_len))
+        if ttype == "F32":    # a norm: one dimension, as converters write it
+            w.add_tensor(name, shape[0], g.GGML_F32,
+                         raw=torch.ones((row_len,), dtype=torch.float32))
+        else:
+            w.add_tensor(name, shape, getattr(g, f"GGML_{ttype}"),
+                         raw=draw_blocks(gen, ttype, rows, row_len))
+
+    put("token_embd.weight", "Q4_0", cfg.vocab_size, h)
+    put("output_norm.weight", "F32", 1, h)
+    put("output.weight", "Q6_K", cfg.vocab_size, h)
+    for i in range(cfg.n_layers):
+        b = f"blk.{i}."
+        put(b + "attn_norm.weight", "F32", 1, h)
+        put(b + "ffn_norm.weight", "F32", 1, h)
+        for name, rows, row_len in (("attn_q", cfg.q_dim, h),
+                                    ("attn_k", cfg.kv_dim, h),
+                                    ("attn_v", cfg.kv_dim, h),
+                                    ("attn_output", h, cfg.q_dim),
+                                    ("ffn_gate", inter, h),
+                                    ("ffn_up", inter, h),
+                                    ("ffn_down", h, inter)):
+            put(f"{b}{name}.weight", "Q4_0", rows, row_len)
+    w.write()
+
+
+def serve_quantized(profile: bool) -> dict:
+    """Phase 8: checkpoints drawn from a seed in their published layouts,
+    converted by the port's loaders and served at full width and depth,
+    each at the bench shape (B = 1, 1975-token prefill, 32 greedy steps):
+    (a) Llama-2-7B GPTQ int4 g128 act-order, drawn on the card in AutoGPTQ
+    v1 layout, plus the ragged requests through `Engine` and `PagedEngine`
+    (bit-equal); (b) Llama-2-7B GGUF Q4_0 through a file written with the
+    port's `GGUFWriter` and read by `load_gguf_model`; (c) Llama-2-7B GGUF
+    Q8_0 and Q2_K through `gguf_tensor_to_qtensor`; (d) Mixtral-8x7B GGUF
+    Q4_0 through `gguf_tensor_to_qtensor` per tensor, stacked layer by
+    layer, with the ragged requests and the MoE layers of a B = 4 and a
+    B = 1 step under the sync check; (e) Mixtral-8x7B nf4 (`synth_params`).
+    """
+    import shutil
+    import tempfile
+
+    from neural_speed_tpu_torch import _build
+    from neural_speed_tpu_torch.models.transformer import fuse_params
+    from neural_speed_tpu_torch.ops.qtypes import named_qspec
+    from neural_speed_tpu_torch.runtime.engine import Engine
+    from neural_speed_tpu_torch.utils.synthetic import (llama2_7b_arch,
+                                                        mixtral_8x7b_arch,
+                                                        synth_params)
+
+    cfg = llama2_7b_arch()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    pgen = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (1975,), generator=pgen).tolist()
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=pgen).tolist()
+               for n in RAGGED_LENS]
+    n_steps = 32
+    res = {}
+
+    def built(label, make):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        params = make()
+        torch.cuda.synchronize()
+        log(f"  {label}: converted on the card in {time.time() - t0:.1f} s, "
+            f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+            f"GiB")
+        return params, time.time() - t0
+
+    def bench(label, params, cfg_, pre, dec, sync_moe=False):
+        eng = Engine(params, cfg_, max_batch=1, max_len=2048)
+        key = label.split(" ", 1)[1].replace(" ", "_").replace("-", "_")
+        out = _bench_engine(label, eng, prompt, n_steps, pre, dec, sync_moe,
+                            key.lower() if profile else "")
+        del eng
+        torch.cuda.empty_cache()
+        return out
+
+    # (a) GPTQ act-order: nothing fuses, every projection gathers x
+    params, secs = built("(a) Llama-2-7B GPTQ int4 g128 act-order",
+                         lambda: fuse_params(gptq_params(cfg, gen), cfg))
+    if "perm" not in params["layers"][0]["q"] or "qkv" in params["layers"][0]:
+        raise AssertionError("(a): the act-order perms were lost")
+    res["gptq"] = bench("(a) GPTQ act-order", params, cfg, ("qmatmul_int",),
+                        ("qmatmul_int",))
+    res["gptq"]["convert_s"] = secs
+    res["gptq"]["ragged"] = _ragged_equal("(a) GPTQ act-order", params, cfg,
+                                          prompts, ("qmatmul_int",))
+    del params
+    torch.cuda.empty_cache()
+
+    # (b) GGUF Q4_0 through a file
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gguf_")
+    try:
+        path = os.path.join(tmp, "llama-2-7b.Q4_0.gguf")
+        t0 = time.time()
+        _write_gguf_7b(path, cfg, gen)
+        size = os.path.getsize(path)
+        log(f"  (b) wrote {path} ({size / 2 ** 30:.2f} GiB) in "
+            f"{time.time() - t0:.1f} s")
+        g = _ggml()
+        params, secs = built("(b) Llama-2-7B GGUF Q4_0 from the file",
+                             lambda: g.load_gguf_model(path)[0])
+    finally:
+        shutil.rmtree(tmp)
+    res["gguf_q4_0"] = bench("(b) GGUF Q4_0", params, cfg,
+                             ("qmatmul_int", "qmatmul_planar"),
+                             ("qmatmul_int", "qmatmul_planar"))
+    res["gguf_q4_0"].update(convert_s=secs, file_bytes=size)
+    del params
+    torch.cuda.empty_cache()
+
+    # (c) GGUF Q8_0 and Q2_K, tensor by tensor
+    for name, kernels in (("Q8_0", ("qmatmul_int",)),
+                          ("Q2_K", ("qmatmul_planar",))):
+        params, secs = built(f"(c) Llama-2-7B GGUF {name}",
+                             lambda: gguf_params(cfg, gen, LLAMA_GGUF[name]))
+        res[f"gguf_{name.lower()}"] = bench(f"(c) GGUF {name}", params, cfg,
+                                            kernels, kernels)
+        res[f"gguf_{name.lower()}"]["convert_s"] = secs
+        del params
+        torch.cuda.empty_cache()
+
+    # (d) Mixtral-8x7B GGUF Q4_0: experts stacked layer by layer
+    mcfg = mixtral_8x7b_arch()
+    params, secs = built("(d) Mixtral-8x7B GGUF Q4_0",
+                         lambda: gguf_params(mcfg, gen, LLAMA_GGUF["Q4_0"]))
+    peak = torch.cuda.max_memory_allocated()
+    st = params["layers"][0]["moe"]["experts_stacked"]["gateup"]
+    if st.spec.bits != 4 or st.scales.dtype != torch.float32:
+        raise AssertionError(f"(d): unexpected expert stack {st.spec}")
+    moe_kernels = ("qmatmul_int", "qmatmul_grouped_fp", "qmatmul_planar")
+    eng = Engine(params, mcfg, max_batch=4, max_len=2048, fuse=False)
+    _build.reset_counts()
+    ragged = serve_ragged(eng, prompts, "(d) Mixtral GGUF Q4_0 ragged")
+    counts = dict(_build.launches)
+    for k in moe_kernels + ("flash_prefill", "flash_decode"):
+        if counts.get(k, 0) <= 0:
+            raise AssertionError(f"(d) ragged: {k} was not launched: {counts}")
+    if sum(_build.plain_dispatches.values()):
+        raise AssertionError("(d) ragged: a plain version ran")
+    everyone = torch.ones((4,), dtype=torch.bool)
+    tok = ragged["logits"][-1].argmax(-1).to(torch.int32)
+    _moe_without_sync(lambda: eng.decode(tok, everyone), mcfg.n_layers,
+                      "(d) one B = 4 decode step")
+    log(f"  (d) ragged: prefill {ragged['ttft_s'] * 1e3:.1f} ms, "
+        f"{ragged['steps']} steps in {ragged['decode_s'] * 1e3:.1f} ms; "
+        f"launches {counts}")
+    del eng
+    torch.cuda.empty_cache()
+    res["mixtral_q4_0"] = bench("(d) Mixtral GGUF Q4_0", params, mcfg,
+                                moe_kernels, moe_kernels, sync_moe=True)
+    res["mixtral_q4_0"].update(
+        convert_s=secs, peak_gib=peak / 2 ** 30,
+        ragged=dict(prefill_ms=ragged["ttft_s"] * 1e3,
+                    decode_ms=ragged["decode_s"] * 1e3,
+                    steps=ragged["steps"], launches=counts))
+    del params, ragged
+    torch.cuda.empty_cache()
+
+    # (e) Mixtral-8x7B nf4: the grouped LUT instance
+    params, secs = built("(e) Mixtral-8x7B nf4", lambda: fuse_params(
+        synth_params(mcfg, named_qspec("nf4", 128, scale_dtype="bfloat16"),
+                     seed=0), mcfg))
+    res["mixtral_nf4"] = bench("(e) Mixtral nf4", params, mcfg,
+                               ("qmatmul_lut", "qmatmul_grouped_fp"),
+                               ("qmatmul_lut", "qmatmul_grouped_fp"))
+    res["mixtral_nf4"]["convert_s"] = secs
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -1841,7 +2526,9 @@ def main() -> int:
                          check_int8_formats),
                         ("ragged qmatmul_lut qmatmul_planar qmatmul_int8 "
                          "qmatmul_int8_planar", check_ragged_shapes),
-                        ("qmatmul_grouped", check_grouped)):
+                        ("qmatmul_grouped", check_grouped),
+                        ("qmatmul_int qmatmul_planar", check_int_formats),
+                        ("qmatmul_grouped_fp", check_grouped_fp)):
         if any(o in names for o in args.only.split(",")):
             check(chk, gen)
     torch.cuda.empty_cache()
@@ -1860,6 +2547,7 @@ def main() -> int:
         check_tiny_model("mixtral int4 B=1", int4, None, tiny_moe_cfg(),
                          TINY_MOE_PROMPTS[:1])
         check_tiny_paged()
+        check_tiny_checkpoints()
         log("phase 4: Llama-2-7B-shaped int4 serving")
         params, cfg = params_7b()
         _build.reset_counts()
@@ -1907,7 +2595,18 @@ def main() -> int:
         counts.update(bench["launches_per_prefill"])
         counts.update({k: round(v * 64) for k, v in
                        bench["launches_per_decode_step"].items()})
-        log(f"  launches over the four paths {dict(counts)}")
+        torch.cuda.empty_cache()
+        log("phase 8: quantized checkpoints (GPTQ, GGUF) at full width and "
+            "depth")
+        summary["checkpoints"] = serve_quantized(args.profile)
+        for run in summary["checkpoints"].values():
+            counts.update(run["prefill_counts"])
+            counts.update(run["decode_counts"])
+            ragged = run.get("ragged", {})
+            for part in ragged.values() if "launches" not in ragged else (
+                    ragged,):
+                counts.update(part["launches"])
+        log(f"  launches over the five paths {dict(counts)}")
     else:
         counts = {}
 

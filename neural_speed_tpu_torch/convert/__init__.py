@@ -1,0 +1,46 @@
+"""Model conversion entry points (port of `neural_speed_tpu/convert/__init__.py`).
+
+`convert_model` dispatches by source format into the port's packed-QTensor
+params: a GGUF file, or a local directory holding a pre-quantized GPTQ /
+AWQ / AutoRound checkpoint (`use_quantized_model=True`).  The directory's
+`config.json` is read with `json`.  Converting a float checkpoint
+(`convert/hf.py` in the JAX package) is not ported yet (ROADMAP section 1,
+item 1).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Optional
+
+from .._build import resolve_device
+from ..models.configs import arch_from_hf_config
+from ..ops.qtypes import QSpec
+
+
+def convert_model(model_path: str, qspec: Optional[QSpec] = None,
+                  use_quantized_model: bool = False, device=None):
+    """Convert `model_path` (a local HF directory or a .gguf file) ->
+    (params, cfg), converted on `device` (the card unless the CPU is asked
+    for)."""
+    dev = resolve_device(device)
+    if model_path.endswith(".gguf"):
+        from .gguf import load_gguf_model
+
+        params, cfg, _tok = load_gguf_model(model_path, device=dev)
+        return params, cfg
+
+    with open(os.path.join(model_path, "config.json")) as f:
+        hf_cfg = json.load(f)
+    cfg = arch_from_hf_config(hf_cfg)
+    if not use_quantized_model:
+        raise NotImplementedError(
+            "converting a float checkpoint (convert/hf.py) is not ported yet "
+            "(ROADMAP section 1, item 1); pass use_quantized_model=True for "
+            "a GPTQ / AWQ directory")
+    from . import loaders
+    from .gptq import params_from_quantized_state_dict
+
+    sd = loaders.load_state_dict(model_path)
+    return params_from_quantized_state_dict(sd, cfg, hf_cfg, device=dev), cfg

@@ -1,9 +1,17 @@
 // Kernel P: dequant-matmul over multi-plane and byte packs for Hopper
 // (sm_90a): INT 3/5/6/7 as 4/2/1-bit planes, FP8 e4m3 / e5m2 rows, and packs
-// with ggml float offsets (w = s * code + m).
+// with ggml float offsets (w = s * code + m) at any width; its one-plane INT
+// instances (INT1, INT2, INT4, INT8 rows) also take the packs of the int
+// kernel that kernel A does not: uint8 zero points, float32 or
+// double-quantized scales (decoded to float32 by the wrapper), widths 1, 2
+// and 8.
 //
 // Replaces: neural_speed_tpu/ops/matmul.py, _gemm_kernel_planar (launched by
-// _qmatmul_planar_2d from qmatmul).
+// _qmatmul_planar_2d from qmatmul), and for the one-plane INT packs
+// _gemm_kernel_int (launched by _qmatmul_pallas_2d), whose g >= 128 branch
+// dots raw codes and corrects by the row sum of x: here each weight is
+// s * (code - zero) in float32 as in the plain version, so the two routes
+// differ from the JAX kernel only by where float32 rounds.
 //
 // The TPU body uses linearity (one dot per plane, the offset through the row
 // sum of x); here each code is rebuilt from its planes with computed
@@ -14,7 +22,7 @@
 //
 // One translation unit per format (qmatmul_planar_<format>.cu defines
 // NST_PLANAR_FMT and includes this file), each built into its own library
-// with the same two entry names: in one unit nvcc compiles the seven formats
+// with the same two entry names: in one unit nvcc compiles the ten formats
 // one after another, apart they compile side by side.  Host entries return
 // cudaGetLastError() after their launches.
 
@@ -23,7 +31,7 @@
 #include "qmm_fp.cuh"
 
 #ifndef NST_PLANAR_FMT
-#error "define NST_PLANAR_FMT (nstfp::FMT_INT3 ... nstfp::FMT_E5M2) before including this file"
+#error "define NST_PLANAR_FMT (nstfp::FMT_INT1 ... nstfp::FMT_INT8) before including this file"
 #endif
 
 namespace {

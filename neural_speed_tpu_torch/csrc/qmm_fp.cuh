@@ -1,5 +1,8 @@
-// Float-compute dequant-matmul templates shared by kernel F (qmatmul_lut.cu)
-// and kernel P (qmatmul_planar.cuh): out[M, N] = x[M, K] @ W, bf16 in and out.
+// Float-compute dequant-matmul templates shared by kernel F (qmatmul_lut.cu),
+// kernel P (qmatmul_planar.cuh: its one-plane INT instances also take the
+// packs of _gemm_kernel_int that kernel A does not) and their grouped MoE
+// instances (qmatmul_grouped_fp.cuh): out[M, N] = x[M, K] @ W, bf16 in; bf16
+// out, float32 out for the grouped instances.
 //
 // W is the JAX package's planar pack, read as stored.  A plane of width w
 // packs e = 32 / w K sub-bands per uint32 word: word [r, n] of that plane
@@ -14,10 +17,15 @@
 //
 // Formats (template parameter FMT):
 //   LUT4           one 4-bit plane, value = table[code] * s  (kernel F)
-//   INT3 .. INT7   4/2/1-bit planes, most significant first; value =
-//                  s * (code - offset), s * (code - zp[g, n]) (uint8 zero
-//                  points) or code * s + m[g, n] (float offsets, the ggml
-//                  convention: no scale on the offset)
+//   INT1           one 1-bit plane (32 bands), value = s * (2 * code - 1)
+//                  whatever the zero points (the port's dequantize)
+//   INT2 .. INT7   4/2/1-bit planes, most significant first (INT2 and INT4
+//                  one plane); value = s * (code - offset), s * (code -
+//                  zp[g, n]) (uint8 zero points) or code * s + m[g, n]
+//                  (float offsets, the ggml convention: no scale on the
+//                  offset)
+//   INT8           one byte per weight ([K, N] rows, read as FP8's), the
+//                  same three zero-point rules
 //   E4M3, E5M2     one byte per weight, value = float(fp8) * s, converted
 //                  with cuda_fp8.h (exact into half for both types)
 // Scales are bf16 or float32 (a run-time flag), one row per K group of g.
@@ -43,6 +51,14 @@
 //    the plain version (dequantize to bf16, dot with float32 accumulation).
 //    The next step's operands are loaded into registers while the current
 //    step's MMAs run.  No TMA / wgmma yet.
+//
+// Grouped instances (GROUPED = true, one-plane and byte formats; float32
+// out): experts stacked on a leading axis of the planes, scales and zeros.
+// The GEMV takes one row per block row (gridDim.z) and that row's expert
+// from a per-row map; the GEMM's M tile is one block of the sorted rows
+// (64 * MI = the routing's bm), its expert read from block_expert and only
+// its block_rows live rows loaded; a tile with none writes zeros and stops.
+// Grouped-only code is compile-time, so the F and P instances are as before.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -56,8 +72,9 @@ namespace nstfp {
 
 using namespace nvcuda;
 
-enum { FMT_LUT4 = 0, FMT_INT3 = 3, FMT_INT4 = 4, FMT_INT5 = 5, FMT_INT6 = 6,
-       FMT_INT7 = 7, FMT_E4M3 = 8, FMT_E5M2 = 9 };
+enum { FMT_LUT4 = 0, FMT_INT1 = 1, FMT_INT2 = 2, FMT_INT3 = 3, FMT_INT4 = 4,
+       FMT_INT5 = 5, FMT_INT6 = 6, FMT_INT7 = 7, FMT_E4M3 = 8, FMT_E5M2 = 9,
+       FMT_INT8 = 10 };
 enum { Z_NONE = 0, Z_SYM = 1, Z_INT = 2, Z_FLOAT = 3 };
 
 struct PackArgs {
@@ -72,14 +89,15 @@ struct PackArgs {
 template <int FMT>
 struct Fmt {
   static constexpr bool kFp8 = FMT == FMT_E4M3 || FMT == FMT_E5M2;
+  static constexpr bool kByte = kFp8 || FMT == FMT_INT8;  // [K, N] byte rows
   static constexpr bool kLut = FMT == FMT_LUT4;
-  static constexpr int kBits = kLut ? 4 : (kFp8 ? 8 : FMT);
+  static constexpr int kBits = kLut ? 4 : (kByte ? 8 : FMT);
   // plane widths are the binary digits of kBits (3 = 2+1, 7 = 4+2+1)
   static constexpr int kPlanes =
-      kFp8 ? 1 : ((kBits >> 2) & 1) + ((kBits >> 1) & 1) + (kBits & 1);
-  static constexpr int kBands = kFp8 ? 1 : 32 / (kBits & -kBits);  // EF
+      kByte ? 1 : ((kBits >> 2) & 1) + ((kBits >> 1) & 1) + (kBits & 1);
+  static constexpr int kBands = kByte ? 1 : 32 / (kBits & -kBits);  // EF
   // word rows of the wider planes per row of the narrowest, summed
-  static constexpr int kSlots = kFp8 ? 1 : kBits * kBands / 32;
+  static constexpr int kSlots = kByte ? 1 : kBits * kBands / 32;
 
   __host__ __device__ static constexpr int width(int p) {
     int cnt = 0;
@@ -151,11 +169,43 @@ __device__ __forceinline__ void zero_at(const PackArgs& a, size_t idx, int sym_o
 }
 
 // s * (code - zi), or code * s + zf rounded after each step as the plain
-// version's two float32 operations are.
+// version's two float32 operations are; 1-bit codes are s * (2 * code - 1).
+template <int FMT>
 __device__ __forceinline__ float int_value(const PackArgs& a, uint32_t code, float s,
                                            int zi, float zf) {
+  if constexpr (FMT == FMT_INT1) return s * (float)(2 * (int)code - 1);
   if (a.zmode == Z_FLOAT) return __fadd_rn(__fmul_rn((float)code, s), zf);
   return s * (float)((int)code - zi);
+}
+
+// The grouped instances: point the pack at expert e of stacks [E, ...].
+template <int FMT>
+__device__ __forceinline__ void select_expert(PackArgs& a, int e, int K, int N, int g) {
+  using F = Fmt<FMT>;
+  const size_t ex = (size_t)e, gn = (size_t)(K / g) * N * ex;
+#pragma unroll
+  for (int p = 0; p < F::kPlanes; ++p) {
+    const size_t bytes = F::kByte ? (size_t)K * N : (size_t)K * F::width(p) / 8 * N;
+    a.plane[p] = reinterpret_cast<const uint32_t*>(
+        reinterpret_cast<const uint8_t*>(a.plane[p]) + bytes * ex);
+  }
+  a.scales = static_cast<const uint8_t*>(a.scales) + gn * (a.scale_bf16 ? 2 : 4);
+  if (a.zeros != nullptr)
+    a.zeros = static_cast<const uint8_t*>(a.zeros) + gn * (a.zmode == Z_FLOAT ? 4 : 1);
+}
+
+__device__ __forceinline__ void store1(__nv_bfloat16* o, float v) {
+  *o = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void store1(float* o, float v) { *o = v; }
+
+__device__ __forceinline__ void store4(__nv_bfloat16* o, const float* v) {
+  __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(o);
+  p[0] = __floats2bfloat162_rn(v[0], v[1]);
+  p[1] = __floats2bfloat162_rn(v[2], v[3]);
+}
+__device__ __forceinline__ void store4(float* o, const float* v) {
+  *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
 // The code of band b from the words of one row of the narrowest plane:
@@ -179,16 +229,23 @@ constexpr int GEMV_COLS = 4;
 constexpr int GEMV_BN = GEMV_THREADS * GEMV_COLS;
 
 // One-plane and byte formats: four columns per thread, 8 rows per chunk.
-template <int FMT, int MT>
+// The grouped instance (MT = 1) takes row m0 + blockIdx.z and its expert.
+template <int FMT, int MT, bool GROUPED = false, typename OutT = __nv_bfloat16>
 __global__ void __launch_bounds__(GEMV_THREADS)
 gemv_kernel(const __nv_bfloat16* __restrict__ x, PackArgs a,
-            float* __restrict__ partial, __nv_bfloat16* __restrict__ out, int M,
-            int K, int N, int g, int rows_per_split, int m0) {
+            const int* __restrict__ row_expert, float* __restrict__ partial,
+            OutT* __restrict__ out, int M, int K, int N, int g, int rows_per_split,
+            int m0) {
   using F = Fmt<FMT>;
   static_assert(F::kSlots == 1, "multi-plane formats go through gemv1_kernel");
+  static_assert(!GROUPED || MT == 1, "the grouped GEMV takes one row per block row");
   constexpr int EF = F::kBands, R = 8;
   extern __shared__ float xs[];  // [MT][EF][rows_per_split]
   __shared__ float tab[16];
+  if constexpr (GROUPED) {
+    m0 += blockIdx.z;
+    select_expert<FMT>(a, row_expert[m0], K, N, g);
+  }
   const int KW = K / EF;
   const int split = blockIdx.y;
   const int kb0 = split * rows_per_split;
@@ -217,20 +274,34 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x, PackArgs a,
 
   for (int c = 0; c < nrows; c += R) {
     const int kb = kb0 + c;
-    if constexpr (F::kFp8) {
+    if constexpr (F::kByte) {
       uint32_t w[R];
 #pragma unroll
       for (int i = 0; i < R; ++i)
         w[i] = __ldg(reinterpret_cast<const uint32_t*>(
             reinterpret_cast<const uint8_t*>(a.plane[0]) + (size_t)(kb + i) * N + n));
+      const size_t sidx = (size_t)(kb / g) * N + n;
       float s[4];
-      scales4(a, (size_t)(kb / g) * N + n, s);
+      scales4(a, sidx, s);
+      int zi[GEMV_COLS];
+      float zf[GEMV_COLS];
+#pragma unroll
+      for (int j = 0; j < GEMV_COLS; ++j) {
+        zi[j] = 0;
+        zf[j] = 0.f;
+        if constexpr (!F::kFp8) zero_at(a, sidx + j, sym_offset, zi[j], zf[j]);
+      }
 #pragma unroll
       for (int i = 0; i < R; ++i) {
         float wv[GEMV_COLS];
 #pragma unroll
-        for (int j = 0; j < GEMV_COLS; ++j)
-          wv[j] = fp8_value<FMT>((w[i] >> (8 * j)) & 255u) * s[j];
+        for (int j = 0; j < GEMV_COLS; ++j) {
+          const uint32_t code = (w[i] >> (8 * j)) & 255u;
+          if constexpr (F::kFp8)
+            wv[j] = fp8_value<FMT>(code) * s[j];
+          else
+            wv[j] = int_value<FMT>(a, code, s[j], zi[j], zf[j]);
+        }
 #pragma unroll
         for (int m = 0; m < MT; ++m) {
           const float xv = xs[m * rows_per_split + c + i];
@@ -259,7 +330,8 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x, PackArgs a,
           for (int j = 0; j < GEMV_COLS; ++j) {
             const uint32_t code =
                 (lane4(w[i], j) >> (F::kBits * b)) & ((1u << F::kBits) - 1u);
-            wv[j] = F::kLut ? tab[code] * s[j] : int_value(a, code, s[j], zi[j], zf[j]);
+            wv[j] = F::kLut ? tab[code] * s[j]
+                            : int_value<FMT>(a, code, s[j], zi[j], zf[j]);
           }
 #pragma unroll
           for (int m = 0; m < MT; ++m) {
@@ -275,14 +347,10 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x, PackArgs a,
   for (int m = 0; m < MT; ++m) {
     const int row = m0 + m;
     if (row >= M) break;
-    if (gridDim.y == 1) {
-      __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * N + n);
-      o[0] = __floats2bfloat162_rn(acc[m][0], acc[m][1]);
-      o[1] = __floats2bfloat162_rn(acc[m][2], acc[m][3]);
-    } else {
-      *reinterpret_cast<float4*>(partial + ((size_t)split * M + row) * N + n) =
-          make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
-    }
+    if (gridDim.y == 1)
+      store4(out + (size_t)row * N + n, acc[m]);
+    else
+      store4(partial + ((size_t)split * M + row) * N + n, acc[m]);
   }
 }
 
@@ -310,7 +378,7 @@ __device__ __forceinline__ void gemv1_band(const uint32_t (&w)[GEMV1_ROWS][Fmt<F
       code |= ((w[i][F::slot0(p) + B % q] >> (W * (B / q))) & ((1u << W) - 1u))
               << F::shift(p);
     }
-    wv[i] = int_value(a, code, s, zi, zf);
+    wv[i] = int_value<FMT>(a, code, s, zi, zf);
   }
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
@@ -380,15 +448,24 @@ gemv1_kernel(const __nv_bfloat16* __restrict__ x, PackArgs a,
   }
 }
 
+template <typename OutT>
 __global__ void splitk_reduce_kernel(const float* __restrict__ partial,
-                                     __nv_bfloat16* __restrict__ out, int M, int N,
-                                     int splits) {
+                                     OutT* __restrict__ out, int M, int N, int splits) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const size_t total = (size_t)M * N;
   if (i >= total) return;
   float s = 0.f;
   for (int sp = 0; sp < splits; ++sp) s += partial[(size_t)sp * total + i];
-  out[i] = __float2bfloat16_rn(s);
+  store1(out + i, s);
+}
+
+template <typename OutT>
+cudaError_t launch_reduce(const float* partial, OutT* out, int M, int N, int splits,
+                          cudaStream_t st) {
+  const size_t total = (size_t)M * N;
+  splitk_reduce_kernel<OutT><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+      partial, out, M, N, splits);
+  return cudaGetLastError();
 }
 
 template <int FMT, int MT>
@@ -404,8 +481,8 @@ cudaError_t launch_gemv(const __nv_bfloat16* x, const PackArgs& a, float* partia
                                                                 K, N, g, rows, m0);
   } else {
     dim3 grid((N + GEMV_BN - 1) / GEMV_BN, splits);
-    gemv_kernel<FMT, MT><<<grid, GEMV_THREADS, smem, stream>>>(x, a, partial, out, M,
-                                                               K, N, g, rows, m0);
+    gemv_kernel<FMT, MT><<<grid, GEMV_THREADS, smem, stream>>>(
+        x, a, nullptr, partial, out, M, K, N, g, rows, m0);
   }
   return cudaGetLastError();
 }
@@ -424,29 +501,50 @@ cudaError_t run_gemv(const __nv_bfloat16* x, const PackArgs& a, float* partial,
     else
       err = launch_gemv<FMT, 1>(x, a, partial, out, M, K, N, g, splits, m0, st);
   }
-  if (err == cudaSuccess && splits > 1) {
-    const size_t total = (size_t)M * N;
-    splitk_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(partial, out, M,
-                                                                          N, splits);
-    err = cudaGetLastError();
-  }
+  if (err == cudaSuccess && splits > 1) err = launch_reduce(partial, out, M, N, splits, st);
+  return err;
+}
+
+// The grouped GEMV: row m of x times expert row_expert[m], float32 out.
+template <int FMT>
+cudaError_t run_gemv_grouped(const __nv_bfloat16* x, const PackArgs& a,
+                             const int* row_expert, float* partial, float* out, int M,
+                             int K, int N, int g, int splits, cudaStream_t st) {
+  const int KW = K / Fmt<FMT>::kBands;
+  const int rows = ((KW + splits - 1) / splits + 7) / 8 * 8;
+  const size_t smem = (size_t)Fmt<FMT>::kBands * rows * sizeof(float);
+  dim3 grid((N + GEMV_BN - 1) / GEMV_BN, splits, M);
+  gemv_kernel<FMT, 1, true, float><<<grid, GEMV_THREADS, smem, st>>>(
+      x, a, row_expert, partial, out, M, K, N, g, rows, 0);
+  cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess && splits > 1) err = launch_reduce(partial, out, M, N, splits, st);
   return err;
 }
 
 // ---------------------------------------------------------------- GEMM ---
-constexpr int BM = 128, BN = 128, BK = 64;
+constexpr int BN = 128, BK = 64;
 constexpr int LDA = BK + 8, LDB = BN + 8;
 constexpr int GEMM_THREADS = 256;
 
-template <int FMT>
+template <int MI>
+constexpr int gemm_smem_bytes() {
+  return (int)(sizeof(__nv_bfloat16) * 2 * (64 * MI * LDA + BK * LDB) +
+               sizeof(float) * (GEMM_THREADS / 32) * 16 * 16);
+}
+
+// 64 * MI x 128 output tiles (F and P: MI = 2).  The grouped instance takes
+// tile i from expert block_expert[i] and loads its block_rows[i] live rows.
+template <int FMT, int MI = 2, bool GROUPED = false, typename OutT = __nv_bfloat16>
 __global__ void __launch_bounds__(GEMM_THREADS, 2)
 gemm_kernel(const __nv_bfloat16* __restrict__ xk, PackArgs a,
-            __nv_bfloat16* __restrict__ out, int M, int K, int N, int g) {
+            const int* __restrict__ block_expert, const int* __restrict__ block_rows,
+            OutT* __restrict__ out, int M, int K, int N, int g) {
   using F = Fmt<FMT>;
+  constexpr int BM = 64 * MI;
   constexpr int EF = F::kBands;
-  constexpr int R = BK / EF;                 // narrowest-plane rows per K step
-  constexpr int RH = F::kFp8 ? 8 : R / 2;    // rows one thread unpacks
-  constexpr int NW = F::kFp8 ? 8 : RH * F::kSlots;  // words it holds
+  constexpr int R = BK / EF;                  // narrowest-plane rows per K step
+  constexpr int RH = F::kByte ? 8 : R / 2;    // rows one thread unpacks
+  constexpr int NW = F::kByte ? 8 : RH * F::kSlots;  // words it holds
   extern __shared__ __align__(128) unsigned char gsm[];
   __nv_bfloat16* As_all = reinterpret_cast<__nv_bfloat16*>(gsm);
   __nv_bfloat16* Bs_all = As_all + 2 * BM * LDA;
@@ -455,21 +553,34 @@ gemm_kernel(const __nv_bfloat16* __restrict__ xk, PackArgs a,
   if (F::kLut && threadIdx.x < 16) tab[threadIdx.x] = a.table[threadIdx.x];
 
   const int m_blk = blockIdx.y * BM, n_blk = blockIdx.x * BN;
+  int m_lim = M;
+  if constexpr (GROUPED) {
+    const int live = block_rows != nullptr ? block_rows[blockIdx.y] : BM;
+    if (live <= 0) {  // no assignment in this tile: its rows are zeros
+      for (int i = threadIdx.x; i < BM * BN; i += GEMM_THREADS) {
+        const int gm = m_blk + i / BN, gn = n_blk + i % BN;
+        if (gm < M && gn < N) store1(out + (size_t)gm * N + gn, 0.f);
+      }
+      return;
+    }
+    m_lim = min(M, m_blk + live);
+    select_expert<FMT>(a, block_expert[blockIdx.y], K, N, g);
+  }
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 2, wn = warp % 2;  // warp tile: 32 rows x 64 cols
+  const int wm = warp / 2, wn = warp % 2;  // warp tile: 16 * MI rows x 64 cols
   const int KW = K / EF;
   const int sym_offset = 1 << (F::kBits - 1);
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MI][4];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
   // packed formats: one column, half of the step's rows, every band;
-  // fp8: four columns (one 32-bit load per row), 8 of the step's 64 rows
-  const int bc = F::kFp8 ? (threadIdx.x % 32) * 4 : threadIdx.x % BN;
-  const int bh = F::kFp8 ? threadIdx.x / 32 : threadIdx.x / BN;
+  // byte rows: four columns (one 32-bit load per row), 8 of the step's 64 rows
+  const int bc = F::kByte ? (threadIdx.x % 32) * 4 : threadIdx.x % BN;
+  const int bh = F::kByte ? threadIdx.x / 32 : threadIdx.x / BN;
   const int bn = n_blk + bc;
   constexpr int A_PER_THREAD = BM * 8 / GEMM_THREADS;
 
@@ -481,11 +592,11 @@ gemm_kernel(const __nv_bfloat16* __restrict__ xk, PackArgs a,
       const int i = threadIdx.x + u * GEMM_THREADS;
       const int row = i / 8, seg = i % 8;
       a_reg[u] = make_uint4(0, 0, 0, 0);
-      if (m_blk + row < M && k0 + seg * 8 < K)
+      if (m_blk + row < m_lim && k0 + seg * 8 < K)
         a_reg[u] = *reinterpret_cast<const uint4*>(
             xk + (size_t)(m_blk + row) * K + k0 + seg * 8);
     }
-    if constexpr (F::kFp8) {
+    if constexpr (F::kByte) {
       const uint8_t* bytes = reinterpret_cast<const uint8_t*>(a.plane[0]);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
@@ -515,16 +626,31 @@ gemm_kernel(const __nv_bfloat16* __restrict__ xk, PackArgs a,
       const int i = threadIdx.x + u * GEMM_THREADS;
       *reinterpret_cast<uint4*>(&As[(i / 8) * LDA + (i % 8) * 8]) = a_reg[u];
     }
-    if constexpr (F::kFp8) {
+    if constexpr (F::kByte) {
       const int k = k0 + bh * 8;
       float s[4] = {0.f, 0.f, 0.f, 0.f};
-      if (bn < N && k < K) scales4(a, (size_t)(k / g) * N + bn, s);
+      int zi[4] = {0, 0, 0, 0};
+      float zf[4] = {0.f, 0.f, 0.f, 0.f};
+      if (bn < N && k < K) {
+        const size_t sidx = (size_t)(k / g) * N + bn;
+        scales4(a, sidx, s);
+        if constexpr (!F::kFp8) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) zero_at(a, sidx + j, sym_offset, zi[j], zf[j]);
+        }
+      }
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          Bs[(bh * 8 + i) * LDB + bc + j] =
-              __float2bfloat16_rn(fp8_value<FMT>((w_reg[i] >> (8 * j)) & 255u) * s[j]);
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t code = (w_reg[i] >> (8 * j)) & 255u;
+          float v;
+          if constexpr (F::kFp8)
+            v = fp8_value<FMT>(code) * s[j];
+          else
+            v = int_value<FMT>(a, code, s[j], zi[j], zf[j]);
+          Bs[(bh * 8 + i) * LDB + bc + j] = __float2bfloat16_rn(v);
+        }
     } else {
       const int r0 = k0 / EF + bh * RH;
 #pragma unroll
@@ -539,7 +665,7 @@ gemm_kernel(const __nv_bfloat16* __restrict__ xk, PackArgs a,
 #pragma unroll
         for (int ir = 0; ir < RH; ++ir) {
           const uint32_t code = code_of<FMT>(&w_reg[ir * F::kSlots], b);
-          const float v = F::kLut ? tab[code] * s : int_value(a, code, s, zi, zf);
+          const float v = F::kLut ? tab[code] * s : int_value<FMT>(a, code, s, zi, zf);
           Bs[((bh * RH + ir) * EF + b) * LDB + bc] = __float2bfloat16_rn(v);
         }
       }
@@ -558,16 +684,16 @@ gemm_kernel(const __nv_bfloat16* __restrict__ xk, PackArgs a,
     const __nv_bfloat16* Bs = Bs_all + stage * BK * LDB;
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af[2];
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af[MI];
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(af[i], &As[(wm * 32 + i * 16) * LDA + kk * 16], LDA);
+      for (int i = 0; i < MI; ++i)
+        wmma::load_matrix_sync(af[i], &As[(wm * 16 * MI + i * 16) * LDA + kk * 16], LDA);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf;
         wmma::load_matrix_sync(bf, &Bs[(kk * 16) * LDB + wn * 64 + j * 16], LDB);
 #pragma unroll
-        for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], af[i], bf, acc[i][j]);
+        for (int i = 0; i < MI; ++i) wmma::mma_sync(acc[i][j], af[i], bf, acc[i][j]);
       }
     }
     // the other stage was last read before the previous barrier
@@ -577,31 +703,50 @@ gemm_kernel(const __nv_bfloat16* __restrict__ xk, PackArgs a,
   }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       wmma::store_matrix_sync(Cs[warp], acc[i][j], 16, wmma::mem_row_major);
       __syncwarp();
       for (int e = lane; e < 256; e += 32) {
-        const int gm = m_blk + wm * 32 + i * 16 + e / 16;
+        const int gm = m_blk + wm * 16 * MI + i * 16 + e / 16;
         const int gn = n_blk + wn * 64 + j * 16 + e % 16;
-        if (gm < M && gn < N) out[(size_t)gm * N + gn] = __float2bfloat16_rn(Cs[warp][e]);
+        if (gm < M && gn < N) store1(out + (size_t)gm * N + gn, Cs[warp][e]);
       }
       __syncwarp();
     }
 }
 
+template <int FMT, int MI, bool GROUPED, typename OutT>
+cudaError_t launch_gemm(const __nv_bfloat16* xk, const PackArgs& a, const int* block_expert,
+                        const int* block_rows, OutT* out, int M, int K, int N, int g,
+                        cudaStream_t st) {
+  constexpr int smem = gemm_smem_bytes<MI>();
+  cudaError_t err = cudaFuncSetAttribute(gemm_kernel<FMT, MI, GROUPED, OutT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((N + BN - 1) / BN, (M + 64 * MI - 1) / (64 * MI));
+  gemm_kernel<FMT, MI, GROUPED, OutT><<<grid, GEMM_THREADS, smem, st>>>(
+      xk, a, block_expert, block_rows, out, M, K, N, g);
+  return cudaGetLastError();
+}
+
 template <int FMT>
 cudaError_t run_gemm(const __nv_bfloat16* xk, const PackArgs& a, __nv_bfloat16* out,
                      int M, int K, int N, int g, cudaStream_t st) {
-  const int smem = (int)(sizeof(__nv_bfloat16) * 2 * (BM * LDA + BK * LDB) +
-                         sizeof(float) * (GEMM_THREADS / 32) * 16 * 16);
-  cudaError_t err = cudaFuncSetAttribute(
-      gemm_kernel<FMT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_kernel<FMT><<<grid, GEMM_THREADS, smem, st>>>(xk, a, out, M, K, N, g);
-  return cudaGetLastError();
+  return launch_gemm<FMT, 2, false>(xk, a, nullptr, nullptr, out, M, K, N, g, st);
+}
+
+// The grouped GEMM over sorted rows in blocks of bm (64 or 128) rows.
+template <int FMT>
+cudaError_t run_gemm_grouped(const __nv_bfloat16* xk, const PackArgs& a,
+                             const int* block_expert, const int* block_rows, float* out,
+                             int M, int K, int N, int g, int bm, cudaStream_t st) {
+  if (bm == 128)
+    return launch_gemm<FMT, 2, true>(xk, a, block_expert, block_rows, out, M, K, N, g, st);
+  if (bm == 64)
+    return launch_gemm<FMT, 1, true>(xk, a, block_expert, block_rows, out, M, K, N, g, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace nstfp

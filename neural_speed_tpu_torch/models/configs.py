@@ -1,8 +1,9 @@
 """HF config -> ArchConfig for the ported archs (a copy of the llama and
-mixtral builders of `neural_speed_tpu/models/configs.py`).
+mixtral builders of `neural_speed_tpu/models/configs.py`, and of its
+`arch_from_hf_config` for them).
 
 Only the llama path and its MoE variant run in the port so far; the other
-archs' builders come with their knobs.
+archs' builders come with their knobs (ROADMAP section 1, item 1).
 """
 
 from __future__ import annotations
@@ -94,3 +95,30 @@ MIXTRAL_8X7B_HF = {
     "num_local_experts": 8, "num_experts_per_tok": 2,
     "tie_word_embeddings": False,
 }
+
+
+ARCH_BUILDERS = {
+    "llama": llama_arch,
+    "mistral": lambda hf: llama_arch(hf, "mistral"),
+    "mixtral": mixtral_arch,
+}
+
+# model types the JAX package builds whose knobs the port has not yet
+_NOT_PORTED = (
+    "qwen", "qwen2", "gemma", "phi", "phi3", "stablelm", "gptj", "gpt_neox",
+    "gptneox", "mpt", "bloom", "falcon", "RefinedWeb", "RefinedWebModel",
+    "opt", "gpt_bigcode", "starcoder", "baichuan", "chatglm", "chatglm2",
+    "chatglm3", "grok-1", "grok")
+
+
+def arch_from_hf_config(hf: Dict[str, Any]) -> ArchConfig:
+    """`model_type` -> ArchConfig for the ported archs; the JAX package's
+    other archs raise `NotImplementedError`, unknown ones `ValueError`."""
+    mt = hf.get("model_type", "")
+    if mt in ARCH_BUILDERS:
+        return ARCH_BUILDERS[mt](hf)
+    if mt in _NOT_PORTED:
+        raise NotImplementedError(
+            f"model_type {mt!r} is not ported yet (ROADMAP section 1, item 1: "
+            f"the HF archs)")
+    raise ValueError(f"unsupported model_type {mt!r}")

@@ -56,11 +56,17 @@ INT8_MIN_ROWS = 32
 
 def linear(x: torch.Tensor, p: Params,
            comp: Optional[str] = None) -> torch.Tensor:
-    """p = {"w": QTensor | [K, N] tensor, "b": optional [N]}; output in x's
-    dtype (dense weights: float32 accumulation, then the cast).  `comp`
-    "int8" / "int8t" (one activation scale per token) sends steps of at
-    least 32 rows through `qmatmul_int8`; decode stays on the weight-only
-    path, where activation quantization would add error and save no bytes."""
+    """p = {"w": QTensor | [K, N] tensor, "b": optional [N], "perm":
+    optional [K]}; output in x's dtype (dense weights: float32
+    accumulation, then the cast).  `perm` (GPTQ act-order) gathers x along
+    K to the weight's group-contiguous row order, before the matmul and its
+    K-pad.  `comp` "int8" / "int8t" (one activation scale per token) sends
+    steps of at least 32 rows through `qmatmul_int8`; decode stays on the
+    weight-only path, where activation quantization would add error and
+    save no bytes."""
+    perm = p.get("perm")
+    if perm is not None:
+        x = x.index_select(-1, perm)
     w = p["w"]
     if isinstance(w, QTensor):
         if comp is not None and x.numel() // x.shape[-1] >= INT8_MIN_ROWS:

@@ -10,7 +10,11 @@ format; it never runs a plain version:
   (the canonical one or a converter's `spec.lut`);
 * kernel P (`csrc/qmatmul_planar.cuh`, one library per format): INT 3/5/6/7
   as 4/2/1-bit planes, FP8 e4m3 / e5m2 rows, and ggml float offsets
-  `w = s * code + m`;
+  `w = s * code + m` at any width but 1;
+* P's one-plane INT instances (INT1, INT2, INT4, INT8 rows; counted as
+  `qmatmul_int`): the int kernel's packs that kernel A does not take, with
+  the symmetric offset or uint8 zero points and bf16, float32 or
+  double-quantized scales (GPTQ / AWQ, GGUF Q4_0 / Q8_0);
 * kernel G (`csrc/qmatmul_int8.cu`): int8 activations x one-plane INT 4/8
   weights, int32 accumulation per K group, float32 rescale;
 * kernel H (`csrc/qmatmul_int8_planar.cu`): the same over INT 2/3/5/6/7
@@ -20,6 +24,10 @@ format; it never runs a plain version:
 F and P take bf16 or float32 scales (double-quantized scales decode to
 float32 outside the kernel), any M >= 1, g a multiple of 8 that divides K,
 K a multiple of the pack period x g (`kernel_k_multiple`) and N % 8 == 0.
+`kernel_for` sends every pack the JAX package's Pallas gates
+(`_pallas_supported`, `_planar_supported`) take to one of these kernels;
+packs in K slabs (`k_shards > 1`), which the JAX package runs on XLA,
+raise.
 
 Compute dtype of `qmatmul` (the TPU kernel's `_compute_dtype` rule): float32
 when M <= 32 (decode; the dequantized value is exact in float32), bfloat16
@@ -143,9 +151,14 @@ def planes_of(spec: QSpec) -> tuple:
     return (4,) if spec.is_lut else plane_widths(spec.bits)
 
 
+def _byte_rows(spec: QSpec) -> bool:
+    """One byte per weight in `[K, N]` rows: FP8 and INT8."""
+    return spec.is_fp8 or (spec.qtype == QType.INT and spec.bits == 8)
+
+
 def _finest_bands(spec: QSpec) -> int:
     """K sub-bands per word of the pack's narrowest plane (1 for byte rows)."""
-    if spec.is_fp8:
+    if _byte_rows(spec):
         return 1
     if spec.is_lut:
         return 8
@@ -157,18 +170,30 @@ def _float_zeros(qt: QTensor) -> bool:
 
 
 def kernel_for(qt: QTensor) -> str:
-    """Which `qmatmul` kernel takes the pack's format: "A", "F", "P", or ""
-    when none does (shapes and devices are the wrappers' checks)."""
+    """Which `qmatmul` kernel takes the pack's format: "A", "F", "P" (multi-
+    plane, FP8 and float-offset packs), "I" (P's one-plane INT instances),
+    or "" for packs in K slabs (shapes and devices are the wrappers'
+    checks).  1-bit packs go to "I" whatever their zeros: their value is
+    2 * code - 1, as `dequantize` has it."""
     spec = qt.spec
+    if qt.k_shards != 1:
+        return ""
     if spec.is_lut:
         return "F"
-    if spec.is_fp8:
+    if spec.is_fp8 or spec.bits in (3, 5, 6, 7):
         return "P"
-    if _float_zeros(qt):
-        return "P" if 3 <= spec.bits <= 7 else ""
-    if spec.bits in (3, 5, 6, 7):
+    if _float_zeros(qt) and spec.bits != 1:
         return "P"
-    return "A" if kernel_eligible(qt) else ""
+    return "A" if kernel_eligible(qt) else "I"
+
+
+def kernel_takes(qt: QTensor) -> bool:
+    """Whether a kernel takes the pack as stored: its format (`kernel_for`)
+    and its shapes (the checks of the kernel's wrapper, devices aside)."""
+    letter = kernel_for(qt)
+    if letter == "A":
+        return True
+    return bool(letter) and _planes_ok(qt) and _fp_shape_ok(qt)
 
 
 def _describe(qt: QTensor) -> str:
@@ -210,13 +235,14 @@ def _planes_ok(qt: QTensor) -> bool:
 
 def _fp_shape_ok(qt: QTensor) -> bool:
     """Shapes kernels F and P take: g % 8 == 0 dividing K (or one group),
-    N % 8 == 0, whole 8-row chunks per band, groups that do not straddle a
-    band of the narrowest plane."""
+    N % 8 == 0, whole 8-row chunks per band.  A group may straddle a band
+    (the kernels look the scale up per run of 8 rows, which lies inside one
+    group), so the JAX kernel's subdivided group is not needed."""
     k, n = qt.shape
     g = qt.spec.effective_group(k)
     bands = _finest_bands(qt.spec)
     return (qt.k_shards == 1 and n % 8 == 0 and g % 8 == 0 and k % g == 0
-            and k % (bands * 8) == 0 and (g >= k or (k // bands) % g == 0)
+            and k % (bands * 8) == 0
             and qt.scales.shape == (k // g, n)
             and (qt.zeros is None or qt.zeros.shape == (k // g, n)))
 
@@ -236,10 +262,10 @@ def _band_major(x2: torch.Tensor, bands: int) -> torch.Tensor:
 
 
 def _fp_launch(name: str, lib: str, x2: torch.Tensor, qt: QTensor, planes,
-               extra_ptrs, extra_ints) -> torch.Tensor:
+               extra_ptrs, extra_ints, counter: str = "") -> torch.Tensor:
     """Shared launch of kernels F and P (entries `nst_<name>_gemv/_gemm` of
     the library `lib`): the split-K GEMV for M <= 32, the tensor-core GEMM
-    above."""
+    above.  The launch counts under `counter` (default `name`)."""
     m, k = x2.shape
     n = qt.shape[1]
     g = qt.spec.effective_group(k)
@@ -266,7 +292,7 @@ def _fp_launch(name: str, lib: str, x2: torch.Tensor, qt: QTensor, planes,
         code = fn(xk.data_ptr(), *ptrs, out.data_ptr(), m, k, n, g, s_bf16,
                   *extra_ints, stream)
     _build.check(code, name)
-    _build.launches[name] += 1
+    _build.launches[counter or name] += 1
     return out
 
 
@@ -276,8 +302,9 @@ def _fp_checks(letter: str, x2: torch.Tensor, qt: QTensor, out_dtype,
           and x2.dtype == torch.bfloat16 and out_dtype == torch.bfloat16
           and x2.shape[1] == qt.shape[0] and _cuda_ok(x2, *tensors))
     if not ok:
+        what = "P (one-plane INT)" if letter == "I" else letter
         raise ValueError(
-            f"kernel {letter} takes contiguous, 16-byte aligned CUDA "
+            f"kernel {what} takes contiguous, 16-byte aligned CUDA "
             f"tensors: bf16 x [M, K], bf16 or float32 scales, g % 8 == 0, "
             f"K a multiple of the pack period x g, N % 8 == 0, and writes "
             f"bf16; got x {x2.dtype} {tuple(x2.shape)} on {x2.device}, out "
@@ -296,16 +323,14 @@ def qmatmul_lut_cuda(x2: torch.Tensor, qt: QTensor,
                       [table.data_ptr()], [])
 
 
-def qmatmul_planar_cuda(x2: torch.Tensor, qt: QTensor,
-                        out_dtype=None) -> torch.Tensor:
-    """Kernel P on `x2 [M, K]` bf16: odd-width planes, FP8 rows, float
-    offsets; output bf16."""
+def _planar_launch(letter: str, x2: torch.Tensor, qt: QTensor,
+                   out_dtype) -> torch.Tensor:
     out_dtype = out_dtype or x2.dtype
     scales = _kernel_scales(qt)
     zeros = qt.zeros
     if zeros is not None and zeros.dtype not in (torch.uint8, torch.float32):
         zeros = zeros.float().contiguous()
-    _fp_checks("P", x2, qt, out_dtype,
+    _fp_checks(letter, x2, qt, out_dtype,
                (*qt.data, scales) + (() if zeros is None else (zeros,)))
     spec = qt.spec
     if zeros is None:
@@ -317,11 +342,27 @@ def qmatmul_planar_cuda(x2: torch.Tensor, qt: QTensor,
     planes = list(qt.data) + [qt.data[0]] * (3 - len(qt.data))
     return _fp_launch("qmatmul_planar", f"qmatmul_planar_{fmt}", x2, qt,
                       planes, [0 if zeros is None else zeros.data_ptr()],
-                      [_ZMODES[zmode]])
+                      [_ZMODES[zmode]],
+                      counter="qmatmul_int" if letter == "I" else "")
+
+
+def qmatmul_planar_cuda(x2: torch.Tensor, qt: QTensor,
+                        out_dtype=None) -> torch.Tensor:
+    """Kernel P on `x2 [M, K]` bf16: odd-width planes, FP8 rows, float
+    offsets; output bf16."""
+    return _planar_launch("P", x2, qt, out_dtype)
+
+
+def qmatmul_int_cuda(x2: torch.Tensor, qt: QTensor,
+                     out_dtype=None) -> torch.Tensor:
+    """P's one-plane INT instances on `x2 [M, K]` bf16: INT 1/2/4/8 with the
+    symmetric offset or uint8 zero points, bf16, float32 or
+    double-quantized scales; output bf16."""
+    return _planar_launch("I", x2, qt, out_dtype)
 
 
 _QMATMUL_KERNELS = {"A": qmatmul_cuda, "F": qmatmul_lut_cuda,
-                    "P": qmatmul_planar_cuda}
+                    "P": qmatmul_planar_cuda, "I": qmatmul_int_cuda}
 
 
 def qmatmul(x: torch.Tensor, qt: QTensor, out_dtype=None) -> torch.Tensor:
@@ -339,8 +380,8 @@ def qmatmul(x: torch.Tensor, qt: QTensor, out_dtype=None) -> torch.Tensor:
         if launch is None:
             raise ValueError(
                 f"no CUDA kernel takes this pack yet: {_describe(qt)}; "
-                f"kernel A takes int4 / symmetric / bf16 scales, F takes "
-                f"NF4 / FP4, P takes INT 3/5/6/7, FP8 and float offsets")
+                f"the kernels take unsharded packs (k_shards == 1), as the "
+                f"JAX package's Pallas kernels do")
         out = launch(x2, qt, out_dtype)
     return out.reshape(*lead, qt.shape[1])
 

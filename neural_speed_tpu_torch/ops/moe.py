@@ -16,8 +16,11 @@ path as a `lax.switch` over the selected experts, which the port replaces
 with one launch per projection for all top_k experts.
 
 A CPU tensor goes through the plain versions; a CUDA tensor through kernel
-11 (`csrc/qmatmul_grouped.cu`: int4, symmetric, bf16 scales) or raises
-naming the format.
+11 (`csrc/qmatmul_grouped.cu`: int4, symmetric, bf16 scales), through the
+grouped instances of kernels F and P (`csrc/qmatmul_grouped_fp.cuh`, one
+library per format: NF4 / FP4 and one-plane INT 1/2/4/8 with the symmetric
+offset or uint8 zero points, bf16 or float32 scales), or raises naming the
+format (multi-plane and K-slab stacks, which the JAX package runs on XLA).
 
 `StackedExperts` holds one projection's E experts stacked on a leading
 axis; it replaces the per-expert `QTensor` list at load time
@@ -33,7 +36,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .. import _build
-from .matmul import GEMV_MAX_M, _describe, _gemv_splits, _sm_count
+from .matmul import (GEMV_MAX_M, _band_major, _describe, _gemv_splits,
+                     _sm_count)
 from .qtypes import QSpec, QType, plane_widths
 from .quantize import QTensor, dequantize
 
@@ -213,8 +217,8 @@ GROUPED_BMS = (64, 128)
 def grouped_kernel_eligible(st: StackedExperts) -> bool:
     """Packs kernel 11 takes: one int4 plane per expert, symmetric, bf16
     group scales with g a multiple of 8 dividing K, K % 64 == 0, N % 8 ==
-    0 (kernel A's formats); the rest of `_stack_kernel_ok`'s packs are
-    still to port."""
+    0 (kernel A's formats); the rest of `_stack_kernel_ok`'s packs go to
+    the grouped F/P instances (`grouped_kernel_for`)."""
     spec = st.spec
     k, n = st.shape
     g = spec.effective_group(k)
@@ -222,6 +226,45 @@ def grouped_kernel_eligible(st: StackedExperts) -> bool:
             and st.zeros is None and st.k_shards == 1 and len(st.data) == 1
             and st.scales.dtype == torch.bfloat16
             and k % 64 == 0 and n % 8 == 0 and g % 8 == 0 and k % g == 0)
+
+
+def grouped_kernel_for(st: StackedExperts) -> str:
+    """Which grouped kernel takes the stack: "11" (kernel 11), "fp" (the
+    grouped instances of kernels F and P), or "" (multi-plane or K-slab
+    stacks).  Every stack `_stack_kernel_ok` takes has a kernel."""
+    spec = st.spec
+    if st.k_shards != 1 or len(st.data) != 1:
+        return ""
+    if grouped_kernel_eligible(st):
+        return "11"
+    if spec.is_lut or spec.bits in (1, 2, 4, 8):
+        return "fp"
+    return ""
+
+
+def _grouped_fp_shape_ok(st: StackedExperts) -> bool:
+    """Shapes the grouped F/P instances take, per expert as `qmatmul`'s F
+    and P do (`_fp_shape_ok`), stacked on a leading axis."""
+    k, n = st.shape
+    e = st.n_experts
+    g = st.spec.effective_group(k)
+    bands = _bands(st.spec)
+    byte_rows = st.spec.bits == 8 and not st.spec.is_lut
+    plane = st.data[0]
+    return (n % 8 == 0 and g % 8 == 0 and k % g == 0
+            and k % (bands * 8) == 0 and plane.shape == (e, k // bands, n)
+            and plane.dtype == (torch.uint8 if byte_rows else torch.int32)
+            and st.scales.shape == (e, k // g, n)
+            and st.scales.dtype in (torch.bfloat16, torch.float32)
+            and (st.zeros is None or (st.zeros.dtype == torch.uint8
+                                      and st.zeros.shape == (e, k // g, n))))
+
+
+def grouped_kernel_takes(st: StackedExperts) -> bool:
+    """Whether a grouped kernel takes the stack as stored: its format and
+    its shapes (the wrapper's checks, devices aside)."""
+    route = grouped_kernel_for(st)
+    return route == "11" or (route == "fp" and _grouped_fp_shape_ok(st))
 
 
 def _describe_stack(st: StackedExperts) -> str:
@@ -351,13 +394,107 @@ def grouped_qmatmul_rows_cuda(x2: torch.Tensor, st: StackedExperts,
     return out
 
 
+# ---------------------------------------------------------------------------
+# the grouped instances of kernels F and P
+# ---------------------------------------------------------------------------
+
+
+def _grouped_fp_args(x2: torch.Tensor, st: StackedExperts, what: str,
+                     idx) -> tuple:
+    """Checks of the grouped F/P instances; returns (library, pointers of
+    the pack, ints of the pack)."""
+    spec = st.spec
+    tensors = (x2, st.data[0], st.scales) + tuple(idx) + (
+        () if st.zeros is None else (st.zeros,))
+    ok = (grouped_kernel_for(st) == "fp" and _grouped_fp_shape_ok(st)
+          and x2.dtype == torch.bfloat16 and x2.shape[1] == st.shape[0]
+          and all(t.is_cuda and t.device == x2.device and t.is_contiguous()
+                  and t.data_ptr() % 16 == 0 for t in tensors))
+    if not ok:
+        raise ValueError(
+            f"the grouped F/P instances ({what}) take contiguous, 16-byte "
+            f"aligned CUDA tensors: bf16 x [M, K] and one-plane NF4 / FP4 / "
+            f"INT 1/2/4/8 experts stacked [E, K*w/32, N] ([E, K, N] bytes "
+            f"for INT8) with bf16 or float32 scales and no or uint8 zero "
+            f"points, g % 8 == 0, N % 8 == 0; got x {x2.dtype} "
+            f"{tuple(x2.shape)} on {x2.device}, pack {_describe_stack(st)} "
+            f"on {st.data[0].device}")
+    fmt = "lut4" if spec.is_lut else f"int{spec.bits}"
+    table = 0
+    if spec.is_lut:
+        from .quantize import lut_values
+
+        table = lut_values(spec, torch.float32, x2.device).data_ptr()
+    zmode = 2 if st.zeros is not None else (0 if spec.is_lut else 1)
+    ptrs = (st.data[0].data_ptr(), st.scales.data_ptr(),
+            0 if st.zeros is None else st.zeros.data_ptr(), table)
+    ints = (int(st.scales.dtype == torch.bfloat16), zmode)
+    return f"qmatmul_grouped_fp_{fmt}", ptrs, ints
+
+
+def grouped_qmatmul_fp_cuda(xs: torch.Tensor, st: StackedExperts,
+                            block_expert: torch.Tensor, bm: int,
+                            block_rows: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """The grouped F/P GEMM on sorted rows `xs [M_pad, K]` bf16: row block
+    i (of `bm` rows) times expert `block_expert[i]`; output float32.  With
+    `block_rows`, rows of block i past `block_rows[i]` are written as zeros
+    without being computed."""
+    m = xs.shape[0]
+    n_mb = m // bm if bm else 0
+    idx = (block_expert,) + (() if block_rows is None else (block_rows,))
+    lib, ptrs, ints = _grouped_fp_args(xs, st, "GEMM", idx)
+    if bm not in GROUPED_BMS or m % bm or any(
+            t.dtype != torch.int32 or t.shape != (n_mb,) for t in idx):
+        raise ValueError(
+            f"the grouped F/P GEMM takes bm in {GROUPED_BMS} dividing M and "
+            f"int32 block maps [M / bm]; got bm {bm}, M {m}, maps "
+            f"{[(t.dtype, tuple(t.shape)) for t in idx]}")
+    k, n = st.shape
+    xk = _band_major(xs, _bands(st.spec))
+    out = torch.empty((m, n), dtype=torch.float32, device=xs.device)
+    fn = _build.kernels.fn(lib, "nst_qmatmul_grouped_fp_gemm", 8, 7)
+    code = fn(xk.data_ptr(), *ptrs, block_expert.data_ptr(),
+              0 if block_rows is None else block_rows.data_ptr(),
+              out.data_ptr(), m, k, n, st.spec.effective_group(k), bm, *ints,
+              _build.stream_handle())
+    _build.check(code, lib)
+    _build.launches["qmatmul_grouped_fp"] += 1
+    return out
+
+
+def grouped_qmatmul_rows_fp_cuda(x2: torch.Tensor, st: StackedExperts,
+                                 row_expert: torch.Tensor) -> torch.Tensor:
+    """The grouped F/P GEMV: row m of `x2 [M, K]` bf16 (M <= 32) times
+    expert `row_expert[m]`, split over K; float32 output."""
+    m = x2.shape[0]
+    lib, ptrs, ints = _grouped_fp_args(x2, st, "GEMV", (row_expert,))
+    if not (1 <= m <= GEMV_MAX_M and row_expert.dtype == torch.int32
+            and row_expert.shape == (m,)):
+        raise ValueError(
+            f"the grouped F/P GEMV takes 1..{GEMV_MAX_M} rows and an int32 "
+            f"expert per row; got M {m}, experts {row_expert.dtype} "
+            f"{tuple(row_expert.shape)}")
+    k, n = st.shape
+    splits = _gemv_splits(k, n, _sm_count(x2.device.index or 0),
+                          _bands(st.spec))
+    out = torch.empty((m, n), dtype=torch.float32, device=x2.device)
+    partial = (torch.empty((splits, m, n), dtype=torch.float32,
+                           device=x2.device) if splits > 1 else out)
+    fn = _build.kernels.fn(lib, "nst_qmatmul_grouped_fp_gemv", 8, 7)
+    code = fn(x2.data_ptr(), *ptrs, row_expert.data_ptr(), partial.data_ptr(),
+              out.data_ptr(), m, k, n, st.spec.effective_group(k), splits,
+              *ints, _build.stream_handle())
+    _build.check(code, lib)
+    _build.launches["qmatmul_grouped_fp"] += 1
+    return out
+
+
 def _no_kernel(st: StackedExperts) -> ValueError:
-    tpu = ("the JAX package's Pallas kernel takes it: still to port"
-           if _stack_kernel_ok(st) else "the JAX package runs it through XLA")
     return ValueError(
-        f"no CUDA kernel takes this expert stack yet ({tpu}): "
-        f"{_describe_stack(st)}; kernel 11 takes int4 / symmetric / bf16 "
-        f"scales")
+        f"no CUDA kernel takes this expert stack yet (the JAX package runs "
+        f"it through XLA): {_describe_stack(st)}; the grouped kernels take "
+        f"one-plane NF4 / FP4 / INT 1/2/4/8 stacks in one K slab")
 
 
 def _pad_k(x: torch.Tensor, st: StackedExperts) -> torch.Tensor:
@@ -379,9 +516,12 @@ def grouped_qmatmul(xs: torch.Tensor, st: StackedExperts,
     if xs.device.type == "cpu":
         _build.plain_dispatches["qmatmul_grouped"] += 1
         return grouped_qmatmul_plain(xs, st, block_expert, bm)
-    if not grouped_kernel_eligible(st):
-        raise _no_kernel(st)
-    return grouped_qmatmul_cuda(xs, st, block_expert, bm, block_rows)
+    route = grouped_kernel_for(st)
+    if route == "11":
+        return grouped_qmatmul_cuda(xs, st, block_expert, bm, block_rows)
+    if route == "fp":
+        return grouped_qmatmul_fp_cuda(xs, st, block_expert, bm, block_rows)
+    raise _no_kernel(st)
 
 
 def grouped_qmatmul_rows(x2: torch.Tensor, st: StackedExperts,
@@ -393,6 +533,9 @@ def grouped_qmatmul_rows(x2: torch.Tensor, st: StackedExperts,
     if x2.device.type == "cpu":
         _build.plain_dispatches["qmatmul_grouped"] += 1
         return grouped_qmatmul_rows_plain(x2, st, row_expert)
-    if not grouped_kernel_eligible(st):
-        raise _no_kernel(st)
-    return grouped_qmatmul_rows_cuda(x2, st, row_expert)
+    route = grouped_kernel_for(st)
+    if route == "11":
+        return grouped_qmatmul_rows_cuda(x2, st, row_expert)
+    if route == "fp":
+        return grouped_qmatmul_rows_fp_cuda(x2, st, row_expert)
+    raise _no_kernel(st)

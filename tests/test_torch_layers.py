@@ -49,3 +49,30 @@ def test_rms_norm_matches_jax():
     got = bf16_to_f32(torch_to_numpy(tn.rms_norm(torch_bf16(x),
                                                  torch.from_numpy(w))))
     np.testing.assert_allclose(got, want, rtol=2.0 ** -8, atol=0)
+
+
+def test_linear_applies_act_order_perm():
+    """A GPTQ act-order linear (`{"w", "perm"}` from `gptq_to_qtensor`, the
+    tests/test_gptq.py fixture: seed 1, K = 128) through the port's and the
+    JAX `linear`: x is gathered along K by `perm` before the matmul.  Both
+    compute in float32 on the same dequantized weight, summed in another
+    order: within 1e-5 of the largest |output|, and within 1e-4 of
+    x @ W on the checkpoint's own row order."""
+    from neural_speed_tpu.convert import gptq as JG
+    from neural_speed_tpu.models.transformer import linear as jlinear
+    from neural_speed_tpu_torch.models.transformer import linear as tlinear
+    from tests.test_gptq import _make_gptq
+    from tests.torch_port_util import port_qtensor
+
+    qw, qz, sc, gi, w_deq = _make_gptq(seed=1, act_order=True)
+    jqt, perm = JG.gptq_to_qtensor(qw, qz, sc, g_idx=gi, bits=4,
+                                   zero_plus_one=True)
+    assert perm is not None
+    x = np.random.default_rng(2).standard_normal((3, 128)).astype(np.float32)
+    want = np.asarray(jlinear(jnp.asarray(x), {"w": jqt, "perm": perm}))
+    got = tlinear(torch.from_numpy(x),
+                  {"w": port_qtensor(jqt),
+                   "perm": torch.from_numpy(np.array(perm))}).numpy()
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale)
+    np.testing.assert_allclose(got, x @ w_deq, rtol=0, atol=1e-4 * scale)

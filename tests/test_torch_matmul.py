@@ -132,7 +132,8 @@ FORMATS = {
 def _quantized(fmt, scale_dtype="float32", seed=0, n=_N):
     """A JAX pack of random normal weights in format `fmt`, and the port's
     copy of it."""
-    name, sym = FORMATS.get(fmt, (fmt, True))
+    name, sym = FORMATS.get(fmt) or (fmt.removesuffix("-asym"),
+                                     not fmt.endswith("-asym"))
     rng = np.random.default_rng(seed)
     w = rng.standard_normal((_K, n)).astype(np.float32) * 0.05
     jqt = jq.quantize(jnp.asarray(w), jax_named_qspec(
@@ -236,8 +237,11 @@ def test_qmatmul_int8_routes_like_the_reference():
 def test_kernel_choice_by_pack():
     pick = lambda fmt, **kw: tm.kernel_for(_quantized(fmt, **kw)[1])
     assert pick("int4", scale_dtype="bfloat16") == "A"
-    assert pick("int4") == ""                       # float32 scales: row 1, open
-    assert pick("int2") == ""
+    # the rest of row 1: P's one-plane INT instances
+    assert pick("int4") == "I"                      # float32 scales
+    assert pick("int4-asym", scale_dtype="bfloat16") == "I"
+    assert pick("int1") == pick("int2") == pick("int8") == "I"
+    assert pick("int8-asym") == "I"
     assert pick("nf4") == "F" and pick("fp4", scale_dtype="bfloat16") == "F"
     for fmt in ("int3", "int5-asym", "int6", "int7", "fp8_e4m3", "fp8_e5m2",
                 "int4-float-offset"):
@@ -256,7 +260,8 @@ def _to_meta(qt):
 
 @pytest.mark.parametrize("fmt,letter", [
     ("nf4", "kernel F"), ("int5-asym", "kernel P"), ("fp8_e4m3", "kernel P"),
-    ("int4-float-offset", "kernel P")])
+    ("int4-float-offset", "kernel P"), ("int4", "kernel P \\(one-plane INT"),
+    ("int8-asym", "kernel P \\(one-plane INT"), ("int1", "kernel P \\(one")])
 def test_new_qmatmul_kernels_never_run_plain_off_the_cpu(fmt, letter):
     """A tensor on another device (meta, which no kernel takes) reaches the
     kernel's own checks and raises; no plain dispatch is counted."""
@@ -283,7 +288,10 @@ def test_int8_kernels_never_run_plain_off_the_cpu(fmt, per_token):
     ("int2", "int2 symmetric=True"), ("int4", "scales=float32"),
     ("int8", "int8 symmetric=True")])
 def test_unsupported_pack_off_the_cpu_raises_naming_the_format(fmt, named):
-    meta = _to_meta(_quantized(fmt)[1])
+    """A pack in K slabs (`k_shards > 1`, which the JAX package runs on
+    XLA) has no kernel: off the CPU it raises naming the format."""
+    jqt = _quantized(fmt)[0]
+    meta = _to_meta(port_qtensor(jq.repack(jqt, 2)))
     x = torch.zeros((4, _K), dtype=torch.bfloat16, device="meta")
     before = dict(_build.plain_dispatches)
     with pytest.raises(ValueError, match="no CUDA kernel takes this pack") as e:

@@ -416,18 +416,19 @@ def _to_meta(st):
 @pytest.mark.parametrize("fmt", ["int4", "nf4", "int8"])
 def test_wrappers_refuse_off_the_cpu(fmt):
     """A tensor on another device (meta, which no kernel takes) runs no
-    plain version: an int4 stack reaches kernel 11's checks and raises, a
-    stack no kernel takes raises naming its format."""
+    plain version: an int4 stack reaches kernel 11's checks and raises, the
+    other stacks the checks of the grouped F/P instances."""
     spec = j_named_qspec(fmt, 64, scale_dtype="bfloat16")
     st = _to_meta(_port_stack(_jax_stack(6, 256, 128, spec, 3)[0]))
     x = torch.zeros((256, 256), dtype=torch.bfloat16, device="meta")
     be = torch.zeros((2,), dtype=torch.int32, device="meta")
     rows_e = torch.zeros((2,), dtype=torch.int32, device="meta")
     before = dict(_build.plain_dispatches)
-    with pytest.raises(ValueError, match="kernel 11" if fmt == "int4"
-                       else f"still to port.*{spec.qtype.value}{spec.bits}"):
+    want = ("kernel 11" if fmt == "int4" else
+            f"grouped F/P instances.*{spec.qtype.value}{spec.bits}")
+    with pytest.raises(ValueError, match=want + ".*GEMM" if fmt == "int4"
+                       else want):
         tmoe.grouped_qmatmul(x, st, be, 128)
-    with pytest.raises(ValueError, match="kernel 11" if fmt == "int4"
-                       else "no CUDA kernel"):
+    with pytest.raises(ValueError, match=want):
         tmoe.grouped_qmatmul_rows(x[:2], st, rows_e)
     assert dict(_build.plain_dispatches) == before

@@ -121,3 +121,24 @@ def assert_qtensor_equal(jqt, tqt) -> None:
             got, want = torch_to_numpy(g), to_numpy(w)
             assert got.dtype == want.dtype, name
             np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+def assert_tree_equal(jnode, tnode, path="") -> None:
+    """A JAX params tree and the port's, leaf for leaf: QTensors as
+    `assert_qtensor_equal`, arrays bit for bit with equal dtypes."""
+    from neural_speed_tpu.ops.quantize import QTensor
+
+    if isinstance(jnode, QTensor):
+        assert_qtensor_equal(jnode, tnode)
+    elif isinstance(jnode, dict):
+        assert set(jnode) == set(tnode), path
+        for key in jnode:
+            assert_tree_equal(jnode[key], tnode[key], f"{path}.{key}")
+    elif isinstance(jnode, list):
+        assert len(jnode) == len(tnode), path
+        for i, (a, b) in enumerate(zip(jnode, tnode)):
+            assert_tree_equal(a, b, f"{path}.{i}")
+    else:
+        want, got = to_numpy(jnode), torch_to_numpy(tnode)
+        assert got.dtype == want.dtype, path
+        np.testing.assert_array_equal(got, want, err_msg=path)
