@@ -24,14 +24,23 @@ Phases, each raising on failure so the run exits non-zero:
    (uniform, one expert taking every token, one expert empty, a B = 4
    decode step) and as the single-token GEMV.  P's one-plane INT instances
    run on the GPTQ / AWQ and GGUF packs (uint8 zero points, float32 and
-   double-quantized scales, widths 1, 2, 4 and 8);
+   double-quantized scales, widths 1, 2, 4 and 8).  The attention variants
+   (VARIANT_CASES): kernels B, C, 9 and 10 over bf16 K/V and with ALiBi
+   over int8 and bf16 K/V, at 32 and 40 heads, and kernel C at Falcon-7B's
+   71 query heads over one KV head, each paged kernel equal to its
+   contiguous twin bit for bit;
 3. a tiny model through `Engine` on the card against the same model on the
    CPU (plain versions), once in int4, once per configuration of phase
    5 and as a tiny Mixtral at B = 3 and B = 1: logits within tolerance,
    identical greedy ids at every step; then a tiny `PagedEngine` the same
    way, through a release and a refill into fragmented pages; then the
    converted checkpoints: a GPTQ act-order llama, GGUF Q4_0 / Q8_0 /
-   Q4_K_M / Q2_K llamas, a GGUF Q4_0 and an nf4 Mixtral;
+   Q4_K_M / Q2_K llamas, a GGUF Q4_0 and an nf4 Mixtral; then tiny HF
+   float checkpoints converted by `convert/hf.py`: MPT (6 heads, ALiBi)
+   over the bf16 and the int8 cache, BLOOM and Falcon (MQA) over bf16, and
+   the tiny llama through a bf16 `PagedEngine`, a release and a refill.
+   Phases 3-8 serve over the int8 cache (`kv_quantized=True`), phase 9
+   over the engines' default bf16 cache and over int8;
 4. the main path: a Llama-2-7B-shaped int4 model (full width and depth,
    random weights from a seed, drawn on the card) serves 4 ragged requests,
    then the bench shape (B = 1, a 1975-token prefill, 64 greedy steps); every
@@ -69,7 +78,16 @@ Phases, each raising on failure so the run exits non-zero:
    layers of a B = 4 and a B = 1 step under the sync check) and as nf4.
    Each run prints weight GiB, TTFT, ms/token and launches per kernel; the
    expected matmul kernels (and only they) must launch at prefill and at
-   decode, and no plain version may run.
+   decode, and no plain version may run;
+9. float HF checkpoints drawn on the card in their published layouts and
+   converted there by `convert/hf.py` to int4, at full width and depth:
+   MPT-7B over the default bf16 cache (bench shape with 64 greedy steps;
+   the ragged requests through `Engine` and `PagedEngine`, bit-equal) and
+   over int8, BLOOM-7B1 (bf16 cache, bench shape) and Falcon-7B at g64
+   (bf16 cache, bench shape).  Each prints checkpoint and weight GiB,
+   conversion seconds and peak GiB, TTFT, ms/token, launches per prefill
+   and per decode step, and the tied LM head's ms per step; with
+   `--profile`, a trace of MPT-7B's prefill and decode.
 
 It prints a `kernels` JSON line, then as its last line
 `{"ok": true, "device": {...}}`.  It imports nothing of JAX.
@@ -836,27 +854,36 @@ def check_grouped_fp(chk: Checks, gen: torch.Generator) -> None:
                      moe.grouped_qmatmul_rows_fp_cuda, main, projs)
 
 
-def _random_cache(gen, layers, b, hkv, s, d):
+def _random_cache(gen, layers, b, hkv, s, d, bf16=False):
+    """Random int8 codes and bf16 scales, or with `bf16` random bf16 K/V
+    (a normal draw, |x| ~ 1) and no scales."""
     from neural_speed_tpu_torch.ops.kv_cache import KVCache
 
+    lengths = torch.zeros((b,), dtype=torch.int32, device="cuda")
+    if bf16:
+        rows = lambda: torch.randn((layers, b, hkv, s, d), generator=gen,
+                                   device="cuda").to(torch.bfloat16)
+        return KVCache(rows(), rows(), None, None, lengths)
     codes = lambda: torch.randint(-127, 128, (layers, b, hkv, s, d),
                                   generator=gen, device="cuda",
                                   dtype=torch.int8)
     scales = lambda: ((torch.rand((layers, b, hkv, s), generator=gen,
                                   device="cuda") + 0.5) * 0.02
                       ).to(torch.bfloat16)
-    return KVCache(codes(), codes(), scales(), scales(),
-                   torch.zeros((b,), dtype=torch.int32, device="cuda"))
+    return KVCache(codes(), codes(), scales(), scales(), lengths)
 
 
 def _clone(c):
-    from neural_speed_tpu_torch.ops.kv_cache import KVCache
+    import dataclasses
 
-    return KVCache(c.k.clone(), c.v.clone(), c.k_scale.clone(),
-                   c.v_scale.clone(), c.lengths.clone())
+    return dataclasses.replace(c, **{n: getattr(c, n).clone() for n in (
+        "k", "v", "k_scale", "v_scale", "lengths")
+        if getattr(c, n) is not None})
 
 
 def _dequant_layer(c, layer):
+    if c.k_scale is None:
+        return c.k[layer], c.v[layer]
     k = (c.k[layer].float() * c.k_scale[layer].float()[..., None])
     v = (c.v[layer].float() * c.v_scale[layer].float()[..., None])
     return k.to(torch.bfloat16), v.to(torch.bfloat16)
@@ -982,42 +1009,49 @@ def check_flash_prefill(chk: Checks, gen: torch.Generator) -> None:
         torch.cuda.empty_cache()
 
 
-def _random_pool(gen, layers, b, hkv, s, d, ps):
-    """A page pool of random codes and scales for `b` slots of `s` rows,
-    with a shuffled table: a random permutation of every page but the
-    trash page (the last), so a fault in the page indexing cannot hide
-    behind an identity-like table."""
+def _random_pool(gen, layers, b, hkv, s, d, ps, bf16=False):
+    """A page pool of random codes and scales (or, with `bf16`, random bf16
+    rows) for `b` slots of `s` rows, with a shuffled table: a random
+    permutation of every page but the trash page (the last), so a fault in
+    the page indexing cannot hide behind an identity-like table."""
     from neural_speed_tpu_torch.ops.paged_kv import PagedKVCache
 
     nb = s // ps
     n_pages = b * nb + 1
-    codes = lambda: torch.randint(-127, 128, (layers, hkv, n_pages, ps, d),
-                                  generator=gen, device="cuda",
-                                  dtype=torch.int8)
+    shape = (layers, hkv, n_pages, ps, d)
+    tables = torch.randperm(n_pages - 1, generator=gen, device="cuda")
+    tables = tables.reshape(b, nb).to(torch.int32)
+    lengths = torch.zeros((b,), dtype=torch.int32, device="cuda")
+    if bf16:
+        rows = lambda: torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        return PagedKVCache(rows(), rows(), None, None, tables, lengths)
+    codes = lambda: torch.randint(-127, 128, shape, generator=gen,
+                                  device="cuda", dtype=torch.int8)
     scales = lambda: ((torch.rand((layers, hkv, n_pages, 1, ps),
                                   generator=gen, device="cuda") + 0.5) * 0.02
                       ).to(torch.bfloat16)
-    tables = torch.randperm(n_pages - 1, generator=gen, device="cuda")
-    return PagedKVCache(codes(), codes(), scales(), scales(),
-                        tables.reshape(b, nb).to(torch.int32),
-                        torch.zeros((b,), dtype=torch.int32, device="cuda"))
+    return PagedKVCache(codes(), codes(), scales(), scales(), tables,
+                        lengths)
 
 
 def _clone_pool(c):
     import dataclasses
 
     return dataclasses.replace(c, **{n: getattr(c, n).clone() for n in (
-        "k_pages", "v_pages", "k_scale", "v_scale")})
+        "k_pages", "v_pages", "k_scale", "v_scale")
+        if getattr(c, n) is not None})
 
 
 def _gathered(pool, layer):
     """The layer in the contiguous cache's layout, as layer 0 of a stacked
-    cache: codes [1, B, H, S, D], scales [1, B, H, S]."""
+    cache: rows [1, B, H, S, D], scales [1, B, H, S] (None for bf16)."""
     from neural_speed_tpu_torch.ops.paged_kv import gather_layer_codes
 
-    return [a[None].contiguous() for a in gather_layer_codes(
-        pool.k_pages, pool.v_pages, pool.k_scale, pool.v_scale,
-        pool.page_tables, layer)]
+    return [None if a is None else a[None].contiguous()
+            for a in gather_layer_codes(
+                pool.k_pages, pool.v_pages, pool.k_scale, pool.v_scale,
+                pool.page_tables, layer)]
 
 
 def check_flash_decode_paged(chk: Checks, gen: torch.Generator) -> None:
@@ -1162,6 +1196,170 @@ def check_flash_prefill_paged(chk: Checks, gen: torch.Generator) -> None:
         torch.cuda.empty_cache()
 
 
+# The attention variants of slice 7, each on a contiguous kernel and its
+# paged twin: bf16 K/V (the JAX package's default cache) and ALiBi slopes.
+# Head counts: MPT-7B's and BLOOM-7B1's 32 (power-of-two slopes),
+# Baichuan-13B's 40 (the non-power-of-two branch), and Falcon-7B's 71 query
+# heads over one KV head at D = 64, whose decode goes to kernel C.
+# (kernel, bf16 K/V, ALiBi, H, Hkv, D, T, kv_lens, main)
+DECODE_LENS = [1976, 1500, 37, 900]
+VARIANT_CASES = [
+    ("decode", True, False, 32, 32, 128, 1, DECODE_LENS, False),
+    ("decode", True, False, 32, 8, 128, 1, DECODE_LENS, False),
+    ("decode", True, True, 32, 32, 128, 1, DECODE_LENS, True),
+    ("decode", True, True, 40, 40, 128, 1, DECODE_LENS, False),
+    ("decode", False, True, 32, 32, 128, 1, DECODE_LENS, False),
+    ("decode", False, True, 40, 40, 128, 1, DECODE_LENS, False),
+    ("prefill", True, False, 32, 32, 128, 2048, [1975], False),
+    ("prefill", True, False, 32, 32, 128, 2048, [1975, 900, 300, 37], False),
+    ("prefill", True, True, 32, 32, 128, 2048, [1975], True),
+    ("prefill", True, True, 40, 40, 128, 2048, [1975], False),
+    ("prefill", False, True, 32, 32, 128, 2048, [1975], False),
+    ("prefill", False, True, 40, 40, 128, 2048, [1975], False),
+    ("prefill", True, False, 71, 1, 64, 1, DECODE_LENS, False),
+    ("prefill", True, False, 71, 1, 64, 2048, [1975], False),
+]
+
+
+def _sdpa_mask(valid, pos, slopes, s):
+    """SDPA's attn_mask for `valid` [B, T, S]: the boolean mask, or with
+    ALiBi slopes [H] a float bias slope * (col - pos) with -inf on masked
+    columns ([B, H, T, S])."""
+    if slopes is None:
+        return valid[:, None]
+    col = torch.arange(s, device="cuda").float()
+    bias = slopes[None, :, None, None] * (col[None, None, None, :]
+                                          - pos.float()[:, None, :, None])
+    return torch.where(valid[:, None], bias,
+                       torch.full_like(bias, float("-inf")))
+
+
+def _variant_case(chk, gen, kernel, bf16, alibi, h, hkv, d, t, lens, main):
+    """One case of VARIANT_CASES: a shuffled pool at page size 128 and the
+    same rows gathered into a contiguous cache; the contiguous kernel and
+    the paged kernel each within 4 bf16 ulps per row of its plain version,
+    the paged kernel equal to the contiguous one bit for bit, and (int8
+    decode) the fused append equal to the plain version's.  Times kernel,
+    plain version and SDPA over the same K/V (ALiBi as a float mask)."""
+    from neural_speed_tpu_torch.ops import flash
+    from neural_speed_tpu_torch.ops.attention import alibi_slopes
+    from neural_speed_tpu_torch.ops.paged_kv import gathered_layer
+
+    s, ps, layer = 2048, 128, 1
+    b = len(lens)
+    scale = 1.0 / math.sqrt(d)
+    slopes = alibi_slopes(h, "cuda") if alibi else None
+    pool = _random_pool(gen, 2, b, hkv, s, d, ps, bf16)
+    ck = _gathered(pool, layer)
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    if t == 1:      # live slots at kv_len - 1, the last one a spectator
+        pos = (kv_lens - 1)[:, None].clone()
+        pos[-1] = s - 1
+    else:
+        ar = torch.arange(t, device="cuda", dtype=torch.int32)[None]
+        pos = torch.where(ar < kv_lens[:, None], ar,
+                          torch.full_like(ar, s - 1))
+    q = torch.randn((b, t, h, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    extra = kernel == "decode" and not bf16
+    kn, vn = ((torch.randn((b, 1, hkv, d), generator=gen, device="cuda")
+               ).to(torch.bfloat16) for _ in range(2)) if extra else (None,
+                                                                     None)
+    if kernel == "decode":
+        cargs = lambda c, fused=extra: (q, kn, vn, *c, 0, pos[:, 0], kv_lens,
+                                        scale, fused, torch.bfloat16)
+        pargs = lambda p, fused=extra: (
+            q, kn, vn, p.k_pages, p.v_pages, p.k_scale, p.v_scale,
+            p.page_tables, layer, pos[:, 0], kv_lens, scale, fused,
+            torch.bfloat16)
+        fns = (flash.decode_cuda, flash.decode_plain, flash.decode_paged_cuda,
+               flash.decode_paged_plain)
+    else:
+        cargs = lambda c, fused=False: (q, *c, 0, pos, kv_lens, scale,
+                                        torch.bfloat16)
+        pargs = lambda p, fused=False: (
+            q, p.k_pages, p.v_pages, p.k_scale, p.v_scale, p.page_tables,
+            layer, pos, kv_lens, scale, torch.bfloat16)
+        fns = (flash.prefill_cuda, flash.prefill_plain,
+               flash.prefill_paged_cuda, flash.prefill_paged_plain)
+    c_cuda, c_plain, p_cuda, p_plain = fns
+    kw = dict(alibi=slopes)
+    # the paged kernel over the pool and the contiguous kernel over the
+    # gathered rows, without the append: equal bit for bit
+    same = torch.equal(p_cuda(*pargs(pool, False), **kw),
+                       c_cuda(*cargs(ck, False), **kw))
+    suffix = "_bf16" if bf16 else ""
+    what = (f"{kernel} {'bf16' if bf16 else 'int8'} K/V"
+            f"{', ALiBi' if alibi else ''} H={h} Hkv={hkv} D={d} T={t}")
+    if not same:
+        raise AssertionError(f"flash_{kernel}_paged{suffix} ({what}) differs "
+                             f"from the contiguous kernel over the same rows")
+    col = torch.arange(s, device="cuda")
+    cache_len = torch.where(extra & (pos[:, 0] == kv_lens - 1), kv_lens - 1,
+                            kv_lens)
+    valid = ((col[None, None] < cache_len[:, None, None])
+             & (col[None, None] <= pos[:, :, None]))              # [B,T,S]
+    pairs = valid.sum().item()
+    kv_bytes = 2 * d * (2 if bf16 else 1) + (0 if bf16 else 4)
+    nbytes = (2 * b * t * h * d * 2 + valid.any(1).sum().item() * hkv
+              * kv_bytes + (2 * b * hkv * d * 2 if extra else 0))
+    for paged in (False, True):
+        name = f"flash_{kernel}{'_paged' if paged else ''}{suffix}"
+        mk = (lambda: _clone_pool(pool)) if paged else (
+            lambda: [None if a is None else a.clone() for a in ck])
+        run, plain, args = ((p_cuda, p_plain, pargs) if paged
+                            else (c_cuda, c_plain, cargs))
+        a_k, a_p = mk(), mk()
+        got = run(*args(a_k), **kw)
+        want = plain(*args(a_p), **kw)
+        torch.cuda.synchronize()
+        if extra:
+            ta = [getattr(a_k, n) for n in ("k_pages", "v_pages", "k_scale",
+                                            "v_scale")] if paged else a_k
+            tb = [getattr(a_p, n) for n in ("k_pages", "v_pages", "k_scale",
+                                            "v_scale")] if paged else a_p
+            n_keep = pool.n_pages - 1          # every page but the trash
+            for x, y in zip(ta, tb):
+                x, y = (x[:, :, :n_keep], y[:, :, :n_keep]) if paged else (
+                    x, y)
+                if not torch.equal(x, y):
+                    raise AssertionError(f"{name} ({what}): the fused append "
+                                         "differs from the plain version's")
+        # as kernels B and C: within 4 bf16 ulps of the largest output of
+        # the (slot, row, head) row
+        cmp = compare(got, want, 4, per_row=True)
+        del got, want
+        ms = time_ms(lambda: run(*args(a_k), **kw))
+        plain_ms = time_ms(lambda: plain(*args(a_p), **kw), reps=3)
+        kd, vd = gathered_layer(pool, layer)
+        mask = _sdpa_mask(valid, pos, slopes, s)
+        qs = q.transpose(1, 2)
+        lib_ms = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qs, kd, vd, attn_mask=mask, scale=scale,
+                enable_gqa=hkv != h))
+        del kd, vd, mask, a_k, a_p
+        chk.add(name, "cuda", f"neural_speed_tpu_torch/csrc/flash_{kernel}.cu",
+                "neural_speed_tpu/ops/flash.py:"
+                + {("decode", False): "267", ("decode", True): "1196",
+                   ("prefill", False): "142",
+                   ("prefill", True): "1111"}[kernel, paged],
+                f"B={b} T={t} H={h} Hkv={hkv} D={d} S={s} kv_len="
+                f"{'/'.join(map(str, lens))}{' ALiBi' if alibi else ''}"
+                f"{', page size 128, shuffled table' if paged else ''}",
+                cmp, ms, plain_ms, lib_ms,
+                nbytes + (pool.page_tables.numel() * 4 if paged else 0),
+                4.0 * pairs * h * d, main=main and bf16)
+        torch.cuda.empty_cache()
+    del pool, ck
+    torch.cuda.empty_cache()
+
+
+def check_flash_variants(chk: Checks, gen: torch.Generator) -> None:
+    for case in VARIANT_CASES:
+        _variant_case(chk, gen, *case)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: a tiny model on the card against the CPU
 # ---------------------------------------------------------------------------
@@ -1201,14 +1399,19 @@ def format_configs():
 # converted checkpoints (`check_tiny_checkpoints`) were searched the same
 # way over seeds 0-399: their uniform codes give flat logits, so the GGUF
 # Q8_0 llama is held for the 7 steps its best seed keeps clear, and the
-# nf4 Mixtral, whose router gaps are narrow, for 4.
+# nf4 Mixtral, whose router gaps are narrow, for 4.  The tiny HF archs
+# (`check_tiny_hf`) were searched the same way over seeds 0-299; the int4
+# seed and the refill prompt of the paged check keep their margins over the
+# bf16 pool too.
 TINY_SEEDS = {"int4": (15, 9), "nf4": (268, 9), "int5 asymmetric": (84, 5),
               "fp8_e4m3": (562, 9), "int4 + comp=int8": (172, 9),
               "int3 + comp=int8": (1, 9), "mixtral int4": (89, 6),
               "mixtral int4 B=1": (89, 6), "gptq act-order": (2, 9),
               "gguf Q4_0": (4, 9), "gguf Q8_0": (10, 7),
               "gguf Q4_K_M": (166, 9), "gguf Q2_K": (60, 9),
-              "mixtral gguf Q4_0": (7, 6), "mixtral nf4": (87, 4)}
+              "mixtral gguf Q4_0": (7, 6), "mixtral nf4": (87, 4),
+              "mpt bf16": (33, 9), "mpt int8": (11, 9), "bloom bf16": (19, 9),
+              "falcon bf16": (22, 9), "int4 paged bf16": (15, 9)}
 
 
 TINY_CFG = dict(name="llama", vocab_size=512, hidden_size=512, n_layers=2,
@@ -1251,10 +1454,12 @@ def tiny_moe_cfg():
 
 
 def check_tiny_model(label: str, spec, comp, cfg=None,
-                     prompts=TINY_PROMPTS, params_fn=None) -> None:
+                     prompts=TINY_PROMPTS, params_fn=None,
+                     kv_quantized: bool = True) -> None:
     """A tiny model through `Engine` on the card and on the CPU: params from
     `synth_params(cfg, spec)` or, for a converted checkpoint, from
-    `params_fn(cfg, generator)` (drawn on the CPU), seeded per label."""
+    `params_fn(cfg, generator)` (drawn on the CPU), seeded per label; the
+    int8 cache, or with `kv_quantized=False` the default bf16 one."""
     from neural_speed_tpu_torch.models.arch import ArchConfig
     from neural_speed_tpu_torch.runtime.engine import Engine
     from neural_speed_tpu_torch.utils.synthetic import synth_params
@@ -1266,8 +1471,8 @@ def check_tiny_model(label: str, spec, comp, cfg=None,
     else:
         params = params_fn(cfg, torch.Generator().manual_seed(seed))
     b = len(prompts)
-    eng = {dev: Engine(params, cfg, max_batch=b, max_len=256, device=dev,
-                       comp=comp)
+    eng = {dev: Engine(params, cfg, max_batch=b, max_len=256,
+                       kv_quantized=kv_quantized, device=dev, comp=comp)
            for dev in ("cuda", "cpu")}
     logits = {dev: e.prefill(prompts).float().cpu()
               for dev, e in eng.items()}
@@ -1294,11 +1499,13 @@ TINY_REFILL = [412, 12, 413, 240, 264, 323, 147, 501, 28, 143, 196, 292, 209,
                284, 462, 139, 185, 450, 96]
 
 
-def check_tiny_paged() -> None:
+def check_tiny_paged(label: str = "int4", kv_quantized: bool = True
+                     ) -> None:
     """A tiny `PagedEngine` (page size 16, a pool of 24 pages for 3 slots of
-    256 rows) on the card against the same engine on the CPU: the int4
-    configuration's first steps, then slot 1 is released and
-    a new prompt prefilled into the freed, fragmented pages
+    256 rows) on the card against the same engine on the CPU: the `label`
+    configuration's first steps (int4 over the int8 pool; or, with
+    `kv_quantized=False`, over the default bf16 pool), then slot 1 is
+    released and a new prompt prefilled into the freed, fragmented pages
     (`prepare_prefill` / `run_prefill`, the other slots spectators), then
     3 steps with all three slots live.  Held as `check_tiny_model`."""
     from neural_speed_tpu_torch.models.arch import ArchConfig
@@ -1306,17 +1513,19 @@ def check_tiny_paged() -> None:
     from neural_speed_tpu_torch.runtime.engine import PagedEngine
     from neural_speed_tpu_torch.utils.synthetic import synth_params
 
-    seed, checks = TINY_SEEDS["int4"][0], TINY_PAGED_STEPS
+    seed, checks = TINY_SEEDS[label][0], TINY_PAGED_STEPS
     cfg = ArchConfig(**TINY_CFG)
     params = synth_params(cfg, named_qspec("int4", 64, scale_dtype="bfloat16"),
                           seed=seed, device="cpu")
     eng = {dev: PagedEngine(params, cfg, max_batch=3, max_len=256,
-                            page_size=16, n_pages=24, device=dev)
+                            kv_quantized=kv_quantized, page_size=16,
+                            n_pages=24, device=dev)
            for dev in ("cuda", "cpu")}
     logits = {dev: e.prefill(TINY_PROMPTS).float().cpu()
               for dev, e in eng.items()}
     active = torch.tensor([True, False, True])
-    what = f"tiny paged model (params seed {seed})"
+    what = (f"tiny paged model ({'int8' if kv_quantized else 'bf16'} pool, "
+            f"params seed {seed})")
     for step in range(checks):
         toks = _hold_tiny(logits, active, f"{what} step {step}")
         if step < checks - 1:
@@ -1521,6 +1730,57 @@ def check_tiny_checkpoints() -> None:
                      None, tiny_moe_cfg(), TINY_MOE_PROMPTS)
 
 
+# The tiny HF-arch models of phase 3: float checkpoints drawn on the CPU in
+# their HF layouts (`synth_hf_state_dict`) and converted by the port's
+# `convert/hf.py` to int4 g64.  An MPT of 6 heads (ALiBi with the
+# non-power-of-two slopes), a BLOOM (embedding LayerNorm, biases, ALiBi)
+# and a Falcon (8 query heads over one KV head: decode through kernel C).
+# Head dim 64, as the kernels take.
+TINY_HF = {
+    "mpt": dict(model_type="mpt", d_model=384, n_heads=6, n_layers=2,
+                expansion_ratio=4, max_seq_len=256, vocab_size=512,
+                attn_config={"alibi": True}),
+    "bloom": dict(model_type="bloom", hidden_size=512, n_head=8, n_layer=2,
+                  vocab_size=512),
+    "falcon": dict(model_type="falcon", hidden_size=512,
+                   num_attention_heads=8, num_hidden_layers=2,
+                   vocab_size=512, multi_query=True, parallel_attn=True,
+                   alibi=False, new_decoder_architecture=False),
+}
+
+
+def hf_tiny(model_type: str):
+    """(cfg, params_fn) of a tiny HF-arch model for `check_tiny_model`."""
+    from neural_speed_tpu_torch.convert.hf import params_from_state_dict
+    from neural_speed_tpu_torch.models.configs import arch_from_hf_config
+    from neural_speed_tpu_torch.ops.qtypes import named_qspec
+    from neural_speed_tpu_torch.utils.synthetic import synth_hf_state_dict
+
+    def params_fn(cfg, gen):
+        sd = synth_hf_state_dict(model_type, cfg, seed=gen.initial_seed(),
+                                 device="cpu")
+        return params_from_state_dict(
+            sd, cfg, named_qspec("int4", 64, scale_dtype="bfloat16"),
+            device="cpu")
+
+    return arch_from_hf_config(TINY_HF[model_type]), params_fn
+
+
+def check_tiny_hf() -> None:
+    """Phase 3's tiny HF archs: MPT over the default bf16 cache and over
+    int8, BLOOM and Falcon over bf16, each through `Engine` on the card
+    against the CPU (`check_tiny_model`); then the tiny llama through a
+    bf16 `PagedEngine`, a release and a refill (`check_tiny_paged`)."""
+    for label, mt, kvq in (("mpt bf16", "mpt", False),
+                           ("mpt int8", "mpt", True),
+                           ("bloom bf16", "bloom", False),
+                           ("falcon bf16", "falcon", False)):
+        cfg, params_fn = hf_tiny(mt)
+        check_tiny_model(label, None, None, cfg, params_fn=params_fn,
+                         kv_quantized=kvq)
+    check_tiny_paged("int4 paged bf16", kv_quantized=False)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -1598,7 +1858,8 @@ def serve_7b(params, cfg, profile: bool):
     from neural_speed_tpu_torch.runtime.engine import (Engine, decode_n_steps,
                                                        prefill_step)
 
-    eng = Engine(params, cfg, max_batch=4, max_len=2048, fuse=False)
+    eng = Engine(params, cfg, max_batch=4, max_len=2048, kv_quantized=True,
+                 fuse=False)
 
     # four ragged requests; slots go idle at different steps
     _build.reset_counts()
@@ -1616,7 +1877,7 @@ def serve_7b(params, cfg, profile: bool):
 
     # the bench shape: B = 1, a 1975-token prefill, 64 greedy steps
     cache = kvc.init_cache(cfg.n_layers, 1, 2048, cfg.n_kv_heads,
-                           cfg.head_dim)
+                           cfg.head_dim, quantized=True)
     t = 2048
     ids = torch.randint(0, cfg.vocab_size, (1, t), generator=gen).to(
         torch.int32).cuda()
@@ -1706,7 +1967,7 @@ def serve_7b_formats() -> dict:
     for label, make_spec, comp, prefill_kernels, decode_kernels in \
             format_configs():
         eng = Engine(synth_params(cfg, make_spec(128), seed=0), cfg,
-                     max_batch=1, max_len=2048, comp=comp)
+                     max_batch=1, max_len=2048, kv_quantized=True, comp=comp)
         nbytes = weight_bytes(eng.params)
         eng.prefill([prompt[:40]])                    # warm: first launches
         _build.reset_counts()
@@ -1782,8 +2043,8 @@ def _serve_windows(params, cfg, prompts, sp, seed: int, width: int = 8):
     from neural_speed_tpu_torch.ops import sampling as smp
     from neural_speed_tpu_torch.runtime.engine import PagedEngine
 
-    eng = PagedEngine(params, cfg, max_batch=4, max_len=2048, page_size=128,
-                      n_pages=40, fuse=False)
+    eng = PagedEngine(params, cfg, max_batch=4, max_len=2048,
+                      kv_quantized=True, page_size=128, n_pages=40, fuse=False)
     lens = np.array(RAGGED_LENS, np.int32)
     budgets = np.array(RAGGED_BUDGETS)
     ids = torch.zeros((4, 2048), dtype=torch.int32)
@@ -1847,8 +2108,8 @@ def serve_7b_paged(params, cfg, ref: dict, profile: bool) -> dict:
     res = {}
     # (a) the ragged requests, each step through eng.decode (one table
     # upload per step)
-    eng = PagedEngine(params, cfg, max_batch=4, max_len=2048, page_size=128,
-                      n_pages=40, fuse=False)
+    eng = PagedEngine(params, cfg, max_batch=4, max_len=2048,
+                      kv_quantized=True, page_size=128, n_pages=40, fuse=False)
     got = serve_ragged(eng, ref["prompts"], "paged ragged")
     want = ref["ragged"]
     if got["ids"] != want["ids"]:
@@ -1874,8 +2135,8 @@ def serve_7b_paged(params, cfg, ref: dict, profile: bool) -> dict:
         f"phase 4's bit for bit, ids equal; the pool returned in full")
 
     # (b) the bench shape: B = 1, a 1975-token prefill, 64 greedy steps
-    eng = PagedEngine(params, cfg, max_batch=1, max_len=2048, page_size=128,
-                      n_pages=16, fuse=False)
+    eng = PagedEngine(params, cfg, max_batch=1, max_len=2048,
+                      kv_quantized=True, page_size=128, n_pages=16, fuse=False)
     prompt = ref["bench_ids"][0, :1975].tolist()
     eng.prefill([prompt])                                   # warm
     eng.release_slot(0)
@@ -2032,7 +2293,8 @@ def serve_mixtral(profile: bool) -> dict:
                                  f"{dict(_build.plain_dispatches)}")
 
     # (a) the ragged requests through Engine
-    eng = Engine(params, cfg, max_batch=4, max_len=2048, fuse=False)
+    eng = Engine(params, cfg, max_batch=4, max_len=2048, kv_quantized=True,
+                 fuse=False)
     gen = torch.Generator().manual_seed(0)
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
                for n in RAGGED_LENS]
@@ -2057,7 +2319,7 @@ def serve_mixtral(profile: bool) -> dict:
 
     # (b) the bench shape: B = 1, a 1975-token prefill, 64 greedy steps
     cache = kvc.init_cache(cfg.n_layers, 1, 2048, cfg.n_kv_heads,
-                           cfg.head_dim)
+                           cfg.head_dim, quantized=True)
     ids = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen).to(
         torch.int32).cuda()
     lens1 = torch.tensor([1975], dtype=torch.int32, device="cuda")
@@ -2117,8 +2379,8 @@ def serve_mixtral(profile: bool) -> dict:
     torch.cuda.empty_cache()
 
     # (c) (a) through PagedEngine, page size 128
-    eng = PagedEngine(params, cfg, max_batch=4, max_len=2048, page_size=128,
-                      n_pages=40, fuse=False)
+    eng = PagedEngine(params, cfg, max_batch=4, max_len=2048,
+                      kv_quantized=True, page_size=128, n_pages=40, fuse=False)
     _build.reset_counts()
     got = serve_ragged(eng, prompts, "mixtral paged ragged")
     counts = dict(_build.launches)
@@ -2153,12 +2415,13 @@ def serve_mixtral(profile: bool) -> dict:
 
 def _bench_engine(label: str, eng, prompt, n_steps: int, prefill_kernels,
                   decode_kernels, sync_moe: bool = False,
-                  profile: str = "") -> dict:
+                  profile: str = "",
+                  attention=("flash_prefill", "flash_decode")) -> dict:
     """The bench shape through `eng` (B = 1): a warm prefill, the timed
     1975-token prefill, `n_steps` greedy steps (`decode_n_steps`).  The
     matmul kernels launched at prefill and at decode must be exactly the
-    expected ones, the attention kernels must launch and no plain version
-    may run.  Counts are set to 0 just before the timed prefill and read
+    expected ones, the `attention` kernels (prefill's, decode's) must
+    launch and no plain version may run.  Counts are set to 0 just before the timed prefill and read
     just after the decode steps.  With `profile` (a file label),
     torch.profiler then traces one prefill and 8 decode steps."""
     from neural_speed_tpu_torch import _build
@@ -2200,8 +2463,8 @@ def _bench_engine(label: str, eng, prompt, n_steps: int, prefill_kernels,
         if matmuls != set(need):
             raise AssertionError(f"{label}: {part} launched {have}, "
                                  f"expected the matmul kernels {need}")
-    if prefill_counts.get("flash_prefill", 0) <= 0 or decode_counts.get(
-            "flash_decode", 0) <= 0:
+    if prefill_counts.get(attention[0], 0) <= 0 or decode_counts.get(
+            attention[1], 0) <= 0:
         raise AssertionError(f"{label}: an attention kernel was not "
                              f"launched: {prefill_counts} {decode_counts}")
     if sum(_build.plain_dispatches.values()):
@@ -2226,20 +2489,24 @@ def _bench_engine(label: str, eng, prompt, n_steps: int, prefill_kernels,
     return res
 
 
-def _ragged_equal(label: str, params, cfg, prompts, need) -> dict:
+def _ragged_equal(label: str, params, cfg, prompts, need,
+                  kv_quantized: bool = True) -> dict:
     """The four ragged requests through `Engine`, then through
     `PagedEngine` (page size 128, 40 pages), every logit equal bit for bit;
-    `need`: the matmul kernels that must launch."""
+    `need`: the kernels that must launch; the int8 cache, or with
+    `kv_quantized=False` the default bf16 one."""
     from neural_speed_tpu_torch import _build
     from neural_speed_tpu_torch.runtime.engine import Engine, PagedEngine
 
     out = {}
     runs = {}
     for name, make in (("Engine", lambda: Engine(
-            params, cfg, max_batch=4, max_len=2048, fuse=False)),
+            params, cfg, max_batch=4, max_len=2048,
+            kv_quantized=kv_quantized, fuse=False)),
             ("PagedEngine", lambda: PagedEngine(
-                params, cfg, max_batch=4, max_len=2048, page_size=128,
-                n_pages=40, fuse=False))):
+                params, cfg, max_batch=4, max_len=2048,
+                kv_quantized=kv_quantized, page_size=128, n_pages=40,
+                fuse=False))):
         eng = make()
         _build.reset_counts()
         runs[name] = serve_ragged(eng, prompts, f"{label} {name} ragged")
@@ -2371,7 +2638,8 @@ def serve_quantized(profile: bool) -> dict:
         return params, time.time() - t0
 
     def bench(label, params, cfg_, pre, dec, sync_moe=False):
-        eng = Engine(params, cfg_, max_batch=1, max_len=2048)
+        eng = Engine(params, cfg_, max_batch=1, max_len=2048,
+                     kv_quantized=True)
         key = label.split(" ", 1)[1].replace(" ", "_").replace("-", "_")
         out = _bench_engine(label, eng, prompt, n_steps, pre, dec, sync_moe,
                             key.lower() if profile else "")
@@ -2433,7 +2701,8 @@ def serve_quantized(profile: bool) -> dict:
     if st.spec.bits != 4 or st.scales.dtype != torch.float32:
         raise AssertionError(f"(d): unexpected expert stack {st.spec}")
     moe_kernels = ("qmatmul_int", "qmatmul_grouped_fp", "qmatmul_planar")
-    eng = Engine(params, mcfg, max_batch=4, max_len=2048, fuse=False)
+    eng = Engine(params, mcfg, max_batch=4, max_len=2048, kv_quantized=True,
+                 fuse=False)
     _build.reset_counts()
     ragged = serve_ragged(eng, prompts, "(d) Mixtral GGUF Q4_0 ragged")
     counts = dict(_build.launches)
@@ -2471,6 +2740,151 @@ def serve_quantized(profile: bool) -> dict:
     res["mixtral_nf4"]["convert_s"] = secs
     del params
     torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 9: float HF checkpoints of the ALiBi / LayerNorm family
+# ---------------------------------------------------------------------------
+
+
+def _head_ms(params, cfg) -> float:
+    """Device ms of the tied LM head of one decode step (float32 product
+    over the whole embedding, as `forward` computes it)."""
+    emb = params["embed"]["weight"]
+    x = torch.randn((1, 1, cfg.hidden_size), device="cuda").to(emb.dtype)
+    return time_ms(lambda: x.float() @ emb.t().to(x.dtype).float())
+
+
+def serve_hf(profile: bool) -> dict:
+    """Phase 9: random float checkpoints drawn on the card in the published
+    HF layouts (`synth_hf_state_dict`, seeds 91-93) and converted by the
+    port's `convert/hf.py` to int4 (bf16 group scales), each at full width
+    and depth, each freed before the next:
+    (a) MPT-7B g128 over the default bf16 cache: the bench shape (B = 1, a
+        1975-token prefill, 64 greedy steps), then the ragged requests
+        through `Engine` and `PagedEngine`, every logit equal bit for bit;
+    (b) MPT-7B g128 over the int8 cache (`kv_quantized=True`): the same;
+        ALiBi through the fused int8 decode of kernels B and 10;
+    (c) BLOOM-7B1 g128, bf16 cache: the bench shape (embedding LayerNorm,
+        biases, the 250880-row tied head);
+    (d) Falcon-7B g64 (K = 4544 is not a multiple of 128), bf16 cache: the
+        bench shape; 71 query heads over one KV head, so decode goes to
+        kernel C's bf16 instance.
+    Each prints the checkpoint and weight GiB, the conversion's seconds and
+    peak GiB, TTFT, ms/token, launches per prefill and per decode step of
+    each kernel, and the plain dispatches (none may run)."""
+    from neural_speed_tpu_torch import _build
+    from neural_speed_tpu_torch.convert.hf import params_from_state_dict
+    from neural_speed_tpu_torch.models.transformer import fuse_params
+    from neural_speed_tpu_torch.ops.qtypes import named_qspec
+    from neural_speed_tpu_torch.runtime.engine import Engine
+    from neural_speed_tpu_torch.utils.synthetic import (bloom_7b1_arch,
+                                                        falcon_7b_arch,
+                                                        mpt_7b_arch,
+                                                        synth_hf_state_dict)
+
+    n_steps = 64
+    res = {}
+
+    def convert(label, mt, cfg, group, seed):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sd = synth_hf_state_dict(mt, cfg, seed=seed)
+        sd_bytes = sum(t.numel() * t.element_size() for t in sd.values())
+        torch.cuda.synchronize()
+        t0 = time.time()
+        params = fuse_params(params_from_state_dict(
+            sd, cfg, named_qspec("int4", group, scale_dtype="bfloat16")), cfg)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        del sd
+        torch.cuda.empty_cache()
+        peak = torch.cuda.max_memory_allocated()
+        info = dict(checkpoint_gib=sd_bytes / 2 ** 30, convert_s=secs,
+                    convert_peak_gib=peak / 2 ** 30)
+        log(f"  {label}: a {sd_bytes / 2 ** 30:.2f} GiB bf16 checkpoint "
+            f"({cfg.n_layers} layers) converted on the card in {secs:.1f} s, "
+            f"peak memory {peak / 2 ** 30:.2f} GiB")
+        return params, info
+
+    def bench(label, params, cfg, kvq, attention, prof=""):
+        pgen = torch.Generator().manual_seed(9)
+        prompt = torch.randint(0, cfg.vocab_size, (1975,),
+                               generator=pgen).tolist()
+        eng = Engine(params, cfg, max_batch=1, max_len=2048,
+                     kv_quantized=kvq, fuse=False)
+        torch.cuda.reset_peak_memory_stats()
+        out = _bench_engine(label, eng, prompt, n_steps, ("qmatmul",),
+                            ("qmatmul",), profile=prof, attention=attention)
+        out["serve_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["per_decode_step"] = {k: v / n_steps for k, v in
+                                  out["decode_counts"].items()}
+        log(f"  {label}: serving peak {out['serve_peak_gib']:.2f} GiB; "
+            f"launches per decode step {out['per_decode_step']}")
+        del eng
+        torch.cuda.empty_cache()
+        return out
+
+    def ragged(label, params, cfg, kvq, kernels):
+        pgen = torch.Generator().manual_seed(10)
+        prompts = [torch.randint(0, cfg.vocab_size, (n,),
+                                 generator=pgen).tolist()
+                   for n in RAGGED_LENS]
+        out = _ragged_equal(label, params, cfg, prompts, ("qmatmul",),
+                            kv_quantized=kvq)
+        for name, need in (("Engine", kernels[:2]),
+                           ("PagedEngine", kernels[2:])):
+            for k in need:
+                if out[name]["launches"].get(k, 0) <= 0:
+                    raise AssertionError(f"{label} {name}: {k} was not "
+                                         f"launched: {out[name]['launches']}")
+        return out
+
+    # (a) and (b): MPT-7B, ALiBi
+    cfg = mpt_7b_arch()
+    params, info = convert("(a) MPT-7B int4 g128", "mpt", cfg, 128, 91)
+    res["mpt_bf16"] = dict(info, **bench(
+        "(a) MPT-7B bf16 KV", params, cfg, False,
+        ("flash_prefill_bf16", "flash_decode_bf16"),
+        "mpt_bf16" if profile else ""))
+    res["mpt_bf16"]["ragged"] = ragged(
+        "(a) MPT-7B bf16 KV", params, cfg, False,
+        ("flash_prefill_bf16", "flash_decode_bf16",
+         "flash_prefill_paged_bf16", "flash_decode_paged_bf16"))
+    res["mpt_int8"] = dict(info, **bench(
+        "(b) MPT-7B int8 KV", params, cfg, True,
+        ("flash_prefill", "flash_decode")))
+    res["mpt_int8"]["ragged"] = ragged(
+        "(b) MPT-7B int8 KV", params, cfg, True,
+        ("flash_prefill", "flash_decode", "flash_prefill_paged",
+         "flash_decode_paged"))
+    res["mpt_bf16"]["tied_head_ms"] = _head_ms(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+
+    # (c) BLOOM-7B1
+    cfg = bloom_7b1_arch()
+    params, info = convert("(c) BLOOM-7B1 int4 g128", "bloom", cfg, 128, 92)
+    res["bloom_bf16"] = dict(info, **bench(
+        "(c) BLOOM-7B1 bf16 KV", params, cfg, False,
+        ("flash_prefill_bf16", "flash_decode_bf16")))
+    res["bloom_bf16"]["tied_head_ms"] = _head_ms(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+
+    # (d) Falcon-7B at g64
+    cfg = falcon_7b_arch()
+    params, info = convert("(d) Falcon-7B int4 g64", "falcon", cfg, 64, 93)
+    res["falcon_bf16"] = dict(info, **bench(
+        "(d) Falcon-7B bf16 KV", params, cfg, False,
+        ("flash_prefill_bf16", "flash_prefill_bf16")))
+    res["falcon_bf16"]["tied_head_ms"] = _head_ms(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    for k in ("mpt_bf16", "bloom_bf16", "falcon_bf16"):
+        log(f"  {k}: tied LM head {res[k]['tied_head_ms']:.3f} ms per "
+            f"decode step")
     return res
 
 
@@ -2520,6 +2934,9 @@ def main() -> int:
                         ("flash_prefill", check_flash_prefill),
                         ("flash_decode_paged", check_flash_decode_paged),
                         ("flash_prefill_paged", check_flash_prefill_paged),
+                        ("flash_decode_bf16 flash_prefill_bf16 "
+                         "flash_decode_paged_bf16 flash_prefill_paged_bf16 "
+                         "alibi", check_flash_variants),
                         ("qmatmul_int4", check_qmatmul),
                         ("qmatmul_lut qmatmul_planar", check_fp_formats),
                         ("qmatmul_int8 qmatmul_int8_planar",
@@ -2548,6 +2965,7 @@ def main() -> int:
                          TINY_MOE_PROMPTS[:1])
         check_tiny_paged()
         check_tiny_checkpoints()
+        check_tiny_hf()
         log("phase 4: Llama-2-7B-shaped int4 serving")
         params, cfg = params_7b()
         _build.reset_counts()
@@ -2606,7 +3024,16 @@ def main() -> int:
             for part in ragged.values() if "launches" not in ragged else (
                     ragged,):
                 counts.update(part["launches"])
-        log(f"  launches over the five paths {dict(counts)}")
+        log("phase 9: float HF checkpoints (MPT-7B, BLOOM-7B1, Falcon-7B) "
+            "at full width and depth")
+        _build.reset_counts()
+        summary["hf"] = serve_hf(args.profile)
+        for run in summary["hf"].values():
+            counts.update(run["prefill_counts"])
+            counts.update(run["decode_counts"])
+            for part in run.get("ragged", {}).values():
+                counts.update(part["launches"])
+        log(f"  launches over the six paths {dict(counts)}")
     else:
         counts = {}
 

@@ -1,11 +1,10 @@
 """Model conversion entry points (port of `neural_speed_tpu/convert/__init__.py`).
 
 `convert_model` dispatches by source format into the port's packed-QTensor
-params: a GGUF file, or a local directory holding a pre-quantized GPTQ /
-AWQ / AutoRound checkpoint (`use_quantized_model=True`).  The directory's
-`config.json` is read with `json`.  Converting a float checkpoint
-(`convert/hf.py` in the JAX package) is not ported yet (ROADMAP section 1,
-item 1).
+params: a GGUF file, a local directory holding a float HF checkpoint
+(quantized at load with `qspec`, through `convert/hf.py`), or one holding a
+pre-quantized GPTQ / AWQ / AutoRound checkpoint (`use_quantized_model=True`).
+The directory's `config.json` is read with `json`.
 """
 
 from __future__ import annotations
@@ -34,13 +33,14 @@ def convert_model(model_path: str, qspec: Optional[QSpec] = None,
     with open(os.path.join(model_path, "config.json")) as f:
         hf_cfg = json.load(f)
     cfg = arch_from_hf_config(hf_cfg)
-    if not use_quantized_model:
-        raise NotImplementedError(
-            "converting a float checkpoint (convert/hf.py) is not ported yet "
-            "(ROADMAP section 1, item 1); pass use_quantized_model=True for "
-            "a GPTQ / AWQ directory")
     from . import loaders
-    from .gptq import params_from_quantized_state_dict
 
     sd = loaders.load_state_dict(model_path)
-    return params_from_quantized_state_dict(sd, cfg, hf_cfg, device=dev), cfg
+    if use_quantized_model:
+        from .gptq import params_from_quantized_state_dict
+
+        return (params_from_quantized_state_dict(sd, cfg, hf_cfg,
+                                                 device=dev), cfg)
+    from .hf import params_from_state_dict
+
+    return params_from_state_dict(sd, cfg, qspec, device=dev), cfg

@@ -51,14 +51,52 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// Element type of the cache rows: int8 codes with a bf16 scale per row (the
+// quantized cache), or bf16 values with no scale.  `kPer16` elements fill
+// one 16-byte load.
+template <class T>
+struct KVElem;
+
+template <>
+struct KVElem<int8_t> {
+  static constexpr bool kQuantized = true;
+  static constexpr int kPer16 = 16;
+  static __device__ __forceinline__ float to_float(int8_t x) { return (float)x; }
+  static __device__ __forceinline__ __nv_bfloat16 to_bf16(int8_t x) {
+    return __float2bfloat16_rn((float)x);  // exact: |x| <= 127
+  }
+};
+
+template <>
+struct KVElem<__nv_bfloat16> {
+  static constexpr bool kQuantized = false;
+  static constexpr int kPer16 = 8;
+  static __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 to_bf16(__nv_bfloat16 x) {
+    return x;
+  }
+};
+
+// ALiBi bias of one score, added after the score scale and before the mask
+// as the JAX kernels do: slope * (float(col) - float(pos)), rounded at the
+// product and at the sum (no fused multiply-add, like the plain versions).
+__device__ __forceinline__ float add_alibi(float s, float slope, int col,
+                                           int pos) {
+  return __fadd_rn(s, __fmul_rn(slope, (float)col - (float)pos));
+}
+
 // Cache addressing of the attention kernels.  `rows(layer, b, hk)` gives a
 // functor that maps a logical cache column c of one (layer, slot, KV head)
 // to its physical row: the codes of column c sit at row * D, its scale at
 // row.  The contiguous cache [L, B, Hkv, S, D] (scales [L, B, Hkv, S]) keeps
 // a (layer, slot, head) run of S rows; the page pool [L, Hkv, P, ps, D]
 // (scales [L, Hkv, P, 1, ps]) keeps a (layer, head) run of P * ps rows, in
-// which logical block j of slot b is page table[b, j].  The kernels are
-// templates over these two, so both do the same arithmetic in the same order.
+// which logical block j of slot b is page table[b, j].  Rows hold elements
+// of either KVElem type (a bf16 cache has no scales).  The kernels are
+// templates over these two addressings and the element type, so paged and
+// contiguous do the same arithmetic in the same order.
 struct ContigRows {
   size_t base;
   __device__ __forceinline__ size_t operator()(int c) const { return base + c; }

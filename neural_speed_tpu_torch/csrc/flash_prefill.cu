@@ -1,17 +1,20 @@
-// Prefill flash attention over the int8 KV cache.
+// Prefill flash attention over the KV cache (int8 codes or bf16 values).
 //
 // Replaces: neural_speed_tpu/ops/flash.py, _mha_kernel as launched by
 // _mha_packed from mha over the contiguous cache (nst_flash_prefill) and by
 // _mha_paged from mha_paged over the page pool (nst_flash_prefill_paged);
-// int8 cache, causal, no ALiBi / softcap.
+// int8 or bf16 cache, causal, ALiBi or none, no softcap.
 //
 // What it computes, for query row t of head h in slot b (KV head
 // h / n_rep): the columns c with c < kv_len[b] and c <= pos[b, t] are
-// valid; s = (bf16(q) . k_code) * k_scale * sm_scale; an online softmax over
-// column tiles; P * v_scale rounded to bf16 before the product with the V
-// codes, accumulated in f32; out = acc / l, and 0 for a row with no valid
-// column (padded rows carry position -1).  At prefill the cache is appended
-// first, so this reads the quantized K/V of the prompt itself.
+// valid; s = (bf16(q) . k) * k_scale * sm_scale (no k_scale for bf16 K),
+// then + slope[h] * (c - pos[b, t]) with ALiBi; an online softmax over
+// column tiles; P * v_scale (P for bf16 V) rounded to bf16 before the
+// product with V, accumulated in f32; out = acc / l, and 0 for a row with no
+// valid column (padded rows carry position -1).  At prefill the cache is
+// appended first, so this reads the K/V of the prompt itself.  Decode calls
+// that kernel B does not take (Falcon-7B's 71 query heads over one KV head,
+// an odd KV head count) come here too, one real row per 64-row tile.
 //
 // Bound: operations (4 * T^2/2 * D per head with causal skipping, ~34 GFLOP
 // per Llama-2-7B layer at T = 2048, on the bf16 tensor cores).
@@ -19,7 +22,8 @@
 // takes 64 rows of one query head, and the K/V tile of its KV head).  Four
 // warps, 16 rows each, run nvcuda::wmma bf16 16x16x16 products with f32
 // accumulation for Q K^T and P V.  Int8 K/V codes are exact in bf16, so each
-// 64-column tile is converted to bf16 in shared memory once per block.
+// 64-column tile is converted to bf16 in shared memory once per block; bf16
+// K/V tiles are copied as they are (twice the bytes per tile).
 // Column tiles past kv_len or above the tile's last position are skipped.
 // The running max / sum live in registers (two lanes per row) and the
 // output accumulator in shared memory.  No TMA/wgmma pipeline yet.
@@ -59,18 +63,20 @@ struct Smem {
   static constexpr size_t bytes = red_off + sizeof(float) * NWARP;
 };
 
-template <int D, class Cache>
+template <int D, class KV, class Cache>
 __global__ void __launch_bounds__(THREADS)
 flash_prefill_kernel(Cache cache, const __nv_bfloat16* __restrict__ q,
-                     const int8_t* __restrict__ kc,
-                     const int8_t* __restrict__ vc,
+                     const KV* __restrict__ kc,
+                     const KV* __restrict__ vc,
                      const __nv_bfloat16* __restrict__ ks,
                      const __nv_bfloat16* __restrict__ vs,
+                     const float* __restrict__ slopes,
                      const int* __restrict__ pos,
                      const int* __restrict__ kv_lens,
                      __nv_bfloat16* __restrict__ out, int T, int H,
                      int Hkv, int S, int layer, float sm_scale) {
   using L = Smem<D>;
+  using E = nst::KVElem<KV>;
   extern __shared__ __align__(128) unsigned char smem[];
   auto Qs = reinterpret_cast<__nv_bfloat16*>(smem + L::q_off);
   auto Ks = reinterpret_cast<__nv_bfloat16*>(smem + L::k_off);
@@ -82,6 +88,8 @@ flash_prefill_kernel(Cache cache, const __nv_bfloat16* __restrict__ q,
 
   const int t0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / Hkv);
+  const bool alibi = slopes != nullptr;
+  const float slope = alibi ? slopes[h] : 0.f;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   auto Pw = reinterpret_cast<__nv_bfloat16*>(smem + L::p_off) + warp * 16 * LDP;
   auto Fw = reinterpret_cast<float*>(smem + L::f_off) + warp * 16 * L::LDF;
@@ -113,21 +121,27 @@ flash_prefill_kernel(Cache cache, const __nv_bfloat16* __restrict__ q,
 
   for (int c0 = 0; c0 < c_end; c0 += BC) {
     __syncthreads();
-    constexpr int KCH = D / 16;
+    constexpr int PER = E::kPer16;   // elements per 16-byte load
+    constexpr int KCH = D / PER;
     for (int i = tid; i < BC * KCH; i += THREADS) {
       const int c = i / KCH, ch = i % KCH;
-      const size_t src = rows(c0 + c) * D + ch * 16;
+      const size_t src = rows(c0 + c) * D + ch * PER;
       const int4 kraw = *reinterpret_cast<const int4*>(kc + src);
       const int4 vraw = *reinterpret_cast<const int4*>(vc + src);
-      const int8_t* k8 = reinterpret_cast<const int8_t*>(&kraw);
-      const int8_t* v8 = reinterpret_cast<const int8_t*>(&vraw);
+      if constexpr (E::kQuantized) {
+        const KV* k8 = reinterpret_cast<const KV*>(&kraw);
+        const KV* v8 = reinterpret_cast<const KV*>(&vraw);
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        Ks[c * L::LDH + ch * 16 + j] = __float2bfloat16_rn((float)k8[j]);
-        Vs[c * L::LDH + ch * 16 + j] = __float2bfloat16_rn((float)v8[j]);
+        for (int j = 0; j < PER; ++j) {
+          Ks[c * L::LDH + ch * PER + j] = E::to_bf16(k8[j]);
+          Vs[c * L::LDH + ch * PER + j] = E::to_bf16(v8[j]);
+        }
+      } else {
+        *reinterpret_cast<int4*>(Ks + c * L::LDH + ch * PER) = kraw;
+        *reinterpret_cast<int4*>(Vs + c * L::LDH + ch * PER) = vraw;
       }
     }
-    if (tid < BC) {
+    if (E::kQuantized && tid < BC) {
       const size_t rc = rows(c0 + tid);
       ksc[tid] = __bfloat162float(ks[rc]);
       vsc[tid] = __bfloat162float(vs[rc]);
@@ -164,7 +178,9 @@ flash_prefill_kernel(Cache cache, const __nv_bfloat16* __restrict__ q,
       const int cc = half * 32 + i;
       const int c = c0 + cc;
       const bool valid = c < c_end && c <= row_pos;
-      const float x = Fw[r * L::LDF + cc] * ksc[cc] * sm_scale;
+      float x = E::kQuantized ? Fw[r * L::LDF + cc] * ksc[cc] * sm_scale
+                              : Fw[r * L::LDF + cc] * sm_scale;
+      if (alibi) x = nst::add_alibi(x, slope, c, row_pos);
       sv[i] = valid ? x : -FLT_MAX;
       if (valid) mloc = fmaxf(mloc, x);
     }
@@ -179,7 +195,7 @@ flash_prefill_kernel(Cache cache, const __nv_bfloat16* __restrict__ q,
       const bool valid = c < c_end && c <= row_pos;
       const float p = valid ? expf(sv[i] - m_new) : 0.f;
       lsum += p;
-      Pw[r * LDP + cc] = __float2bfloat16_rn(p * vsc[cc]);
+      Pw[r * LDP + cc] = __float2bfloat16_rn(E::kQuantized ? p * vsc[cc] : p);
     }
     lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
     l_run = alpha * l_run + lsum;
@@ -222,67 +238,84 @@ flash_prefill_kernel(Cache cache, const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D, class Cache>
+template <int D, class KV, class Cache>
 cudaError_t launch(Cache cache, const void* q, const void* kc, const void* vc,
-                   const void* ks, const void* vs, const void* pos,
-                   const void* kv_lens, void* out, int B, int T, int H,
-                   int Hkv, int S, int layer, float sm_scale,
+                   const void* ks, const void* vs, const void* slopes,
+                   const void* pos, const void* kv_lens, void* out, int B,
+                   int T_, int H, int Hkv, int S, int layer, float sm_scale,
                    cudaStream_t st) {
   const size_t bytes = Smem<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_prefill_kernel<D, Cache>,
+      flash_prefill_kernel<D, KV, Cache>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((T + BT - 1) / BT, H, B);
-  flash_prefill_kernel<D, Cache><<<grid, THREADS, bytes, st>>>(
-      cache, static_cast<const __nv_bfloat16*>(q),
-      static_cast<const int8_t*>(kc), static_cast<const int8_t*>(vc),
-      static_cast<const __nv_bfloat16*>(ks),
-      static_cast<const __nv_bfloat16*>(vs), static_cast<const int*>(pos),
-      static_cast<const int*>(kv_lens), static_cast<__nv_bfloat16*>(out), T,
-      H, Hkv, S, layer, sm_scale);
+  dim3 grid((T_ + BT - 1) / BT, H, B);
+  flash_prefill_kernel<D, KV, Cache><<<grid, THREADS, bytes, st>>>(
+      cache, static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(kc),
+      static_cast<const KV*>(vc), static_cast<const __nv_bfloat16*>(ks),
+      static_cast<const __nv_bfloat16*>(vs), static_cast<const float*>(slopes),
+      static_cast<const int*>(pos), static_cast<const int*>(kv_lens),
+      static_cast<__nv_bfloat16*>(out), T_, H, Hkv, S, layer, sm_scale);
   return cudaGetLastError();
 }
 
+template <class KV, class Cache>
+cudaError_t launch_t(Cache cache, int D, const void* q, const void* kc,
+                     const void* vc, const void* ks, const void* vs,
+                     const void* slopes, const void* pos, const void* kv_lens,
+                     void* out, int B, int T_, int H, int Hkv, int S,
+                     int layer, float sm_scale, cudaStream_t st) {
+  if (D == 128)
+    return launch<128, KV>(cache, q, kc, vc, ks, vs, slopes, pos, kv_lens,
+                           out, B, T_, H, Hkv, S, layer, sm_scale, st);
+  if (D == 64)
+    return launch<64, KV>(cache, q, kc, vc, ks, vs, slopes, pos, kv_lens,
+                          out, B, T_, H, Hkv, S, layer, sm_scale, st);
+  return cudaErrorInvalidValue;
+}
+
+// kv_bf16: the cache holds bf16 rows (no scales) instead of int8 codes.
 template <class Cache>
 int launch_d(Cache cache, int D, const void* q, const void* kc,
-             const void* vc, const void* ks, const void* vs, const void* pos,
-             const void* kv_lens, void* out, int B, int T, int H, int Hkv,
-             int S, int layer, float sm_scale, void* stream) {
+             const void* vc, const void* ks, const void* vs,
+             const void* slopes, const void* pos, const void* kv_lens,
+             void* out, int B, int T_, int H, int Hkv, int S, int layer,
+             int kv_bf16, float sm_scale, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (D == 128)
-    err = launch<128>(cache, q, kc, vc, ks, vs, pos, kv_lens, out, B, T, H,
-                      Hkv, S, layer, sm_scale, st);
-  else if (D == 64)
-    err = launch<64>(cache, q, kc, vc, ks, vs, pos, kv_lens, out, B, T, H,
-                     Hkv, S, layer, sm_scale, st);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  return (int)(kv_bf16
+                   ? launch_t<__nv_bfloat16>(cache, D, q, kc, vc, ks, vs,
+                                             slopes, pos, kv_lens, out, B, T_,
+                                             H, Hkv, S, layer, sm_scale, st)
+                   : launch_t<int8_t>(cache, D, q, kc, vc, ks, vs, slopes, pos,
+                                      kv_lens, out, B, T_, H, Hkv, S, layer,
+                                      sm_scale, st));
 }
 
 }  // namespace
 
+// slopes: float32 [H] ALiBi slopes, or null for none; ks / vs are read
+// only for the int8 cache.
 extern "C" int nst_flash_prefill(const void* q, const void* kc, const void* vc,
                                  const void* ks, const void* vs,
-                                 const void* pos, const void* kv_lens,
-                                 void* out, int B, int T, int H, int Hkv,
-                                 int S, int D, int layer, float sm_scale,
-                                 void* stream) {
-  return launch_d(nst::ContigCache{B, Hkv, S}, D, q, kc, vc, ks, vs, pos,
-                  kv_lens, out, B, T, H, Hkv, S, layer, sm_scale, stream);
+                                 const void* slopes, const void* pos,
+                                 const void* kv_lens, void* out, int B, int T,
+                                 int H, int Hkv, int S, int D, int layer,
+                                 int kv_bf16, float sm_scale, void* stream) {
+  return launch_d(nst::ContigCache{B, Hkv, S}, D, q, kc, vc, ks, vs, slopes,
+                  pos, kv_lens, out, B, T, H, Hkv, S, layer, kv_bf16,
+                  sm_scale, stream);
 }
 
-// The pool [L, Hkv, P, ps, D] with scales [L, Hkv, P, 1, ps] and int32
-// tables [B, n_blocks]; the logical length is n_blocks * ps.
+// The pool [L, Hkv, P, ps, D] with scales [L, Hkv, P, 1, ps] (int8) and
+// int32 tables [B, n_blocks]; the logical length is n_blocks * ps.
 extern "C" int nst_flash_prefill_paged(
     const void* q, const void* kc, const void* vc, const void* ks,
-    const void* vs, const void* tables, const void* pos, const void* kv_lens,
-    void* out, int B, int T, int H, int Hkv, int P, int ps, int n_blocks,
-    int D, int layer, float sm_scale, void* stream) {
+    const void* vs, const void* slopes, const void* tables, const void* pos,
+    const void* kv_lens, void* out, int B, int T, int H, int Hkv, int P,
+    int ps, int n_blocks, int D, int layer, int kv_bf16, float sm_scale,
+    void* stream) {
   return launch_d(
       nst::PagedCache{static_cast<const int*>(tables), Hkv, P, ps, n_blocks},
-      D, q, kc, vc, ks, vs, pos, kv_lens, out, B, T, H, Hkv, n_blocks * ps,
-      layer, sm_scale, stream);
+      D, q, kc, vc, ks, vs, slopes, pos, kv_lens, out, B, T, H, Hkv,
+      n_blocks * ps, layer, kv_bf16, sm_scale, stream);
 }

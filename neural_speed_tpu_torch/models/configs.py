@@ -1,13 +1,15 @@
-"""HF config -> ArchConfig for the ported archs (a copy of the llama and
-mixtral builders of `neural_speed_tpu/models/configs.py`, and of its
-`arch_from_hf_config` for them).
+"""HF config -> ArchConfig (a copy of the builders of
+`neural_speed_tpu/models/configs.py` and of its `arch_from_hf_config`).
 
-Only the llama path and its MoE variant run in the port so far; the other
-archs' builders come with their knobs (ROADMAP section 1, item 1).
+Every builder of the JAX package is here but qwen-1's, chatglm's and
+grok's: their knobs (logn attention, chatglm rope and deepnorm, logit
+softcap and sandwich norms) are not ported, so those model types raise
+`NotImplementedError` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
 from ..ops.rope import RopeScaling
@@ -97,28 +99,364 @@ MIXTRAL_8X7B_HF = {
 }
 
 
+def qwen2_arch(hf: Dict[str, Any]) -> ArchConfig:
+    base = llama_arch(hf, "qwen2")
+    return ArchConfig(**{**base.__dict__, "qkv_bias": True})
+
+
+def gemma_arch(hf: Dict[str, Any]) -> ArchConfig:
+    """gemma.cpp:46-104: head_dim != hidden/n_heads, GELU-gate FFN,
+    (1+w) rmsnorm, embedding scaled by sqrt(hidden)."""
+    base = llama_arch(hf, "gemma")
+    return ArchConfig(
+        **{
+            **base.__dict__,
+            "head_dim": hf["head_dim"],
+            "gemma_norm": True,
+            "act": "gelu_tanh",
+            "embed_scale": math.sqrt(hf["hidden_size"]),
+            "tie_word_embeddings": True,
+            "norm_eps": hf.get("rms_norm_eps", 1e-6),
+        }
+    )
+
+
+def phi_arch(hf: Dict[str, Any]) -> ArchConfig:
+    """phi-1/2 (phi.cpp): partial rotary, parallel residual w/ shared LN,
+    biases everywhere, untied head."""
+    n_heads = hf["num_attention_heads"]
+    hd = hf["hidden_size"] // n_heads
+    return ArchConfig(
+        name="phi",
+        vocab_size=hf["vocab_size"],
+        hidden_size=hf["hidden_size"],
+        n_layers=hf["num_hidden_layers"],
+        n_heads=n_heads,
+        n_kv_heads=hf.get("num_key_value_heads") or n_heads,
+        intermediate_size=hf["intermediate_size"],
+        max_position_embeddings=hf.get("max_position_embeddings", 2048),
+        norm="ln",
+        norm_eps=hf.get("layer_norm_eps", 1e-5),
+        rope_style="neox",
+        rope_base=hf.get("rope_theta", 10000.0),
+        rot_dim=int(hf.get("partial_rotary_factor", 0.5) * hd),
+        qkv_bias=True,
+        o_bias=True,
+        mlp_bias=True,
+        act="gelu_tanh",
+        gated_ffn=False,
+        parallel_residual=True,
+        shared_parallel_norm=True,
+    )
+
+
+def phi3_arch(hf: Dict[str, Any]) -> ArchConfig:
+    """phi3.cpp:182-188: llama-like + LongRoPE."""
+    base = llama_arch(hf, "phi3")
+    return ArchConfig(
+        **{
+            **base.__dict__,
+            "rope_scaling": _rope_scaling_from_hf(hf),
+            "tie_word_embeddings": hf.get("tie_word_embeddings", False),
+        }
+    )
+
+
+def stablelm_arch(hf: Dict[str, Any]) -> ArchConfig:
+    """stablelm.cpp:177-183: partial rotary, LN, gated silu ffn."""
+    n_heads = hf["num_attention_heads"]
+    hd = hf["hidden_size"] // n_heads
+    return ArchConfig(
+        name="stablelm",
+        vocab_size=hf["vocab_size"],
+        hidden_size=hf["hidden_size"],
+        n_layers=hf["num_hidden_layers"],
+        n_heads=n_heads,
+        n_kv_heads=hf.get("num_key_value_heads", n_heads),
+        intermediate_size=hf["intermediate_size"],
+        max_position_embeddings=hf.get("max_position_embeddings", 4096),
+        norm="ln",
+        norm_eps=hf.get("layer_norm_eps", 1e-5),
+        rope_style="neox",
+        rope_base=hf.get("rope_theta", 10000.0),
+        rot_dim=int(hf.get("partial_rotary_factor", 0.25) * hd),
+        qkv_bias=hf.get("use_qkv_bias", False),
+        act="silu",
+        gated_ffn=True,
+    )
+
+
+def gptj_arch(hf: Dict[str, Any]) -> ArchConfig:
+    """gptj.cpp:184-232: parallel attn+FFN sharing one LN, interleaved rope
+    on first n_rot dims, untied head w/ bias."""
+    n_heads = hf["n_head"]
+    return ArchConfig(
+        name="gptj",
+        vocab_size=hf["vocab_size"],
+        hidden_size=hf["n_embd"],
+        n_layers=hf["n_layer"],
+        n_heads=n_heads,
+        n_kv_heads=n_heads,
+        intermediate_size=hf.get("n_inner") or 4 * hf["n_embd"],
+        max_position_embeddings=hf.get("n_positions", 2048),
+        norm="ln",
+        norm_eps=hf.get("layer_norm_epsilon", 1e-5),
+        rope_style="gptj",
+        rot_dim=hf.get("rotary_dim"),
+        act="gelu_tanh",
+        gated_ffn=False,
+        mlp_bias=True,
+        o_bias=False,
+        parallel_residual=True,
+        shared_parallel_norm=True,
+    )
+
+
+def gptneox_arch(hf: Dict[str, Any]) -> ArchConfig:
+    """gptneox.cpp:183-209: neox rope mode 2 on partial dims, optional
+    parallel residual with *two* norms."""
+    n_heads = hf["num_attention_heads"]
+    hd = hf["hidden_size"] // n_heads
+    return ArchConfig(
+        name="gptneox",
+        vocab_size=hf["vocab_size"],
+        hidden_size=hf["hidden_size"],
+        n_layers=hf["num_hidden_layers"],
+        n_heads=n_heads,
+        n_kv_heads=n_heads,
+        intermediate_size=hf["intermediate_size"],
+        max_position_embeddings=hf.get("max_position_embeddings", 2048),
+        norm="ln",
+        norm_eps=hf.get("layer_norm_eps", 1e-5),
+        rope_style="neox",
+        rot_dim=int(hf.get("rotary_pct", 0.25) * hd),
+        rope_base=hf.get("rotary_emb_base", 10000.0),
+        qkv_bias=True,
+        o_bias=True,
+        mlp_bias=True,
+        act="gelu",
+        gated_ffn=False,
+        parallel_residual=hf.get("use_parallel_residual", True),
+        shared_parallel_norm=False,
+    )
+
+
+def mpt_arch(hf: Dict[str, Any]) -> ArchConfig:
+    """mpt.cpp:182-242: ALiBi, clip_qkv, no rope, no biases."""
+    n_heads = hf["n_heads"]
+    attn_cfg = hf.get("attn_config", {})
+    return ArchConfig(
+        name="mpt",
+        vocab_size=hf["vocab_size"],
+        hidden_size=hf["d_model"],
+        n_layers=hf["n_layers"],
+        n_heads=n_heads,
+        n_kv_heads=attn_cfg.get("kv_n_heads", n_heads),
+        intermediate_size=hf.get("expansion_ratio", 4) * hf["d_model"],
+        max_position_embeddings=hf.get("max_seq_len", 2048),
+        norm="ln",
+        norm_eps=1e-5,
+        rope_style="none",
+        use_alibi=True,
+        clip_qkv=attn_cfg.get("clip_qkv"),
+        act="gelu",
+        gated_ffn=False,
+        tie_word_embeddings=True,
+    )
+
+
+def bloom_arch(hf: Dict[str, Any]) -> ArchConfig:
+    """bloom.cpp:191-256: ALiBi + learned embedding LN."""
+    n_heads = hf.get("n_head") or hf["num_attention_heads"]
+    hidden = hf.get("hidden_size") or hf["n_embd"]
+    return ArchConfig(
+        name="bloom",
+        vocab_size=hf["vocab_size"],
+        hidden_size=hidden,
+        n_layers=hf.get("n_layer") or hf["num_hidden_layers"],
+        n_heads=n_heads,
+        n_kv_heads=n_heads,
+        intermediate_size=4 * hidden,
+        max_position_embeddings=2048,
+        norm="ln",
+        norm_eps=hf.get("layer_norm_epsilon", 1e-5),
+        rope_style="none",
+        use_alibi=True,
+        embedding_ln=True,
+        qkv_bias=True,
+        o_bias=True,
+        mlp_bias=True,
+        act="gelu",
+        gated_ffn=False,
+        tie_word_embeddings=True,
+    )
+
+
+def falcon_arch(hf: Dict[str, Any]) -> ArchConfig:
+    """falcon.cpp:75-153: MQA/GQA, parallel residual (one norm for 7B, two
+    for 40B), no biases on qkv, gelu mlp."""
+    n_heads = hf["num_attention_heads"]
+    new_decoder = hf.get("new_decoder_architecture", False)
+    if new_decoder:  # falcon-40b/180b: true GQA group count
+        n_kv = hf.get("num_kv_heads") or hf.get("n_head_kv", 8)
+    elif hf.get("multi_query", True):
+        n_kv = 1
+    else:
+        n_kv = n_heads
+    return ArchConfig(
+        name="falcon",
+        vocab_size=hf["vocab_size"],
+        hidden_size=hf["hidden_size"],
+        n_layers=hf["num_hidden_layers"],
+        n_heads=n_heads,
+        n_kv_heads=n_kv if (new_decoder or hf.get("multi_query", True)) else n_heads,
+        intermediate_size=4 * hf["hidden_size"],
+        max_position_embeddings=2048,
+        norm="ln",
+        norm_eps=hf.get("layer_norm_epsilon", 1e-5),
+        rope_style="none" if hf.get("alibi", False) else "neox",
+        rope_base=hf.get("rope_theta", 10000.0),
+        use_alibi=hf.get("alibi", False),
+        act="gelu",
+        gated_ffn=False,
+        parallel_residual=hf.get("parallel_attn", True),
+        shared_parallel_norm=not new_decoder,
+        tie_word_embeddings=True,
+    )
+
+
+def opt_arch(hf: Dict[str, Any]) -> ArchConfig:
+    """opt.cpp:99-110: learned positions with offset 2, ReLU MLP, LN."""
+    return ArchConfig(
+        name="opt",
+        vocab_size=hf["vocab_size"],
+        hidden_size=hf["hidden_size"],
+        n_layers=hf["num_hidden_layers"],
+        n_heads=hf["num_attention_heads"],
+        n_kv_heads=hf["num_attention_heads"],
+        intermediate_size=hf["ffn_dim"],
+        max_position_embeddings=hf.get("max_position_embeddings", 2048),
+        norm="ln",
+        norm_eps=1e-5,
+        rope_style="none",
+        learned_pos=True,
+        pos_offset=2,
+        qkv_bias=True,
+        o_bias=True,
+        mlp_bias=True,
+        act=hf.get("activation_function", "relu"),
+        gated_ffn=False,
+        tie_word_embeddings=True,
+    )
+
+
+def starcoder_arch(hf: Dict[str, Any]) -> ArchConfig:
+    """starcoder.cpp: MQA + learned absolute positions, gelu mlp."""
+    return ArchConfig(
+        name="starcoder",
+        vocab_size=hf["vocab_size"],
+        hidden_size=hf["n_embd"],
+        n_layers=hf["n_layer"],
+        n_heads=hf["n_head"],
+        n_kv_heads=1 if hf.get("multi_query", True) else hf["n_head"],
+        intermediate_size=hf.get("n_inner") or 4 * hf["n_embd"],
+        max_position_embeddings=hf.get("n_positions", 8192),
+        norm="ln",
+        norm_eps=hf.get("layer_norm_epsilon", 1e-5),
+        rope_style="none",
+        learned_pos=True,
+        qkv_bias=True,
+        o_bias=True,
+        mlp_bias=True,
+        act="gelu_tanh",
+        gated_ffn=False,
+        tie_word_embeddings=True,
+    )
+
+
+def baichuan_arch(hf: Dict[str, Any]) -> ArchConfig:
+    """baichuan.cpp:210: fused W_pack qkv; 13B uses ALiBi, 7B rope."""
+    base = llama_arch(hf, "baichuan")
+    use_alibi = hf["hidden_size"] >= 5120  # 13B
+    return ArchConfig(
+        **{
+            **base.__dict__,
+            "use_alibi": use_alibi,
+            "rope_style": "none" if use_alibi else "neox",
+        }
+    )
+
+
+# The published config.json of mosaicml/mpt-7b, bigscience/bloom-7b1 and
+# tiiuae/falcon-7b (the fields the builders read).
+MPT_7B_HF = {
+    "model_type": "mpt", "d_model": 4096, "n_heads": 32, "n_layers": 32,
+    "expansion_ratio": 4, "max_seq_len": 2048, "vocab_size": 50432,
+    "no_bias": True,
+    "attn_config": {"alibi": True, "clip_qkv": None,
+                    "attn_type": "multihead_attention"},
+}
+BLOOM_7B1_HF = {
+    "model_type": "bloom", "hidden_size": 4096, "n_head": 32, "n_layer": 30,
+    "vocab_size": 250880, "layer_norm_epsilon": 1e-5,
+}
+FALCON_7B_HF = {
+    "model_type": "falcon", "hidden_size": 4544, "num_attention_heads": 71,
+    "num_hidden_layers": 32, "vocab_size": 65024, "multi_query": True,
+    "parallel_attn": True, "alibi": False, "bias": False,
+    "new_decoder_architecture": False, "layer_norm_epsilon": 1e-5,
+}
+
+
+def _waits(item: str):
+    """A builder for a model type whose knobs are not ported yet."""
+    def build(hf: Dict[str, Any]) -> ArchConfig:
+        raise NotImplementedError(
+            f"model_type {hf.get('model_type')!r} is not ported yet (ROADMAP "
+            f"section 1, {item})")
+    return build
+
+
+_QWEN = _waits("item 1: qwen-1's logn attention")
+_CHATGLM = _waits("item 1: chatglm's rope and deepnorm")
+_GROK = _waits("item 2: grok's logit softcap and sandwich norms")
+
 ARCH_BUILDERS = {
     "llama": llama_arch,
     "mistral": lambda hf: llama_arch(hf, "mistral"),
     "mixtral": mixtral_arch,
+    "qwen": _QWEN,
+    "qwen2": qwen2_arch,
+    "gemma": gemma_arch,
+    "phi": phi_arch,
+    "phi3": phi3_arch,
+    "stablelm": stablelm_arch,
+    "gptj": gptj_arch,
+    "gpt_neox": gptneox_arch,
+    "gptneox": gptneox_arch,
+    "mpt": mpt_arch,
+    "bloom": bloom_arch,
+    "falcon": falcon_arch,
+    "RefinedWeb": falcon_arch,
+    "RefinedWebModel": falcon_arch,
+    "opt": opt_arch,
+    "gpt_bigcode": starcoder_arch,
+    "starcoder": starcoder_arch,
+    "baichuan": baichuan_arch,
+    "chatglm": _CHATGLM,
+    "chatglm2": _CHATGLM,
+    "chatglm3": _CHATGLM,
+    "grok-1": _GROK,
+    "grok": _GROK,
 }
-
-# model types the JAX package builds whose knobs the port has not yet
-_NOT_PORTED = (
-    "qwen", "qwen2", "gemma", "phi", "phi3", "stablelm", "gptj", "gpt_neox",
-    "gptneox", "mpt", "bloom", "falcon", "RefinedWeb", "RefinedWebModel",
-    "opt", "gpt_bigcode", "starcoder", "baichuan", "chatglm", "chatglm2",
-    "chatglm3", "grok-1", "grok")
 
 
 def arch_from_hf_config(hf: Dict[str, Any]) -> ArchConfig:
-    """`model_type` -> ArchConfig for the ported archs; the JAX package's
-    other archs raise `NotImplementedError`, unknown ones `ValueError`."""
+    """`model_type` -> ArchConfig; the types whose knobs are not ported
+    raise `NotImplementedError`, unknown ones `ValueError`."""
     mt = hf.get("model_type", "")
+    if mt == "chatglm" and hf.get("multi_query_attention") is not None:
+        mt = "chatglm2"
     if mt in ARCH_BUILDERS:
         return ARCH_BUILDERS[mt](hf)
-    if mt in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model_type {mt!r} is not ported yet (ROADMAP section 1, item 1: "
-            f"the HF archs)")
     raise ValueError(f"unsupported model_type {mt!r}")

@@ -1,5 +1,8 @@
-"""Decoder forward (port of the llama path of `neural_speed_tpu/models/transformer.py`,
-with its mixture-of-experts FFN: mixtral).
+"""Decoder forward (port of `neural_speed_tpu/models/transformer.py`: the
+llama path with its mixture-of-experts FFN, and the knobs of the HF archs
+the port converts: LayerNorm and gemma norms, embedding LN and scale,
+non-gated GELU / ReLU MLPs, biases, clip_qkv, ALiBi, no rope, parallel
+residual with one shared norm or two, learned positions).
 
 Params are a plain dict; linear leaves are a `QTensor` (int-packed, fed to
 `qmatmul`) or a dense `[K, N]` tensor.  Positions and per-slot kv lengths
@@ -19,9 +22,9 @@ from ..ops import kv_cache as kvc
 from ..ops import flash
 from ..ops import moe as moe_ops
 from ..ops import paged_kv as pkv
-from ..ops.attention import attention_cache
+from ..ops.attention import alibi_slopes, attention_cache
 from ..ops.matmul import kernel_k_multiple, qmatmul, qmatmul_int8
-from ..ops.norms import rms_norm
+from ..ops.norms import layer_norm, rms_norm
 from ..ops.quantize import QTensor, concat_n, repad_k
 from ..ops.rope import apply_rope, rope_cos_sin, rope_inv_freq
 from .arch import ArchConfig
@@ -29,25 +32,47 @@ from .arch import ArchConfig
 Params = Dict[str, Any]
 
 
+_ACTS = {
+    "silu": torch.nn.functional.silu,
+    # jax.nn.gelu approximates with tanh by default
+    "gelu": lambda x: torch.nn.functional.gelu(x, approximate="tanh"),
+    "gelu_tanh": lambda x: torch.nn.functional.gelu(x, approximate="tanh"),
+    "gelu_exact": torch.nn.functional.gelu,
+    "relu": torch.nn.functional.relu,
+}
+
+# The knobs still refused, each with the ROADMAP item that ports it.
+_WAITING = {
+    "logn_attn": "queue 1 item 1: qwen",
+    "rope_style chatglm": "queue 1 item 1: chatglm",
+    "deepnorm_alpha": "queue 1 item 1: chatglm",
+    "logit_softcap": "queue 1 item 2: grok (and section 2 item 1, the "
+                     "softcap variant of rows 6-10)",
+    "post_attn_norm": "queue 1 item 2: grok",
+    "post_ffn_norm": "queue 1 item 2: grok",
+}
+
+
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise for configurations outside the ported llama path (with or
-    without its MoE FFN)."""
-    unsupported = {
-        "norm": cfg.norm != "rms",
-        "gemma_norm": cfg.gemma_norm, "embedding_ln": cfg.embedding_ln,
-        "post_attn_norm": cfg.post_attn_norm,
-        "post_ffn_norm": cfg.post_ffn_norm, "clip_qkv": bool(cfg.clip_qkv),
-        "use_alibi": cfg.use_alibi, "logit_softcap": bool(cfg.logit_softcap),
+    """Raise for configurations outside the ported knobs, naming the
+    ROADMAP item of each."""
+    refused = {
         "logn_attn": cfg.logn_attn,
-        "rope_style": cfg.rope_style not in ("neox", "gptj"),
-        "learned_pos": cfg.learned_pos, "gated_ffn": not cfg.gated_ffn,
-        "act": cfg.act != "silu", "parallel_residual": cfg.parallel_residual,
+        "rope_style chatglm": cfg.rope_style == "chatglm",
         "deepnorm_alpha": cfg.deepnorm_alpha is not None,
-        "embed_scale": cfg.embed_scale != 1.0,
+        "logit_softcap": bool(cfg.logit_softcap),
+        "post_attn_norm": cfg.post_attn_norm,
+        "post_ffn_norm": cfg.post_ffn_norm,
     }
-    bad = [k for k, v in unsupported.items() if v]
+    bad = [k for k, v in refused.items() if v]
     if bad:
-        raise NotImplementedError(f"not ported yet: {bad}")
+        raise NotImplementedError(
+            "not ported yet: " + "; ".join(
+                f"{k} (ROADMAP {_WAITING[k]})" for k in bad))
+    if cfg.norm not in ("rms", "ln") or cfg.act not in _ACTS or (
+            cfg.rope_style not in ("neox", "gptj", "none")):
+        raise ValueError(f"unknown norm {cfg.norm!r}, act {cfg.act!r} or "
+                         f"rope_style {cfg.rope_style!r}")
 
 
 COMP_MODES = (None, "int8", "int8t")
@@ -82,17 +107,29 @@ def linear(x: torch.Tensor, p: Params,
 
 
 def norm(x: torch.Tensor, p: Params, cfg: ArchConfig) -> torch.Tensor:
-    return rms_norm(x, p["weight"], cfg.norm_eps)
+    """RMSNorm, gemma's (1 + w) RMSNorm, or LayerNorm with an optional
+    bias."""
+    w = p["weight"]
+    if cfg.norm == "rms":
+        if cfg.gemma_norm:
+            return rms_norm(x, w.float() + 1.0, cfg.norm_eps)
+        return rms_norm(x, w, cfg.norm_eps)
+    return layer_norm(x, w, p.get("bias"), cfg.norm_eps)
 
 
 def ffn(x: torch.Tensor, p: Params, cfg: ArchConfig,
         comp: Optional[str] = None) -> torch.Tensor:
-    """Gated SiLU MLP; fused gate+up when `fuse_params` made one."""
+    """Gated MLP (fused gate+up when `fuse_params` made one), or the classic
+    up / act / down MLP when `cfg.gated_ffn` is off; biases come with the
+    linears."""
+    a = _ACTS[cfg.act]
+    if not cfg.gated_ffn:
+        return linear(a(linear(x, p["up"], comp)), p["down"], comp)
     if "gateup" in p:
         gate, up = torch.chunk(linear(x, p["gateup"], comp), 2, dim=-1)
     else:
         gate, up = linear(x, p["gate"], comp), linear(x, p["up"], comp)
-    return linear(torch.nn.functional.silu(gate) * up, p["down"], comp)
+    return linear(a(gate) * up, p["down"], comp)
 
 
 def _expert_view(stacked: dict, e: int) -> Params:
@@ -231,11 +268,12 @@ def kv_append_mode(cfg: ArchConfig) -> str:
     return mode
 
 
-def _defer_append(cfg: ArchConfig, t: int) -> bool:
-    """Single-token decode with the current k/v as attention operands.  The
-    JAX package defers on a paged cache only in "fused" mode; the port has
-    no other deferring mode, so the rule is the same for both caches."""
-    return (kv_append_mode(cfg) == "fused"
+def _defer_append(cfg: ArchConfig, cache, t: int) -> bool:
+    """Single-token decode with the current k/v as attention operands, over
+    the quantized cache only (as in the JAX package).  The JAX package
+    defers on a paged cache only in "fused" mode; the port has no other
+    deferring mode, so the rule is the same for both caches."""
+    return (cache.quantized and kv_append_mode(cfg) == "fused"
             and flash.extra_kv_eligible(t, cfg.n_heads, cfg.n_kv_heads))
 
 
@@ -257,8 +295,9 @@ def _cache_append(cache, layer_idx: int, k: torch.Tensor, v: torch.Tensor,
 def decoder_layer(x: torch.Tensor, lp: Params, cfg: ArchConfig,
                   layer_idx: int, cache: kvc.KVCache,
                   positions: torch.Tensor, kv_lens: torch.Tensor,
-                  cos: torch.Tensor, sin: torch.Tensor,
-                  comp: Optional[str] = None
+                  cos: Optional[torch.Tensor], sin: Optional[torch.Tensor],
+                  comp: Optional[str] = None,
+                  slopes: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, kvc.KVCache]:
     b, t, _ = x.shape
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -269,19 +308,22 @@ def decoder_layer(x: torch.Tensor, lp: Params, cfg: ArchConfig,
                               [h * d, hkv * d, hkv * d], dim=-1)
     else:
         q, k, v = (linear(attn_in, lp[n], comp) for n in ("q", "k", "v"))
-    q = apply_rope(q.reshape(b, t, h, d), cos, sin, cfg.rope_style,
-                   cfg.rot_dim)
-    k = apply_rope(k.reshape(b, t, hkv, d), cos, sin, cfg.rope_style,
-                   cfg.rot_dim)
-    v = v.reshape(b, t, hkv, d)
+    q, k, v = (q.reshape(b, t, h, d), k.reshape(b, t, hkv, d),
+               v.reshape(b, t, hkv, d))
+    if cfg.clip_qkv:
+        q, k, v = (a.clamp(-cfg.clip_qkv, cfg.clip_qkv) for a in (q, k, v))
+    if cos is not None:
+        q = apply_rope(q, cos, sin, cfg.rope_style, cfg.rot_dim)
+        k = apply_rope(k, cos, sin, cfg.rope_style, cfg.rot_dim)
 
     # active slots are those whose kv_lens advance past their first written
     # position (spectator slots keep kv_lens == old length)
     active = kv_lens > positions[:, 0]
     attn_kwargs = dict(scale=cfg.attn_scale if cfg.attn_scale is not None
-                       else 1.0 / math.sqrt(d), causal=True, out_dtype=x.dtype)
+                       else 1.0 / math.sqrt(d), causal=True, alibi=slopes,
+                       out_dtype=x.dtype)
     fused = None
-    if _defer_append(cfg, t):
+    if _defer_append(cfg, cache, t):
         fused = attention_cache(q, cache, layer_idx, positions, kv_lens,
                                 extra_kv=(k, v), fused_append=True,
                                 **attn_kwargs)
@@ -291,17 +333,32 @@ def decoder_layer(x: torch.Tensor, lp: Params, cfg: ArchConfig,
         cache = _cache_append(cache, layer_idx, k, v, positions, active)
         attn_out = attention_cache(q, cache, layer_idx, positions, kv_lens,
                                    **attn_kwargs)
-    h1 = x + linear(attn_out.reshape(b, t, h * d), lp["o"], comp)
+    attn_out = linear(attn_out.reshape(b, t, h * d), lp["o"], comp)
+
+    if cfg.parallel_residual:
+        # gptj / gptneox / phi / falcon: x + attn(n(x)) + ffn(n'(x)), with
+        # one shared norm or a second one
+        ffn_in = (attn_in if cfg.shared_parallel_norm
+                  else norm(x, lp["ffn_norm"], cfg))
+        return x + attn_out + _ffn_block(ffn_in, lp, cfg, comp), cache
+    h1 = x + attn_out
     ffn_in = norm(h1, lp["ffn_norm"], cfg)
+    return h1 + _ffn_block(ffn_in, lp, cfg, comp), cache
+
+
+def _ffn_block(ffn_in: torch.Tensor, lp: Params, cfg: ArchConfig,
+               comp: Optional[str]) -> torch.Tensor:
+    """The layer's dense FFN, or its MoE FFN with the optional pre / post
+    norms."""
     if cfg.moe is None:
-        return h1 + ffn(ffn_in, lp["ffn"], cfg, comp), cache
+        return ffn(ffn_in, lp["ffn"], cfg, comp)
     mp = lp["moe"]
     if cfg.moe.pre_norm:
         ffn_in = norm(ffn_in, mp["pre_norm"], cfg)
-    ffn_out = moe_ffn(ffn_in, mp, cfg, comp=comp)
+    out = moe_ffn(ffn_in, mp, cfg, comp=comp)
     if cfg.moe.post_norm:
-        ffn_out = norm(ffn_out, mp["post_norm"], cfg)
-    return h1 + ffn_out, cache
+        out = norm(out, mp["post_norm"], cfg)
+    return out
 
 
 def forward(params: Params, cfg: ArchConfig, token_ids: torch.Tensor,
@@ -318,13 +375,26 @@ def forward(params: Params, cfg: ArchConfig, token_ids: torch.Tensor,
     if comp not in COMP_MODES:
         raise ValueError(f"comp must be one of {COMP_MODES}, got {comp!r}")
     x = params["embed"]["weight"][token_ids]
-    rot = cfg.rot_dim or cfg.head_dim
-    inv_freq, mscale = rope_inv_freq(rot, cfg.rope_base, cfg.rope_scaling,
-                                     seq_len=cache.max_len, device=x.device)
-    cos, sin = rope_cos_sin(positions, inv_freq, mscale)
+    if cfg.embed_scale != 1.0:
+        x = x * x.new_full((), cfg.embed_scale)
+    if cfg.embedding_ln:
+        x = layer_norm(x, params["embed_ln"]["weight"],
+                       params["embed_ln"].get("bias"), cfg.norm_eps)
+    if cfg.learned_pos:
+        # learned absolute positions with an offset (opt's 2)
+        x = x + params["pos_embed"]["weight"][positions + cfg.pos_offset]
+    cos = sin = None
+    if cfg.rope_style in ("neox", "gptj"):
+        rot = cfg.rot_dim or cfg.head_dim
+        inv_freq, mscale = rope_inv_freq(rot, cfg.rope_base, cfg.rope_scaling,
+                                         seq_len=cache.max_len,
+                                         device=x.device)
+        cos, sin = rope_cos_sin(positions, inv_freq, mscale)
+    # ALiBi slopes, once per forward
+    slopes = alibi_slopes(cfg.n_heads, x.device) if cfg.use_alibi else None
     for i, lp in enumerate(params["layers"]):
         x, cache = decoder_layer(x, lp, cfg, i, cache, positions, kv_lens,
-                                 cos, sin, comp)
+                                 cos, sin, comp, slopes)
     if logits_positions is not None:
         idx = logits_positions[:, :, None].expand(-1, -1, x.shape[-1])
         x = torch.gather(x, 1, idx.long())

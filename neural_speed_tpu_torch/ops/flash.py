@@ -1,14 +1,19 @@
-"""Flash attention over the int8 KV cache (port of `neural_speed_tpu/ops/flash.py`).
+"""Flash attention over the KV cache (port of `neural_speed_tpu/ops/flash.py`).
 
 `mha` is the entry, with the JAX package's interface: q `[B, T, H, D]`, the
-stacked cache `[L, B, Hkv, S, D]` with `layer`, per-(token, head) scales,
-absolute query positions and per-slot kv lengths.  Two routes:
+stacked cache `[L, B, Hkv, S, D]` with `layer` (int8 codes with
+per-(token, head) bf16 scales, or bf16 values with `k_scale=None`),
+absolute query positions, per-slot kv lengths and optional ALiBi slopes
+`[H]`.  Routes, as the JAX launcher's:
 
-* decode with the current token's k/v as extra operands (`extra_kv`, one
-  token per slot): kernel B (`csrc/flash_decode.cu`), which with
+* decode with the current token's k/v as extra operands (`extra_kv`, over
+  the int8 cache), and bf16 decode after the plain append, each for one
+  token per slot with at most 8 query heads per KV head and an even KV
+  head count: kernel B (`csrc/flash_decode.cu`), which with
   `fused_append` also writes the quantized new row in place;
-* everything else (prefill chunks; decode after a plain append): kernel C
-  (`csrc/flash_prefill.cu`).
+* everything else (prefill chunks; int8 decode after a plain append;
+  decode with more query heads per KV head or an odd KV head count, as
+  Falcon-7B's 71 over 1): kernel C (`csrc/flash_prefill.cu`).
 
 `mha_paged` is the same over one layer of the paged pool (`paged_kv.py`):
 the paged twins of kernels B and C (`nst_flash_decode_paged`,
@@ -19,9 +24,13 @@ kernels' outputs bit for bit.
 
 CUDA tensors launch the kernel or raise; CPU tensors run the plain
 versions below, which repeat each kernel's rounding points: q and
-`P * v_scale` are rounded to bf16, the scores and sums are float32, and a
-row with no valid column gives 0.  The port has no GQA row packing: the
-kernels read q and write the output in the natural `[B, T, H, D]` layout.
+`P * v_scale` (P over bf16 V) are rounded to bf16, the scores and sums are
+float32, the ALiBi bias `slope * (col - pos)` is added after the score
+scale, and a row with no valid column gives 0.  The port has no GQA row
+packing: the kernels read q and write the output in the natural
+`[B, T, H, D]` layout.  Logit softcap, non-causal attention, head dims
+other than 64 and 128 on the card, and float32 K/V on the card raise,
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -34,12 +43,25 @@ from .paged_kv import gather_layer_codes, physical_rows, write_pool_rows
 
 DECODE_CHUNK = 256   # cache columns per block of kernel B
 
+_SOFTCAP = ("logit softcap is not ported yet (ROADMAP section 2, item 1: "
+            "the softcap variant of rows 6-10, for grok)")
+_NON_CAUSAL = ("non-causal attention is not ported yet (ROADMAP section 2, "
+               "item 1: the non-causal variant of rows 6-10, for whisper)")
+
 
 def extra_kv_eligible(t: int, n_heads: int, n_kv_heads: int) -> bool:
-    """When the decode kernel's extra-kv column engages: one token per slot
-    and at most 8 query heads per KV head (the JAX rule `t * n_rep <= 8`
-    at t == 1)."""
-    return t == 1 and n_heads // n_kv_heads <= 8
+    """When the decode kernel's extra-kv column engages, and where a decode
+    call goes to kernel B at all: one token per slot, at most 8 query heads
+    per KV head and an even KV head count (the JAX rule `t * n_rep <= 8`
+    with a head block of 2 or more, at t == 1)."""
+    return t == 1 and n_heads // n_kv_heads <= 8 and n_kv_heads % 2 == 0
+
+
+def _check_variant(causal: bool, logit_softcap: float) -> None:
+    if logit_softcap:
+        raise NotImplementedError(_SOFTCAP)
+    if not causal:
+        raise NotImplementedError(_NON_CAUSAL)
 
 
 # ---------------------------------------------------------------------------
@@ -47,11 +69,12 @@ def extra_kv_eligible(t: int, n_heads: int, n_kv_heads: int) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def _softmax_pv(sc: torch.Tensor, valid: torch.Tensor, vsc: torch.Tensor,
-                vf: torch.Tensor, s0=None, valid0=None, v0=None):
+def _softmax_pv(sc: torch.Tensor, valid: torch.Tensor, vsc, vf: torch.Tensor,
+                s0=None, valid0=None, v0=None):
     """Exact-max softmax with the kernels' rounding points.  sc/valid:
-    [..., R, S]; vsc: [..., 1, S]; vf: [..., S, D]; optional seed column
-    s0/valid0 [..., R] with value row v0 [..., 1, D].  Returns acc, l."""
+    [..., R, S]; vsc: V scales [..., 1, S] or None (bf16 V); vf: [..., S, D];
+    optional seed column s0/valid0 [..., R] with value row v0 [..., 1, D].
+    Returns acc, l."""
     neg = sc.new_full((), float("-inf"))    # a fill: no host-device copy
     m = torch.where(valid, sc, neg).amax(dim=-1)
     if s0 is not None:
@@ -59,7 +82,7 @@ def _softmax_pv(sc: torch.Tensor, valid: torch.Tensor, vsc: torch.Tensor,
     m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
     p = torch.where(valid, torch.exp(sc - m[..., None]), torch.zeros_like(sc))
     l = p.sum(dim=-1)
-    pw = (p * vsc).to(torch.bfloat16).float()
+    pw = (p if vsc is None else p * vsc).to(torch.bfloat16).float()
     acc = pw @ vf
     if s0 is not None:
         p0 = torch.where(valid0, torch.exp(s0 - m), torch.zeros_like(s0))
@@ -73,32 +96,52 @@ def _normalize(acc: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
     return acc * inv[..., None]
 
 
-def decode_plain(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
-                 k: torch.Tensor, v: torch.Tensor, ks: torch.Tensor,
-                 vs: torch.Tensor, layer: int, pos: torch.Tensor,
+def _scores(qf: torch.Tensor, kf: torch.Tensor, ks, scale: float
+            ) -> torch.Tensor:
+    """(bf16(q) . k) * k_scale * scale, in the kernels' order; ks [..., S]
+    or None (bf16 K)."""
+    sc = qf.to(torch.bfloat16).float() @ kf.transpose(-1, -2)
+    if ks is not None:
+        sc = sc * ks[..., None, :]
+    return sc * scale
+
+
+def decode_plain(q: torch.Tensor, k_new, v_new, k: torch.Tensor,
+                 v: torch.Tensor, ks, vs, layer: int, pos: torch.Tensor,
                  kv_lens: torch.Tensor, scale: float, fused_append: bool,
-                 out_dtype) -> torch.Tensor:
-    """Plain version of kernel B.  q [B, 1, H, D]; k_new/v_new [B, 1, Hkv, D];
-    k/v/ks/vs the stacked cache; pos [B]; writes the new row in place when
-    `fused_append`."""
+                 out_dtype, alibi=None) -> torch.Tensor:
+    """Plain version of kernel B.  q [B, 1, H, D]; k/v/ks/vs the stacked
+    cache (ks/vs None for bf16 K/V); pos [B]; alibi: slopes [H] or None.
+    With k_new/v_new [B, 1, Hkv, D] (int8 cache only) the current token is
+    the seed column and the cache is read below kv_len - 1 for live slots;
+    `fused_append` also writes its quantized row in place.  Without them the
+    cache is read below kv_len."""
     b, _, h, d = q.shape
     hkv, s = k.shape[2], k.shape[3]
     n_rep = h // hkv
+    extra = k_new is not None
     ok = pos == kv_lens - 1
-    kvl_cache = kv_lens - ok.to(kv_lens.dtype)
+    kvl_cache = kv_lens - ok.to(kv_lens.dtype) if extra else kv_lens
     qg = q[:, 0].reshape(b, hkv, n_rep, d)
     kf, vf = k[layer].float(), v[layer].float()              # [B,Hkv,S,D]
-    sc = (qg.to(torch.bfloat16).float() @ kf.transpose(-1, -2))
-    sc = sc * ks[layer].float()[:, :, None, :] * scale        # [B,Hkv,R,S]
+    sc = _scores(qg, kf, None if ks is None else ks[layer].float(),
+                 scale)                                       # [B,Hkv,R,S]
     col = torch.arange(s, device=q.device)
+    if alibi is not None:
+        dist = col.float()[None] - pos.float()[:, None]       # [B, S]
+        sc = sc + (alibi.float().reshape(1, hkv, n_rep, 1)
+                   * dist[:, None, None, :])
     valid = (col[None] < kvl_cache[:, None]) & (col[None] <= pos[:, None])
     valid = valid[:, None, None, :].expand_as(sc)
+    vsc = None if vs is None else vs[layer].float()[:, :, None, :]
+    if not extra:
+        acc, l = _softmax_pv(sc, valid, vsc, vf)
+        return _normalize(acc, l).reshape(b, 1, h, d).to(out_dtype)
     kn = k_new[:, 0].float()                                  # [B, Hkv, D]
     vn = v_new[:, 0].float()
     s0 = (qg.float() * kn[:, :, None, :]).sum(-1) * scale     # [B,Hkv,R]
     valid0 = (ok & (pos >= 0))[:, None, None].expand_as(s0)
-    acc, l = _softmax_pv(sc, valid, vs[layer].float()[:, :, None, :], vf,
-                         s0, valid0, vn[:, :, None, :])
+    acc, l = _softmax_pv(sc, valid, vsc, vf, s0, valid0, vn[:, :, None, :])
     out = _normalize(acc, l).reshape(b, 1, h, d).to(out_dtype)
     if fused_append:
         rows = (kv_lens - 1).clamp_min(0)[:, None]
@@ -112,40 +155,50 @@ def decode_plain(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
     return out
 
 
-def prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  ks: torch.Tensor, vs: torch.Tensor, layer: int,
-                  q_positions: torch.Tensor, kv_lens: torch.Tensor,
-                  scale: float, out_dtype) -> torch.Tensor:
-    """Plain version of kernel C: q [B, T, H, D] over the stacked cache."""
+def prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ks, vs,
+                  layer: int, q_positions: torch.Tensor,
+                  kv_lens: torch.Tensor, scale: float, out_dtype,
+                  alibi=None) -> torch.Tensor:
+    """Plain version of kernel C: q [B, T, H, D] over the stacked cache
+    (ks/vs None for bf16 K/V); alibi: slopes [H] or None."""
     b, t, h, d = q.shape
     hkv, s = k.shape[2], k.shape[3]
     n_rep = h // hkv
     rep = lambda a: torch.repeat_interleave(a, n_rep, dim=1)
     kf, vf = rep(k[layer].float()), rep(v[layer].float())   # [B,H,S,D]
-    qh = q.to(torch.bfloat16).float().permute(0, 2, 1, 3)   # [B,H,T,D]
-    sc = (qh @ kf.transpose(-1, -2)) * rep(ks[layer].float())[:, :, None, :]
-    sc = sc * scale
+    qh = q.permute(0, 2, 1, 3)                              # [B,H,T,D]
+    sc = _scores(qh, kf, None if ks is None else rep(ks[layer].float()),
+                 scale)
     col = torch.arange(s, device=q.device)
+    if alibi is not None:
+        dist = col.float()[None, None] - q_positions.float()[:, :, None]
+        sc = sc + alibi.float()[None, :, None, None] * dist[:, None]
     valid = ((col[None, None] < kv_lens[:, None, None])
              & (col[None, None] <= q_positions[:, :, None]))  # [B,T,S]
     valid = valid[:, None].expand_as(sc)
-    acc, l = _softmax_pv(sc, valid, rep(vs[layer].float())[:, :, None, :], vf)
+    vsc = None if vs is None else rep(vs[layer].float())[:, :, None, :]
+    acc, l = _softmax_pv(sc, valid, vsc, vf)
     return _normalize(acc, l).permute(0, 2, 1, 3).to(out_dtype)
 
 
-def decode_paged_plain(q: torch.Tensor, k_new: torch.Tensor,
-                       v_new: torch.Tensor, k_pages: torch.Tensor,
-                       v_pages: torch.Tensor, ks: torch.Tensor,
-                       vs: torch.Tensor, tables: torch.Tensor, layer: int,
-                       pos: torch.Tensor, kv_lens: torch.Tensor, scale: float,
-                       fused_append: bool, out_dtype) -> torch.Tensor:
+def _gathered_cache(k_pages, v_pages, ks, vs, tables, layer):
+    """One pool layer gathered through the tables, as layer 0 of a stacked
+    cache (scales None for the bf16 pool)."""
+    return [None if a is None else a[None] for a in gather_layer_codes(
+        k_pages, v_pages, ks, vs, tables, layer)]
+
+
+def decode_paged_plain(q: torch.Tensor, k_new, v_new, k_pages: torch.Tensor,
+                       v_pages: torch.Tensor, ks, vs, tables: torch.Tensor,
+                       layer: int, pos: torch.Tensor, kv_lens: torch.Tensor,
+                       scale: float, fused_append: bool, out_dtype,
+                       alibi=None) -> torch.Tensor:
     """Plain version of the paged decode kernel: `decode_plain` over the
     layer gathered through the tables; with `fused_append` the live slots'
     quantized rows go to the pool at table[b, (kv_len - 1) // ps]."""
-    cache = [a[None] for a in gather_layer_codes(k_pages, v_pages, ks, vs,
-                                                 tables, layer)]
+    cache = _gathered_cache(k_pages, v_pages, ks, vs, tables, layer)
     out = decode_plain(q, k_new, v_new, *cache, 0, pos, kv_lens, scale,
-                       False, out_dtype)
+                       False, out_dtype, alibi)
     if fused_append:
         live = pos == kv_lens - 1
         ps = k_pages.shape[3]
@@ -159,16 +212,15 @@ def decode_paged_plain(q: torch.Tensor, k_new: torch.Tensor,
 
 
 def prefill_paged_plain(q: torch.Tensor, k_pages: torch.Tensor,
-                        v_pages: torch.Tensor, ks: torch.Tensor,
-                        vs: torch.Tensor, tables: torch.Tensor, layer: int,
-                        q_positions: torch.Tensor, kv_lens: torch.Tensor,
-                        scale: float, out_dtype) -> torch.Tensor:
+                        v_pages: torch.Tensor, ks, vs, tables: torch.Tensor,
+                        layer: int, q_positions: torch.Tensor,
+                        kv_lens: torch.Tensor, scale: float, out_dtype,
+                        alibi=None) -> torch.Tensor:
     """Plain version of the paged prefill kernel: `prefill_plain` over the
     layer gathered through the tables."""
-    cache = [a[None] for a in gather_layer_codes(k_pages, v_pages, ks, vs,
-                                                 tables, layer)]
+    cache = _gathered_cache(k_pages, v_pages, ks, vs, tables, layer)
     return prefill_plain(q, *cache, 0, q_positions, kv_lens, scale,
-                         out_dtype)
+                         out_dtype, alibi)
 
 
 # ---------------------------------------------------------------------------
@@ -176,74 +228,140 @@ def prefill_paged_plain(q: torch.Tensor, k_pages: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _check_cache(k, v, ks, vs, layer, pos, kv_lens, q) -> None:
-    """The cache, positions and lengths the attention kernels index."""
+def _check_kv(k, ks, d: int) -> bool:
+    """Raise for K/V variants that have no kernel yet; True for bf16 K/V (no
+    scales), False for int8 codes with scales."""
+    if k.dtype == torch.float32 and ks is None:
+        raise ValueError(
+            "float32 K/V has no kernel yet (ROADMAP section 2, item 1: the "
+            "float32 K/V variant of rows 6-10); use kv_dtype=torch.bfloat16 "
+            "or kv_quantized=True on the card")
+    if d not in (64, 128):
+        raise ValueError(
+            f"head_dim {d}: the attention kernels take 64 and 128 so far "
+            f"(ROADMAP section 2, item 1: the other head dims of rows 6-10)")
+    return ks is None
+
+
+def _kv_ok(k, v, ks, vs, bf16: bool) -> bool:
+    if bf16:
+        return (k.dtype == v.dtype == torch.bfloat16 and vs is None)
+    return (k.dtype == v.dtype == torch.int8 and vs is not None
+            and ks.dtype == vs.dtype == torch.bfloat16)
+
+
+def _slopes(alibi, h: int, dev):
+    """ALiBi slopes as a contiguous float32 [H] tensor on the card, or
+    None."""
+    if alibi is None:
+        return None
+    sl = alibi.to(torch.float32).contiguous()
+    if sl.shape != (h,) or sl.device != dev:
+        raise ValueError(f"ALiBi slopes must be [H] = ({h},) on {dev}; got "
+                         f"{tuple(sl.shape)} on {sl.device}")
+    return sl
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _check_cache(k, v, ks, vs, layer, pos, kv_lens, q) -> bool:
+    """The cache, positions and lengths the attention kernels index.
+    Returns True for the bf16 cache."""
     b, t, _, d = q.shape
+    bf16 = _check_kv(k, ks, d)
     ok = (k.dim() == 5 and k.shape == v.shape and k.shape[1] == b
-          and k.shape[4] == d and ks.shape == vs.shape == k.shape[:4]
+          and k.shape[4] == d and _kv_ok(k, v, ks, vs, bf16)
+          and (bf16 or ks.shape == vs.shape == k.shape[:4])
           and 0 <= layer < k.shape[0]
           and all(a.device == q.device and a.is_contiguous()
-                  for a in (k, v, ks, vs))
-          and k.dtype == torch.int8 and v.dtype == torch.int8
-          and ks.dtype == torch.bfloat16 and vs.dtype == torch.bfloat16
-          and d in (64, 128) and k.shape[3] % 64 == 0
+                  for a in (k, v, ks, vs) if a is not None)
+          and k.shape[3] % 64 == 0
           and pos.shape in ((b,), (b, t)) and kv_lens.shape == (b,)
           and pos.device == kv_lens.device == q.device)
     if not ok:
         raise ValueError(
-            f"the attention kernels read a contiguous [L, B, Hkv, S, D] int8 "
-            f"cache with bf16 [L, B, Hkv, S] scales on q's device, head_dim "
-            f"64 or 128, S a multiple of 64, a layer index below L and "
-            f"positions / kv_lens of the batch; got q {tuple(q.shape)} on "
-            f"{q.device}, k {k.dtype} {tuple(k.shape)} on {k.device}, scales "
-            f"{ks.dtype} {tuple(ks.shape)}, layer {layer}, positions "
-            f"{tuple(pos.shape)}, kv_lens {tuple(kv_lens.shape)}")
+            f"the attention kernels read a contiguous [L, B, Hkv, S, D] cache "
+            f"of int8 codes with bf16 [L, B, Hkv, S] scales or of bf16 "
+            f"values without scales, on q's device, S a multiple of 64, a "
+            f"layer index below L and positions / kv_lens of the batch; got "
+            f"q {tuple(q.shape)} on {q.device}, k {k.dtype} "
+            f"{tuple(k.shape)} on {k.device}, scales "
+            f"{None if ks is None else (ks.dtype, tuple(ks.shape))}, layer "
+            f"{layer}, positions {tuple(pos.shape)}, kv_lens "
+            f"{tuple(kv_lens.shape)}")
+    return bf16
 
 
-def decode_cuda(q, k_new, v_new, k, v, ks, vs, layer, pos, kv_lens, scale,
-                fused_append, out_dtype) -> torch.Tensor:
-    """Kernel B.  Shapes as `decode_plain`."""
+def _check_decode(q, k_new, v_new, fused_append, out_dtype, hkv, bf16,
+                  what: str) -> None:
     b, t, h, d = q.shape
-    hkv, s = k.shape[2], k.shape[3]
-    dev = q.device
-    _check_cache(k, v, ks, vs, layer, pos, kv_lens, q)
+    extra = k_new is not None
     if not (q.is_cuda and t == 1 and h % hkv == 0 and h // hkv <= 8
-            and q.dtype == k_new.dtype == v_new.dtype == out_dtype
-            == torch.bfloat16
-            and k_new.shape == v_new.shape == (b, 1, hkv, d)):
+            and q.dtype == out_dtype == torch.bfloat16
+            and (not fused_append or extra) and not (bf16 and extra)
+            and (not extra or (k_new.dtype == v_new.dtype == torch.bfloat16
+                               and k_new.shape == v_new.shape
+                               == (b, 1, hkv, d)))):
         raise ValueError(
-            "kernel B takes CUDA tensors: bf16 q [B, 1, H, D] with H / Hkv "
-            "<= 8, bf16 k_new / v_new [B, 1, Hkv, D], and writes bf16; got q "
-            f"{q.dtype} {tuple(q.shape)} on {q.device}, k_new {k_new.dtype} "
-            f"{tuple(k_new.shape)}, out {out_dtype}")
-    q3 = q.contiguous()
-    kn, vn = k_new.contiguous(), v_new.contiguous()
-    pos32 = pos.to(torch.int32).contiguous()
-    lens32 = kv_lens.to(torch.int32).contiguous()
+            f"{what} takes CUDA tensors: bf16 q [B, 1, H, D] with H / Hkv "
+            f"<= 8, optional bf16 k_new / v_new [B, 1, Hkv, D] over the int8 "
+            f"cache only (needed by fused_append), and writes bf16; got q "
+            f"{q.dtype} {tuple(q.shape)} on {q.device}, k_new "
+            f"{None if k_new is None else (k_new.dtype, tuple(k_new.shape))},"
+            f" bf16 cache {bf16}, fused_append {fused_append}, out "
+            f"{out_dtype}")
+
+
+def _decode_scratch(b, h, d, s, dev):
     splits = -(-s // DECODE_CHUNK)
     part_m = torch.empty((b, h, splits), dtype=torch.float32, device=dev)
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty((b, h, splits, d), dtype=torch.float32, device=dev)
     out = torch.empty((b, 1, h, d), dtype=torch.bfloat16, device=dev)
-    fn = _build.kernels.fn("flash_decode", "nst_flash_decode", 13, 8, 1)
-    code = fn(q3.data_ptr(), kn.data_ptr(), vn.data_ptr(), k.data_ptr(),
-              v.data_ptr(), ks.data_ptr(), vs.data_ptr(), pos32.data_ptr(),
+    return part_m, part_l, part_acc, out
+
+
+def decode_cuda(q, k_new, v_new, k, v, ks, vs, layer, pos, kv_lens, scale,
+                fused_append, out_dtype, alibi=None) -> torch.Tensor:
+    """Kernel B (the int8 instance, or `flash_decode_bf16` over bf16 K/V).
+    Shapes as `decode_plain`."""
+    b, t, h, d = q.shape
+    hkv, s = k.shape[2], k.shape[3]
+    dev = q.device
+    bf16 = _check_cache(k, v, ks, vs, layer, pos, kv_lens, q)
+    _check_decode(q, k_new, v_new, fused_append, out_dtype, hkv, bf16,
+                  "kernel B")
+    extra = k_new is not None
+    slopes = _slopes(alibi, h, dev)
+    q3 = q.contiguous()
+    kn = k_new.contiguous() if extra else None
+    vn = v_new.contiguous() if extra else None
+    pos32 = pos.to(torch.int32).contiguous()
+    lens32 = kv_lens.to(torch.int32).contiguous()
+    part_m, part_l, part_acc, out = _decode_scratch(b, h, d, s, dev)
+    fn = _build.kernels.fn("flash_decode", "nst_flash_decode", 14, 10, 1)
+    code = fn(q3.data_ptr(), _ptr(kn), _ptr(vn), k.data_ptr(), v.data_ptr(),
+              _ptr(ks), _ptr(vs), _ptr(slopes), pos32.data_ptr(),
               lens32.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
               part_acc.data_ptr(), out.data_ptr(), b, h, hkv, s, d, layer,
-              DECODE_CHUNK, int(fused_append), float(scale),
-              _build.stream_handle())
-    _build.check(code, "flash_decode")
-    _build.launches["flash_decode"] += 1
+              DECODE_CHUNK, int(extra), int(fused_append), int(bf16),
+              float(scale), _build.stream_handle())
+    name = "flash_decode_bf16" if bf16 else "flash_decode"
+    _build.check(code, name)
+    _build.launches[name] += 1
     return out
 
 
 def prefill_cuda(q, k, v, ks, vs, layer, q_positions, kv_lens, scale,
-                 out_dtype) -> torch.Tensor:
-    """Kernel C.  Shapes as `prefill_plain`."""
+                 out_dtype, alibi=None) -> torch.Tensor:
+    """Kernel C (the int8 instance, or `flash_prefill_bf16` over bf16 K/V).
+    Shapes as `prefill_plain`."""
     b, t, h, d = q.shape
     hkv, s = k.shape[2], k.shape[3]
     dev = q.device
-    _check_cache(k, v, ks, vs, layer, q_positions, kv_lens, q)
+    bf16 = _check_cache(k, v, ks, vs, layer, q_positions, kv_lens, q)
     if not (q.is_cuda and q_positions.shape == (b, t) and h % hkv == 0
             and q.dtype == out_dtype == torch.bfloat16):
         raise ValueError(
@@ -251,98 +369,101 @@ def prefill_cuda(q, k, v, ks, vs, layer, q_positions, kv_lens, scale,
             f"multiple of Hkv and positions [B, T], and writes bf16; got q "
             f"{q.dtype} {tuple(q.shape)} on {q.device}, Hkv {hkv}, positions "
             f"{tuple(q_positions.shape)}, out {out_dtype}")
+    slopes = _slopes(alibi, h, dev)
     q4 = q.contiguous()
     pos32 = q_positions.to(torch.int32).contiguous()
     lens32 = kv_lens.to(torch.int32).contiguous()
     out = torch.empty((b, t, h, d), dtype=torch.bfloat16, device=dev)
-    fn = _build.kernels.fn("flash_prefill", "nst_flash_prefill", 8, 7, 1)
-    code = fn(q4.data_ptr(), k.data_ptr(), v.data_ptr(), ks.data_ptr(),
-              vs.data_ptr(), pos32.data_ptr(), lens32.data_ptr(),
-              out.data_ptr(), b, t, h, hkv, s, d, layer, float(scale),
-              _build.stream_handle())
-    _build.check(code, "flash_prefill")
-    _build.launches["flash_prefill"] += 1
+    fn = _build.kernels.fn("flash_prefill", "nst_flash_prefill", 9, 8, 1)
+    code = fn(q4.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ks), _ptr(vs),
+              _ptr(slopes), pos32.data_ptr(), lens32.data_ptr(),
+              out.data_ptr(), b, t, h, hkv, s, d, layer, int(bf16),
+              float(scale), _build.stream_handle())
+    name = "flash_prefill_bf16" if bf16 else "flash_prefill"
+    _build.check(code, name)
+    _build.launches[name] += 1
     return out
 
 
-def _check_pool(kp, vp, ks, vs, tables, layer, pos, kv_lens, q) -> None:
+def _check_pool(kp, vp, ks, vs, tables, layer, pos, kv_lens, q) -> bool:
     """The page pool, tables, positions and lengths the paged kernels
-    index."""
+    index.  Returns True for the bf16 pool."""
     b, t, _, d = q.shape
+    bf16 = _check_kv(kp, ks, d)
     ok = (kp.dim() == 5 and kp.shape == vp.shape and kp.shape[4] == d
-          and ks.shape == vs.shape == kp.shape[:3] + (1, kp.shape[3])
+          and _kv_ok(kp, vp, ks, vs, bf16)
+          and (bf16 or ks.shape == vs.shape
+               == kp.shape[:3] + (1, kp.shape[3]))
           and 0 <= layer < kp.shape[0] and kp.shape[3] % 16 == 0
           and tables.dim() == 2 and tables.shape[0] == b
           and tables.dtype == torch.int32
           and all(a.device == q.device and a.is_contiguous()
-                  for a in (kp, vp, ks, vs, tables))
-          and kp.dtype == torch.int8 and vp.dtype == torch.int8
-          and ks.dtype == torch.bfloat16 and vs.dtype == torch.bfloat16
-          and d in (64, 128)
+                  for a in (kp, vp, ks, vs, tables) if a is not None)
           and pos.shape in ((b,), (b, t)) and kv_lens.shape == (b,)
           and pos.device == kv_lens.device == q.device)
     if not ok:
         raise ValueError(
-            f"the paged attention kernels read an int8 [L, Hkv, P, ps, D] "
-            f"pool with bf16 [L, Hkv, P, 1, ps] scales and a page size that "
-            f"is a multiple of 16, int32 page tables [B, n_blocks], all on "
-            f"q's device, head_dim 64 or 128, a layer index below L and "
-            f"positions / kv_lens of the batch; got q {tuple(q.shape)} on "
-            f"{q.device}, pool {kp.dtype} {tuple(kp.shape)} on {kp.device} "
-            f"(page size {kp.shape[3] if kp.dim() == 5 else None}), scales "
-            f"{ks.dtype} {tuple(ks.shape)}, tables {tables.dtype} "
-            f"{tuple(tables.shape)} on {tables.device}, layer {layer}, "
-            f"positions {tuple(pos.shape)}, kv_lens {tuple(kv_lens.shape)}")
+            f"the paged attention kernels read an [L, Hkv, P, ps, D] pool of "
+            f"int8 codes with bf16 [L, Hkv, P, 1, ps] scales or of bf16 "
+            f"values without scales, with a page size that is a multiple of "
+            f"16, int32 page tables [B, n_blocks], all on q's device, a "
+            f"layer index below L and positions / kv_lens of the batch; got "
+            f"q {tuple(q.shape)} on {q.device}, pool {kp.dtype} "
+            f"{tuple(kp.shape)} on {kp.device} (page size "
+            f"{kp.shape[3] if kp.dim() == 5 else None}), scales "
+            f"{None if ks is None else (ks.dtype, tuple(ks.shape))}, tables "
+            f"{tables.dtype} {tuple(tables.shape)} on {tables.device}, layer "
+            f"{layer}, positions {tuple(pos.shape)}, kv_lens "
+            f"{tuple(kv_lens.shape)}")
+    return bf16
 
 
 def decode_paged_cuda(q, k_new, v_new, kp, vp, ks, vs, tables, layer, pos,
-                      kv_lens, scale, fused_append, out_dtype) -> torch.Tensor:
-    """The paged decode kernel (paged twin of kernel B).  Shapes as
-    `decode_paged_plain`."""
+                      kv_lens, scale, fused_append, out_dtype,
+                      alibi=None) -> torch.Tensor:
+    """The paged decode kernel (paged twin of kernel B; `flash_decode_paged`
+    or `flash_decode_paged_bf16`).  Shapes as `decode_paged_plain`."""
     b, t, h, d = q.shape
     hkv, n_pages, ps = kp.shape[1], kp.shape[2], kp.shape[3]
     n_blocks = tables.shape[1]
     dev = q.device
-    _check_pool(kp, vp, ks, vs, tables, layer, pos, kv_lens, q)
-    if not (q.is_cuda and t == 1 and h % hkv == 0 and h // hkv <= 8
-            and q.dtype == k_new.dtype == v_new.dtype == out_dtype
-            == torch.bfloat16
-            and k_new.shape == v_new.shape == (b, 1, hkv, d)):
-        raise ValueError(
-            "the paged decode kernel takes CUDA tensors: bf16 q [B, 1, H, D] "
-            "with H / Hkv <= 8, bf16 k_new / v_new [B, 1, Hkv, D], and writes "
-            f"bf16; got q {q.dtype} {tuple(q.shape)} on {q.device}, k_new "
-            f"{k_new.dtype} {tuple(k_new.shape)}, out {out_dtype}")
+    bf16 = _check_pool(kp, vp, ks, vs, tables, layer, pos, kv_lens, q)
+    _check_decode(q, k_new, v_new, fused_append, out_dtype, hkv, bf16,
+                  "the paged decode kernel")
+    extra = k_new is not None
+    slopes = _slopes(alibi, h, dev)
     q3 = q.contiguous()
-    kn, vn = k_new.contiguous(), v_new.contiguous()
+    kn = k_new.contiguous() if extra else None
+    vn = v_new.contiguous() if extra else None
     pos32 = pos.to(torch.int32).contiguous()
     lens32 = kv_lens.to(torch.int32).contiguous()
-    splits = -(-(n_blocks * ps) // DECODE_CHUNK)
-    part_m = torch.empty((b, h, splits), dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((b, h, splits, d), dtype=torch.float32, device=dev)
-    out = torch.empty((b, 1, h, d), dtype=torch.bfloat16, device=dev)
-    fn = _build.kernels.fn("flash_decode", "nst_flash_decode_paged", 14, 10,
+    part_m, part_l, part_acc, out = _decode_scratch(b, h, d, n_blocks * ps,
+                                                    dev)
+    fn = _build.kernels.fn("flash_decode", "nst_flash_decode_paged", 15, 12,
                            1)
-    code = fn(q3.data_ptr(), kn.data_ptr(), vn.data_ptr(), kp.data_ptr(),
-              vp.data_ptr(), ks.data_ptr(), vs.data_ptr(), tables.data_ptr(),
-              pos32.data_ptr(), lens32.data_ptr(), part_m.data_ptr(),
-              part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(), b, h,
-              hkv, n_pages, ps, n_blocks, d, layer, DECODE_CHUNK,
-              int(fused_append), float(scale), _build.stream_handle())
-    _build.check(code, "flash_decode_paged")
-    _build.launches["flash_decode_paged"] += 1
+    code = fn(q3.data_ptr(), _ptr(kn), _ptr(vn), kp.data_ptr(),
+              vp.data_ptr(), _ptr(ks), _ptr(vs), _ptr(slopes),
+              tables.data_ptr(), pos32.data_ptr(), lens32.data_ptr(),
+              part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
+              out.data_ptr(), b, h, hkv, n_pages, ps, n_blocks, d, layer,
+              DECODE_CHUNK, int(extra), int(fused_append), int(bf16),
+              float(scale), _build.stream_handle())
+    name = "flash_decode_paged_bf16" if bf16 else "flash_decode_paged"
+    _build.check(code, name)
+    _build.launches[name] += 1
     return out
 
 
 def prefill_paged_cuda(q, kp, vp, ks, vs, tables, layer, q_positions,
-                       kv_lens, scale, out_dtype) -> torch.Tensor:
-    """The paged prefill kernel (paged twin of kernel C).  Shapes as
+                       kv_lens, scale, out_dtype, alibi=None) -> torch.Tensor:
+    """The paged prefill kernel (paged twin of kernel C;
+    `flash_prefill_paged` or `flash_prefill_paged_bf16`).  Shapes as
     `prefill_paged_plain`."""
     b, t, h, d = q.shape
     hkv, n_pages, ps = kp.shape[1], kp.shape[2], kp.shape[3]
     n_blocks = tables.shape[1]
-    _check_pool(kp, vp, ks, vs, tables, layer, q_positions, kv_lens, q)
+    bf16 = _check_pool(kp, vp, ks, vs, tables, layer, q_positions, kv_lens,
+                       q)
     if not (q.is_cuda and q_positions.shape == (b, t) and h % hkv == 0
             and q.dtype == out_dtype == torch.bfloat16):
         raise ValueError(
@@ -351,18 +472,21 @@ def prefill_paged_cuda(q, kp, vp, ks, vs, tables, layer, q_positions,
             f"and writes bf16; got q {q.dtype} {tuple(q.shape)} on "
             f"{q.device}, Hkv {hkv}, positions {tuple(q_positions.shape)}, "
             f"out {out_dtype}")
+    slopes = _slopes(alibi, h, q.device)
     q4 = q.contiguous()
     pos32 = q_positions.to(torch.int32).contiguous()
     lens32 = kv_lens.to(torch.int32).contiguous()
     out = torch.empty((b, t, h, d), dtype=torch.bfloat16, device=q.device)
-    fn = _build.kernels.fn("flash_prefill", "nst_flash_prefill_paged", 9, 9,
-                           1)
-    code = fn(q4.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks.data_ptr(),
-              vs.data_ptr(), tables.data_ptr(), pos32.data_ptr(),
+    fn = _build.kernels.fn("flash_prefill", "nst_flash_prefill_paged", 10,
+                           10, 1)
+    code = fn(q4.data_ptr(), kp.data_ptr(), vp.data_ptr(), _ptr(ks),
+              _ptr(vs), _ptr(slopes), tables.data_ptr(), pos32.data_ptr(),
               lens32.data_ptr(), out.data_ptr(), b, t, h, hkv, n_pages, ps,
-              n_blocks, d, layer, float(scale), _build.stream_handle())
-    _build.check(code, "flash_prefill_paged")
-    _build.launches["flash_prefill_paged"] += 1
+              n_blocks, d, layer, int(bf16), float(scale),
+              _build.stream_handle())
+    name = "flash_prefill_paged_bf16" if bf16 else "flash_prefill_paged"
+    _build.check(code, name)
+    _build.launches[name] += 1
     return out
 
 
@@ -371,45 +495,45 @@ def prefill_paged_cuda(q, kp, vp, ks, vs, tables, layer, q_positions,
 # ---------------------------------------------------------------------------
 
 
-def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-        k_scale: torch.Tensor, v_scale: torch.Tensor,
-        q_positions: torch.Tensor, kv_lens: torch.Tensor, *, scale: float,
-        causal: bool = True, alibi=None, logit_softcap: float = 0.0,
-        out_dtype=None, layer: int, extra_kv=None,
-        fused_append: bool = False):
-    """Flash attention over the int8 cache.  Returns the output
-    `[B, T, H, D]`, or `(out, (k, v, k_scale, v_scale))` with
-    `fused_append` — the cache tensors are written in place and returned
-    for the JAX interface's sake.  Returns None where the JAX entry does
-    (extra_kv that the decode kernel cannot take)."""
-    if not causal or alibi is not None or logit_softcap:
-        raise NotImplementedError("only causal attention without ALiBi or "
-                                  "softcap is ported")
-    if k_scale is None:
-        raise NotImplementedError("only the int8 KV cache is ported")
+def _dispatch(q, cuda_fn, plain_fn, name: str, bf16: bool, args, alibi):
+    """CPU tensors run the plain version (counted), others the kernel."""
+    if q.device.type == "cpu":
+        _build.plain_dispatches[name + ("_bf16" if bf16 else "")] += 1
+        return plain_fn(*args, alibi=alibi)
+    return cuda_fn(*args, alibi=alibi)
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, k_scale,
+        v_scale, q_positions: torch.Tensor, kv_lens: torch.Tensor, *,
+        scale: float, causal: bool = True, alibi=None,
+        logit_softcap: float = 0.0, out_dtype=None, layer: int,
+        extra_kv=None, fused_append: bool = False):
+    """Flash attention over the stacked cache (int8 codes and scales, or
+    bf16 values with `k_scale=None`).  Returns the output `[B, T, H, D]`,
+    or `(out, (k, v, k_scale, v_scale))` with `fused_append` — the cache
+    tensors are written in place and returned for the JAX interface's sake.
+    Returns None where the JAX entry does (extra_kv that the decode kernel
+    cannot take; `fused_append` without extra_kv or over bf16 K/V)."""
+    _check_variant(causal, logit_softcap)
     b, t, h, d = q.shape
     hkv = k.shape[2]
     out_dtype = out_dtype or q.dtype
-    if extra_kv is not None and not extra_kv_eligible(t, h, hkv):
+    bf16 = k_scale is None
+    if extra_kv is not None and (bf16 or not extra_kv_eligible(t, h, hkv)):
         return None
     if fused_append and extra_kv is None:
         return None
-    if extra_kv is not None:
-        args = (q, extra_kv[0], extra_kv[1], k, v, k_scale, v_scale, layer,
-                q_positions[:, 0], kv_lens, scale, fused_append, out_dtype)
-        if q.device.type == "cpu":
-            _build.plain_dispatches["flash_decode"] += 1
-            out = decode_plain(*args)
-        else:
-            out = decode_cuda(*args)
+    if extra_kv is not None or (bf16 and extra_kv_eligible(t, h, hkv)):
+        kn, vn = extra_kv if extra_kv is not None else (None, None)
+        args = (q, kn, vn, k, v, k_scale, v_scale, layer, q_positions[:, 0],
+                kv_lens, scale, fused_append, out_dtype)
+        out = _dispatch(q, decode_cuda, decode_plain, "flash_decode", bf16,
+                        args, alibi)
     else:
         args = (q, k, v, k_scale, v_scale, layer, q_positions, kv_lens,
                 scale, out_dtype)
-        if q.device.type == "cpu":
-            _build.plain_dispatches["flash_prefill"] += 1
-            out = prefill_plain(*args)
-        else:
-            out = prefill_cuda(*args)
+        out = _dispatch(q, prefill_cuda, prefill_plain, "flash_prefill",
+                        bf16, args, alibi)
     if fused_append:
         return out, (k, v, k_scale, v_scale)
     return out
@@ -419,43 +543,37 @@ def mha_paged(q: torch.Tensor, cache, layer: int, q_positions: torch.Tensor,
               kv_lens: torch.Tensor, *, scale: float, causal: bool = True,
               alibi=None, logit_softcap: float = 0.0, out_dtype=None,
               extra_kv=None, fused_append: bool = False):
-    """Flash attention over one layer of a `PagedKVCache`.  extra_kv (one
-    token per slot) goes to the paged decode kernel, which with
-    `fused_append` also writes the live slots' quantized rows through the
-    table; everything else to the paged prefill kernel.  Returns the output
-    `[B, T, H, D]`, or `(out, (k_pages, v_pages, k_scale, v_scale))` with
-    `fused_append` (the pool written in place), or None where the JAX entry
-    does (extra_kv the decode kernel cannot take).  Unlike the JAX entry,
-    which leaves page sizes that are not a multiple of 128 to XLA, the
-    kernels take any multiple of 16 and raise otherwise."""
-    if not causal or alibi is not None or logit_softcap:
-        raise NotImplementedError("only causal attention without ALiBi or "
-                                  "softcap is ported")
-    if not cache.quantized:
-        raise NotImplementedError("only the int8 paged pool is ported")
+    """Flash attention over one layer of a `PagedKVCache` (int8 or bf16).
+    Decode calls go to the paged decode kernel, which over the int8 pool
+    takes extra_kv (one token per slot) and with `fused_append` also writes
+    the live slots' quantized rows through the table; everything else to
+    the paged prefill kernel.  Returns the output `[B, T, H, D]`, or
+    `(out, (k_pages, v_pages, k_scale, v_scale))` with `fused_append` (the
+    pool written in place), or None where the JAX entry does (extra_kv the
+    decode kernel cannot take).  Unlike the JAX entry, which leaves page
+    sizes that are not a multiple of 128 to XLA, the kernels take any
+    multiple of 16 and raise otherwise."""
+    _check_variant(causal, logit_softcap)
     b, t, h, d = q.shape
     out_dtype = out_dtype or q.dtype
-    if extra_kv is not None and not extra_kv_eligible(t, h, cache.kv_heads):
+    bf16 = not cache.quantized
+    eligible = extra_kv_eligible(t, h, cache.kv_heads)
+    if extra_kv is not None and (bf16 or not eligible):
         return None
     if fused_append and extra_kv is None:
         return None
     pool = (cache.k_pages, cache.v_pages, cache.k_scale, cache.v_scale,
             cache.page_tables)
-    if extra_kv is not None:
-        args = (q, extra_kv[0], extra_kv[1], *pool, layer, q_positions[:, 0],
-                kv_lens, scale, fused_append, out_dtype)
-        if q.device.type == "cpu":
-            _build.plain_dispatches["flash_decode_paged"] += 1
-            out = decode_paged_plain(*args)
-        else:
-            out = decode_paged_cuda(*args)
+    if extra_kv is not None or (bf16 and eligible):
+        kn, vn = extra_kv if extra_kv is not None else (None, None)
+        args = (q, kn, vn, *pool, layer, q_positions[:, 0], kv_lens, scale,
+                fused_append, out_dtype)
+        out = _dispatch(q, decode_paged_cuda, decode_paged_plain,
+                        "flash_decode_paged", bf16, args, alibi)
     else:
         args = (q, *pool, layer, q_positions, kv_lens, scale, out_dtype)
-        if q.device.type == "cpu":
-            _build.plain_dispatches["flash_prefill_paged"] += 1
-            out = prefill_paged_plain(*args)
-        else:
-            out = prefill_paged_cuda(*args)
+        out = _dispatch(q, prefill_paged_cuda, prefill_paged_plain,
+                        "flash_prefill_paged", bf16, args, alibi)
     if fused_append:
         return out, pool[:4]
     return out

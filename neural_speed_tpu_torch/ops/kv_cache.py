@@ -1,8 +1,9 @@
-"""Int8 KV cache (port of `neural_speed_tpu/ops/kv_cache.py`, contiguous slots).
+"""KV cache (port of `neural_speed_tpu/ops/kv_cache.py`, contiguous slots).
 
-Layout as in the JAX package: codes `[L, B, H_kv, S, D]` int8 and
-per-(token, head) bf16 scales `[L, B, H_kv, S]`.  Codes are
-always computed against the float32 scale; only the stored scale rounds.
+Layouts as in the JAX package: `[L, B, H_kv, S, D]` of the cache dtype
+(bf16 by default, as the JAX `init_cache`), or, quantized, int8 codes with
+per-(token, head) bf16 scales `[L, B, H_kv, S]`.  Codes are always computed
+against the float32 scale; only the stored scale rounds.
 
 JAX's functional updates with buffer donation become in-place writes here:
 `append_layer` and `set_lengths` mutate the cache they are given and
@@ -21,14 +22,19 @@ KV_SCALE_EPS = 1e-8
 
 @dataclasses.dataclass
 class KVCache:
-    """k, v: [L, B, H_kv, S, D] int8; k_scale, v_scale: [L, B, H_kv, S];
-    lengths: [B] int32 tokens stored per slot."""
+    """k, v: [L, B, H_kv, S, D] (int8 codes when quantized); k_scale,
+    v_scale: [L, B, H_kv, S] bf16 when quantized, else None; lengths: [B]
+    int32 tokens stored per slot."""
 
     k: torch.Tensor
     v: torch.Tensor
-    k_scale: torch.Tensor
-    v_scale: torch.Tensor
+    k_scale: Optional[torch.Tensor]
+    v_scale: Optional[torch.Tensor]
     lengths: torch.Tensor
+
+    @property
+    def quantized(self) -> bool:
+        return self.k.dtype == torch.int8
 
     @property
     def max_len(self) -> int:
@@ -36,19 +42,26 @@ class KVCache:
 
 
 def init_cache(layers: int, batch: int, max_len: int, kv_heads: int,
-               head_dim: int, device=None) -> KVCache:
-    """Zeroed int8 cache with bf16 scales on `device` (the card unless the
-    CPU is asked for); the bf16 (unquantized) layout is not ported."""
+               head_dim: int, dtype=torch.bfloat16, quantized: bool = False,
+               device=None) -> KVCache:
+    """Zeroed cache on `device` (the card unless the CPU is asked for):
+    `dtype` values (bf16 by default; float32, the JAX package's
+    `memory_dtype="f32"`, has no kernel on the card), or with `quantized`
+    int8 codes and bf16 scales (the JAX package's default scale dtype)."""
     from .._build import resolve_device
 
     dev = resolve_device(device)
     shape = (layers, batch, kv_heads, max_len, head_dim)
+    lengths = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    if not quantized:
+        return KVCache(torch.zeros(shape, dtype=dtype, device=dev),
+                       torch.zeros(shape, dtype=dtype, device=dev), None,
+                       None, lengths)
     return KVCache(
         torch.zeros(shape, dtype=torch.int8, device=dev),
         torch.zeros(shape, dtype=torch.int8, device=dev),
         torch.zeros(shape[:-1], dtype=torch.bfloat16, device=dev),
-        torch.zeros(shape[:-1], dtype=torch.bfloat16, device=dev),
-        torch.zeros((batch,), dtype=torch.int32, device=dev))
+        torch.zeros(shape[:-1], dtype=torch.bfloat16, device=dev), lengths)
 
 
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -89,7 +102,9 @@ def append_layer(cache: KVCache, layer: int, k_new: torch.Tensor,
     kv_len).  A window that would overhang the cache end is clipped down and
     rolled so the real rows still land at the true start while the rows
     below it keep their contents.  T == 1 (decode): one row at the clipped
-    position.  Inactive slots are left untouched."""
+    position.  Inactive slots are left untouched.  A quantized cache takes
+    the int8 codes and scales of `quantize_kv`, a float cache the values
+    cast to its dtype."""
     b, t = positions.shape
     dev = positions.device
     if active is None:
@@ -108,10 +123,14 @@ def append_layer(cache: KVCache, layer: int, k_new: torch.Tensor,
         src = (ar[None, :] - shift[:, None]).clamp_min(0)
     kt = k_new.transpose(1, 2)                               # [B, H, T, D]
     vt = v_new.transpose(1, 2)
-    kc, ks = quantize_kv(kt)
-    vc, vs = quantize_kv(vt)
     gather_t = lambda a: torch.gather(
         a, 2, src[:, None, :, None].expand(-1, a.shape[1], -1, a.shape[3]))
+    if not cache.quantized:
+        _write_rows(cache.k, layer, rows, gather_t(kt), keep)
+        _write_rows(cache.v, layer, rows, gather_t(vt), keep)
+        return cache
+    kc, ks = quantize_kv(kt)
+    vc, vs = quantize_kv(vt)
     kc, ks, vc, vs = gather_t(kc), gather_t(ks), gather_t(vc), gather_t(vs)
     _write_rows(cache.k, layer, rows, kc, keep)
     _write_rows(cache.v, layer, rows, vc, keep)

@@ -1,10 +1,11 @@
-"""Paged int8 KV cache (port of `neural_speed_tpu/ops/paged_kv.py`).
+"""Paged KV cache (port of `neural_speed_tpu/ops/paged_kv.py`).
 
 A physical page pool shared by all slots, so memory follows the tokens in
 flight rather than slots x max_len:
 
-    k_pages / v_pages : [L, H_kv, P, page_size, D] int8
-    k_scale / v_scale : [L, H_kv, P, 1, page_size] bf16
+    k_pages / v_pages : [L, H_kv, P, page_size, D] bf16 (the default), or
+                        int8 codes when quantized
+    k_scale / v_scale : [L, H_kv, P, 1, page_size] bf16 (quantized only)
     page_tables       : [B, n_blocks] int32; logical block j of slot b lives
                         in physical page page_tables[b, j]
     lengths           : [B] int32 tokens stored per slot
@@ -16,9 +17,9 @@ is gathered on the card.  Page allocation is host-side (`PageAllocator`),
 owned by the engine.
 
 JAX's scatters into a functional pool become in-place index writes here:
-the appends mutate the cache they are given and return it.  The bf16
-(unquantized) pool, `PrefixPageCache`, `copy_pages` and the unsafe
-`append_prefill` are not ported.
+the appends mutate the cache they are given and return it.
+`PrefixPageCache`, `copy_pages` and the unsafe `append_prefill` are not
+ported.
 """
 
 from __future__ import annotations
@@ -35,8 +36,8 @@ from .kv_cache import quantize_kv
 class PagedKVCache:
     k_pages: torch.Tensor
     v_pages: torch.Tensor
-    k_scale: torch.Tensor
-    v_scale: torch.Tensor
+    k_scale: Optional[torch.Tensor]
+    v_scale: Optional[torch.Tensor]
     page_tables: torch.Tensor    # [B, n_blocks] int32
     lengths: torch.Tensor        # [B] int32
 
@@ -75,9 +76,11 @@ class PagedKVCache:
 
 def init_paged_cache(layers: int, batch: int, max_len: int, kv_heads: int,
                      head_dim: int, n_pages: int, page_size: int = 128,
+                     dtype=torch.bfloat16, quantized: bool = False,
                      device=None) -> PagedKVCache:
-    """Zeroed int8 pool with bf16 scales on `device` (the card unless the
-    CPU is asked for).  `n_pages` counts the trash page."""
+    """Zeroed pool on `device` (the card unless the CPU is asked for):
+    `dtype` values (bf16 by default), or with `quantized` int8 codes and
+    bf16 scales.  `n_pages` counts the trash page."""
     from .._build import resolve_device
 
     if max_len % page_size:
@@ -86,14 +89,19 @@ def init_paged_cache(layers: int, batch: int, max_len: int, kv_heads: int,
     dev = resolve_device(device)
     shape = (layers, kv_heads, n_pages, page_size, head_dim)
     sshape = shape[:3] + (1, page_size)
+    tables = torch.zeros((batch, max_len // page_size), dtype=torch.int32,
+                         device=dev)
+    lengths = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    if not quantized:
+        return PagedKVCache(torch.zeros(shape, dtype=dtype, device=dev),
+                            torch.zeros(shape, dtype=dtype, device=dev),
+                            None, None, tables, lengths)
     return PagedKVCache(
         torch.zeros(shape, dtype=torch.int8, device=dev),
         torch.zeros(shape, dtype=torch.int8, device=dev),
         torch.zeros(sshape, dtype=torch.bfloat16, device=dev),
-        torch.zeros(sshape, dtype=torch.bfloat16, device=dev),
-        torch.zeros((batch, max_len // page_size), dtype=torch.int32,
-                    device=dev),
-        torch.zeros((batch,), dtype=torch.int32, device=dev))
+        torch.zeros(sshape, dtype=torch.bfloat16, device=dev), tables,
+        lengths)
 
 
 class PageAllocator:
@@ -166,16 +174,20 @@ def physical_rows(tables: torch.Tensor, pos: torch.Tensor,
 
 
 def write_pool_rows(k_pages: torch.Tensor, v_pages: torch.Tensor,
-                    k_scale: torch.Tensor, v_scale: torch.Tensor,
-                    layer: int, rows: torch.Tensor, k_new: torch.Tensor,
-                    v_new: torch.Tensor) -> None:
-    """Quantize k/v `[N, H, D]` and write them at pool rows `rows [N]` of
-    `layer`, in place.  Rows must be distinct except the trash row, which
-    takes whichever write lands last."""
+                    k_scale, v_scale, layer: int, rows: torch.Tensor,
+                    k_new: torch.Tensor, v_new: torch.Tensor) -> None:
+    """Write k/v `[N, H, D]` at pool rows `rows [N]` of `layer`, in place:
+    quantized over an int8 pool, cast to the pool's dtype over a float one
+    (scales None).  Rows must be distinct except the trash row, which takes
+    whichever write lands last."""
     h, p, ps, d = k_pages.shape[1:]
     idx = rows.reshape(-1).long()
     for pages, scales, x in ((k_pages, k_scale, k_new), (v_pages, v_scale,
                                                            v_new)):
+        if scales is None:
+            pages[layer].view(h, p * ps, d)[:, idx] = (
+                x.transpose(0, 1).to(pages.dtype))
+            continue
         codes, sc = quantize_kv(x)                     # [N, H, D], [N, H, 1]
         pages[layer].view(h, p * ps, d)[:, idx] = codes.transpose(0, 1)
         scales[layer].view(h, p * ps)[:, idx] = (
@@ -223,12 +235,12 @@ def append_decode(cache: PagedKVCache, layer: int, k_new: torch.Tensor,
 
 
 def gather_layer_codes(k_pages: torch.Tensor, v_pages: torch.Tensor,
-                       k_scale: torch.Tensor, v_scale: torch.Tensor,
-                       tables: torch.Tensor, layer: int
-                       ) -> Tuple[torch.Tensor, ...]:
+                       k_scale, v_scale, tables: torch.Tensor, layer: int
+                       ) -> Tuple[Optional[torch.Tensor], ...]:
     """One layer of the pool in the contiguous cache's logical layout:
-    codes [B, H, S, D] and scales [B, H, S], S = n_blocks * page_size
-    (exact copies: the plain versions of the paged kernels read these)."""
+    rows [B, H, S, D] and scales [B, H, S] (None for a float pool),
+    S = n_blocks * page_size (exact copies: the plain versions of the paged
+    kernels read these)."""
     def merge(a):                                  # [H, B, nb, ps, D]
         h, b, nb, ps, d = a.shape
         return a.permute(1, 0, 2, 3, 4).reshape(b, h, nb * ps, d)
@@ -238,8 +250,10 @@ def gather_layer_codes(k_pages: torch.Tensor, v_pages: torch.Tensor,
         return a.permute(1, 0, 2, 4, 3).reshape(b, h, nb * ps)
 
     t = tables.long()
+    scales = (None, None) if k_scale is None else (
+        merge_s(k_scale[layer][:, t]), merge_s(v_scale[layer][:, t]))
     return (merge(k_pages[layer][:, t]), merge(v_pages[layer][:, t]),
-            merge_s(k_scale[layer][:, t]), merge_s(v_scale[layer][:, t]))
+            *scales)
 
 
 def gathered_layer(cache: PagedKVCache, layer: int,
@@ -250,6 +264,8 @@ def gathered_layer(cache: PagedKVCache, layer: int,
     kc, vc, ks, vs = gather_layer_codes(cache.k_pages, cache.v_pages,
                                         cache.k_scale, cache.v_scale,
                                         cache.page_tables, layer)
+    if ks is None:
+        return kc.to(dtype), vc.to(dtype)
     kf = kc.float() * ks.float()[..., None]
     vf = vc.float() * vs.float()[..., None]
     return kf.to(dtype), vf.to(dtype)

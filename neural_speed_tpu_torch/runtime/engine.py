@@ -1,6 +1,7 @@
 """Generation engine (port of `neural_speed_tpu/runtime/engine.py`: prefill,
-decode and greedy generation over the int8 KV cache, `PagedEngine` over the
-paged pool, and the serving steps a continuous-batching scheduler drives:
+decode and greedy generation over the KV cache — bf16 by default, int8 with
+`kv_quantized=True`, as the JAX engines — `PagedEngine` over the paged
+pool, and the serving steps a continuous-batching scheduler drives:
 `run_prefill`, `run_decode_chunk`, `run_decode_window`).
 
 JAX's jitted steps with a donated cache become plain functions that write
@@ -180,8 +181,11 @@ def _to_device(node, dev):
 
 class Engine:
     """Owns params and the KV cache for one model instance, on `device` (the
-    card unless the CPU is asked for).  The cache is always the int8 one with
-    bf16 scales (the JAX Engine's `kv_quantized=True`).
+    card unless the CPU is asked for).  The cache layout follows the JAX
+    Engine's arguments: `kv_dtype` values (bf16 by default) or, with
+    `kv_quantized=True`, int8 codes with bf16 scales.  A float32 cache
+    (the JAX package's `memory_dtype="f32"`) runs on the CPU only: the
+    attention kernels take int8 and bf16 K/V.
 
     `comp` selects int8 compute for steps of at least 32 rows: None, "int8"
     (activation scales per token and K group) or "int8t" (per token).  The
@@ -189,9 +193,18 @@ class Engine:
 
     def __init__(self, params: Dict[str, Any], cfg: ArchConfig,
                  max_batch: int = 1, max_len: int = 2048,
+                 kv_dtype=torch.bfloat16, kv_quantized: bool = False,
                  buckets: Tuple[int, ...] = DEFAULT_BUCKETS,
                  fuse: bool = True, device=None, comp: Optional[str] = "env"):
         self.device = resolve_device(device)
+        if (self.device.type != "cpu" and not kv_quantized
+                and kv_dtype != torch.bfloat16):
+            raise ValueError(
+                f"kv_dtype {kv_dtype} has no attention kernel on the card "
+                f"(ROADMAP section 2, item 1: the float32 K/V variant of rows "
+                f"6-10); use torch.bfloat16 or kv_quantized=True")
+        self.kv_dtype = kv_dtype
+        self.kv_quantized = kv_quantized
         if comp == "env":
             comp = os.environ.get("NST_COMP")
             comp = comp if comp in ("int8", "int8t") else None
@@ -215,7 +228,8 @@ class Engine:
     def new_cache(self) -> kvc.KVCache:
         return kvc.init_cache(
             self.cfg.n_layers, self.max_batch, self.max_len,
-            self.cfg.n_kv_heads, self.cfg.head_dim, device=self.device)
+            self.cfg.n_kv_heads, self.cfg.head_dim, self.kv_dtype,
+            self.kv_quantized, device=self.device)
 
     def prefill(self, prompts: List[List[int]]) -> torch.Tensor:
         """Prefill `prompts` into slots 0..B-1; returns last-token logits
@@ -302,7 +316,8 @@ class Engine:
 
 
 class PagedEngine(Engine):
-    """Engine over the paged int8 pool (`ops/paged_kv.py`): memory follows
+    """Engine over the paged pool (`ops/paged_kv.py`; bf16 by default, int8
+    with `kv_quantized=True`): memory follows
     the tokens in flight.  The engine owns the host-side `PageAllocator`:
     prefill reserves a contiguous page run per prompt, decode growth claims
     one page whenever a slot crosses a page boundary.  Windowed decode
@@ -319,6 +334,7 @@ class PagedEngine(Engine):
 
     def __init__(self, params: Dict[str, Any], cfg: ArchConfig,
                  max_batch: int = 1, max_len: int = 2048,
+                 kv_dtype=torch.bfloat16, kv_quantized: bool = False,
                  buckets: Tuple[int, ...] = DEFAULT_BUCKETS,
                  fuse: bool = True, n_pages: Optional[int] = None,
                  page_size: int = 128, prefix_cache: bool = False,
@@ -335,14 +351,15 @@ class PagedEngine(Engine):
         # blocks actually mapped per slot: may exceed ceil(_lens / ps) after
         # commit_lens rolled a window back; freed at release_slot
         self._mapped = np.zeros((max_batch,), np.int64)
-        super().__init__(params, cfg, max_batch, max_len, buckets, fuse,
-                         device, comp)
+        super().__init__(params, cfg, max_batch, max_len, kv_dtype,
+                         kv_quantized, buckets, fuse, device, comp)
 
     def new_cache(self) -> pkv.PagedKVCache:
         return pkv.init_paged_cache(
             self.cfg.n_layers, self.max_batch, self.max_len,
             self.cfg.n_kv_heads, self.cfg.head_dim, self.n_pages,
-            self.page_size, device=self.device)
+            self.page_size, self.kv_dtype, self.kv_quantized,
+            device=self.device)
 
     def _sync_tables(self) -> None:
         """One host-to-device copy of the page tables."""

@@ -1,4 +1,5 @@
-"""Synthetic quantized models (port of `neural_speed_tpu/utils/synthetic.py`).
+"""Synthetic models (port of `neural_speed_tpu/utils/synthetic.py`): packed
+quantized params, and float HF-layout state dicts for the converter.
 
 Random packed bits are valid planes of every family (INT planes, NF4/FP4
 codes, INT8 bytes; FP8 bytes come from a cast random normal), so a
@@ -8,6 +9,10 @@ drawn on the host.  A MoE layer's experts are drawn straight into their
 `[E, ...]` stacks, layer by layer.  The draws differ from the
 JAX package's `jax.random` streams; tests carry the JAX parameters across
 with `models.params.params_from_numpy` instead.
+
+`synth_hf_state_dict` draws a float checkpoint in an HF model's own
+tensor names and layouts (fused QKV rows as the model stores them), so
+`convert/hf.py` converts and quantizes a full-size model on the card.
 """
 
 from __future__ import annotations
@@ -18,7 +23,9 @@ import torch
 
 from .._build import resolve_device
 from ..models.arch import ArchConfig
-from ..models.configs import MIXTRAL_8X7B_HF, mixtral_arch
+from ..models.configs import (BLOOM_7B1_HF, FALCON_7B_HF, MIXTRAL_8X7B_HF,
+                              MPT_7B_HF, bloom_arch, falcon_arch,
+                              mixtral_arch, mpt_arch)
 from ..ops.moe import StackedExperts
 from ..ops.qtypes import QSpec, QType, plane_widths
 from ..ops.quantize import QTensor
@@ -137,3 +144,100 @@ def mixtral_8x7b_arch() -> ArchConfig:
     """Mixtral-8x7B shape (its published config.json): 32 layers, hidden
     4096, 32 heads over 8 KV heads, 8 experts of width 14336, top-2."""
     return mixtral_arch(MIXTRAL_8X7B_HF)
+
+
+def mpt_7b_arch() -> ArchConfig:
+    """mosaicml/mpt-7b: d_model 4096, 32 heads, 32 layers, expansion 4,
+    vocab 50432, ALiBi, no biases, the head tied to the embedding."""
+    return mpt_arch(MPT_7B_HF)
+
+
+def bloom_7b1_arch() -> ArchConfig:
+    """bigscience/bloom-7b1: hidden 4096, 32 heads, 30 layers, vocab
+    250880, ALiBi, embedding LayerNorm, biases, the head tied."""
+    return bloom_arch(BLOOM_7B1_HF)
+
+
+def falcon_7b_arch() -> ArchConfig:
+    """tiiuae/falcon-7b: hidden 4544, 71 query heads over one KV head
+    (head dim 64), 32 layers, vocab 65024, parallel attention and MLP
+    sharing one LayerNorm, rope."""
+    return falcon_arch(FALCON_7B_HF)
+
+
+def hf_shapes(model_type: str, cfg: ArchConfig) -> Dict[str, tuple]:
+    """Tensor names and shapes of an HF checkpoint of `model_type` (mpt,
+    bloom, falcon with one shared norm) for `cfg`; linear weights are
+    [out, in] as torch stores them."""
+    e, v = cfg.hidden_size, cfg.vocab_size
+    qkv = cfg.q_dim + 2 * cfg.kv_dim
+    ff = cfg.intermediate_size
+    out: Dict[str, tuple] = {}
+    if model_type == "mpt":
+        out["transformer.wte.weight"] = (v, e)
+        for i in range(cfg.n_layers):
+            p = f"transformer.blocks.{i}."
+            out.update({p + "norm_1.weight": (e,), p + "norm_2.weight": (e,),
+                        p + "attn.Wqkv.weight": (qkv, e),
+                        p + "attn.out_proj.weight": (e, cfg.q_dim),
+                        p + "ffn.up_proj.weight": (ff, e),
+                        p + "ffn.down_proj.weight": (e, ff)})
+        out["transformer.norm_f.weight"] = (e,)
+    elif model_type == "bloom":
+        out["transformer.word_embeddings.weight"] = (v, e)
+        for n in ("weight", "bias"):
+            out["transformer.word_embeddings_layernorm." + n] = (e,)
+        for i in range(cfg.n_layers):
+            p = f"transformer.h.{i}."
+            for n in ("weight", "bias"):
+                out.update({p + "input_layernorm." + n: (e,),
+                            p + "post_attention_layernorm." + n: (e,)})
+            out.update({
+                p + "self_attention.query_key_value.weight": (qkv, e),
+                p + "self_attention.query_key_value.bias": (qkv,),
+                p + "self_attention.dense.weight": (e, cfg.q_dim),
+                p + "self_attention.dense.bias": (e,),
+                p + "mlp.dense_h_to_4h.weight": (ff, e),
+                p + "mlp.dense_h_to_4h.bias": (ff,),
+                p + "mlp.dense_4h_to_h.weight": (e, ff),
+                p + "mlp.dense_4h_to_h.bias": (e,)})
+        for n in ("weight", "bias"):
+            out["transformer.ln_f." + n] = (e,)
+    elif model_type == "falcon":
+        out["transformer.word_embeddings.weight"] = (v, e)
+        for i in range(cfg.n_layers):
+            p = f"transformer.h.{i}."
+            out.update({
+                p + "input_layernorm.weight": (e,),
+                p + "input_layernorm.bias": (e,),
+                p + "self_attention.query_key_value.weight": (qkv, e),
+                p + "self_attention.dense.weight": (e, cfg.q_dim),
+                p + "mlp.dense_h_to_4h.weight": (ff, e),
+                p + "mlp.dense_4h_to_h.weight": (e, ff)})
+        out["transformer.ln_f.weight"] = (e,)
+        out["transformer.ln_f.bias"] = (e,)
+        out["lm_head.weight"] = (v, e)
+    else:
+        raise ValueError(f"no HF layout for model_type {model_type!r}")
+    return out
+
+
+def synth_hf_state_dict(model_type: str, cfg: ArchConfig, seed: int = 0,
+                        dtype=torch.bfloat16, device=None
+                        ) -> Dict[str, torch.Tensor]:
+    """A random float HF checkpoint of `model_type` for `cfg`, drawn on
+    `device` (the card unless the CPU is asked for) with a seeded
+    generator: weights N(0, 0.02^2), LayerNorm weights 1 + N(0, 0.1^2),
+    biases N(0, 0.02^2), all stored in `dtype`."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    sd = {}
+    for name, shape in hf_shapes(model_type, cfg).items():
+        x = torch.randn(shape, generator=gen, device=dev)
+        if len(shape) == 1 and "norm" in name and name.endswith("weight"):
+            x = 1.0 + 0.1 * x
+        else:
+            x = 0.02 * x
+        sd[name] = x.to(dtype)
+    return sd

@@ -124,7 +124,7 @@ def engines(name, seed, monkeypatch):
                  max_len=128, kv_quantized=True)
     pe = Engine(params_from_numpy(tree_to_numpy(jp), device="cpu"),
                 ArchConfig(**CFG, kv_append="plain"), max_batch=3, max_len=128,
-                device="cpu", comp=comp)
+                kv_quantized=True, device="cpu", comp=comp)
     return je, pe
 
 

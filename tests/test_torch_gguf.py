@@ -254,7 +254,8 @@ def test_gguf_model_greedy_matches_jax(tmp_path, name, hf, ttype,
     seed, tol = MODELS[name]
     jp, jcfg, tp, tcfg = _files(tmp_path, hf, seed, ttype)
     je = JEngine(jp, jcfg, max_batch=3, max_len=128, kv_quantized=True)
-    pe = Engine(tp, tcfg, max_batch=3, max_len=128, device="cpu")
+    pe = Engine(tp, tcfg, max_batch=3, max_len=128, kv_quantized=True,
+                device="cpu")
     margins = RouterMargins(monkeypatch) if tcfg.moe is not None else None
     lens = [len(p) for p in PROMPTS]
     if margins:

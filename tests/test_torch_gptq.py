@@ -195,7 +195,9 @@ def test_arch_from_hf_config_refuses_unported_archs():
     from neural_speed_tpu_torch.models.configs import arch_from_hf_config
 
     with pytest.raises(NotImplementedError, match="item 1"):
-        arch_from_hf_config({"model_type": "falcon"})
+        arch_from_hf_config({"model_type": "qwen"})
+    with pytest.raises(NotImplementedError, match="item 2"):
+        arch_from_hf_config({"model_type": "grok-1"})
     with pytest.raises(ValueError, match="unsupported"):
         arch_from_hf_config({"model_type": "no-such-arch"})
 
@@ -223,10 +225,12 @@ def test_act_order_llama_greedy_matches_jax(paged, monkeypatch):
     tcfg = ArchConfig(**CFG, kv_append="plain")
     tp = TG.params_from_quantized_state_dict(tsd, tcfg, HF_CFG)
     if paged:
-        pe = PagedEngine(tp, tcfg, max_batch=3, max_len=128, page_size=16,
-                         n_pages=24, device="cpu")
+        pe = PagedEngine(tp, tcfg, max_batch=3, max_len=128,
+                         kv_quantized=True, page_size=16, n_pages=24,
+                         device="cpu")
     else:
-        pe = Engine(tp, tcfg, max_batch=3, max_len=128, device="cpu")
+        pe = Engine(tp, tcfg, max_batch=3, max_len=128, kv_quantized=True,
+                    device="cpu")
     # act-order: nothing fuses, every projection keeps its gather
     lp = pe.params["layers"][0]
     assert "qkv" not in lp and "gateup" not in lp["ffn"]

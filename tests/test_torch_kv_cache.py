@@ -42,7 +42,7 @@ def test_append_layer_bit_identical():
     rng = np.random.default_rng(1)
     jc = jkv.init_cache(L, B, S, H, D, quantized=True,
                         scale_dtype=jnp.bfloat16)
-    tc = tkv.init_cache(L, B, S, H, D, device="cpu")
+    tc = tkv.init_cache(L, B, S, H, D, quantized=True, device="cpu")
     assert_cache_equal(jc, tc)
 
     # prefill window of T = 16 at layer 1: slot 0 has 11 real rows (5

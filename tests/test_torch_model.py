@@ -65,7 +65,7 @@ def _engines(mode, monkeypatch):
     je = JEngine(jp, jcfg, max_batch=3, max_len=128, kv_quantized=True)
     pe = Engine(params_from_numpy(tree_to_numpy(jp), device="cpu"),
                 ArchConfig(**CFG, kv_append=mode), max_batch=3, max_len=128,
-                device="cpu")
+                kv_quantized=True, device="cpu")
     assert pe.params["layers"][0]["ffn"]["down"]["w"].shape == (512, 256)
     return je, pe
 

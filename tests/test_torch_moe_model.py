@@ -78,7 +78,8 @@ def engines(seed, batch, paged, monkeypatch):
     je = (JPagedEngine if paged else JEngine)(
         jp, jcfg, max_batch=batch, max_len=MAX_LEN, kv_quantized=True, **kw)
     pe = (PagedEngine if paged else Engine)(
-        tp, tcfg, max_batch=batch, max_len=MAX_LEN, device="cpu", **kw)
+        tp, tcfg, max_batch=batch, max_len=MAX_LEN, kv_quantized=True,
+        device="cpu", **kw)
     return je, pe
 
 
@@ -168,7 +169,7 @@ def test_moe_norms_and_global_router_match_jax(monkeypatch):
     assert "pre_norm" in jp["layers"][0]["moe"]
     je = JEngine(jp, jcfg, max_batch=4, max_len=MAX_LEN, kv_quantized=True)
     pe = Engine(params_from_numpy(tree_to_numpy(jp), device="cpu"), tcfg,
-                max_batch=4, max_len=MAX_LEN, device="cpu")
+                max_batch=4, max_len=MAX_LEN, kv_quantized=True, device="cpu")
     jl = np.asarray(je.prefill(PROMPTS), np.float32)
     pl = pe.prefill(PROMPTS).numpy()
     for step in range(3):
@@ -189,9 +190,11 @@ def test_paged_logits_equal_contiguous(monkeypatch):
         jcfg, JSpec(JQType.INT, 4, 64, True, scale_dtype="bfloat16"),
         seed=SEED)
     tp = params_from_numpy(tree_to_numpy(jp), device="cpu")
-    engs = [Engine(tp, tcfg, max_batch=4, max_len=MAX_LEN, device="cpu"),
-            PagedEngine(tp, tcfg, max_batch=4, max_len=MAX_LEN, device="cpu",
-                        page_size=16, n_pages=28)]
+    engs = [Engine(tp, tcfg, max_batch=4, max_len=MAX_LEN, kv_quantized=True,
+                   device="cpu"),
+            PagedEngine(tp, tcfg, max_batch=4, max_len=MAX_LEN,
+                        kv_quantized=True, device="cpu", page_size=16,
+                        n_pages=28)]
     logits = [e.prefill(PROMPTS) for e in engs]
     assert torch.equal(logits[0], logits[1])
     for _ in range(3):

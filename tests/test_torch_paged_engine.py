@@ -75,7 +75,7 @@ def _port(cls, mode="fused", **kw):
     _, jp = _params()
     return cls(params_from_numpy(tree_to_numpy(jp), device="cpu"),
                ArchConfig(**CFG, kv_append=mode), max_batch=2,
-               max_len=MAX_LEN, device="cpu", **kw)
+               max_len=MAX_LEN, kv_quantized=True, device="cpu", **kw)
 
 
 def _check_step(pl, jl, active, step):
