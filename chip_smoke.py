@@ -28,7 +28,10 @@ Phases, each raising on failure so the run exits non-zero:
    (VARIANT_CASES): kernels B, C, 9 and 10 over bf16 K/V and with ALiBi
    over int8 and bf16 K/V, at 32 and 40 heads, and kernel C at Falcon-7B's
    71 query heads over one KV head, each paged kernel equal to its
-   contiguous twin bit for bit;
+   contiguous twin bit for bit; the head-dim instances (DIM_CASES):
+   kernels B, C, 9 and 10 at D = 80, 96 and 256 and the masked D = 72,
+   over int8, bf16 and float32 K/V, decode (B = 4) and prefill (T = 2048),
+   and Gemma-2B's 8 query heads over one KV head at 256;
 3. a tiny model through `Engine` on the card against the same model on the
    CPU (plain versions), once in int4, once per configuration of phase
    5 and as a tiny Mixtral at B = 3 and B = 1: logits within tolerance,
@@ -38,9 +41,11 @@ Phases, each raising on failure so the run exits non-zero:
    Q4_K_M / Q2_K llamas, a GGUF Q4_0 and an nf4 Mixtral; then tiny HF
    float checkpoints converted by `convert/hf.py`: MPT (6 heads, ALiBi)
    over the bf16 and the int8 cache, BLOOM and Falcon (MQA) over bf16, and
-   the tiny llama through a bf16 `PagedEngine`, a release and a refill.
-   Phases 3-8 serve over the int8 cache (`kv_quantized=True`), phase 9
-   over the engines' default bf16 cache and over int8;
+   the tiny llama through a bf16 `PagedEngine`, a release and a refill;
+   a Gemma at head dim 256, a Phi at 80 and a GPT-NeoX at 96 over bf16,
+   and the Phi over a float32 cache.  Phases 3-8 serve over the int8 cache
+   (`kv_quantized=True`), phases 9 and 10 over the engines' default bf16
+   cache, int8 and float32;
 4. the main path: a Llama-2-7B-shaped int4 model (full width and depth,
    random weights from a seed, drawn on the card) serves 4 ragged requests,
    then the bench shape (B = 1, a 1975-token prefill, 64 greedy steps); every
@@ -87,7 +92,15 @@ Phases, each raising on failure so the run exits non-zero:
    (bf16 cache, bench shape).  Each prints checkpoint and weight GiB,
    conversion seconds and peak GiB, TTFT, ms/token, launches per prefill
    and per decode step, and the tied LM head's ms per step; with
-   `--profile`, a trace of MPT-7B's prefill and decode.
+   `--profile`, a trace of MPT-7B's prefill and decode;
+10. the head dims 256, 80 and 96 and float32 K/V at full width and depth,
+   float HF checkpoints drawn and converted on the card as in phase 9 (int4
+   g128): Gemma-7B over bf16 (bench shape; ragged `Engine` = `PagedEngine`
+   bit for bit), GPT-J-6B over int8 (bench shape: kernel B's fused append
+   at D = 256), Phi-2 over bf16 and over float32 K/V (bench shape and
+   ragged bit-equality each), GPT-NeoX-20B over bf16 (bench shape, a
+   38.3 GiB checkpoint).  Each prints what phase 9 prints and the launches
+   per head-dim instance, which must include the model's.
 
 It prints a `kernels` JSON line, then as its last line
 `{"ok": true, "device": {...}}`.  It imports nothing of JAX.
@@ -951,7 +964,8 @@ def _check_flash_decode(chk: Checks, gen: torch.Generator, hkv: int) -> None:
     cols = live.sum().item()
     nbytes = (cols * hkv * (2 * d + 4) + 2 * b * h * d * 2
               + 2 * b * hkv * d * 2 + 3 * hkv * (2 * d + 4))
-    chk.add("flash_decode", "cuda", "neural_speed_tpu_torch/csrc/flash_decode.cu",
+    chk.add("flash_decode", "cuda",
+            "neural_speed_tpu_torch/csrc/flash_decode.cuh",
             "neural_speed_tpu/ops/flash.py:267",
             f"B={b} H={h} Hkv={hkv} S={s} kv_len=1976/1500/37/900(spectator)",
             cmp, ms, plain_ms, lib_ms, nbytes, 4.0 * cols * h * d,
@@ -1000,7 +1014,7 @@ def check_flash_prefill(chk: Checks, gen: torch.Generator) -> None:
         pairs = mask.sum().item()
         nbytes = 2 * b * t * h * d * 2 + sum(lens) * hkv * (2 * d + 4)
         chk.add("flash_prefill", "cuda",
-                "neural_speed_tpu_torch/csrc/flash_prefill.cu",
+                "neural_speed_tpu_torch/csrc/flash_prefill.cuh",
                 "neural_speed_tpu/ops/flash.py:142",
                 f"B={b} T={t} (real rows {'/'.join(map(str, lens))}) H={h} "
                 f"Hkv={hkv} S={s}", cmp, ms, plain_ms, lib_ms, nbytes,
@@ -1009,11 +1023,15 @@ def check_flash_prefill(chk: Checks, gen: torch.Generator) -> None:
         torch.cuda.empty_cache()
 
 
-def _random_pool(gen, layers, b, hkv, s, d, ps, bf16=False):
-    """A page pool of random codes and scales (or, with `bf16`, random bf16
-    rows) for `b` slots of `s` rows, with a shuffled table: a random
-    permutation of every page but the trash page (the last), so a fault in
-    the page indexing cannot hide behind an identity-like table."""
+KV_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def _random_pool(gen, layers, b, hkv, s, d, ps, kv="int8"):
+    """A page pool of random codes and scales (or, with `kv` "bf16" /
+    "f32", random bf16 / float32 rows, a normal draw) for `b` slots of `s`
+    rows, with a shuffled table: a random permutation of every page but the
+    trash page (the last), so a fault in the page indexing cannot hide
+    behind an identity-like table."""
     from neural_speed_tpu_torch.ops.paged_kv import PagedKVCache
 
     nb = s // ps
@@ -1022,9 +1040,9 @@ def _random_pool(gen, layers, b, hkv, s, d, ps, bf16=False):
     tables = torch.randperm(n_pages - 1, generator=gen, device="cuda")
     tables = tables.reshape(b, nb).to(torch.int32)
     lengths = torch.zeros((b,), dtype=torch.int32, device="cuda")
-    if bf16:
+    if kv != "int8":
         rows = lambda: torch.randn(shape, generator=gen, device="cuda").to(
-            torch.bfloat16)
+            KV_DTYPES[kv])
         return PagedKVCache(rows(), rows(), None, None, tables, lengths)
     codes = lambda: torch.randint(-127, 128, shape, generator=gen,
                                   device="cuda", dtype=torch.int8)
@@ -1124,7 +1142,7 @@ def check_flash_decode_paged(chk: Checks, gen: torch.Generator) -> None:
                   + 2 * b * h * d * 2 + 2 * b * hkv * d * 2
                   + 3 * hkv * (2 * d + 4))
         chk.add("flash_decode_paged", "cuda",
-                "neural_speed_tpu_torch/csrc/flash_decode.cu",
+                "neural_speed_tpu_torch/csrc/flash_decode.cuh",
                 "neural_speed_tpu/ops/flash.py:1196",
                 f"B={b} H={h} Hkv={hkv} S={s} page size {ps}, shuffled "
                 f"table, kv_len=1976/1500/37/900(spectator)", cmp, ms,
@@ -1186,7 +1204,7 @@ def check_flash_prefill_paged(chk: Checks, gen: torch.Generator) -> None:
         nbytes = (2 * b * t * h * d * 2 + sum(lens) * hkv * (2 * d + 4)
                   + pool.page_tables.numel() * 4)
         chk.add("flash_prefill_paged", "cuda",
-                "neural_speed_tpu_torch/csrc/flash_prefill.cu",
+                "neural_speed_tpu_torch/csrc/flash_prefill.cuh",
                 "neural_speed_tpu/ops/flash.py:1111",
                 f"B={b} T={t} (real rows {'/'.join(map(str, lens))}) H={h} "
                 f"Hkv={hkv} S={s} page size {ps}, shuffled table", cmp, ms,
@@ -1201,24 +1219,40 @@ def check_flash_prefill_paged(chk: Checks, gen: torch.Generator) -> None:
 # Head counts: MPT-7B's and BLOOM-7B1's 32 (power-of-two slopes),
 # Baichuan-13B's 40 (the non-power-of-two branch), and Falcon-7B's 71 query
 # heads over one KV head at D = 64, whose decode goes to kernel C.
-# (kernel, bf16 K/V, ALiBi, H, Hkv, D, T, kv_lens, main)
+# (kernel, K/V, ALiBi, H, Hkv, D, T, kv_lens, main)
 DECODE_LENS = [1976, 1500, 37, 900]
 VARIANT_CASES = [
-    ("decode", True, False, 32, 32, 128, 1, DECODE_LENS, False),
-    ("decode", True, False, 32, 8, 128, 1, DECODE_LENS, False),
-    ("decode", True, True, 32, 32, 128, 1, DECODE_LENS, True),
-    ("decode", True, True, 40, 40, 128, 1, DECODE_LENS, False),
-    ("decode", False, True, 32, 32, 128, 1, DECODE_LENS, False),
-    ("decode", False, True, 40, 40, 128, 1, DECODE_LENS, False),
-    ("prefill", True, False, 32, 32, 128, 2048, [1975], False),
-    ("prefill", True, False, 32, 32, 128, 2048, [1975, 900, 300, 37], False),
-    ("prefill", True, True, 32, 32, 128, 2048, [1975], True),
-    ("prefill", True, True, 40, 40, 128, 2048, [1975], False),
-    ("prefill", False, True, 32, 32, 128, 2048, [1975], False),
-    ("prefill", False, True, 40, 40, 128, 2048, [1975], False),
-    ("prefill", True, False, 71, 1, 64, 1, DECODE_LENS, False),
-    ("prefill", True, False, 71, 1, 64, 2048, [1975], False),
+    ("decode", "bf16", False, 32, 32, 128, 1, DECODE_LENS, False),
+    ("decode", "bf16", False, 32, 8, 128, 1, DECODE_LENS, False),
+    ("decode", "bf16", True, 32, 32, 128, 1, DECODE_LENS, True),
+    ("decode", "bf16", True, 40, 40, 128, 1, DECODE_LENS, False),
+    ("decode", "int8", True, 32, 32, 128, 1, DECODE_LENS, False),
+    ("decode", "int8", True, 40, 40, 128, 1, DECODE_LENS, False),
+    ("prefill", "bf16", False, 32, 32, 128, 2048, [1975], False),
+    ("prefill", "bf16", False, 32, 32, 128, 2048, [1975, 900, 300, 37],
+     False),
+    ("prefill", "bf16", True, 32, 32, 128, 2048, [1975], True),
+    ("prefill", "bf16", True, 40, 40, 128, 2048, [1975], False),
+    ("prefill", "int8", True, 32, 32, 128, 2048, [1975], False),
+    ("prefill", "int8", True, 40, 40, 128, 2048, [1975], False),
+    ("prefill", "bf16", False, 71, 1, 64, 1, DECODE_LENS, False),
+    ("prefill", "bf16", False, 71, 1, 64, 2048, [1975], False),
 ]
+# The head-dim instances over int8, bf16 and float32 K/V, each a
+# decode step (B = 4) and a prefill (T = 2048, 1975 real rows) at the
+# models' own heads: Phi-2's 32 at D = 80 (the float32 instances' main
+# cases: phase 10 serves Phi-2 over a float32 cache), GPT-NeoX-20B's 64 at
+# 96, Gemma-7B's and GPT-J-6B's 16 at 256; Gemma-2B's 8 query heads over
+# one KV head at 256 (decode through kernel C); and the masked head dim 72
+# (through the 80 instance; int8 rows of 72 bytes take 8-byte loads).
+DIM_CASES = [
+    (kernel, kv, False, h, h, d, t, lens, kv == "f32" and d == 80)
+    for d, h in ((80, 32), (96, 64), (256, 16), (72, 32))
+    for kv in ("int8", "bf16", "f32")
+    for kernel, t, lens in (("decode", 1, DECODE_LENS),
+                            ("prefill", 2048, [1975]))
+] + [("prefill", "bf16", False, 8, 1, 256, 1, DECODE_LENS, False),
+     ("prefill", "bf16", False, 8, 1, 256, 2048, [1975], False)]
 
 
 def _sdpa_mask(valid, pos, slopes, s):
@@ -1234,13 +1268,14 @@ def _sdpa_mask(valid, pos, slopes, s):
                        torch.full_like(bias, float("-inf")))
 
 
-def _variant_case(chk, gen, kernel, bf16, alibi, h, hkv, d, t, lens, main):
-    """One case of VARIANT_CASES: a shuffled pool at page size 128 and the
-    same rows gathered into a contiguous cache; the contiguous kernel and
-    the paged kernel each within 4 bf16 ulps per row of its plain version,
-    the paged kernel equal to the contiguous one bit for bit, and (int8
-    decode) the fused append equal to the plain version's.  Times kernel,
-    plain version and SDPA over the same K/V (ALiBi as a float mask)."""
+def _variant_case(chk, gen, kernel, kv, alibi, h, hkv, d, t, lens, main):
+    """One case of VARIANT_CASES / DIM_CASES (`kv`: "int8", "bf16" or
+    "f32"): a shuffled pool at page size 128 and the same rows gathered
+    into a contiguous cache; the contiguous kernel and the paged kernel
+    each within 4 bf16 ulps per row of its plain version, the paged kernel
+    equal to the contiguous one bit for bit, and (int8 decode) the fused
+    append equal to the plain version's.  Times kernel, plain version and
+    SDPA over the same K/V (bf16; ALiBi as a float mask)."""
     from neural_speed_tpu_torch.ops import flash
     from neural_speed_tpu_torch.ops.attention import alibi_slopes
     from neural_speed_tpu_torch.ops.paged_kv import gathered_layer
@@ -1249,7 +1284,7 @@ def _variant_case(chk, gen, kernel, bf16, alibi, h, hkv, d, t, lens, main):
     b = len(lens)
     scale = 1.0 / math.sqrt(d)
     slopes = alibi_slopes(h, "cuda") if alibi else None
-    pool = _random_pool(gen, 2, b, hkv, s, d, ps, bf16)
+    pool = _random_pool(gen, 2, b, hkv, s, d, ps, kv)
     ck = _gathered(pool, layer)
     kv_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
     if t == 1:      # live slots at kv_len - 1, the last one a spectator
@@ -1261,7 +1296,7 @@ def _variant_case(chk, gen, kernel, bf16, alibi, h, hkv, d, t, lens, main):
                           torch.full_like(ar, s - 1))
     q = torch.randn((b, t, h, d), generator=gen, device="cuda").to(
         torch.bfloat16)
-    extra = kernel == "decode" and not bf16
+    extra = kernel == "decode" and kv == "int8"
     kn, vn = ((torch.randn((b, 1, hkv, d), generator=gen, device="cuda")
                ).to(torch.bfloat16) for _ in range(2)) if extra else (None,
                                                                      None)
@@ -1288,9 +1323,9 @@ def _variant_case(chk, gen, kernel, bf16, alibi, h, hkv, d, t, lens, main):
     # gathered rows, without the append: equal bit for bit
     same = torch.equal(p_cuda(*pargs(pool, False), **kw),
                        c_cuda(*cargs(ck, False), **kw))
-    suffix = "_bf16" if bf16 else ""
-    what = (f"{kernel} {'bf16' if bf16 else 'int8'} K/V"
-            f"{', ALiBi' if alibi else ''} H={h} Hkv={hkv} D={d} T={t}")
+    suffix = "" if kv == "int8" else "_" + kv
+    what = (f"{kernel} {kv} K/V{', ALiBi' if alibi else ''} H={h} "
+            f"Hkv={hkv} D={d} T={t}")
     if not same:
         raise AssertionError(f"flash_{kernel}_paged{suffix} ({what}) differs "
                              f"from the contiguous kernel over the same rows")
@@ -1300,7 +1335,8 @@ def _variant_case(chk, gen, kernel, bf16, alibi, h, hkv, d, t, lens, main):
     valid = ((col[None, None] < cache_len[:, None, None])
              & (col[None, None] <= pos[:, :, None]))              # [B,T,S]
     pairs = valid.sum().item()
-    kv_bytes = 2 * d * (2 if bf16 else 1) + (0 if bf16 else 4)
+    kv_bytes = 2 * d * {"int8": 1, "bf16": 2, "f32": 4}[kv] + (
+        4 if kv == "int8" else 0)
     nbytes = (2 * b * t * h * d * 2 + valid.any(1).sum().item() * hkv
               * kv_bytes + (2 * b * hkv * d * 2 if extra else 0))
     for paged in (False, True):
@@ -1339,17 +1375,19 @@ def _variant_case(chk, gen, kernel, bf16, alibi, h, hkv, d, t, lens, main):
                 qs, kd, vd, attn_mask=mask, scale=scale,
                 enable_gqa=hkv != h))
         del kd, vd, mask, a_k, a_p
-        chk.add(name, "cuda", f"neural_speed_tpu_torch/csrc/flash_{kernel}.cu",
+        chk.add(name, "cuda",
+                f"neural_speed_tpu_torch/csrc/flash_{kernel}.cuh",
                 "neural_speed_tpu/ops/flash.py:"
                 + {("decode", False): "267", ("decode", True): "1196",
                    ("prefill", False): "142",
                    ("prefill", True): "1111"}[kernel, paged],
-                f"B={b} T={t} H={h} Hkv={hkv} D={d} S={s} kv_len="
+                f"B={b} T={t} H={h} Hkv={hkv} D={d} (instance "
+                f"{flash.instance_dim(d)}) {kv} S={s} kv_len="
                 f"{'/'.join(map(str, lens))}{' ALiBi' if alibi else ''}"
                 f"{', page size 128, shuffled table' if paged else ''}",
                 cmp, ms, plain_ms, lib_ms,
                 nbytes + (pool.page_tables.numel() * 4 if paged else 0),
-                4.0 * pairs * h * d, main=main and bf16)
+                4.0 * pairs * h * d, main=main)
         torch.cuda.empty_cache()
     del pool, ck
     torch.cuda.empty_cache()
@@ -1357,6 +1395,11 @@ def _variant_case(chk, gen, kernel, bf16, alibi, h, hkv, d, t, lens, main):
 
 def check_flash_variants(chk: Checks, gen: torch.Generator) -> None:
     for case in VARIANT_CASES:
+        _variant_case(chk, gen, *case)
+
+
+def check_flash_dims(chk: Checks, gen: torch.Generator) -> None:
+    for case in DIM_CASES:
         _variant_case(chk, gen, *case)
 
 
@@ -1400,7 +1443,8 @@ def format_configs():
 # way over seeds 0-399: their uniform codes give flat logits, so the GGUF
 # Q8_0 llama is held for the 7 steps its best seed keeps clear, and the
 # nf4 Mixtral, whose router gaps are narrow, for 4.  The tiny HF archs
-# (`check_tiny_hf`) were searched the same way over seeds 0-299; the int4
+# (`check_tiny_hf`) were searched the same way over seeds 0-299 (the tiny
+# GPT-NeoX at head dim 96 kept 9 clear steps at one seed only); the int4
 # seed and the refill prompt of the paged check keep their margins over the
 # bf16 pool too.
 TINY_SEEDS = {"int4": (15, 9), "nf4": (268, 9), "int5 asymmetric": (84, 5),
@@ -1411,7 +1455,9 @@ TINY_SEEDS = {"int4": (15, 9), "nf4": (268, 9), "int5 asymmetric": (84, 5),
               "gguf Q4_K_M": (166, 9), "gguf Q2_K": (60, 9),
               "mixtral gguf Q4_0": (7, 6), "mixtral nf4": (87, 4),
               "mpt bf16": (33, 9), "mpt int8": (11, 9), "bloom bf16": (19, 9),
-              "falcon bf16": (22, 9), "int4 paged bf16": (15, 9)}
+              "falcon bf16": (22, 9), "int4 paged bf16": (15, 9),
+              "gemma bf16": (0, 9), "phi bf16": (172, 9),
+              "gpt_neox bf16": (299, 9), "phi f32": (172, 9)}
 
 
 TINY_CFG = dict(name="llama", vocab_size=512, hidden_size=512, n_layers=2,
@@ -1455,11 +1501,13 @@ def tiny_moe_cfg():
 
 def check_tiny_model(label: str, spec, comp, cfg=None,
                      prompts=TINY_PROMPTS, params_fn=None,
-                     kv_quantized: bool = True) -> None:
+                     kv_quantized: bool = True,
+                     kv_dtype=torch.bfloat16) -> None:
     """A tiny model through `Engine` on the card and on the CPU: params from
     `synth_params(cfg, spec)` or, for a converted checkpoint, from
     `params_fn(cfg, generator)` (drawn on the CPU), seeded per label; the
-    int8 cache, or with `kv_quantized=False` the default bf16 one."""
+    int8 cache, or with `kv_quantized=False` a cache of `kv_dtype` values
+    (the default bf16, or float32)."""
     from neural_speed_tpu_torch.models.arch import ArchConfig
     from neural_speed_tpu_torch.runtime.engine import Engine
     from neural_speed_tpu_torch.utils.synthetic import synth_params
@@ -1472,7 +1520,8 @@ def check_tiny_model(label: str, spec, comp, cfg=None,
         params = params_fn(cfg, torch.Generator().manual_seed(seed))
     b = len(prompts)
     eng = {dev: Engine(params, cfg, max_batch=b, max_len=256,
-                       kv_quantized=kv_quantized, device=dev, comp=comp)
+                       kv_dtype=kv_dtype, kv_quantized=kv_quantized,
+                       device=dev, comp=comp)
            for dev in ("cuda", "cpu")}
     logits = {dev: e.prefill(prompts).float().cpu()
               for dev, e in eng.items()}
@@ -1734,8 +1783,9 @@ def check_tiny_checkpoints() -> None:
 # their HF layouts (`synth_hf_state_dict`) and converted by the port's
 # `convert/hf.py` to int4 g64.  An MPT of 6 heads (ALiBi with the
 # non-power-of-two slopes), a BLOOM (embedding LayerNorm, biases, ALiBi)
-# and a Falcon (8 query heads over one KV head: decode through kernel C).
-# Head dim 64, as the kernels take.
+# and a Falcon (8 query heads over one KV head: decode through kernel C),
+# at head dim 64; a Gemma at head dim 256, a Phi at 80 and a GPT-NeoX at
+# 96, the head dims of their full-size models (phase 10).
 TINY_HF = {
     "mpt": dict(model_type="mpt", d_model=384, n_heads=6, n_layers=2,
                 expansion_ratio=4, max_seq_len=256, vocab_size=512,
@@ -1746,6 +1796,19 @@ TINY_HF = {
                    num_attention_heads=8, num_hidden_layers=2,
                    vocab_size=512, multi_query=True, parallel_attn=True,
                    alibi=False, new_decoder_architecture=False),
+    "gemma": dict(model_type="gemma", hidden_size=512, num_hidden_layers=2,
+                  num_attention_heads=4, num_key_value_heads=4,
+                  head_dim=256, intermediate_size=1024, vocab_size=512,
+                  max_position_embeddings=256),
+    "phi": dict(model_type="phi", hidden_size=320, num_hidden_layers=2,
+                num_attention_heads=4, partial_rotary_factor=0.4,
+                intermediate_size=1280, vocab_size=512,
+                max_position_embeddings=256),
+    "gpt_neox": dict(model_type="gpt_neox", hidden_size=384,
+                     num_hidden_layers=2, num_attention_heads=4,
+                     rotary_pct=0.25, intermediate_size=1536, vocab_size=512,
+                     max_position_embeddings=256,
+                     use_parallel_residual=True),
 }
 
 
@@ -1768,16 +1831,23 @@ def hf_tiny(model_type: str):
 
 def check_tiny_hf() -> None:
     """Phase 3's tiny HF archs: MPT over the default bf16 cache and over
-    int8, BLOOM and Falcon over bf16, each through `Engine` on the card
-    against the CPU (`check_tiny_model`); then the tiny llama through a
-    bf16 `PagedEngine`, a release and a refill (`check_tiny_paged`)."""
-    for label, mt, kvq in (("mpt bf16", "mpt", False),
-                           ("mpt int8", "mpt", True),
-                           ("bloom bf16", "bloom", False),
-                           ("falcon bf16", "falcon", False)):
+    int8, BLOOM and Falcon over bf16, Gemma (head dim 256), Phi (80) and
+    GPT-NeoX (96) over bf16 and Phi over float32, each through `Engine` on
+    the card against the CPU (`check_tiny_model`); then the tiny llama
+    through a bf16 `PagedEngine`, a release and a refill
+    (`check_tiny_paged`)."""
+    for label, mt, kv in (("mpt bf16", "mpt", "bf16"),
+                          ("mpt int8", "mpt", "int8"),
+                          ("bloom bf16", "bloom", "bf16"),
+                          ("falcon bf16", "falcon", "bf16"),
+                          ("gemma bf16", "gemma", "bf16"),
+                          ("phi bf16", "phi", "bf16"),
+                          ("gpt_neox bf16", "gpt_neox", "bf16"),
+                          ("phi f32", "phi", "f32")):
         cfg, params_fn = hf_tiny(mt)
         check_tiny_model(label, None, None, cfg, params_fn=params_fn,
-                         kv_quantized=kvq)
+                         kv_quantized=kv == "int8",
+                         kv_dtype=KV_DTYPES.get(kv, torch.bfloat16))
     check_tiny_paged("int4 paged bf16", kv_quantized=False)
 
 
@@ -2436,6 +2506,7 @@ def _bench_engine(label: str, eng, prompt, n_steps: int, prefill_kernels,
     torch.cuda.synchronize()
     ttft = time.time() - t0
     prefill_counts = dict(_build.launches)
+    prefill_instances = dict(_build.instance_launches)
     if logits.shape != (1, cfg.vocab_size) or not torch.isfinite(
             logits).all():
         raise AssertionError(f"{label}: bad prefill logits")
@@ -2449,6 +2520,8 @@ def _bench_engine(label: str, eng, prompt, n_steps: int, prefill_kernels,
     counts = dict(_build.launches)
     decode_counts = {k: v - prefill_counts.get(k, 0) for k, v in
                      counts.items()}
+    decode_instances = {k: v - prefill_instances.get(k, 0) for k, v in
+                        _build.instance_launches.items()}
     if sync_moe:
         _moe_without_sync(lambda: eng.decode(toks[:, -1], on), cfg.n_layers,
                           f"{label}: one B = 1 decode step")
@@ -2475,10 +2548,14 @@ def _bench_engine(label: str, eng, prompt, n_steps: int, prefill_kernels,
         f"{ttft * 1e3:.2f} ms (1975 tokens, B=1); decode "
         f"{dt / n_steps * 1e3:.3f} ms/token over {n_steps} steps; launches "
         f"per prefill {prefill_counts}, per {n_steps} decode steps "
-        f"{decode_counts}; plain dispatches 0")
+        f"{decode_counts}; attention launches per head-dim instance: "
+        f"prefill {prefill_instances}, decode {decode_instances}; plain "
+        f"dispatches 0")
     res = dict(weight_bytes=nbytes, ttft_ms=ttft * 1e3,
                decode_ms_per_token=dt / n_steps * 1e3,
-               prefill_counts=prefill_counts, decode_counts=decode_counts)
+               prefill_counts=prefill_counts, decode_counts=decode_counts,
+               prefill_instances=prefill_instances,
+               decode_instances=decode_instances)
     if profile:
         res["profile_decode"] = profile_window(
             lambda: decode_n_steps(eng.params, eng.cfg, eng.cache,
@@ -2490,23 +2567,23 @@ def _bench_engine(label: str, eng, prompt, n_steps: int, prefill_kernels,
 
 
 def _ragged_equal(label: str, params, cfg, prompts, need,
-                  kv_quantized: bool = True) -> dict:
+                  kv_quantized: bool = True,
+                  kv_dtype=torch.bfloat16) -> dict:
     """The four ragged requests through `Engine`, then through
     `PagedEngine` (page size 128, 40 pages), every logit equal bit for bit;
     `need`: the kernels that must launch; the int8 cache, or with
-    `kv_quantized=False` the default bf16 one."""
+    `kv_quantized=False` a cache of `kv_dtype` values (the default bf16, or
+    float32)."""
     from neural_speed_tpu_torch import _build
     from neural_speed_tpu_torch.runtime.engine import Engine, PagedEngine
 
     out = {}
     runs = {}
-    for name, make in (("Engine", lambda: Engine(
-            params, cfg, max_batch=4, max_len=2048,
-            kv_quantized=kv_quantized, fuse=False)),
-            ("PagedEngine", lambda: PagedEngine(
-                params, cfg, max_batch=4, max_len=2048,
-                kv_quantized=kv_quantized, page_size=128, n_pages=40,
-                fuse=False))):
+    kw = dict(max_batch=4, max_len=2048, kv_dtype=kv_dtype,
+              kv_quantized=kv_quantized, fuse=False)
+    for name, make in (("Engine", lambda: Engine(params, cfg, **kw)),
+                       ("PagedEngine", lambda: PagedEngine(
+                           params, cfg, page_size=128, n_pages=40, **kw))):
         eng = make()
         _build.reset_counts()
         runs[name] = serve_ragged(eng, prompts, f"{label} {name} ragged")
@@ -2519,7 +2596,8 @@ def _ragged_equal(label: str, params, cfg, prompts, need,
             raise AssertionError(f"{label} {name}: a plain version ran")
         out[name] = dict(prefill_ms=runs[name]["ttft_s"] * 1e3,
                          decode_ms=runs[name]["decode_s"] * 1e3,
-                         steps=runs[name]["steps"], launches=counts)
+                         steps=runs[name]["steps"], launches=counts,
+                         instances=dict(_build.instance_launches))
         if name == "PagedEngine":
             for slot in range(4):
                 eng.release_slot(slot)
@@ -2540,7 +2618,9 @@ def _ragged_equal(label: str, params, cfg, prompts, need,
         f"PagedEngine {out['PagedEngine']['prefill_ms']:.1f} ms, "
         f"{out['PagedEngine']['decode_ms']:.1f} ms; every logit of the "
         f"prefill and of all {a['steps']} steps equal bit for bit; launches "
-        f"{out['Engine']['launches']}")
+        f"{out['Engine']['launches']}; attention launches per instance "
+        f"{out['Engine']['instances']}, paged "
+        f"{out['PagedEngine']['instances']}")
     return out
 
 
@@ -2756,6 +2836,92 @@ def _head_ms(params, cfg) -> float:
     return time_ms(lambda: x.float() @ emb.t().to(x.dtype).float())
 
 
+def _convert_hf(label: str, mt: str, cfg, group: int, seed: int):
+    """A random float checkpoint of HF `model_type` `mt` drawn on the card
+    in its published layout (`synth_hf_state_dict`), converted there by
+    `convert/hf.py` to fused int4 params (bf16 group scales, group
+    `group`); the checkpoint is freed.  Returns (params, info: checkpoint
+    GiB, conversion seconds, peak GiB)."""
+    from neural_speed_tpu_torch.convert.hf import params_from_state_dict
+    from neural_speed_tpu_torch.models.transformer import fuse_params
+    from neural_speed_tpu_torch.ops.qtypes import named_qspec
+    from neural_speed_tpu_torch.utils.synthetic import synth_hf_state_dict
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sd = synth_hf_state_dict(mt, cfg, seed=seed)
+    sd_bytes = sum(t.numel() * t.element_size() for t in sd.values())
+    torch.cuda.synchronize()
+    t0 = time.time()
+    params = fuse_params(params_from_state_dict(
+        sd, cfg, named_qspec("int4", group, scale_dtype="bfloat16")), cfg)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    del sd
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    info = dict(checkpoint_gib=sd_bytes / 2 ** 30, convert_s=secs,
+                convert_peak_gib=peak / 2 ** 30)
+    log(f"  {label}: a {sd_bytes / 2 ** 30:.2f} GiB bf16 checkpoint "
+        f"({cfg.n_layers} layers) converted on the card in {secs:.1f} s, "
+        f"peak memory {peak / 2 ** 30:.2f} GiB")
+    return params, info
+
+
+def _bench_hf(label: str, params, cfg, kv: str, attention, n_steps: int,
+              prof: str = "") -> dict:
+    """The bench shape (`_bench_engine`: B = 1, a 1975-token prefill,
+    `n_steps` greedy steps) through `Engine` over a `kv` cache ("int8",
+    "bf16" or "f32"); kernel A the only matmul kernel, the `attention`
+    kernels (prefill's, decode's) launched at the model's head-dim
+    instance.  Adds the serving peak and the launches per decode step."""
+    from neural_speed_tpu_torch.ops.flash import instance_dim
+    from neural_speed_tpu_torch.runtime.engine import Engine
+
+    pgen = torch.Generator().manual_seed(9)
+    prompt = torch.randint(0, cfg.vocab_size, (1975,),
+                           generator=pgen).tolist()
+    eng = Engine(params, cfg, max_batch=1, max_len=2048,
+                 kv_dtype=KV_DTYPES.get(kv, torch.bfloat16),
+                 kv_quantized=kv == "int8", fuse=False)
+    torch.cuda.reset_peak_memory_stats()
+    out = _bench_engine(label, eng, prompt, n_steps, ("qmatmul",),
+                        ("qmatmul",), profile=prof, attention=attention)
+    di = instance_dim(cfg.head_dim)
+    for part, name in zip(("prefill_instances", "decode_instances"),
+                          attention):
+        if out[part].get(f"{name} d{di}", 0) <= 0:
+            raise AssertionError(f"{label}: {name}'s head-dim {di} instance "
+                                 f"was not launched: {out[part]}")
+    out["serve_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["per_decode_step"] = {k: v / n_steps for k, v in
+                              out["decode_counts"].items()}
+    log(f"  {label}: serving peak {out['serve_peak_gib']:.2f} GiB; "
+        f"launches per decode step {out['per_decode_step']}")
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ragged_hf(label: str, params, cfg, kv: str, kernels) -> dict:
+    """The ragged requests through `Engine` and `PagedEngine` over a `kv`
+    cache, every logit equal bit for bit (`_ragged_equal`); `kernels`: the
+    contiguous prefill and decode kernels, then the paged ones, which must
+    launch."""
+    pgen = torch.Generator().manual_seed(10)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=pgen).tolist()
+               for n in RAGGED_LENS]
+    out = _ragged_equal(label, params, cfg, prompts, ("qmatmul",),
+                        kv_quantized=kv == "int8",
+                        kv_dtype=KV_DTYPES.get(kv, torch.bfloat16))
+    for name, need in (("Engine", kernels[:2]), ("PagedEngine", kernels[2:])):
+        for k in need:
+            if out[name]["launches"].get(k, 0) <= 0:
+                raise AssertionError(f"{label} {name}: {k} was not "
+                                     f"launched: {out[name]['launches']}")
+    return out
+
+
 def serve_hf(profile: bool) -> dict:
     """Phase 9: random float checkpoints drawn on the card in the published
     HF layouts (`synth_hf_state_dict`, seeds 91-93) and converted by the
@@ -2774,117 +2940,135 @@ def serve_hf(profile: bool) -> dict:
     Each prints the checkpoint and weight GiB, the conversion's seconds and
     peak GiB, TTFT, ms/token, launches per prefill and per decode step of
     each kernel, and the plain dispatches (none may run)."""
-    from neural_speed_tpu_torch import _build
-    from neural_speed_tpu_torch.convert.hf import params_from_state_dict
-    from neural_speed_tpu_torch.models.transformer import fuse_params
-    from neural_speed_tpu_torch.ops.qtypes import named_qspec
-    from neural_speed_tpu_torch.runtime.engine import Engine
     from neural_speed_tpu_torch.utils.synthetic import (bloom_7b1_arch,
                                                         falcon_7b_arch,
-                                                        mpt_7b_arch,
-                                                        synth_hf_state_dict)
+                                                        mpt_7b_arch)
 
     n_steps = 64
     res = {}
-
-    def convert(label, mt, cfg, group, seed):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        sd = synth_hf_state_dict(mt, cfg, seed=seed)
-        sd_bytes = sum(t.numel() * t.element_size() for t in sd.values())
-        torch.cuda.synchronize()
-        t0 = time.time()
-        params = fuse_params(params_from_state_dict(
-            sd, cfg, named_qspec("int4", group, scale_dtype="bfloat16")), cfg)
-        torch.cuda.synchronize()
-        secs = time.time() - t0
-        del sd
-        torch.cuda.empty_cache()
-        peak = torch.cuda.max_memory_allocated()
-        info = dict(checkpoint_gib=sd_bytes / 2 ** 30, convert_s=secs,
-                    convert_peak_gib=peak / 2 ** 30)
-        log(f"  {label}: a {sd_bytes / 2 ** 30:.2f} GiB bf16 checkpoint "
-            f"({cfg.n_layers} layers) converted on the card in {secs:.1f} s, "
-            f"peak memory {peak / 2 ** 30:.2f} GiB")
-        return params, info
-
-    def bench(label, params, cfg, kvq, attention, prof=""):
-        pgen = torch.Generator().manual_seed(9)
-        prompt = torch.randint(0, cfg.vocab_size, (1975,),
-                               generator=pgen).tolist()
-        eng = Engine(params, cfg, max_batch=1, max_len=2048,
-                     kv_quantized=kvq, fuse=False)
-        torch.cuda.reset_peak_memory_stats()
-        out = _bench_engine(label, eng, prompt, n_steps, ("qmatmul",),
-                            ("qmatmul",), profile=prof, attention=attention)
-        out["serve_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-        out["per_decode_step"] = {k: v / n_steps for k, v in
-                                  out["decode_counts"].items()}
-        log(f"  {label}: serving peak {out['serve_peak_gib']:.2f} GiB; "
-            f"launches per decode step {out['per_decode_step']}")
-        del eng
-        torch.cuda.empty_cache()
-        return out
-
-    def ragged(label, params, cfg, kvq, kernels):
-        pgen = torch.Generator().manual_seed(10)
-        prompts = [torch.randint(0, cfg.vocab_size, (n,),
-                                 generator=pgen).tolist()
-                   for n in RAGGED_LENS]
-        out = _ragged_equal(label, params, cfg, prompts, ("qmatmul",),
-                            kv_quantized=kvq)
-        for name, need in (("Engine", kernels[:2]),
-                           ("PagedEngine", kernels[2:])):
-            for k in need:
-                if out[name]["launches"].get(k, 0) <= 0:
-                    raise AssertionError(f"{label} {name}: {k} was not "
-                                         f"launched: {out[name]['launches']}")
-        return out
+    bf16 = ("flash_prefill_bf16", "flash_decode_bf16",
+            "flash_prefill_paged_bf16", "flash_decode_paged_bf16")
+    int8 = ("flash_prefill", "flash_decode", "flash_prefill_paged",
+            "flash_decode_paged")
 
     # (a) and (b): MPT-7B, ALiBi
     cfg = mpt_7b_arch()
-    params, info = convert("(a) MPT-7B int4 g128", "mpt", cfg, 128, 91)
-    res["mpt_bf16"] = dict(info, **bench(
-        "(a) MPT-7B bf16 KV", params, cfg, False,
-        ("flash_prefill_bf16", "flash_decode_bf16"),
+    params, info = _convert_hf("(a) MPT-7B int4 g128", "mpt", cfg, 128, 91)
+    res["mpt_bf16"] = dict(info, **_bench_hf(
+        "(a) MPT-7B bf16 KV", params, cfg, "bf16", bf16[:2], n_steps,
         "mpt_bf16" if profile else ""))
-    res["mpt_bf16"]["ragged"] = ragged(
-        "(a) MPT-7B bf16 KV", params, cfg, False,
-        ("flash_prefill_bf16", "flash_decode_bf16",
-         "flash_prefill_paged_bf16", "flash_decode_paged_bf16"))
-    res["mpt_int8"] = dict(info, **bench(
-        "(b) MPT-7B int8 KV", params, cfg, True,
-        ("flash_prefill", "flash_decode")))
-    res["mpt_int8"]["ragged"] = ragged(
-        "(b) MPT-7B int8 KV", params, cfg, True,
-        ("flash_prefill", "flash_decode", "flash_prefill_paged",
-         "flash_decode_paged"))
+    res["mpt_bf16"]["ragged"] = _ragged_hf("(a) MPT-7B bf16 KV", params, cfg,
+                                           "bf16", bf16)
+    res["mpt_int8"] = dict(info, **_bench_hf(
+        "(b) MPT-7B int8 KV", params, cfg, "int8", int8[:2], n_steps))
+    res["mpt_int8"]["ragged"] = _ragged_hf("(b) MPT-7B int8 KV", params, cfg,
+                                           "int8", int8)
     res["mpt_bf16"]["tied_head_ms"] = _head_ms(params, cfg)
     del params
     torch.cuda.empty_cache()
 
     # (c) BLOOM-7B1
     cfg = bloom_7b1_arch()
-    params, info = convert("(c) BLOOM-7B1 int4 g128", "bloom", cfg, 128, 92)
-    res["bloom_bf16"] = dict(info, **bench(
-        "(c) BLOOM-7B1 bf16 KV", params, cfg, False,
-        ("flash_prefill_bf16", "flash_decode_bf16")))
+    params, info = _convert_hf("(c) BLOOM-7B1 int4 g128", "bloom", cfg, 128,
+                               92)
+    res["bloom_bf16"] = dict(info, **_bench_hf(
+        "(c) BLOOM-7B1 bf16 KV", params, cfg, "bf16", bf16[:2], n_steps))
     res["bloom_bf16"]["tied_head_ms"] = _head_ms(params, cfg)
     del params
     torch.cuda.empty_cache()
 
     # (d) Falcon-7B at g64
     cfg = falcon_7b_arch()
-    params, info = convert("(d) Falcon-7B int4 g64", "falcon", cfg, 64, 93)
-    res["falcon_bf16"] = dict(info, **bench(
-        "(d) Falcon-7B bf16 KV", params, cfg, False,
-        ("flash_prefill_bf16", "flash_prefill_bf16")))
+    params, info = _convert_hf("(d) Falcon-7B int4 g64", "falcon", cfg, 64,
+                               93)
+    res["falcon_bf16"] = dict(info, **_bench_hf(
+        "(d) Falcon-7B bf16 KV", params, cfg, "bf16",
+        ("flash_prefill_bf16", "flash_prefill_bf16"), n_steps))
     res["falcon_bf16"]["tied_head_ms"] = _head_ms(params, cfg)
     del params
     torch.cuda.empty_cache()
     for k in ("mpt_bf16", "bloom_bf16", "falcon_bf16"):
         log(f"  {k}: tied LM head {res[k]['tied_head_ms']:.3f} ms per "
             f"decode step")
+    return res
+
+
+def serve_hf_dims(profile: bool) -> dict:
+    """Phase 10: the head dims 256, 80 and 96 and float32 K/V at full width
+    and depth.  Random float checkpoints drawn on the card in the published
+    HF layouts (`synth_hf_state_dict`, seeds 94-97) and converted there by
+    `convert/hf.py` to int4 g128 (bf16 group scales), each freed before the
+    next:
+    (a) Gemma-7B (head dim 256, 16 heads over 16 KV heads, the tied
+        256000-row head) over the default bf16 cache: the bench shape (B =
+        1, a 1975-token prefill, 64 greedy steps), then the ragged requests
+        through `Engine` and `PagedEngine`, every logit equal bit for bit;
+    (b) GPT-J-6B (head dim 256) over the int8 cache: the bench shape, its
+        decode through kernel B's fused append at D = 256;
+    (c) Phi-2 (head dim 80) over bf16: the bench shape, and the ragged
+        requests, `Engine` = `PagedEngine` bit for bit;
+    (d) Phi-2 over float32 K/V (`kv_dtype=torch.float32`): the same, through
+        all four float32 instances;
+    (e) GPT-NeoX-20B (head dim 96, 44 layers, a 38.3 GiB bf16 checkpoint:
+        drawn and converted whole, its peak printed) over bf16: the bench
+        shape.
+    Each prints the checkpoint and weight GiB, the conversion's seconds and
+    peak GiB, TTFT, ms/token, launches per kernel and per head-dim instance
+    at prefill and per decode step, and the plain dispatches (none may
+    run).  With `--profile`, a trace of Gemma-7B's prefill and decode."""
+    from neural_speed_tpu_torch.utils.synthetic import (gemma_7b_arch,
+                                                        gptj_6b_arch,
+                                                        gptneox_20b_arch,
+                                                        phi_2_arch)
+
+    n_steps = 64
+    res = {}
+    kernels = {kv: tuple(f"flash_{k}{'' if kv == 'int8' else '_' + kv}"
+                         for k in ("prefill", "decode", "prefill_paged",
+                                   "decode_paged"))
+               for kv in ("int8", "bf16", "f32")}
+
+    # (a) Gemma-7B, head dim 256
+    cfg = gemma_7b_arch()
+    params, info = _convert_hf("(a) Gemma-7B int4 g128", "gemma", cfg, 128,
+                               94)
+    res["gemma_bf16"] = dict(info, **_bench_hf(
+        "(a) Gemma-7B bf16 KV", params, cfg, "bf16", kernels["bf16"][:2],
+        n_steps, "gemma_bf16" if profile else ""))
+    res["gemma_bf16"]["ragged"] = _ragged_hf(
+        "(a) Gemma-7B bf16 KV", params, cfg, "bf16", kernels["bf16"])
+    del params
+    torch.cuda.empty_cache()
+
+    # (b) GPT-J-6B, head dim 256, int8 K/V
+    cfg = gptj_6b_arch()
+    params, info = _convert_hf("(b) GPT-J-6B int4 g128", "gptj", cfg, 128, 95)
+    res["gptj_int8"] = dict(info, **_bench_hf(
+        "(b) GPT-J-6B int8 KV", params, cfg, "int8", kernels["int8"][:2],
+        n_steps))
+    del params
+    torch.cuda.empty_cache()
+
+    # (c) and (d): Phi-2, head dim 80, bf16 and float32 K/V
+    cfg = phi_2_arch()
+    params, info = _convert_hf("(c) Phi-2 int4 g128", "phi", cfg, 128, 96)
+    for key, kv, what in (("phi_bf16", "bf16", "(c) Phi-2 bf16 KV"),
+                          ("phi_f32", "f32", "(d) Phi-2 float32 KV")):
+        res[key] = dict(info, **_bench_hf(what, params, cfg, kv,
+                                          kernels[kv][:2], n_steps))
+        res[key]["ragged"] = _ragged_hf(what, params, cfg, kv, kernels[kv])
+    del params
+    torch.cuda.empty_cache()
+
+    # (e) GPT-NeoX-20B, head dim 96
+    cfg = gptneox_20b_arch()
+    params, info = _convert_hf("(e) GPT-NeoX-20B int4 g128", "gpt_neox", cfg,
+                               128, 97)
+    res["gptneox_bf16"] = dict(info, **_bench_hf(
+        "(e) GPT-NeoX-20B bf16 KV", params, cfg, "bf16",
+        kernels["bf16"][:2], n_steps))
+    del params
+    torch.cuda.empty_cache()
     return res
 
 
@@ -2937,6 +3121,8 @@ def main() -> int:
                         ("flash_decode_bf16 flash_prefill_bf16 "
                          "flash_decode_paged_bf16 flash_prefill_paged_bf16 "
                          "alibi", check_flash_variants),
+                        ("flash_decode flash_prefill _f32 dims",
+                         check_flash_dims),
                         ("qmatmul_int4", check_qmatmul),
                         ("qmatmul_lut qmatmul_planar", check_fp_formats),
                         ("qmatmul_int8 qmatmul_int8_planar",
@@ -2967,6 +3153,7 @@ def main() -> int:
         check_tiny_checkpoints()
         check_tiny_hf()
         log("phase 4: Llama-2-7B-shaped int4 serving")
+        instances = collections.Counter()
         params, cfg = params_7b()
         _build.reset_counts()
         summary, ref = serve_7b(params, cfg, args.profile)
@@ -3024,23 +3211,32 @@ def main() -> int:
             for part in ragged.values() if "launches" not in ragged else (
                     ragged,):
                 counts.update(part["launches"])
-        log("phase 9: float HF checkpoints (MPT-7B, BLOOM-7B1, Falcon-7B) "
-            "at full width and depth")
-        _build.reset_counts()
-        summary["hf"] = serve_hf(args.profile)
-        for run in summary["hf"].values():
-            counts.update(run["prefill_counts"])
-            counts.update(run["decode_counts"])
-            for part in run.get("ragged", {}).values():
-                counts.update(part["launches"])
-        log(f"  launches over the six paths {dict(counts)}")
+        for phase, what, serve, key in (
+                (9, "float HF checkpoints (MPT-7B, BLOOM-7B1, Falcon-7B)",
+                 serve_hf, "hf"),
+                (10, "the head dims 256, 80 and 96 and float32 K/V (Gemma-7B, "
+                 "GPT-J-6B, Phi-2, GPT-NeoX-20B)", serve_hf_dims, "hf_dims")):
+            log(f"phase {phase}: {what} at full width and depth")
+            _build.reset_counts()
+            summary[key] = serve(args.profile)
+            for run in summary[key].values():
+                counts.update(run["prefill_counts"])
+                counts.update(run["decode_counts"])
+                instances.update(run["prefill_instances"])
+                instances.update(run["decode_instances"])
+                for part in run.get("ragged", {}).values():
+                    counts.update(part["launches"])
+                    instances.update(part["instances"])
+        log(f"  launches over the seven paths {dict(counts)}; attention "
+            f"launches per head-dim instance in phases 9 and 10 "
+            f"{dict(instances)}")
     else:
         counts = {}
 
     launches_of = {"qmatmul_int4": "qmatmul"}
     kernels = []
     for rec in chk.records.values():
-        main = next(c for c in rec["cases"] if c["main"])
+        main = next((c for c in rec["cases"] if c["main"]), rec["cases"][0])
         kernels.append(dict(
             name=rec["name"], route=rec["route"], source=rec["source"],
             replaces=rec["replaces"],

@@ -33,11 +33,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # version because its tensors lay on the CPU.
 launches: collections.Counter = collections.Counter()
 plain_dispatches: collections.Counter = collections.Counter()
+# The attention kernels' launches per head-dim instance ("<name> d<D>"),
+# counted beside `launches` at the same place.
+instance_launches: collections.Counter = collections.Counter()
 
 
 def reset_counts() -> None:
     launches.clear()
     plain_dispatches.clear()
+    instance_launches.clear()
 
 
 def resolve_device(device=None) -> torch.device:

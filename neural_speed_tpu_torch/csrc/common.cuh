@@ -6,6 +6,8 @@
 #include <float.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace nst {
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -52,15 +54,19 @@ __device__ __forceinline__ float round_bf16(float v) {
 }
 
 // Element type of the cache rows: int8 codes with a bf16 scale per row (the
-// quantized cache), or bf16 values with no scale.  `kPer16` elements fill
-// one 16-byte load.
+// quantized cache), or bf16 or float32 values with no scale.  Float32 rows
+// are read rounded to bf16 (`to_float`, `to_bf16`: round to nearest even,
+// as the JAX kernels' `astype(bfloat16)` before both products), so every
+// element type reaches the products as a bf16 value.  `Stage` is the type
+// kernel B keeps V rows in shared memory as (the element itself, bf16 for
+// float32).
 template <class T>
 struct KVElem;
 
 template <>
 struct KVElem<int8_t> {
   static constexpr bool kQuantized = true;
-  static constexpr int kPer16 = 16;
+  using Stage = int8_t;
   static __device__ __forceinline__ float to_float(int8_t x) { return (float)x; }
   static __device__ __forceinline__ __nv_bfloat16 to_bf16(int8_t x) {
     return __float2bfloat16_rn((float)x);  // exact: |x| <= 127
@@ -70,7 +76,7 @@ struct KVElem<int8_t> {
 template <>
 struct KVElem<__nv_bfloat16> {
   static constexpr bool kQuantized = false;
-  static constexpr int kPer16 = 8;
+  using Stage = __nv_bfloat16;
   static __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
     return __bfloat162float(x);
   }
@@ -78,6 +84,47 @@ struct KVElem<__nv_bfloat16> {
     return x;
   }
 };
+
+template <>
+struct KVElem<float> {
+  static constexpr bool kQuantized = false;
+  using Stage = __nv_bfloat16;
+  static __device__ __forceinline__ float to_float(float x) {
+    return round_bf16(x);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 to_bf16(float x) {
+    return __float2bfloat16_rn(x);
+  }
+};
+
+// One load of VB bytes (16, or 8 for int8 rows whose length is not a
+// multiple of 16 bytes): VB / sizeof(T) elements of a cache row.
+template <class T, int VB>
+struct RowChunk {
+  using Raw = std::conditional_t<VB == 16, int4, int2>;
+  Raw raw;
+  __device__ __forceinline__ explicit RowChunk(const T* src)
+      : raw(*reinterpret_cast<const Raw*>(src)) {}
+  __device__ __forceinline__ T operator[](int j) const {
+    return reinterpret_cast<const T*>(&raw)[j];
+  }
+};
+
+// Copies one chunk of a cache row to `dst` in the element type's Stage
+// type: as it is, or (float32) rounded to bf16.
+template <class T, int VB>
+__device__ __forceinline__ void stage_chunk(typename KVElem<T>::Stage* dst,
+                                            const T* src) {
+  const RowChunk<T, VB> x(src);
+  if constexpr (std::is_same<typename KVElem<T>::Stage, T>::value) {
+    *reinterpret_cast<typename RowChunk<T, VB>::Raw*>(dst) = x.raw;
+  } else {
+    static_assert(std::is_same<T, float>::value && VB == 16, "");
+    __nv_bfloat162 h[2] = {__floats2bfloat162_rn(x[0], x[1]),
+                           __floats2bfloat162_rn(x[2], x[3])};
+    *reinterpret_cast<int2*>(dst) = *reinterpret_cast<const int2*>(h);
+  }
+}
 
 // ALiBi bias of one score, added after the score scale and before the mask
 // as the JAX kernels do: slope * (float(col) - float(pos)), rounded at the
@@ -94,7 +141,7 @@ __device__ __forceinline__ float add_alibi(float s, float slope, int col,
 // a (layer, slot, head) run of S rows; the page pool [L, Hkv, P, ps, D]
 // (scales [L, Hkv, P, 1, ps]) keeps a (layer, head) run of P * ps rows, in
 // which logical block j of slot b is page table[b, j].  Rows hold elements
-// of either KVElem type (a bf16 cache has no scales).  The kernels are
+// of any KVElem type (bf16 and float32 caches have no scales).  The kernels are
 // templates over these two addressings and the element type, so paged and
 // contiguous do the same arithmetic in the same order.
 struct ContigRows {

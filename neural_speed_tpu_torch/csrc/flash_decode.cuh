@@ -1,12 +1,17 @@
 // Decode attention over the KV cache: the int8 cache with the current
 // token's k/v as extra operands and the in-place append of its quantized
-// row, or the bf16 cache after a plain append (no extra column).
+// row, or a cache of bf16 or float32 values after a plain append (no extra
+// column).  One instance per head dim and addressing: `flash_decode_d<D>.cu`
+// (the contiguous cache) and `flash_decode_paged_d<D>.cu` (the page pool)
+// define NST_FLASH_DIM and NST_FLASH_PAGED and include this file, so nvcc
+// builds them side by side.
 //
 // Replaces: neural_speed_tpu/ops/flash.py, _mha_kernel_hblk, launched by
 // _mha_packed_hblk from mha over the contiguous cache (nst_flash_decode) and
 // by _mha_paged_hblk from mha_paged over the page pool
 // (nst_flash_decode_paged): int8 K/V with extra_kv=True, fused_append=True;
-// int8 or bf16 K/V with neither; ALiBi or none; causal.
+// int8, bf16 or float32 K/V with neither; ALiBi or none; causal; every head
+// dim the JAX kernels take (multiples of 8 up to 256, `_head_dim_ok`).
 //
 // What it computes, per slot b and KV head hk, for the n_rep query heads of
 // that group (one token per slot):
@@ -15,12 +20,13 @@
 //     live slot), else below kv_len (a spectator whose query is parked at
 //     max_len - 1).  Without it the cache is read below kv_len.  Columns
 //     also satisfy c <= pos (causal);
-//   * scores s = (bf16(q) . k) * k_scale * sm_scale (no k_scale for bf16
-//     K), then + slope[h] * (c - pos) with ALiBi; the online softmax is
-//     seeded with the UNQUANTIZED current k/v (f32, ALiBi distance 0) when
-//     the extra column is on;
-//   * P * v_scale (P for bf16 V) is rounded to bf16 before the product with
-//     V; out = acc / l, 0 where no column is valid;
+//   * scores s = (bf16(q) . k) * k_scale * sm_scale (no k_scale for K
+//     values; float32 K rounded to bf16 first), then + slope[h] * (c - pos)
+//     with ALiBi; the online softmax is seeded with the UNQUANTIZED current
+//     k/v (f32, ALiBi distance 0) when the extra column is on;
+//   * P * v_scale (P for V values) is rounded to bf16 before the product
+//     with V (float32 V rounded to bf16); out = acc / l, 0 where no column
+//     is valid;
 //   * with the fused append, live slots get the current k/v quantized
 //     (amax / 127 by division, codes rint(x / scale) clipped to +-127,
 //     scale stored as bf16) and written at row kv_len - 1; spectators are
@@ -28,7 +34,7 @@
 //
 // Bound: bytes.  Each step reads the K and V of every live column once
 // (about 0.5 GB per Llama-2-7B step at ctx 2000, B = 1, in int8; twice that
-// in bf16).
+// in bf16, four times in float32).
 // Design: flash-decoding.  B * Hkv = 32 blocks cannot fill 132 SMs, so the
 // sequence is split into chunks of `chunk` columns across blocks
 // (gridDim.x); each block keeps its partial max / sum / accumulator, and a
@@ -36,10 +42,25 @@
 // column, writes the output and performs the append.  The append cannot race
 // with the reads: the new row sits at kv_len - 1 >= kv_len_cache, which no
 // block reads, and exactly one block writes it.  Within a block, a thread
-// scores one column (its K row as 16-byte loads: 16 int8 codes or 8 bf16
-// values each) and, after the softmax step, owns one of the D output
-// features; the V rows of each 128-column sub-chunk are staged in shared
-// memory with coalesced loads (16 KiB in int8, 32 KiB in bf16 at D = 128).
+// scores one column (its K row as 16-byte loads: 16 int8 codes, 8 bf16 or 4
+// float32 values each; 8-byte loads for int8 rows of D % 16 == 8) and, after
+// the softmax step, owns the output features tid and tid + 128 (at D = 256
+// two each; at D = 80 or 96 threads past D own none); the V rows of each
+// 128-column sub-chunk are staged in dynamic shared memory with coalesced
+// loads, float32 rounded to bf16 on the way (128 * D bytes in int8, twice
+// that in bf16 and float32; static shared memory up to 32 KiB, dynamic
+// above: 64 KiB at D = 256 is beyond the 48 KB of static shared memory).  The score loop is unrolled over 128 elements of the K
+// row (all of it up to D = 128, half at 256, which keeps the instance's
+// build time near the 128 one's), loads at constant offsets from the row.
+// Head dims below the instance's (a multiple of 8 without an instance of
+// its own, as 72 through the 80 instance) take the instance's masked
+// kernels (EXACT = false): a runtime D <= NST_FLASH_DIM, a rolled score
+// loop over the row's D / PER loads, and the V chunks and output features
+// past D skipped.  The instance's own head dim takes kernels in which D is
+// the compile-time NST_FLASH_DIM (EXACT): with a runtime D, ptxas spilled
+// 4-20 bytes in most of the split kernels and B ran 1.03-1.35x its time
+// before the head-dim instances; with the V stage in dynamic shared memory
+// at every size, the bf16 instance still ran 1.10-1.27x.
 //
 // Paged: the kernels are templates over the cache addressing
 // (common.cuh): every column's row is resolved through the slot's page
@@ -53,15 +74,49 @@
 
 #include "common.cuh"
 
+#if !defined(NST_FLASH_DIM) || !defined(NST_FLASH_PAGED)
+#error "define NST_FLASH_DIM and NST_FLASH_PAGED before including this file"
+#endif
+
 namespace {
 
 constexpr int THREADS = 128;
 constexpr int NW = THREADS / 32;
 constexpr int MAX_REP = 8;
+constexpr int DI = NST_FLASH_DIM;                   // the instance's head dim
+constexpr int NF = (DI + THREADS - 1) / THREADS;    // features per thread
+
+// Bytes of a sub-chunk's V rows in shared memory, and whether they fit a
+// static array (up to 32 KiB: every element type up to D = 128, int8 at
+// 256); above that, dynamic shared memory.
+template <class T>
+struct VStage {
+  static constexpr int kBytes =
+      THREADS * DI * (int)sizeof(typename nst::KVElem<T>::Stage);
+  static constexpr bool kStatic = kBytes <= 32 * 1024;
+};
+
+// s[r] += q[r] . (chunk `ch` of the K row kr), for the n_rep rows.
+template <int R, class T, int VB>
+__device__ __forceinline__ void score_chunk(float (&s)[R],
+                                            const float (*qs)[DI],
+                                            const T* kr, int ch, int n_rep) {
+  using E = nst::KVElem<T>;
+  constexpr int PER = VB / (int)sizeof(T);
+  const nst::RowChunk<T, VB> kv8(kr + ch * PER);
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const float kv = E::to_float(kv8[j]);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (r < n_rep) s[r] = fmaf(qs[r][ch * PER + j], kv, s[r]);
+  }
+}
 
 // R: a power of two >= n_rep, so the per-row arrays have compile-time
-// indices and stay in registers.  T: the cache's element type (KVElem).
-template <int D, int R, class T, class Cache>
+// indices and stay in registers.  T: the cache's element type (KVElem);
+// VB: bytes per row load; EXACT: D is the instance's head dim.
+template <int R, class T, int VB, bool EXACT, class Cache>
 __global__ void __launch_bounds__(THREADS)
 flash_decode_split(Cache cache, const __nv_bfloat16* __restrict__ q,
                    const T* __restrict__ kc, const T* __restrict__ vc,
@@ -70,11 +125,16 @@ flash_decode_split(Cache cache, const __nv_bfloat16* __restrict__ q,
                    const float* __restrict__ slopes,
                    const int* __restrict__ pos, const int* __restrict__ kv_lens,
                    float* __restrict__ part_m, float* __restrict__ part_l,
-                   float* __restrict__ part_acc, int H, int Hkv, int S,
+                   float* __restrict__ part_acc, int H, int Hkv, int S, int D,
                    int layer, int chunk, int extra, float sm_scale) {
+  if constexpr (EXACT) D = DI;
   using E = nst::KVElem<T>;
-  constexpr int PER = E::kPer16;      // elements per 16-byte load
-  constexpr int CH = D / PER;         // 16-byte loads per row
+  using ST = typename E::Stage;
+  using SE = nst::KVElem<ST>;
+  constexpr int PER = VB / (int)sizeof(T);   // elements per load
+  constexpr int CH = DI / PER;               // loads per row of the instance
+  constexpr int CU = CH * PER <= 128 ? CH : 128 / PER;  // unrolled loads
+  const int nch = D / PER;                   // loads per row
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int splits = gridDim.x;
   const int n_rep = H / Hkv;
@@ -85,15 +145,21 @@ flash_decode_split(Cache cache, const __nv_bfloat16* __restrict__ q,
   const int c0 = split * chunk;
   const int c1 = min(c0 + chunk, c_end);
 
-  __shared__ float qs[R][D];
+  __shared__ float qs[R][DI];
   __shared__ float ps[R][THREADS];
-  __shared__ __align__(16) T vsm[THREADS * D];  // V rows of a sub-chunk
   __shared__ float red_max[R][NW];
   __shared__ float red_sum[R][NW];
+  // V rows of a sub-chunk [128][DI]
+  __shared__ __align__(16) ST vsm_static[VStage<T>::kStatic ? THREADS * DI
+                                                              : 1];
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  ST* vsm = VStage<T>::kStatic ? vsm_static : reinterpret_cast<ST*>(dyn_smem);
 
-  for (int i = tid; i < n_rep * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    qs[r][d] = __bfloat162float(q[((size_t)b * H + hk * n_rep + r) * D + d]);
+  for (int i = tid; i < n_rep * DI; i += THREADS) {
+    const int r = i / DI, d = i % DI;
+    qs[r][d] = d < D ? __bfloat162float(
+                           q[((size_t)b * H + hk * n_rep + r) * D + d])
+                     : 0.f;
   }
   float slope[R];
 #pragma unroll
@@ -103,23 +169,27 @@ flash_decode_split(Cache cache, const __nv_bfloat16* __restrict__ q,
 
   const auto rows = cache.rows(layer, b, hk);
 
-  float m_run[R], l_run[R], acc[R];
+  float m_run[R], l_run[R], acc[R][NF];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     m_run[r] = -FLT_MAX;
     l_run[r] = 0.f;
-    acc[r] = 0.f;
+#pragma unroll
+    for (int f = 0; f < NF; ++f) acc[r][f] = 0.f;
   }
 
   for (int cs = c0; cs < c1; cs += THREADS) {
     const int c = cs + tid;
     const bool valid = c < c1;
-    // stage this sub-chunk's V rows with coalesced 16-byte loads; they are
-    // in flight while the scores are computed
+    // stage this sub-chunk's V rows with coalesced loads; they are in
+    // flight while the scores are computed
     const int ncols = min(THREADS, c1 - cs);
-    for (int i = tid; i < ncols * CH; i += THREADS)
-      reinterpret_cast<int4*>(vsm)[i] = *reinterpret_cast<const int4*>(
-          vc + rows(cs + i / CH) * D + (i % CH) * PER);
+    for (int i = tid; i < ncols * CH; i += THREADS) {
+      const int col = i / CH, ch = i % CH;
+      if (ch < nch)
+        nst::stage_chunk<T, VB>(vsm + col * DI + ch * PER,
+                                vc + rows(cs + col) * D + ch * PER);
+    }
     float s[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) s[r] = 0.f;
@@ -127,17 +197,14 @@ flash_decode_split(Cache cache, const __nv_bfloat16* __restrict__ q,
     if (valid) {
       const size_t rc = rows(c);
       const T* kr = kc + rc * D;
-#pragma unroll
-      for (int d0 = 0; d0 < D; d0 += PER) {
-        const int4 raw = *reinterpret_cast<const int4*>(kr + d0);
-        const T* kv8 = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-        for (int j = 0; j < PER; ++j) {
-          const float kv = E::to_float(kv8[j]);
-#pragma unroll
-          for (int r = 0; r < R; ++r)
-            if (r < n_rep) s[r] = fmaf(qs[r][d0 + j], kv, s[r]);
-        }
+      if constexpr (EXACT) {
+#pragma unroll (CU)
+        for (int ch = 0; ch < CH; ++ch)
+          score_chunk<R, T, VB>(s, qs, kr, ch, n_rep);
+      } else {
+#pragma unroll 1
+        for (int ch = 0; ch < nch; ++ch)
+          score_chunk<R, T, VB>(s, qs, kr, ch, n_rep);
       }
       if constexpr (E::kQuantized) {
         const float ksc = __bfloat162float(ks[rc]);
@@ -184,11 +251,15 @@ flash_decode_split(Cache cache, const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int w = 0; w < NW; ++w) bsum += red_sum[r][w];
       l_run[r] = alpha[r] * l_run[r] + bsum;
-      if (tid < D) {
-        float a = 0.f;
-        for (int j = 0; j < ncols; ++j)
-          a = fmaf(ps[r][j], E::to_float(vsm[j * D + tid]), a);
-        acc[r] = acc[r] * alpha[r] + a;
+#pragma unroll
+      for (int f = 0; f < NF; ++f) {
+        const int d = tid + f * THREADS;
+        if (d < D) {
+          float a = 0.f;
+          for (int j = 0; j < ncols; ++j)
+            a = fmaf(ps[r][j], SE::to_float(vsm[j * DI + d]), a);
+          acc[r][f] = acc[r][f] * alpha[r] + a;
+        }
       }
     }
     __syncthreads();
@@ -202,13 +273,17 @@ flash_decode_split(Cache cache, const __nv_bfloat16* __restrict__ q,
       part_m[pi] = m_run[r];
       part_l[pi] = l_run[r];
     }
-    if (tid < D) part_acc[pi * D + tid] = acc[r];
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      const int d = tid + f * THREADS;
+      if (d < D) part_acc[pi * D + d] = acc[r][f];
+    }
   }
 }
 
 // Merges the splits' partials (with the seed column when `extra`), writes
 // the output and, with `fused_append` (int8 only), the new row.
-template <int D, class T, class Cache>
+template <class T, class Cache>
 __global__ void __launch_bounds__(THREADS)
 flash_decode_combine(Cache cache, const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k_new,
@@ -221,7 +296,7 @@ flash_decode_combine(Cache cache, const __nv_bfloat16* __restrict__ q,
                      const float* __restrict__ part_m,
                      const float* __restrict__ part_l,
                      const float* __restrict__ part_acc,
-                     __nv_bfloat16* __restrict__ out, int H, int Hkv,
+                     __nv_bfloat16* __restrict__ out, int H, int Hkv, int D,
                      int layer, int splits, int extra, int fused_append,
                      float sm_scale) {
   const int hk = blockIdx.x, b = blockIdx.y;
@@ -233,42 +308,73 @@ flash_decode_combine(Cache cache, const __nv_bfloat16* __restrict__ q,
   __shared__ float sh[NW];
 
   const size_t nidx = ((size_t)b * Hkv + hk) * D;
-  const float kn = extra && tid < D ? __bfloat162float(k_new[nidx + tid]) : 0.f;
-  const float vn = extra && tid < D ? __bfloat162float(v_new[nidx + tid]) : 0.f;
+  float kn[NF], vn[NF];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    const int d = tid + f * THREADS;
+    kn[f] = extra && d < D ? __bfloat162float(k_new[nidx + d]) : 0.f;
+    vn[f] = extra && d < D ? __bfloat162float(v_new[nidx + d]) : 0.f;
+  }
 
   for (int r = 0; r < n_rep; ++r) {
     const int h = hk * n_rep + r;
+    const size_t qo = ((size_t)b * H + h) * D;
     float s0 = 0.f;
     if (extra) {
-      const float qv =
-          tid < D ? __bfloat162float(q[((size_t)b * H + h) * D + tid]) : 0.f;
-      s0 = nst::block_sum<NW>(qv * kn, sh) * sm_scale;
+      float part = 0.f;
+#pragma unroll
+      for (int f = 0; f < NF; ++f) {
+        const int d = tid + f * THREADS;
+        const float qv = d < D ? __bfloat162float(q[qo + d]) : 0.f;
+        part += qv * kn[f];
+      }
+      s0 = nst::block_sum<NW>(part, sh) * sm_scale;
     }
     const size_t pi = ((size_t)b * H + h) * splits;
     float m = valid0 ? s0 : -FLT_MAX;
     for (int i = 0; i < splits; ++i) m = fmaxf(m, part_m[pi + i]);
     const float e0 = valid0 ? expf(s0 - m) : 0.f;
     float l = e0;
-    float a = e0 * vn;
+    float a[NF];
+#pragma unroll
+    for (int f = 0; f < NF; ++f) a[f] = e0 * vn[f];
     for (int i = 0; i < splits; ++i) {
       const float e = expf(part_m[pi + i] - m);
       l += part_l[pi + i] * e;
-      if (tid < D) a += part_acc[(pi + i) * D + tid] * e;
+#pragma unroll
+      for (int f = 0; f < NF; ++f) {
+        const int d = tid + f * THREADS;
+        if (d < D) a[f] += part_acc[(pi + i) * D + d] * e;
+      }
     }
     const float inv = l == 0.f ? 0.f : 1.f / l;
-    if (tid < D) out[((size_t)b * H + h) * D + tid] = __float2bfloat16_rn(a * inv);
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      const int d = tid + f * THREADS;
+      if (d < D) out[qo + d] = __float2bfloat16_rn(a[f] * inv);
+    }
   }
 
   if constexpr (nst::KVElem<T>::kQuantized) {
     if (!(extra && fused_append && ok)) return;
     const size_t at = cache.rows(layer, b, hk)(max(kvl - 1, 0));
-    const float kamax = nst::block_max<NW>(fabsf(kn), sh);
-    const float vamax = nst::block_max<NW>(fabsf(vn), sh);
+    float km = 0.f, vm = 0.f;
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      km = fmaxf(km, fabsf(kn[f]));
+      vm = fmaxf(vm, fabsf(vn[f]));
+    }
+    const float kamax = nst::block_max<NW>(km, sh);
+    const float vamax = nst::block_max<NW>(vm, sh);
     const float ksc = fmaxf(kamax, 1e-8f) / 127.0f;
     const float vsc = fmaxf(vamax, 1e-8f) / 127.0f;
-    if (tid < D) {
-      kc[at * D + tid] = (int8_t)fminf(fmaxf(rintf(kn / ksc), -127.f), 127.f);
-      vc[at * D + tid] = (int8_t)fminf(fmaxf(rintf(vn / vsc), -127.f), 127.f);
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      const int d = tid + f * THREADS;
+      if (d < D) {
+        kc[at * D + d] = (int8_t)fminf(fmaxf(rintf(kn[f] / ksc), -127.f), 127.f);
+        vc[at * D + d] = (int8_t)fminf(fmaxf(rintf(vn[f] / vsc), -127.f), 127.f);
+      }
     }
     if (tid == 0) {
       ks[at] = __float2bfloat16_rn(ksc);
@@ -277,86 +383,87 @@ flash_decode_combine(Cache cache, const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D, class T, class Cache>
+template <class T, int VB, bool EXACT, class Cache>
 cudaError_t launch(Cache cache, const void* q, const void* k_new,
                    const void* v_new, void* kc, void* vc, void* ks, void* vs,
                    const void* slopes, const void* pos, const void* kv_lens,
                    void* part_m, void* part_l, void* part_acc, void* out,
-                   int B, int H, int Hkv, int S, int layer, int chunk,
+                   int B, int H, int Hkv, int S, int D, int layer, int chunk,
                    int extra, int fused_append, float sm_scale,
                    cudaStream_t st) {
   const int splits = (S + chunk - 1) / chunk;
   const int n_rep = H / Hkv;
   auto bq = static_cast<const __nv_bfloat16*>(q);
-  auto split_kernel = n_rep <= 1   ? flash_decode_split<D, 1, T, Cache>
-                      : n_rep <= 2 ? flash_decode_split<D, 2, T, Cache>
-                      : n_rep <= 4 ? flash_decode_split<D, 4, T, Cache>
-                                   : flash_decode_split<D, MAX_REP, T, Cache>;
-  split_kernel<<<dim3(splits, Hkv, B), THREADS, 0, st>>>(
+  auto split_kernel =
+      n_rep <= 1   ? flash_decode_split<1, T, VB, EXACT, Cache>
+      : n_rep <= 2 ? flash_decode_split<2, T, VB, EXACT, Cache>
+      : n_rep <= 4 ? flash_decode_split<4, T, VB, EXACT, Cache>
+                   : flash_decode_split<MAX_REP, T, VB, EXACT, Cache>;
+  const int vbytes = VStage<T>::kStatic ? 0 : VStage<T>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, vbytes);
+  if (err != cudaSuccess) return err;
+  split_kernel<<<dim3(splits, Hkv, B), THREADS, vbytes, st>>>(
       cache, bq, static_cast<const T*>(kc), static_cast<const T*>(vc),
       static_cast<const __nv_bfloat16*>(ks),
       static_cast<const __nv_bfloat16*>(vs), static_cast<const float*>(slopes),
       static_cast<const int*>(pos), static_cast<const int*>(kv_lens),
       static_cast<float*>(part_m), static_cast<float*>(part_l),
-      static_cast<float*>(part_acc), H, Hkv, S, layer, chunk, extra, sm_scale);
-  cudaError_t err = cudaGetLastError();
+      static_cast<float*>(part_acc), H, Hkv, S, D, layer, chunk, extra,
+      sm_scale);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_decode_combine<D, T, Cache><<<dim3(Hkv, B), THREADS, 0, st>>>(
+  flash_decode_combine<T, Cache><<<dim3(Hkv, B), THREADS, 0, st>>>(
       cache, bq, static_cast<const __nv_bfloat16*>(k_new),
       static_cast<const __nv_bfloat16*>(v_new), static_cast<T*>(kc),
       static_cast<T*>(vc), static_cast<__nv_bfloat16*>(ks),
       static_cast<__nv_bfloat16*>(vs), static_cast<const int*>(pos),
       static_cast<const int*>(kv_lens), static_cast<const float*>(part_m),
       static_cast<const float*>(part_l), static_cast<const float*>(part_acc),
-      static_cast<__nv_bfloat16*>(out), H, Hkv, layer, splits, extra,
+      static_cast<__nv_bfloat16*>(out), H, Hkv, D, layer, splits, extra,
       fused_append, sm_scale);
   return cudaGetLastError();
 }
 
-template <class T, class Cache>
-cudaError_t launch_t(Cache cache, int D, const void* q, const void* k_new,
-                     const void* v_new, void* kc, void* vc, void* ks,
-                     void* vs, const void* slopes, const void* pos,
-                     const void* kv_lens, void* part_m, void* part_l,
-                     void* part_acc, void* out, int B, int H, int Hkv, int S,
-                     int layer, int chunk, int extra, int fused_append,
-                     float sm_scale, cudaStream_t st) {
-  if (D == 128)
-    return launch<128, T>(cache, q, k_new, v_new, kc, vc, ks, vs, slopes, pos,
-                          kv_lens, part_m, part_l, part_acc, out, B, H, Hkv,
-                          S, layer, chunk, extra, fused_append, sm_scale, st);
-  if (D == 64)
-    return launch<64, T>(cache, q, k_new, v_new, kc, vc, ks, vs, slopes, pos,
-                         kv_lens, part_m, part_l, part_acc, out, B, H, Hkv, S,
-                         layer, chunk, extra, fused_append, sm_scale, st);
-  return cudaErrorInvalidValue;
-}
-
-// kv_bf16: the cache holds bf16 rows (no scales, no extra column, no
-// append) instead of int8 codes.
+// kv_type: 0 int8 codes with bf16 scales, 1 bf16 values, 2 float32 values
+// (no scales, no extra column, no append).  D: the head dim, a multiple of
+// 8 at most this instance's (below it, the masked kernels); int8 rows of
+// D % 16 == 8 take 8-byte loads.
 template <class Cache>
 int launch_d(Cache cache, int D, const void* q, const void* k_new,
              const void* v_new, void* kc, void* vc, void* ks, void* vs,
              const void* slopes, const void* pos, const void* kv_lens,
              void* part_m, void* part_l, void* part_acc, void* out, int B,
              int H, int Hkv, int S, int layer, int chunk, int extra,
-             int fused_append, int kv_bf16, float sm_scale, void* stream) {
+             int fused_append, int kv_type, float sm_scale, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (kv_bf16 && (extra || fused_append)) return (int)cudaErrorInvalidValue;
-  cudaError_t err =
-      kv_bf16 ? launch_t<__nv_bfloat16>(cache, D, q, k_new, v_new, kc, vc, ks,
-                                        vs, slopes, pos, kv_lens, part_m,
-                                        part_l, part_acc, out, B, H, Hkv, S,
-                                        layer, chunk, 0, 0, sm_scale, st)
-              : launch_t<int8_t>(cache, D, q, k_new, v_new, kc, vc, ks, vs,
-                                 slopes, pos, kv_lens, part_m, part_l,
-                                 part_acc, out, B, H, Hkv, S, layer, chunk,
-                                 extra, fused_append, sm_scale, st);
+  if (D > DI || D <= 0 || D % 8 || kv_type < 0 || kv_type > 2 ||
+      (kv_type != 0 && (extra || fused_append)))
+    return (int)cudaErrorInvalidValue;
+#define NST_LAUNCH(T, VB, EXACT)                                              \
+  launch<T, VB, EXACT>(cache, q, k_new, v_new, kc, vc, ks, vs, slopes, pos,   \
+                       kv_lens, part_m, part_l, part_acc, out, B, H, Hkv, S,  \
+                       D, layer, chunk, extra, fused_append, sm_scale, st)
+  const bool exact = D == DI;
+  cudaError_t err;
+  if (kv_type == 1)
+    err = exact ? NST_LAUNCH(__nv_bfloat16, 16, true)
+                : NST_LAUNCH(__nv_bfloat16, 16, false);
+  else if (kv_type == 2)
+    err = exact ? NST_LAUNCH(float, 16, true) : NST_LAUNCH(float, 16, false);
+  else if (exact)
+    err = NST_LAUNCH(int8_t, 16, true);
+  else if (D % 16 == 0)
+    err = NST_LAUNCH(int8_t, 16, false);
+  else
+    err = NST_LAUNCH(int8_t, 8, false);
+#undef NST_LAUNCH
   return (int)err;
 }
 
 }  // namespace
 
+#if !NST_FLASH_PAGED
 // slopes: float32 [H] ALiBi slopes, or null for none.  k_new / v_new are
 // read only with `extra`; ks / vs only for the int8 cache.
 extern "C" int nst_flash_decode(const void* q, const void* k_new,
@@ -366,14 +473,15 @@ extern "C" int nst_flash_decode(const void* q, const void* k_new,
                                 void* part_m, void* part_l, void* part_acc,
                                 void* out, int B, int H, int Hkv, int S, int D,
                                 int layer, int chunk, int extra,
-                                int fused_append, int kv_bf16, float sm_scale,
+                                int fused_append, int kv_type, float sm_scale,
                                 void* stream) {
   return launch_d(nst::ContigCache{B, Hkv, S}, D, q, k_new, v_new, kc, vc, ks,
                   vs, slopes, pos, kv_lens, part_m, part_l, part_acc, out, B,
-                  H, Hkv, S, layer, chunk, extra, fused_append, kv_bf16,
+                  H, Hkv, S, layer, chunk, extra, fused_append, kv_type,
                   sm_scale, stream);
 }
 
+#else
 // The pool [L, Hkv, P, ps, D] with scales [L, Hkv, P, 1, ps] (int8) and
 // int32 tables [B, n_blocks]; the logical length is n_blocks * ps.
 extern "C" int nst_flash_decode_paged(
@@ -382,10 +490,11 @@ extern "C" int nst_flash_decode_paged(
     const void* pos, const void* kv_lens, void* part_m, void* part_l,
     void* part_acc, void* out, int B, int H, int Hkv, int P, int ps,
     int n_blocks, int D, int layer, int chunk, int extra, int fused_append,
-    int kv_bf16, float sm_scale, void* stream) {
+    int kv_type, float sm_scale, void* stream) {
   return launch_d(
       nst::PagedCache{static_cast<const int*>(tables), Hkv, P, ps, n_blocks},
       D, q, k_new, v_new, kc, vc, ks, vs, slopes, pos, kv_lens, part_m,
       part_l, part_acc, out, B, H, Hkv, n_blocks * ps, layer, chunk, extra,
-      fused_append, kv_bf16, sm_scale, stream);
+      fused_append, kv_type, sm_scale, stream);
 }
+#endif

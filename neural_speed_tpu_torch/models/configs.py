@@ -407,6 +407,40 @@ FALCON_7B_HF = {
     "new_decoder_architecture": False, "layer_norm_epsilon": 1e-5,
 }
 
+# The published config.json of google/gemma-7b, EleutherAI/gpt-j-6b,
+# microsoft/phi-2 and EleutherAI/gpt-neox-20b (the fields the builders
+# read): head dims 256, 256, 80 and 96.
+GEMMA_7B_HF = {
+    "model_type": "gemma", "hidden_size": 3072, "num_hidden_layers": 28,
+    "num_attention_heads": 16, "num_key_value_heads": 16, "head_dim": 256,
+    "intermediate_size": 24576, "vocab_size": 256000,
+    "max_position_embeddings": 8192, "rms_norm_eps": 1e-6,
+    "rope_theta": 10000.0, "hidden_activation": "gelu_pytorch_tanh",
+    "tie_word_embeddings": True,
+}
+GPTJ_6B_HF = {
+    "model_type": "gptj", "n_embd": 4096, "n_layer": 28, "n_head": 16,
+    "rotary_dim": 64, "vocab_size": 50400, "n_positions": 2048,
+    "n_inner": None, "layer_norm_epsilon": 1e-5,
+    "activation_function": "gelu_new", "tie_word_embeddings": False,
+}
+PHI_2_HF = {
+    "model_type": "phi", "hidden_size": 2560, "num_hidden_layers": 32,
+    "num_attention_heads": 32, "num_key_value_heads": 32,
+    "partial_rotary_factor": 0.4, "intermediate_size": 10240,
+    "vocab_size": 51200, "max_position_embeddings": 2048,
+    "layer_norm_eps": 1e-5, "rope_theta": 10000.0,
+    "hidden_act": "gelu_new", "tie_word_embeddings": False,
+}
+GPTNEOX_20B_HF = {
+    "model_type": "gpt_neox", "hidden_size": 6144, "num_hidden_layers": 44,
+    "num_attention_heads": 64, "rotary_pct": 0.25,
+    "rotary_emb_base": 10000, "intermediate_size": 24576,
+    "vocab_size": 50432, "max_position_embeddings": 2048,
+    "layer_norm_eps": 1e-5, "use_parallel_residual": True,
+    "hidden_act": "gelu_fast", "tie_word_embeddings": False,
+}
+
 
 def _waits(item: str):
     """A builder for a model type whose knobs are not ported yet."""

@@ -2,22 +2,24 @@
 
 `mha` is the entry, with the JAX package's interface: q `[B, T, H, D]`, the
 stacked cache `[L, B, Hkv, S, D]` with `layer` (int8 codes with
-per-(token, head) bf16 scales, or bf16 values with `k_scale=None`),
+per-(token, head) bf16 scales, or bf16 / float32 values with
+`k_scale=None`),
 absolute query positions, per-slot kv lengths and optional ALiBi slopes
 `[H]`.  Routes, as the JAX launcher's:
 
 * decode with the current token's k/v as extra operands (`extra_kv`, over
-  the int8 cache), and bf16 decode after the plain append, each for one
-  token per slot with at most 8 query heads per KV head and an even KV
-  head count: kernel B (`csrc/flash_decode.cu`), which with
+  the int8 cache), and bf16 / float32 decode after the plain append, each
+  for one token per slot with at most 8 query heads per KV head and an
+  even KV head count: kernel B (`csrc/flash_decode.cuh`), which with
   `fused_append` also writes the quantized new row in place;
 * everything else (prefill chunks; int8 decode after a plain append;
   decode with more query heads per KV head or an odd KV head count, as
-  Falcon-7B's 71 over 1): kernel C (`csrc/flash_prefill.cu`).
+  Falcon-7B's 71 over 1, Gemma-2B's 8 over 1): kernel C
+  (`csrc/flash_prefill.cuh`).
 
 `mha_paged` is the same over one layer of the paged pool (`paged_kv.py`):
 the paged twins of kernels B and C (`nst_flash_decode_paged`,
-`nst_flash_prefill_paged`, in the same sources) resolve every cache row
+`nst_flash_prefill_paged`, in the same libraries) resolve every cache row
 through the slot's page table and otherwise do the same arithmetic in the
 same order, so at equal logical contents they give the contiguous
 kernels' outputs bit for bit.
@@ -28,9 +30,14 @@ versions below, which repeat each kernel's rounding points: q and
 float32, the ALiBi bias `slope * (col - pos)` is added after the score
 scale, and a row with no valid column gives 0.  The port has no GQA row
 packing: the kernels read q and write the output in the natural
-`[B, T, H, D]` layout.  Logit softcap, non-causal attention, head dims
-other than 64 and 128 on the card, and float32 K/V on the card raise,
-naming their ROADMAP item.
+`[B, T, H, D]` layout.  K/V are int8 codes with bf16 scales, or bf16 or
+float32 values without scales; the kernels and the plain versions round
+float32 K and V to bf16 before both products, as the JAX kernels'
+`astype(bfloat16)` does.  Head dims: 64, 80, 96, 128 and 256 have kernel
+instances of their own; every other multiple of 8 up to 256 (the JAX
+kernels' rule, `_head_dim_ok`) runs through the smallest instance above
+it with the columns past D masked; other head dims raise.  Logit softcap
+and non-causal attention raise, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -42,6 +49,13 @@ from .kv_cache import quantize_kv
 from .paged_kv import gather_layer_codes, physical_rows, write_pool_rows
 
 DECODE_CHUNK = 256   # cache columns per block of kernel B
+# Head dims with a kernel instance of their own (libraries per dim:
+# csrc/flash_decode_d<D>.cu, flash_decode_paged_d<D>.cu,
+# flash_prefill_d<D>.cu).
+HEAD_DIMS = (64, 80, 96, 128, 256)
+# Counter suffix of each cache element type, and its code for the C entries.
+_SUFFIX = {torch.int8: "", torch.bfloat16: "_bf16", torch.float32: "_f32"}
+_KV_TYPE = {"": 0, "_bf16": 1, "_f32": 2}
 
 _SOFTCAP = ("logit softcap is not ported yet (ROADMAP section 2, item 1: "
             "the softcap variant of rows 6-10, for grok)")
@@ -55,6 +69,18 @@ def extra_kv_eligible(t: int, n_heads: int, n_kv_heads: int) -> bool:
     per KV head and an even KV head count (the JAX rule `t * n_rep <= 8`
     with a head block of 2 or more, at t == 1)."""
     return t == 1 and n_heads // n_kv_heads <= 8 and n_kv_heads % 2 == 0
+
+
+def instance_dim(d: int) -> int:
+    """The kernel instance that runs head dim `d`: the smallest of
+    HEAD_DIMS at or above it, which masks the columns past `d`.  Raises
+    for head dims that the JAX kernels do not take either."""
+    if d % 8 or not 8 <= d <= 256:
+        raise ValueError(
+            f"head_dim {d}: the attention kernels take multiples of 8 up to "
+            f"256, as the JAX package's (neural_speed_tpu/ops/flash.py::"
+            f"_head_dim_ok)")
+    return next(i for i in HEAD_DIMS if i >= d)
 
 
 def _check_variant(causal: bool, logit_softcap: float) -> None:
@@ -96,6 +122,15 @@ def _normalize(acc: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
     return acc * inv[..., None]
 
 
+def _kv_values(x: torch.Tensor) -> torch.Tensor:
+    """Cache rows in float32 as the kernels read them: float32 K/V rounded
+    to bf16 first (the JAX kernels' `astype(bfloat16)` before both
+    products), int8 codes and bf16 values exactly."""
+    if x.dtype == torch.float32:
+        x = x.to(torch.bfloat16)
+    return x.float()
+
+
 def _scores(qf: torch.Tensor, kf: torch.Tensor, ks, scale: float
             ) -> torch.Tensor:
     """(bf16(q) . k) * k_scale * scale, in the kernels' order; ks [..., S]
@@ -111,11 +146,11 @@ def decode_plain(q: torch.Tensor, k_new, v_new, k: torch.Tensor,
                  kv_lens: torch.Tensor, scale: float, fused_append: bool,
                  out_dtype, alibi=None) -> torch.Tensor:
     """Plain version of kernel B.  q [B, 1, H, D]; k/v/ks/vs the stacked
-    cache (ks/vs None for bf16 K/V); pos [B]; alibi: slopes [H] or None.
-    With k_new/v_new [B, 1, Hkv, D] (int8 cache only) the current token is
-    the seed column and the cache is read below kv_len - 1 for live slots;
-    `fused_append` also writes its quantized row in place.  Without them the
-    cache is read below kv_len."""
+    cache (ks/vs None for bf16 or float32 K/V); pos [B]; alibi: slopes
+    [H] or None.  With k_new/v_new [B, 1, Hkv, D] (int8 cache only) the
+    current token is the seed column and the cache is read below
+    kv_len - 1 for live slots; `fused_append` also writes its quantized
+    row in place.  Without them the cache is read below kv_len."""
     b, _, h, d = q.shape
     hkv, s = k.shape[2], k.shape[3]
     n_rep = h // hkv
@@ -123,7 +158,7 @@ def decode_plain(q: torch.Tensor, k_new, v_new, k: torch.Tensor,
     ok = pos == kv_lens - 1
     kvl_cache = kv_lens - ok.to(kv_lens.dtype) if extra else kv_lens
     qg = q[:, 0].reshape(b, hkv, n_rep, d)
-    kf, vf = k[layer].float(), v[layer].float()              # [B,Hkv,S,D]
+    kf, vf = _kv_values(k[layer]), _kv_values(v[layer])      # [B,Hkv,S,D]
     sc = _scores(qg, kf, None if ks is None else ks[layer].float(),
                  scale)                                       # [B,Hkv,R,S]
     col = torch.arange(s, device=q.device)
@@ -160,12 +195,13 @@ def prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ks, vs,
                   kv_lens: torch.Tensor, scale: float, out_dtype,
                   alibi=None) -> torch.Tensor:
     """Plain version of kernel C: q [B, T, H, D] over the stacked cache
-    (ks/vs None for bf16 K/V); alibi: slopes [H] or None."""
+    (ks/vs None for bf16 or float32 K/V); alibi: slopes [H] or None."""
     b, t, h, d = q.shape
     hkv, s = k.shape[2], k.shape[3]
     n_rep = h // hkv
     rep = lambda a: torch.repeat_interleave(a, n_rep, dim=1)
-    kf, vf = rep(k[layer].float()), rep(v[layer].float())   # [B,H,S,D]
+    kf = rep(_kv_values(k[layer]))                          # [B,H,S,D]
+    vf = rep(_kv_values(v[layer]))
     qh = q.permute(0, 2, 1, 3)                              # [B,H,T,D]
     sc = _scores(qh, kf, None if ks is None else rep(ks[layer].float()),
                  scale)
@@ -183,7 +219,7 @@ def prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ks, vs,
 
 def _gathered_cache(k_pages, v_pages, ks, vs, tables, layer):
     """One pool layer gathered through the tables, as layer 0 of a stacked
-    cache (scales None for the bf16 pool)."""
+    cache (scales None for a pool of values)."""
     return [None if a is None else a[None] for a in gather_layer_codes(
         k_pages, v_pages, ks, vs, tables, layer)]
 
@@ -228,26 +264,18 @@ def prefill_paged_plain(q: torch.Tensor, k_pages: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _check_kv(k, ks, d: int) -> bool:
-    """Raise for K/V variants that have no kernel yet; True for bf16 K/V (no
-    scales), False for int8 codes with scales."""
-    if k.dtype == torch.float32 and ks is None:
-        raise ValueError(
-            "float32 K/V has no kernel yet (ROADMAP section 2, item 1: the "
-            "float32 K/V variant of rows 6-10); use kv_dtype=torch.bfloat16 "
-            "or kv_quantized=True on the card")
-    if d not in (64, 128):
-        raise ValueError(
-            f"head_dim {d}: the attention kernels take 64 and 128 so far "
-            f"(ROADMAP section 2, item 1: the other head dims of rows 6-10)")
-    return ks is None
-
-
-def _kv_ok(k, v, ks, vs, bf16: bool) -> bool:
-    if bf16:
-        return (k.dtype == v.dtype == torch.bfloat16 and vs is None)
-    return (k.dtype == v.dtype == torch.int8 and vs is not None
-            and ks.dtype == vs.dtype == torch.bfloat16)
+def _kv_suffix(k, v, ks, vs):
+    """The counter suffix of the cache's element type ('' for int8 codes
+    with bf16 scales, '_bf16' / '_f32' for values without scales), or None
+    for a cache that the kernels do not read."""
+    if ks is None and vs is None:
+        if k.dtype == v.dtype and k.dtype in (torch.bfloat16, torch.float32):
+            return _SUFFIX[k.dtype]
+        return None
+    if (k.dtype == v.dtype == torch.int8 and ks is not None
+            and vs is not None and ks.dtype == vs.dtype == torch.bfloat16):
+        return ""
+    return None
 
 
 def _slopes(alibi, h: int, dev):
@@ -266,14 +294,15 @@ def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def _check_cache(k, v, ks, vs, layer, pos, kv_lens, q) -> bool:
+def _check_cache(k, v, ks, vs, layer, pos, kv_lens, q) -> str:
     """The cache, positions and lengths the attention kernels index.
-    Returns True for the bf16 cache."""
+    Returns the cache's counter suffix."""
     b, t, _, d = q.shape
-    bf16 = _check_kv(k, ks, d)
-    ok = (k.dim() == 5 and k.shape == v.shape and k.shape[1] == b
-          and k.shape[4] == d and _kv_ok(k, v, ks, vs, bf16)
-          and (bf16 or ks.shape == vs.shape == k.shape[:4])
+    instance_dim(d)                 # raises for a head dim no kernel takes
+    suffix = _kv_suffix(k, v, ks, vs)
+    ok = (suffix is not None and k.dim() == 5 and k.shape == v.shape
+          and k.shape[1] == b and k.shape[4] == d
+          and (suffix != "" or ks.shape == vs.shape == k.shape[:4])
           and 0 <= layer < k.shape[0]
           and all(a.device == q.device and a.is_contiguous()
                   for a in (k, v, ks, vs) if a is not None)
@@ -283,24 +312,24 @@ def _check_cache(k, v, ks, vs, layer, pos, kv_lens, q) -> bool:
     if not ok:
         raise ValueError(
             f"the attention kernels read a contiguous [L, B, Hkv, S, D] cache "
-            f"of int8 codes with bf16 [L, B, Hkv, S] scales or of bf16 "
-            f"values without scales, on q's device, S a multiple of 64, a "
-            f"layer index below L and positions / kv_lens of the batch; got "
-            f"q {tuple(q.shape)} on {q.device}, k {k.dtype} "
-            f"{tuple(k.shape)} on {k.device}, scales "
+            f"of int8 codes with bf16 [L, B, Hkv, S] scales or of bf16 or "
+            f"float32 values without scales, on q's device, S a multiple of "
+            f"64, a layer index below L and positions / kv_lens of the "
+            f"batch; got q {tuple(q.shape)} on {q.device}, k {k.dtype} "
+            f"{tuple(k.shape)} on {k.device}, v {v.dtype}, scales "
             f"{None if ks is None else (ks.dtype, tuple(ks.shape))}, layer "
             f"{layer}, positions {tuple(pos.shape)}, kv_lens "
             f"{tuple(kv_lens.shape)}")
-    return bf16
+    return suffix
 
 
-def _check_decode(q, k_new, v_new, fused_append, out_dtype, hkv, bf16,
+def _check_decode(q, k_new, v_new, fused_append, out_dtype, hkv, suffix,
                   what: str) -> None:
     b, t, h, d = q.shape
     extra = k_new is not None
     if not (q.is_cuda and t == 1 and h % hkv == 0 and h // hkv <= 8
             and q.dtype == out_dtype == torch.bfloat16
-            and (not fused_append or extra) and not (bf16 and extra)
+            and (not fused_append or extra) and not (suffix and extra)
             and (not extra or (k_new.dtype == v_new.dtype == torch.bfloat16
                                and k_new.shape == v_new.shape
                                == (b, 1, hkv, d)))):
@@ -310,8 +339,28 @@ def _check_decode(q, k_new, v_new, fused_append, out_dtype, hkv, bf16,
             f"cache only (needed by fused_append), and writes bf16; got q "
             f"{q.dtype} {tuple(q.shape)} on {q.device}, k_new "
             f"{None if k_new is None else (k_new.dtype, tuple(k_new.shape))},"
-            f" bf16 cache {bf16}, fused_append {fused_append}, out "
-            f"{out_dtype}")
+            f" cache {'int8' if not suffix else suffix[1:]}, fused_append "
+            f"{fused_append}, out {out_dtype}")
+
+
+def _check_prefill(q, q_positions, out_dtype, hkv, what: str) -> None:
+    b, t, h, _ = q.shape
+    if not (q.is_cuda and q_positions.shape == (b, t) and h % hkv == 0
+            and q.dtype == out_dtype == torch.bfloat16):
+        raise ValueError(
+            f"{what} takes CUDA tensors: bf16 q [B, T, H, D] with H a "
+            f"multiple of Hkv and positions [B, T], and writes bf16; got q "
+            f"{q.dtype} {tuple(q.shape)} on {q.device}, Hkv {hkv}, positions "
+            f"{tuple(q_positions.shape)}, out {out_dtype}")
+
+
+def _launched(name: str, d: int, code: int) -> None:
+    """Raise for a failed launch, else count it: per kernel and element
+    type (`name`), and per head-dim instance."""
+    di = instance_dim(d)
+    _build.check(code, f"{name} (head dim {d}, instance {di})")
+    _build.launches[name] += 1
+    _build.instance_launches[f"{name} d{di}"] += 1
 
 
 def _decode_scratch(b, h, d, s, dev):
@@ -325,13 +374,13 @@ def _decode_scratch(b, h, d, s, dev):
 
 def decode_cuda(q, k_new, v_new, k, v, ks, vs, layer, pos, kv_lens, scale,
                 fused_append, out_dtype, alibi=None) -> torch.Tensor:
-    """Kernel B (the int8 instance, or `flash_decode_bf16` over bf16 K/V).
-    Shapes as `decode_plain`."""
+    """Kernel B: `flash_decode` over int8 K/V, `flash_decode_bf16` /
+    `flash_decode_f32` over values.  Shapes as `decode_plain`."""
     b, t, h, d = q.shape
     hkv, s = k.shape[2], k.shape[3]
     dev = q.device
-    bf16 = _check_cache(k, v, ks, vs, layer, pos, kv_lens, q)
-    _check_decode(q, k_new, v_new, fused_append, out_dtype, hkv, bf16,
+    suffix = _check_cache(k, v, ks, vs, layer, pos, kv_lens, q)
+    _check_decode(q, k_new, v_new, fused_append, out_dtype, hkv, suffix,
                   "kernel B")
     extra = k_new is not None
     slopes = _slopes(alibi, h, dev)
@@ -341,58 +390,51 @@ def decode_cuda(q, k_new, v_new, k, v, ks, vs, layer, pos, kv_lens, scale,
     pos32 = pos.to(torch.int32).contiguous()
     lens32 = kv_lens.to(torch.int32).contiguous()
     part_m, part_l, part_acc, out = _decode_scratch(b, h, d, s, dev)
-    fn = _build.kernels.fn("flash_decode", "nst_flash_decode", 14, 10, 1)
+    fn = _build.kernels.fn(f"flash_decode_d{instance_dim(d)}",
+                           "nst_flash_decode", 14, 10, 1)
     code = fn(q3.data_ptr(), _ptr(kn), _ptr(vn), k.data_ptr(), v.data_ptr(),
               _ptr(ks), _ptr(vs), _ptr(slopes), pos32.data_ptr(),
               lens32.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
               part_acc.data_ptr(), out.data_ptr(), b, h, hkv, s, d, layer,
-              DECODE_CHUNK, int(extra), int(fused_append), int(bf16),
+              DECODE_CHUNK, int(extra), int(fused_append), _KV_TYPE[suffix],
               float(scale), _build.stream_handle())
-    name = "flash_decode_bf16" if bf16 else "flash_decode"
-    _build.check(code, name)
-    _build.launches[name] += 1
+    _launched("flash_decode" + suffix, d, code)
     return out
 
 
 def prefill_cuda(q, k, v, ks, vs, layer, q_positions, kv_lens, scale,
                  out_dtype, alibi=None) -> torch.Tensor:
-    """Kernel C (the int8 instance, or `flash_prefill_bf16` over bf16 K/V).
-    Shapes as `prefill_plain`."""
+    """Kernel C: `flash_prefill` over int8 K/V, `flash_prefill_bf16` /
+    `flash_prefill_f32` over values.  Shapes as `prefill_plain`."""
     b, t, h, d = q.shape
     hkv, s = k.shape[2], k.shape[3]
     dev = q.device
-    bf16 = _check_cache(k, v, ks, vs, layer, q_positions, kv_lens, q)
-    if not (q.is_cuda and q_positions.shape == (b, t) and h % hkv == 0
-            and q.dtype == out_dtype == torch.bfloat16):
-        raise ValueError(
-            f"kernel C takes CUDA tensors: bf16 q [B, T, H, D] with H a "
-            f"multiple of Hkv and positions [B, T], and writes bf16; got q "
-            f"{q.dtype} {tuple(q.shape)} on {q.device}, Hkv {hkv}, positions "
-            f"{tuple(q_positions.shape)}, out {out_dtype}")
+    suffix = _check_cache(k, v, ks, vs, layer, q_positions, kv_lens, q)
+    _check_prefill(q, q_positions, out_dtype, hkv, "kernel C")
     slopes = _slopes(alibi, h, dev)
     q4 = q.contiguous()
     pos32 = q_positions.to(torch.int32).contiguous()
     lens32 = kv_lens.to(torch.int32).contiguous()
     out = torch.empty((b, t, h, d), dtype=torch.bfloat16, device=dev)
-    fn = _build.kernels.fn("flash_prefill", "nst_flash_prefill", 9, 8, 1)
+    fn = _build.kernels.fn(f"flash_prefill_d{instance_dim(d)}",
+                           "nst_flash_prefill", 9, 8, 1)
     code = fn(q4.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ks), _ptr(vs),
               _ptr(slopes), pos32.data_ptr(), lens32.data_ptr(),
-              out.data_ptr(), b, t, h, hkv, s, d, layer, int(bf16),
+              out.data_ptr(), b, t, h, hkv, s, d, layer, _KV_TYPE[suffix],
               float(scale), _build.stream_handle())
-    name = "flash_prefill_bf16" if bf16 else "flash_prefill"
-    _build.check(code, name)
-    _build.launches[name] += 1
+    _launched("flash_prefill" + suffix, d, code)
     return out
 
 
-def _check_pool(kp, vp, ks, vs, tables, layer, pos, kv_lens, q) -> bool:
+def _check_pool(kp, vp, ks, vs, tables, layer, pos, kv_lens, q) -> str:
     """The page pool, tables, positions and lengths the paged kernels
-    index.  Returns True for the bf16 pool."""
+    index.  Returns the pool's counter suffix."""
     b, t, _, d = q.shape
-    bf16 = _check_kv(kp, ks, d)
-    ok = (kp.dim() == 5 and kp.shape == vp.shape and kp.shape[4] == d
-          and _kv_ok(kp, vp, ks, vs, bf16)
-          and (bf16 or ks.shape == vs.shape
+    instance_dim(d)                 # raises for a head dim no kernel takes
+    suffix = _kv_suffix(kp, vp, ks, vs)
+    ok = (suffix is not None and kp.dim() == 5 and kp.shape == vp.shape
+          and kp.shape[4] == d
+          and (suffix != "" or ks.shape == vs.shape
                == kp.shape[:3] + (1, kp.shape[3]))
           and 0 <= layer < kp.shape[0] and kp.shape[3] % 16 == 0
           and tables.dim() == 2 and tables.shape[0] == b
@@ -404,31 +446,32 @@ def _check_pool(kp, vp, ks, vs, tables, layer, pos, kv_lens, q) -> bool:
     if not ok:
         raise ValueError(
             f"the paged attention kernels read an [L, Hkv, P, ps, D] pool of "
-            f"int8 codes with bf16 [L, Hkv, P, 1, ps] scales or of bf16 "
-            f"values without scales, with a page size that is a multiple of "
-            f"16, int32 page tables [B, n_blocks], all on q's device, a "
-            f"layer index below L and positions / kv_lens of the batch; got "
-            f"q {tuple(q.shape)} on {q.device}, pool {kp.dtype} "
+            f"int8 codes with bf16 [L, Hkv, P, 1, ps] scales or of bf16 or "
+            f"float32 values without scales, with a page size that is a "
+            f"multiple of 16, int32 page tables [B, n_blocks], all on q's "
+            f"device, a layer index below L and positions / kv_lens of the "
+            f"batch; got q {tuple(q.shape)} on {q.device}, pool {kp.dtype} "
             f"{tuple(kp.shape)} on {kp.device} (page size "
             f"{kp.shape[3] if kp.dim() == 5 else None}), scales "
             f"{None if ks is None else (ks.dtype, tuple(ks.shape))}, tables "
             f"{tables.dtype} {tuple(tables.shape)} on {tables.device}, layer "
             f"{layer}, positions {tuple(pos.shape)}, kv_lens "
             f"{tuple(kv_lens.shape)}")
-    return bf16
+    return suffix
 
 
 def decode_paged_cuda(q, k_new, v_new, kp, vp, ks, vs, tables, layer, pos,
                       kv_lens, scale, fused_append, out_dtype,
                       alibi=None) -> torch.Tensor:
-    """The paged decode kernel (paged twin of kernel B; `flash_decode_paged`
-    or `flash_decode_paged_bf16`).  Shapes as `decode_paged_plain`."""
+    """The paged decode kernel (paged twin of kernel B;
+    `flash_decode_paged` and its `_bf16` / `_f32` instances).  Shapes as
+    `decode_paged_plain`."""
     b, t, h, d = q.shape
     hkv, n_pages, ps = kp.shape[1], kp.shape[2], kp.shape[3]
     n_blocks = tables.shape[1]
     dev = q.device
-    bf16 = _check_pool(kp, vp, ks, vs, tables, layer, pos, kv_lens, q)
-    _check_decode(q, k_new, v_new, fused_append, out_dtype, hkv, bf16,
+    suffix = _check_pool(kp, vp, ks, vs, tables, layer, pos, kv_lens, q)
+    _check_decode(q, k_new, v_new, fused_append, out_dtype, hkv, suffix,
                   "the paged decode kernel")
     extra = k_new is not None
     slopes = _slopes(alibi, h, dev)
@@ -439,66 +482,55 @@ def decode_paged_cuda(q, k_new, v_new, kp, vp, ks, vs, tables, layer, pos,
     lens32 = kv_lens.to(torch.int32).contiguous()
     part_m, part_l, part_acc, out = _decode_scratch(b, h, d, n_blocks * ps,
                                                     dev)
-    fn = _build.kernels.fn("flash_decode", "nst_flash_decode_paged", 15, 12,
-                           1)
+    fn = _build.kernels.fn(f"flash_decode_paged_d{instance_dim(d)}",
+                           "nst_flash_decode_paged", 15, 12, 1)
     code = fn(q3.data_ptr(), _ptr(kn), _ptr(vn), kp.data_ptr(),
               vp.data_ptr(), _ptr(ks), _ptr(vs), _ptr(slopes),
               tables.data_ptr(), pos32.data_ptr(), lens32.data_ptr(),
               part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
               out.data_ptr(), b, h, hkv, n_pages, ps, n_blocks, d, layer,
-              DECODE_CHUNK, int(extra), int(fused_append), int(bf16),
+              DECODE_CHUNK, int(extra), int(fused_append), _KV_TYPE[suffix],
               float(scale), _build.stream_handle())
-    name = "flash_decode_paged_bf16" if bf16 else "flash_decode_paged"
-    _build.check(code, name)
-    _build.launches[name] += 1
+    _launched("flash_decode_paged" + suffix, d, code)
     return out
 
 
 def prefill_paged_cuda(q, kp, vp, ks, vs, tables, layer, q_positions,
                        kv_lens, scale, out_dtype, alibi=None) -> torch.Tensor:
     """The paged prefill kernel (paged twin of kernel C;
-    `flash_prefill_paged` or `flash_prefill_paged_bf16`).  Shapes as
+    `flash_prefill_paged` and its `_bf16` / `_f32` instances).  Shapes as
     `prefill_paged_plain`."""
     b, t, h, d = q.shape
     hkv, n_pages, ps = kp.shape[1], kp.shape[2], kp.shape[3]
     n_blocks = tables.shape[1]
-    bf16 = _check_pool(kp, vp, ks, vs, tables, layer, q_positions, kv_lens,
-                       q)
-    if not (q.is_cuda and q_positions.shape == (b, t) and h % hkv == 0
-            and q.dtype == out_dtype == torch.bfloat16):
-        raise ValueError(
-            f"the paged prefill kernel takes CUDA tensors: bf16 q "
-            f"[B, T, H, D] with H a multiple of Hkv and positions [B, T], "
-            f"and writes bf16; got q {q.dtype} {tuple(q.shape)} on "
-            f"{q.device}, Hkv {hkv}, positions {tuple(q_positions.shape)}, "
-            f"out {out_dtype}")
+    suffix = _check_pool(kp, vp, ks, vs, tables, layer, q_positions,
+                         kv_lens, q)
+    _check_prefill(q, q_positions, out_dtype, hkv, "the paged prefill kernel")
     slopes = _slopes(alibi, h, q.device)
     q4 = q.contiguous()
     pos32 = q_positions.to(torch.int32).contiguous()
     lens32 = kv_lens.to(torch.int32).contiguous()
     out = torch.empty((b, t, h, d), dtype=torch.bfloat16, device=q.device)
-    fn = _build.kernels.fn("flash_prefill", "nst_flash_prefill_paged", 10,
-                           10, 1)
+    fn = _build.kernels.fn(f"flash_prefill_d{instance_dim(d)}",
+                           "nst_flash_prefill_paged", 10, 10, 1)
     code = fn(q4.data_ptr(), kp.data_ptr(), vp.data_ptr(), _ptr(ks),
               _ptr(vs), _ptr(slopes), tables.data_ptr(), pos32.data_ptr(),
               lens32.data_ptr(), out.data_ptr(), b, t, h, hkv, n_pages, ps,
-              n_blocks, d, layer, int(bf16), float(scale),
+              n_blocks, d, layer, _KV_TYPE[suffix], float(scale),
               _build.stream_handle())
-    name = "flash_prefill_paged_bf16" if bf16 else "flash_prefill_paged"
-    _build.check(code, name)
-    _build.launches[name] += 1
+    _launched("flash_prefill_paged" + suffix, d, code)
     return out
-
 
 # ---------------------------------------------------------------------------
 # entry
 # ---------------------------------------------------------------------------
 
 
-def _dispatch(q, cuda_fn, plain_fn, name: str, bf16: bool, args, alibi):
-    """CPU tensors run the plain version (counted), others the kernel."""
+def _dispatch(q, cuda_fn, plain_fn, name: str, kv_dtype, args, alibi):
+    """CPU tensors run the plain version (counted per element type of the
+    cache), others the kernel."""
     if q.device.type == "cpu":
-        _build.plain_dispatches[name + ("_bf16" if bf16 else "")] += 1
+        _build.plain_dispatches[name + _SUFFIX.get(kv_dtype, "_other")] += 1
         return plain_fn(*args, alibi=alibi)
     return cuda_fn(*args, alibi=alibi)
 
@@ -509,31 +541,33 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, k_scale,
         logit_softcap: float = 0.0, out_dtype=None, layer: int,
         extra_kv=None, fused_append: bool = False):
     """Flash attention over the stacked cache (int8 codes and scales, or
-    bf16 values with `k_scale=None`).  Returns the output `[B, T, H, D]`,
-    or `(out, (k, v, k_scale, v_scale))` with `fused_append` — the cache
-    tensors are written in place and returned for the JAX interface's sake.
-    Returns None where the JAX entry does (extra_kv that the decode kernel
-    cannot take; `fused_append` without extra_kv or over bf16 K/V)."""
+    bf16 / float32 values with `k_scale=None`).  Returns the output
+    `[B, T, H, D]`, or `(out, (k, v, k_scale, v_scale))` with
+    `fused_append` — the cache tensors are written in place and returned
+    for the JAX interface's sake.  Returns None where the JAX entry does
+    (extra_kv that the decode kernel cannot take; `fused_append` without
+    extra_kv or over K/V values)."""
     _check_variant(causal, logit_softcap)
     b, t, h, d = q.shape
     hkv = k.shape[2]
     out_dtype = out_dtype or q.dtype
-    bf16 = k_scale is None
-    if extra_kv is not None and (bf16 or not extra_kv_eligible(t, h, hkv)):
+    unscaled = k_scale is None
+    if extra_kv is not None and (unscaled
+                                 or not extra_kv_eligible(t, h, hkv)):
         return None
     if fused_append and extra_kv is None:
         return None
-    if extra_kv is not None or (bf16 and extra_kv_eligible(t, h, hkv)):
+    if extra_kv is not None or (unscaled and extra_kv_eligible(t, h, hkv)):
         kn, vn = extra_kv if extra_kv is not None else (None, None)
         args = (q, kn, vn, k, v, k_scale, v_scale, layer, q_positions[:, 0],
                 kv_lens, scale, fused_append, out_dtype)
-        out = _dispatch(q, decode_cuda, decode_plain, "flash_decode", bf16,
-                        args, alibi)
+        out = _dispatch(q, decode_cuda, decode_plain, "flash_decode",
+                        k.dtype, args, alibi)
     else:
         args = (q, k, v, k_scale, v_scale, layer, q_positions, kv_lens,
                 scale, out_dtype)
         out = _dispatch(q, prefill_cuda, prefill_plain, "flash_prefill",
-                        bf16, args, alibi)
+                        k.dtype, args, alibi)
     if fused_append:
         return out, (k, v, k_scale, v_scale)
     return out
@@ -543,7 +577,8 @@ def mha_paged(q: torch.Tensor, cache, layer: int, q_positions: torch.Tensor,
               kv_lens: torch.Tensor, *, scale: float, causal: bool = True,
               alibi=None, logit_softcap: float = 0.0, out_dtype=None,
               extra_kv=None, fused_append: bool = False):
-    """Flash attention over one layer of a `PagedKVCache` (int8 or bf16).
+    """Flash attention over one layer of a `PagedKVCache` (int8, bf16 or
+    float32).
     Decode calls go to the paged decode kernel, which over the int8 pool
     takes extra_kv (one token per slot) and with `fused_append` also writes
     the live slots' quantized rows through the table; everything else to
@@ -556,24 +591,26 @@ def mha_paged(q: torch.Tensor, cache, layer: int, q_positions: torch.Tensor,
     _check_variant(causal, logit_softcap)
     b, t, h, d = q.shape
     out_dtype = out_dtype or q.dtype
-    bf16 = not cache.quantized
+    unscaled = not cache.quantized
     eligible = extra_kv_eligible(t, h, cache.kv_heads)
-    if extra_kv is not None and (bf16 or not eligible):
+    if extra_kv is not None and (unscaled or not eligible):
         return None
     if fused_append and extra_kv is None:
         return None
     pool = (cache.k_pages, cache.v_pages, cache.k_scale, cache.v_scale,
             cache.page_tables)
-    if extra_kv is not None or (bf16 and eligible):
+    if extra_kv is not None or (unscaled and eligible):
         kn, vn = extra_kv if extra_kv is not None else (None, None)
         args = (q, kn, vn, *pool, layer, q_positions[:, 0], kv_lens, scale,
                 fused_append, out_dtype)
         out = _dispatch(q, decode_paged_cuda, decode_paged_plain,
-                        "flash_decode_paged", bf16, args, alibi)
+                        "flash_decode_paged", cache.k_pages.dtype, args,
+                        alibi)
     else:
         args = (q, *pool, layer, q_positions, kv_lens, scale, out_dtype)
         out = _dispatch(q, prefill_paged_cuda, prefill_paged_plain,
-                        "flash_prefill_paged", bf16, args, alibi)
+                        "flash_prefill_paged", cache.k_pages.dtype, args,
+                        alibi)
     if fused_append:
         return out, pool[:4]
     return out

@@ -45,9 +45,9 @@ def init_cache(layers: int, batch: int, max_len: int, kv_heads: int,
                head_dim: int, dtype=torch.bfloat16, quantized: bool = False,
                device=None) -> KVCache:
     """Zeroed cache on `device` (the card unless the CPU is asked for):
-    `dtype` values (bf16 by default; float32, the JAX package's
-    `memory_dtype="f32"`, has no kernel on the card), or with `quantized`
-    int8 codes and bf16 scales (the JAX package's default scale dtype)."""
+    `dtype` values (bf16 by default, or float32, the JAX package's
+    `memory_dtype="f32"`), or with `quantized` int8 codes and bf16 scales
+    (the JAX package's default scale dtype)."""
     from .._build import resolve_device
 
     dev = resolve_device(device)

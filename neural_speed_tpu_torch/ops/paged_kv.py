@@ -79,8 +79,8 @@ def init_paged_cache(layers: int, batch: int, max_len: int, kv_heads: int,
                      dtype=torch.bfloat16, quantized: bool = False,
                      device=None) -> PagedKVCache:
     """Zeroed pool on `device` (the card unless the CPU is asked for):
-    `dtype` values (bf16 by default), or with `quantized` int8 codes and
-    bf16 scales.  `n_pages` counts the trash page."""
+    `dtype` values (bf16 by default, or float32), or with `quantized`
+    int8 codes and bf16 scales.  `n_pages` counts the trash page."""
     from .._build import resolve_device
 
     if max_len % page_size:

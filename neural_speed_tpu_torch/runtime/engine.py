@@ -184,8 +184,9 @@ class Engine:
     card unless the CPU is asked for).  The cache layout follows the JAX
     Engine's arguments: `kv_dtype` values (bf16 by default) or, with
     `kv_quantized=True`, int8 codes with bf16 scales.  A float32 cache
-    (the JAX package's `memory_dtype="f32"`) runs on the CPU only: the
-    attention kernels take int8 and bf16 K/V.
+    (the JAX package's `memory_dtype="f32"`) runs through the attention
+    kernels' float32 instances, which round K and V to bf16 as they read
+    them, as the JAX kernels do.
 
     `comp` selects int8 compute for steps of at least 32 rows: None, "int8"
     (activation scales per token and K group) or "int8t" (per token).  The
@@ -197,12 +198,6 @@ class Engine:
                  buckets: Tuple[int, ...] = DEFAULT_BUCKETS,
                  fuse: bool = True, device=None, comp: Optional[str] = "env"):
         self.device = resolve_device(device)
-        if (self.device.type != "cpu" and not kv_quantized
-                and kv_dtype != torch.bfloat16):
-            raise ValueError(
-                f"kv_dtype {kv_dtype} has no attention kernel on the card "
-                f"(ROADMAP section 2, item 1: the float32 K/V variant of rows "
-                f"6-10); use torch.bfloat16 or kv_quantized=True")
         self.kv_dtype = kv_dtype
         self.kv_quantized = kv_quantized
         if comp == "env":

@@ -23,9 +23,11 @@ import torch
 
 from .._build import resolve_device
 from ..models.arch import ArchConfig
-from ..models.configs import (BLOOM_7B1_HF, FALCON_7B_HF, MIXTRAL_8X7B_HF,
-                              MPT_7B_HF, bloom_arch, falcon_arch,
-                              mixtral_arch, mpt_arch)
+from ..models.configs import (BLOOM_7B1_HF, FALCON_7B_HF, GEMMA_7B_HF,
+                              GPTJ_6B_HF, GPTNEOX_20B_HF, MIXTRAL_8X7B_HF,
+                              MPT_7B_HF, PHI_2_HF, arch_from_hf_config,
+                              bloom_arch, falcon_arch, mixtral_arch,
+                              mpt_arch)
 from ..ops.moe import StackedExperts
 from ..ops.qtypes import QSpec, QType, plane_widths
 from ..ops.quantize import QTensor
@@ -165,12 +167,57 @@ def falcon_7b_arch() -> ArchConfig:
     return falcon_arch(FALCON_7B_HF)
 
 
+def gemma_7b_arch() -> ArchConfig:
+    """google/gemma-7b: hidden 3072, 16 heads over 16 KV heads of head dim
+    256 (q_dim 4096), 28 layers, GELU-gated FFN of 24576, vocab 256000,
+    (1 + w) RMSNorm, the head tied to the embedding."""
+    return arch_from_hf_config(GEMMA_7B_HF)
+
+
+def gptj_6b_arch() -> ArchConfig:
+    """EleutherAI/gpt-j-6b: hidden 4096, 16 heads of head dim 256, 28
+    layers, rotary on the first 64 dims of each head, parallel attention
+    and MLP sharing one LayerNorm, vocab 50400, an untied head with a
+    bias."""
+    return arch_from_hf_config(GPTJ_6B_HF)
+
+
+def phi_2_arch() -> ArchConfig:
+    """microsoft/phi-2: hidden 2560, 32 heads of head dim 80, 32 layers,
+    rotary on 32 dims (partial_rotary_factor 0.4), parallel attention and
+    MLP sharing one LayerNorm, biases everywhere, vocab 51200."""
+    return arch_from_hf_config(PHI_2_HF)
+
+
+def gptneox_20b_arch() -> ArchConfig:
+    """EleutherAI/gpt-neox-20b: hidden 6144, 64 heads of head dim 96, 44
+    layers, rotary on 24 dims (rotary_pct 0.25), parallel residual with two
+    LayerNorms, FFN 24576, vocab 50432, an untied head."""
+    return arch_from_hf_config(GPTNEOX_20B_HF)
+
+
+def _linear(out: Dict[str, tuple], name: str, n: int, k: int,
+            bias: bool) -> None:
+    out[name + ".weight"] = (n, k)
+    if bias:
+        out[name + ".bias"] = (n,)
+
+
+def _norm(out: Dict[str, tuple], name: str, e: int, bias: bool = True
+          ) -> None:
+    out[name + ".weight"] = (e,)
+    if bias:
+        out[name + ".bias"] = (e,)
+
+
 def hf_shapes(model_type: str, cfg: ArchConfig) -> Dict[str, tuple]:
     """Tensor names and shapes of an HF checkpoint of `model_type` (mpt,
-    bloom, falcon with one shared norm) for `cfg`; linear weights are
-    [out, in] as torch stores them."""
+    bloom, falcon with one shared norm, gemma, gptj, phi, gpt_neox) for
+    `cfg`, as `transformers` names them, without the tied head's alias;
+    linear weights are [out, in] as torch stores them."""
     e, v = cfg.hidden_size, cfg.vocab_size
-    qkv = cfg.q_dim + 2 * cfg.kv_dim
+    qd, kvd = cfg.q_dim, cfg.kv_dim
+    qkv = qd + 2 * kvd
     ff = cfg.intermediate_size
     out: Dict[str, tuple] = {}
     if model_type == "mpt":
@@ -217,6 +264,60 @@ def hf_shapes(model_type: str, cfg: ArchConfig) -> Dict[str, tuple]:
         out["transformer.ln_f.weight"] = (e,)
         out["transformer.ln_f.bias"] = (e,)
         out["lm_head.weight"] = (v, e)
+    elif model_type == "gemma":
+        out["model.embed_tokens.weight"] = (v, e)
+        for i in range(cfg.n_layers):
+            p = f"model.layers.{i}."
+            for name, n, k in (("self_attn.q_proj", qd, e),
+                               ("self_attn.k_proj", kvd, e),
+                               ("self_attn.v_proj", kvd, e),
+                               ("self_attn.o_proj", e, qd),
+                               ("mlp.gate_proj", ff, e),
+                               ("mlp.up_proj", ff, e),
+                               ("mlp.down_proj", e, ff)):
+                _linear(out, p + name, n, k, False)
+            _norm(out, p + "input_layernorm", e, False)
+            _norm(out, p + "post_attention_layernorm", e, False)
+        _norm(out, "model.norm", e, False)
+    elif model_type == "gptj":
+        out["transformer.wte.weight"] = (v, e)
+        for i in range(cfg.n_layers):
+            p = f"transformer.h.{i}."
+            _norm(out, p + "ln_1", e)
+            for name, n, k in (("attn.q_proj", qd, e), ("attn.k_proj", kvd, e),
+                               ("attn.v_proj", kvd, e),
+                               ("attn.out_proj", e, qd)):
+                _linear(out, p + name, n, k, False)
+            _linear(out, p + "mlp.fc_in", ff, e, True)
+            _linear(out, p + "mlp.fc_out", e, ff, True)
+        _norm(out, "transformer.ln_f", e)
+        _linear(out, "lm_head", v, e, True)
+    elif model_type == "phi":
+        out["model.embed_tokens.weight"] = (v, e)
+        for i in range(cfg.n_layers):
+            p = f"model.layers.{i}."
+            for name, n, k in (("self_attn.q_proj", qd, e),
+                               ("self_attn.k_proj", kvd, e),
+                               ("self_attn.v_proj", kvd, e),
+                               ("self_attn.dense", e, qd), ("mlp.fc1", ff, e),
+                               ("mlp.fc2", e, ff)):
+                _linear(out, p + name, n, k, True)
+            _norm(out, p + "input_layernorm", e)
+        _norm(out, "model.final_layernorm", e)
+        _linear(out, "lm_head", v, e, True)
+    elif model_type == "gpt_neox":
+        out["gpt_neox.embed_in.weight"] = (v, e)
+        for i in range(cfg.n_layers):
+            p = f"gpt_neox.layers.{i}."
+            _norm(out, p + "input_layernorm", e)
+            _norm(out, p + "post_attention_layernorm", e)
+            for name, n, k in (("attention.query_key_value", qkv, e),
+                               ("attention.dense", e, qd),
+                               ("mlp.dense_h_to_4h", ff, e),
+                               ("mlp.dense_4h_to_h", e, ff)):
+                _linear(out, p + name, n, k, True)
+        _norm(out, "gpt_neox.final_layer_norm", e)
+        out["embed_out.weight"] = (v, e)
     else:
         raise ValueError(f"no HF layout for model_type {model_type!r}")
     return out
@@ -227,16 +328,18 @@ def synth_hf_state_dict(model_type: str, cfg: ArchConfig, seed: int = 0,
                         ) -> Dict[str, torch.Tensor]:
     """A random float HF checkpoint of `model_type` for `cfg`, drawn on
     `device` (the card unless the CPU is asked for) with a seeded
-    generator: weights N(0, 0.02^2), LayerNorm weights 1 + N(0, 0.1^2),
-    biases N(0, 0.02^2), all stored in `dtype`."""
+    generator: weights N(0, 0.02^2), norm weights 1 + N(0, 0.1^2) (gemma's,
+    which scale by 1 + w, N(0, 0.1^2)), biases N(0, 0.02^2), all stored in
+    `dtype`.  Tensors are drawn one at a time in `hf_shapes` order."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    centre = 0.0 if model_type == "gemma" else 1.0
     sd = {}
     for name, shape in hf_shapes(model_type, cfg).items():
         x = torch.randn(shape, generator=gen, device=dev)
         if len(shape) == 1 and "norm" in name and name.endswith("weight"):
-            x = 1.0 + 0.1 * x
+            x = centre + 0.1 * x
         else:
             x = 0.02 * x
         sd[name] = x.to(dtype)

@@ -291,10 +291,13 @@ def test_bf16_caches_bit_identical(paged):
         same()
 
 
-def test_open_variants_raise_naming_the_roadmap(monkeypatch):
+def test_open_variants_raise_naming_the_roadmap():
     """Softcap and non-causal attention raise on every device, naming their
-    ROADMAP item; float32 K/V runs on the CPU (the plain versions) and is
-    refused on the card, by the kernels' checks and by the engines."""
+    ROADMAP item.  Float32 K/V runs on the CPU (the plain versions) and,
+    over meta tensors, passes the cache checks and stops only at the
+    kernels' device check, with no ROADMAP error; so do head dims that are
+    multiples of 8 up to 256.  Other head dims raise, naming the rule.  The
+    engines build a float32 cache off the CPU."""
     from neural_speed_tpu_torch.models.arch import ArchConfig
     from neural_speed_tpu_torch.runtime.engine import Engine
 
@@ -309,20 +312,27 @@ def test_open_variants_raise_naming_the_roadmap(monkeypatch):
     f32 = k.float()
     out = tfl.mha(q, f32, f32, None, None, pos, lens, scale=1.0, layer=0)
     assert out.shape == q.shape
-    with pytest.raises(ValueError, match="ROADMAP.*float32"):
-        tfl.mha(q.to("meta"), f32.to("meta"), f32.to("meta"), None, None,
-                pos.to("meta"), lens.to("meta"), scale=1.0, layer=0)
-    with pytest.raises(ValueError, match="ROADMAP.*head dims"):
-        tfl.mha(q.to("meta"), k.to("meta"), k.to("meta"), None, None,
-                pos.to("meta"), lens.to("meta"), scale=1.0, layer=0)
+    meta = lambda *a: [x.to("meta") for x in a]
+    for d in (16, 72, 80, 96, 256):
+        kd, qd = torch.zeros(k.shape[:4] + (d,)), torch.zeros(q.shape[:3]
+                                                             + (d,))
+        for cache in (kd, kd.to(torch.bfloat16)):
+            with pytest.raises(ValueError, match="takes CUDA tensors") as e:
+                tfl.mha(*meta(qd.to(torch.bfloat16), cache, cache), None,
+                        None, *meta(pos, lens), scale=1.0, layer=0)
+            assert "ROADMAP" not in str(e.value)
+    for d in (20, 264):
+        kd = torch.zeros(k.shape[:4] + (d,), dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="multiples of 8 up to 256"):
+            tfl.mha(*meta(torch.zeros(q.shape[:3] + (d,),
+                                      dtype=torch.bfloat16), kd, kd), None,
+                    None, *meta(pos, lens), scale=1.0, layer=0)
     cfg = ArchConfig(name="llama", vocab_size=64, hidden_size=64, n_layers=1,
                      n_heads=4, n_kv_heads=2, intermediate_size=128)
-    eng = Engine({"layers": []}, cfg, max_len=128, kv_dtype=torch.float32,
-                 device="cpu")
-    assert eng.cache.k.dtype == torch.float32 and not eng.cache.quantized
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(ValueError, match="ROADMAP.*float32"):
-        Engine({"layers": []}, cfg, kv_dtype=torch.float32, device="cuda")
+    for dev in ("cpu", "meta"):
+        eng = Engine({"layers": []}, cfg, max_len=128,
+                     kv_dtype=torch.float32, device=dev)
+        assert eng.cache.k.dtype == torch.float32 and not eng.cache.quantized
 
 
 @pytest.mark.parametrize("softcap", [0.0, 30.0], ids=["plain", "softcap"])
