@@ -7,6 +7,7 @@
                                           # ... of the kernels so named
     python3 chip_smoke.py --profile       # all phases + a torch.profiler
                                           # trace of the main path
+    python3 chip_smoke.py --phases 3,11   # build + only these phases
 
 Phases, each raising on failure so the run exits non-zero:
 
@@ -31,7 +32,13 @@ Phases, each raising on failure so the run exits non-zero:
    contiguous twin bit for bit; the head-dim instances (DIM_CASES):
    kernels B, C, 9 and 10 at D = 80, 96 and 256 and the masked D = 72,
    over int8, bf16 and float32 K/V, decode (B = 4) and prefill (T = 2048),
-   and Gemma-2B's 8 query heads over one KV head at 256;
+   and Gemma-2B's 8 query heads over one KV head at 256; grok's logit
+   softcap of 30 (SOFTCAP_CASES) on kernels B, C, 9 and 10 at Grok-1's 48
+   query heads over 8 KV heads, over int8 K/V with bf16 and float32
+   scales, bf16 K/V and with ALiBi, q drawn so that the softcap bites
+   (each output also held far from the output without it); int8 K/V with
+   float32 scales at Llama-2-7B's shapes (SCALE_F32_CASES), the fused
+   append's codes and float32 scales equal to the plain version's;
 3. a tiny model through `Engine` on the card against the same model on the
    CPU (plain versions), once in int4, once per configuration of phase
    5 and as a tiny Mixtral at B = 3 and B = 1: logits within tolerance,
@@ -43,9 +50,11 @@ Phases, each raising on failure so the run exits non-zero:
    over the bf16 and the int8 cache, BLOOM and Falcon (MQA) over bf16, and
    the tiny llama through a bf16 `PagedEngine`, a release and a refill;
    a Gemma at head dim 256, a Phi at 80 and a GPT-NeoX at 96 over bf16,
-   and the Phi over a float32 cache.  Phases 3-8 serve over the int8 cache
-   (`kv_quantized=True`), phases 9 and 10 over the engines' default bf16
-   cache, int8 and float32;
+   and the Phi over a float32 cache; a tiny grok (n_rep 6 at head dim 128,
+   the softcap at 2, where it bites) through `Engine` and `PagedEngine` at
+   B = 3 and B = 1, and the tiny llama over int8 K/V with float32 scales.
+   Phases 3-8 serve over the int8 cache (`kv_quantized=True`), phases 9-11
+   over the engines' default bf16 cache, int8 and float32;
 4. the main path: a Llama-2-7B-shaped int4 model (full width and depth,
    random weights from a seed, drawn on the card) serves 4 ragged requests,
    then the bench shape (B = 1, a 1975-token prefill, 64 greedy steps); every
@@ -100,7 +109,17 @@ Phases, each raising on failure so the run exits non-zero:
    at D = 256), Phi-2 over bf16 and over float32 K/V (bench shape and
    ragged bit-equality each), GPT-NeoX-20B over bf16 (bench shape, a
    38.3 GiB checkpoint).  Each prints what phase 9 prints and the launches
-   per head-dim instance, which must include the model's.
+   per head-dim instance, which must include the model's;
+11. Grok-1 at full width (hpcai-tech/grok-1's config; 16 of its 64 layers,
+   int4 g128, random weights from a seed drawn on the card after every
+   earlier phase's params are freed): (a) the ragged requests through
+   `Engine` over the default bf16 cache and `PagedEngine`, bit-equal;
+   (b) the bench shape (64 greedy steps); (c) (a) and (b) over int8 K/V
+   with float32 scales; (d) a 2-layer full-width checkpoint in the
+   hpcai-tech layout converted on the card by `map_grok`, serving the
+   ragged requests.  The softcap variants of C / 9 and B / 10, A and
+   kernel 11 must launch, no plain version may run, and the MoE layers of
+   a B = 4 and a B = 1 decode step must not synchronise the host.
 
 It prints a `kernels` JSON line, then as its last line
 `{"ok": true, "device": {...}}`.  It imports nothing of JAX.
@@ -1027,11 +1046,12 @@ KV_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
 def _random_pool(gen, layers, b, hkv, s, d, ps, kv="int8"):
-    """A page pool of random codes and scales (or, with `kv` "bf16" /
-    "f32", random bf16 / float32 rows, a normal draw) for `b` slots of `s`
-    rows, with a shuffled table: a random permutation of every page but the
-    trash page (the last), so a fault in the page indexing cannot hide
-    behind an identity-like table."""
+    """A page pool of random codes and bf16 scales (`kv` "int8"; float32
+    scales with "int8f32"; or, with "bf16" / "f32", random bf16 / float32
+    rows, a normal draw) for `b` slots of `s` rows, with a shuffled table:
+    a random permutation of every page but the trash page (the last), so a
+    fault in the page indexing cannot hide behind an identity-like
+    table."""
     from neural_speed_tpu_torch.ops.paged_kv import PagedKVCache
 
     nb = s // ps
@@ -1040,15 +1060,16 @@ def _random_pool(gen, layers, b, hkv, s, d, ps, kv="int8"):
     tables = torch.randperm(n_pages - 1, generator=gen, device="cuda")
     tables = tables.reshape(b, nb).to(torch.int32)
     lengths = torch.zeros((b,), dtype=torch.int32, device="cuda")
-    if kv != "int8":
+    if kv in KV_DTYPES:
         rows = lambda: torch.randn(shape, generator=gen, device="cuda").to(
             KV_DTYPES[kv])
         return PagedKVCache(rows(), rows(), None, None, tables, lengths)
     codes = lambda: torch.randint(-127, 128, shape, generator=gen,
                                   device="cuda", dtype=torch.int8)
+    sdt = torch.float32 if kv == "int8f32" else torch.bfloat16
     scales = lambda: ((torch.rand((layers, hkv, n_pages, 1, ps),
                                   generator=gen, device="cuda") + 0.5) * 0.02
-                      ).to(torch.bfloat16)
+                      ).to(sdt)
     return PagedKVCache(codes(), codes(), scales(), scales(), tables,
                         lengths)
 
@@ -1253,6 +1274,33 @@ DIM_CASES = [
                             ("prefill", 2048, [1975]))
 ] + [("prefill", "bf16", False, 8, 1, 256, 1, DECODE_LENS, False),
      ("prefill", "bf16", False, 8, 1, 256, 2048, [1975], False)]
+# The logit softcap (30, grok's) on kernels B, C, 9 and 10 at Grok-1's
+# heads (48 query heads over 8 KV heads, n_rep 6: kernel B's MAX_REP
+# instance; D = 128): a decode step (B = 4, the int8 cases with the fused
+# append) and the bench prefill (T = 2048, 1975 real rows), over int8 K/V
+# with bf16 and with float32 scales and over bf16 K/V (the engines'
+# default cache), and ALiBi with the softcap.  q is drawn so that the
+# scores' spread is 0.7 x the cap (the largest |score| of a row 2-3x the
+# cap), where the softcap bites: each case also holds the kernel's output
+# more than 10 tolerances away from the plain version without the softcap.
+SOFTCAP = 30.0
+SOFTCAP_CASES = [
+    (kernel, kv, alibi, 48, 8, 128, t, lens, kv == "int8" and not alibi,
+     SOFTCAP)
+    for kernel, t, lens in (("decode", 1, DECODE_LENS),
+                            ("prefill", 2048, [1975]))
+    for kv, alibi in (("int8", False), ("int8f32", False), ("bf16", False),
+                      ("int8", True))
+]
+# int8 K/V with float32 scales at Llama-2-7B's decode step (the fused
+# append writes float32 scales) and bench prefill, without the softcap.
+SCALE_F32_CASES = [
+    ("decode", "int8f32", False, 32, 32, 128, 1, DECODE_LENS, True),
+    ("prefill", "int8f32", False, 32, 32, 128, 2048, [1975], True),
+]
+# Counter suffix of each K/V type of the cases.
+KV_SUFFIX = {"int8": "", "int8f32": "_f32scale", "bf16": "_bf16",
+             "f32": "_f32"}
 
 
 def _sdpa_mask(valid, pos, slopes, s):
@@ -1268,14 +1316,19 @@ def _sdpa_mask(valid, pos, slopes, s):
                        torch.full_like(bias, float("-inf")))
 
 
-def _variant_case(chk, gen, kernel, kv, alibi, h, hkv, d, t, lens, main):
-    """One case of VARIANT_CASES / DIM_CASES (`kv`: "int8", "bf16" or
+def _variant_case(chk, gen, kernel, kv, alibi, h, hkv, d, t, lens, main,
+                  softcap=0.0):
+    """One case of VARIANT_CASES / DIM_CASES / SOFTCAP_CASES /
+    SCALE_F32_CASES (`kv`: "int8", "int8f32" (float32 scales), "bf16" or
     "f32"): a shuffled pool at page size 128 and the same rows gathered
     into a contiguous cache; the contiguous kernel and the paged kernel
     each within 4 bf16 ulps per row of its plain version, the paged kernel
     equal to the contiguous one bit for bit, and (int8 decode) the fused
-    append equal to the plain version's.  Times kernel, plain version and
-    SDPA over the same K/V (bf16; ALiBi as a float mask)."""
+    append equal to the plain version's.  With a softcap, q is scaled so
+    that it bites, and the kernel's output must lie more than 10
+    tolerances from the plain version's without it.  Times kernel, plain
+    version and SDPA over the same K/V (bf16; ALiBi as a float mask; no
+    SDPA call computes the softcap, so none is timed then)."""
     from neural_speed_tpu_torch.ops import flash
     from neural_speed_tpu_torch.ops.attention import alibi_slopes
     from neural_speed_tpu_torch.ops.paged_kv import gathered_layer
@@ -1294,9 +1347,13 @@ def _variant_case(chk, gen, kernel, kv, alibi, h, hkv, d, t, lens, main):
         ar = torch.arange(t, device="cuda", dtype=torch.int32)[None]
         pos = torch.where(ar < kv_lens[:, None], ar,
                           torch.full_like(ar, s - 1))
-    q = torch.randn((b, t, h, d), generator=gen, device="cuda").to(
-        torch.bfloat16)
-    extra = kernel == "decode" and kv == "int8"
+    q = torch.randn((b, t, h, d), generator=gen, device="cuda")
+    if softcap:
+        # scores (q . k) * scale of spread 0.7 x the cap
+        kstd = gathered_layer(pool, layer)[0].float().std().item()
+        q = q * (0.7 * softcap / (kstd * math.sqrt(d) * scale))
+    q = q.to(torch.bfloat16)
+    extra = kernel == "decode" and kv in ("int8", "int8f32")
     kn, vn = ((torch.randn((b, 1, hkv, d), generator=gen, device="cuda")
                ).to(torch.bfloat16) for _ in range(2)) if extra else (None,
                                                                      None)
@@ -1318,13 +1375,14 @@ def _variant_case(chk, gen, kernel, kv, alibi, h, hkv, d, t, lens, main):
         fns = (flash.prefill_cuda, flash.prefill_plain,
                flash.prefill_paged_cuda, flash.prefill_paged_plain)
     c_cuda, c_plain, p_cuda, p_plain = fns
-    kw = dict(alibi=slopes)
+    kw = dict(alibi=slopes, softcap=softcap)
     # the paged kernel over the pool and the contiguous kernel over the
     # gathered rows, without the append: equal bit for bit
     same = torch.equal(p_cuda(*pargs(pool, False), **kw),
                        c_cuda(*cargs(ck, False), **kw))
-    suffix = "" if kv == "int8" else "_" + kv
-    what = (f"{kernel} {kv} K/V{', ALiBi' if alibi else ''} H={h} "
+    suffix = KV_SUFFIX[kv] + ("_softcap" if softcap else "")
+    what = (f"{kernel} {kv} K/V{', ALiBi' if alibi else ''}"
+            f"{f', softcap {softcap}' if softcap else ''} H={h} "
             f"Hkv={hkv} D={d} T={t}")
     if not same:
         raise AssertionError(f"flash_{kernel}_paged{suffix} ({what}) differs "
@@ -1335,8 +1393,8 @@ def _variant_case(chk, gen, kernel, kv, alibi, h, hkv, d, t, lens, main):
     valid = ((col[None, None] < cache_len[:, None, None])
              & (col[None, None] <= pos[:, :, None]))              # [B,T,S]
     pairs = valid.sum().item()
-    kv_bytes = 2 * d * {"int8": 1, "bf16": 2, "f32": 4}[kv] + (
-        4 if kv == "int8" else 0)
+    kv_bytes = 2 * d * {"int8": 1, "int8f32": 1, "bf16": 2, "f32": 4}[kv] + (
+        {"int8": 4, "int8f32": 8}.get(kv, 0))
     nbytes = (2 * b * t * h * d * 2 + valid.any(1).sum().item() * hkv
               * kv_bytes + (2 * b * hkv * d * 2 if extra else 0))
     for paged in (False, True):
@@ -1364,17 +1422,31 @@ def _variant_case(chk, gen, kernel, kv, alibi, h, hkv, d, t, lens, main):
         # as kernels B and C: within 4 bf16 ulps of the largest output of
         # the (slot, row, head) row
         cmp = compare(got, want, 4, per_row=True)
+        if softcap:
+            # the softcap bites: the output without it lies far away
+            uncapped = plain(*args(mk(), False), alibi=slopes)
+            off = compare(got, uncapped, 4, per_row=True)["worst"]
+            if not off > 10:
+                raise AssertionError(
+                    f"{name} ({what}): the output is only {off:.2f} "
+                    f"tolerances from the output without the softcap")
+            log(f"  {name}: {off:.1f} tolerances from the output without "
+                f"the softcap")
+            del uncapped
         del got, want
         ms = time_ms(lambda: run(*args(a_k), **kw))
         plain_ms = time_ms(lambda: plain(*args(a_p), **kw), reps=3)
-        kd, vd = gathered_layer(pool, layer)
-        mask = _sdpa_mask(valid, pos, slopes, s)
-        qs = q.transpose(1, 2)
-        lib_ms = time_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qs, kd, vd, attn_mask=mask, scale=scale,
-                enable_gqa=hkv != h))
-        del kd, vd, mask, a_k, a_p
+        lib_ms = None
+        if not softcap:
+            kd, vd = gathered_layer(pool, layer)
+            mask = _sdpa_mask(valid, pos, slopes, s)
+            qs = q.transpose(1, 2)
+            lib_ms = time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qs, kd, vd, attn_mask=mask, scale=scale,
+                    enable_gqa=hkv != h))
+            del kd, vd, mask
+        del a_k, a_p
         chk.add(name, "cuda",
                 f"neural_speed_tpu_torch/csrc/flash_{kernel}.cuh",
                 "neural_speed_tpu/ops/flash.py:"
@@ -1400,6 +1472,11 @@ def check_flash_variants(chk: Checks, gen: torch.Generator) -> None:
 
 def check_flash_dims(chk: Checks, gen: torch.Generator) -> None:
     for case in DIM_CASES:
+        _variant_case(chk, gen, *case)
+
+
+def check_flash_softcap(chk: Checks, gen: torch.Generator) -> None:
+    for case in SOFTCAP_CASES + SCALE_F32_CASES:
         _variant_case(chk, gen, *case)
 
 
@@ -1446,7 +1523,11 @@ def format_configs():
 # (`check_tiny_hf`) were searched the same way over seeds 0-299 (the tiny
 # GPT-NeoX at head dim 96 kept 9 clear steps at one seed only); the int4
 # seed and the refill prompt of the paged check keep their margins over the
-# bf16 pool too.
+# bf16 pool too.  The tiny grok (`check_tiny_grok`) was searched over seeds
+# 0-59 for routing decisions 3.6 bf16 ulps clear of a tie (its router
+# logits round to bf16, as the JAX package's: 3 seeds of 60 kept them so
+# in all four runs) and greedy margins (all wide); the tiny llama keeps its
+# int4 seed's margins over int8 K/V with float32 scales.
 TINY_SEEDS = {"int4": (15, 9), "nf4": (268, 9), "int5 asymmetric": (84, 5),
               "fp8_e4m3": (562, 9), "int4 + comp=int8": (172, 9),
               "int3 + comp=int8": (1, 9), "mixtral int4": (89, 6),
@@ -1457,7 +1538,8 @@ TINY_SEEDS = {"int4": (15, 9), "nf4": (268, 9), "int5 asymmetric": (84, 5),
               "mpt bf16": (33, 9), "mpt int8": (11, 9), "bloom bf16": (19, 9),
               "falcon bf16": (22, 9), "int4 paged bf16": (15, 9),
               "gemma bf16": (0, 9), "phi bf16": (172, 9),
-              "gpt_neox bf16": (299, 9), "phi f32": (172, 9)}
+              "gpt_neox bf16": (299, 9), "phi f32": (172, 9),
+              "grok": (12, 6), "int4 f32 scales": (15, 9)}
 
 
 TINY_CFG = dict(name="llama", vocab_size=512, hidden_size=512, n_layers=2,
@@ -1499,29 +1581,96 @@ def tiny_moe_cfg():
     return ArchConfig(**TINY_MOE, moe=MoEConfig(num_experts=4, top_k=2))
 
 
+# The tiny grok of phase 3: `grok_arch` at hidden 256 with Grok-1's 48 / 8
+# query / KV heads cut to 12 / 2 (n_rep 6: kernel B's MAX_REP instance) at
+# its head dim 128, 4 experts of width 512 top-2, the embedding and output
+# multipliers and the sandwich norms; the softcap at 2 (the scores' spread
+# is about 2 at these weights, so it bites: at 30 it would not).
+TINY_GROK_HF = {"model_type": "grok-1", "vocab_size": 512, "hidden_size": 256,
+                "intermediate_size": 512, "num_hidden_layers": 2,
+                "num_attention_heads": 12, "num_key_value_heads": 2,
+                "max_position_embeddings": 256, "num_local_experts": 4,
+                "num_experts_per_tok": 2,
+                "embedding_multiplier_scale": 78.38367176906169,
+                "output_multiplier_scale": 0.5773502691896257}
+TINY_GROK_SOFTCAP = 2.0
+
+
+def tiny_grok_cfg(softcap: float = TINY_GROK_SOFTCAP):
+    import dataclasses
+
+    from neural_speed_tpu_torch.models.configs import grok_arch
+
+    return dataclasses.replace(grok_arch(TINY_GROK_HF), head_dim=128,
+                               logit_softcap=softcap)
+
+
+def check_tiny_grok() -> dict:
+    """The tiny grok through `Engine` and `PagedEngine` on the card against
+    the CPU at B = 3 (the grouped MoE path) and B = 1 (the single-token
+    path) over the default bf16 cache, and at B = 3 over int8 K/V; then
+    the tiny llama over int8 K/V with float32 scales through both engines.
+    Counts are set to 0 before and read after: the softcap variants of
+    kernels B / 10 and C / 9 over bf16 and int8 K/V, kernel 11 and A must
+    launch on the card, and the float32-scale instances of B, C, 9 and
+    10."""
+    from neural_speed_tpu_torch import _build
+    from neural_speed_tpu_torch.ops.qtypes import named_qspec
+
+    int4 = named_qspec("int4", 64, scale_dtype="bfloat16")
+    _build.reset_counts()
+    for paged in (False, True):
+        for prompts in (TINY_MOE_PROMPTS, TINY_MOE_PROMPTS[:1]):
+            check_tiny_model(
+                f"grok{' paged' if paged else ''} B={len(prompts)}", int4,
+                None, tiny_grok_cfg(), prompts, kv_quantized=False,
+                paged=paged, seed_label="grok")
+        check_tiny_model(f"grok int8{' paged' if paged else ''} B=3", int4,
+                         None, tiny_grok_cfg(), TINY_MOE_PROMPTS,
+                         paged=paged, seed_label="grok")
+        check_tiny_model(f"int4 f32 scales{' paged' if paged else ''}", int4,
+                         None, kv_scale_dtype=torch.float32, paged=paged,
+                         seed_label="int4 f32 scales")
+    counts = {k: v for k, v in _build.launches.items() if v}
+    need = [f"flash_{k}{p}{s}" for k in ("prefill", "decode")
+            for p in ("", "_paged")
+            for s in ("_bf16_softcap", "_softcap", "_f32scale")]
+    for k in need + ["qmatmul_grouped", "qmatmul"]:
+        if counts.get(k, 0) <= 0:
+            raise AssertionError(f"tiny grok / float32 scales: {k} was not "
+                                 f"launched on the card: {counts}")
+    log(f"  tiny grok and float32 scales: launches on the card {counts}")
+    return counts
+
+
 def check_tiny_model(label: str, spec, comp, cfg=None,
                      prompts=TINY_PROMPTS, params_fn=None,
                      kv_quantized: bool = True,
-                     kv_dtype=torch.bfloat16) -> None:
-    """A tiny model through `Engine` on the card and on the CPU: params from
-    `synth_params(cfg, spec)` or, for a converted checkpoint, from
-    `params_fn(cfg, generator)` (drawn on the CPU), seeded per label; the
-    int8 cache, or with `kv_quantized=False` a cache of `kv_dtype` values
-    (the default bf16, or float32)."""
+                     kv_dtype=torch.bfloat16, kv_scale_dtype=None,
+                     paged: bool = False, seed_label: str = "") -> None:
+    """A tiny model through `Engine` (with `paged`, `PagedEngine` at page
+    size 16) on the card and on the CPU: params from `synth_params(cfg,
+    spec)` or, for a converted checkpoint, from `params_fn(cfg, generator)`
+    (drawn on the CPU), seeded per label (or `seed_label`); the int8 cache
+    (bf16 scales, or `kv_scale_dtype`), or with `kv_quantized=False` a
+    cache of `kv_dtype` values (the default bf16, or float32)."""
     from neural_speed_tpu_torch.models.arch import ArchConfig
-    from neural_speed_tpu_torch.runtime.engine import Engine
+    from neural_speed_tpu_torch.runtime.engine import Engine, PagedEngine
     from neural_speed_tpu_torch.utils.synthetic import synth_params
 
-    seed, checks = TINY_SEEDS[label]
+    seed, checks = TINY_SEEDS[seed_label or label]
     cfg = cfg or ArchConfig(**TINY_CFG)
     if params_fn is None:
         params = synth_params(cfg, spec, seed=seed, device="cpu")
     else:
         params = params_fn(cfg, torch.Generator().manual_seed(seed))
     b = len(prompts)
-    eng = {dev: Engine(params, cfg, max_batch=b, max_len=256,
-                       kv_dtype=kv_dtype, kv_quantized=kv_quantized,
-                       device=dev, comp=comp)
+    make, kw = ((PagedEngine, dict(page_size=16, n_pages=b * 256 // 16))
+                if paged else (Engine, {}))
+    eng = {dev: make(params, cfg, max_batch=b, max_len=256,
+                     kv_dtype=kv_dtype, kv_quantized=kv_quantized,
+                     kv_scale_dtype=kv_scale_dtype, device=dev, comp=comp,
+                     **kw)
            for dev in ("cuda", "cpu")}
     logits = {dev: e.prefill(prompts).float().cpu()
               for dev, e in eng.items()}
@@ -2568,19 +2717,20 @@ def _bench_engine(label: str, eng, prompt, n_steps: int, prefill_kernels,
 
 def _ragged_equal(label: str, params, cfg, prompts, need,
                   kv_quantized: bool = True,
-                  kv_dtype=torch.bfloat16) -> dict:
+                  kv_dtype=torch.bfloat16, kv_scale_dtype=None) -> dict:
     """The four ragged requests through `Engine`, then through
     `PagedEngine` (page size 128, 40 pages), every logit equal bit for bit;
-    `need`: the kernels that must launch; the int8 cache, or with
-    `kv_quantized=False` a cache of `kv_dtype` values (the default bf16, or
-    float32)."""
+    `need`: the kernels that must launch; the int8 cache (bf16 scales, or
+    `kv_scale_dtype`), or with `kv_quantized=False` a cache of `kv_dtype`
+    values (the default bf16, or float32)."""
     from neural_speed_tpu_torch import _build
     from neural_speed_tpu_torch.runtime.engine import Engine, PagedEngine
 
     out = {}
     runs = {}
     kw = dict(max_batch=4, max_len=2048, kv_dtype=kv_dtype,
-              kv_quantized=kv_quantized, fuse=False)
+              kv_quantized=kv_quantized, kv_scale_dtype=kv_scale_dtype,
+              fuse=False)
     for name, make in (("Engine", lambda: Engine(params, cfg, **kw)),
                        ("PagedEngine", lambda: PagedEngine(
                            params, cfg, page_size=128, n_pages=40, **kw))):
@@ -3072,6 +3222,180 @@ def serve_hf_dims(profile: bool) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 11: Grok-1 at full width
+# ---------------------------------------------------------------------------
+
+GROK_LAYERS = 16
+
+
+def _grok_kernels(kv: str) -> tuple:
+    """The softcap attention kernels of a Grok-1 run over a `kv` cache
+    ("bf16", or "int8 f32 scales"): contiguous prefill, decode, then the
+    paged ones."""
+    suffix = "_bf16" if kv == "bf16" else "_f32scale"
+    return tuple(f"flash_{k}{suffix}_softcap" for k in (
+        "prefill", "decode", "prefill_paged", "decode_paged"))
+
+
+def serve_grok(profile: bool) -> dict:
+    """Phase 11: Grok-1 (hpcai-tech/grok-1's config.json: hidden 6144, 48
+    query heads over 8 KV heads of head dim 128, 8 experts of width 32768
+    top-2, vocab 131072 tied to the head, logit softcap 30, GELU experts,
+    sandwich norms) at full width, int4 g128 with bf16 scales, random
+    weights from seed 0 drawn on the card; 16 of its 64 layers, because
+    all 64 take about 151 GiB in int4.
+    (a) the ragged requests through `Engine` over the default bf16 cache
+        and through `PagedEngine`, every logit equal bit for bit, and the
+        MoE layers of one B = 4 decode step under the sync check;
+    (b) the bench shape (B = 1, a 1975-token prefill, 64 greedy steps) over
+        bf16, one B = 1 step's MoE layers under the sync check;
+    (c) (b) over int8 K/V with float32 scales (`kv_scale_dtype`), and the
+        ragged requests, `Engine` = `PagedEngine` bit for bit;
+    (d) a 2-layer checkpoint at full width in the hpcai-tech layout drawn
+        on the card in bf16 and converted there by `convert/hf.py`'s
+        `map_grok` (`params_from_state_dict`, the step `convert_model`
+        takes for a float directory) to int4 g128: the ragged requests
+        through `Engine`.
+    Each run prints weight GiB, TTFT, ms/token, the serving peak and the
+    launches per prefill and per decode step of each kernel and variant:
+    the softcap variants of C / 9 at prefill and of B / 10 at decode, A and
+    kernel 11 must launch, and no plain version may run.  The tied head's
+    float32 product per decode step is timed apart."""
+    import gc
+
+    from neural_speed_tpu_torch import _build
+    from neural_speed_tpu_torch.convert.hf import params_from_state_dict
+    from neural_speed_tpu_torch.models.transformer import fuse_params
+    from neural_speed_tpu_torch.ops.qtypes import named_qspec
+    from neural_speed_tpu_torch.runtime.engine import Engine
+    from neural_speed_tpu_torch.utils.synthetic import (grok_1_arch,
+                                                        synth_hf_state_dict,
+                                                        synth_params)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = grok_1_arch(GROK_LAYERS)
+    spec = named_qspec("int4", 128, scale_dtype="bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = fuse_params(synth_params(cfg, spec, seed=0), cfg)
+    torch.cuda.synchronize()
+    nbytes = weight_bytes(params)
+    log(f"  Grok-1 at full width, {GROK_LAYERS} of its 64 layers (all 64 "
+        f"take about 151 GiB in int4): params drawn on the card in "
+        f"{time.time() - t0:.1f} s, weights {nbytes / 2 ** 30:.3f} GiB, "
+        f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    res = dict(layers=GROK_LAYERS, weight_bytes=nbytes,
+               head_ms=_head_ms(params, cfg))
+    log(f"  the tied head's float32 product: {res['head_ms']:.3f} ms per "
+        f"decode step")
+    pgen = torch.Generator().manual_seed(11)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=pgen).tolist()
+               for n in RAGGED_LENS]
+    prompt = torch.randint(0, cfg.vocab_size, (1975,),
+                           generator=pgen).tolist()
+    moe = ("qmatmul", "qmatmul_grouped")
+    n_steps = 64
+    for key, kv, scale_dtype, what in (
+            ("bf16", "bf16", None, "Grok-1 bf16 KV"),
+            ("int8_f32scale", "int8 f32 scales", torch.float32,
+             "Grok-1 int8 KV, float32 scales")):
+        kernels = _grok_kernels(kv)
+        quant = scale_dtype is not None
+        # (a) / (c): the ragged requests, Engine = PagedEngine bit for bit
+        torch.cuda.reset_peak_memory_stats()
+        ragged = _ragged_equal(f"({'c' if quant else 'a'}) {what}", params,
+                               cfg, prompts, moe, kv_quantized=quant,
+                               kv_scale_dtype=scale_dtype)
+        for name, need in (("Engine", kernels[:2]),
+                           ("PagedEngine", kernels[2:])):
+            for k in need:
+                if ragged[name]["launches"].get(k, 0) <= 0:
+                    raise AssertionError(f"{what} {name}: {k} was not "
+                                         f"launched: {ragged[name]}")
+        ragged_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"  {what} ragged: serving peak {ragged_peak:.2f} GiB")
+        # (b) / (c): the bench shape
+        eng = Engine(params, cfg, max_batch=4, max_len=2048,
+                     kv_quantized=quant, kv_scale_dtype=scale_dtype,
+                     fuse=False)
+        if not quant:
+            gen = torch.Generator().manual_seed(12)
+            tok = torch.randint(0, cfg.vocab_size, (4,), generator=gen).to(
+                torch.int32)
+            eng.prefill(prompts)
+            _moe_without_sync(
+                lambda: eng.decode(tok, torch.ones((4,), dtype=torch.bool)),
+                cfg.n_layers, f"(a) {what}: one B = 4 decode step")
+        del eng
+        torch.cuda.empty_cache()
+        eng = Engine(params, cfg, max_batch=1, max_len=2048,
+                     kv_quantized=quant, kv_scale_dtype=scale_dtype,
+                     fuse=False)
+        torch.cuda.reset_peak_memory_stats()
+        bench = _bench_engine(
+            f"({'c' if quant else 'b'}) {what}", eng, prompt, n_steps, moe,
+            moe, sync_moe=not quant,
+            profile="grok" if profile and not quant else "",
+            attention=kernels[:2])
+        bench["serve_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        bench["per_decode_step"] = {k: v / n_steps for k, v in
+                                    bench["decode_counts"].items()}
+        log(f"  {what}: serving peak {bench['serve_peak_gib']:.2f} GiB; "
+            f"launches per decode step {bench['per_decode_step']}")
+        res[key] = dict(bench, ragged=ragged, ragged_peak_gib=ragged_peak)
+        del eng
+        torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the converter: a 2-layer hpcai-tech checkpoint at full width
+    ccfg = grok_1_arch(2)
+    torch.cuda.reset_peak_memory_stats()
+    sd = synth_hf_state_dict("grok-1", ccfg, seed=13)
+    sd_bytes = sum(t.numel() * t.element_size() for t in sd.values())
+    torch.cuda.synchronize()
+    t0 = time.time()
+    cparams = fuse_params(params_from_state_dict(sd, ccfg, spec), ccfg)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    del sd
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    cbytes = weight_bytes(cparams)
+    log(f"  (d) a {sd_bytes / 2 ** 30:.2f} GiB bf16 Grok-1 checkpoint (2 "
+        f"layers at full width, the hpcai-tech layout) converted by map_grok "
+        f"on the card in {secs:.2f} s, peak {peak:.2f} GiB; weights "
+        f"{cbytes / 2 ** 30:.3f} GiB")
+    eng = Engine(cparams, ccfg, max_batch=4, max_len=2048, fuse=False)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    got = serve_ragged(eng, prompts, "(d) converted Grok-1 ragged")
+    serve_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = dict(_build.launches)
+    for k in moe + _grok_kernels("bf16")[:2]:
+        if counts.get(k, 0) <= 0:
+            raise AssertionError(f"(d) converted Grok-1: {k} was not "
+                                 f"launched: {counts}")
+    if sum(_build.plain_dispatches.values()):
+        raise AssertionError("(d) converted Grok-1: a plain version ran")
+    log(f"  (d) converted Grok-1 ragged: prefill {got['ttft_s'] * 1e3:.1f} "
+        f"ms, {got['steps']} decode steps in {got['decode_s'] * 1e3:.1f} ms; "
+        f"serving peak {serve_peak:.2f} GiB; launches {counts}")
+    res["converted"] = dict(checkpoint_gib=sd_bytes / 2 ** 30,
+                            convert_s=secs, convert_peak_gib=peak,
+                            weight_bytes=cbytes,
+                            prefill_ms=got["ttft_s"] * 1e3,
+                            decode_ms=got["decode_s"] * 1e3,
+                            steps=got["steps"], serve_peak_gib=serve_peak,
+                            launches=counts)
+    del eng, cparams
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -3083,9 +3407,17 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace one prefill and 8 decode steps of the "
                          "main path with torch.profiler")
+    ap.add_argument("--phases", default="",
+                    help="run only these phases after the build (numbers "
+                         "2-11, comma-separated; 6 needs 4); the default "
+                         "runs every phase")
     args = ap.parse_args()
     if args.only and not args.kernels_only:
         ap.error("--only needs --kernels-only")
+    phases = ({int(x) for x in args.phases.split(",")} if args.phases
+              else set(range(2, 12)))
+    if 6 in phases and 4 not in phases:
+        ap.error("--phases: phase 6 serves phase 4's params")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3123,6 +3455,8 @@ def main() -> int:
                          "alibi", check_flash_variants),
                         ("flash_decode flash_prefill _f32 dims",
                          check_flash_dims),
+                        ("flash_decode flash_prefill softcap _f32scale",
+                         check_flash_softcap),
                         ("qmatmul_int4", check_qmatmul),
                         ("qmatmul_lut qmatmul_planar", check_fp_formats),
                         ("qmatmul_int8 qmatmul_int8_planar",
@@ -3132,11 +3466,13 @@ def main() -> int:
                         ("qmatmul_grouped", check_grouped),
                         ("qmatmul_int qmatmul_planar", check_int_formats),
                         ("qmatmul_grouped_fp", check_grouped_fp)):
-        if any(o in names for o in args.only.split(",")):
+        if 2 in phases and any(o in names for o in args.only.split(",")):
             check(chk, gen)
     torch.cuda.empty_cache()
     summary = {}
-    if not args.kernels_only:
+    counts = collections.Counter()
+    instances = collections.Counter()
+    if not args.kernels_only and 3 in phases:
         from neural_speed_tpu_torch.ops.qtypes import named_qspec
 
         log("phase 3: tiny model on the card against the CPU")
@@ -3152,12 +3488,13 @@ def main() -> int:
         check_tiny_paged()
         check_tiny_checkpoints()
         check_tiny_hf()
+        counts.update(check_tiny_grok())
+    if not args.kernels_only and 4 in phases:
         log("phase 4: Llama-2-7B-shaped int4 serving")
-        instances = collections.Counter()
         params, cfg = params_7b()
         _build.reset_counts()
         summary, ref = serve_7b(params, cfg, args.profile)
-        counts = collections.Counter(_build.launches)
+        counts.update(_build.launches)
         for k in ("qmatmul", "flash_decode", "flash_prefill"):
             for part in ("ragged_counts", "bench_counts"):
                 if summary[part].get(k, 0) <= 0:
@@ -3165,13 +3502,15 @@ def main() -> int:
         if sum(_build.plain_dispatches.values()):
             raise AssertionError("a plain version ran on the main path: "
                                  f"{dict(_build.plain_dispatches)}")
-        log(f"  main path launches {dict(counts)}; plain-version dispatches "
-            f"{dict(_build.plain_dispatches)}")
+        log(f"  main path launches {dict(_build.launches)}; plain-version "
+            f"dispatches {dict(_build.plain_dispatches)}")
+    if not args.kernels_only and 5 in phases:
         log("phase 5: Llama-2-7B-shaped serving in the other weight formats")
         summary["formats"] = serve_7b_formats()
         for res in summary["formats"].values():
             counts.update(res["prefill_counts"])
             counts.update(res["decode_counts"])
+    if not args.kernels_only and 6 in phases:
         log("phase 6: Llama-2-7B-shaped int4 serving through PagedEngine")
         _build.reset_counts()
         summary["paged"] = serve_7b_paged(params, cfg, ref, args.profile)
@@ -3190,8 +3529,10 @@ def main() -> int:
         log(f"  paged path launches {paged_counts}; plain-version "
             f"dispatches {dict(_build.plain_dispatches)}")
         counts.update(paged_counts)
+    if not args.kernels_only and 4 in phases:
         del params, ref
         torch.cuda.empty_cache()
+    if not args.kernels_only and 7 in phases:
         log("phase 7: Mixtral-8x7B-shaped int4 serving")
         summary["mixtral"] = serve_mixtral(args.profile)
         for part in ("ragged", "paged_ragged"):
@@ -3201,6 +3542,7 @@ def main() -> int:
         counts.update({k: round(v * 64) for k, v in
                        bench["launches_per_decode_step"].items()})
         torch.cuda.empty_cache()
+    if not args.kernels_only and 8 in phases:
         log("phase 8: quantized checkpoints (GPTQ, GGUF) at full width and "
             "depth")
         summary["checkpoints"] = serve_quantized(args.profile)
@@ -3211,27 +3553,32 @@ def main() -> int:
             for part in ragged.values() if "launches" not in ragged else (
                     ragged,):
                 counts.update(part["launches"])
-        for phase, what, serve, key in (
-                (9, "float HF checkpoints (MPT-7B, BLOOM-7B1, Falcon-7B)",
-                 serve_hf, "hf"),
-                (10, "the head dims 256, 80 and 96 and float32 K/V (Gemma-7B, "
-                 "GPT-J-6B, Phi-2, GPT-NeoX-20B)", serve_hf_dims, "hf_dims")):
-            log(f"phase {phase}: {what} at full width and depth")
+    for phase, what, serve, key in (
+            (9, "float HF checkpoints (MPT-7B, BLOOM-7B1, Falcon-7B) at full "
+             "width and depth", serve_hf, "hf"),
+            (10, "the head dims 256, 80 and 96 and float32 K/V (Gemma-7B, "
+             "GPT-J-6B, Phi-2, GPT-NeoX-20B) at full width and depth",
+             serve_hf_dims, "hf_dims"),
+            (11, f"Grok-1 at full width, {GROK_LAYERS} of its 64 layers "
+             f"(the logit softcap, float32 KV scales)", serve_grok, "grok")):
+        if not args.kernels_only and phase in phases:
+            log(f"phase {phase}: {what}")
             _build.reset_counts()
             summary[key] = serve(args.profile)
             for run in summary[key].values():
-                counts.update(run["prefill_counts"])
-                counts.update(run["decode_counts"])
-                instances.update(run["prefill_instances"])
-                instances.update(run["decode_instances"])
+                if not isinstance(run, dict):
+                    continue
+                counts.update(run.get("launches", {}))
+                counts.update(run.get("prefill_counts", {}))
+                counts.update(run.get("decode_counts", {}))
+                instances.update(run.get("prefill_instances", {}))
+                instances.update(run.get("decode_instances", {}))
                 for part in run.get("ragged", {}).values():
                     counts.update(part["launches"])
                     instances.update(part["instances"])
-        log(f"  launches over the seven paths {dict(counts)}; attention "
-            f"launches per head-dim instance in phases 9 and 10 "
-            f"{dict(instances)}")
-    else:
-        counts = {}
+    if not args.kernels_only:
+        log(f"  launches over the paths {dict(counts)}; attention launches "
+            f"per head-dim instance in phases 9-11 {dict(instances)}")
 
     launches_of = {"qmatmul_int4": "qmatmul"}
     kernels = []

@@ -6,8 +6,8 @@ by the port's `ops.quantize.quantize` (packs equal the JAX converter's bit
 for bit), or kept dense in `dtype` where the group does not divide K (as
 Falcon-7B's K = 4544 at g = 128).  Every step is a torch op on the device
 of the state dict's tensors (or on `device`), so the card converts a 7B
-checkpoint itself, one linear at a time.  The mappers of chatglm2, qwen-1
-and grok wait with their archs (ROADMAP section 1, items 1 and 2).
+checkpoint itself, one linear at a time.  The mappers of chatglm2 and
+qwen-1 wait with their archs (ROADMAP section 1, item 1).
 """
 
 from __future__ import annotations
@@ -465,6 +465,48 @@ def map_phi(sd: StateDict, cfg: ArchConfig, cv: Converter) -> Dict[str, Any]:
     return p
 
 
+def map_grok(sd: StateDict, cfg: ArchConfig, cv: Converter) -> Dict[str, Any]:
+    """Grok-1 in the hpcai-tech key scheme: transformer.decoder_layer.N.*
+    with the sandwich norms rms_norm_1 (after attention) / rms_norm_2 (the
+    FFN norm) / rms_norm_3 (after the MoE), per-expert moe.E.linear (gate)
+    / linear_1 (down) / linear_v (up), and the embedding
+    transformer.in_out_embed, which the head shares."""
+    p: Dict[str, Any] = {
+        "embed": {"weight": cv.dense(sd["transformer.in_out_embed.weight"])},
+        "layers": [],
+    }
+    for i in range(cfg.n_layers):
+        pre = f"transformer.decoder_layer.{i}."
+        att = pre + "multi_head_attention."
+        moe: Dict[str, Any] = {
+            "router": cv.linear(sd[pre + "router.weight"], quant=False),
+            "experts": [],
+            "post_norm": cv.norm_p(sd[pre + "rms_norm_3.weight"]),
+        }
+        for e in range(cfg.moe.num_experts):
+            ep = pre + f"moe.{e}."
+            moe["experts"].append({
+                "gate": cv.linear(sd[ep + "linear.weight"]),
+                "down": cv.linear(sd[ep + "linear_1.weight"]),
+                "up": cv.linear(sd[ep + "linear_v.weight"]),
+            })
+        p["layers"].append({
+            "attn_norm": cv.norm_p(sd[pre + "rms_norm.weight"]),
+            "q": cv.linear(sd[att + "query.weight"]),
+            "k": cv.linear(sd[att + "key.weight"]),
+            "v": cv.linear(sd[att + "value.weight"]),
+            "o": cv.linear(sd[att + "linear.weight"]),
+            "post_attn_norm": cv.norm_p(sd[pre + "rms_norm_1.weight"]),
+            "ffn_norm": cv.norm_p(sd[pre + "rms_norm_2.weight"]),
+            "moe": moe,
+        })
+    p["final_norm"] = cv.norm_p(sd["transformer.rms_norm.weight"])
+    if not cfg.tie_word_embeddings and "lm_head.weight" in sd:
+        p["lm_head"] = cv.linear(sd["lm_head.weight"],
+                                 quant=cv.quantize_lm_head)
+    return p
+
+
 MAPPERS: Dict[str, Callable] = {
     "llama": map_llama,
     "mistral": map_llama,
@@ -482,6 +524,8 @@ MAPPERS: Dict[str, Callable] = {
     "mpt": map_mpt,
     "starcoder": map_starcoder,
     "phi": map_phi,
+    "grok": map_grok,
+    "grok-1": map_grok,
 }
 
 

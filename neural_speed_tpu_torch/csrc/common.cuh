@@ -53,11 +53,11 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// Element type of the cache rows: int8 codes with a bf16 scale per row (the
-// quantized cache), or bf16 or float32 values with no scale.  Float32 rows
-// are read rounded to bf16 (`to_float`, `to_bf16`: round to nearest even,
-// as the JAX kernels' `astype(bfloat16)` before both products), so every
-// element type reaches the products as a bf16 value.  `Stage` is the type
+// Element type of the cache rows: int8 codes with a bf16 or float32 scale
+// per row (the quantized cache), or bf16 or float32 values with no scale.
+// Float32 rows are read rounded to bf16 (`to_float`, `to_bf16`: round to
+// nearest even, as the JAX kernels' `astype(bfloat16)` before both
+// products), so every element type reaches the products as a bf16 value.  `Stage` is the type
 // kernel B keeps V rows in shared memory as (the element itself, bf16 for
 // float32).
 template <class T>
@@ -124,6 +124,31 @@ __device__ __forceinline__ void stage_chunk(typename KVElem<T>::Stage* dst,
                            __floats2bfloat162_rn(x[2], x[3])};
     *reinterpret_cast<int2*>(dst) = *reinterpret_cast<const int2*>(h);
   }
+}
+
+// Scales of the int8 cache: bf16 (the default) or float32 values, read as
+// float32 and written from the float32 scale the codes were computed
+// against (rounded only for a bf16 copy).
+__device__ __forceinline__ float scale_to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float scale_to_float(float x) { return x; }
+
+template <class SC>
+__device__ __forceinline__ SC scale_from_float(float x) {
+  if constexpr (std::is_same<SC, float>::value) {
+    return x;
+  } else {
+    return __float2bfloat16_rn(x);
+  }
+}
+
+// grok's logit softcap, cap * tanh(s / cap), applied after the score scale
+// and before ALiBi and the mask as the JAX kernels do: IEEE division and
+// libdevice's tanhf (no fast-math approximations), as torch.tanh on the
+// card computes the plain versions' softcap.
+__device__ __forceinline__ float softcap_score(float s, float cap) {
+  return cap * tanhf(s / cap);
 }
 
 // ALiBi bias of one score, added after the score scale and before the mask

@@ -9,9 +9,10 @@
 // Replaces: neural_speed_tpu/ops/flash.py, _mha_kernel_hblk, launched by
 // _mha_packed_hblk from mha over the contiguous cache (nst_flash_decode) and
 // by _mha_paged_hblk from mha_paged over the page pool
-// (nst_flash_decode_paged): int8 K/V with extra_kv=True, fused_append=True;
-// int8, bf16 or float32 K/V with neither; ALiBi or none; causal; every head
-// dim the JAX kernels take (multiples of 8 up to 256, `_head_dim_ok`).
+// (nst_flash_decode_paged): int8 K/V (bf16 or float32 scales) with
+// extra_kv=True, fused_append=True; int8, bf16 or float32 K/V with neither;
+// ALiBi or none; logit softcap or none; causal; every head dim the JAX
+// kernels take (multiples of 8 up to 256, `_head_dim_ok`).
 //
 // What it computes, per slot b and KV head hk, for the n_rep query heads of
 // that group (one token per slot):
@@ -21,16 +22,19 @@
 //     max_len - 1).  Without it the cache is read below kv_len.  Columns
 //     also satisfy c <= pos (causal);
 //   * scores s = (bf16(q) . k) * k_scale * sm_scale (no k_scale for K
-//     values; float32 K rounded to bf16 first), then + slope[h] * (c - pos)
+//     values; float32 K rounded to bf16 first), then softcap * tanh(s /
+//     softcap) with a softcap (softcap > 0), then + slope[h] * (c - pos)
 //     with ALiBi; the online softmax is seeded with the UNQUANTIZED current
-//     k/v (f32, ALiBi distance 0) when the extra column is on;
+//     k/v (f32, softcapped too, ALiBi distance 0) when the extra column is
+//     on;
 //   * P * v_scale (P for V values) is rounded to bf16 before the product
 //     with V (float32 V rounded to bf16); out = acc / l, 0 where no column
 //     is valid;
 //   * with the fused append, live slots get the current k/v quantized
-//     (amax / 127 by division, codes rint(x / scale) clipped to +-127,
-//     scale stored as bf16) and written at row kv_len - 1; spectators are
-//     left untouched.
+//     (amax / 127 by division, codes rint(x / scale) clipped to +-127 from
+//     the float32 scale, the scale stored as the cache's scale type, bf16
+//     or float32) and written at row kv_len - 1; spectators are left
+//     untouched.
 //
 // Bound: bytes.  Each step reads the K and V of every live column once
 // (about 0.5 GB per Llama-2-7B step at ctx 2000, B = 1, in int8; twice that
@@ -69,8 +73,20 @@
 // The append writes a live slot's row at table[b, (kv_len - 1) / ps]; a
 // spectator writes nothing (the JAX kernel parks it on the trash page).
 //
+// The softcap and the scale type: the scale type (SC, bf16 or float32) is a
+// template parameter of the int8 kernels.  The softcap (a runtime argument,
+// 0 = off) is a compile-time flag of the exact split kernels (CAP = OFF or
+// ON) and of the combine kernel (CAPPED), so the kernels without it are the
+// code they were before it: tested at run time, once per column, the
+// branch moved kernels B and 10 by 0.75-1.25x at equal work (NVIDIA H100
+// 80GB HBM3, 700 W, parent and change in one run), and in the combine
+// kernel it cost the main decode case 6%.  The masked
+// kernels (head dims without an instance of their own) test it at run time
+// (CAP = RUNTIME), which keeps their count, and the build, unchanged.
+//
 // Compiled without --use_fast_math: the quantization must match
-// kv_cache.quantize_kv bit for bit (IEEE division, round half to even).
+// kv_cache.quantize_kv bit for bit (IEEE division, round half to even), and
+// the softcap the plain versions' torch.tanh (libdevice's tanhf).
 
 #include "common.cuh"
 
@@ -85,6 +101,8 @@ constexpr int NW = THREADS / 32;
 constexpr int MAX_REP = 8;
 constexpr int DI = NST_FLASH_DIM;                   // the instance's head dim
 constexpr int NF = (DI + THREADS - 1) / THREADS;    // features per thread
+// The split kernel's softcap: none, applied, or as the argument says.
+enum Cap { OFF, ON, RUNTIME };
 
 // Bytes of a sub-chunk's V rows in shared memory, and whether they fit a
 // static array (up to 32 KiB: every element type up to D = 128, int8 at
@@ -115,18 +133,19 @@ __device__ __forceinline__ void score_chunk(float (&s)[R],
 
 // R: a power of two >= n_rep, so the per-row arrays have compile-time
 // indices and stay in registers.  T: the cache's element type (KVElem);
-// VB: bytes per row load; EXACT: D is the instance's head dim.
-template <int R, class T, int VB, bool EXACT, class Cache>
+// VB: bytes per row load; EXACT: D is the instance's head dim; SC: the
+// int8 cache's scale type; CAP: the softcap (Cap).
+template <int R, class T, int VB, bool EXACT, class Cache, class SC, int CAP>
 __global__ void __launch_bounds__(THREADS)
 flash_decode_split(Cache cache, const __nv_bfloat16* __restrict__ q,
                    const T* __restrict__ kc, const T* __restrict__ vc,
-                   const __nv_bfloat16* __restrict__ ks,
-                   const __nv_bfloat16* __restrict__ vs,
+                   const SC* __restrict__ ks, const SC* __restrict__ vs,
                    const float* __restrict__ slopes,
                    const int* __restrict__ pos, const int* __restrict__ kv_lens,
                    float* __restrict__ part_m, float* __restrict__ part_l,
                    float* __restrict__ part_acc, int H, int Hkv, int S, int D,
-                   int layer, int chunk, int extra, float sm_scale) {
+                   int layer, int chunk, int extra, float sm_scale,
+                   float softcap) {
   if constexpr (EXACT) D = DI;
   using E = nst::KVElem<T>;
   using ST = typename E::Stage;
@@ -207,13 +226,18 @@ flash_decode_split(Cache cache, const __nv_bfloat16* __restrict__ q,
           score_chunk<R, T, VB>(s, qs, kr, ch, n_rep);
       }
       if constexpr (E::kQuantized) {
-        const float ksc = __bfloat162float(ks[rc]);
-        vsc = __bfloat162float(vs[rc]);
+        const float ksc = nst::scale_to_float(ks[rc]);
+        vsc = nst::scale_to_float(vs[rc]);
 #pragma unroll
         for (int r = 0; r < R; ++r) s[r] = s[r] * ksc * sm_scale;
       } else {
 #pragma unroll
         for (int r = 0; r < R; ++r) s[r] = s[r] * sm_scale;
+      }
+      if (CAP == ON || (CAP == RUNTIME && softcap > 0.f)) {
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          if (r < n_rep) s[r] = nst::softcap_score(s[r], softcap);
       }
       if (slopes != nullptr) {
 #pragma unroll
@@ -281,16 +305,16 @@ flash_decode_split(Cache cache, const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// Merges the splits' partials (with the seed column when `extra`), writes
-// the output and, with `fused_append` (int8 only), the new row.
-template <class T, class Cache>
+// Merges the splits' partials (with the seed column when `extra`, softcapped
+// when CAPPED), writes the output and, with `fused_append` (int8 only), the
+// new row and its scales (SC: bf16 or float32).
+template <class T, class Cache, class SC, bool CAPPED>
 __global__ void __launch_bounds__(THREADS)
 flash_decode_combine(Cache cache, const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k_new,
                      const __nv_bfloat16* __restrict__ v_new,
                      T* __restrict__ kc, T* __restrict__ vc,
-                     __nv_bfloat16* __restrict__ ks,
-                     __nv_bfloat16* __restrict__ vs,
+                     SC* __restrict__ ks, SC* __restrict__ vs,
                      const int* __restrict__ pos,
                      const int* __restrict__ kv_lens,
                      const float* __restrict__ part_m,
@@ -298,7 +322,7 @@ flash_decode_combine(Cache cache, const __nv_bfloat16* __restrict__ q,
                      const float* __restrict__ part_acc,
                      __nv_bfloat16* __restrict__ out, int H, int Hkv, int D,
                      int layer, int splits, int extra, int fused_append,
-                     float sm_scale) {
+                     float sm_scale, float softcap) {
   const int hk = blockIdx.x, b = blockIdx.y;
   const int n_rep = H / Hkv;
   const int tid = threadIdx.x;
@@ -329,6 +353,7 @@ flash_decode_combine(Cache cache, const __nv_bfloat16* __restrict__ q,
         part += qv * kn[f];
       }
       s0 = nst::block_sum<NW>(part, sh) * sm_scale;
+      if constexpr (CAPPED) s0 = nst::softcap_score(s0, softcap);
     }
     const size_t pi = ((size_t)b * H + h) * splits;
     float m = valid0 ? s0 : -FLT_MAX;
@@ -377,87 +402,133 @@ flash_decode_combine(Cache cache, const __nv_bfloat16* __restrict__ q,
       }
     }
     if (tid == 0) {
-      ks[at] = __float2bfloat16_rn(ksc);
-      vs[at] = __float2bfloat16_rn(vsc);
+      ks[at] = nst::scale_from_float<SC>(ksc);
+      vs[at] = nst::scale_from_float<SC>(vsc);
     }
   }
 }
 
-template <class T, int VB, bool EXACT, class Cache>
+// The split kernel for n_rep query heads per KV head (R: the next power of
+// two up to MAX_REP) with the softcap CAP.
+template <int CAP, class T, int VB, bool EXACT, class Cache, class SC>
+auto split_for(int n_rep)
+    -> decltype(&flash_decode_split<1, T, VB, EXACT, Cache, SC, CAP>) {
+  return n_rep <= 1   ? flash_decode_split<1, T, VB, EXACT, Cache, SC, CAP>
+         : n_rep <= 2 ? flash_decode_split<2, T, VB, EXACT, Cache, SC, CAP>
+         : n_rep <= 4 ? flash_decode_split<4, T, VB, EXACT, Cache, SC, CAP>
+                      : flash_decode_split<MAX_REP, T, VB, EXACT, Cache, SC,
+                                           CAP>;
+}
+
+template <class T, int VB, bool EXACT, class SC, class Cache>
 cudaError_t launch(Cache cache, const void* q, const void* k_new,
                    const void* v_new, void* kc, void* vc, void* ks, void* vs,
                    const void* slopes, const void* pos, const void* kv_lens,
                    void* part_m, void* part_l, void* part_acc, void* out,
                    int B, int H, int Hkv, int S, int D, int layer, int chunk,
-                   int extra, int fused_append, float sm_scale,
+                   int extra, int fused_append, float sm_scale, float softcap,
                    cudaStream_t st) {
   const int splits = (S + chunk - 1) / chunk;
   const int n_rep = H / Hkv;
   auto bq = static_cast<const __nv_bfloat16*>(q);
-  auto split_kernel =
-      n_rep <= 1   ? flash_decode_split<1, T, VB, EXACT, Cache>
-      : n_rep <= 2 ? flash_decode_split<2, T, VB, EXACT, Cache>
-      : n_rep <= 4 ? flash_decode_split<4, T, VB, EXACT, Cache>
-                   : flash_decode_split<MAX_REP, T, VB, EXACT, Cache>;
+  constexpr int CAP = EXACT ? OFF : RUNTIME;
+  decltype(&flash_decode_split<1, T, VB, EXACT, Cache, SC, CAP>) split_kernel;
+  if constexpr (EXACT) {
+    split_kernel = softcap > 0.f
+                       ? split_for<ON, T, VB, EXACT, Cache, SC>(n_rep)
+                       : split_for<OFF, T, VB, EXACT, Cache, SC>(n_rep);
+  } else {
+    split_kernel = split_for<RUNTIME, T, VB, EXACT, Cache, SC>(n_rep);
+  }
   const int vbytes = VStage<T>::kStatic ? 0 : VStage<T>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, vbytes);
   if (err != cudaSuccess) return err;
   split_kernel<<<dim3(splits, Hkv, B), THREADS, vbytes, st>>>(
       cache, bq, static_cast<const T*>(kc), static_cast<const T*>(vc),
-      static_cast<const __nv_bfloat16*>(ks),
-      static_cast<const __nv_bfloat16*>(vs), static_cast<const float*>(slopes),
-      static_cast<const int*>(pos), static_cast<const int*>(kv_lens),
-      static_cast<float*>(part_m), static_cast<float*>(part_l),
-      static_cast<float*>(part_acc), H, Hkv, S, D, layer, chunk, extra,
-      sm_scale);
+      static_cast<const SC*>(ks), static_cast<const SC*>(vs),
+      static_cast<const float*>(slopes), static_cast<const int*>(pos),
+      static_cast<const int*>(kv_lens), static_cast<float*>(part_m),
+      static_cast<float*>(part_l), static_cast<float*>(part_acc), H, Hkv, S,
+      D, layer, chunk, extra, sm_scale, softcap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_decode_combine<T, Cache><<<dim3(Hkv, B), THREADS, 0, st>>>(
+  auto combine_kernel = softcap > 0.f
+                            ? flash_decode_combine<T, Cache, SC, true>
+                            : flash_decode_combine<T, Cache, SC, false>;
+  combine_kernel<<<dim3(Hkv, B), THREADS, 0, st>>>(
       cache, bq, static_cast<const __nv_bfloat16*>(k_new),
       static_cast<const __nv_bfloat16*>(v_new), static_cast<T*>(kc),
-      static_cast<T*>(vc), static_cast<__nv_bfloat16*>(ks),
-      static_cast<__nv_bfloat16*>(vs), static_cast<const int*>(pos),
-      static_cast<const int*>(kv_lens), static_cast<const float*>(part_m),
-      static_cast<const float*>(part_l), static_cast<const float*>(part_acc),
-      static_cast<__nv_bfloat16*>(out), H, Hkv, D, layer, splits, extra,
-      fused_append, sm_scale);
+      static_cast<T*>(vc), static_cast<SC*>(ks), static_cast<SC*>(vs),
+      static_cast<const int*>(pos), static_cast<const int*>(kv_lens),
+      static_cast<const float*>(part_m), static_cast<const float*>(part_l),
+      static_cast<const float*>(part_acc), static_cast<__nv_bfloat16*>(out),
+      H, Hkv, D, layer, splits, extra, fused_append, sm_scale, softcap);
   return cudaGetLastError();
 }
 
-// kv_type: 0 int8 codes with bf16 scales, 1 bf16 values, 2 float32 values
-// (no scales, no extra column, no append).  D: the head dim, a multiple of
-// 8 at most this instance's (below it, the masked kernels); int8 rows of
-// D % 16 == 8 take 8-byte loads.
+// The int8 kernels of one scale type SC: the exact kernel, or the masked
+// one with 16- or 8-byte row loads.
+template <class SC, class Cache>
+cudaError_t launch_int8(Cache cache, int D, const void* q, const void* k_new,
+                        const void* v_new, void* kc, void* vc, void* ks,
+                        void* vs, const void* slopes, const void* pos,
+                        const void* kv_lens, void* part_m, void* part_l,
+                        void* part_acc, void* out, int B, int H, int Hkv,
+                        int S, int layer, int chunk, int extra,
+                        int fused_append, float sm_scale, float softcap,
+                        cudaStream_t st) {
+#define NST_LAUNCH(VB, EXACT)                                                 \
+  launch<int8_t, VB, EXACT, SC>(cache, q, k_new, v_new, kc, vc, ks, vs,       \
+                                slopes, pos, kv_lens, part_m, part_l,         \
+                                part_acc, out, B, H, Hkv, S, D, layer, chunk, \
+                                extra, fused_append, sm_scale, softcap, st)
+  if (D == DI) return NST_LAUNCH(16, true);
+  if (D % 16 == 0) return NST_LAUNCH(16, false);
+  return NST_LAUNCH(8, false);
+#undef NST_LAUNCH
+}
+
+// kv_type: 0 int8 codes with bf16 scales, 3 int8 codes with float32
+// scales, 1 bf16 values, 2 float32 values (no scales, no extra column, no
+// append).  D: the head dim, a multiple of 8 at most this instance's
+// (below it, the masked kernels); int8 rows of D % 16 == 8 take 8-byte
+// loads.  softcap: 0 (off) or the logit softcap.
 template <class Cache>
 int launch_d(Cache cache, int D, const void* q, const void* k_new,
              const void* v_new, void* kc, void* vc, void* ks, void* vs,
              const void* slopes, const void* pos, const void* kv_lens,
              void* part_m, void* part_l, void* part_acc, void* out, int B,
              int H, int Hkv, int S, int layer, int chunk, int extra,
-             int fused_append, int kv_type, float sm_scale, void* stream) {
+             int fused_append, int kv_type, float sm_scale, float softcap,
+             void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (D > DI || D <= 0 || D % 8 || kv_type < 0 || kv_type > 2 ||
-      (kv_type != 0 && (extra || fused_append)))
+  const bool int8 = kv_type == 0 || kv_type == 3;
+  if (D > DI || D <= 0 || D % 8 || kv_type < 0 || kv_type > 3 ||
+      (!int8 && (extra || fused_append)) || !(softcap >= 0.f))
     return (int)cudaErrorInvalidValue;
-#define NST_LAUNCH(T, VB, EXACT)                                              \
-  launch<T, VB, EXACT>(cache, q, k_new, v_new, kc, vc, ks, vs, slopes, pos,   \
-                       kv_lens, part_m, part_l, part_acc, out, B, H, Hkv, S,  \
-                       D, layer, chunk, extra, fused_append, sm_scale, st)
+#define NST_LAUNCH(T, EXACT)                                                  \
+  launch<T, 16, EXACT, __nv_bfloat16>(                                        \
+      cache, q, k_new, v_new, kc, vc, ks, vs, slopes, pos, kv_lens, part_m,   \
+      part_l, part_acc, out, B, H, Hkv, S, D, layer, chunk, extra,            \
+      fused_append, sm_scale, softcap, st)
+#define NST_LAUNCH_INT8(SC)                                                   \
+  launch_int8<SC>(cache, D, q, k_new, v_new, kc, vc, ks, vs, slopes, pos,     \
+                  kv_lens, part_m, part_l, part_acc, out, B, H, Hkv, S,       \
+                  layer, chunk, extra, fused_append, sm_scale, softcap, st)
   const bool exact = D == DI;
   cudaError_t err;
   if (kv_type == 1)
-    err = exact ? NST_LAUNCH(__nv_bfloat16, 16, true)
-                : NST_LAUNCH(__nv_bfloat16, 16, false);
+    err = exact ? NST_LAUNCH(__nv_bfloat16, true)
+                : NST_LAUNCH(__nv_bfloat16, false);
   else if (kv_type == 2)
-    err = exact ? NST_LAUNCH(float, 16, true) : NST_LAUNCH(float, 16, false);
-  else if (exact)
-    err = NST_LAUNCH(int8_t, 16, true);
-  else if (D % 16 == 0)
-    err = NST_LAUNCH(int8_t, 16, false);
+    err = exact ? NST_LAUNCH(float, true) : NST_LAUNCH(float, false);
+  else if (kv_type == 3)
+    err = NST_LAUNCH_INT8(float);
   else
-    err = NST_LAUNCH(int8_t, 8, false);
+    err = NST_LAUNCH_INT8(__nv_bfloat16);
 #undef NST_LAUNCH
+#undef NST_LAUNCH_INT8
   return (int)err;
 }
 
@@ -474,11 +545,11 @@ extern "C" int nst_flash_decode(const void* q, const void* k_new,
                                 void* out, int B, int H, int Hkv, int S, int D,
                                 int layer, int chunk, int extra,
                                 int fused_append, int kv_type, float sm_scale,
-                                void* stream) {
+                                float softcap, void* stream) {
   return launch_d(nst::ContigCache{B, Hkv, S}, D, q, k_new, v_new, kc, vc, ks,
                   vs, slopes, pos, kv_lens, part_m, part_l, part_acc, out, B,
                   H, Hkv, S, layer, chunk, extra, fused_append, kv_type,
-                  sm_scale, stream);
+                  sm_scale, softcap, stream);
 }
 
 #else
@@ -490,11 +561,11 @@ extern "C" int nst_flash_decode_paged(
     const void* pos, const void* kv_lens, void* part_m, void* part_l,
     void* part_acc, void* out, int B, int H, int Hkv, int P, int ps,
     int n_blocks, int D, int layer, int chunk, int extra, int fused_append,
-    int kv_type, float sm_scale, void* stream) {
+    int kv_type, float sm_scale, float softcap, void* stream) {
   return launch_d(
       nst::PagedCache{static_cast<const int*>(tables), Hkv, P, ps, n_blocks},
       D, q, k_new, v_new, kc, vc, ks, vs, slopes, pos, kv_lens, part_m,
       part_l, part_acc, out, B, H, Hkv, n_blocks * ps, layer, chunk, extra,
-      fused_append, kv_type, sm_scale, stream);
+      fused_append, kv_type, sm_scale, softcap, stream);
 }
 #endif

@@ -5,15 +5,19 @@
 // Replaces: neural_speed_tpu/ops/flash.py, _mha_kernel as launched by
 // _mha_packed from mha over the contiguous cache (nst_flash_prefill) and by
 // _mha_paged from mha_paged over the page pool (nst_flash_prefill_paged);
-// int8, bf16 or float32 cache, causal, ALiBi or none, no softcap; every head
-// dim the JAX kernels take (multiples of 8 up to 256, `_head_dim_ok`).
+// int8 (bf16 or float32 scales), bf16 or float32 cache, causal, ALiBi or
+// none, logit softcap or none; every head dim the JAX kernels take
+// (multiples of 8 up to 256, `_head_dim_ok`).
 //
 // What it computes, for query row t of head h in slot b (KV head
 // h / n_rep): the columns c with c < kv_len[b] and c <= pos[b, t] are
 // valid; s = (bf16(q) . k) * k_scale * sm_scale (no k_scale for K values;
-// float32 K rounded to bf16 first), then + slope[h] * (c - pos[b, t]) with
-// ALiBi; an online softmax over column tiles; P * v_scale (P for V values)
-// rounded to bf16 before the product with V (float32 V rounded to bf16),
+// float32 K rounded to bf16 first), then softcap * tanh(s / softcap) with a
+// softcap (softcap > 0: a runtime argument; IEEE division and tanhf, as the
+// plain versions' torch.tanh on the card), then + slope[h] * (c -
+// pos[b, t]) with ALiBi; an online softmax over column tiles; P * v_scale
+// (P for V values) rounded to bf16 before the product with V (float32 V
+// rounded to bf16),
 // accumulated in f32; out = acc / l, and 0 for a row with no valid column
 // (padded rows carry position -1).  At prefill the cache is appended first,
 // so this reads the K/V of the prompt itself.  Decode calls that kernel B
@@ -89,18 +93,19 @@ struct Smem {
 static_assert(Smem::bytes <= 232448, "shared memory of the instance");
 static_assert(DI % 16 == 0, "the wmma products take 16 columns at a time");
 
-template <class KV, int VB, bool EXACT, class Cache>
+// SC: the int8 cache's scale type (bf16 or float32).
+template <class KV, int VB, bool EXACT, class Cache, class SC>
 __global__ void __launch_bounds__(THREADS)
 flash_prefill_kernel(Cache cache, const __nv_bfloat16* __restrict__ q,
                      const KV* __restrict__ kc,
                      const KV* __restrict__ vc,
-                     const __nv_bfloat16* __restrict__ ks,
-                     const __nv_bfloat16* __restrict__ vs,
+                     const SC* __restrict__ ks, const SC* __restrict__ vs,
                      const float* __restrict__ slopes,
                      const int* __restrict__ pos,
                      const int* __restrict__ kv_lens,
                      __nv_bfloat16* __restrict__ out, int T, int H,
-                     int Hkv, int S, int D, int layer, float sm_scale) {
+                     int Hkv, int S, int D, int layer, float sm_scale,
+                     float softcap) {
   if constexpr (EXACT) D = DI;
   using L = Smem;
   using E = nst::KVElem<KV>;
@@ -175,8 +180,8 @@ flash_prefill_kernel(Cache cache, const __nv_bfloat16* __restrict__ q,
     }
     if (E::kQuantized && tid < BC) {
       const size_t rc = rows(c0 + tid);
-      ksc[tid] = __bfloat162float(ks[rc]);
-      vsc[tid] = __bfloat162float(vs[rc]);
+      ksc[tid] = nst::scale_to_float(ks[rc]);
+      vsc[tid] = nst::scale_to_float(vs[rc]);
     }
     __syncthreads();
 
@@ -212,6 +217,7 @@ flash_prefill_kernel(Cache cache, const __nv_bfloat16* __restrict__ q,
       const bool valid = c < c_end && c <= row_pos;
       float x = E::kQuantized ? Sw[r * LDS + cc] * ksc[cc] * sm_scale
                               : Sw[r * LDS + cc] * sm_scale;
+      if (softcap > 0.f) x = nst::softcap_score(x, softcap);
       if (alibi) x = nst::add_alibi(x, slope, c, row_pos);
       sv[i] = valid ? x : -FLT_MAX;
       if (valid) mloc = fmaxf(mloc, x);
@@ -281,57 +287,66 @@ flash_prefill_kernel(Cache cache, const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <class KV, int VB, bool EXACT, class Cache>
+template <class KV, int VB, bool EXACT, class SC, class Cache>
 cudaError_t launch(Cache cache, const void* q, const void* kc, const void* vc,
                    const void* ks, const void* vs, const void* slopes,
                    const void* pos, const void* kv_lens, void* out, int B,
                    int T_, int H, int Hkv, int S, int D, int layer,
-                   float sm_scale, cudaStream_t st) {
+                   float sm_scale, float softcap, cudaStream_t st) {
   const size_t bytes = Smem::bytes;
+  auto kernel = flash_prefill_kernel<KV, VB, EXACT, Cache, SC>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_prefill_kernel<KV, VB, EXACT, Cache>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   dim3 grid((T_ + BT - 1) / BT, H, B);
-  flash_prefill_kernel<KV, VB, EXACT, Cache><<<grid, THREADS, bytes, st>>>(
+  kernel<<<grid, THREADS, bytes, st>>>(
       cache, static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(kc),
-      static_cast<const KV*>(vc), static_cast<const __nv_bfloat16*>(ks),
-      static_cast<const __nv_bfloat16*>(vs), static_cast<const float*>(slopes),
+      static_cast<const KV*>(vc), static_cast<const SC*>(ks),
+      static_cast<const SC*>(vs), static_cast<const float*>(slopes),
       static_cast<const int*>(pos), static_cast<const int*>(kv_lens),
-      static_cast<__nv_bfloat16*>(out), T_, H, Hkv, S, D, layer, sm_scale);
+      static_cast<__nv_bfloat16*>(out), T_, H, Hkv, S, D, layer, sm_scale,
+      softcap);
   return cudaGetLastError();
 }
 
-// kv_type: 0 int8 codes with bf16 scales, 1 bf16 values, 2 float32 values
-// (no scales).  D: the head dim, a multiple of 8 at most this instance's
-// (below it, the masked kernels); int8 rows of D % 16 == 8 take 8-byte
-// loads.
+// kv_type: 0 int8 codes with bf16 scales, 3 int8 codes with float32
+// scales, 1 bf16 values, 2 float32 values (no scales).  D: the head dim, a
+// multiple of 8 at most this instance's (below it, the masked kernels);
+// int8 rows of D % 16 == 8 take 8-byte loads.  softcap: 0 (off) or the
+// logit softcap.
 template <class Cache>
 int launch_d(Cache cache, int D, const void* q, const void* kc,
              const void* vc, const void* ks, const void* vs,
              const void* slopes, const void* pos, const void* kv_lens,
              void* out, int B, int T_, int H, int Hkv, int S, int layer,
-             int kv_type, float sm_scale, void* stream) {
+             int kv_type, float sm_scale, float softcap, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (D > DI || D <= 0 || D % 8 || kv_type < 0 || kv_type > 2)
+  if (D > DI || D <= 0 || D % 8 || kv_type < 0 || kv_type > 3 ||
+      !(softcap >= 0.f))
     return (int)cudaErrorInvalidValue;
-#define NST_LAUNCH(KV, VB, EXACT)                                         \
-  launch<KV, VB, EXACT>(cache, q, kc, vc, ks, vs, slopes, pos, kv_lens, out, \
-                        B, T_, H, Hkv, S, D, layer, sm_scale, st)
+#define NST_LAUNCH(KV, VB, EXACT, SC)                                     \
+  launch<KV, VB, EXACT, SC>(cache, q, kc, vc, ks, vs, slopes, pos, kv_lens, \
+                            out, B, T_, H, Hkv, S, D, layer, sm_scale,      \
+                            softcap, st)
+#define NST_LAUNCH_INT8(SC)                                               \
+  (exact ? NST_LAUNCH(int8_t, 16, true, SC)                               \
+   : D % 16 == 0 ? NST_LAUNCH(int8_t, 16, false, SC)                      \
+                 : NST_LAUNCH(int8_t, 8, false, SC))
+  using bf16 = __nv_bfloat16;
   const bool exact = D == DI;
   cudaError_t err;
   if (kv_type == 1)
-    err = exact ? NST_LAUNCH(__nv_bfloat16, 16, true)
-                : NST_LAUNCH(__nv_bfloat16, 16, false);
+    err = exact ? NST_LAUNCH(bf16, 16, true, bf16)
+                : NST_LAUNCH(bf16, 16, false, bf16);
   else if (kv_type == 2)
-    err = exact ? NST_LAUNCH(float, 16, true) : NST_LAUNCH(float, 16, false);
-  else if (exact)
-    err = NST_LAUNCH(int8_t, 16, true);
-  else if (D % 16 == 0)
-    err = NST_LAUNCH(int8_t, 16, false);
+    err = exact ? NST_LAUNCH(float, 16, true, bf16)
+                : NST_LAUNCH(float, 16, false, bf16);
+  else if (kv_type == 3)
+    err = NST_LAUNCH_INT8(float);
   else
-    err = NST_LAUNCH(int8_t, 8, false);
+    err = NST_LAUNCH_INT8(bf16);
 #undef NST_LAUNCH
+#undef NST_LAUNCH_INT8
   return (int)err;
 }
 
@@ -344,10 +359,11 @@ extern "C" int nst_flash_prefill(const void* q, const void* kc, const void* vc,
                                  const void* slopes, const void* pos,
                                  const void* kv_lens, void* out, int B, int T,
                                  int H, int Hkv, int S, int D, int layer,
-                                 int kv_type, float sm_scale, void* stream) {
+                                 int kv_type, float sm_scale, float softcap,
+                                 void* stream) {
   return launch_d(nst::ContigCache{B, Hkv, S}, D, q, kc, vc, ks, vs, slopes,
                   pos, kv_lens, out, B, T, H, Hkv, S, layer, kv_type,
-                  sm_scale, stream);
+                  sm_scale, softcap, stream);
 }
 
 // The pool [L, Hkv, P, ps, D] with scales [L, Hkv, P, 1, ps] (int8) and
@@ -357,9 +373,9 @@ extern "C" int nst_flash_prefill_paged(
     const void* vs, const void* slopes, const void* tables, const void* pos,
     const void* kv_lens, void* out, int B, int T, int H, int Hkv, int P,
     int ps, int n_blocks, int D, int layer, int kv_type, float sm_scale,
-    void* stream) {
+    float softcap, void* stream) {
   return launch_d(
       nst::PagedCache{static_cast<const int*>(tables), Hkv, P, ps, n_blocks},
       D, q, kc, vc, ks, vs, slopes, pos, kv_lens, out, B, T, H, Hkv,
-      n_blocks * ps, layer, kv_type, sm_scale, stream);
+      n_blocks * ps, layer, kv_type, sm_scale, softcap, stream);
 }

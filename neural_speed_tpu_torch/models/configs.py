@@ -1,10 +1,9 @@
 """HF config -> ArchConfig (a copy of the builders of
 `neural_speed_tpu/models/configs.py` and of its `arch_from_hf_config`).
 
-Every builder of the JAX package is here but qwen-1's, chatglm's and
-grok's: their knobs (logn attention, chatglm rope and deepnorm, logit
-softcap and sandwich norms) are not ported, so those model types raise
-`NotImplementedError` naming their ROADMAP item.
+Every builder of the JAX package is here but qwen-1's and chatglm's: their
+knobs (logn attention, chatglm rope and deepnorm) are not ported, so those
+model types raise `NotImplementedError` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -442,6 +441,55 @@ GPTNEOX_20B_HF = {
 }
 
 
+def grok_arch(hf: Dict[str, Any]) -> ArchConfig:
+    """Grok-1: a tanh logit softcap of 30 on the attention scores, GELU
+    experts, sandwich norms (the attention output and the MoE output are
+    RMS-normed before their residual adds; the only pre-MoE norm is the
+    regular FFN norm), the router's global softmax probabilities of the
+    selected experts without renormalization, the embedding and the logits
+    scaled by the config's multipliers, the head tied to the embedding."""
+    n_heads = hf["num_attention_heads"]
+    return ArchConfig(
+        name="grok",
+        vocab_size=hf["vocab_size"],
+        hidden_size=hf["hidden_size"],
+        n_layers=hf["num_hidden_layers"],
+        n_heads=n_heads,
+        n_kv_heads=hf.get("num_key_value_heads", n_heads),
+        intermediate_size=hf["intermediate_size"],
+        max_position_embeddings=hf.get("max_position_embeddings", 8192),
+        norm="rms",
+        norm_eps=hf.get("rms_norm_eps", 1e-5),
+        rope_style="neox",
+        logit_softcap=30.0,
+        act="gelu_tanh",
+        gated_ffn=True,
+        post_attn_norm=True,
+        moe=MoEConfig(
+            num_experts=hf.get("num_local_experts", 8),
+            top_k=hf.get("num_experts_per_tok", 2),
+            post_norm=True,
+            renorm=False,
+        ),
+        logit_scale=hf.get("output_multiplier_scale", 1.0),
+        embed_scale=hf.get("embedding_multiplier_scale", 1.0),
+        tie_word_embeddings=True,
+    )
+
+
+# The published config.json of hpcai-tech/grok-1 (the fields the builder
+# reads, and the expert counts as that file names them).
+GROK_1_HF = {
+    "model_type": "grok-1", "vocab_size": 131072, "hidden_size": 6144,
+    "intermediate_size": 32768, "num_hidden_layers": 64,
+    "num_attention_heads": 48, "num_key_value_heads": 8,
+    "max_position_embeddings": 8192, "rms_norm_eps": 1e-5,
+    "num_experts": 8, "num_experts_per_tok": 2,
+    "embedding_multiplier_scale": 78.38367176906169,
+    "output_multiplier_scale": 0.5773502691896257,
+}
+
+
 def _waits(item: str):
     """A builder for a model type whose knobs are not ported yet."""
     def build(hf: Dict[str, Any]) -> ArchConfig:
@@ -453,7 +501,6 @@ def _waits(item: str):
 
 _QWEN = _waits("item 1: qwen-1's logn attention")
 _CHATGLM = _waits("item 1: chatglm's rope and deepnorm")
-_GROK = _waits("item 2: grok's logit softcap and sandwich norms")
 
 ARCH_BUILDERS = {
     "llama": llama_arch,
@@ -480,8 +527,8 @@ ARCH_BUILDERS = {
     "chatglm": _CHATGLM,
     "chatglm2": _CHATGLM,
     "chatglm3": _CHATGLM,
-    "grok-1": _GROK,
-    "grok": _GROK,
+    "grok-1": grok_arch,
+    "grok": grok_arch,
 }
 
 

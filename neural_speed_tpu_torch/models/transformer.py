@@ -2,7 +2,8 @@
 llama path with its mixture-of-experts FFN, and the knobs of the HF archs
 the port converts: LayerNorm and gemma norms, embedding LN and scale,
 non-gated GELU / ReLU MLPs, biases, clip_qkv, ALiBi, no rope, parallel
-residual with one shared norm or two, learned positions).
+residual with one shared norm or two, learned positions, grok's logit
+softcap and sandwich norms).
 
 Params are a plain dict; linear leaves are a `QTensor` (int-packed, fed to
 `qmatmul`) or a dense `[K, N]` tensor.  Positions and per-slot kv lengths
@@ -46,10 +47,6 @@ _WAITING = {
     "logn_attn": "queue 1 item 1: qwen",
     "rope_style chatglm": "queue 1 item 1: chatglm",
     "deepnorm_alpha": "queue 1 item 1: chatglm",
-    "logit_softcap": "queue 1 item 2: grok (and section 2 item 1, the "
-                     "softcap variant of rows 6-10)",
-    "post_attn_norm": "queue 1 item 2: grok",
-    "post_ffn_norm": "queue 1 item 2: grok",
 }
 
 
@@ -60,9 +57,6 @@ def check_supported(cfg: ArchConfig) -> None:
         "logn_attn": cfg.logn_attn,
         "rope_style chatglm": cfg.rope_style == "chatglm",
         "deepnorm_alpha": cfg.deepnorm_alpha is not None,
-        "logit_softcap": bool(cfg.logit_softcap),
-        "post_attn_norm": cfg.post_attn_norm,
-        "post_ffn_norm": cfg.post_ffn_norm,
     }
     bad = [k for k, v in refused.items() if v]
     if bad:
@@ -159,12 +153,12 @@ def _moe_grouped(x: torch.Tensor, stacked: dict, topi: torch.Tensor,
         return moe_ops.grouped_qmatmul(a, st, r.block_expert, bm,
                                        r.block_rows)
 
+    a = _ACTS[cfg.act]
     if "gateup" in stacked:
         gate, up = torch.chunk(gq(xs, stacked["gateup"]), 2, dim=-1)
-        mid = torch.nn.functional.silu(gate) * up
+        mid = a(gate) * up
     else:
-        mid = (torch.nn.functional.silu(gq(xs, stacked["gate"]))
-               * gq(xs, stacked["up"]))
+        mid = a(gq(xs, stacked["gate"])) * gq(xs, stacked["up"])
     y = gq(mid.to(x.dtype), stacked["down"])             # [M_pad, H] f32
     y_asg = y.index_select(0, r.dest_by_a).reshape(n, kk, h)
     p = probs.reshape(n, kk).float()
@@ -175,7 +169,7 @@ def _moe_grouped(x: torch.Tensor, stacked: dict, topi: torch.Tensor,
 
 
 def _moe_single(x: torch.Tensor, stacked: dict, topi: torch.Tensor,
-                probs: torch.Tensor) -> torch.Tensor:
+                probs: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """B*T == 1: the JAX package's `lax.switch` over the selected experts,
     as one per-row grouped launch per projection (row j = x, expert
     topi[j]); outputs rounded to x's dtype where `linear`'s are, then summed
@@ -193,7 +187,7 @@ def _moe_single(x: torch.Tensor, stacked: dict, topi: torch.Tensor,
         gate, up = torch.chunk(gq(rows, stacked["gateup"]), 2, dim=-1)
     else:
         gate, up = gq(rows, stacked["gate"]), gq(rows, stacked["up"])
-    contrib = gq(torch.nn.functional.silu(gate) * up, stacked["down"]).float()
+    contrib = gq(_ACTS[cfg.act](gate) * up, stacked["down"]).float()
     p = probs.reshape(kk).float()
     out = torch.zeros((h,), dtype=torch.float32, device=x.device)
     for j in range(kk):
@@ -236,7 +230,7 @@ def moe_ffn(x: torch.Tensor, p: Params, cfg: ArchConfig,
 
     if stacked is not None:
         if b * t == 1:
-            return _moe_single(x, stacked, topi, probs)
+            return _moe_single(x, stacked, topi, probs, cfg)
         return _moe_grouped(x, stacked, topi, probs, cfg)
 
     contribs = [ffn(x, ep, cfg, comp).float() for ep in p["experts"]]
@@ -321,7 +315,7 @@ def decoder_layer(x: torch.Tensor, lp: Params, cfg: ArchConfig,
     active = kv_lens > positions[:, 0]
     attn_kwargs = dict(scale=cfg.attn_scale if cfg.attn_scale is not None
                        else 1.0 / math.sqrt(d), causal=True, alibi=slopes,
-                       out_dtype=x.dtype)
+                       logit_softcap=cfg.logit_softcap, out_dtype=x.dtype)
     fused = None
     if _defer_append(cfg, cache, t):
         fused = attention_cache(q, cache, layer_idx, positions, kv_lens,
@@ -334,6 +328,9 @@ def decoder_layer(x: torch.Tensor, lp: Params, cfg: ArchConfig,
         attn_out = attention_cache(q, cache, layer_idx, positions, kv_lens,
                                    **attn_kwargs)
     attn_out = linear(attn_out.reshape(b, t, h * d), lp["o"], comp)
+    if cfg.post_attn_norm:
+        # grok's sandwich norm on the attention output
+        attn_out = norm(attn_out, lp["post_attn_norm"], cfg)
 
     if cfg.parallel_residual:
         # gptj / gptneox / phi / falcon: x + attn(n(x)) + ffn(n'(x)), with
@@ -349,15 +346,18 @@ def decoder_layer(x: torch.Tensor, lp: Params, cfg: ArchConfig,
 def _ffn_block(ffn_in: torch.Tensor, lp: Params, cfg: ArchConfig,
                comp: Optional[str]) -> torch.Tensor:
     """The layer's dense FFN, or its MoE FFN with the optional pre / post
-    norms."""
+    norms, then the optional post-FFN norm."""
     if cfg.moe is None:
-        return ffn(ffn_in, lp["ffn"], cfg, comp)
-    mp = lp["moe"]
-    if cfg.moe.pre_norm:
-        ffn_in = norm(ffn_in, mp["pre_norm"], cfg)
-    out = moe_ffn(ffn_in, mp, cfg, comp=comp)
-    if cfg.moe.post_norm:
-        out = norm(out, mp["post_norm"], cfg)
+        out = ffn(ffn_in, lp["ffn"], cfg, comp)
+    else:
+        mp = lp["moe"]
+        if cfg.moe.pre_norm:
+            ffn_in = norm(ffn_in, mp["pre_norm"], cfg)
+        out = moe_ffn(ffn_in, mp, cfg, comp=comp)
+        if cfg.moe.post_norm:
+            out = norm(out, mp["post_norm"], cfg)
+    if cfg.post_ffn_norm:
+        out = norm(out, lp["post_ffn_norm"], cfg)
     return out
 
 

@@ -88,8 +88,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   logit_softcap: float = 0.0, out_dtype=None) -> torch.Tensor:
     """Masked softmax attention in float32: q [B, T, H, D], k/v
     [B, S, H_kv, D], positions [B, T], kv lengths [B], ALiBi slopes [H] or
-    None, and grok's `softcap * tanh(logits / softcap)` (plain math only:
-    no kernel takes it yet)."""
+    None, and grok's `softcap * tanh(logits / softcap)`."""
     b, t, h, d = q.shape
     s, h_kv = k.shape[1], k.shape[2]
     n_rep = h // h_kv

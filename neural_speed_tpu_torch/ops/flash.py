@@ -2,10 +2,10 @@
 
 `mha` is the entry, with the JAX package's interface: q `[B, T, H, D]`, the
 stacked cache `[L, B, Hkv, S, D]` with `layer` (int8 codes with
-per-(token, head) bf16 scales, or bf16 / float32 values with
-`k_scale=None`),
-absolute query positions, per-slot kv lengths and optional ALiBi slopes
-`[H]`.  Routes, as the JAX launcher's:
+per-(token, head) bf16 or float32 scales, or bf16 / float32 values with
+`k_scale=None`), absolute query positions, per-slot kv lengths, optional
+ALiBi slopes `[H]` and grok's logit softcap.  Routes, as the JAX
+launcher's:
 
 * decode with the current token's k/v as extra operands (`extra_kv`, over
   the int8 cache), and bf16 / float32 decode after the plain append, each
@@ -27,17 +27,23 @@ kernels' outputs bit for bit.
 CUDA tensors launch the kernel or raise; CPU tensors run the plain
 versions below, which repeat each kernel's rounding points: q and
 `P * v_scale` (P over bf16 V) are rounded to bf16, the scores and sums are
-float32, the ALiBi bias `slope * (col - pos)` is added after the score
-scale, and a row with no valid column gives 0.  The port has no GQA row
+float32, and a row with no valid column gives 0.  Each score is formed in
+the JAX kernels' order: `(q . k) * k_scale * scale`, then the softcap
+`softcap * tanh(s / softcap)` (IEEE division, `tanhf`; 0 = off), then the
+ALiBi bias `slope * (col - pos)`, then the mask; the decode seed column
+(the current token's own k) takes the softcap too.  The port has no GQA row
 packing: the kernels read q and write the output in the natural
-`[B, T, H, D]` layout.  K/V are int8 codes with bf16 scales, or bf16 or
-float32 values without scales; the kernels and the plain versions round
+`[B, T, H, D]` layout.  K/V are int8 codes with bf16 or float32 scales,
+or bf16 or float32 values without scales; the kernels and the plain versions round
 float32 K and V to bf16 before both products, as the JAX kernels'
 `astype(bfloat16)` does.  Head dims: 64, 80, 96, 128 and 256 have kernel
 instances of their own; every other multiple of 8 up to 256 (the JAX
 kernels' rule, `_head_dim_ok`) runs through the smallest instance above
-it with the columns past D masked; other head dims raise.  Logit softcap
-and non-causal attention raise, naming their ROADMAP item.
+it with the columns past D masked; other head dims raise.  Non-causal
+attention raises, naming its ROADMAP item.  Launches are counted per
+kernel, element type (`_SUFFIX`; int8 codes with float32 scales
+"_f32scale") and softcap ("_softcap"), so a run can show which variant
+ran.
 """
 
 from __future__ import annotations
@@ -53,12 +59,13 @@ DECODE_CHUNK = 256   # cache columns per block of kernel B
 # csrc/flash_decode_d<D>.cu, flash_decode_paged_d<D>.cu,
 # flash_prefill_d<D>.cu).
 HEAD_DIMS = (64, 80, 96, 128, 256)
-# Counter suffix of each cache element type, and its code for the C entries.
+# Counter suffix of each cache element type (int8 codes by their scales'
+# dtype), and its code for the C entries.
 _SUFFIX = {torch.int8: "", torch.bfloat16: "_bf16", torch.float32: "_f32"}
-_KV_TYPE = {"": 0, "_bf16": 1, "_f32": 2}
+_SCALED = {torch.bfloat16: "", torch.float32: "_f32scale"}
+_KV_TYPE = {"": 0, "_bf16": 1, "_f32": 2, "_f32scale": 3}
+_SOFTCAP = "_softcap"
 
-_SOFTCAP = ("logit softcap is not ported yet (ROADMAP section 2, item 1: "
-            "the softcap variant of rows 6-10, for grok)")
 _NON_CAUSAL = ("non-causal attention is not ported yet (ROADMAP section 2, "
                "item 1: the non-causal variant of rows 6-10, for whisper)")
 
@@ -84,10 +91,11 @@ def instance_dim(d: int) -> int:
 
 
 def _check_variant(causal: bool, logit_softcap: float) -> None:
-    if logit_softcap:
-        raise NotImplementedError(_SOFTCAP)
     if not causal:
         raise NotImplementedError(_NON_CAUSAL)
+    if not logit_softcap >= 0.0:
+        raise ValueError(f"logit_softcap must be >= 0 (0 is off), got "
+                         f"{logit_softcap}")
 
 
 # ---------------------------------------------------------------------------
@@ -131,26 +139,37 @@ def _kv_values(x: torch.Tensor) -> torch.Tensor:
     return x.float()
 
 
-def _scores(qf: torch.Tensor, kf: torch.Tensor, ks, scale: float
-            ) -> torch.Tensor:
-    """(bf16(q) . k) * k_scale * scale, in the kernels' order; ks [..., S]
-    or None (bf16 K)."""
+def _softcap(s: torch.Tensor, softcap: float) -> torch.Tensor:
+    """softcap * tanh(s / softcap), or s when softcap is 0.  Divided by a
+    tensor: CUDA's division by a Python scalar multiplies by the
+    reciprocal, and the kernels divide."""
+    if not softcap:
+        return s
+    return softcap * torch.tanh(s / s.new_full((), softcap))
+
+
+def _scores(qf: torch.Tensor, kf: torch.Tensor, ks, scale: float,
+            softcap: float = 0.0) -> torch.Tensor:
+    """(bf16(q) . k) * k_scale * scale, then the softcap, in the kernels'
+    order; ks [..., S] or None (K values)."""
     sc = qf.to(torch.bfloat16).float() @ kf.transpose(-1, -2)
     if ks is not None:
         sc = sc * ks[..., None, :]
-    return sc * scale
+    return _softcap(sc * scale, softcap)
 
 
 def decode_plain(q: torch.Tensor, k_new, v_new, k: torch.Tensor,
                  v: torch.Tensor, ks, vs, layer: int, pos: torch.Tensor,
                  kv_lens: torch.Tensor, scale: float, fused_append: bool,
-                 out_dtype, alibi=None) -> torch.Tensor:
+                 out_dtype, alibi=None, softcap: float = 0.0
+                 ) -> torch.Tensor:
     """Plain version of kernel B.  q [B, 1, H, D]; k/v/ks/vs the stacked
     cache (ks/vs None for bf16 or float32 K/V); pos [B]; alibi: slopes
-    [H] or None.  With k_new/v_new [B, 1, Hkv, D] (int8 cache only) the
-    current token is the seed column and the cache is read below
-    kv_len - 1 for live slots; `fused_append` also writes its quantized
-    row in place.  Without them the cache is read below kv_len."""
+    [H] or None; softcap: 0 (off) or the logit softcap.  With k_new/v_new
+    [B, 1, Hkv, D] (int8 cache only) the current token is the seed column
+    and the cache is read below kv_len - 1 for live slots; `fused_append`
+    also writes its quantized row in place (the scales in the cache's
+    scale dtype).  Without them the cache is read below kv_len."""
     b, _, h, d = q.shape
     hkv, s = k.shape[2], k.shape[3]
     n_rep = h // hkv
@@ -160,7 +179,7 @@ def decode_plain(q: torch.Tensor, k_new, v_new, k: torch.Tensor,
     qg = q[:, 0].reshape(b, hkv, n_rep, d)
     kf, vf = _kv_values(k[layer]), _kv_values(v[layer])      # [B,Hkv,S,D]
     sc = _scores(qg, kf, None if ks is None else ks[layer].float(),
-                 scale)                                       # [B,Hkv,R,S]
+                 scale, softcap)                              # [B,Hkv,R,S]
     col = torch.arange(s, device=q.device)
     if alibi is not None:
         dist = col.float()[None] - pos.float()[:, None]       # [B, S]
@@ -174,7 +193,8 @@ def decode_plain(q: torch.Tensor, k_new, v_new, k: torch.Tensor,
         return _normalize(acc, l).reshape(b, 1, h, d).to(out_dtype)
     kn = k_new[:, 0].float()                                  # [B, Hkv, D]
     vn = v_new[:, 0].float()
-    s0 = (qg.float() * kn[:, :, None, :]).sum(-1) * scale     # [B,Hkv,R]
+    s0 = _softcap((qg.float() * kn[:, :, None, :]).sum(-1) * scale,
+                  softcap)                                    # [B,Hkv,R]
     valid0 = (ok & (pos >= 0))[:, None, None].expand_as(s0)
     acc, l = _softmax_pv(sc, valid, vsc, vf, s0, valid0, vn[:, :, None, :])
     out = _normalize(acc, l).reshape(b, 1, h, d).to(out_dtype)
@@ -193,9 +213,10 @@ def decode_plain(q: torch.Tensor, k_new, v_new, k: torch.Tensor,
 def prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ks, vs,
                   layer: int, q_positions: torch.Tensor,
                   kv_lens: torch.Tensor, scale: float, out_dtype,
-                  alibi=None) -> torch.Tensor:
+                  alibi=None, softcap: float = 0.0) -> torch.Tensor:
     """Plain version of kernel C: q [B, T, H, D] over the stacked cache
-    (ks/vs None for bf16 or float32 K/V); alibi: slopes [H] or None."""
+    (ks/vs None for bf16 or float32 K/V); alibi: slopes [H] or None;
+    softcap: 0 (off) or the logit softcap."""
     b, t, h, d = q.shape
     hkv, s = k.shape[2], k.shape[3]
     n_rep = h // hkv
@@ -204,7 +225,7 @@ def prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ks, vs,
     vf = rep(_kv_values(v[layer]))
     qh = q.permute(0, 2, 1, 3)                              # [B,H,T,D]
     sc = _scores(qh, kf, None if ks is None else rep(ks[layer].float()),
-                 scale)
+                 scale, softcap)
     col = torch.arange(s, device=q.device)
     if alibi is not None:
         dist = col.float()[None, None] - q_positions.float()[:, :, None]
@@ -228,13 +249,13 @@ def decode_paged_plain(q: torch.Tensor, k_new, v_new, k_pages: torch.Tensor,
                        v_pages: torch.Tensor, ks, vs, tables: torch.Tensor,
                        layer: int, pos: torch.Tensor, kv_lens: torch.Tensor,
                        scale: float, fused_append: bool, out_dtype,
-                       alibi=None) -> torch.Tensor:
+                       alibi=None, softcap: float = 0.0) -> torch.Tensor:
     """Plain version of the paged decode kernel: `decode_plain` over the
     layer gathered through the tables; with `fused_append` the live slots'
     quantized rows go to the pool at table[b, (kv_len - 1) // ps]."""
     cache = _gathered_cache(k_pages, v_pages, ks, vs, tables, layer)
     out = decode_plain(q, k_new, v_new, *cache, 0, pos, kv_lens, scale,
-                       False, out_dtype, alibi)
+                       False, out_dtype, alibi, softcap)
     if fused_append:
         live = pos == kv_lens - 1
         ps = k_pages.shape[3]
@@ -251,12 +272,12 @@ def prefill_paged_plain(q: torch.Tensor, k_pages: torch.Tensor,
                         v_pages: torch.Tensor, ks, vs, tables: torch.Tensor,
                         layer: int, q_positions: torch.Tensor,
                         kv_lens: torch.Tensor, scale: float, out_dtype,
-                        alibi=None) -> torch.Tensor:
+                        alibi=None, softcap: float = 0.0) -> torch.Tensor:
     """Plain version of the paged prefill kernel: `prefill_plain` over the
     layer gathered through the tables."""
     cache = _gathered_cache(k_pages, v_pages, ks, vs, tables, layer)
     return prefill_plain(q, *cache, 0, q_positions, kv_lens, scale,
-                         out_dtype, alibi)
+                         out_dtype, alibi, softcap)
 
 
 # ---------------------------------------------------------------------------
@@ -266,16 +287,29 @@ def prefill_paged_plain(q: torch.Tensor, k_pages: torch.Tensor,
 
 def _kv_suffix(k, v, ks, vs):
     """The counter suffix of the cache's element type ('' for int8 codes
-    with bf16 scales, '_bf16' / '_f32' for values without scales), or None
-    for a cache that the kernels do not read."""
+    with bf16 scales, '_f32scale' with float32 scales, '_bf16' / '_f32'
+    for values without scales), or None for a cache that the kernels do
+    not read."""
     if ks is None and vs is None:
         if k.dtype == v.dtype and k.dtype in (torch.bfloat16, torch.float32):
             return _SUFFIX[k.dtype]
         return None
     if (k.dtype == v.dtype == torch.int8 and ks is not None
-            and vs is not None and ks.dtype == vs.dtype == torch.bfloat16):
-        return ""
+            and vs is not None and ks.dtype == vs.dtype
+            and ks.dtype in _SCALED):
+        return _SCALED[ks.dtype]
     return None
+
+
+def _quantized(suffix: str) -> bool:
+    """Whether a cache suffix names int8 codes with scales."""
+    return suffix in _SCALED.values()
+
+
+def _counter(name: str, suffix: str, softcap: float) -> str:
+    """The launch / dispatch counter of a kernel over a cache of `suffix`,
+    with or without the softcap."""
+    return name + suffix + (_SOFTCAP if softcap else "")
 
 
 def _slopes(alibi, h: int, dev):
@@ -302,7 +336,7 @@ def _check_cache(k, v, ks, vs, layer, pos, kv_lens, q) -> str:
     suffix = _kv_suffix(k, v, ks, vs)
     ok = (suffix is not None and k.dim() == 5 and k.shape == v.shape
           and k.shape[1] == b and k.shape[4] == d
-          and (suffix != "" or ks.shape == vs.shape == k.shape[:4])
+          and (not _quantized(suffix) or ks.shape == vs.shape == k.shape[:4])
           and 0 <= layer < k.shape[0]
           and all(a.device == q.device and a.is_contiguous()
                   for a in (k, v, ks, vs) if a is not None)
@@ -312,8 +346,9 @@ def _check_cache(k, v, ks, vs, layer, pos, kv_lens, q) -> str:
     if not ok:
         raise ValueError(
             f"the attention kernels read a contiguous [L, B, Hkv, S, D] cache "
-            f"of int8 codes with bf16 [L, B, Hkv, S] scales or of bf16 or "
-            f"float32 values without scales, on q's device, S a multiple of "
+            f"of int8 codes with bf16 or float32 [L, B, Hkv, S] scales or of "
+            f"bf16 or float32 values without scales, on q's device, S a "
+            f"multiple of "
             f"64, a layer index below L and positions / kv_lens of the "
             f"batch; got q {tuple(q.shape)} on {q.device}, k {k.dtype} "
             f"{tuple(k.shape)} on {k.device}, v {v.dtype}, scales "
@@ -329,7 +364,8 @@ def _check_decode(q, k_new, v_new, fused_append, out_dtype, hkv, suffix,
     extra = k_new is not None
     if not (q.is_cuda and t == 1 and h % hkv == 0 and h // hkv <= 8
             and q.dtype == out_dtype == torch.bfloat16
-            and (not fused_append or extra) and not (suffix and extra)
+            and (not fused_append or extra)
+            and (_quantized(suffix) or not extra)
             and (not extra or (k_new.dtype == v_new.dtype == torch.bfloat16
                                and k_new.shape == v_new.shape
                                == (b, 1, hkv, d)))):
@@ -339,7 +375,8 @@ def _check_decode(q, k_new, v_new, fused_append, out_dtype, hkv, suffix,
             f"cache only (needed by fused_append), and writes bf16; got q "
             f"{q.dtype} {tuple(q.shape)} on {q.device}, k_new "
             f"{None if k_new is None else (k_new.dtype, tuple(k_new.shape))},"
-            f" cache {'int8' if not suffix else suffix[1:]}, fused_append "
+            f" cache {'int8' if _quantized(suffix) else suffix[1:]}, "
+            f"fused_append "
             f"{fused_append}, out {out_dtype}")
 
 
@@ -355,8 +392,8 @@ def _check_prefill(q, q_positions, out_dtype, hkv, what: str) -> None:
 
 
 def _launched(name: str, d: int, code: int) -> None:
-    """Raise for a failed launch, else count it: per kernel and element
-    type (`name`), and per head-dim instance."""
+    """Raise for a failed launch, else count it: per kernel, element type
+    and softcap (`name`), and per head-dim instance."""
     di = instance_dim(d)
     _build.check(code, f"{name} (head dim {d}, instance {di})")
     _build.launches[name] += 1
@@ -373,9 +410,11 @@ def _decode_scratch(b, h, d, s, dev):
 
 
 def decode_cuda(q, k_new, v_new, k, v, ks, vs, layer, pos, kv_lens, scale,
-                fused_append, out_dtype, alibi=None) -> torch.Tensor:
-    """Kernel B: `flash_decode` over int8 K/V, `flash_decode_bf16` /
-    `flash_decode_f32` over values.  Shapes as `decode_plain`."""
+                fused_append, out_dtype, alibi=None,
+                softcap: float = 0.0) -> torch.Tensor:
+    """Kernel B: `flash_decode` over int8 K/V (`_f32scale` with float32
+    scales), `flash_decode_bf16` / `flash_decode_f32` over values; each
+    `_softcap` with a softcap.  Shapes as `decode_plain`."""
     b, t, h, d = q.shape
     hkv, s = k.shape[2], k.shape[3]
     dev = q.device
@@ -391,21 +430,22 @@ def decode_cuda(q, k_new, v_new, k, v, ks, vs, layer, pos, kv_lens, scale,
     lens32 = kv_lens.to(torch.int32).contiguous()
     part_m, part_l, part_acc, out = _decode_scratch(b, h, d, s, dev)
     fn = _build.kernels.fn(f"flash_decode_d{instance_dim(d)}",
-                           "nst_flash_decode", 14, 10, 1)
+                           "nst_flash_decode", 14, 10, 2)
     code = fn(q3.data_ptr(), _ptr(kn), _ptr(vn), k.data_ptr(), v.data_ptr(),
               _ptr(ks), _ptr(vs), _ptr(slopes), pos32.data_ptr(),
               lens32.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
               part_acc.data_ptr(), out.data_ptr(), b, h, hkv, s, d, layer,
               DECODE_CHUNK, int(extra), int(fused_append), _KV_TYPE[suffix],
-              float(scale), _build.stream_handle())
-    _launched("flash_decode" + suffix, d, code)
+              float(scale), float(softcap), _build.stream_handle())
+    _launched(_counter("flash_decode", suffix, softcap), d, code)
     return out
 
 
 def prefill_cuda(q, k, v, ks, vs, layer, q_positions, kv_lens, scale,
-                 out_dtype, alibi=None) -> torch.Tensor:
-    """Kernel C: `flash_prefill` over int8 K/V, `flash_prefill_bf16` /
-    `flash_prefill_f32` over values.  Shapes as `prefill_plain`."""
+                 out_dtype, alibi=None, softcap: float = 0.0) -> torch.Tensor:
+    """Kernel C: `flash_prefill` over int8 K/V (`_f32scale` with float32
+    scales), `flash_prefill_bf16` / `flash_prefill_f32` over values; each
+    `_softcap` with a softcap.  Shapes as `prefill_plain`."""
     b, t, h, d = q.shape
     hkv, s = k.shape[2], k.shape[3]
     dev = q.device
@@ -417,12 +457,12 @@ def prefill_cuda(q, k, v, ks, vs, layer, q_positions, kv_lens, scale,
     lens32 = kv_lens.to(torch.int32).contiguous()
     out = torch.empty((b, t, h, d), dtype=torch.bfloat16, device=dev)
     fn = _build.kernels.fn(f"flash_prefill_d{instance_dim(d)}",
-                           "nst_flash_prefill", 9, 8, 1)
+                           "nst_flash_prefill", 9, 8, 2)
     code = fn(q4.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ks), _ptr(vs),
               _ptr(slopes), pos32.data_ptr(), lens32.data_ptr(),
               out.data_ptr(), b, t, h, hkv, s, d, layer, _KV_TYPE[suffix],
-              float(scale), _build.stream_handle())
-    _launched("flash_prefill" + suffix, d, code)
+              float(scale), float(softcap), _build.stream_handle())
+    _launched(_counter("flash_prefill", suffix, softcap), d, code)
     return out
 
 
@@ -434,7 +474,7 @@ def _check_pool(kp, vp, ks, vs, tables, layer, pos, kv_lens, q) -> str:
     suffix = _kv_suffix(kp, vp, ks, vs)
     ok = (suffix is not None and kp.dim() == 5 and kp.shape == vp.shape
           and kp.shape[4] == d
-          and (suffix != "" or ks.shape == vs.shape
+          and (not _quantized(suffix) or ks.shape == vs.shape
                == kp.shape[:3] + (1, kp.shape[3]))
           and 0 <= layer < kp.shape[0] and kp.shape[3] % 16 == 0
           and tables.dim() == 2 and tables.shape[0] == b
@@ -446,8 +486,9 @@ def _check_pool(kp, vp, ks, vs, tables, layer, pos, kv_lens, q) -> str:
     if not ok:
         raise ValueError(
             f"the paged attention kernels read an [L, Hkv, P, ps, D] pool of "
-            f"int8 codes with bf16 [L, Hkv, P, 1, ps] scales or of bf16 or "
-            f"float32 values without scales, with a page size that is a "
+            f"int8 codes with bf16 or float32 [L, Hkv, P, 1, ps] scales or of "
+            f"bf16 or float32 values without scales, with a page size that "
+            f"is a "
             f"multiple of 16, int32 page tables [B, n_blocks], all on q's "
             f"device, a layer index below L and positions / kv_lens of the "
             f"batch; got q {tuple(q.shape)} on {q.device}, pool {kp.dtype} "
@@ -462,9 +503,10 @@ def _check_pool(kp, vp, ks, vs, tables, layer, pos, kv_lens, q) -> str:
 
 def decode_paged_cuda(q, k_new, v_new, kp, vp, ks, vs, tables, layer, pos,
                       kv_lens, scale, fused_append, out_dtype,
-                      alibi=None) -> torch.Tensor:
+                      alibi=None, softcap: float = 0.0) -> torch.Tensor:
     """The paged decode kernel (paged twin of kernel B;
-    `flash_decode_paged` and its `_bf16` / `_f32` instances).  Shapes as
+    `flash_decode_paged` and its `_f32scale` / `_bf16` / `_f32` element
+    types, each `_softcap` with a softcap).  Shapes as
     `decode_paged_plain`."""
     b, t, h, d = q.shape
     hkv, n_pages, ps = kp.shape[1], kp.shape[2], kp.shape[3]
@@ -483,22 +525,24 @@ def decode_paged_cuda(q, k_new, v_new, kp, vp, ks, vs, tables, layer, pos,
     part_m, part_l, part_acc, out = _decode_scratch(b, h, d, n_blocks * ps,
                                                     dev)
     fn = _build.kernels.fn(f"flash_decode_paged_d{instance_dim(d)}",
-                           "nst_flash_decode_paged", 15, 12, 1)
+                           "nst_flash_decode_paged", 15, 12, 2)
     code = fn(q3.data_ptr(), _ptr(kn), _ptr(vn), kp.data_ptr(),
               vp.data_ptr(), _ptr(ks), _ptr(vs), _ptr(slopes),
               tables.data_ptr(), pos32.data_ptr(), lens32.data_ptr(),
               part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
               out.data_ptr(), b, h, hkv, n_pages, ps, n_blocks, d, layer,
               DECODE_CHUNK, int(extra), int(fused_append), _KV_TYPE[suffix],
-              float(scale), _build.stream_handle())
-    _launched("flash_decode_paged" + suffix, d, code)
+              float(scale), float(softcap), _build.stream_handle())
+    _launched(_counter("flash_decode_paged", suffix, softcap), d, code)
     return out
 
 
 def prefill_paged_cuda(q, kp, vp, ks, vs, tables, layer, q_positions,
-                       kv_lens, scale, out_dtype, alibi=None) -> torch.Tensor:
+                       kv_lens, scale, out_dtype, alibi=None,
+                       softcap: float = 0.0) -> torch.Tensor:
     """The paged prefill kernel (paged twin of kernel C;
-    `flash_prefill_paged` and its `_bf16` / `_f32` instances).  Shapes as
+    `flash_prefill_paged` and its `_f32scale` / `_bf16` / `_f32` element
+    types, each `_softcap` with a softcap).  Shapes as
     `prefill_paged_plain`."""
     b, t, h, d = q.shape
     hkv, n_pages, ps = kp.shape[1], kp.shape[2], kp.shape[3]
@@ -512,13 +556,13 @@ def prefill_paged_cuda(q, kp, vp, ks, vs, tables, layer, q_positions,
     lens32 = kv_lens.to(torch.int32).contiguous()
     out = torch.empty((b, t, h, d), dtype=torch.bfloat16, device=q.device)
     fn = _build.kernels.fn(f"flash_prefill_d{instance_dim(d)}",
-                           "nst_flash_prefill_paged", 10, 10, 1)
+                           "nst_flash_prefill_paged", 10, 10, 2)
     code = fn(q4.data_ptr(), kp.data_ptr(), vp.data_ptr(), _ptr(ks),
               _ptr(vs), _ptr(slopes), tables.data_ptr(), pos32.data_ptr(),
               lens32.data_ptr(), out.data_ptr(), b, t, h, hkv, n_pages, ps,
               n_blocks, d, layer, _KV_TYPE[suffix], float(scale),
-              _build.stream_handle())
-    _launched("flash_prefill_paged" + suffix, d, code)
+              float(softcap), _build.stream_handle())
+    _launched(_counter("flash_prefill_paged", suffix, softcap), d, code)
     return out
 
 # ---------------------------------------------------------------------------
@@ -526,13 +570,16 @@ def prefill_paged_cuda(q, kp, vp, ks, vs, tables, layer, q_positions,
 # ---------------------------------------------------------------------------
 
 
-def _dispatch(q, cuda_fn, plain_fn, name: str, kv_dtype, args, alibi):
+def _dispatch(q, cuda_fn, plain_fn, name: str, kv, args, alibi, softcap):
     """CPU tensors run the plain version (counted per element type of the
-    cache), others the kernel."""
+    cache `kv` = (k, v, k_scale, v_scale) and softcap, as the kernels'
+    launches), others the kernel."""
     if q.device.type == "cpu":
-        _build.plain_dispatches[name + _SUFFIX.get(kv_dtype, "_other")] += 1
-        return plain_fn(*args, alibi=alibi)
-    return cuda_fn(*args, alibi=alibi)
+        suffix = _kv_suffix(*kv)
+        _build.plain_dispatches[_counter(
+            name, "_other" if suffix is None else suffix, softcap)] += 1
+        return plain_fn(*args, alibi=alibi, softcap=softcap)
+    return cuda_fn(*args, alibi=alibi, softcap=softcap)
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, k_scale,
@@ -540,8 +587,9 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, k_scale,
         scale: float, causal: bool = True, alibi=None,
         logit_softcap: float = 0.0, out_dtype=None, layer: int,
         extra_kv=None, fused_append: bool = False):
-    """Flash attention over the stacked cache (int8 codes and scales, or
-    bf16 / float32 values with `k_scale=None`).  Returns the output
+    """Flash attention over the stacked cache (int8 codes and bf16 or
+    float32 scales, or bf16 / float32 values with `k_scale=None`), with
+    grok's `logit_softcap` (0 = off).  Returns the output
     `[B, T, H, D]`, or `(out, (k, v, k_scale, v_scale))` with
     `fused_append` — the cache tensors are written in place and returned
     for the JAX interface's sake.  Returns None where the JAX entry does
@@ -562,12 +610,12 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, k_scale,
         args = (q, kn, vn, k, v, k_scale, v_scale, layer, q_positions[:, 0],
                 kv_lens, scale, fused_append, out_dtype)
         out = _dispatch(q, decode_cuda, decode_plain, "flash_decode",
-                        k.dtype, args, alibi)
+                        (k, v, k_scale, v_scale), args, alibi, logit_softcap)
     else:
         args = (q, k, v, k_scale, v_scale, layer, q_positions, kv_lens,
                 scale, out_dtype)
         out = _dispatch(q, prefill_cuda, prefill_plain, "flash_prefill",
-                        k.dtype, args, alibi)
+                        (k, v, k_scale, v_scale), args, alibi, logit_softcap)
     if fused_append:
         return out, (k, v, k_scale, v_scale)
     return out
@@ -577,8 +625,9 @@ def mha_paged(q: torch.Tensor, cache, layer: int, q_positions: torch.Tensor,
               kv_lens: torch.Tensor, *, scale: float, causal: bool = True,
               alibi=None, logit_softcap: float = 0.0, out_dtype=None,
               extra_kv=None, fused_append: bool = False):
-    """Flash attention over one layer of a `PagedKVCache` (int8, bf16 or
-    float32).
+    """Flash attention over one layer of a `PagedKVCache` (int8 codes with
+    bf16 or float32 scales, bf16 or float32 values), with grok's
+    `logit_softcap` (0 = off).
     Decode calls go to the paged decode kernel, which over the int8 pool
     takes extra_kv (one token per slot) and with `fused_append` also writes
     the live slots' quantized rows through the table; everything else to
@@ -604,13 +653,13 @@ def mha_paged(q: torch.Tensor, cache, layer: int, q_positions: torch.Tensor,
         args = (q, kn, vn, *pool, layer, q_positions[:, 0], kv_lens, scale,
                 fused_append, out_dtype)
         out = _dispatch(q, decode_paged_cuda, decode_paged_plain,
-                        "flash_decode_paged", cache.k_pages.dtype, args,
-                        alibi)
+                        "flash_decode_paged", pool[:4], args, alibi,
+                        logit_softcap)
     else:
         args = (q, *pool, layer, q_positions, kv_lens, scale, out_dtype)
         out = _dispatch(q, prefill_paged_cuda, prefill_paged_plain,
-                        "flash_prefill_paged", cache.k_pages.dtype, args,
-                        alibi)
+                        "flash_prefill_paged", pool[:4], args, alibi,
+                        logit_softcap)
     if fused_append:
         return out, pool[:4]
     return out

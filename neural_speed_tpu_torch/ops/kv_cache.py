@@ -2,8 +2,11 @@
 
 Layouts as in the JAX package: `[L, B, H_kv, S, D]` of the cache dtype
 (bf16 by default, as the JAX `init_cache`), or, quantized, int8 codes with
-per-(token, head) bf16 scales `[L, B, H_kv, S]`.  Codes are always computed
-against the float32 scale; only the stored scale rounds.
+per-(token, head) scales `[L, B, H_kv, S]`, bf16 by default or float32
+(`scale_dtype`, or `NST_KV_SCALE_DTYPE=f32`).  Codes are always computed
+against the float32 scale; only the stored scale rounds, in every writer
+(the appends here and in `paged_kv.py`, and the decode kernels' fused
+append), so caches stay bit-identical across paths.
 
 JAX's functional updates with buffer donation become in-place writes here:
 `append_layer` and `set_lengths` mutate the cache they are given and
@@ -13,6 +16,7 @@ return it.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -23,8 +27,8 @@ KV_SCALE_EPS = 1e-8
 @dataclasses.dataclass
 class KVCache:
     """k, v: [L, B, H_kv, S, D] (int8 codes when quantized); k_scale,
-    v_scale: [L, B, H_kv, S] bf16 when quantized, else None; lengths: [B]
-    int32 tokens stored per slot."""
+    v_scale: [L, B, H_kv, S] bf16 or float32 when quantized, else None;
+    lengths: [B] int32 tokens stored per slot."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -41,13 +45,26 @@ class KVCache:
         return self.k.shape[3]
 
 
+def kv_scale_dtype(scale_dtype=None) -> torch.dtype:
+    """The scale dtype of a quantized cache: `scale_dtype` when given, else
+    float32 when `NST_KV_SCALE_DTYPE` is `f32` or `float32`, else bf16 (the
+    JAX package's rule, read when the cache is built)."""
+    if scale_dtype is not None:
+        if scale_dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"KV scales are bf16 or float32, got "
+                             f"{scale_dtype}")
+        return scale_dtype
+    env = os.environ.get("NST_KV_SCALE_DTYPE", "bf16")
+    return torch.float32 if env in ("f32", "float32") else torch.bfloat16
+
+
 def init_cache(layers: int, batch: int, max_len: int, kv_heads: int,
                head_dim: int, dtype=torch.bfloat16, quantized: bool = False,
-               device=None) -> KVCache:
+               device=None, scale_dtype=None) -> KVCache:
     """Zeroed cache on `device` (the card unless the CPU is asked for):
     `dtype` values (bf16 by default, or float32, the JAX package's
-    `memory_dtype="f32"`), or with `quantized` int8 codes and bf16 scales
-    (the JAX package's default scale dtype)."""
+    `memory_dtype="f32"`), or with `quantized` int8 codes and scales of
+    `kv_scale_dtype(scale_dtype)`."""
     from .._build import resolve_device
 
     dev = resolve_device(device)
@@ -57,11 +74,12 @@ def init_cache(layers: int, batch: int, max_len: int, kv_heads: int,
         return KVCache(torch.zeros(shape, dtype=dtype, device=dev),
                        torch.zeros(shape, dtype=dtype, device=dev), None,
                        None, lengths)
+    sdt = kv_scale_dtype(scale_dtype)
     return KVCache(
         torch.zeros(shape, dtype=torch.int8, device=dev),
         torch.zeros(shape, dtype=torch.int8, device=dev),
-        torch.zeros(shape[:-1], dtype=torch.bfloat16, device=dev),
-        torch.zeros(shape[:-1], dtype=torch.bfloat16, device=dev), lengths)
+        torch.zeros(shape[:-1], dtype=sdt, device=dev),
+        torch.zeros(shape[:-1], dtype=sdt, device=dev), lengths)
 
 
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -5,7 +5,8 @@ flight rather than slots x max_len:
 
     k_pages / v_pages : [L, H_kv, P, page_size, D] bf16 (the default), or
                         int8 codes when quantized
-    k_scale / v_scale : [L, H_kv, P, 1, page_size] bf16 (quantized only)
+    k_scale / v_scale : [L, H_kv, P, 1, page_size] bf16 or float32
+                        (quantized only; `kv_cache.kv_scale_dtype`)
     page_tables       : [B, n_blocks] int32; logical block j of slot b lives
                         in physical page page_tables[b, j]
     lengths           : [B] int32 tokens stored per slot
@@ -29,7 +30,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from .kv_cache import quantize_kv
+from .kv_cache import kv_scale_dtype, quantize_kv
 
 
 @dataclasses.dataclass
@@ -77,10 +78,12 @@ class PagedKVCache:
 def init_paged_cache(layers: int, batch: int, max_len: int, kv_heads: int,
                      head_dim: int, n_pages: int, page_size: int = 128,
                      dtype=torch.bfloat16, quantized: bool = False,
-                     device=None) -> PagedKVCache:
+                     device=None, scale_dtype=None) -> PagedKVCache:
     """Zeroed pool on `device` (the card unless the CPU is asked for):
     `dtype` values (bf16 by default, or float32), or with `quantized`
-    int8 codes and bf16 scales.  `n_pages` counts the trash page."""
+    int8 codes and scales of `kv_scale_dtype(scale_dtype)` (bf16 unless
+    asked or `NST_KV_SCALE_DTYPE=f32`).  `n_pages` counts the trash
+    page."""
     from .._build import resolve_device
 
     if max_len % page_size:
@@ -96,12 +99,12 @@ def init_paged_cache(layers: int, batch: int, max_len: int, kv_heads: int,
         return PagedKVCache(torch.zeros(shape, dtype=dtype, device=dev),
                             torch.zeros(shape, dtype=dtype, device=dev),
                             None, None, tables, lengths)
+    sdt = kv_scale_dtype(scale_dtype)
     return PagedKVCache(
         torch.zeros(shape, dtype=torch.int8, device=dev),
         torch.zeros(shape, dtype=torch.int8, device=dev),
-        torch.zeros(sshape, dtype=torch.bfloat16, device=dev),
-        torch.zeros(sshape, dtype=torch.bfloat16, device=dev), tables,
-        lengths)
+        torch.zeros(sshape, dtype=sdt, device=dev),
+        torch.zeros(sshape, dtype=sdt, device=dev), tables, lengths)
 
 
 class PageAllocator:

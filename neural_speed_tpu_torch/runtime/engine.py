@@ -183,7 +183,9 @@ class Engine:
     """Owns params and the KV cache for one model instance, on `device` (the
     card unless the CPU is asked for).  The cache layout follows the JAX
     Engine's arguments: `kv_dtype` values (bf16 by default) or, with
-    `kv_quantized=True`, int8 codes with bf16 scales.  A float32 cache
+    `kv_quantized=True`, int8 codes with bf16 scales, or float32 ones with
+    `kv_scale_dtype=torch.float32` (None reads `NST_KV_SCALE_DTYPE` when
+    the cache is built, as the JAX package).  A float32 cache
     (the JAX package's `memory_dtype="f32"`) runs through the attention
     kernels' float32 instances, which round K and V to bf16 as they read
     them, as the JAX kernels do.
@@ -196,10 +198,12 @@ class Engine:
                  max_batch: int = 1, max_len: int = 2048,
                  kv_dtype=torch.bfloat16, kv_quantized: bool = False,
                  buckets: Tuple[int, ...] = DEFAULT_BUCKETS,
-                 fuse: bool = True, device=None, comp: Optional[str] = "env"):
+                 fuse: bool = True, device=None, comp: Optional[str] = "env",
+                 kv_scale_dtype=None):
         self.device = resolve_device(device)
         self.kv_dtype = kv_dtype
         self.kv_quantized = kv_quantized
+        self.kv_scale_dtype = kv_scale_dtype
         if comp == "env":
             comp = os.environ.get("NST_COMP")
             comp = comp if comp in ("int8", "int8t") else None
@@ -224,7 +228,8 @@ class Engine:
         return kvc.init_cache(
             self.cfg.n_layers, self.max_batch, self.max_len,
             self.cfg.n_kv_heads, self.cfg.head_dim, self.kv_dtype,
-            self.kv_quantized, device=self.device)
+            self.kv_quantized, device=self.device,
+            scale_dtype=self.kv_scale_dtype)
 
     def prefill(self, prompts: List[List[int]]) -> torch.Tensor:
         """Prefill `prompts` into slots 0..B-1; returns last-token logits
@@ -333,7 +338,8 @@ class PagedEngine(Engine):
                  buckets: Tuple[int, ...] = DEFAULT_BUCKETS,
                  fuse: bool = True, n_pages: Optional[int] = None,
                  page_size: int = 128, prefix_cache: bool = False,
-                 device=None, comp: Optional[str] = "env"):
+                 device=None, comp: Optional[str] = "env",
+                 kv_scale_dtype=None):
         if prefix_cache:
             raise NotImplementedError("prefix caching is not ported yet")
         self.page_size = page_size
@@ -347,14 +353,15 @@ class PagedEngine(Engine):
         # commit_lens rolled a window back; freed at release_slot
         self._mapped = np.zeros((max_batch,), np.int64)
         super().__init__(params, cfg, max_batch, max_len, kv_dtype,
-                         kv_quantized, buckets, fuse, device, comp)
+                         kv_quantized, buckets, fuse, device, comp,
+                         kv_scale_dtype)
 
     def new_cache(self) -> pkv.PagedKVCache:
         return pkv.init_paged_cache(
             self.cfg.n_layers, self.max_batch, self.max_len,
             self.cfg.n_kv_heads, self.cfg.head_dim, self.n_pages,
             self.page_size, self.kv_dtype, self.kv_quantized,
-            device=self.device)
+            device=self.device, scale_dtype=self.kv_scale_dtype)
 
     def _sync_tables(self) -> None:
         """One host-to-device copy of the page tables."""

@@ -24,10 +24,10 @@ import torch
 from .._build import resolve_device
 from ..models.arch import ArchConfig
 from ..models.configs import (BLOOM_7B1_HF, FALCON_7B_HF, GEMMA_7B_HF,
-                              GPTJ_6B_HF, GPTNEOX_20B_HF, MIXTRAL_8X7B_HF,
-                              MPT_7B_HF, PHI_2_HF, arch_from_hf_config,
-                              bloom_arch, falcon_arch, mixtral_arch,
-                              mpt_arch)
+                              GPTJ_6B_HF, GPTNEOX_20B_HF, GROK_1_HF,
+                              MIXTRAL_8X7B_HF, MPT_7B_HF, PHI_2_HF,
+                              arch_from_hf_config, bloom_arch, falcon_arch,
+                              grok_arch, mixtral_arch, mpt_arch)
 from ..ops.moe import StackedExperts
 from ..ops.qtypes import QSpec, QType, plane_widths
 from ..ops.quantize import QTensor
@@ -88,7 +88,10 @@ def synth_params(cfg: ArchConfig, spec: QSpec, seed: int = 0,
                  dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
     """Random llama-path params on `device` (the card unless the CPU is
     asked for).  A MoE config gets the JAX package's tree: a float32 router
-    `[H, E]` and `experts_stacked` with `gate` / `up` / `down`."""
+    `[H, E]` and `experts_stacked` with `gate` / `up` / `down`.  The
+    sandwich norms (`post_attn_norm`, `post_ffn_norm`) come with their
+    config flags, as in the JAX package; a config whose head is tied to the
+    embedding gets no `lm_head` (the forward never reads it)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -105,13 +108,18 @@ def synth_params(cfg: ArchConfig, spec: QSpec, seed: int = 0,
                                          device=dev) * 0.02).to(dtype)},
         "layers": [],
         "final_norm": ones(),
-        "lm_head": lin(e, cfg.vocab_size),
     }
+    if not cfg.tie_word_embeddings:
+        p["lm_head"] = lin(e, cfg.vocab_size)
     inter = cfg.intermediate_size
     for _ in range(cfg.n_layers):
         lp = {"attn_norm": ones(), "ffn_norm": ones(),
               "q": lin(e, cfg.q_dim), "k": lin(e, cfg.kv_dim),
               "v": lin(e, cfg.kv_dim), "o": lin(cfg.q_dim, e)}
+        if cfg.post_attn_norm:
+            lp["post_attn_norm"] = ones()
+        if cfg.post_ffn_norm:
+            lp["post_ffn_norm"] = ones()
         if cfg.moe is None:
             lp["ffn"] = {"gate": lin(e, inter), "up": lin(e, inter),
                          "down": lin(inter, e)}
@@ -196,6 +204,15 @@ def gptneox_20b_arch() -> ArchConfig:
     return arch_from_hf_config(GPTNEOX_20B_HF)
 
 
+def grok_1_arch(n_layers: int = 16) -> ArchConfig:
+    """hpcai-tech/grok-1 (its published config.json): hidden 6144, 48
+    query heads over 8 KV heads of head dim 128, 8 experts of width 32768,
+    top-2, vocab 131072 tied to the head, logit softcap 30, sandwich norms;
+    `n_layers` of its 64 (all 64 take about 151 GiB in int4, more than one
+    card holds)."""
+    return grok_arch(dict(GROK_1_HF, num_hidden_layers=n_layers))
+
+
 def _linear(out: Dict[str, tuple], name: str, n: int, k: int,
             bias: bool) -> None:
     out[name + ".weight"] = (n, k)
@@ -212,9 +229,10 @@ def _norm(out: Dict[str, tuple], name: str, e: int, bias: bool = True
 
 def hf_shapes(model_type: str, cfg: ArchConfig) -> Dict[str, tuple]:
     """Tensor names and shapes of an HF checkpoint of `model_type` (mpt,
-    bloom, falcon with one shared norm, gemma, gptj, phi, gpt_neox) for
-    `cfg`, as `transformers` names them, without the tied head's alias;
-    linear weights are [out, in] as torch stores them."""
+    bloom, falcon with one shared norm, gemma, gptj, phi, gpt_neox; grok-1
+    in the hpcai-tech key scheme) for `cfg`, as `transformers` (or that
+    checkpoint) names them, without the tied head's alias; linear weights
+    are [out, in] as torch stores them."""
     e, v = cfg.hidden_size, cfg.vocab_size
     qd, kvd = cfg.q_dim, cfg.kv_dim
     qkv = qd + 2 * kvd
@@ -318,6 +336,22 @@ def hf_shapes(model_type: str, cfg: ArchConfig) -> Dict[str, tuple]:
                 _linear(out, p + name, n, k, True)
         _norm(out, "gpt_neox.final_layer_norm", e)
         out["embed_out.weight"] = (v, e)
+    elif model_type in ("grok", "grok-1"):
+        out["transformer.in_out_embed.weight"] = (v, e)
+        for i in range(cfg.n_layers):
+            p = f"transformer.decoder_layer.{i}."
+            for n in ("rms_norm", "rms_norm_1", "rms_norm_2", "rms_norm_3"):
+                _norm(out, p + n, e, False)
+            att = p + "multi_head_attention."
+            for name, n, k in (("query", qd, e), ("key", kvd, e),
+                               ("value", kvd, e), ("linear", e, qd)):
+                _linear(out, att + name, n, k, False)
+            out[p + "router.weight"] = (cfg.moe.num_experts, e)
+            for x in range(cfg.moe.num_experts):
+                for name, n, k in (("linear", ff, e), ("linear_1", e, ff),
+                                   ("linear_v", ff, e)):
+                    _linear(out, p + f"moe.{x}.{name}", n, k, False)
+        _norm(out, "transformer.rms_norm", e, False)
     else:
         raise ValueError(f"no HF layout for model_type {model_type!r}")
     return out

@@ -292,8 +292,9 @@ def test_bf16_caches_bit_identical(paged):
 
 
 def test_open_variants_raise_naming_the_roadmap():
-    """Softcap and non-causal attention raise on every device, naming their
-    ROADMAP item.  Float32 K/V runs on the CPU (the plain versions) and,
+    """Non-causal attention raises on every device, naming its ROADMAP
+    item; a softcap runs (the plain versions on the CPU) and changes the
+    output.  Float32 K/V runs on the CPU (the plain versions) and,
     over meta tensors, passes the cache checks and stops only at the
     kernels' device check, with no ROADMAP error; so do head dims that are
     multiples of 8 up to 256.  Other head dims raise, naming the rule.  The
@@ -305,10 +306,19 @@ def test_open_variants_raise_naming_the_roadmap():
     q = torch.zeros((B, 3, 8, 16), dtype=torch.bfloat16)
     pos = torch.zeros((B, 3), dtype=torch.int32)
     lens = torch.ones((B,), dtype=torch.int32)
-    for kw, item in ((dict(logit_softcap=30.0), "softcap"),
-                     (dict(causal=False), "non-causal")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-            tfl.mha(q, k, k, None, None, pos, lens, scale=1.0, layer=0, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*non-causal"):
+        tfl.mha(q, k, k, None, None, pos, lens, scale=1.0, layer=0,
+                causal=False)
+    gen = torch.Generator().manual_seed(3)
+    kr = torch.randn(k.shape, generator=gen).to(torch.bfloat16)
+    qr = (40 * torch.randn(q.shape, generator=gen)).to(torch.bfloat16)
+    lens_r = torch.full((B,), 3, dtype=torch.int32)
+    pos_r = torch.arange(3, dtype=torch.int32).expand(B, 3).contiguous()
+    capped = tfl.mha(qr, kr, kr, None, None, pos_r, lens_r, scale=1.0,
+                     layer=0, logit_softcap=2.0)
+    assert capped.shape == q.shape
+    assert not torch.equal(capped, tfl.mha(qr, kr, kr, None, None, pos_r,
+                                           lens_r, scale=1.0, layer=0))
     f32 = k.float()
     out = tfl.mha(q, f32, f32, None, None, pos, lens, scale=1.0, layer=0)
     assert out.shape == q.shape
@@ -341,8 +351,8 @@ def test_attention_ref_and_attention_match_jax(softcap):
     grok's softcap) against JAX's float32 reference: float32 math on both
     sides, so 2 bf16 ulps (the output rounding) bound the difference; then
     `attention` (the flash route's plain version over bf16 K/V) against
-    JAX's `attention` with its Pallas kernel in interpret mode, without
-    softcap, which the kernels do not take yet."""
+    JAX's `attention` with its Pallas kernel in interpret mode, with and
+    without the softcap."""
     rng = np.random.default_rng(41)
     h, hkv, d, s, t = 40, 8, 16, 128, 12
     q = jax_bf16(rng.standard_normal((B, t, h, d)).astype(np.float32))
@@ -358,6 +368,6 @@ def test_attention_ref_and_attention_match_jax(softcap):
     ta = torch.from_numpy(np.array(slopes))
     _close(tat.attention_ref(*args_t, alibi=ta, logit_softcap=softcap),
            jat.attention_ref(*args_j, alibi=slopes, logit_softcap=softcap))
-    if not softcap:
-        _close(tat.attention(*args_t, alibi=ta),
-               jat.attention(*args_j, alibi=slopes, use_flash=True))
+    _close(tat.attention(*args_t, alibi=ta, logit_softcap=softcap),
+           jat.attention(*args_j, alibi=slopes, logit_softcap=softcap,
+                         use_flash=True))

@@ -196,8 +196,14 @@ def test_arch_from_hf_config_refuses_unported_archs():
 
     with pytest.raises(NotImplementedError, match="item 1"):
         arch_from_hf_config({"model_type": "qwen"})
-    with pytest.raises(NotImplementedError, match="item 2"):
-        arch_from_hf_config({"model_type": "grok-1"})
+    with pytest.raises(NotImplementedError, match="item 1: chatglm"):
+        arch_from_hf_config({"model_type": "chatglm2"})
+    grok = arch_from_hf_config({
+        "model_type": "grok-1", "vocab_size": 256, "hidden_size": 64,
+        "intermediate_size": 128, "num_hidden_layers": 2,
+        "num_attention_heads": 6, "num_key_value_heads": 1})
+    assert (grok.logit_softcap, grok.act, grok.post_attn_norm) == (
+        30.0, "gelu_tanh", True)
     with pytest.raises(ValueError, match="unsupported"):
         arch_from_hf_config({"model_type": "no-such-arch"})
 

@@ -312,7 +312,7 @@ def test_single_token_path_is_the_switch_over_expert_views():
     logits = ttr.linear(tx, tp["router"]).float()
     topv, topi = ttr._top_k(logits, 2)
     probs = torch.softmax(topv, dim=-1)
-    got = ttr._moe_single(tx, stacked, topi, probs).float()
+    got = ttr._moe_single(tx, stacked, topi, probs, tcfg).float()
     want = torch.zeros((1, 1, H))
     for j in range(2):
         view = ttr._expert_view(stacked, int(topi[0, 0, j]))
