@@ -7,7 +7,7 @@
                                           # ... of the kernels so named
     python3 chip_smoke.py --profile       # all phases + a torch.profiler
                                           # trace of the main path
-    python3 chip_smoke.py --phases 3,11   # build + only these phases
+    python3 chip_smoke.py --phases 3,12   # build + only these phases
 
 Phases, each raising on failure so the run exits non-zero:
 
@@ -38,7 +38,17 @@ Phases, each raising on failure so the run exits non-zero:
    scales, bf16 K/V and with ALiBi, q drawn so that the softcap bites
    (each output also held far from the output without it); int8 K/V with
    float32 scales at Llama-2-7B's shapes (SCALE_F32_CASES), the fused
-   append's codes and float32 scales equal to the plain version's;
+   append's codes and float32 scales equal to the plain version's; the
+   non-causal variant (NONCAUSAL_CASES) of kernels C and 9 at
+   whisper-large-v2's encoder (B = 1, T = 1500, 20 heads of 64, float32
+   K/V, q and output over S = 1536, kv_len 1500, the padding filled with
+   large values) and cross prefix (T = 4, B = 1 and 4), of B and 10 at
+   its cross attention per decode step (B = 1 and 4, position 0), over
+   int8 and bf16 K/V and with ALiBi once each, each output also held far
+   from the causal one; the causal float32 instances of C, 9, B and 10 at
+   whisper's decoder self-attention (WHISPER_SELF_CASES: S = 448, the
+   4-token prefix, decode steps at B = 1 and 4 at a few lengths); a
+   float32 output must not be a bf16 value;
 3. a tiny model through `Engine` on the card against the same model on the
    CPU (plain versions), once in int4, once per configuration of phase
    5 and as a tiny Mixtral at B = 3 and B = 1: logits within tolerance,
@@ -52,7 +62,10 @@ Phases, each raising on failure so the run exits non-zero:
    a Gemma at head dim 256, a Phi at 80 and a GPT-NeoX at 96 over bf16,
    and the Phi over a float32 cache; a tiny grok (n_rep 6 at head dim 128,
    the softcap at 2, where it bites) through `Engine` and `PagedEngine` at
-   B = 3 and B = 1, and the tiny llama over int8 K/V with float32 scales.
+   B = 3 and B = 1, and the tiny llama over int8 K/V with float32 scales;
+   a tiny whisper (head dim 64): encoder states, logits and greedy,
+   timestamp and 3-beam ids against the CPU, the greedy and beam ids
+   changing from step to step.
    Phases 3-8 serve over the int8 cache (`kv_quantized=True`), phases 9-11
    over the engines' default bf16 cache, int8 and float32;
 4. the main path: a Llama-2-7B-shaped int4 model (full width and depth,
@@ -119,7 +132,13 @@ Phases, each raising on failure so the run exits non-zero:
    hpcai-tech layout converted on the card by `map_grok`, serving the
    ragged requests.  The softcap variants of C / 9 and B / 10, A and
    kernel 11 must launch, no plain version may run, and the MoE layers of
-   a B = 4 and a B = 1 decode step must not synchronise the host.
+   a B = 4 and a B = 1 decode step must not synchronise the host;
+12. whisper-large-v2 at full width and depth in float32 (`serve_whisper`:
+   a 5.75 GiB checkpoint drawn on the card, written to a temporary
+   directory and loaded by `AudioModel().init`; `transcribe` of a 30 s
+   wav; mel, encode, cross K/V, the forced prefix, 64 decode steps and a
+   4-beam search timed).  The non-causal and causal float32 instances of
+   C and B at head dim 64 must launch and no plain version may run.
 
 It prints a `kernels` JSON line, then as its last line
 `{"ok": true, "device": {...}}`.  It imports nothing of JAX.
@@ -1478,6 +1497,199 @@ def check_flash_dims(chk: Checks, gen: torch.Generator) -> None:
 def check_flash_softcap(chk: Checks, gen: torch.Generator) -> None:
     for case in SOFTCAP_CASES + SCALE_F32_CASES:
         _variant_case(chk, gen, *case)
+
+
+# The non-causal variant (whisper's encoder and cross attention) at
+# whisper-large-v2's heads (H = Hkv = 20, D = 64) over its 1500 encoder
+# frames laid out at S = 1536 (kv_len 1500 masks the padding): kernels C
+# and 9 at the encoder's self-attention (B = 1, T = 1500, float32 K/V, q
+# and output; the padding filled with large values, so that a leak shows)
+# and at the cross attention of the forced prefix (T = 4, B = 1 and 4: the
+# beam search's batch), kernels B and 10 at the cross attention of a
+# decode step (B = 1 and 4, pos 0); int8 and bf16 K/V and ALiBi once each
+# (bf16 q and output).  Queries sit at positions 0..T-1, where causal
+# attention would mask most columns: each output is also held far from
+# the causal output of the same inputs.
+# (kernel, K/V, ALiBi, T, kv_lens, main, pad filled)
+WHISPER_S = 1536
+NONCAUSAL_CASES = [
+    ("prefill", "f32", False, 1500, [1500], True, True),
+    ("prefill", "f32", False, 4, [1500], False, False),
+    ("prefill", "f32", False, 4, [1500] * 4, False, False),
+    ("decode", "f32", False, 1, [1500], True, False),
+    ("decode", "f32", False, 1, [1500] * 4, False, False),
+    ("decode", "int8", False, 1, [1500] * 4, False, False),
+    ("prefill", "bf16", False, 4, [1500] * 4, False, False),
+    ("decode", "bf16", True, 1, [1500] * 4, False, False),
+]
+
+
+# Whisper's decoder self-attention: causal, float32 K/V, q and output over
+# its 448-row cache (H = Hkv = 20, D = 64): kernel B at decode steps
+# (pos = kv_len - 1; B = 1 and the 4 beams, at a few lengths) and kernel C
+# at the 4-token forced prefix (pos 0..3, kv_len 4); the rows past each
+# length filled with large values; the paged twins at page size 64.
+# (kernel, K/V, ALiBi, T, kv_lens, main, pad filled)
+WHISPER_TGT = 448
+WHISPER_SELF_CASES = [
+    ("prefill", "f32", False, 4, [4], False, True),
+    ("prefill", "f32", False, 4, [4] * 4, False, True),
+    ("decode", "f32", False, 1, [68], False, True),
+    ("decode", "f32", False, 1, [448], False, True),
+    ("decode", "f32", False, 1, [20] * 4, False, True),
+    ("decode", "f32", False, 1, [5, 137, 300, 448], False, True),
+]
+
+
+def _fill_pad(pool, layer: int, lens, s: int = WHISPER_S) -> None:
+    """Large values in the rows past each slot's length (the layout's
+    padding, or the cache's unwritten rows), in place."""
+    ps = pool.k_pages.shape[3]
+    for b, n in enumerate(lens):
+        for c0 in range(n - n % ps, s, ps):
+            page = pool.page_tables[b, c0 // ps]
+            r0 = max(n - c0, 0)
+            for a in (pool.k_pages, pool.v_pages):
+                a[layer, :, page, r0:] = (127 if a.dtype == torch.int8
+                                          else 1.0e4)
+
+
+def _whisper_case(chk, gen, kernel, kv, alibi, t, lens, main, pad,
+                  causal=False, s=WHISPER_S):
+    """One case of NONCAUSAL_CASES (or, `causal` over `s` rows,
+    WHISPER_SELF_CASES): a shuffled pool at page size 128 (64 when `s` is
+    not a multiple of 128) and the same rows gathered into a contiguous
+    cache; the output of q's dtype (a float32 one not rounded through
+    bf16), the contiguous kernel within 4 bf16 ulps per row of its plain
+    version, the paged kernel equal to it bit for bit, and the output more
+    than 10 tolerances from the plain version's of the other variant (not
+    at a causal decode step, where pos = kv_len - 1 makes both the same).
+    Times kernel, plain version and SDPA over the same K/V (the mask of the
+    variant; the padding masked as keys)."""
+    from neural_speed_tpu_torch.ops import flash
+    from neural_speed_tpu_torch.ops.attention import alibi_slopes
+    from neural_speed_tpu_torch.ops.paged_kv import gathered_layer
+
+    h = hkv = 20
+    d, ps, layer = 64, 128 if s % 128 == 0 else 64, 1
+    b = len(lens)
+    scale = 1.0 / math.sqrt(d)
+    slopes = alibi_slopes(h, "cuda") if alibi else None
+    f32 = kv == "f32"
+    io = torch.float32 if f32 else torch.bfloat16
+    pool = _random_pool(gen, 2, b, hkv, s, d, ps, kv)
+    if pad:
+        _fill_pad(pool, layer, lens, s)
+    ck = _gathered(pool, layer)
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    if causal and kernel == "decode":   # live slots: pos = kv_len - 1
+        pos = (kv_lens - 1)[:, None].clone()
+    else:
+        pos = torch.arange(t, device="cuda", dtype=torch.int32)[None].expand(
+            b, t).contiguous()
+    q = torch.randn((b, t, h, d), generator=gen, device="cuda").to(io)
+    if kernel == "decode":
+        cargs = lambda c: (q, None, None, *c, 0, pos[:, 0], kv_lens, scale,
+                           False, io)
+        pargs = lambda p: (q, None, None, p.k_pages, p.v_pages, p.k_scale,
+                           p.v_scale, p.page_tables, layer, pos[:, 0],
+                           kv_lens, scale, False, io)
+        fns = (flash.decode_cuda, flash.decode_plain, flash.decode_paged_cuda,
+               flash.decode_paged_plain)
+    else:
+        cargs = lambda c: (q, *c, 0, pos, kv_lens, scale, io)
+        pargs = lambda p: (q, p.k_pages, p.v_pages, p.k_scale, p.v_scale,
+                           p.page_tables, layer, pos, kv_lens, scale, io)
+        fns = (flash.prefill_cuda, flash.prefill_plain,
+               flash.prefill_paged_cuda, flash.prefill_paged_plain)
+    c_cuda, c_plain, p_cuda, p_plain = fns
+    kw = dict(alibi=slopes, causal=causal)
+    variant = "causal" if causal else "non-causal"
+    suffix = KV_SUFFIX[kv] + ("" if causal else "_noncausal")
+    what = (f"{kernel} {kv} K/V{', ALiBi' if alibi else ''}, {variant}, "
+            f"B={b} T={t} S={s}")
+    if not torch.equal(p_cuda(*pargs(pool), **kw), c_cuda(*cargs(ck), **kw)):
+        raise AssertionError(f"flash_{kernel}_paged{suffix} ({what}) differs "
+                             f"from the contiguous kernel over the same rows")
+    col = torch.arange(s, device="cuda")
+    valid = (col[None, None] < kv_lens[:, None, None]).expand(b, t, s)
+    if causal:
+        valid = valid & (col[None, None] <= pos[:, :, None])
+    pairs = valid.sum().item()
+    kv_bytes = 2 * d * {"int8": 1, "bf16": 2, "f32": 4}[kv] + (
+        4 if kv == "int8" else 0)
+    nbytes = (2 * b * t * h * d * io.itemsize
+              + valid.any(1).sum().item() * hkv * kv_bytes)
+    for paged in (False, True):
+        name = f"flash_{kernel}{'_paged' if paged else ''}{suffix}"
+        run, plain, args, c = ((p_cuda, p_plain, pargs, pool) if paged
+                               else (c_cuda, c_plain, cargs, ck))
+        got = run(*args(c), **kw)
+        if got.dtype != io:
+            raise AssertionError(f"{name} ({what}) wrote {got.dtype}, not "
+                                 f"{io}")
+        # a float32 output stored from the float32 sums, not through bf16
+        # (which the ulp tolerance below would let pass)
+        in_bf16 = (got.to(torch.bfloat16).to(io) == got).float().mean()
+        if f32 and not in_bf16.item() < 0.5:
+            raise AssertionError(f"{name} ({what}): {in_bf16.item():.0%} of "
+                                 f"the float32 outputs are bf16 values")
+        want = plain(*args(c), **kw)
+        torch.cuda.synchronize()
+        # as kernels B and C: within 4 bf16 ulps of the largest output of
+        # the (slot, row, head) row
+        cmp = compare(got, want, 4, per_row=True)
+        if not (causal and kernel == "decode"):
+            other = plain(*args(c), alibi=slopes, causal=not causal)
+            off = compare(got, other, 4, per_row=True)["worst"]
+            if not off > 10:
+                raise AssertionError(
+                    f"{name} ({what}): the output is only {off:.2f} "
+                    f"tolerances from the {'non-' if causal else ''}causal "
+                    f"one")
+            log(f"  {name}: {off:.1f} tolerances from the "
+                f"{'non-' if causal else ''}causal output")
+            del other
+        del got, want
+        ms = time_ms(lambda: run(*args(c), **kw))
+        plain_ms = time_ms(lambda: plain(*args(c), **kw), reps=3)
+        kd, vd = gathered_layer(pool, layer, io)
+        mask = _sdpa_mask(valid, pos, slopes, s)
+        qs = q.transpose(1, 2)
+        lib_ms = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qs, kd, vd, attn_mask=mask, scale=scale))
+        del kd, vd, mask
+        chk.add(name, "cuda",
+                f"neural_speed_tpu_torch/csrc/flash_{kernel}.cuh",
+                "neural_speed_tpu/ops/flash.py:"
+                + {("decode", False): "267", ("decode", True): "1196",
+                   ("prefill", False): "142",
+                   ("prefill", True): "1111"}[kernel, paged],
+                f"B={b} T={t} H={h} Hkv={hkv} D={d} {kv} q/out "
+                f"{'f32' if f32 else 'bf16'} S={s} kv_len="
+                f"{'/'.join(map(str, lens))} {variant}, "
+                + (f"pos kv_len-1" if causal and kernel == "decode"
+                   else f"pos 0..{t - 1}")
+                + f"{' ALiBi' if alibi else ''}"
+                f"{', padding filled' if pad else ''}"
+                f"{f', page size {ps}, shuffled table' if paged else ''}",
+                cmp, ms, plain_ms, lib_ms,
+                nbytes + (pool.page_tables.numel() * 4 if paged else 0),
+                4.0 * pairs * h * d, main=main)
+        torch.cuda.empty_cache()
+    del pool, ck
+    torch.cuda.empty_cache()
+
+
+def check_flash_noncausal(chk: Checks, gen: torch.Generator) -> None:
+    for case in NONCAUSAL_CASES:
+        _whisper_case(chk, gen, *case)
+
+
+def check_flash_whisper_self(chk: Checks, gen: torch.Generator) -> None:
+    for case in WHISPER_SELF_CASES:
+        _whisper_case(chk, gen, *case, causal=True, s=WHISPER_TGT)
 
 
 # ---------------------------------------------------------------------------
@@ -3396,6 +3608,394 @@ def serve_grok(profile: bool) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# whisper (phases 3 and 12)
+# ---------------------------------------------------------------------------
+
+# The tiny whisper of phase 3: whisper's vocabulary and frame counts at
+# d_model 128, 2 heads of head dim 64 (large-v2's), 2 + 2 layers, drawn
+# with numpy as `tests/test_torch_whisper.py` draws it (linear weights
+# N(0, 1 / fan_in), the timestamp tokens' tied embedding rows at 2x the
+# others' scale so that the timestamp rules run, position embeddings
+# N(0, 4^2), so that the tied head does not map a token to itself and the
+# ids change from step to step); seed 14, searched on the CPU for ids that
+# vary and greedy margins far above WHISPER_LOGIT_TOL.
+TINY_WHISPER_HF = dict(
+    model_type="whisper", vocab_size=51865, d_model=128, encoder_layers=2,
+    decoder_layers=2, encoder_attention_heads=2, decoder_attention_heads=2,
+    encoder_ffn_dim=256, decoder_ffn_dim=256, num_mel_bins=80,
+    max_source_positions=1500, max_target_positions=448,
+    decoder_start_token_id=50258, eos_token_id=50257)
+TINY_WHISPER_SEED = 14
+WHISPER_TS_GAIN = 2.0
+WHISPER_POS_SCALE = 4.0
+WHISPER_FORCED = [50259, 50359, 50363]  # <|en|> <|transcribe|> <|notimestamps|>
+WHISPER_TS = 50364                      # <|0.00|>
+# card against CPU: both round q, K, V and P to bf16 but sum in other
+# orders (and the card's float32 GEMMs in other blocks), which flips a
+# bf16 rounding of P now and then: 2.8x the sound reading on an H100
+# (7.2e-3), below the 2.4e-2 by which an attention output rounded through
+# bf16 moves the CPU's logits (phase 3 logs it), far below the greedy
+# margins (1.19)
+WHISPER_LOGIT_TOL = 0.02
+# The attention kernels of whisper's path: non-causal (encoder, cross
+# attention) and causal (the decoder's float32 self-attention cache), C at
+# a prefix or the encoder, B per decode step.
+WHISPER_KERNELS = ("flash_prefill_f32_noncausal", "flash_decode_f32_noncausal",
+                   "flash_prefill_f32", "flash_decode_f32")
+
+
+def _whisper_audio(seed: int, seconds: float) -> "np.ndarray":
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = int(16000 * seconds)
+    tone = 0.3 * np.sin(2 * np.pi * 440.0 * np.arange(n) / 16000)
+    return (tone + 0.05 * rng.standard_normal(n)).astype(np.float32)
+
+
+def _tiny_whisper_sd(seed: int) -> dict:
+    import numpy as np
+
+    from neural_speed_tpu_torch.utils.synthetic import whisper_hf_shapes
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for name, shape in whisper_hf_shapes(TINY_WHISPER_HF).items():
+        x = rng.standard_normal(shape).astype(np.float32)
+        if "layer_norm" in name:
+            x = (1.0 if name.endswith("weight") else 0.0) + 0.1 * x
+        elif name.endswith("embed_tokens.weight"):
+            x = 0.5 * x
+            x[WHISPER_TS:] *= WHISPER_TS_GAIN
+        elif "embed_positions" in name:
+            x = WHISPER_POS_SCALE * x
+        elif name.endswith("bias"):
+            x = 0.02 * x
+        else:
+            x = x / math.sqrt(int(np.prod(shape[1:])))
+        sd[name] = torch.from_numpy(x)
+    return sd
+
+
+def _tiny_whisper_logits(W, params, cfg, states, lens, ids):
+    """The decoder's logits over `ids[:-1]` in one prefix step."""
+    dev = states.device
+    cache = W._self_cache(cfg, 1, dev)
+    n = len(ids) - 1
+    logits, _ = W.decoder_forward(
+        params, cfg, torch.tensor([ids[:-1]], dtype=torch.int32, device=dev),
+        torch.arange(n, dtype=torch.int32, device=dev)[None], cache,
+        torch.full((1,), n, dtype=torch.int32, device=dev),
+        W.cross_kv(params, cfg, states), lens)
+    return logits[0].cpu()
+
+
+def _bf16_output_shift(W, params, cfg, states, lens, ids, logits):
+    """How far the CPU's logits move when the attention's float32 output is
+    rounded through bf16 (the plain versions wrapped): the size of the
+    fault that the logit tolerance would have to see."""
+    from neural_speed_tpu_torch.ops import flash
+
+    saved = {n: getattr(flash, n) for n in ("decode_plain", "prefill_plain")}
+
+    def rounded(f):
+        def g(*a, **k):
+            o = f(*a, **k)
+            return o.to(torch.bfloat16).to(o.dtype)
+        return g
+    try:
+        for n, f in saved.items():
+            setattr(flash, n, rounded(f))
+        moved = _tiny_whisper_logits(W, params, cfg, states, lens, ids)
+    finally:
+        for n, f in saved.items():
+            setattr(flash, n, f)
+    return (moved - logits).abs().max().item()
+
+
+def check_tiny_whisper() -> dict:
+    """The tiny whisper on the card against the same model on the CPU (the
+    plain versions): encoder states within 1e-3, greedy ids identical and
+    the logits over them within WHISPER_LOGIT_TOL with the CPU's top-2
+    margins above it; the timestamp route and a 3-beam search give the CPU's
+    ids; the greedy and beam ids change from step to step (a draw that
+    repeats one token would pass with broken attention).  Counts are set
+    to 0 before the card's runs and read after: the non-causal and causal
+    float32 instances of C and B must launch, and no plain version may run
+    there.  Also logs how far a float32 attention output rounded through
+    bf16 would move the CPU's logits."""
+    import numpy as np
+
+    from neural_speed_tpu_torch import _build
+    from neural_speed_tpu_torch.models import whisper as W
+    from neural_speed_tpu_torch.ops.mel import log_mel_spectrogram
+
+    sd = _tiny_whisper_sd(TINY_WHISPER_SEED)
+    mel = torch.from_numpy(log_mel_spectrogram(_whisper_audio(3, 3.0)))[None]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        if dev == "cuda":
+            _build.reset_counts()
+        params, cfg = W.convert_whisper(sd, TINY_WHISPER_HF, device=dev)
+        m = W.WhisperModel(params, cfg)
+        states = W.encode(params, cfg, mel.to(dev))
+        lens = torch.full((1,), states.shape[1], dtype=torch.int32,
+                          device=dev)
+        ids = m.generate(states, lens, WHISPER_FORCED, 10)
+        ts = m.generate(states, lens, WHISPER_FORCED[:2], 10,
+                        timestamp_begin=WHISPER_TS)
+        beam = m.generate_beam(states, lens, WHISPER_FORCED, num_beams=3,
+                               max_new_tokens=6)
+        logits = _tiny_whisper_logits(W, params, cfg, states, lens, ids)
+        runs[dev] = dict(states=states.cpu(), ids=ids, ts=ts, beam=beam,
+                         logits=logits)
+        if dev == "cpu":
+            shift = _bf16_output_shift(W, params, cfg, states, lens, ids,
+                                       logits)
+    counts = {k: v for k, v in _build.launches.items() if v}
+    cpu, card = runs["cpu"], runs["cuda"]
+    err_s = (cpu["states"] - card["states"]).abs().max().item()
+    err_l = (cpu["logits"] - card["logits"]).abs().max().item()
+    top = cpu["logits"][len(WHISPER_FORCED):].topk(2, dim=-1).values
+    margin = (top[:, 0] - top[:, 1]).min().item()
+    log(f"  tiny whisper: card ids {card['ids']}, timestamps {card['ts']}, "
+        f"beam {card['beam']}; encoder states within {err_s:.2e}, logits "
+        f"within {err_l:.2e} (tolerance {WHISPER_LOGIT_TOL}), smallest "
+        f"greedy margin {margin:.3f}; a bf16-rounded attention output would "
+        f"move the CPU's logits by {shift:.2e}; launches on the card "
+        f"{counts}")
+    if not err_s <= 1e-3:
+        raise AssertionError(f"tiny whisper: encoder states differ from the "
+                             f"CPU's by {err_s}")
+    if not err_l <= WHISPER_LOGIT_TOL < margin:
+        raise AssertionError(f"tiny whisper: logits differ from the CPU's by "
+                             f"{err_l} (margin {margin})")
+    for key in ("ids", "ts", "beam"):
+        if card[key] != cpu[key]:
+            raise AssertionError(f"tiny whisper: {key} on the card "
+                                 f"{card[key]} differ from the CPU's "
+                                 f"{cpu[key]}")
+    for key in ("ids", "beam"):
+        new = cpu[key][len(WHISPER_FORCED) + 1:]
+        if not len(set(new)) > len(new) // 2:
+            raise AssertionError(f"tiny whisper: the draw's {key} repeat "
+                                 f"({new}): the id checks would be blind")
+    if not any(t >= WHISPER_TS for t in card["ts"][3:]):
+        raise AssertionError("tiny whisper: the timestamp route emitted no "
+                             "timestamp")
+    for k in WHISPER_KERNELS:
+        if counts.get(k, 0) <= 0:
+            raise AssertionError(f"tiny whisper: {k} was not launched on "
+                                 f"the card: {counts}")
+    if sum(_build.plain_dispatches.values()):
+        raise AssertionError("tiny whisper: a plain version ran on the "
+                             f"card: {dict(_build.plain_dispatches)}")
+    return counts
+
+
+def _unique_bytes(node) -> int:
+    """Bytes of the distinct storages under a params tree (proj_out is a
+    view of the token embedding)."""
+    seen = {}
+
+    def walk(n):
+        if isinstance(n, dict):
+            for v in n.values():
+                walk(v)
+        elif isinstance(n, list):
+            for v in n:
+                walk(v)
+        elif isinstance(n, torch.Tensor):
+            st = n.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+
+    walk(node)
+    return sum(seen.values())
+
+
+def _host_ms(fn, reps: int = 3) -> float:
+    """Median host-clock ms of fn() ending in a synchronize."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def serve_whisper(profile: bool) -> dict:
+    """Phase 12: whisper-large-v2 at full width and depth (openai/
+    whisper-large-v2's config.json: d_model 1280, 32 + 32 layers, 20 heads
+    of 64, ffn 5120, 80 mel bins, vocab 51865, 1500 / 448 positions), in
+    float32, the `AudioModel` default: random weights from seed 0 drawn on
+    the card in the HF layout, written to a temporary directory as
+    `config.json` + `model.safetensors`, loaded by `AudioModel().init(dir)`.
+    Then, with the counts set to 0: `transcribe(wav)` of a 30-second 16-bit
+    wav drawn from a seed (ids, the temperature-fallback ladder); the mel
+    (host), one 30 s chunk's `encode` and `cross_kv`, the forced prefix's
+    step, 64 decode steps through `decoder_forward` (tokens fed back on the
+    card: random weights may emit EOS early inside `generate`), and
+    `generate_beam` with 4 beams for 16 steps (kernel B at B = 4 and
+    `reorder`).  The non-causal and causal float32 instances of C and B at
+    head dim 64 must launch, no plain version may run, the outputs must be
+    finite and of their shapes, and TF32 must still be off.  With
+    `profile`, torch.profiler traces one encode and 8 decode steps."""
+    import gc
+    import tempfile
+    import wave
+
+    import numpy as np
+
+    from neural_speed_tpu_torch import _build
+    from neural_speed_tpu_torch.api import AudioModel
+    from neural_speed_tpu_torch.models import whisper as W
+    from neural_speed_tpu_torch.ops import kv_cache as kvc
+    from neural_speed_tpu_torch.ops.mel import log_mel_spectrogram
+    from neural_speed_tpu_torch.utils.synthetic import (
+        whisper_large_v2_config, write_whisper_checkpoint)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    hf = whisper_large_v2_config()
+    res = {}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.time()
+        nfile = write_whisper_checkpoint(d, hf, seed=0)
+        res["checkpoint_bytes"] = nfile
+        res["write_s"] = time.time() - t0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        wav = os.path.join(d, "clip.wav")
+        pcm = np.clip(_whisper_audio(12, 30.0) * 32768.0, -32768, 32767)
+        with wave.open(wav, "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes(pcm.astype(np.int16).tobytes())
+        _build.reset_counts()
+        t0 = time.time()
+        am = AudioModel().init(d)
+        torch.cuda.synchronize()
+        res["load_s"] = time.time() - t0
+        m, params, cfg = am.model, am.model.params, am.model.cfg
+        res["weight_bytes"] = _unique_bytes(params)
+        log(f"  whisper-large-v2: checkpoint {nfile / 2 ** 30:.3f} GiB "
+            f"drawn and written in {res['write_s']:.1f} s, loaded by "
+            f"AudioModel().init in {res['load_s']:.1f} s; weights "
+            f"{res['weight_bytes'] / 2 ** 30:.3f} GiB on the card")
+        t0 = time.time()
+        ids = am.transcribe(wav, max_new_tokens=16)
+        torch.cuda.synchronize()
+        res["transcribe_s"] = time.time() - t0
+        res["transcribe_ids"] = ids
+        if not (ids[0] == cfg.decoder_start_token_id
+                and all(0 <= t < cfg.vocab_size for t in ids)):
+            raise AssertionError(f"phase 12: transcribe gave {ids}")
+        audio = _whisper_audio(12, 30.0)
+        t0 = time.perf_counter()
+        mel_np = log_mel_spectrogram(audio)
+        res["mel_ms"] = (time.perf_counter() - t0) * 1e3
+        mel = torch.from_numpy(mel_np)[None].cuda()
+        states = W.encode(params, cfg, mel)
+        res["encode_ms"] = _host_ms(lambda: W.encode(params, cfg, mel))
+        lens = torch.full((1,), states.shape[1], dtype=torch.int32,
+                          device="cuda")
+        cross = W.cross_kv(params, cfg, states)
+        res["cross_kv_ms"] = _host_ms(lambda: W.cross_kv(params, cfg,
+                                                         states))
+        if not (states.shape == (1, cfg.max_source_positions, cfg.d_model)
+                and bool(torch.isfinite(states).all())
+                and cross[0].shape == (cfg.decoder_layers, 1, cfg.n_heads,
+                                       WHISPER_S, cfg.head_dim)):
+            raise AssertionError("phase 12: encoder states or cross K/V "
+                                 "not finite or of the wrong shape")
+        prefix = [cfg.decoder_start_token_id] + WHISPER_FORCED
+        toks = torch.tensor([prefix], dtype=torch.int32, device="cuda")
+        pos = torch.arange(4, dtype=torch.int32, device="cuda")[None]
+        four = torch.full((1,), 4, dtype=torch.int32, device="cuda")
+
+        def prefix_step():
+            cache = W._self_cache(cfg, 1, "cuda")
+            logits, cache = W.decoder_forward(params, cfg, toks, pos, cache,
+                                              four, cross, lens)
+            return logits, kvc.set_lengths(cache, four)
+
+        res["prefix_ms"] = _host_ms(prefix_step)
+        logits, cache = prefix_step()
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        n_steps = 64
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            logits, cache = m._step(tok, cache, cross, lens)
+            tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        torch.cuda.synchronize()
+        res["decode_ms_per_token"] = (time.perf_counter() - t0) * 1e3 / n_steps
+        if not (logits.shape == (1, 1, cfg.vocab_size)
+                and bool(torch.isfinite(logits).all())):
+            raise AssertionError("phase 12: decode logits not finite or of "
+                                 "the wrong shape")
+        if int(cache.lengths[0]) != 4 + n_steps:
+            raise AssertionError(f"phase 12: cache length "
+                                 f"{int(cache.lengths[0])}")
+        del cache, logits
+        if profile:
+            res["profile_encode"] = profile_window(
+                lambda: W.encode(params, cfg, mel), "encode_whisper", 1)
+            logits, cache = prefix_step()
+
+            def eight_steps():
+                c = cache
+                t = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+                for _ in range(8):
+                    lg, c = m._step(t, c, cross, lens)
+                    t = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+
+            res["profile_decode"] = profile_window(eight_steps,
+                                                   "decode_whisper", 8)
+            del cache, logits
+        t0 = time.time()
+        beam = m.generate_beam(states, lens, WHISPER_FORCED, num_beams=4,
+                               max_new_tokens=16)
+        torch.cuda.synchronize()
+        res["beam_s"] = time.time() - t0
+        res["beam_ids"] = beam
+        res["launches"] = {k: v for k, v in _build.launches.items() if v}
+        res["instances"] = {k: v for k, v in
+                            _build.instance_launches.items() if v}
+        res["plain"] = dict(_build.plain_dispatches)
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del am, m, params, cross, states
+    log(f"  whisper-large-v2: transcribe(30 s wav, 16 new tokens, the "
+        f"temperature ladder) {res['transcribe_s']:.2f} s -> "
+        f"{res['transcribe_ids']}; mel {res['mel_ms']:.1f} ms (host), "
+        f"encode {res['encode_ms']:.2f} ms, cross_kv "
+        f"{res['cross_kv_ms']:.2f} ms, forced prefix (4 tokens) "
+        f"{res['prefix_ms']:.2f} ms, decode "
+        f"{res['decode_ms_per_token']:.3f} ms/token over {n_steps} steps, "
+        f"generate_beam (4 beams, 16 steps) {res['beam_s']:.2f} s; peak "
+        f"{res['peak_gib']:.2f} GiB")
+    log(f"  whisper-large-v2 launches {res['launches']}; per head-dim "
+        f"instance {res['instances']}; plain-version dispatches "
+        f"{res['plain']}")
+    for k in WHISPER_KERNELS:
+        if res["instances"].get(f"{k} d64", 0) <= 0:
+            raise AssertionError(f"phase 12: {k} d64 was not launched")
+    if sum(res["plain"].values()):
+        raise AssertionError(f"phase 12: a plain version ran: "
+                             f"{res['plain']}")
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.backends.cudnn.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("phase 12: TF32 was turned on")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -3409,13 +4009,13 @@ def main() -> int:
                          "main path with torch.profiler")
     ap.add_argument("--phases", default="",
                     help="run only these phases after the build (numbers "
-                         "2-11, comma-separated; 6 needs 4); the default "
+                         "2-12, comma-separated; 6 needs 4); the default "
                          "runs every phase")
     args = ap.parse_args()
     if args.only and not args.kernels_only:
         ap.error("--only needs --kernels-only")
     phases = ({int(x) for x in args.phases.split(",")} if args.phases
-              else set(range(2, 12)))
+              else set(range(2, 13)))
     if 6 in phases and 4 not in phases:
         ap.error("--phases: phase 6 serves phase 4's params")
     if not torch.cuda.is_available():
@@ -3457,6 +4057,10 @@ def main() -> int:
                          check_flash_dims),
                         ("flash_decode flash_prefill softcap _f32scale",
                          check_flash_softcap),
+                        ("flash_decode flash_prefill noncausal _f32",
+                         check_flash_noncausal),
+                        ("flash_decode flash_prefill _f32 whisper",
+                         check_flash_whisper_self),
                         ("qmatmul_int4", check_qmatmul),
                         ("qmatmul_lut qmatmul_planar", check_fp_formats),
                         ("qmatmul_int8 qmatmul_int8_planar",
@@ -3489,6 +4093,7 @@ def main() -> int:
         check_tiny_checkpoints()
         check_tiny_hf()
         counts.update(check_tiny_grok())
+        counts.update(check_tiny_whisper())
     if not args.kernels_only and 4 in phases:
         log("phase 4: Llama-2-7B-shaped int4 serving")
         params, cfg = params_7b()
@@ -3576,9 +4181,15 @@ def main() -> int:
                 for part in run.get("ragged", {}).values():
                     counts.update(part["launches"])
                     instances.update(part["instances"])
+    if not args.kernels_only and 12 in phases:
+        log("phase 12: whisper-large-v2 at full width and depth "
+            "(AudioModel, float32)")
+        summary["whisper"] = serve_whisper(args.profile)
+        counts.update(summary["whisper"]["launches"])
+        instances.update(summary["whisper"]["instances"])
     if not args.kernels_only:
         log(f"  launches over the paths {dict(counts)}; attention launches "
-            f"per head-dim instance in phases 9-11 {dict(instances)}")
+            f"per head-dim instance in phases 9-12 {dict(instances)}")
 
     launches_of = {"qmatmul_int4": "qmatmul"}
     kernels = []

@@ -128,14 +128,15 @@ __device__ __forceinline__ void stage_chunk(typename KVElem<T>::Stage* dst,
 
 // Scales of the int8 cache: bf16 (the default) or float32 values, read as
 // float32 and written from the float32 scale the codes were computed
-// against (rounded only for a bf16 copy).
+// against (rounded only for a bf16 copy).  `from_float` also writes the
+// attention outputs, bf16 or float32, from the float32 accumulator.
 __device__ __forceinline__ float scale_to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ float scale_to_float(float x) { return x; }
 
 template <class SC>
-__device__ __forceinline__ SC scale_from_float(float x) {
+__device__ __forceinline__ SC from_float(float x) {
   if constexpr (std::is_same<SC, float>::value) {
     return x;
   } else {

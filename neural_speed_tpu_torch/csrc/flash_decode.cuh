@@ -11,8 +11,9 @@
 // by _mha_paged_hblk from mha_paged over the page pool
 // (nst_flash_decode_paged): int8 K/V (bf16 or float32 scales) with
 // extra_kv=True, fused_append=True; int8, bf16 or float32 K/V with neither;
-// ALiBi or none; logit softcap or none; causal; every head dim the JAX
-// kernels take (multiples of 8 up to 256, `_head_dim_ok`).
+// ALiBi or none; logit softcap or none; causal or not; bf16 or float32
+// output; every head dim the JAX kernels take (multiples of 8 up to 256,
+// `_head_dim_ok`).
 //
 // What it computes, per slot b and KV head hk, for the n_rep query heads of
 // that group (one token per slot):
@@ -20,7 +21,8 @@
 //     read only below kv_len_cache = kv_len - 1 when pos == kv_len - 1 (a
 //     live slot), else below kv_len (a spectator whose query is parked at
 //     max_len - 1).  Without it the cache is read below kv_len.  Columns
-//     also satisfy c <= pos (causal);
+//     also satisfy c <= pos when causal (non-causal: whisper's cross
+//     attention, every column below the length);
 //   * scores s = (bf16(q) . k) * k_scale * sm_scale (no k_scale for K
 //     values; float32 K rounded to bf16 first), then softcap * tanh(s /
 //     softcap) with a softcap (softcap > 0), then + slope[h] * (c - pos)
@@ -29,7 +31,9 @@
 //     on;
 //   * P * v_scale (P for V values) is rounded to bf16 before the product
 //     with V (float32 V rounded to bf16); out = acc / l, 0 where no column
-//     is valid;
+//     is valid, stored as bf16 or float32 (from the f32 sums, as the JAX
+//     kernel stores `o_ref.dtype`); q arrives in bf16 (the launcher rounds
+//     a float32 q);
 //   * with the fused append, live slots get the current k/v quantized
 //     (amax / 127 by division, codes rint(x / scale) clipped to +-127 from
 //     the float32 scale, the scale stored as the cache's scale type, bf16
@@ -83,6 +87,14 @@
 // kernel it cost the main decode case 6%.  The masked
 // kernels (head dims without an instance of their own) test it at run time
 // (CAP = RUNTIME), which keeps their count, and the build, unchanged.
+//
+// Causality reaches the split kernels as data, not as a flag: the column
+// end is min(kv_len_cache, lim[b] + 1), where the launcher passes `pos` as
+// `lim` (causal) or `kv_lens` (non-causal: lim + 1 lies past every cached
+// column), so their body is the causal one with no test of a flag (a
+// runtime flag there made the D = 256 instance spill more).  The output
+// type (OT, bf16 or float32) is a template parameter of the combine kernel
+// only, which writes the output: a second small instance.
 //
 // Compiled without --use_fast_math: the quantization must match
 // kv_cache.quantize_kv bit for bit (IEEE division, round half to even), and
@@ -142,10 +154,10 @@ flash_decode_split(Cache cache, const __nv_bfloat16* __restrict__ q,
                    const SC* __restrict__ ks, const SC* __restrict__ vs,
                    const float* __restrict__ slopes,
                    const int* __restrict__ pos, const int* __restrict__ kv_lens,
-                   float* __restrict__ part_m, float* __restrict__ part_l,
-                   float* __restrict__ part_acc, int H, int Hkv, int S, int D,
-                   int layer, int chunk, int extra, float sm_scale,
-                   float softcap) {
+                   const int* __restrict__ lim, float* __restrict__ part_m,
+                   float* __restrict__ part_l, float* __restrict__ part_acc,
+                   int H, int Hkv, int S, int D, int layer, int chunk,
+                   int extra, float sm_scale, float softcap) {
   if constexpr (EXACT) D = DI;
   using E = nst::KVElem<T>;
   using ST = typename E::Stage;
@@ -160,7 +172,7 @@ flash_decode_split(Cache cache, const __nv_bfloat16* __restrict__ q,
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int p = pos[b], kvl = kv_lens[b];
   const int kvl_cache = kvl - (extra && p == kvl - 1 ? 1 : 0);
-  const int c_end = min(min(kvl_cache, p + 1), S);
+  const int c_end = min(min(kvl_cache, lim[b] + 1), S);
   const int c0 = split * chunk;
   const int c1 = min(c0 + chunk, c_end);
 
@@ -306,9 +318,10 @@ flash_decode_split(Cache cache, const __nv_bfloat16* __restrict__ q,
 }
 
 // Merges the splits' partials (with the seed column when `extra`, softcapped
-// when CAPPED), writes the output and, with `fused_append` (int8 only), the
-// new row and its scales (SC: bf16 or float32).
-template <class T, class Cache, class SC, bool CAPPED>
+// when CAPPED), writes the output (OT: bf16 or float32) and, with
+// `fused_append` (int8 only), the new row and its scales (SC: bf16 or
+// float32).
+template <class T, class Cache, class SC, bool CAPPED, class OT>
 __global__ void __launch_bounds__(THREADS)
 flash_decode_combine(Cache cache, const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k_new,
@@ -320,7 +333,7 @@ flash_decode_combine(Cache cache, const __nv_bfloat16* __restrict__ q,
                      const float* __restrict__ part_m,
                      const float* __restrict__ part_l,
                      const float* __restrict__ part_acc,
-                     __nv_bfloat16* __restrict__ out, int H, int Hkv, int D,
+                     OT* __restrict__ out, int H, int Hkv, int D,
                      int layer, int splits, int extra, int fused_append,
                      float sm_scale, float softcap) {
   const int hk = blockIdx.x, b = blockIdx.y;
@@ -376,7 +389,7 @@ flash_decode_combine(Cache cache, const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int f = 0; f < NF; ++f) {
       const int d = tid + f * THREADS;
-      if (d < D) out[qo + d] = __float2bfloat16_rn(a[f] * inv);
+      if (d < D) out[qo + d] = nst::from_float<OT>(a[f] * inv);
     }
   }
 
@@ -402,8 +415,8 @@ flash_decode_combine(Cache cache, const __nv_bfloat16* __restrict__ q,
       }
     }
     if (tid == 0) {
-      ks[at] = nst::scale_from_float<SC>(ksc);
-      vs[at] = nst::scale_from_float<SC>(vsc);
+      ks[at] = nst::from_float<SC>(ksc);
+      vs[at] = nst::from_float<SC>(vsc);
     }
   }
 }
@@ -426,8 +439,8 @@ cudaError_t launch(Cache cache, const void* q, const void* k_new,
                    const void* slopes, const void* pos, const void* kv_lens,
                    void* part_m, void* part_l, void* part_acc, void* out,
                    int B, int H, int Hkv, int S, int D, int layer, int chunk,
-                   int extra, int fused_append, float sm_scale, float softcap,
-                   cudaStream_t st) {
+                   int extra, int fused_append, int causal, int out_f32,
+                   float sm_scale, float softcap, cudaStream_t st) {
   const int splits = (S + chunk - 1) / chunk;
   const int n_rep = H / Hkv;
   auto bq = static_cast<const __nv_bfloat16*>(q);
@@ -448,22 +461,37 @@ cudaError_t launch(Cache cache, const void* q, const void* k_new,
       cache, bq, static_cast<const T*>(kc), static_cast<const T*>(vc),
       static_cast<const SC*>(ks), static_cast<const SC*>(vs),
       static_cast<const float*>(slopes), static_cast<const int*>(pos),
-      static_cast<const int*>(kv_lens), static_cast<float*>(part_m),
-      static_cast<float*>(part_l), static_cast<float*>(part_acc), H, Hkv, S,
-      D, layer, chunk, extra, sm_scale, softcap);
+      static_cast<const int*>(kv_lens),
+      static_cast<const int*>(causal ? pos : kv_lens),
+      static_cast<float*>(part_m), static_cast<float*>(part_l),
+      static_cast<float*>(part_acc), H, Hkv, S, D, layer, chunk, extra,
+      sm_scale, softcap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  auto combine_kernel = softcap > 0.f
-                            ? flash_decode_combine<T, Cache, SC, true>
-                            : flash_decode_combine<T, Cache, SC, false>;
-  combine_kernel<<<dim3(Hkv, B), THREADS, 0, st>>>(
-      cache, bq, static_cast<const __nv_bfloat16*>(k_new),
-      static_cast<const __nv_bfloat16*>(v_new), static_cast<T*>(kc),
-      static_cast<T*>(vc), static_cast<SC*>(ks), static_cast<SC*>(vs),
-      static_cast<const int*>(pos), static_cast<const int*>(kv_lens),
-      static_cast<const float*>(part_m), static_cast<const float*>(part_l),
-      static_cast<const float*>(part_acc), static_cast<__nv_bfloat16*>(out),
-      H, Hkv, D, layer, splits, extra, fused_append, sm_scale, softcap);
+  auto combine = [&](auto kernel, auto* o) {
+    kernel<<<dim3(Hkv, B), THREADS, 0, st>>>(
+        cache, bq, static_cast<const __nv_bfloat16*>(k_new),
+        static_cast<const __nv_bfloat16*>(v_new), static_cast<T*>(kc),
+        static_cast<T*>(vc), static_cast<SC*>(ks), static_cast<SC*>(vs),
+        static_cast<const int*>(pos), static_cast<const int*>(kv_lens),
+        static_cast<const float*>(part_m), static_cast<const float*>(part_l),
+        static_cast<const float*>(part_acc), o, H, Hkv, D, layer, splits,
+        extra, fused_append, sm_scale, softcap);
+  };
+  using bf16 = __nv_bfloat16;
+  if (out_f32) {
+    auto o = static_cast<float*>(out);
+    if (softcap > 0.f)
+      combine(flash_decode_combine<T, Cache, SC, true, float>, o);
+    else
+      combine(flash_decode_combine<T, Cache, SC, false, float>, o);
+  } else {
+    auto o = static_cast<bf16*>(out);
+    if (softcap > 0.f)
+      combine(flash_decode_combine<T, Cache, SC, true, bf16>, o);
+    else
+      combine(flash_decode_combine<T, Cache, SC, false, bf16>, o);
+  }
   return cudaGetLastError();
 }
 
@@ -476,13 +504,14 @@ cudaError_t launch_int8(Cache cache, int D, const void* q, const void* k_new,
                         const void* kv_lens, void* part_m, void* part_l,
                         void* part_acc, void* out, int B, int H, int Hkv,
                         int S, int layer, int chunk, int extra,
-                        int fused_append, float sm_scale, float softcap,
-                        cudaStream_t st) {
+                        int fused_append, int causal, int out_f32,
+                        float sm_scale, float softcap, cudaStream_t st) {
 #define NST_LAUNCH(VB, EXACT)                                                 \
   launch<int8_t, VB, EXACT, SC>(cache, q, k_new, v_new, kc, vc, ks, vs,       \
                                 slopes, pos, kv_lens, part_m, part_l,         \
                                 part_acc, out, B, H, Hkv, S, D, layer, chunk, \
-                                extra, fused_append, sm_scale, softcap, st)
+                                extra, fused_append, causal, out_f32,         \
+                                sm_scale, softcap, st)
   if (D == DI) return NST_LAUNCH(16, true);
   if (D % 16 == 0) return NST_LAUNCH(16, false);
   return NST_LAUNCH(8, false);
@@ -493,29 +522,32 @@ cudaError_t launch_int8(Cache cache, int D, const void* q, const void* k_new,
 // scales, 1 bf16 values, 2 float32 values (no scales, no extra column, no
 // append).  D: the head dim, a multiple of 8 at most this instance's
 // (below it, the masked kernels); int8 rows of D % 16 == 8 take 8-byte
-// loads.  softcap: 0 (off) or the logit softcap.
+// loads.  causal: 1 or 0; out_f32: 1 for a float32 output, 0 for bf16.
+// softcap: 0 (off) or the logit softcap.
 template <class Cache>
 int launch_d(Cache cache, int D, const void* q, const void* k_new,
              const void* v_new, void* kc, void* vc, void* ks, void* vs,
              const void* slopes, const void* pos, const void* kv_lens,
              void* part_m, void* part_l, void* part_acc, void* out, int B,
              int H, int Hkv, int S, int layer, int chunk, int extra,
-             int fused_append, int kv_type, float sm_scale, float softcap,
-             void* stream) {
+             int fused_append, int kv_type, int causal, int out_f32,
+             float sm_scale, float softcap, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   const bool int8 = kv_type == 0 || kv_type == 3;
   if (D > DI || D <= 0 || D % 8 || kv_type < 0 || kv_type > 3 ||
-      (!int8 && (extra || fused_append)) || !(softcap >= 0.f))
+      (!int8 && (extra || fused_append)) || (causal != 0 && causal != 1) ||
+      (out_f32 != 0 && out_f32 != 1) || !(softcap >= 0.f))
     return (int)cudaErrorInvalidValue;
 #define NST_LAUNCH(T, EXACT)                                                  \
   launch<T, 16, EXACT, __nv_bfloat16>(                                        \
       cache, q, k_new, v_new, kc, vc, ks, vs, slopes, pos, kv_lens, part_m,   \
       part_l, part_acc, out, B, H, Hkv, S, D, layer, chunk, extra,            \
-      fused_append, sm_scale, softcap, st)
+      fused_append, causal, out_f32, sm_scale, softcap, st)
 #define NST_LAUNCH_INT8(SC)                                                   \
   launch_int8<SC>(cache, D, q, k_new, v_new, kc, vc, ks, vs, slopes, pos,     \
                   kv_lens, part_m, part_l, part_acc, out, B, H, Hkv, S,       \
-                  layer, chunk, extra, fused_append, sm_scale, softcap, st)
+                  layer, chunk, extra, fused_append, causal, out_f32,         \
+                  sm_scale, softcap, st)
   const bool exact = D == DI;
   cudaError_t err;
   if (kv_type == 1)
@@ -544,12 +576,13 @@ extern "C" int nst_flash_decode(const void* q, const void* k_new,
                                 void* part_m, void* part_l, void* part_acc,
                                 void* out, int B, int H, int Hkv, int S, int D,
                                 int layer, int chunk, int extra,
-                                int fused_append, int kv_type, float sm_scale,
-                                float softcap, void* stream) {
+                                int fused_append, int kv_type, int causal,
+                                int out_f32, float sm_scale, float softcap,
+                                void* stream) {
   return launch_d(nst::ContigCache{B, Hkv, S}, D, q, k_new, v_new, kc, vc, ks,
                   vs, slopes, pos, kv_lens, part_m, part_l, part_acc, out, B,
                   H, Hkv, S, layer, chunk, extra, fused_append, kv_type,
-                  sm_scale, softcap, stream);
+                  causal, out_f32, sm_scale, softcap, stream);
 }
 
 #else
@@ -561,11 +594,12 @@ extern "C" int nst_flash_decode_paged(
     const void* pos, const void* kv_lens, void* part_m, void* part_l,
     void* part_acc, void* out, int B, int H, int Hkv, int P, int ps,
     int n_blocks, int D, int layer, int chunk, int extra, int fused_append,
-    int kv_type, float sm_scale, float softcap, void* stream) {
+    int kv_type, int causal, int out_f32, float sm_scale, float softcap,
+    void* stream) {
   return launch_d(
       nst::PagedCache{static_cast<const int*>(tables), Hkv, P, ps, n_blocks},
       D, q, k_new, v_new, kc, vc, ks, vs, slopes, pos, kv_lens, part_m,
       part_l, part_acc, out, B, H, Hkv, n_blocks * ps, layer, chunk, extra,
-      fused_append, kv_type, sm_scale, softcap, stream);
+      fused_append, kv_type, causal, out_f32, sm_scale, softcap, stream);
 }
 #endif

@@ -5,25 +5,30 @@
 // Replaces: neural_speed_tpu/ops/flash.py, _mha_kernel as launched by
 // _mha_packed from mha over the contiguous cache (nst_flash_prefill) and by
 // _mha_paged from mha_paged over the page pool (nst_flash_prefill_paged);
-// int8 (bf16 or float32 scales), bf16 or float32 cache, causal, ALiBi or
-// none, logit softcap or none; every head dim the JAX kernels take
-// (multiples of 8 up to 256, `_head_dim_ok`).
+// int8 (bf16 or float32 scales), bf16 or float32 cache, causal or not,
+// ALiBi or none, logit softcap or none, bf16 or float32 output; every head
+// dim the JAX kernels take (multiples of 8 up to 256, `_head_dim_ok`).
 //
 // What it computes, for query row t of head h in slot b (KV head
-// h / n_rep): the columns c with c < kv_len[b] and c <= pos[b, t] are
-// valid; s = (bf16(q) . k) * k_scale * sm_scale (no k_scale for K values;
-// float32 K rounded to bf16 first), then softcap * tanh(s / softcap) with a
-// softcap (softcap > 0: a runtime argument; IEEE division and tanhf, as the
-// plain versions' torch.tanh on the card), then + slope[h] * (c -
-// pos[b, t]) with ALiBi; an online softmax over column tiles; P * v_scale
-// (P for V values) rounded to bf16 before the product with V (float32 V
-// rounded to bf16),
-// accumulated in f32; out = acc / l, and 0 for a row with no valid column
-// (padded rows carry position -1).  At prefill the cache is appended first,
-// so this reads the K/V of the prompt itself.  Decode calls that kernel B
-// does not take (Falcon-7B's 71 query heads over one KV head, Gemma-2B's 8
-// over one, an odd KV head count) come here too, one real row per 64-row
-// tile.
+// h / n_rep): the columns c with c < kv_len[b] and, when causal,
+// c <= pos[b, t] are valid; s = (bf16(q) . k) * k_scale * sm_scale (no
+// k_scale for K values; float32 K rounded to bf16 first), then softcap *
+// tanh(s / softcap) with a softcap (softcap > 0: a runtime argument; IEEE
+// division and tanhf, as the plain versions' torch.tanh on the card), then
+// + slope[h] * (c - pos[b, t]) with ALiBi; an online softmax over column
+// tiles; P * v_scale (P for V values) rounded to bf16 before the product
+// with V (float32 V rounded to bf16), accumulated in f32; out = acc / l,
+// and 0 for a row with no valid column (padded rows carry position -1),
+// stored as bf16 (rounded to nearest even) or, with `out_f32`, as float32
+// from the f32 accumulator, as the JAX kernel stores `o_ref.dtype`.  q
+// arrives in bf16 (the launcher rounds a float32 q, as the JAX launcher's
+// `astype(bfloat16)`).  Non-causal (whisper's encoder and cross
+// attention): no row test and no skip of tiles above the last position;
+// ALiBi still measures c - pos[b, t].  At prefill the cache is appended
+// first, so this reads the K/V of the prompt itself.  Decode calls that
+// kernel B does not take (Falcon-7B's 71 query heads over one KV head,
+// Gemma-2B's 8 over one, an odd KV head count) come here too, one real row
+// per 64-row tile.
 //
 // Bound: operations (4 * T^2/2 * D per head with causal skipping, ~34 GFLOP
 // per Llama-2-7B layer at T = 2048, on the bf16 tensor cores).
@@ -34,7 +39,11 @@
 // bf16 in shared memory once per block: int8 codes exactly, float32 values
 // rounded to nearest even (`__float2bfloat16_rn`, the JAX kernels'
 // `astype(bfloat16)`); bf16 tiles are copied as they are.  Column tiles
-// past kv_len or above the tile's last position are skipped.  The running
+// past kv_len or (causal) above the tile's last position are skipped.  The
+// causal flag and the output type are runtime arguments (no template
+// instances: the build), read outside the column loop: each row's column
+// limit is its position, or INT_MAX when non-causal, so the loop's test is
+// the same instructions either way.  The running
 // max / sum live in registers (two lanes per row), the output accumulator
 // O in shared memory.  The P V product goes through a per-warp 16 x 64 f32
 // tile S (the scores' tile, free once P is written) four 16-column slabs at
@@ -55,6 +64,7 @@
 // 64-column tile spans 4 pages at page size 16), and the arithmetic and its
 // order are the contiguous kernel's.
 
+#include <climits>
 #include <mma.h>
 
 #include "common.cuh"
@@ -103,9 +113,9 @@ flash_prefill_kernel(Cache cache, const __nv_bfloat16* __restrict__ q,
                      const float* __restrict__ slopes,
                      const int* __restrict__ pos,
                      const int* __restrict__ kv_lens,
-                     __nv_bfloat16* __restrict__ out, int T, int H,
-                     int Hkv, int S, int D, int layer, float sm_scale,
-                     float softcap) {
+                     void* __restrict__ out, int T, int H,
+                     int Hkv, int S, int D, int layer, int causal,
+                     int out_f32, float sm_scale, float softcap) {
   if constexpr (EXACT) D = DI;
   using L = Smem;
   using E = nst::KVElem<KV>;
@@ -144,10 +154,12 @@ flash_prefill_kernel(Cache cache, const __nv_bfloat16* __restrict__ q,
   }
   for (int i = lane; i < 16 * L::LDO; i += 32) Ow[i] = 0.f;
   const int pmax = (int)nst::block_max<NWARP>((float)my_pos, red);
-  const int c_end = min(min(kv_lens[b], pmax + 1), S);
+  const int c_end =
+      causal ? min(min(kv_lens[b], pmax + 1), S) : min(kv_lens[b], S);
 
   const int r = lane / 2, half = lane % 2;  // this lane's row / column half
   const int row_pos = posS[warp * 16 + r];
+  const int row_lim = causal ? row_pos : INT_MAX;  // the row's last column
   float m_run = -FLT_MAX, l_run = 0.f;
   const auto rows = cache.rows(layer, b, hk);
 
@@ -214,7 +226,7 @@ flash_prefill_kernel(Cache cache, const __nv_bfloat16* __restrict__ q,
     for (int i = 0; i < 32; ++i) {
       const int cc = half * 32 + i;
       const int c = c0 + cc;
-      const bool valid = c < c_end && c <= row_pos;
+      const bool valid = c < c_end && c <= row_lim;
       float x = E::kQuantized ? Sw[r * LDS + cc] * ksc[cc] * sm_scale
                               : Sw[r * LDS + cc] * sm_scale;
       if (softcap > 0.f) x = nst::softcap_score(x, softcap);
@@ -230,7 +242,7 @@ flash_prefill_kernel(Cache cache, const __nv_bfloat16* __restrict__ q,
     for (int i = 0; i < 32; ++i) {
       const int cc = half * 32 + i;
       const int c = c0 + cc;
-      const bool valid = c < c_end && c <= row_pos;
+      const bool valid = c < c_end && c <= row_lim;
       const float p = valid ? expf(sv[i] - m_new) : 0.f;
       lsum += p;
       Pw[r * LDP + cc] = __float2bfloat16_rn(E::kQuantized ? p * vsc[cc] : p);
@@ -279,10 +291,20 @@ flash_prefill_kernel(Cache cache, const __nv_bfloat16* __restrict__ q,
   const int t = t0 + warp * 16 + r;
   if (t < T) {
     const float inv = l_run == 0.f ? 0.f : 1.f / l_run;
-    __nv_bfloat16* dst = out + (((size_t)b * T + t) * H + h) * D;
-    for (int i = 0; i < DI / 2; ++i) {
-      const int col = half * (DI / 2) + i;
-      if (col < D) dst[col] = __float2bfloat16_rn(Ow[r * L::LDO + col] * inv);
+    const size_t o = (((size_t)b * T + t) * H + h) * D;
+    const float* orow = Ow + r * L::LDO;
+    if (out_f32) {
+      float* dst = static_cast<float*>(out) + o;
+      for (int i = 0; i < DI / 2; ++i) {
+        const int col = half * (DI / 2) + i;
+        if (col < D) dst[col] = orow[col] * inv;
+      }
+    } else {
+      __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(out) + o;
+      for (int i = 0; i < DI / 2; ++i) {
+        const int col = half * (DI / 2) + i;
+        if (col < D) dst[col] = __float2bfloat16_rn(orow[col] * inv);
+      }
     }
   }
 }
@@ -292,7 +314,8 @@ cudaError_t launch(Cache cache, const void* q, const void* kc, const void* vc,
                    const void* ks, const void* vs, const void* slopes,
                    const void* pos, const void* kv_lens, void* out, int B,
                    int T_, int H, int Hkv, int S, int D, int layer,
-                   float sm_scale, float softcap, cudaStream_t st) {
+                   int causal, int out_f32, float sm_scale, float softcap,
+                   cudaStream_t st) {
   const size_t bytes = Smem::bytes;
   auto kernel = flash_prefill_kernel<KV, VB, EXACT, Cache, SC>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -303,31 +326,33 @@ cudaError_t launch(Cache cache, const void* q, const void* kc, const void* vc,
       cache, static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(kc),
       static_cast<const KV*>(vc), static_cast<const SC*>(ks),
       static_cast<const SC*>(vs), static_cast<const float*>(slopes),
-      static_cast<const int*>(pos), static_cast<const int*>(kv_lens),
-      static_cast<__nv_bfloat16*>(out), T_, H, Hkv, S, D, layer, sm_scale,
-      softcap);
+      static_cast<const int*>(pos), static_cast<const int*>(kv_lens), out,
+      T_, H, Hkv, S, D, layer, causal, out_f32, sm_scale, softcap);
   return cudaGetLastError();
 }
 
 // kv_type: 0 int8 codes with bf16 scales, 3 int8 codes with float32
 // scales, 1 bf16 values, 2 float32 values (no scales).  D: the head dim, a
 // multiple of 8 at most this instance's (below it, the masked kernels);
-// int8 rows of D % 16 == 8 take 8-byte loads.  softcap: 0 (off) or the
-// logit softcap.
+// int8 rows of D % 16 == 8 take 8-byte loads.  causal: 1 or 0; out_f32: 1
+// for a float32 output, 0 for bf16.  softcap: 0 (off) or the logit
+// softcap.
 template <class Cache>
 int launch_d(Cache cache, int D, const void* q, const void* kc,
              const void* vc, const void* ks, const void* vs,
              const void* slopes, const void* pos, const void* kv_lens,
              void* out, int B, int T_, int H, int Hkv, int S, int layer,
-             int kv_type, float sm_scale, float softcap, void* stream) {
+             int kv_type, int causal, int out_f32, float sm_scale,
+             float softcap, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (D > DI || D <= 0 || D % 8 || kv_type < 0 || kv_type > 3 ||
+      (causal != 0 && causal != 1) || (out_f32 != 0 && out_f32 != 1) ||
       !(softcap >= 0.f))
     return (int)cudaErrorInvalidValue;
 #define NST_LAUNCH(KV, VB, EXACT, SC)                                     \
   launch<KV, VB, EXACT, SC>(cache, q, kc, vc, ks, vs, slopes, pos, kv_lens, \
-                            out, B, T_, H, Hkv, S, D, layer, sm_scale,      \
-                            softcap, st)
+                            out, B, T_, H, Hkv, S, D, layer, causal,        \
+                            out_f32, sm_scale, softcap, st)
 #define NST_LAUNCH_INT8(SC)                                               \
   (exact ? NST_LAUNCH(int8_t, 16, true, SC)                               \
    : D % 16 == 0 ? NST_LAUNCH(int8_t, 16, false, SC)                      \
@@ -359,11 +384,11 @@ extern "C" int nst_flash_prefill(const void* q, const void* kc, const void* vc,
                                  const void* slopes, const void* pos,
                                  const void* kv_lens, void* out, int B, int T,
                                  int H, int Hkv, int S, int D, int layer,
-                                 int kv_type, float sm_scale, float softcap,
-                                 void* stream) {
+                                 int kv_type, int causal, int out_f32,
+                                 float sm_scale, float softcap, void* stream) {
   return launch_d(nst::ContigCache{B, Hkv, S}, D, q, kc, vc, ks, vs, slopes,
-                  pos, kv_lens, out, B, T, H, Hkv, S, layer, kv_type,
-                  sm_scale, softcap, stream);
+                  pos, kv_lens, out, B, T, H, Hkv, S, layer, kv_type, causal,
+                  out_f32, sm_scale, softcap, stream);
 }
 
 // The pool [L, Hkv, P, ps, D] with scales [L, Hkv, P, 1, ps] (int8) and
@@ -372,10 +397,11 @@ extern "C" int nst_flash_prefill_paged(
     const void* q, const void* kc, const void* vc, const void* ks,
     const void* vs, const void* slopes, const void* tables, const void* pos,
     const void* kv_lens, void* out, int B, int T, int H, int Hkv, int P,
-    int ps, int n_blocks, int D, int layer, int kv_type, float sm_scale,
-    float softcap, void* stream) {
+    int ps, int n_blocks, int D, int layer, int kv_type, int causal,
+    int out_f32, float sm_scale, float softcap, void* stream) {
   return launch_d(
       nst::PagedCache{static_cast<const int*>(tables), Hkv, P, ps, n_blocks},
       D, q, kc, vc, ks, vs, slopes, pos, kv_lens, out, B, T, H, Hkv,
-      n_blocks * ps, layer, kv_type, sm_scale, softcap, stream);
+      n_blocks * ps, layer, kv_type, causal, out_f32, sm_scale, softcap,
+      stream);
 }

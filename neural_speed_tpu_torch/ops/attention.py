@@ -13,7 +13,12 @@ and the reference route reads the layer gathered through the page tables.
 Over a bf16 cache decode appends first, then attends (the JAX package's
 deferred append needs the quantized cache).  The JAX package sends MHA bf16
 decode to XLA; the port, which has no XLA, sends it to kernel B's bf16
-instance on the card and to that kernel's plain version on the CPU.
+instance on the card and to that kernel's plain version on the CPU.  Float
+K/V `[B, S, Hkv, D]` go to the kernels laid out as a one-layer stacked
+cache (`kv_layout`: `[1, B, Hkv, S_pad, D]`, S_pad the next multiple of 64,
+the padding masked by the lengths), so whisper's 1500 frames, which the JAX
+package leaves to XLA (`flash._supported` asks for S % 128 == 0), reach
+kernels C and B.
 """
 
 from __future__ import annotations
@@ -29,6 +34,21 @@ from . import flash
 from . import paged_kv as pkv
 
 NEG_INF = -1e9
+KV_ROWS = 64        # the attention kernels take caches of S % 64 == 0 rows
+
+
+def kv_layout(x: torch.Tensor, out: Optional[torch.Tensor] = None,
+              layer: int = 0, layers: int = 1) -> torch.Tensor:
+    """Float K or V `[B, S, Hkv, D]` in the attention kernels' layout: layer
+    `layer` of a stacked cache `[layers, B, Hkv, S_pad, D]` with S_pad the
+    next multiple of 64 (zero rows past S, which the lengths mask), written
+    into `out` when given, else into a new stack.  Returns the stack."""
+    b, s, h, d = x.shape
+    if out is None:
+        s_pad = -(-s // KV_ROWS) * KV_ROWS
+        out = x.new_zeros((layers, b, h, s_pad, d))
+    out[layer, :, :, :s] = x.transpose(1, 2)
+    return out
 
 
 def alibi_slopes(n_heads: int, device=None) -> torch.Tensor:
@@ -111,13 +131,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               alibi: Optional[torch.Tensor] = None,
               logit_softcap: float = 0.0, out_dtype=None,
               use_flash: bool = True) -> torch.Tensor:
-    """Attention over float K/V `[B, S, H_kv, D]`: the flash kernels (bf16
-    K/V; their plain versions for CPU tensors), or with `use_flash=False`
-    `attention_ref`, which runs on CPU tensors only."""
+    """Attention over float K/V `[B, S, H_kv, D]`, causal or not: the flash
+    kernels over K/V in `kv_layout` (their plain versions for CPU tensors;
+    lengths past S are clipped to S, as the reference masks only the S
+    columns it has), or with `use_flash=False` `attention_ref`, which runs
+    on CPU tensors only."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if use_flash:
-        kt = k.transpose(1, 2)[None].contiguous()      # [1, B, Hkv, S, D]
-        vt = v.transpose(1, 2)[None].contiguous()
+        s = k.shape[1]
+        kt, vt = kv_layout(k), kv_layout(v)            # [1, B, Hkv, S_pad, D]
+        if kt.shape[3] != s:
+            kv_lens = kv_lens.clamp_max(s)
         return flash.mha(q, kt, vt, None, None, q_positions, kv_lens,
                          scale=scale, causal=causal, alibi=alibi,
                          logit_softcap=logit_softcap, out_dtype=out_dtype,

@@ -39,11 +39,15 @@ float32 K and V to bf16 before both products, as the JAX kernels'
 `astype(bfloat16)` does.  Head dims: 64, 80, 96, 128 and 256 have kernel
 instances of their own; every other multiple of 8 up to 256 (the JAX
 kernels' rule, `_head_dim_ok`) runs through the smallest instance above
-it with the columns past D masked; other head dims raise.  Non-causal
-attention raises, naming its ROADMAP item.  Launches are counted per
-kernel, element type (`_SUFFIX`; int8 codes with float32 scales
-"_f32scale") and softcap ("_softcap"), so a run can show which variant
-ran.
+it with the columns past D masked; other head dims raise.  `causal=False`
+(whisper's encoder and cross attention) drops the `col <= pos` test: every
+column below the slot's length is valid.  q may be bf16 or float32 (the
+launchers round it to bf16, as the JAX launcher's `astype(bfloat16)`), and
+the output bf16 or float32 (`out_dtype`: the kernels store the float32
+result unrounded, as the JAX kernels store `o_ref.dtype`).  Launches are
+counted per kernel, element type (`_SUFFIX`; int8 codes with float32
+scales "_f32scale"), softcap ("_softcap") and mask ("_noncausal"), so a
+run can show which variant ran.
 """
 
 from __future__ import annotations
@@ -65,9 +69,9 @@ _SUFFIX = {torch.int8: "", torch.bfloat16: "_bf16", torch.float32: "_f32"}
 _SCALED = {torch.bfloat16: "", torch.float32: "_f32scale"}
 _KV_TYPE = {"": 0, "_bf16": 1, "_f32": 2, "_f32scale": 3}
 _SOFTCAP = "_softcap"
-
-_NON_CAUSAL = ("non-causal attention is not ported yet (ROADMAP section 2, "
-               "item 1: the non-causal variant of rows 6-10, for whisper)")
+_NONCAUSAL = "_noncausal"
+# Output dtypes the kernels write, and q dtypes the launchers take.
+_OUT_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def extra_kv_eligible(t: int, n_heads: int, n_kv_heads: int) -> bool:
@@ -90,9 +94,7 @@ def instance_dim(d: int) -> int:
     return next(i for i in HEAD_DIMS if i >= d)
 
 
-def _check_variant(causal: bool, logit_softcap: float) -> None:
-    if not causal:
-        raise NotImplementedError(_NON_CAUSAL)
+def _check_variant(logit_softcap: float) -> None:
     if not logit_softcap >= 0.0:
         raise ValueError(f"logit_softcap must be >= 0 (0 is off), got "
                          f"{logit_softcap}")
@@ -161,15 +163,17 @@ def _scores(qf: torch.Tensor, kf: torch.Tensor, ks, scale: float,
 def decode_plain(q: torch.Tensor, k_new, v_new, k: torch.Tensor,
                  v: torch.Tensor, ks, vs, layer: int, pos: torch.Tensor,
                  kv_lens: torch.Tensor, scale: float, fused_append: bool,
-                 out_dtype, alibi=None, softcap: float = 0.0
-                 ) -> torch.Tensor:
-    """Plain version of kernel B.  q [B, 1, H, D]; k/v/ks/vs the stacked
-    cache (ks/vs None for bf16 or float32 K/V); pos [B]; alibi: slopes
-    [H] or None; softcap: 0 (off) or the logit softcap.  With k_new/v_new
-    [B, 1, Hkv, D] (int8 cache only) the current token is the seed column
-    and the cache is read below kv_len - 1 for live slots; `fused_append`
-    also writes its quantized row in place (the scales in the cache's
-    scale dtype).  Without them the cache is read below kv_len."""
+                 out_dtype, alibi=None, softcap: float = 0.0,
+                 causal: bool = True) -> torch.Tensor:
+    """Plain version of kernel B.  q [B, 1, H, D] (rounded to bf16 first);
+    k/v/ks/vs the stacked cache (ks/vs None for bf16 or float32 K/V); pos
+    [B]; alibi: slopes [H] or None; softcap: 0 (off) or the logit
+    softcap.  With k_new/v_new [B, 1, Hkv, D] (int8 cache only) the
+    current token is the seed column and the cache is read below
+    kv_len - 1 for live slots; `fused_append` also writes its quantized
+    row in place (the scales in the cache's scale dtype).  Without them the
+    cache is read below kv_len.  Causal: only columns c <= pos."""
+    q = q.to(torch.bfloat16)
     b, _, h, d = q.shape
     hkv, s = k.shape[2], k.shape[3]
     n_rep = h // hkv
@@ -185,7 +189,9 @@ def decode_plain(q: torch.Tensor, k_new, v_new, k: torch.Tensor,
         dist = col.float()[None] - pos.float()[:, None]       # [B, S]
         sc = sc + (alibi.float().reshape(1, hkv, n_rep, 1)
                    * dist[:, None, None, :])
-    valid = (col[None] < kvl_cache[:, None]) & (col[None] <= pos[:, None])
+    valid = col[None] < kvl_cache[:, None]
+    if causal:
+        valid = valid & (col[None] <= pos[:, None])
     valid = valid[:, None, None, :].expand_as(sc)
     vsc = None if vs is None else vs[layer].float()[:, :, None, :]
     if not extra:
@@ -213,10 +219,12 @@ def decode_plain(q: torch.Tensor, k_new, v_new, k: torch.Tensor,
 def prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ks, vs,
                   layer: int, q_positions: torch.Tensor,
                   kv_lens: torch.Tensor, scale: float, out_dtype,
-                  alibi=None, softcap: float = 0.0) -> torch.Tensor:
+                  alibi=None, softcap: float = 0.0,
+                  causal: bool = True) -> torch.Tensor:
     """Plain version of kernel C: q [B, T, H, D] over the stacked cache
     (ks/vs None for bf16 or float32 K/V); alibi: slopes [H] or None;
-    softcap: 0 (off) or the logit softcap."""
+    softcap: 0 (off) or the logit softcap; causal: only columns
+    c <= q_positions."""
     b, t, h, d = q.shape
     hkv, s = k.shape[2], k.shape[3]
     n_rep = h // hkv
@@ -230,9 +238,10 @@ def prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ks, vs,
     if alibi is not None:
         dist = col.float()[None, None] - q_positions.float()[:, :, None]
         sc = sc + alibi.float()[None, :, None, None] * dist[:, None]
-    valid = ((col[None, None] < kv_lens[:, None, None])
-             & (col[None, None] <= q_positions[:, :, None]))  # [B,T,S]
-    valid = valid[:, None].expand_as(sc)
+    valid = (col[None, None] < kv_lens[:, None, None]).expand(b, t, s)
+    if causal:
+        valid = valid & (col[None, None] <= q_positions[:, :, None])
+    valid = valid[:, None].expand_as(sc)                    # [B,H,T,S]
     vsc = None if vs is None else rep(vs[layer].float())[:, :, None, :]
     acc, l = _softmax_pv(sc, valid, vsc, vf)
     return _normalize(acc, l).permute(0, 2, 1, 3).to(out_dtype)
@@ -249,13 +258,14 @@ def decode_paged_plain(q: torch.Tensor, k_new, v_new, k_pages: torch.Tensor,
                        v_pages: torch.Tensor, ks, vs, tables: torch.Tensor,
                        layer: int, pos: torch.Tensor, kv_lens: torch.Tensor,
                        scale: float, fused_append: bool, out_dtype,
-                       alibi=None, softcap: float = 0.0) -> torch.Tensor:
+                       alibi=None, softcap: float = 0.0,
+                       causal: bool = True) -> torch.Tensor:
     """Plain version of the paged decode kernel: `decode_plain` over the
     layer gathered through the tables; with `fused_append` the live slots'
     quantized rows go to the pool at table[b, (kv_len - 1) // ps]."""
     cache = _gathered_cache(k_pages, v_pages, ks, vs, tables, layer)
     out = decode_plain(q, k_new, v_new, *cache, 0, pos, kv_lens, scale,
-                       False, out_dtype, alibi, softcap)
+                       False, out_dtype, alibi, softcap, causal)
     if fused_append:
         live = pos == kv_lens - 1
         ps = k_pages.shape[3]
@@ -272,12 +282,13 @@ def prefill_paged_plain(q: torch.Tensor, k_pages: torch.Tensor,
                         v_pages: torch.Tensor, ks, vs, tables: torch.Tensor,
                         layer: int, q_positions: torch.Tensor,
                         kv_lens: torch.Tensor, scale: float, out_dtype,
-                        alibi=None, softcap: float = 0.0) -> torch.Tensor:
+                        alibi=None, softcap: float = 0.0,
+                        causal: bool = True) -> torch.Tensor:
     """Plain version of the paged prefill kernel: `prefill_plain` over the
     layer gathered through the tables."""
     cache = _gathered_cache(k_pages, v_pages, ks, vs, tables, layer)
     return prefill_plain(q, *cache, 0, q_positions, kv_lens, scale,
-                         out_dtype, alibi, softcap)
+                         out_dtype, alibi, softcap, causal)
 
 
 # ---------------------------------------------------------------------------
@@ -306,10 +317,11 @@ def _quantized(suffix: str) -> bool:
     return suffix in _SCALED.values()
 
 
-def _counter(name: str, suffix: str, softcap: float) -> str:
+def _counter(name: str, suffix: str, softcap: float, causal: bool) -> str:
     """The launch / dispatch counter of a kernel over a cache of `suffix`,
-    with or without the softcap."""
-    return name + suffix + (_SOFTCAP if softcap else "")
+    with or without the softcap, causal or not."""
+    return (name + suffix + (_SOFTCAP if softcap else "")
+            + ("" if causal else _NONCAUSAL))
 
 
 def _slopes(alibi, h: int, dev):
@@ -363,16 +375,17 @@ def _check_decode(q, k_new, v_new, fused_append, out_dtype, hkv, suffix,
     b, t, h, d = q.shape
     extra = k_new is not None
     if not (q.is_cuda and t == 1 and h % hkv == 0 and h // hkv <= 8
-            and q.dtype == out_dtype == torch.bfloat16
+            and q.dtype in _OUT_DTYPES and out_dtype in _OUT_DTYPES
             and (not fused_append or extra)
             and (_quantized(suffix) or not extra)
             and (not extra or (k_new.dtype == v_new.dtype == torch.bfloat16
                                and k_new.shape == v_new.shape
                                == (b, 1, hkv, d)))):
         raise ValueError(
-            f"{what} takes CUDA tensors: bf16 q [B, 1, H, D] with H / Hkv "
-            f"<= 8, optional bf16 k_new / v_new [B, 1, Hkv, D] over the int8 "
-            f"cache only (needed by fused_append), and writes bf16; got q "
+            f"{what} takes CUDA tensors: bf16 or float32 q [B, 1, H, D] with "
+            f"H / Hkv <= 8, optional bf16 k_new / v_new [B, 1, Hkv, D] over "
+            f"the int8 cache only (needed by fused_append), and writes bf16 "
+            f"or float32; got q "
             f"{q.dtype} {tuple(q.shape)} on {q.device}, k_new "
             f"{None if k_new is None else (k_new.dtype, tuple(k_new.shape))},"
             f" cache {'int8' if _quantized(suffix) else suffix[1:]}, "
@@ -383,10 +396,11 @@ def _check_decode(q, k_new, v_new, fused_append, out_dtype, hkv, suffix,
 def _check_prefill(q, q_positions, out_dtype, hkv, what: str) -> None:
     b, t, h, _ = q.shape
     if not (q.is_cuda and q_positions.shape == (b, t) and h % hkv == 0
-            and q.dtype == out_dtype == torch.bfloat16):
+            and q.dtype in _OUT_DTYPES and out_dtype in _OUT_DTYPES):
         raise ValueError(
-            f"{what} takes CUDA tensors: bf16 q [B, T, H, D] with H a "
-            f"multiple of Hkv and positions [B, T], and writes bf16; got q "
+            f"{what} takes CUDA tensors: bf16 or float32 q [B, T, H, D] with "
+            f"H a multiple of Hkv and positions [B, T], and writes bf16 or "
+            f"float32; got q "
             f"{q.dtype} {tuple(q.shape)} on {q.device}, Hkv {hkv}, positions "
             f"{tuple(q_positions.shape)}, out {out_dtype}")
 
@@ -400,21 +414,27 @@ def _launched(name: str, d: int, code: int) -> None:
     _build.instance_launches[f"{name} d{di}"] += 1
 
 
-def _decode_scratch(b, h, d, s, dev):
+def _decode_scratch(b, h, d, s, dev, out_dtype):
     splits = -(-s // DECODE_CHUNK)
     part_m = torch.empty((b, h, splits), dtype=torch.float32, device=dev)
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty((b, h, splits, d), dtype=torch.float32, device=dev)
-    out = torch.empty((b, 1, h, d), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((b, 1, h, d), dtype=out_dtype, device=dev)
     return part_m, part_l, part_acc, out
 
 
+def _flags(causal: bool, out_dtype) -> tuple:
+    """The kernels' `causal` and `out_f32` int arguments."""
+    return int(bool(causal)), int(out_dtype == torch.float32)
+
+
 def decode_cuda(q, k_new, v_new, k, v, ks, vs, layer, pos, kv_lens, scale,
-                fused_append, out_dtype, alibi=None,
-                softcap: float = 0.0) -> torch.Tensor:
+                fused_append, out_dtype, alibi=None, softcap: float = 0.0,
+                causal: bool = True) -> torch.Tensor:
     """Kernel B: `flash_decode` over int8 K/V (`_f32scale` with float32
     scales), `flash_decode_bf16` / `flash_decode_f32` over values; each
-    `_softcap` with a softcap.  Shapes as `decode_plain`."""
+    `_softcap` with a softcap, `_noncausal` without the mask.  Shapes as
+    `decode_plain`."""
     b, t, h, d = q.shape
     hkv, s = k.shape[2], k.shape[3]
     dev = q.device
@@ -423,46 +443,51 @@ def decode_cuda(q, k_new, v_new, k, v, ks, vs, layer, pos, kv_lens, scale,
                   "kernel B")
     extra = k_new is not None
     slopes = _slopes(alibi, h, dev)
-    q3 = q.contiguous()
+    q3 = q.to(torch.bfloat16).contiguous()
     kn = k_new.contiguous() if extra else None
     vn = v_new.contiguous() if extra else None
     pos32 = pos.to(torch.int32).contiguous()
     lens32 = kv_lens.to(torch.int32).contiguous()
-    part_m, part_l, part_acc, out = _decode_scratch(b, h, d, s, dev)
+    part_m, part_l, part_acc, out = _decode_scratch(b, h, d, s, dev,
+                                                    out_dtype)
     fn = _build.kernels.fn(f"flash_decode_d{instance_dim(d)}",
-                           "nst_flash_decode", 14, 10, 2)
+                           "nst_flash_decode", 14, 12, 2)
     code = fn(q3.data_ptr(), _ptr(kn), _ptr(vn), k.data_ptr(), v.data_ptr(),
               _ptr(ks), _ptr(vs), _ptr(slopes), pos32.data_ptr(),
               lens32.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
               part_acc.data_ptr(), out.data_ptr(), b, h, hkv, s, d, layer,
               DECODE_CHUNK, int(extra), int(fused_append), _KV_TYPE[suffix],
-              float(scale), float(softcap), _build.stream_handle())
-    _launched(_counter("flash_decode", suffix, softcap), d, code)
+              *_flags(causal, out_dtype), float(scale), float(softcap),
+              _build.stream_handle())
+    _launched(_counter("flash_decode", suffix, softcap, causal), d, code)
     return out
 
 
 def prefill_cuda(q, k, v, ks, vs, layer, q_positions, kv_lens, scale,
-                 out_dtype, alibi=None, softcap: float = 0.0) -> torch.Tensor:
+                 out_dtype, alibi=None, softcap: float = 0.0,
+                 causal: bool = True) -> torch.Tensor:
     """Kernel C: `flash_prefill` over int8 K/V (`_f32scale` with float32
     scales), `flash_prefill_bf16` / `flash_prefill_f32` over values; each
-    `_softcap` with a softcap.  Shapes as `prefill_plain`."""
+    `_softcap` with a softcap, `_noncausal` without the mask.  Shapes as
+    `prefill_plain`."""
     b, t, h, d = q.shape
     hkv, s = k.shape[2], k.shape[3]
     dev = q.device
     suffix = _check_cache(k, v, ks, vs, layer, q_positions, kv_lens, q)
     _check_prefill(q, q_positions, out_dtype, hkv, "kernel C")
     slopes = _slopes(alibi, h, dev)
-    q4 = q.contiguous()
+    q4 = q.to(torch.bfloat16).contiguous()
     pos32 = q_positions.to(torch.int32).contiguous()
     lens32 = kv_lens.to(torch.int32).contiguous()
-    out = torch.empty((b, t, h, d), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((b, t, h, d), dtype=out_dtype, device=dev)
     fn = _build.kernels.fn(f"flash_prefill_d{instance_dim(d)}",
-                           "nst_flash_prefill", 9, 8, 2)
+                           "nst_flash_prefill", 9, 10, 2)
     code = fn(q4.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ks), _ptr(vs),
               _ptr(slopes), pos32.data_ptr(), lens32.data_ptr(),
               out.data_ptr(), b, t, h, hkv, s, d, layer, _KV_TYPE[suffix],
-              float(scale), float(softcap), _build.stream_handle())
-    _launched(_counter("flash_prefill", suffix, softcap), d, code)
+              *_flags(causal, out_dtype), float(scale), float(softcap),
+              _build.stream_handle())
+    _launched(_counter("flash_prefill", suffix, softcap, causal), d, code)
     return out
 
 
@@ -503,11 +528,12 @@ def _check_pool(kp, vp, ks, vs, tables, layer, pos, kv_lens, q) -> str:
 
 def decode_paged_cuda(q, k_new, v_new, kp, vp, ks, vs, tables, layer, pos,
                       kv_lens, scale, fused_append, out_dtype,
-                      alibi=None, softcap: float = 0.0) -> torch.Tensor:
+                      alibi=None, softcap: float = 0.0,
+                      causal: bool = True) -> torch.Tensor:
     """The paged decode kernel (paged twin of kernel B;
     `flash_decode_paged` and its `_f32scale` / `_bf16` / `_f32` element
-    types, each `_softcap` with a softcap).  Shapes as
-    `decode_paged_plain`."""
+    types, each `_softcap` with a softcap, `_noncausal` without the mask).
+    Shapes as `decode_paged_plain`."""
     b, t, h, d = q.shape
     hkv, n_pages, ps = kp.shape[1], kp.shape[2], kp.shape[3]
     n_blocks = tables.shape[1]
@@ -517,33 +543,36 @@ def decode_paged_cuda(q, k_new, v_new, kp, vp, ks, vs, tables, layer, pos,
                   "the paged decode kernel")
     extra = k_new is not None
     slopes = _slopes(alibi, h, dev)
-    q3 = q.contiguous()
+    q3 = q.to(torch.bfloat16).contiguous()
     kn = k_new.contiguous() if extra else None
     vn = v_new.contiguous() if extra else None
     pos32 = pos.to(torch.int32).contiguous()
     lens32 = kv_lens.to(torch.int32).contiguous()
     part_m, part_l, part_acc, out = _decode_scratch(b, h, d, n_blocks * ps,
-                                                    dev)
+                                                    dev, out_dtype)
     fn = _build.kernels.fn(f"flash_decode_paged_d{instance_dim(d)}",
-                           "nst_flash_decode_paged", 15, 12, 2)
+                           "nst_flash_decode_paged", 15, 14, 2)
     code = fn(q3.data_ptr(), _ptr(kn), _ptr(vn), kp.data_ptr(),
               vp.data_ptr(), _ptr(ks), _ptr(vs), _ptr(slopes),
               tables.data_ptr(), pos32.data_ptr(), lens32.data_ptr(),
               part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
               out.data_ptr(), b, h, hkv, n_pages, ps, n_blocks, d, layer,
               DECODE_CHUNK, int(extra), int(fused_append), _KV_TYPE[suffix],
-              float(scale), float(softcap), _build.stream_handle())
-    _launched(_counter("flash_decode_paged", suffix, softcap), d, code)
+              *_flags(causal, out_dtype), float(scale), float(softcap),
+              _build.stream_handle())
+    _launched(_counter("flash_decode_paged", suffix, softcap, causal), d,
+              code)
     return out
 
 
 def prefill_paged_cuda(q, kp, vp, ks, vs, tables, layer, q_positions,
                        kv_lens, scale, out_dtype, alibi=None,
-                       softcap: float = 0.0) -> torch.Tensor:
+                       softcap: float = 0.0,
+                       causal: bool = True) -> torch.Tensor:
     """The paged prefill kernel (paged twin of kernel C;
     `flash_prefill_paged` and its `_f32scale` / `_bf16` / `_f32` element
-    types, each `_softcap` with a softcap).  Shapes as
-    `prefill_paged_plain`."""
+    types, each `_softcap` with a softcap, `_noncausal` without the mask).
+    Shapes as `prefill_paged_plain`."""
     b, t, h, d = q.shape
     hkv, n_pages, ps = kp.shape[1], kp.shape[2], kp.shape[3]
     n_blocks = tables.shape[1]
@@ -551,18 +580,20 @@ def prefill_paged_cuda(q, kp, vp, ks, vs, tables, layer, q_positions,
                          kv_lens, q)
     _check_prefill(q, q_positions, out_dtype, hkv, "the paged prefill kernel")
     slopes = _slopes(alibi, h, q.device)
-    q4 = q.contiguous()
+    q4 = q.to(torch.bfloat16).contiguous()
     pos32 = q_positions.to(torch.int32).contiguous()
     lens32 = kv_lens.to(torch.int32).contiguous()
-    out = torch.empty((b, t, h, d), dtype=torch.bfloat16, device=q.device)
+    out = torch.empty((b, t, h, d), dtype=out_dtype, device=q.device)
     fn = _build.kernels.fn(f"flash_prefill_d{instance_dim(d)}",
-                           "nst_flash_prefill_paged", 10, 10, 2)
+                           "nst_flash_prefill_paged", 10, 12, 2)
     code = fn(q4.data_ptr(), kp.data_ptr(), vp.data_ptr(), _ptr(ks),
               _ptr(vs), _ptr(slopes), tables.data_ptr(), pos32.data_ptr(),
               lens32.data_ptr(), out.data_ptr(), b, t, h, hkv, n_pages, ps,
-              n_blocks, d, layer, _KV_TYPE[suffix], float(scale),
-              float(softcap), _build.stream_handle())
-    _launched(_counter("flash_prefill_paged", suffix, softcap), d, code)
+              n_blocks, d, layer, _KV_TYPE[suffix],
+              *_flags(causal, out_dtype), float(scale), float(softcap),
+              _build.stream_handle())
+    _launched(_counter("flash_prefill_paged", suffix, softcap, causal), d,
+              code)
     return out
 
 # ---------------------------------------------------------------------------
@@ -570,16 +601,19 @@ def prefill_paged_cuda(q, kp, vp, ks, vs, tables, layer, q_positions,
 # ---------------------------------------------------------------------------
 
 
-def _dispatch(q, cuda_fn, plain_fn, name: str, kv, args, alibi, softcap):
+def _dispatch(q, cuda_fn, plain_fn, name: str, kv, args, alibi, softcap,
+              causal):
     """CPU tensors run the plain version (counted per element type of the
-    cache `kv` = (k, v, k_scale, v_scale) and softcap, as the kernels'
-    launches), others the kernel."""
+    cache `kv` = (k, v, k_scale, v_scale), softcap and mask, as the
+    kernels' launches), others the kernel."""
+    kw = dict(alibi=alibi, softcap=softcap, causal=causal)
     if q.device.type == "cpu":
         suffix = _kv_suffix(*kv)
         _build.plain_dispatches[_counter(
-            name, "_other" if suffix is None else suffix, softcap)] += 1
-        return plain_fn(*args, alibi=alibi, softcap=softcap)
-    return cuda_fn(*args, alibi=alibi, softcap=softcap)
+            name, "_other" if suffix is None else suffix, softcap,
+            causal)] += 1
+        return plain_fn(*args, **kw)
+    return cuda_fn(*args, **kw)
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, k_scale,
@@ -588,14 +622,14 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, k_scale,
         logit_softcap: float = 0.0, out_dtype=None, layer: int,
         extra_kv=None, fused_append: bool = False):
     """Flash attention over the stacked cache (int8 codes and bf16 or
-    float32 scales, or bf16 / float32 values with `k_scale=None`), with
-    grok's `logit_softcap` (0 = off).  Returns the output
+    float32 scales, or bf16 / float32 values with `k_scale=None`), causal
+    or not, with grok's `logit_softcap` (0 = off).  Returns the output
     `[B, T, H, D]`, or `(out, (k, v, k_scale, v_scale))` with
     `fused_append` — the cache tensors are written in place and returned
     for the JAX interface's sake.  Returns None where the JAX entry does
     (extra_kv that the decode kernel cannot take; `fused_append` without
     extra_kv or over K/V values)."""
-    _check_variant(causal, logit_softcap)
+    _check_variant(logit_softcap)
     b, t, h, d = q.shape
     hkv = k.shape[2]
     out_dtype = out_dtype or q.dtype
@@ -610,12 +644,14 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, k_scale,
         args = (q, kn, vn, k, v, k_scale, v_scale, layer, q_positions[:, 0],
                 kv_lens, scale, fused_append, out_dtype)
         out = _dispatch(q, decode_cuda, decode_plain, "flash_decode",
-                        (k, v, k_scale, v_scale), args, alibi, logit_softcap)
+                        (k, v, k_scale, v_scale), args, alibi, logit_softcap,
+                        causal)
     else:
         args = (q, k, v, k_scale, v_scale, layer, q_positions, kv_lens,
                 scale, out_dtype)
         out = _dispatch(q, prefill_cuda, prefill_plain, "flash_prefill",
-                        (k, v, k_scale, v_scale), args, alibi, logit_softcap)
+                        (k, v, k_scale, v_scale), args, alibi, logit_softcap,
+                        causal)
     if fused_append:
         return out, (k, v, k_scale, v_scale)
     return out
@@ -626,8 +662,8 @@ def mha_paged(q: torch.Tensor, cache, layer: int, q_positions: torch.Tensor,
               alibi=None, logit_softcap: float = 0.0, out_dtype=None,
               extra_kv=None, fused_append: bool = False):
     """Flash attention over one layer of a `PagedKVCache` (int8 codes with
-    bf16 or float32 scales, bf16 or float32 values), with grok's
-    `logit_softcap` (0 = off).
+    bf16 or float32 scales, bf16 or float32 values), causal or not, with
+    grok's `logit_softcap` (0 = off).
     Decode calls go to the paged decode kernel, which over the int8 pool
     takes extra_kv (one token per slot) and with `fused_append` also writes
     the live slots' quantized rows through the table; everything else to
@@ -637,7 +673,7 @@ def mha_paged(q: torch.Tensor, cache, layer: int, q_positions: torch.Tensor,
     decode kernel cannot take).  Unlike the JAX entry, which leaves page
     sizes that are not a multiple of 128 to XLA, the kernels take any
     multiple of 16 and raise otherwise."""
-    _check_variant(causal, logit_softcap)
+    _check_variant(logit_softcap)
     b, t, h, d = q.shape
     out_dtype = out_dtype or q.dtype
     unscaled = not cache.quantized
@@ -654,12 +690,12 @@ def mha_paged(q: torch.Tensor, cache, layer: int, q_positions: torch.Tensor,
                 fused_append, out_dtype)
         out = _dispatch(q, decode_paged_cuda, decode_paged_plain,
                         "flash_decode_paged", pool[:4], args, alibi,
-                        logit_softcap)
+                        logit_softcap, causal)
     else:
         args = (q, *pool, layer, q_positions, kv_lens, scale, out_dtype)
         out = _dispatch(q, prefill_paged_cuda, prefill_paged_plain,
                         "flash_prefill_paged", pool[:4], args, alibi,
-                        logit_softcap)
+                        logit_softcap, causal)
     if fused_append:
         return out, pool[:4]
     return out

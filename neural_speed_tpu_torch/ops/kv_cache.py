@@ -10,7 +10,7 @@ append), so caches stay bit-identical across paths.
 
 JAX's functional updates with buffer donation become in-place writes here:
 `append_layer` and `set_lengths` mutate the cache they are given and
-return it.
+return it; `reorder` (beam search) gathers into a new cache.
 """
 
 from __future__ import annotations
@@ -161,3 +161,13 @@ def set_lengths(cache: KVCache, lengths: torch.Tensor) -> KVCache:
     """Set the stored lengths, in place."""
     cache.lengths = lengths.to(torch.int32)
     return cache
+
+
+def reorder(cache: KVCache, src_slots: torch.Tensor) -> KVCache:
+    """Beam-search KV reorder: new slot b takes old slot src_slots[b], a
+    gather over the slot axis of every tensor and of the lengths.  Returns a
+    new cache, as the JAX function does; the old one is left as it was."""
+    idx = src_slots.to(device=cache.k.device, dtype=torch.long)
+    take = lambda a: None if a is None else a.index_select(1, idx)
+    return KVCache(take(cache.k), take(cache.v), take(cache.k_scale),
+                   take(cache.v_scale), cache.lengths.index_select(0, idx))

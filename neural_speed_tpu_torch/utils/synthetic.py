@@ -13,10 +13,17 @@ with `models.params.params_from_numpy` instead.
 `synth_hf_state_dict` draws a float checkpoint in an HF model's own
 tensor names and layouts (fused QKV rows as the model stores them), so
 `convert/hf.py` converts and quantizes a full-size model on the card.
+`write_whisper_checkpoint` draws whisper-large-v2
+(`whisper_large_v2_config`) in `WhisperForConditionalGeneration`'s names
+and writes it (`write_safetensors`) as a directory `AudioModel.init`
+reads.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import struct
 from typing import Any, Dict
 
 import torch
@@ -378,3 +385,114 @@ def synth_hf_state_dict(model_type: str, cfg: ArchConfig, seed: int = 0,
             x = 0.02 * x
         sd[name] = x.to(dtype)
     return sd
+
+
+# ---------------------------------------------------------------------------
+# whisper
+# ---------------------------------------------------------------------------
+
+
+def whisper_large_v2_config() -> Dict[str, Any]:
+    """openai/whisper-large-v2's config.json: the fields `convert_whisper`
+    reads (and the decoder's, equal to the encoder's)."""
+    return {
+        "model_type": "whisper", "vocab_size": 51865, "d_model": 1280,
+        "encoder_layers": 32, "decoder_layers": 32,
+        "encoder_attention_heads": 20, "decoder_attention_heads": 20,
+        "encoder_ffn_dim": 5120, "decoder_ffn_dim": 5120,
+        "num_mel_bins": 80, "max_source_positions": 1500,
+        "max_target_positions": 448, "decoder_start_token_id": 50258,
+        "eos_token_id": 50257, "torch_dtype": "float32",
+    }
+
+
+def whisper_hf_shapes(hf: Dict[str, Any]) -> Dict[str, tuple]:
+    """Tensor names and shapes of an HF `WhisperForConditionalGeneration`
+    state dict (the token embedding tied to `proj_out`, which it omits)."""
+    e, ff = hf["d_model"], hf["encoder_ffn_dim"]
+    out: Dict[str, tuple] = {
+        "model.encoder.conv1.weight": (e, hf["num_mel_bins"], 3),
+        "model.encoder.conv1.bias": (e,),
+        "model.encoder.conv2.weight": (e, e, 3),
+        "model.encoder.conv2.bias": (e,),
+        "model.encoder.embed_positions.weight": (
+            hf["max_source_positions"], e),
+    }
+
+    def attn(p):
+        for n in ("k_proj", "v_proj", "q_proj", "out_proj"):
+            _linear(out, f"{p}.{n}", e, e, n != "k_proj")
+
+    def block(p, cross):
+        attn(p + ".self_attn")
+        _norm(out, p + ".self_attn_layer_norm", e)
+        if cross:
+            attn(p + ".encoder_attn")
+            _norm(out, p + ".encoder_attn_layer_norm", e)
+        _linear(out, p + ".fc1", ff, e, True)
+        _linear(out, p + ".fc2", e, ff, True)
+        _norm(out, p + ".final_layer_norm", e)
+
+    for i in range(hf["encoder_layers"]):
+        block(f"model.encoder.layers.{i}", False)
+    _norm(out, "model.encoder.layer_norm", e)
+    out["model.decoder.embed_tokens.weight"] = (hf["vocab_size"], e)
+    out["model.decoder.embed_positions.weight"] = (
+        hf["max_target_positions"], e)
+    for i in range(hf["decoder_layers"]):
+        block(f"model.decoder.layers.{i}", True)
+    _norm(out, "model.decoder.layer_norm", e)
+    return out
+
+
+def synth_whisper_state_dict(hf: Dict[str, Any], seed: int = 0,
+                             device=None) -> Dict[str, torch.Tensor]:
+    """A random float32 whisper checkpoint for the config `hf`, drawn on
+    `device` (the card unless the CPU is asked for) with a seeded generator,
+    one tensor at a time in `whisper_hf_shapes` order: LayerNorm weights
+    1 + N(0, 0.1^2), everything else N(0, 0.02^2)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    sd = {}
+    for name, shape in whisper_hf_shapes(hf).items():
+        x = torch.randn(shape, generator=gen, device=dev)
+        norm_w = "layer_norm" in name and name.endswith("weight")
+        sd[name] = 1.0 + 0.1 * x if norm_w else 0.02 * x
+    return sd
+
+
+def write_safetensors(path: str, tensors: Dict[str, torch.Tensor]) -> None:
+    """Write {name: tensor} as one `.safetensors` file (the format
+    `convert.loaders.read_safetensors` reads: the header padded to a
+    multiple of 8 bytes, the tensors' little-endian bytes in order).
+    Tensors may lie on any device; each is copied to the host in turn."""
+    from ..convert.loaders import _ST_DTYPES
+
+    tags = {t_dt: tag for tag, (_, t_dt) in _ST_DTYPES.items()}
+    header, off = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": tags[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for t in tensors.values():
+            f.write(t.detach().reshape(-1).view(torch.uint8).cpu().numpy())
+
+
+def write_whisper_checkpoint(path: str, hf: Dict[str, Any], seed: int = 0,
+                             device=None) -> int:
+    """Draw `synth_whisper_state_dict` and write it to the directory `path`
+    as `config.json` + `model.safetensors`.  Returns the file's bytes."""
+    sd = synth_whisper_state_dict(hf, seed, device)
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf, f)
+    st = os.path.join(path, "model.safetensors")
+    write_safetensors(st, sd)
+    return os.path.getsize(st)

@@ -260,16 +260,23 @@ def test_paged_softcap_matches_pallas(kind, kv, alibi):
 
 
 def test_softcap_refusals():
-    """A negative or NaN softcap raises; non-causal attention still raises,
-    naming its ROADMAP item."""
-    k = torch.zeros((L, B, HKV, S, D), dtype=torch.bfloat16)
-    q = torch.zeros((B, 3, H, D), dtype=torch.bfloat16)
+    """A negative or NaN softcap raises; non-causal attention with the
+    softcap runs (the plain version, counted as `_softcap_noncausal`) and
+    differs from the causal output."""
+    gen = torch.Generator().manual_seed(5)
+    k = torch.randn((L, B, HKV, S, D), generator=gen).to(torch.bfloat16)
+    q = (40 * torch.randn((B, 3, H, D), generator=gen)).to(torch.bfloat16)
     pos = torch.zeros((B, 3), dtype=torch.int32)
-    lens = torch.ones((B,), dtype=torch.int32)
+    lens = torch.full((B,), 3, dtype=torch.int32)
     for cap in (-1.0, float("nan")):
         with pytest.raises(ValueError, match="logit_softcap"):
             tfl.mha(q, k, k, None, None, pos, lens, scale=1.0, layer=0,
                     logit_softcap=cap)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*non-causal"):
-        tfl.mha(q, k, k, None, None, pos, lens, scale=1.0, layer=0,
-                causal=False, logit_softcap=CAP)
+    name = "flash_prefill_bf16_softcap_noncausal"
+    before = _build.plain_dispatches[name]
+    out = tfl.mha(q, k, k, None, None, pos, lens, scale=1.0, layer=0,
+                  causal=False, logit_softcap=CAP)
+    assert _build.plain_dispatches[name] == before + 1
+    assert not torch.equal(out, tfl.mha(q, k, k, None, None, pos, lens,
+                                        scale=1.0, layer=0,
+                                        logit_softcap=CAP))
