@@ -8,6 +8,8 @@
     python3 chip_smoke.py --profile       # all phases + a torch.profiler
                                           # trace of the main path
     python3 chip_smoke.py --phases 3,12   # build + only these phases
+    python3 chip_smoke.py --phases 2 --only qmatmul_lut_f32
+                                          # phase 2 of the kernels so named
 
 Phases, each raising on failure so the run exits non-zero:
 
@@ -48,7 +50,12 @@ Phases, each raising on failure so the run exits non-zero:
    from the causal one; the causal float32 instances of C, 9, B and 10 at
    whisper's decoder self-attention (WHISPER_SELF_CASES: S = 448, the
    4-token prefix, decode steps at B = 1 and 4 at a few lengths); a
-   float32 output must not be a bf16 value;
+   float32 output must not be a bf16 value; the float32-activation
+   instances of F, P and P's INT instances (`check_f32_formats`: nf4,
+   int5 asymmetric, int3, fp8_e4m3, float offsets, int8, int4 asymmetric
+   and kernel A's pack) at whisper-large-v2's linears (M = 1, 4, 1500)
+   and Llama-2-7B's o at M = 2048, within 256 float32 ulps of a float64
+   product, a TF32 product and the kernel on bf16-rounded x failing it;
 3. a tiny model through `Engine` on the card against the same model on the
    CPU (plain versions), once in int4, once per configuration of phase
    5 and as a tiny Mixtral at B = 3 and B = 1: logits within tolerance,
@@ -63,9 +70,9 @@ Phases, each raising on failure so the run exits non-zero:
    and the Phi over a float32 cache; a tiny grok (n_rep 6 at head dim 128,
    the softcap at 2, where it bites) through `Engine` and `PagedEngine` at
    B = 3 and B = 1, and the tiny llama over int8 K/V with float32 scales;
-   a tiny whisper (head dim 64): encoder states, logits and greedy,
-   timestamp and 3-beam ids against the CPU, the greedy and beam ids
-   changing from step to step.
+   a tiny whisper (head dim 64) in float32, int8 and nf4: encoder states,
+   logits and greedy, timestamp and 3-beam ids against the CPU, the
+   greedy and beam ids changing from step to step.
    Phases 3-8 serve over the int8 cache (`kv_quantized=True`), phases 9-11
    over the engines' default bf16 cache, int8 and float32;
 4. the main path: a Llama-2-7B-shaped int4 model (full width and depth,
@@ -138,7 +145,13 @@ Phases, each raising on failure so the run exits non-zero:
    directory and loaded by `AudioModel().init`; `transcribe` of a 30 s
    wav; mel, encode, cross K/V, the forced prefix, 64 decode steps and a
    4-beam search timed).  The non-causal and causal float32 instances of
-   C and B at head dim 64 must launch and no plain version may run.
+   C and B at head dim 64 must launch and no plain version may run.  Then
+   the same checkpoint quantized on the card (g128): int8 through
+   `AudioModel().init(dir, use_quant=True)` (transcribe, encode, cross
+   K/V, prefix, 64 decode steps, 4-beam search), nf4 and asymmetric int5
+   (one encode, 16 decode steps); the format's float32 matmul instance must
+   launch at encode and in a decode step, no bf16 matmul instance and no
+   plain version may run, and TF32 must stay off.
 
 It prints a `kernels` JSON line, then as its last line
 `{"ok": true, "device": {...}}`.  It imports nothing of JAX.
@@ -161,11 +174,12 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
-# Published peaks (NVIDIA data sheets): device-memory bytes/s and dense
-# bf16 tensor FLOP/s; the bound of a call is the larger of bytes / rate and
-# operations / peak.
-PEAKS = {"H100 SXM": (3.35e12, 989e12), "H100 PCIe": (2.0e12, 756e12),
-         "H100 NVL": (3.9e12, 835e12), "H200": (4.8e12, 989e12)}
+# Published peaks (NVIDIA data sheets): device-memory bytes/s, dense bf16
+# tensor FLOP/s and float32 FLOP/s outside the tensor cores; the bound of a
+# call is the larger of bytes / rate and operations / peak.
+PEAKS = {"H100 SXM": (3.35e12, 989e12, 67e12),
+         "H100 PCIe": (2.0e12, 756e12, 51e12),
+         "H100 NVL": (3.9e12, 835e12, 60e12), "H200": (4.8e12, 989e12, 67e12)}
 
 
 def peaks_for(name: str):
@@ -178,16 +192,26 @@ def peaks_for(name: str):
     return PEAKS["H100 SXM"]
 
 
-def bound(nbytes: float, flops: float, name: str, int8: bool = False):
+def bound(nbytes: float, flops: float, name: str, peak: str = "bf16"):
     """The least ms for the work: bytes at the memory rate against
-    operations at the dense bf16 peak, or at the int8 peak (twice it)."""
-    bw, fl = peaks_for(name)
-    tb, tf = nbytes / bw * 1e3, flops / (2 * fl if int8 else fl) * 1e3
+    operations at the dense bf16 peak, the int8 peak (twice it) or the
+    float32 (non-tensor) peak."""
+    bw, fl, f32 = peaks_for(name)
+    rate = {"bf16": fl, "int8": 2 * fl, "f32": f32}[peak]
+    tb, tf = nbytes / bw * 1e3, flops / rate * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+_T0 = time.time()
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def log_phase(msg: str) -> None:
+    """A phase's first line, with the seconds since the run started."""
+    log(f"{msg} [{time.time() - _T0:.1f} s]")
 
 
 def _kernel_events(prof):
@@ -262,9 +286,15 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 def _category(kernel_name: str) -> str:
     if "nstfp::" in kernel_name:
         # F, P and P's one-plane INT instances; the grouped ones take
-        # GROUPED = true and write float32
-        grouped = "true" in kernel_name or "<float>" in kernel_name
-        return "qmatmul_grouped_fp" if grouped else "qmatmul_fp"
+        # GROUPED = true, the float32-activation ones float32 x and out;
+        # both write float32 through splitk_reduce_kernel<float>
+        if "true" in kernel_name:
+            return "qmatmul_grouped_fp"
+        if "gemm_f32" in kernel_name or "float, float" in kernel_name:
+            return "qmatmul_fp_f32"
+        if "<float>" in kernel_name:
+            return "splitk_reduce_f32"
+        return "qmatmul_fp"
     if "int4" in kernel_name or "splitk" in kernel_name:
         # kernel 11's instances: GROUPED = true, float32 output
         grouped = "true" in kernel_name or "<float>" in kernel_name
@@ -349,10 +379,12 @@ class Checks:
         self.records = {}
 
     def add(self, name, route, source, replaces, shape, cmp, ms, plain_ms,
-            lib_ms, nbytes, flops, main=False, int8=False):
+            lib_ms, nbytes, flops, main=False, peak="bf16", extra=None):
         """One case of a kernel's check; the `main` case gives the kernel's
-        times in the kernels line."""
-        b_ms, b_by = bound(nbytes, flops, self.card, int8)
+        times in the kernels line.  `peak`: the operations' rate of the
+        bound ("bf16", "int8" or "f32"); `extra`: more fields of the case's
+        record."""
+        b_ms, b_by = bound(nbytes, flops, self.card, peak)
         log(f"  {name} {shape}: max_abs_err={cmp['err']:.3e}, largest "
             f"error / scale {cmp['rel']:.3e}, largest error / tolerance "
             f"{cmp['worst']:.3f} (tolerance {cmp['tol']}) "
@@ -369,7 +401,8 @@ class Checks:
                                  err_over_scale=cmp["rel"],
                                  err_over_tol=cmp["worst"], ms=ms,
                                  plain_ms=plain_ms, library_ms=lib_ms,
-                                 bound_ms=b_ms, bound_by=b_by, main=main))
+                                 bound_ms=b_ms, bound_by=b_by, main=main,
+                                 **(extra or {})))
 
 
 # ---------------------------------------------------------------------------
@@ -497,8 +530,8 @@ def check_fp_formats(chk: Checks, gen: torch.Generator) -> None:
                 # only the order of the float32 sums and the bf16 rounding
                 # of the output differ -> two bf16 ulps of the largest output
                 cmp = compare(got, want, 2, per_row=False)
-                del got, want
                 ms = time_ms(lambda: launch(x, qt))
+                del got, want
                 plain_ms = time_ms(lambda: matmul.qmatmul_plain(x, qt), reps=3)
                 lib_ms = time_ms(lambda: torch.matmul(x, w_bf16))
                 nbytes = m * k * 2 + qt.nbytes() + m * n * 2
@@ -591,8 +624,8 @@ def check_int_formats(chk: Checks, gen: torch.Generator) -> None:
                 # versions, float32 sums in another order and one bf16
                 # rounding of the output -> two bf16 ulps of the largest output
                 cmp = compare(got, want, 2, per_row=False)
-                del got, want
                 ms = time_ms(lambda: matmul.qmatmul(x, qt))
+                del got, want
                 plain_ms = time_ms(lambda: matmul.qmatmul_plain(x, qt), reps=3)
                 lib_ms = time_ms(lambda: torch.matmul(x, w_bf16))
                 nbytes = m * k * 2 + qt.nbytes() + m * n * 2
@@ -605,6 +638,148 @@ def check_int_formats(chk: Checks, gen: torch.Generator) -> None:
                               and spec.bits == 4 and not spec.symmetric
                               and m == 1 and shape_name == "gateup"))
             del qt, w_bf16
+            torch.cuda.empty_cache()
+
+
+# Float32 activations (quantized Whisper's linears): whisper-large-v2's
+# (K, N) at the encoder's 1500 frames (GEMM) and at decode (M = 1, 4: GEMV),
+# and Llama-2-7B's o projection at M = 2048 beside the bf16 cases.
+WHISPER_LINEARS = {"q/k/v/o": (1280, 1280), "fc1": (1280, 5120),
+                   "fc2": (5120, 1280)}
+F32_ULPS = 256
+
+
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """float32 values rounded to TF32's 10-bit mantissa (to nearest)."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def compare_f64(got: torch.Tensor, ref: torch.Tensor) -> dict:
+    """|got - ref| against F32_ULPS float32 ulps (2**-23 relative) of the
+    largest |ref| of the tensor, ref a float64 product of the same
+    dequantized weight or another float32 one: float32 sums over K <= 5120
+    taken in any order stay within a few dozen of them of the exact sum, a
+    TF32 product (x and W rounded to 10-bit mantissas) lands thousands away
+    (each case checks both)."""
+    diff = (got.double() - ref).abs()
+    scale = ref.abs().amax()
+    tol = F32_ULPS * 2.0 ** -23 * scale
+    return dict(err=diff.max().item(),
+                rel=(diff / scale).max().item(),
+                worst=(diff / tol).max().item(),
+                tol=f"{F32_ULPS} float32 ulps of the largest |output| of the "
+                    "tensor")
+
+
+def _f32_cases():
+    """(counter, letter, spec, pack transform) of the float32 instances:
+    F (nf4), P (int5 asymmetric, int3, fp8_e4m3, int4 with float offsets)
+    and P's one-plane INT instances (int8 symmetric with float32 scales:
+    the AudioModel default; int4 with uint8 zero points; kernel A's pack,
+    int4 symmetric with bf16 scales)."""
+    from neural_speed_tpu_torch.ops.qtypes import named_qspec
+
+    return [
+        ("qmatmul_lut_f32", "F", named_qspec("nf4", 128), None),
+        ("qmatmul_planar_f32", "P", named_qspec("int5", 128, False), None),
+        ("qmatmul_planar_f32", "P", named_qspec("int3", 128), None),
+        ("qmatmul_planar_f32", "P", named_qspec("fp8_e4m3", 128), None),
+        ("qmatmul_planar_f32", "P", named_qspec("int4", 128), _float_offsets),
+        ("qmatmul_int_f32", "I", named_qspec("int8", 128), None),
+        ("qmatmul_int_f32", "I", named_qspec("int4", 128, False), None),
+        ("qmatmul_int_f32", "I",
+         named_qspec("int4", 128, scale_dtype="bfloat16"), None)]
+
+
+def check_f32_formats(chk: Checks, gen: torch.Generator) -> None:
+    """The float32-activation instances of F, P and P's one-plane INT
+    instances through `qmatmul` (the route whisper takes; kernel A's pack
+    must route to "I"), against the plain version and a float64 product of
+    the same dequantized weight (`compare_f64`), at whisper-large-v2's
+    shapes at M = 1, 4 and 1500 and Llama-2-7B's o at M = 2048.  x is drawn
+    so that its low mantissa bits matter (normal draws times 1.37).  Each
+    case also checks that a TF32 product of the same operands fails the
+    tolerance, that the kernel fed x rounded to bf16 lands more than 10
+    tolerances away (a kernel that rounds x would not), that no output is a
+    bf16 value, and that only the instance's own counter moved.  The
+    library call is `torch.matmul` on the float32 dequantized weight with
+    TF32 off."""
+    from neural_speed_tpu_torch import _build
+    from neural_speed_tpu_torch.ops import matmul
+    from neural_speed_tpu_torch.ops.quantize import dequantize
+    from neural_speed_tpu_torch.utils.synthetic import synth_qtensor
+
+    sources = {
+        "qmatmul_lut_f32": ("neural_speed_tpu_torch/csrc/qmatmul_lut.cu",
+                            "neural_speed_tpu/ops/matmul.py:217"),
+        "qmatmul_planar_f32": (
+            "neural_speed_tpu_torch/csrc/qmatmul_planar.cuh",
+            "neural_speed_tpu/ops/matmul.py:376"),
+        "qmatmul_int_f32": ("neural_speed_tpu_torch/csrc/qmatmul_planar.cuh",
+                            "neural_speed_tpu/ops/matmul.py:127")}
+    shapes = [(name, kn, (1, 4, 1500)) for name, kn in WHISPER_LINEARS.items()]
+    shapes.append(("llama o", SHAPES_7B["o"], (2048,)))
+    mains = {("qmatmul_lut_f32", "nf4/f32s"),
+             ("qmatmul_planar_f32", "int5/asym/f32s"),
+             ("qmatmul_int_f32", "int8/f32s")}
+    for kname, letter, spec, transform in _f32_cases():
+        for shape_name, (k, n), ms_list in shapes:
+            qt = synth_qtensor(gen, k, n, spec)
+            if transform is not None:
+                qt = transform(gen, qt)
+            route = matmul.kernel_route(qt, torch.float32)
+            if route != letter:
+                raise AssertionError(f"{_fmt_name(qt)}: float32 x routes to "
+                                     f"{route!r}, not {letter}")
+            w32 = dequantize(qt, torch.float32)
+            w64 = w32.double()
+            w_tf32 = _tf32(w32).double()
+            for m in ms_list:
+                x = torch.randn((m, k), generator=gen, device="cuda") * 1.37
+                before = dict(_build.launches)
+                got = matmul.qmatmul(x, qt)
+                moved = {c: v - before.get(c, 0)
+                         for c, v in _build.launches.items()
+                         if v != before.get(c, 0)}
+                if moved != {kname: 1} or got.dtype != torch.float32:
+                    raise AssertionError(f"{kname} {_fmt_name(qt)} M={m}: "
+                                         f"launches {moved}, out {got.dtype}")
+                want = matmul.qmatmul_plain(x, qt)
+                ref = x.double() @ w64
+                rounded = matmul.qmatmul(x.to(torch.bfloat16).float(), qt)
+                torch.cuda.synchronize()
+                what = f"{_fmt_name(qt)} {shape_name} M={m} K={k} N={n}"
+                # the kernel against the plain version (both float32 sums
+                # of the same products), and each against the float64 one
+                cmp = compare_f64(got, want.double())
+                for out, label in ((got, "kernel"), (want, "plain version")):
+                    if not compare_f64(out, ref)["worst"] <= 1.0:
+                        raise AssertionError(f"{kname} {what}: the {label} "
+                                             f"misses the float64 product")
+                tf32 = compare_f64(_tf32(x).double() @ w_tf32, ref)["worst"]
+                off = compare_f64(rounded, ref)["worst"]
+                in_bf16 = (got.to(torch.bfloat16).float() == got).float(
+                ).mean()
+                log(f"    {kname} {what}: a TF32 product at "
+                    f"{tf32:.1f} tolerances, the kernel on bf16-rounded x at "
+                    f"{off:.1f}; {in_bf16.item():.1%} of outputs bf16 values")
+                if not (tf32 > 1.0 and off > 10.0 and in_bf16.item() < 0.5):
+                    raise AssertionError(f"{kname} {what}: the check is blind "
+                                         f"(TF32 {tf32}, bf16 x {off}, bf16 "
+                                         f"values {in_bf16.item()})")
+                del got, want, ref, rounded
+                ms = time_ms(lambda: matmul.qmatmul(x, qt))
+                plain_ms = time_ms(lambda: matmul.qmatmul_plain(x, qt), reps=3)
+                lib_ms = time_ms(lambda: torch.matmul(x, w32))
+                nbytes = m * k * 4 + qt.nbytes() + m * n * 4
+                chk.add(kname, "cuda", *sources[kname], what, cmp, ms,
+                        plain_ms, lib_ms, nbytes, 2.0 * m * n * k,
+                        main=((kname, _fmt_name(qt)) in mains and m == 1500
+                              and shape_name == "fc1"), peak="f32",
+                        extra=dict(tf32_over_tol=tf32, bf16_x_over_tol=off,
+                                   bf16_valued_share=in_bf16.item()))
+            del qt, w32, w64, w_tf32
             torch.cuda.empty_cache()
 
 
@@ -681,7 +856,7 @@ def check_int8_formats(chk: Checks, gen: torch.Generator) -> None:
                 chk.add(kname, "cuda", source, replaces,
                         f"{_fmt_name(qt)}{' per-token' if per_token else ''} "
                         f"M={m} K={k} N={n}", cmp, ms, plain_ms, lib_ms,
-                        nbytes, 2.0 * m * n * k, int8=True,
+                        nbytes, 2.0 * m * n * k, peak="int8",
                         main=(spec is main_spec and m == 2048
                               and shape_name == "gateup" and not per_token))
             del qt, w_int8
@@ -1859,13 +2034,18 @@ def check_tiny_model(label: str, spec, comp, cfg=None,
                      prompts=TINY_PROMPTS, params_fn=None,
                      kv_quantized: bool = True,
                      kv_dtype=torch.bfloat16, kv_scale_dtype=None,
-                     paged: bool = False, seed_label: str = "") -> None:
+                     paged: bool = False, seed_label: str = "",
+                     kv_append: str = "") -> None:
     """A tiny model through `Engine` (with `paged`, `PagedEngine` at page
     size 16) on the card and on the CPU: params from `synth_params(cfg,
     spec)` or, for a converted checkpoint, from `params_fn(cfg, generator)`
     (drawn on the CPU), seeded per label (or `seed_label`); the int8 cache
     (bf16 scales, or `kv_scale_dtype`), or with `kv_quantized=False` a
-    cache of `kv_dtype` values (the default bf16, or float32)."""
+    cache of `kv_dtype` values (the default bf16, or float32).  With
+    `kv_append`, the engines are built under `NST_KV_APPEND=kv_append`,
+    must pin that mode, and under "defer" the card's decode steps must
+    launch kernel B (its extra-kv column, then the append)."""
+    from neural_speed_tpu_torch import _build
     from neural_speed_tpu_torch.models.arch import ArchConfig
     from neural_speed_tpu_torch.runtime.engine import Engine, PagedEngine
     from neural_speed_tpu_torch.utils.synthetic import synth_params
@@ -1879,20 +2059,37 @@ def check_tiny_model(label: str, spec, comp, cfg=None,
     b = len(prompts)
     make, kw = ((PagedEngine, dict(page_size=16, n_pages=b * 256 // 16))
                 if paged else (Engine, {}))
-    eng = {dev: make(params, cfg, max_batch=b, max_len=256,
-                     kv_dtype=kv_dtype, kv_quantized=kv_quantized,
-                     kv_scale_dtype=kv_scale_dtype, device=dev, comp=comp,
-                     **kw)
-           for dev in ("cuda", "cpu")}
+    env = os.environ.get("NST_KV_APPEND")
+    if kv_append:
+        os.environ["NST_KV_APPEND"] = kv_append
+    try:
+        eng = {dev: make(params, cfg, max_batch=b, max_len=256,
+                         kv_dtype=kv_dtype, kv_quantized=kv_quantized,
+                         kv_scale_dtype=kv_scale_dtype, device=dev, comp=comp,
+                         **kw)
+               for dev in ("cuda", "cpu")}
+    finally:
+        if kv_append:
+            os.environ.pop("NST_KV_APPEND", None)
+            if env is not None:
+                os.environ["NST_KV_APPEND"] = env
+    if kv_append and any(e.cfg.kv_append != kv_append for e in eng.values()):
+        raise AssertionError(f"tiny model ({label}): the engines pinned "
+                             f"{[e.cfg.kv_append for e in eng.values()]}, "
+                             f"not {kv_append!r}")
     logits = {dev: e.prefill(prompts).float().cpu()
               for dev, e in eng.items()}
     active = torch.tensor([True, False, True][:b])
+    decode_b = _build.launches["flash_decode"]
     for step in range(checks):
         toks = _hold_tiny(logits, active, f"tiny model ({label}, params seed "
                           f"{seed}) step {step}")
         if step < checks - 1:
             logits = {dev: e.decode(toks, active).float().cpu()
                       for dev, e in eng.items()}
+    if kv_append == "defer" and _build.launches["flash_decode"] == decode_b:
+        raise AssertionError(f"tiny model ({label}): kernel B did not launch "
+                             f"at decode")
     log(f"  tiny model ({label}, params seed {seed}): logits within 2% of the "
         f"largest logit of the CPU plain path and greedy ids equal at all "
         f"{checks} steps (top-2 margin above twice that at each)")
@@ -3714,17 +3911,34 @@ def _bf16_output_shift(W, params, cfg, states, lens, ids, logits):
     return (moved - logits).abs().max().item()
 
 
-def check_tiny_whisper() -> dict:
-    """The tiny whisper on the card against the same model on the CPU (the
+# The counter of each float32-activation matmul instance, by the kernel
+# `matmul.kernel_route` gives a pack at float32 x.
+F32_COUNTERS = {"F": "qmatmul_lut_f32", "P": "qmatmul_planar_f32",
+                "I": "qmatmul_int_f32"}
+
+
+def _f32_counter(params) -> str:
+    """The float32 matmul instance a quantized whisper's linears launch."""
+    from neural_speed_tpu_torch.ops import matmul
+
+    qt = params["encoder"]["layers"][0]["fc1"]["w"]
+    return F32_COUNTERS[matmul.kernel_route(qt, torch.float32)]
+
+
+def check_tiny_whisper(label: str = "float32", qspec=None) -> dict:
+    """The tiny whisper (float32, or its linears quantized by `qspec`: the
+    float32-activation matmul instances) on the card against the same
+    model on the CPU (the
     plain versions): encoder states within 1e-3, greedy ids identical and
     the logits over them within WHISPER_LOGIT_TOL with the CPU's top-2
     margins above it; the timestamp route and a 3-beam search give the CPU's
     ids; the greedy and beam ids change from step to step (a draw that
     repeats one token would pass with broken attention).  Counts are set
     to 0 before the card's runs and read after: the non-causal and causal
-    float32 instances of C and B must launch, and no plain version may run
-    there.  Also logs how far a float32 attention output rounded through
-    bf16 would move the CPU's logits."""
+    float32 instances of C and B (and the quantized model's float32 matmul
+    instance) must launch, and no plain version may run there.  Also logs
+    how far a float32 attention output rounded through bf16 would move the
+    CPU's logits."""
     import numpy as np
 
     from neural_speed_tpu_torch import _build
@@ -3737,7 +3951,8 @@ def check_tiny_whisper() -> dict:
     for dev in ("cpu", "cuda"):
         if dev == "cuda":
             _build.reset_counts()
-        params, cfg = W.convert_whisper(sd, TINY_WHISPER_HF, device=dev)
+        params, cfg = W.convert_whisper(sd, TINY_WHISPER_HF, qspec,
+                                        device=dev)
         m = W.WhisperModel(params, cfg)
         states = W.encode(params, cfg, mel.to(dev))
         lens = torch.full((1,), states.shape[1], dtype=torch.int32,
@@ -3759,7 +3974,9 @@ def check_tiny_whisper() -> dict:
     err_l = (cpu["logits"] - card["logits"]).abs().max().item()
     top = cpu["logits"][len(WHISPER_FORCED):].topk(2, dim=-1).values
     margin = (top[:, 0] - top[:, 1]).min().item()
-    log(f"  tiny whisper: card ids {card['ids']}, timestamps {card['ts']}, "
+    kernels = WHISPER_KERNELS + ((_f32_counter(params),) if qspec else ())
+    log(f"  tiny whisper ({label}): card ids {card['ids']}, timestamps "
+        f"{card['ts']}, "
         f"beam {card['beam']}; encoder states within {err_s:.2e}, logits "
         f"within {err_l:.2e} (tolerance {WHISPER_LOGIT_TOL}), smallest "
         f"greedy margin {margin:.3f}; a bf16-rounded attention output would "
@@ -3784,7 +4001,7 @@ def check_tiny_whisper() -> dict:
     if not any(t >= WHISPER_TS for t in card["ts"][3:]):
         raise AssertionError("tiny whisper: the timestamp route emitted no "
                              "timestamp")
-    for k in WHISPER_KERNELS:
+    for k in kernels:
         if counts.get(k, 0) <= 0:
             raise AssertionError(f"tiny whisper: {k} was not launched on "
                                  f"the card: {counts}")
@@ -3796,16 +4013,22 @@ def check_tiny_whisper() -> dict:
 
 def _unique_bytes(node) -> int:
     """Bytes of the distinct storages under a params tree (proj_out is a
-    view of the token embedding)."""
+    view of the token embedding), a `QTensor`'s planes, scales and zeros
+    included."""
+    import dataclasses
+
     seen = {}
 
     def walk(n):
         if isinstance(n, dict):
             for v in n.values():
                 walk(v)
-        elif isinstance(n, list):
+        elif isinstance(n, (list, tuple)):
             for v in n:
                 walk(v)
+        elif dataclasses.is_dataclass(n):
+            for f in dataclasses.fields(n):
+                walk(getattr(n, f.name))
         elif isinstance(n, torch.Tensor):
             st = n.untyped_storage()
             seen[st.data_ptr()] = st.nbytes()
@@ -3826,6 +4049,192 @@ def _host_ms(fn, reps: int = 3) -> float:
     return statistics.median(times)
 
 
+def _whisper_prefix(params, cfg, cross, lens):
+    """The step of the forced 4-token prefix over a fresh self-attention
+    cache, as a function returning (logits, cache)."""
+    from neural_speed_tpu_torch.models import whisper as W
+    from neural_speed_tpu_torch.ops import kv_cache as kvc
+
+    prefix = [cfg.decoder_start_token_id] + WHISPER_FORCED
+    toks = torch.tensor([prefix], dtype=torch.int32, device="cuda")
+    pos = torch.arange(4, dtype=torch.int32, device="cuda")[None]
+    four = torch.full((1,), 4, dtype=torch.int32, device="cuda")
+
+    def prefix_step():
+        cache = W._self_cache(cfg, 1, "cuda")
+        logits, cache = W.decoder_forward(params, cfg, toks, pos, cache, four,
+                                          cross, lens)
+        return logits, kvc.set_lengths(cache, four)
+
+    return prefix_step
+
+
+# The bf16-activation matmul counters, which no whisper path may move.
+BF16_MATMULS = ("qmatmul", "qmatmul_lut", "qmatmul_planar", "qmatmul_int",
+                "qmatmul_int8", "qmatmul_int8_planar")
+
+
+def serve_whisper_quant(d: str, wav: str, weight_dtype: str,
+                        symmetric: bool, full: bool, profile: bool) -> dict:
+    """Phase 12, quantized: whisper-large-v2 from the checkpoint in `d`
+    with its linears quantized on the card at g128 (float32 scales; the
+    smaller side of every linear reaches the group), through
+    `AudioModel().init(d, use_quant=True, weight_dtype=)` (asymmetric
+    formats through `convert_whisper`, since `AudioModel` takes symmetric
+    ones only, as in the JAX package).  Counts set to 0 before the load
+    and read after the run.  `full`: `transcribe(wav)`, encode, cross K/V,
+    the prefix, 64 decode steps and a 4-beam search, each timed; else one
+    encode and 16 decode steps.  The float32 matmul instance of the format
+    must launch at encode (the GEMM) and in a decode step (the GEMV), no
+    bf16 matmul instance and no plain version may run, outputs must be
+    finite and of their shapes, and TF32 must stay off.  With `profile`,
+    torch.profiler traces one encode and 8 decode steps."""
+    import gc
+    import json
+
+    from neural_speed_tpu_torch import _build
+    from neural_speed_tpu_torch.api import AudioModel
+    from neural_speed_tpu_torch.convert import loaders
+    from neural_speed_tpu_torch.models import whisper as W
+    from neural_speed_tpu_torch.ops.mel import log_mel_spectrogram
+    from neural_speed_tpu_torch.ops.qtypes import named_qspec
+
+    label = f"{weight_dtype}{'' if symmetric else ' asymmetric'} g128"
+    res = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    t0 = time.time()
+    if symmetric:
+        am = AudioModel().init(d, use_quant=True, weight_dtype=weight_dtype)
+        m = am.model
+    else:
+        with open(os.path.join(d, "config.json")) as f:
+            hf = json.load(f)
+        m = W.WhisperModel(*W.convert_whisper(
+            loaders.load_state_dict(d), hf,
+            named_qspec(weight_dtype, 128, False), device="cuda"))
+    torch.cuda.synchronize()
+    res["load_s"] = time.time() - t0
+    params, cfg = m.params, m.cfg
+    counter = _f32_counter(params)
+    res["weight_bytes"] = _unique_bytes(params)
+    if full:
+        t0 = time.time()
+        ids = am.transcribe(wav, max_new_tokens=16)
+        torch.cuda.synchronize()
+        res["transcribe_s"] = time.time() - t0
+        res["transcribe_ids"] = ids
+        if not (ids[0] == cfg.decoder_start_token_id
+                and all(0 <= t < cfg.vocab_size for t in ids)):
+            raise AssertionError(f"phase 12 ({label}): transcribe gave {ids}")
+    mel = torch.from_numpy(log_mel_spectrogram(_whisper_audio(12, 30.0))
+                           )[None].cuda()
+    before = collections.Counter(_build.launches)
+    states = W.encode(params, cfg, mel)
+    torch.cuda.synchronize()
+    res["encode_launches"] = dict(collections.Counter(_build.launches)
+                                  - before)
+    res["encode_ms"] = _host_ms(lambda: W.encode(params, cfg, mel),
+                                reps=3 if full else 1)
+    lens = torch.full((1,), states.shape[1], dtype=torch.int32,
+                      device="cuda")
+    cross = W.cross_kv(params, cfg, states)
+    if full:
+        res["cross_kv_ms"] = _host_ms(lambda: W.cross_kv(params, cfg, states))
+    if not (states.shape == (1, cfg.max_source_positions, cfg.d_model)
+            and bool(torch.isfinite(states).all())
+            and bool(torch.isfinite(cross[0]).all())):
+        raise AssertionError(f"phase 12 ({label}): encoder states or cross "
+                             f"K/V not finite or of the wrong shape")
+    prefix_step = _whisper_prefix(params, cfg, cross, lens)
+    if full:
+        res["prefix_ms"] = _host_ms(prefix_step)
+    logits, cache = prefix_step()
+    tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    before = collections.Counter(_build.launches)
+    logits, cache = m._step(tok, cache, cross, lens)
+    torch.cuda.synchronize()
+    res["decode_step_launches"] = dict(collections.Counter(_build.launches)
+                                       - before)
+    n_steps = 64 if full else 16
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        logits, cache = m._step(tok, cache, cross, lens)
+    torch.cuda.synchronize()
+    res["decode_ms_per_token"] = (time.perf_counter() - t0) * 1e3 / n_steps
+    res["decode_steps"] = n_steps
+    if not (logits.shape == (1, 1, cfg.vocab_size)
+            and bool(torch.isfinite(logits).all())
+            and int(cache.lengths[0]) == 5 + n_steps):
+        raise AssertionError(f"phase 12 ({label}): decode logits not finite "
+                             f"or of the wrong shape, or cache length "
+                             f"{int(cache.lengths[0])}")
+    if profile:
+        tag = weight_dtype + ("" if symmetric else "_asym")
+        res["profile_encode"] = profile_window(
+            lambda: W.encode(params, cfg, mel), f"encode_whisper_{tag}", 1)
+
+        def eight_steps():
+            c = cache
+            t = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            for _ in range(8):
+                lg, c = m._step(t, c, cross, lens)
+                t = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+
+        res["profile_decode"] = profile_window(eight_steps,
+                                               f"decode_whisper_{tag}", 8)
+        del eight_steps
+    del cache, logits
+    if full:
+        t0 = time.time()
+        res["beam_ids"] = m.generate_beam(states, lens, WHISPER_FORCED,
+                                          num_beams=4, max_new_tokens=16)
+        torch.cuda.synchronize()
+        res["beam_s"] = time.time() - t0
+    res["launches"] = {k: v for k, v in _build.launches.items() if v}
+    res["instances"] = {k: v for k, v in
+                        _build.instance_launches.items() if v}
+    res["plain"] = dict(_build.plain_dispatches)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["counter"] = counter
+    times = ", ".join(f"{k} {res[k]:.2f} {'s' if k.endswith('_s') else 'ms'}"
+                      for k in ("load_s", "transcribe_s", "encode_ms",
+                                "cross_kv_ms", "prefix_ms", "beam_s")
+                      if k in res)
+    log(f"  whisper-large-v2 {label}: weights "
+        f"{res['weight_bytes'] / 2 ** 30:.3f} GiB, peak "
+        f"{res['peak_gib']:.2f} GiB; {times}; decode "
+        f"{res['decode_ms_per_token']:.3f} ms/token over {n_steps} steps"
+        + (f"; transcribe ids {res['transcribe_ids']}, beam ids "
+           f"{res['beam_ids']}" if full else ""))
+    log(f"  whisper-large-v2 {label} launches {res['launches']}; at one "
+        f"encode {res['encode_launches']}; at one decode step "
+        f"{res['decode_step_launches']}; plain-version dispatches "
+        f"{res['plain']}")
+    for part in ("encode_launches", "decode_step_launches"):
+        if res[part].get(counter, 0) <= 0:
+            raise AssertionError(f"phase 12 ({label}): {counter} was not "
+                                 f"launched in {part}")
+    moved = [k for k in BF16_MATMULS if res["launches"].get(k)]
+    if moved or sum(res["plain"].values()):
+        raise AssertionError(f"phase 12 ({label}): bf16 matmul instances "
+                             f"{moved} or plain versions {res['plain']} ran")
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.backends.cudnn.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError(f"phase 12 ({label}): TF32 was turned on")
+    del m, params, cross, states
+    if full:
+        del am
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def serve_whisper(profile: bool) -> dict:
     """Phase 12: whisper-large-v2 at full width and depth (openai/
     whisper-large-v2's config.json: d_model 1280, 32 + 32 layers, 20 heads
@@ -3842,7 +4251,10 @@ def serve_whisper(profile: bool) -> dict:
     `reorder`).  The non-causal and causal float32 instances of C and B at
     head dim 64 must launch, no plain version may run, the outputs must be
     finite and of their shapes, and TF32 must still be off.  With
-    `profile`, torch.profiler traces one encode and 8 decode steps."""
+    `profile`, torch.profiler traces one encode and 8 decode steps.  Then,
+    the float32 params freed, the same checkpoint quantized on the card
+    (`serve_whisper_quant`): int8 g128 in full, nf4 and asymmetric int5
+    briefly."""
     import gc
     import tempfile
     import wave
@@ -3852,7 +4264,6 @@ def serve_whisper(profile: bool) -> dict:
     from neural_speed_tpu_torch import _build
     from neural_speed_tpu_torch.api import AudioModel
     from neural_speed_tpu_torch.models import whisper as W
-    from neural_speed_tpu_torch.ops import kv_cache as kvc
     from neural_speed_tpu_torch.ops.mel import log_mel_spectrogram
     from neural_speed_tpu_torch.utils.synthetic import (
         whisper_large_v2_config, write_whisper_checkpoint)
@@ -3912,17 +4323,7 @@ def serve_whisper(profile: bool) -> dict:
                                        WHISPER_S, cfg.head_dim)):
             raise AssertionError("phase 12: encoder states or cross K/V "
                                  "not finite or of the wrong shape")
-        prefix = [cfg.decoder_start_token_id] + WHISPER_FORCED
-        toks = torch.tensor([prefix], dtype=torch.int32, device="cuda")
-        pos = torch.arange(4, dtype=torch.int32, device="cuda")[None]
-        four = torch.full((1,), 4, dtype=torch.int32, device="cuda")
-
-        def prefix_step():
-            cache = W._self_cache(cfg, 1, "cuda")
-            logits, cache = W.decoder_forward(params, cfg, toks, pos, cache,
-                                              four, cross, lens)
-            return logits, kvc.set_lengths(cache, four)
-
+        prefix_step = _whisper_prefix(params, cfg, cross, lens)
         res["prefix_ms"] = _host_ms(prefix_step)
         logits, cache = prefix_step()
         tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
@@ -3956,7 +4357,7 @@ def serve_whisper(profile: bool) -> dict:
 
             res["profile_decode"] = profile_window(eight_steps,
                                                    "decode_whisper", 8)
-            del cache, logits
+            del cache, logits, eight_steps
         t0 = time.time()
         beam = m.generate_beam(states, lens, WHISPER_FORCED, num_beams=4,
                                max_new_tokens=16)
@@ -3968,29 +4369,38 @@ def serve_whisper(profile: bool) -> dict:
                             _build.instance_launches.items() if v}
         res["plain"] = dict(_build.plain_dispatches)
         res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-        del am, m, params, cross, states
-    log(f"  whisper-large-v2: transcribe(30 s wav, 16 new tokens, the "
-        f"temperature ladder) {res['transcribe_s']:.2f} s -> "
-        f"{res['transcribe_ids']}; mel {res['mel_ms']:.1f} ms (host), "
-        f"encode {res['encode_ms']:.2f} ms, cross_kv "
-        f"{res['cross_kv_ms']:.2f} ms, forced prefix (4 tokens) "
-        f"{res['prefix_ms']:.2f} ms, decode "
-        f"{res['decode_ms_per_token']:.3f} ms/token over {n_steps} steps, "
-        f"generate_beam (4 beams, 16 steps) {res['beam_s']:.2f} s; peak "
-        f"{res['peak_gib']:.2f} GiB")
-    log(f"  whisper-large-v2 launches {res['launches']}; per head-dim "
-        f"instance {res['instances']}; plain-version dispatches "
-        f"{res['plain']}")
-    for k in WHISPER_KERNELS:
-        if res["instances"].get(f"{k} d64", 0) <= 0:
-            raise AssertionError(f"phase 12: {k} d64 was not launched")
-    if sum(res["plain"].values()):
-        raise AssertionError(f"phase 12: a plain version ran: "
-                             f"{res['plain']}")
-    if (torch.backends.cuda.matmul.allow_tf32
-            or torch.backends.cudnn.allow_tf32
-            or torch.get_float32_matmul_precision() != "highest"):
-        raise AssertionError("phase 12: TF32 was turned on")
+        # the prefix step's closure holds the params and the cross K/V too
+        del am, m, params, cross, states, prefix_step
+        log(f"  whisper-large-v2: transcribe(30 s wav, 16 new tokens, the "
+            f"temperature ladder) {res['transcribe_s']:.2f} s -> "
+            f"{res['transcribe_ids']}; mel {res['mel_ms']:.1f} ms (host), "
+            f"encode {res['encode_ms']:.2f} ms, cross_kv "
+            f"{res['cross_kv_ms']:.2f} ms, forced prefix (4 tokens) "
+            f"{res['prefix_ms']:.2f} ms, decode "
+            f"{res['decode_ms_per_token']:.3f} ms/token over {n_steps} steps, "
+            f"generate_beam (4 beams, 16 steps) {res['beam_s']:.2f} s; peak "
+            f"{res['peak_gib']:.2f} GiB")
+        log(f"  whisper-large-v2 launches {res['launches']}; per head-dim "
+            f"instance {res['instances']}; plain-version dispatches "
+            f"{res['plain']}")
+        for k in WHISPER_KERNELS:
+            if res["instances"].get(f"{k} d64", 0) <= 0:
+                raise AssertionError(f"phase 12: {k} d64 was not launched")
+        if sum(res["plain"].values()):
+            raise AssertionError(f"phase 12: a plain version ran: "
+                                 f"{res['plain']}")
+        if (torch.backends.cuda.matmul.allow_tf32
+                or torch.backends.cudnn.allow_tf32
+                or torch.get_float32_matmul_precision() != "highest"):
+            raise AssertionError("phase 12: TF32 was turned on")
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the same checkpoint with its linears quantized: int8 (the
+        # AudioModel default) in full, nf4 and asymmetric int5 briefly
+        res["quant"] = {
+            fmt: serve_whisper_quant(d, wav, fmt, sym, full, profile and full)
+            for fmt, sym, full in (("int8", True, True), ("nf4", True, False),
+                                   ("int5", False, False))}
     gc.collect()
     torch.cuda.empty_cache()
     return res
@@ -4001,9 +4411,9 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks")
     ap.add_argument("--only", default="",
-                    help="with --kernels-only: check only the kernels whose "
-                         "name contains this (qmatmul_lut, flash, ...; "
-                         "several, comma-separated)")
+                    help="in phase 2, check only the kernels whose name "
+                         "contains this (qmatmul_lut, flash, ...; several, "
+                         "comma-separated)")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one prefill and 8 decode steps of the "
                          "main path with torch.profiler")
@@ -4012,8 +4422,6 @@ def main() -> int:
                          "2-12, comma-separated; 6 needs 4); the default "
                          "runs every phase")
     args = ap.parse_args()
-    if args.only and not args.kernels_only:
-        ap.error("--only needs --kernels-only")
     phases = ({int(x) for x in args.phases.split(",")} if args.phases
               else set(range(2, 13)))
     if 6 in phases and 4 not in phases:
@@ -4035,7 +4443,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
 
-    log("phase 1: build")
+    log_phase("phase 1: build")
     _build.kernels.build()
     log(f"  built in {_build.kernels.build_seconds:.1f} s; seconds until each "
         f"source's nvcc ended: " + json.dumps(
@@ -4043,7 +4451,7 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke_build.log"), "w") as f:
         f.write(_build.kernels.build_log)
 
-    log("phase 2: kernels against their plain versions")
+    log_phase("phase 2: kernels against their plain versions")
     chk = Checks(name)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for names, check in (("flash_decode", check_flash_decode),
@@ -4069,6 +4477,8 @@ def main() -> int:
                          "qmatmul_int8_planar", check_ragged_shapes),
                         ("qmatmul_grouped", check_grouped),
                         ("qmatmul_int qmatmul_planar", check_int_formats),
+                        ("qmatmul_lut_f32 qmatmul_planar_f32 qmatmul_int_f32",
+                         check_f32_formats),
                         ("qmatmul_grouped_fp", check_grouped_fp)):
         if 2 in phases and any(o in names for o in args.only.split(",")):
             check(chk, gen)
@@ -4079,9 +4489,12 @@ def main() -> int:
     if not args.kernels_only and 3 in phases:
         from neural_speed_tpu_torch.ops.qtypes import named_qspec
 
-        log("phase 3: tiny model on the card against the CPU")
+        log_phase("phase 3: tiny model on the card against the CPU")
         check_tiny_model("int4", named_qspec("int4", 64,
                                              scale_dtype="bfloat16"), None)
+        check_tiny_model("int4 NST_KV_APPEND=defer", named_qspec(
+            "int4", 64, scale_dtype="bfloat16"), None, seed_label="int4",
+            kv_append="defer")
         for label, make_spec, comp, _, _ in format_configs():
             check_tiny_model(label, make_spec(64), comp)
         int4 = named_qspec("int4", 64, scale_dtype="bfloat16")
@@ -4094,8 +4507,11 @@ def main() -> int:
         check_tiny_hf()
         counts.update(check_tiny_grok())
         counts.update(check_tiny_whisper())
+        for fmt in ("int8", "nf4"):
+            counts.update(check_tiny_whisper(f"{fmt} g128",
+                                             named_qspec(fmt, 128)))
     if not args.kernels_only and 4 in phases:
-        log("phase 4: Llama-2-7B-shaped int4 serving")
+        log_phase("phase 4: Llama-2-7B-shaped int4 serving")
         params, cfg = params_7b()
         _build.reset_counts()
         summary, ref = serve_7b(params, cfg, args.profile)
@@ -4110,13 +4526,15 @@ def main() -> int:
         log(f"  main path launches {dict(_build.launches)}; plain-version "
             f"dispatches {dict(_build.plain_dispatches)}")
     if not args.kernels_only and 5 in phases:
-        log("phase 5: Llama-2-7B-shaped serving in the other weight formats")
+        log_phase("phase 5: Llama-2-7B-shaped serving in the other weight "
+                  "formats")
         summary["formats"] = serve_7b_formats()
         for res in summary["formats"].values():
             counts.update(res["prefill_counts"])
             counts.update(res["decode_counts"])
     if not args.kernels_only and 6 in phases:
-        log("phase 6: Llama-2-7B-shaped int4 serving through PagedEngine")
+        log_phase("phase 6: Llama-2-7B-shaped int4 serving through "
+                  "PagedEngine")
         _build.reset_counts()
         summary["paged"] = serve_7b_paged(params, cfg, ref, args.profile)
         paged_counts = dict(_build.launches)
@@ -4138,7 +4556,7 @@ def main() -> int:
         del params, ref
         torch.cuda.empty_cache()
     if not args.kernels_only and 7 in phases:
-        log("phase 7: Mixtral-8x7B-shaped int4 serving")
+        log_phase("phase 7: Mixtral-8x7B-shaped int4 serving")
         summary["mixtral"] = serve_mixtral(args.profile)
         for part in ("ragged", "paged_ragged"):
             counts.update(summary["mixtral"][part]["launches"])
@@ -4148,8 +4566,8 @@ def main() -> int:
                        bench["launches_per_decode_step"].items()})
         torch.cuda.empty_cache()
     if not args.kernels_only and 8 in phases:
-        log("phase 8: quantized checkpoints (GPTQ, GGUF) at full width and "
-            "depth")
+        log_phase("phase 8: quantized checkpoints (GPTQ, GGUF) at full width "
+                  "and depth")
         summary["checkpoints"] = serve_quantized(args.profile)
         for run in summary["checkpoints"].values():
             counts.update(run["prefill_counts"])
@@ -4167,7 +4585,7 @@ def main() -> int:
             (11, f"Grok-1 at full width, {GROK_LAYERS} of its 64 layers "
              f"(the logit softcap, float32 KV scales)", serve_grok, "grok")):
         if not args.kernels_only and phase in phases:
-            log(f"phase {phase}: {what}")
+            log_phase(f"phase {phase}: {what}")
             _build.reset_counts()
             summary[key] = serve(args.profile)
             for run in summary[key].values():
@@ -4182,11 +4600,12 @@ def main() -> int:
                     counts.update(part["launches"])
                     instances.update(part["instances"])
     if not args.kernels_only and 12 in phases:
-        log("phase 12: whisper-large-v2 at full width and depth "
-            "(AudioModel, float32)")
+        log_phase("phase 12: whisper-large-v2 at full width and depth "
+                  "(AudioModel: float32, then int8, nf4, int5)")
         summary["whisper"] = serve_whisper(args.profile)
-        counts.update(summary["whisper"]["launches"])
-        instances.update(summary["whisper"]["instances"])
+        for run in (summary["whisper"], *summary["whisper"]["quant"].values()):
+            counts.update(run["launches"])
+            instances.update(run["instances"])
     if not args.kernels_only:
         log(f"  launches over the paths {dict(counts)}; attention launches "
             f"per head-dim instance in phases 9-12 {dict(instances)}")
@@ -4207,6 +4626,7 @@ def main() -> int:
         json.dump(dict(card=card_line,
                        build_s=_build.kernels.build_seconds,
                        kernels=kernels, e2e=summary), f, indent=1)
+    log_phase("done")
     log(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "cases"}
                                 for r in kernels]}))
     log(json.dumps({"ok": True, "device": {

@@ -35,8 +35,11 @@ class AudioModel:
         """Load a local HF whisper directory (`config.json` and
         `*.safetensors` or `pytorch_model*.bin`) onto `device` (the card
         unless the CPU is asked for).  `use_quant` quantizes the linears
-        (`weight_dtype`, `group_size`); on the card that raises until the
-        matmul kernels take float32 activations (ROADMAP section 2)."""
+        whose smaller side reaches a group (`weight_dtype`, default int8,
+        `group_size`, default 128) on that device; their float32
+        activations go through `qmatmul`'s float32 kernels on the card (int8
+        and other INT packs: P's one-plane INT instances; nf4 / fp4: F;
+        int3/5/6/7, fp8: P) and its plain version on the CPU."""
         from .convert import loaders
         from .models import whisper as W
 

@@ -8,7 +8,9 @@
 // argument (a converter may carry a foreign table), staged in shared memory:
 // 16 floats lie in 16 banks, so a lookup by random codes has no conflict.
 // Bounds and design: qmm_fp.cuh (GEMV: bytes; GEMM: operations).  The value
-// is table[code] * s in float32, rounded once to bf16 at M > 32.
+// is table[code] * s in float32, rounded once to bf16 at M > 32 with bf16 x;
+// the `_f32` entries take float32 x and write float32, exact float32 at
+// every M (GEMM: qmm_fp.cuh's gemm_f32_kernel).
 //
 // Host entries return cudaGetLastError() after their launches.
 
@@ -46,4 +48,24 @@ extern "C" int nst_qmatmul_lut_gemm(const void* xk, const void* plane,
   return (int)run_gemm<FMT_LUT4>(
       static_cast<const __nv_bfloat16*>(xk), lut_args(plane, scales, table, scale_bf16),
       static_cast<__nv_bfloat16*>(out), M, K, N, g, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int nst_qmatmul_lut_gemv_f32(const void* x, const void* plane,
+                                        const void* scales, const void* table,
+                                        void* partial, void* out, int M, int K, int N,
+                                        int g, int splits, int scale_bf16,
+                                        void* stream) {
+  return (int)run_gemv<FMT_LUT4>(
+      static_cast<const float*>(x), lut_args(plane, scales, table, scale_bf16),
+      static_cast<float*>(partial), static_cast<float*>(out), M, K, N, g, splits,
+      static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int nst_qmatmul_lut_gemm_f32(const void* xk, const void* plane,
+                                        const void* scales, const void* table,
+                                        void* out, int M, int K, int N, int g,
+                                        int scale_bf16, void* stream) {
+  return (int)run_gemm_f32<FMT_LUT4>(
+      static_cast<const float*>(xk), lut_args(plane, scales, table, scale_bf16),
+      static_cast<float*>(out), M, K, N, g, static_cast<cudaStream_t>(stream));
 }

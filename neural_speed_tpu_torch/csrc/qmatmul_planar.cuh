@@ -22,9 +22,12 @@
 //
 // One translation unit per format (qmatmul_planar_<format>.cu defines
 // NST_PLANAR_FMT and includes this file), each built into its own library
-// with the same two entry names: in one unit nvcc compiles the ten formats
-// one after another, apart they compile side by side.  Host entries return
-// cudaGetLastError() after their launches.
+// with the same four entry names: in one unit nvcc compiles the ten formats
+// one after another, apart they compile side by side.  The `_f32` entries
+// take float32 x and write float32 (the JAX kernels' float32-activation
+// branch): the GEMV with a float32 load of x, the GEMM exact float32
+// (qmm_fp.cuh's gemm_f32_kernel).  Host entries return cudaGetLastError()
+// after their launches.
 
 #pragma once
 
@@ -71,4 +74,27 @@ extern "C" int nst_qmatmul_planar_gemm(const void* xk, const void* p0, const voi
       static_cast<const __nv_bfloat16*>(xk),
       planar_args(p0, p1, p2, scales, zeros, scale_bf16, zmode),
       static_cast<__nv_bfloat16*>(out), M, K, N, g, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int nst_qmatmul_planar_gemv_f32(const void* x, const void* p0, const void* p1,
+                                           const void* p2, const void* scales,
+                                           const void* zeros, void* partial, void* out,
+                                           int M, int K, int N, int g, int splits,
+                                           int scale_bf16, int zmode, void* stream) {
+  return (int)nstfp::run_gemv<NST_PLANAR_FMT>(
+      static_cast<const float*>(x),
+      planar_args(p0, p1, p2, scales, zeros, scale_bf16, zmode),
+      static_cast<float*>(partial), static_cast<float*>(out), M, K, N, g, splits,
+      static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int nst_qmatmul_planar_gemm_f32(const void* xk, const void* p0, const void* p1,
+                                           const void* p2, const void* scales,
+                                           const void* zeros, void* out, int M, int K,
+                                           int N, int g, int scale_bf16, int zmode,
+                                           void* stream) {
+  return (int)nstfp::run_gemm_f32<NST_PLANAR_FMT>(
+      static_cast<const float*>(xk),
+      planar_args(p0, p1, p2, scales, zeros, scale_bf16, zmode),
+      static_cast<float*>(out), M, K, N, g, static_cast<cudaStream_t>(stream));
 }

@@ -1,8 +1,10 @@
 // Float-compute dequant-matmul templates shared by kernel F (qmatmul_lut.cu),
 // kernel P (qmatmul_planar.cuh: its one-plane INT instances also take the
 // packs of _gemm_kernel_int that kernel A does not) and their grouped MoE
-// instances (qmatmul_grouped_fp.cuh): out[M, N] = x[M, K] @ W, bf16 in; bf16
-// out, float32 out for the grouped instances.
+// instances (qmatmul_grouped_fp.cuh): out[M, N] = x[M, K] @ W, bf16 in and
+// out (float32 out for the grouped instances), or float32 in and out (the
+// `_f32` entries: the JAX kernels' float32-activation branch, quantized
+// Whisper's path).
 //
 // W is the JAX package's planar pack, read as stored.  A plane of width w
 // packs e = 32 / w K sub-bands per uint32 word: word [r, n] of that plane
@@ -51,6 +53,20 @@
 //    the plain version (dequantize to bf16, dot with float32 accumulation).
 //    The next step's operands are loaded into registers while the current
 //    step's MMAs run.  No TMA / wgmma yet.
+//
+// Float32 activations (`_f32` entries; the output is float32 too):
+//  * GEMV: the same kernels with the x pointer's type a template parameter
+//    (XT); x is staged as float32 either way, so only the global load
+//    differs, and the product is float32 end to end, never rounded to bf16.
+//  * GEMM: gemm_f32_kernel, an exact float32 SIMT GEMM (FFMA, float32
+//    accumulation).  The bf16 wmma tile would round x and W to bf16, and a
+//    TF32 product would round both to 10-bit mantissas; the JAX kernels'
+//    float32 branch does neither.  Bound: operations at the float32
+//    (non-tensor) rate.  128x128 tiles, K steps of 64 over the same
+//    band-major x and the same unpacking of W as the bf16 GEMM, both
+//    operands dequantized / staged in shared memory as float32,
+//    double-buffered (135 KB: one block of 256 threads per SM), each thread
+//    an 8x8 micro-tile.
 //
 // Grouped instances (GROUPED = true, one-plane and byte formats; float32
 // out): experts stacked on a leading axis of the planes, scales and zeros.
@@ -194,6 +210,11 @@ __device__ __forceinline__ void select_expert(PackArgs& a, int e, int K, int N, 
     a.zeros = static_cast<const uint8_t*>(a.zeros) + gn * (a.zmode == Z_FLOAT ? 4 : 1);
 }
 
+__device__ __forceinline__ float x_value(const __nv_bfloat16* x, size_t i) {
+  return __bfloat162float(x[i]);
+}
+__device__ __forceinline__ float x_value(const float* x, size_t i) { return x[i]; }
+
 __device__ __forceinline__ void store1(__nv_bfloat16* o, float v) {
   *o = __float2bfloat16_rn(v);
 }
@@ -230,9 +251,10 @@ constexpr int GEMV_BN = GEMV_THREADS * GEMV_COLS;
 
 // One-plane and byte formats: four columns per thread, 8 rows per chunk.
 // The grouped instance (MT = 1) takes row m0 + blockIdx.z and its expert.
-template <int FMT, int MT, bool GROUPED = false, typename OutT = __nv_bfloat16>
+template <int FMT, int MT, bool GROUPED = false, typename OutT = __nv_bfloat16,
+          typename XT = __nv_bfloat16>
 __global__ void __launch_bounds__(GEMV_THREADS)
-gemv_kernel(const __nv_bfloat16* __restrict__ x, PackArgs a,
+gemv_kernel(const XT* __restrict__ x, PackArgs a,
             const int* __restrict__ row_expert, float* __restrict__ partial,
             OutT* __restrict__ out, int M, int K, int N, int g, int rows_per_split,
             int m0) {
@@ -258,7 +280,7 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x, PackArgs a,
     const int m = idx / (EF * rows_per_split);
     float v = 0.f;
     if (m0 + m < M && r < nrows)
-      v = __bfloat162float(x[(size_t)(m0 + m) * K + band * KW + kb0 + r]);
+      v = x_value(x, (size_t)(m0 + m) * K + band * KW + kb0 + r);
     xs[idx] = v;
   }
   if (F::kLut && threadIdx.x < 16) tab[threadIdx.x] = a.table[threadIdx.x];
@@ -396,11 +418,11 @@ __device__ __forceinline__ void gemv1_band(const uint32_t (&w)[GEMV1_ROWS][Fmt<F
     gemv1_band<FMT, MT, B + 1>(w, a, xs, rows_per_split, c, kb, KW, g, N, n, acc);
 }
 
-template <int FMT, int MT>
+template <int FMT, int MT, typename XT, typename OutT>
 __global__ void __launch_bounds__(GEMV_THREADS)
-gemv1_kernel(const __nv_bfloat16* __restrict__ x, PackArgs a,
-             float* __restrict__ partial, __nv_bfloat16* __restrict__ out, int M,
-             int K, int N, int g, int rows_per_split, int m0) {
+gemv1_kernel(const XT* __restrict__ x, PackArgs a, float* __restrict__ partial,
+             OutT* __restrict__ out, int M, int K, int N, int g, int rows_per_split,
+             int m0) {
   using F = Fmt<FMT>;
   constexpr int EF = F::kBands;
   extern __shared__ __align__(16) float xs1[];  // [MT][EF][rows_per_split]
@@ -416,7 +438,7 @@ gemv1_kernel(const __nv_bfloat16* __restrict__ x, PackArgs a,
     const int m = idx / (EF * rows_per_split);
     float v = 0.f;
     if (m0 + m < M && r < nrows)
-      v = __bfloat162float(x[(size_t)(m0 + m) * K + band * KW + kb0 + r]);
+      v = x_value(x, (size_t)(m0 + m) * K + band * KW + kb0 + r);
     xs1[idx] = v;
   }
   __syncthreads();
@@ -442,7 +464,7 @@ gemv1_kernel(const __nv_bfloat16* __restrict__ x, PackArgs a,
     const int row = m0 + m;
     if (row >= M) break;
     if (gridDim.y == 1)
-      out[(size_t)row * N + n] = __float2bfloat16_rn(acc[m]);
+      store1(out + (size_t)row * N + n, acc[m]);
     else
       partial[((size_t)split * M + row) * N + n] = acc[m];
   }
@@ -468,38 +490,37 @@ cudaError_t launch_reduce(const float* partial, OutT* out, int M, int N, int spl
   return cudaGetLastError();
 }
 
-template <int FMT, int MT>
-cudaError_t launch_gemv(const __nv_bfloat16* x, const PackArgs& a, float* partial,
-                        __nv_bfloat16* out, int M, int K, int N, int g, int splits,
-                        int m0, cudaStream_t stream) {
+template <int FMT, int MT, typename XT, typename OutT>
+cudaError_t launch_gemv(const XT* x, const PackArgs& a, float* partial, OutT* out, int M,
+                        int K, int N, int g, int splits, int m0, cudaStream_t stream) {
   const int KW = K / Fmt<FMT>::kBands;
   const int rows = ((KW + splits - 1) / splits + 7) / 8 * 8;
   const size_t smem = (size_t)MT * Fmt<FMT>::kBands * rows * sizeof(float);
   if constexpr (Fmt<FMT>::kSlots > 1) {
     dim3 grid((N + GEMV_THREADS - 1) / GEMV_THREADS, splits);
-    gemv1_kernel<FMT, MT><<<grid, GEMV_THREADS, smem, stream>>>(x, a, partial, out, M,
-                                                                K, N, g, rows, m0);
+    gemv1_kernel<FMT, MT, XT, OutT><<<grid, GEMV_THREADS, smem, stream>>>(
+        x, a, partial, out, M, K, N, g, rows, m0);
   } else {
     dim3 grid((N + GEMV_BN - 1) / GEMV_BN, splits);
-    gemv_kernel<FMT, MT><<<grid, GEMV_THREADS, smem, stream>>>(
+    gemv_kernel<FMT, MT, false, OutT, XT><<<grid, GEMV_THREADS, smem, stream>>>(
         x, a, nullptr, partial, out, M, K, N, g, rows, m0);
   }
   return cudaGetLastError();
 }
 
-template <int FMT>
-cudaError_t run_gemv(const __nv_bfloat16* x, const PackArgs& a, float* partial,
-                     __nv_bfloat16* out, int M, int K, int N, int g, int splits,
-                     cudaStream_t st) {
+// bf16 x and out, or float32 x and out (XT = OutT = float)
+template <int FMT, typename XT, typename OutT>
+cudaError_t run_gemv(const XT* x, const PackArgs& a, float* partial, OutT* out, int M,
+                     int K, int N, int g, int splits, cudaStream_t st) {
   cudaError_t err = cudaSuccess;
   for (int m0 = 0; m0 < M && err == cudaSuccess; m0 += 8) {
     const int rows = M - m0;
     if (rows > 4 || M > 8)
-      err = launch_gemv<FMT, 8>(x, a, partial, out, M, K, N, g, splits, m0, st);
+      err = launch_gemv<FMT, 8, XT, OutT>(x, a, partial, out, M, K, N, g, splits, m0, st);
     else if (rows > 1)
-      err = launch_gemv<FMT, 4>(x, a, partial, out, M, K, N, g, splits, m0, st);
+      err = launch_gemv<FMT, 4, XT, OutT>(x, a, partial, out, M, K, N, g, splits, m0, st);
     else
-      err = launch_gemv<FMT, 1>(x, a, partial, out, M, K, N, g, splits, m0, st);
+      err = launch_gemv<FMT, 1, XT, OutT>(x, a, partial, out, M, K, N, g, splits, m0, st);
   }
   if (err == cudaSuccess && splits > 1) err = launch_reduce(partial, out, M, N, splits, st);
   return err;
@@ -747,6 +768,202 @@ cudaError_t run_gemm_grouped(const __nv_bfloat16* xk, const PackArgs& a,
   if (bm == 64)
     return launch_gemm<FMT, 1, true>(xk, a, block_expert, block_rows, out, M, K, N, g, st);
   return cudaErrorInvalidValue;
+}
+
+// ------------------------------------------------------- float32 GEMM ---
+constexpr int F32_BM = 128;
+constexpr int F32_LDA = F32_BM + 4, F32_LDB = BN + 4;  // rows 16-byte aligned
+constexpr int F32_A_LOADS = F32_BM * BK / 4 / GEMM_THREADS;  // float4s of x a step
+
+constexpr int gemm_f32_smem_bytes() {
+  return (int)(sizeof(float) * 2 * BK * (F32_LDA + F32_LDB));
+}
+
+// 128x128 tiles of out = xk @ W in exact float32.  Thread (ty, tx) of the
+// 16x16 grid owns rows {ty*4, 64 + ty*4} + 0..3 and the same columns from
+// tx: per k it reads two float4 of x (one address per half-warp:
+// broadcast) and two of W (16 consecutive float4s) for 64 FFMA.  x is
+// stored transposed ([k][m]); a warp loads 8 rows x 64 contiguous bytes of
+// it, so its transposed stores fall in 16 banks (2-way).  W is unpacked by
+// the same threads and in the same order as gemm_kernel's, into float32.
+template <int FMT>
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+gemm_f32_kernel(const float* __restrict__ xk, PackArgs a, float* __restrict__ out,
+                int M, int K, int N, int g) {
+  using F = Fmt<FMT>;
+  constexpr int EF = F::kBands;
+  constexpr int R = BK / EF;                  // narrowest-plane rows per K step
+  constexpr int RH = F::kByte ? 8 : R / 2;    // rows one thread unpacks
+  constexpr int NW = F::kByte ? 8 : RH * F::kSlots;  // words it holds
+  extern __shared__ __align__(16) float fsm[];
+  float* As_all = fsm;                        // [2][BK][F32_LDA]
+  float* Bs_all = fsm + 2 * BK * F32_LDA;     // [2][BK][F32_LDB]
+  __shared__ float tab[16];
+  if (F::kLut && threadIdx.x < 16) tab[threadIdx.x] = a.table[threadIdx.x];
+
+  const int m_blk = blockIdx.y * F32_BM, n_blk = blockIdx.x * BN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int KW = K / EF;
+  const int sym_offset = 1 << (F::kBits - 1);
+  const int bc = F::kByte ? (threadIdx.x % 32) * 4 : threadIdx.x % BN;
+  const int bh = F::kByte ? threadIdx.x / 32 : threadIdx.x / BN;
+  const int bn = n_blk + bc;
+  // load u of a warp: rows (wc % 16) * 8 + 0..7, float4 segments
+  // (wc / 16) * 4 + 0..3 of the step's 16, wc = u * 8 + warp
+  auto a_row = [&](int u) { return ((u * 8 + warp) % 16) * 8 + lane % 8; };
+  auto a_seg = [&](int u) { return ((u * 8 + warp) / 16) * 4 + lane / 8; };
+
+  float4 a_reg[F32_A_LOADS];
+  uint32_t w_reg[NW];
+  auto load_step = [&](int k0) {
+#pragma unroll
+    for (int u = 0; u < F32_A_LOADS; ++u) {
+      const int row = m_blk + a_row(u), k = k0 + a_seg(u) * 4;
+      a_reg[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row < M && k < K)
+        a_reg[u] = __ldg(reinterpret_cast<const float4*>(xk + (size_t)row * K + k));
+    }
+    if constexpr (F::kByte) {
+      const uint8_t* bytes = reinterpret_cast<const uint8_t*>(a.plane[0]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int k = k0 + bh * 8 + i;
+        w_reg[i] = (bn < N && k < K)
+                       ? __ldg(reinterpret_cast<const uint32_t*>(bytes + (size_t)k * N + bn))
+                       : 0u;
+      }
+    } else {
+      const int r0 = k0 / EF + bh * RH;
+#pragma unroll
+      for (int ir = 0; ir < RH; ++ir)
+#pragma unroll
+        for (int p = 0; p < F::kPlanes; ++p)
+#pragma unroll
+          for (int jq = 0; jq < F::q(p); ++jq)
+            w_reg[ir * F::kSlots + F::slot0(p) + jq] =
+                bn < N ? __ldg(a.plane[p] + (size_t)(jq * KW + r0 + ir) * N + bn) : 0u;
+    }
+  };
+
+  auto store_step = [&](int stage, int k0) {
+    float* As = As_all + stage * BK * F32_LDA;
+    float* Bs = Bs_all + stage * BK * F32_LDB;
+#pragma unroll
+    for (int u = 0; u < F32_A_LOADS; ++u) {
+      float* col = As + a_seg(u) * 4 * F32_LDA + a_row(u);
+      col[0] = a_reg[u].x;
+      col[F32_LDA] = a_reg[u].y;
+      col[2 * F32_LDA] = a_reg[u].z;
+      col[3 * F32_LDA] = a_reg[u].w;
+    }
+    if constexpr (F::kByte) {
+      const int k = k0 + bh * 8;
+      float s[4] = {0.f, 0.f, 0.f, 0.f};
+      int zi[4] = {0, 0, 0, 0};
+      float zf[4] = {0.f, 0.f, 0.f, 0.f};
+      if (bn < N && k < K) {
+        const size_t sidx = (size_t)(k / g) * N + bn;
+        scales4(a, sidx, s);
+        if constexpr (!F::kFp8) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) zero_at(a, sidx + j, sym_offset, zi[j], zf[j]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t code = (w_reg[i] >> (8 * j)) & 255u;
+          if constexpr (F::kFp8)
+            v[j] = fp8_value<FMT>(code) * s[j];
+          else
+            v[j] = int_value<FMT>(a, code, s[j], zi[j], zf[j]);
+        }
+        *reinterpret_cast<float4*>(&Bs[(bh * 8 + i) * F32_LDB + bc]) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      }
+    } else {
+      const int r0 = k0 / EF + bh * RH;
+#pragma unroll
+      for (int b = 0; b < EF; ++b) {
+        float s = 0.f, zf = 0.f;
+        int zi = 0;
+        if (bn < N) {
+          const size_t sidx = (size_t)((b * KW + r0) / g) * N + bn;
+          s = scale_at(a, sidx);
+          zero_at(a, sidx, sym_offset, zi, zf);
+        }
+#pragma unroll
+        for (int ir = 0; ir < RH; ++ir) {
+          const uint32_t code = code_of<FMT>(&w_reg[ir * F::kSlots], b);
+          Bs[((bh * RH + ir) * EF + b) * F32_LDB + bc] =
+              F::kLut ? tab[code] * s : int_value<FMT>(a, code, s, zi, zf);
+        }
+      }
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  __syncthreads();  // the table
+  load_step(0);
+  store_step(0, 0);
+  __syncthreads();
+  int stage = 0;
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    const bool more = k0 + BK < K;
+    if (more) load_step(k0 + BK);
+    const float* As = As_all + stage * BK * F32_LDA;
+    const float* Bs = Bs_all + stage * BK * F32_LDB;
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk * F32_LDA + ty * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk * F32_LDA + 64 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk * F32_LDB + tx * 4]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk * F32_LDB + 64 + tx * 4]);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    // the other stage was last read before the previous barrier
+    if (more) store_step(stage ^ 1, k0 + BK);
+    __syncthreads();
+    stage ^= 1;
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int gm = m_blk + (i / 4) * 64 + ty * 4 + i % 4;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gn = n_blk + h * 64 + tx * 4;  // N % 8 == 0: whole float4s
+      if (gn < N)
+        *reinterpret_cast<float4*>(out + (size_t)gm * N + gn) = make_float4(
+            acc[i][h * 4], acc[i][h * 4 + 1], acc[i][h * 4 + 2], acc[i][h * 4 + 3]);
+    }
+  }
+}
+
+template <int FMT>
+cudaError_t run_gemm_f32(const float* xk, const PackArgs& a, float* out, int M, int K,
+                         int N, int g, cudaStream_t st) {
+  constexpr int smem = gemm_f32_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(gemm_f32_kernel<FMT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((N + BN - 1) / BN, (M + F32_BM - 1) / F32_BM);
+  gemm_f32_kernel<FMT><<<grid, GEMM_THREADS, smem, st>>>(xk, a, out, M, K, N, g);
+  return cudaGetLastError();
 }
 
 }  // namespace nstfp

@@ -15,6 +15,7 @@ at unrelated offsets.  The KV cache (contiguous `KVCache` or paged
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -251,24 +252,47 @@ def moe_ffn(x: torch.Tensor, p: Params, cfg: ArchConfig,
     return out.to(x.dtype)
 
 
-def kv_append_mode(cfg: ArchConfig) -> str:
-    """The decode KV-append path: "plain" (append, then attend) when pinned,
-    else "fused" (the decode kernel attends and writes the new row; its plain
-    version always exists in the port, so the JAX package's `flash_enabled`
-    condition is dropped).  The JAX package's "defer" is not ported."""
-    mode = "fused" if cfg.kv_append == "env" else cfg.kv_append
-    if mode not in ("plain", "fused"):
-        raise NotImplementedError(f"kv_append={mode!r} is not ported")
+KV_APPEND_MODES = ("plain", "defer", "fused")
+
+
+def kv_append_mode() -> str:
+    """The decode KV-append path from the env, resolved as the JAX package
+    does: `NST_KV_APPEND` in {plain, defer, fused} is taken as given;
+    `NST_DEFER_APPEND=0` or `NST_FUSED_APPEND=0` steps down to "plain";
+    otherwise "fused".  The engines call it once, at construction, and pin
+    the result into their config."""
+    mode = os.environ.get("NST_KV_APPEND")
+    if mode in KV_APPEND_MODES:
+        return mode
+    if os.environ.get("NST_DEFER_APPEND", "1") == "0":
+        return "plain"
+    if os.environ.get("NST_FUSED_APPEND", "1") == "0":
+        return "plain"
+    return "fused"
+
+
+def _resolved_kv_append(cfg: ArchConfig) -> str:
+    mode = kv_append_mode() if cfg.kv_append == "env" else cfg.kv_append
+    if mode not in KV_APPEND_MODES:
+        raise ValueError(f"kv_append must be 'env' or one of "
+                         f"{KV_APPEND_MODES}, got {mode!r}")
     return mode
 
 
-def _defer_append(cfg: ArchConfig, cache, t: int) -> bool:
-    """Single-token decode with the current k/v as attention operands, over
-    the quantized cache only (as in the JAX package).  The JAX package
-    defers on a paged cache only in "fused" mode; the port has no other
-    deferring mode, so the rule is the same for both caches."""
-    return (cache.quantized and kv_append_mode(cfg) == "fused"
-            and flash.extra_kv_eligible(t, cfg.n_heads, cfg.n_kv_heads))
+def _defer_append(cfg: ArchConfig, cache, t: int) -> str:
+    """The append mode ("defer" or "fused") when a single-token decode takes
+    the current k/v as attention operands, over the quantized cache only, as
+    in the JAX package; "" when it appends first.  On the page pool only
+    "fused" defers; "defer" falls to plain there.  The JAX package's
+    `flash_enabled` condition is dropped: the decode kernel's plain version
+    always exists in the port."""
+    mode = _resolved_kv_append(cfg)
+    if mode == "plain" or not cache.quantized:
+        return ""
+    if isinstance(cache, pkv.PagedKVCache) and mode != "fused":
+        return ""
+    return mode if flash.extra_kv_eligible(t, cfg.n_heads,
+                                           cfg.n_kv_heads) else ""
 
 
 def _cache_append(cache, layer_idx: int, k: torch.Tensor, v: torch.Tensor,
@@ -316,13 +340,20 @@ def decoder_layer(x: torch.Tensor, lp: Params, cfg: ArchConfig,
     attn_kwargs = dict(scale=cfg.attn_scale if cfg.attn_scale is not None
                        else 1.0 / math.sqrt(d), causal=True, alibi=slopes,
                        logit_softcap=cfg.logit_softcap, out_dtype=x.dtype)
+    mode = _defer_append(cfg, cache, t)
     fused = None
-    if _defer_append(cfg, cache, t):
+    if mode == "fused":
         fused = attention_cache(q, cache, layer_idx, positions, kv_lens,
                                 extra_kv=(k, v), fused_append=True,
                                 **attn_kwargs)
     if fused is not None:
         attn_out, cache = fused
+    elif mode == "defer":
+        # attention over the cache with the new k/v as operands, then the
+        # append (kernel B's extra-kv column without its in-kernel append)
+        attn_out = attention_cache(q, cache, layer_idx, positions, kv_lens,
+                                   extra_kv=(k, v), **attn_kwargs)
+        cache = _cache_append(cache, layer_idx, k, v, positions, active)
     else:
         cache = _cache_append(cache, layer_idx, k, v, positions, active)
         attn_out = attention_cache(q, cache, layer_idx, positions, kv_lens,

@@ -24,9 +24,12 @@ convolution would run in TF32 on the card), and nothing here changes
 PyTorch's TF32 flags.
 
 Quantized whisper (`convert_whisper(..., qspec)`) runs its linears through
-`qmatmul` with float32 activations: the plain version on the CPU; on the
-card the matmul kernels do not take float32 activations yet, so
-`convert_whisper` raises there, naming the ROADMAP item.
+`qmatmul` with float32 activations and float32 outputs, as the JAX
+package's kernels do (`_compute_dtype`'s float32 branch): the plain version
+on the CPU; on the card the `_f32` instances of kernels F, P and P's
+one-plane INT instances (int8 g128, the `AudioModel` default, goes to the
+last), a float32 GEMV per decode step and an exact float32 GEMM (no TF32)
+over the encoder's 1500 frames and the cross K/V.
 """
 
 from __future__ import annotations
@@ -47,13 +50,6 @@ from ..ops.norms import layer_norm
 from .transformer import linear
 
 Params = Dict[str, Any]
-
-_QUANT_ON_CARD = (
-    "quantized whisper on the card needs float32 activations in the matmul "
-    "kernels (ROADMAP section 2: float32 activations in rows 1-3, "
-    "`_compute_dtype`'s float32 branch); serve it in float32 "
-    "(use_quant=False) or on the CPU (device='cpu')")
-
 
 @dataclasses.dataclass(frozen=True)
 class WhisperConfig:
@@ -417,22 +413,14 @@ class WhisperModel:
 # ---------------------------------------------------------------------------
 
 
-def check_quant_device(qspec, device) -> None:
-    """Quantized whisper runs on the CPU only (see the module docstring)."""
-    if qspec is not None and torch.device(
-            "cuda" if device is None else device).type == "cuda":
-        raise NotImplementedError(_QUANT_ON_CARD)
-
-
 def convert_whisper(sd: Dict[str, Any], hf_cfg: Dict[str, Any],
                     qspec=None, device=None) -> Tuple[Params, WhisperConfig]:
     """HF WhisperForConditionalGeneration state dict -> (params, cfg) on
     `device` (the card unless the CPU is asked for): float32 weights
     `[in, out]` (views of the state dict's `[out, in]` tensors), float32
     biases and LN params, or with `qspec` the linears whose smaller side
-    reaches a group quantized (CPU only).  proj_out is tied to the token
-    embedding."""
-    check_quant_device(qspec, device)
+    reaches a group quantized on `device` (the JAX package's rule, K not
+    repadded).  proj_out is tied to the float32 token embedding."""
     cfg = whisper_config_from_hf(hf_cfg)
     dev = resolve_device(device)
 

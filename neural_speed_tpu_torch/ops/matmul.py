@@ -29,6 +29,17 @@ K a multiple of the pack period x g (`kernel_k_multiple`) and N % 8 == 0.
 packs in K slabs (`k_shards > 1`), which the JAX package runs on XLA,
 raise.
 
+Float32 activations (the JAX kernels' float32 branch; quantized Whisper's
+path): F, P and P's one-plane INT instances take float32 x and write float32
+through their `_f32` entries (counted as `qmatmul_lut_f32`,
+`qmatmul_planar_f32`, `qmatmul_int_f32`): the GEMV loads x as float32, the
+GEMM is an exact float32 product (no bf16, no TF32).  `kernel_route` sends
+kernel A's packs (int4 / symmetric / bf16 scales) to "I" for float32 x:
+those instances take the symmetric offset and bf16 scales already, while
+kernel A's bodies (`qmm_int4.cuh`) are shared with kernel 11, whose bf16
+path stays as it is.  A float32 x is never rounded to bf16 to reuse a bf16
+kernel, and never handed to the plain version on the card.
+
 Compute dtype of `qmatmul` (the TPU kernel's `_compute_dtype` rule): float32
 when M <= 32 (decode; the dequantized value is exact in float32), bfloat16
 above (prefill: the dequantized weight is computed in float32 and rounded
@@ -264,14 +275,17 @@ def _band_major(x2: torch.Tensor, bands: int) -> torch.Tensor:
 def _fp_launch(name: str, lib: str, x2: torch.Tensor, qt: QTensor, planes,
                extra_ptrs, extra_ints, counter: str = "") -> torch.Tensor:
     """Shared launch of kernels F and P (entries `nst_<name>_gemv/_gemm` of
-    the library `lib`): the split-K GEMV for M <= 32, the tensor-core GEMM
-    above.  The launch counts under `counter` (default `name`)."""
+    the library `lib`, `..._f32` for float32 x): the split-K GEMV for
+    M <= 32, the GEMM above (bf16 tensor cores, or exact float32).  The
+    output takes x's dtype.  The launch counts under `counter` (default
+    `name`), with `_f32` appended for float32 x."""
     m, k = x2.shape
     n = qt.shape[1]
     g = qt.spec.effective_group(k)
     scales = _kernel_scales(qt)
     bands = _finest_bands(qt.spec)
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
+    f32 = "_f32" if x2.dtype == torch.float32 else ""
+    out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
     s_bf16 = int(scales.dtype == torch.bfloat16)
     ptrs = [p.data_ptr() for p in planes] + [scales.data_ptr()] + extra_ptrs
     stream = _build.stream_handle()
@@ -281,40 +295,45 @@ def _fp_launch(name: str, lib: str, x2: torch.Tensor, qt: QTensor, planes,
                               128 if len(planes_of(qt.spec)) > 1 else 512)
         partial = (torch.empty((splits, m, n), dtype=torch.float32,
                                device=x2.device) if splits > 1 else out)
-        fn = _build.kernels.fn(lib, f"nst_{name}_gemv", len(ptrs) + 3,
+        fn = _build.kernels.fn(lib, f"nst_{name}_gemv{f32}", len(ptrs) + 3,
                                6 + len(extra_ints))
         code = fn(x2.data_ptr(), *ptrs, partial.data_ptr(), out.data_ptr(),
                   m, k, n, g, splits, s_bf16, *extra_ints, stream)
     else:
         xk = _band_major(x2, bands)
-        fn = _build.kernels.fn(lib, f"nst_{name}_gemm", len(ptrs) + 2,
+        fn = _build.kernels.fn(lib, f"nst_{name}_gemm{f32}", len(ptrs) + 2,
                                5 + len(extra_ints))
         code = fn(xk.data_ptr(), *ptrs, out.data_ptr(), m, k, n, g, s_bf16,
                   *extra_ints, stream)
-    _build.check(code, name)
-    _build.launches[counter or name] += 1
+    _build.check(code, name + f32)
+    _build.launches[(counter or name) + f32] += 1
     return out
+
+
+_FP_DTYPES = ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32))
 
 
 def _fp_checks(letter: str, x2: torch.Tensor, qt: QTensor, out_dtype,
                tensors) -> None:
-    ok = (kernel_for(qt) == letter and _planes_ok(qt) and _fp_shape_ok(qt)
-          and x2.dtype == torch.bfloat16 and out_dtype == torch.bfloat16
+    ok = (kernel_route(qt, x2.dtype) == letter and _planes_ok(qt)
+          and _fp_shape_ok(qt) and (x2.dtype, out_dtype) in _FP_DTYPES
           and x2.shape[1] == qt.shape[0] and _cuda_ok(x2, *tensors))
     if not ok:
         what = "P (one-plane INT)" if letter == "I" else letter
         raise ValueError(
             f"kernel {what} takes contiguous, 16-byte aligned CUDA "
-            f"tensors: bf16 x [M, K], bf16 or float32 scales, g % 8 == 0, "
-            f"K a multiple of the pack period x g, N % 8 == 0, and writes "
-            f"bf16; got x {x2.dtype} {tuple(x2.shape)} on {x2.device}, out "
-            f"{out_dtype}, pack {_describe(qt)} on {qt.data[0].device}")
+            f"tensors: x [M, K] bf16 writing bf16 or float32 writing "
+            f"float32, bf16 or float32 scales, g % 8 == 0, K a multiple of "
+            f"the pack period x g, N % 8 == 0; got x {x2.dtype} "
+            f"{tuple(x2.shape)} on {x2.device}, out {out_dtype}, pack "
+            f"{_describe(qt)} on {qt.data[0].device}")
 
 
 def qmatmul_lut_cuda(x2: torch.Tensor, qt: QTensor,
                      out_dtype=None) -> torch.Tensor:
-    """Kernel F on `x2 [M, K]` bf16: NF4 / FP4 codes through the 16-entry
-    table, a kernel argument cached per (table, device); output bf16."""
+    """Kernel F on `x2 [M, K]` bf16 or float32: NF4 / FP4 codes through the
+    16-entry table, a kernel argument cached per (table, device); output in
+    x's dtype."""
     out_dtype = out_dtype or x2.dtype
     scales = _kernel_scales(qt)
     _fp_checks("F", x2, qt, out_dtype, (*qt.data, scales))
@@ -348,17 +367,26 @@ def _planar_launch(letter: str, x2: torch.Tensor, qt: QTensor,
 
 def qmatmul_planar_cuda(x2: torch.Tensor, qt: QTensor,
                         out_dtype=None) -> torch.Tensor:
-    """Kernel P on `x2 [M, K]` bf16: odd-width planes, FP8 rows, float
-    offsets; output bf16."""
+    """Kernel P on `x2 [M, K]` bf16 or float32: odd-width planes, FP8 rows,
+    float offsets; output in x's dtype."""
     return _planar_launch("P", x2, qt, out_dtype)
 
 
 def qmatmul_int_cuda(x2: torch.Tensor, qt: QTensor,
                      out_dtype=None) -> torch.Tensor:
-    """P's one-plane INT instances on `x2 [M, K]` bf16: INT 1/2/4/8 with the
-    symmetric offset or uint8 zero points, bf16, float32 or
-    double-quantized scales; output bf16."""
+    """P's one-plane INT instances on `x2 [M, K]` bf16 or float32: INT
+    1/2/4/8 with the symmetric offset or uint8 zero points, bf16, float32
+    or double-quantized scales (and kernel A's packs for float32 x); output
+    in x's dtype."""
     return _planar_launch("I", x2, qt, out_dtype)
+
+
+def kernel_route(qt: QTensor, x_dtype: torch.dtype) -> str:
+    """The kernel `qmatmul` launches for the pack and x's dtype on the card:
+    `kernel_for`'s letter, except that float32 x sends kernel A's packs to
+    "I" (kernel A takes bf16 x only; see the module docstring)."""
+    letter = kernel_for(qt)
+    return "I" if letter == "A" and x_dtype == torch.float32 else letter
 
 
 _QMATMUL_KERNELS = {"A": qmatmul_cuda, "F": qmatmul_lut_cuda,
@@ -376,7 +404,7 @@ def qmatmul(x: torch.Tensor, qt: QTensor, out_dtype=None) -> torch.Tensor:
         _build.plain_dispatches["qmatmul"] += 1
         out = qmatmul_plain(x2, qt, out_dtype)
     else:
-        launch = _QMATMUL_KERNELS.get(kernel_for(qt))
+        launch = _QMATMUL_KERNELS.get(kernel_route(qt, x2.dtype))
         if launch is None:
             raise ValueError(
                 f"no CUDA kernel takes this pack yet: {_describe(qt)}; "

@@ -214,7 +214,7 @@ class Engine:
         if fuse:
             params = fuse_params(params, cfg)
         if cfg.kv_append == "env":
-            cfg = dataclasses.replace(cfg, kv_append=kv_append_mode(cfg))
+            cfg = dataclasses.replace(cfg, kv_append=kv_append_mode())
         self.params = params
         self.cfg = cfg
         self.max_batch = max_batch

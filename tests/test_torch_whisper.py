@@ -45,6 +45,7 @@ from neural_speed_tpu_torch.models import whisper as TW
 from neural_speed_tpu_torch.models.params import params_from_numpy
 from neural_speed_tpu_torch.ops import kv_cache as tkv
 from neural_speed_tpu_torch.ops import mel as tmel
+from neural_speed_tpu_torch.ops import quantize as tquant
 from neural_speed_tpu_torch.ops.qtypes import named_qspec
 from neural_speed_tpu_torch.utils import synthetic as syn
 
@@ -497,32 +498,75 @@ def test_audio_model_transcribe_matches_jax(saved, timestamps):
     assert tm.model.device.type == "cpu"
 
 
-def test_quantized_route_on_the_cpu(sd, states):
-    """`convert_whisper(..., int8 g128)` on the CPU (float32 activations
-    through `qmatmul`'s plain version): greedy ids equal to the JAX
-    package's quantized model and the prefix logits within LOGIT_TOL."""
+# the quantized formats of the CPU route: the AudioModel default (int8
+# g128, P's one-plane INT instances on the card), nf4 (F) and asymmetric
+# int5 (P)
+QUANT = {"int8": ("int8", True), "nf4": ("nf4", True),
+         "int5-asym": ("int5", False)}
+
+
+def _prefix_logits_jax(jp, jc, sj, jl):
+    cache = jkv.init_cache(jc.decoder_layers, 1, 448, jc.n_heads,
+                           jc.head_dim, jnp.float32)
+    toks = [jc.decoder_start_token_id] + FORCED
+    n = len(toks)
+    lj, _ = JW.decoder_forward(
+        jp, jc, jnp.asarray([toks], jnp.int32),
+        jnp.arange(n, dtype=jnp.int32)[None], cache,
+        jnp.full((1,), n, jnp.int32), tuple(JW.cross_kv(jp, jc, sj)), jl)
+    return np.asarray(lj)
+
+
+def _prefix_logits_port(tp, tc, st, tl):
+    cache = tkv.init_cache(tc.decoder_layers, 1, 448, tc.n_heads,
+                           tc.head_dim, torch.float32, device="cpu")
+    toks = [tc.decoder_start_token_id] + FORCED
+    n = len(toks)
+    lt, _ = TW.decoder_forward(
+        tp, tc, torch.tensor([toks], dtype=torch.int32),
+        torch.arange(n, dtype=torch.int32)[None], cache,
+        torch.full((1,), n, dtype=torch.int32), TW.cross_kv(tp, tc, st), tl)
+    return lt.numpy()
+
+
+@pytest.mark.parametrize("fmt", sorted(QUANT))
+def test_quantized_route_on_the_cpu(sd, states, fmt):
+    """`convert_whisper(..., qspec)` on the CPU (float32 activations through
+    `qmatmul`'s plain version) in int8, nf4 and asymmetric int5 at g128:
+    every linear quantized (d_model 128 and ffn 256 reach the group), the
+    prefix logits within LOGIT_TOL of the JAX package's quantized model and
+    the greedy ids equal."""
+    name, sym = QUANT[fmt]
     sj, _ = states
-    jp, jc = JW.convert_whisper(sd, TINY_HF, j_named_qspec("int8", 128))
-    tp, tc = TW.convert_whisper(sd, TINY_HF, named_qspec("int8", 128),
+    jp, jc = JW.convert_whisper(sd, TINY_HF, j_named_qspec(name, 128, sym))
+    tp, tc = TW.convert_whisper(sd, TINY_HF, named_qspec(name, 128, sym),
                                 device="cpu")
+    assert isinstance(tp["encoder"]["layers"][0]["fc1"]["w"], tquant.QTensor)
+    assert isinstance(tp["decoder"]["layers"][0]["cross"]["k"]["w"],
+                      tquant.QTensor)
     jl, tl = _lens(1500)
     before = _build.plain_dispatches["qmatmul"]
+    lt = _prefix_logits_port(tp, tc, _t_states(sj), tl)
+    assert _build.plain_dispatches["qmatmul"] > before
+    lj = _prefix_logits_jax(jp, jc, _j_states(sj), jl)
+    assert lt.dtype == np.float32
+    np.testing.assert_allclose(lt, lj, rtol=0, atol=LOGIT_TOL)
     ij = JW.WhisperModel(jp, jc).generate(_j_states(sj), jl, FORCED, 6)
     it = TW.WhisperModel(tp, tc).generate(_t_states(sj), tl, FORCED, 6)
     assert it == ij
-    assert _build.plain_dispatches["qmatmul"] > before
 
 
-def test_quantized_route_on_the_card_raises(saved, sd):
-    """On the card (the default device) the quantized route raises before
-    any work, naming the ROADMAP item of the float32-activation matmul
-    kernels; no card is needed to see it."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.*float32 "
-                       "activations"):
-        TW.convert_whisper(sd, TINY_HF, named_qspec("int8", 128))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapi.AudioModel().init(saved[0], use_quant=True)
-    TW.check_quant_device(None, None)           # float32: no refusal
+def test_quantized_audio_model_matches_jax(saved):
+    """`AudioModel().init(dir, use_quant=True, device="cpu")` (int8 g128, the
+    default format) transcribes the wav as the JAX package's
+    `AudioModel().init(dir, use_quant=True)` does."""
+    d, wav = saved
+    jm = japi.AudioModel().init(d, use_quant=True)
+    tm = tapi.AudioModel().init(d, use_quant=True, device="cpu")
+    assert isinstance(tm.model.params["decoder"]["layers"][0]["fc1"]["w"],
+                      tquant.QTensor)
+    assert (tm.transcribe(wav, max_new_tokens=6)
+            == jm.transcribe(wav, max_new_tokens=6))
 
 
 def test_serving_path_leaves_tf32_off(models, states):
