@@ -8,6 +8,7 @@
     python3 chip_smoke.py --profile       # all phases + a torch.profiler
                                           # trace of the main path
     python3 chip_smoke.py --phases 3,12   # build + only these phases
+    python3 chip_smoke.py --phases 13     # the serving path (api.Model)
     python3 chip_smoke.py --phases 2 --only qmatmul_lut_f32
                                           # phase 2 of the kernels so named
 
@@ -56,6 +57,10 @@ Phases, each raising on failure so the run exits non-zero:
    and kernel A's pack) at whisper-large-v2's linears (M = 1, 4, 1500)
    and Llama-2-7B's o at M = 2048, within 256 float32 ulps of a float64
    product, a TF32 product and the kernel on bf16-rounded x failing it;
+   the int8 score dot (`NST_FLASH_INT8=qk`, QK_CASES) in B and 10 at every
+   head-dim instance, both scale types, ALiBi, the softcap and without the
+   extra column, q drawn with outliers, each output also held more than 10
+   tolerances from the output without it and timed beside it;
 3. a tiny model through `Engine` on the card against the same model on the
    CPU (plain versions), once in int4, once per configuration of phase
    5 and as a tiny Mixtral at B = 3 and B = 1: logits within tolerance,
@@ -72,7 +77,12 @@ Phases, each raising on failure so the run exits non-zero:
    B = 3 and B = 1, and the tiny llama over int8 K/V with float32 scales;
    a tiny whisper (head dim 64) in float32, int8 and nf4: encoder states,
    logits and greedy, timestamp and 3-beam ids against the CPU, the
-   greedy and beam ids changing from step to step.
+   greedy and beam ids changing from step to step; a tiny llama written as
+   an HF checkpoint directory and loaded (int4 g64) by `Model().init(dir)`
+   on the card and by `Model().init(dir, device="cpu")`, `generate` over
+   `Engine` and `ModelServer` over `PagedEngine`, every sampling call's
+   logits held card against CPU, without and with the int8 score dot
+   (`check_tiny_serving`).
    Phases 3-8 serve over the int8 cache (`kv_quantized=True`), phases 9-11
    over the engines' default bf16 cache, int8 and float32;
 4. the main path: a Llama-2-7B-shaped int4 model (full width and depth,
@@ -151,7 +161,19 @@ Phases, each raising on failure so the run exits non-zero:
    K/V, prefix, 64 decode steps, 4-beam search), nf4 and asymmetric int5
    (one encode, 16 decode steps); the format's float32 matmul instance must
    launch at encode and in a decode step, no bf16 matmul instance and no
-   plain version may run, and TF32 must stay off.
+   plain version may run, and TF32 must stay off;
+13. the continuous-batching serving path: the phase-4 model as an
+   `api.Model` over `PagedEngine` (int8 pool, 4 slots, page size 128)
+   serving 8 requests issued at once through `ModelServer` (prompts
+   1975 / 900 / 300 / 37 / 1500 / 640 / 128 / 9, budgets 24 / 8 / 16 / 4 /
+   32 / 12 / 20 / 6, greedy), without and then with the int8 score dot:
+   every budget delivered, first tokens equal to each prompt's argmax
+   prefilled alone (where the margin clears 2%), the pool free after
+   `join`, kernels A, 9 and 10 (its `_qk` instance under qk) launched and
+   no plain version; the first decode window over four of the prompts
+   held against kernel 10's plain version, without and with qk; TTFT per
+   request, ms/token, requests/s and tokens/s on the host clock; with `--profile`, one traced 8-token decode window
+   of the scheduler without and with qk (idle share).
 
 It prints a `kernels` JSON line, then as its last line
 `{"ok": true, "device": {...}}`.  It imports nothing of JAX.
@@ -161,6 +183,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import hashlib
 import json
 import math
 import os
@@ -360,15 +383,19 @@ def compare(got: torch.Tensor, want: torch.Tensor, ulps: int,
     """|got - want| against `ulps` bf16 ulps (2**-8 relative) of a scale:
     the largest |want| of the element's row (the last axis) with `per_row`,
     else of the whole tensor.  Returns the largest absolute error, the
-    largest error over its scale, and the largest error over its
-    tolerance (the check passes when that is <= 1)."""
+    largest error over its scale, the largest error over its tolerance (the
+    check passes when that is <= 1), and a digest of `got`'s bytes (two
+    builds of a kernel give the same output on the same inputs when their
+    digests agree)."""
     diff = (got.float() - want.float()).abs()
     mag = want.float().abs()
     scale = mag.amax(-1, keepdim=True) if per_row else mag.amax()
     tol = ulps * 2.0 ** -8 * scale + ATOL
+    raw = got.detach().contiguous().view(torch.uint8).cpu().numpy()
     return dict(err=diff.max().item(),
                 rel=(diff / scale.clamp_min(ATOL)).max().item(),
                 worst=(diff / tol).max().item(),
+                digest=hashlib.sha256(raw.tobytes()).hexdigest()[:16],
                 tol=f"{ulps} bf16 ulps of the largest |output| of its "
                     f"{'row' if per_row else 'tensor'}")
 
@@ -398,6 +425,7 @@ class Checks:
             "name": name, "route": route, "source": source,
             "replaces": replaces, "cases": []})
         rec["cases"].append(dict(shape=shape, max_abs_err=cmp["err"],
+                                 digest=cmp.get("digest"),
                                  err_over_scale=cmp["rel"],
                                  err_over_tol=cmp["worst"], ms=ms,
                                  plain_ms=plain_ms, library_ms=lib_ms,
@@ -1492,6 +1520,27 @@ SCALE_F32_CASES = [
     ("decode", "int8f32", False, 32, 32, 128, 1, DECODE_LENS, True),
     ("prefill", "int8f32", False, 32, 32, 128, 2048, [1975], True),
 ]
+# The int8 score dot (NST_FLASH_INT8=qk) in kernels B and 10, every
+# head-dim instance at the shapes of the cases above: Llama-2-7B's heads
+# (the main case), Mixtral's 8 KV heads, float32 scales, ALiBi, Grok-1's
+# heads with the softcap, D = 80 / 96 / 256 and the masked 72, and kernel B
+# without the extra column (the contiguous cache after a plain append,
+# which goes to kernel B under qk).  q is drawn with outliers (`_qk_q`):
+# each case also holds the output more than 10 tolerances from the plain
+# version without the int8 dot, and times the kernel without it beside.
+# (kernel, K/V, ALiBi, H, Hkv, D, T, kv_lens, main, softcap, extra column)
+QK_CASES = [
+    ("decode", "int8", False, 32, 32, 128, 1, DECODE_LENS, True, 0.0, True),
+    ("decode", "int8", False, 32, 8, 128, 1, DECODE_LENS, False, 0.0, True),
+    ("decode", "int8f32", False, 32, 32, 128, 1, DECODE_LENS, False, 0.0,
+     True),
+    ("decode", "int8", True, 32, 32, 128, 1, DECODE_LENS, False, 0.0, True),
+    ("decode", "int8", False, 48, 8, 128, 1, DECODE_LENS, False, SOFTCAP,
+     True),
+    ("decode", "int8", False, 32, 32, 128, 1, DECODE_LENS, False, 0.0,
+     False),
+] + [("decode", "int8", False, h, h, d, 1, DECODE_LENS, False, 0.0, True)
+     for d, h in ((80, 32), (96, 64), (256, 16), (72, 32), (64, 32))]
 # Counter suffix of each K/V type of the cases.
 KV_SUFFIX = {"int8": "", "int8f32": "_f32scale", "bf16": "_bf16",
              "f32": "_f32"}
@@ -1510,19 +1559,37 @@ def _sdpa_mask(valid, pos, slopes, s):
                        torch.full_like(bias, float("-inf")))
 
 
+def _qk_q(gen, b, t, h, d):
+    """q for the int8 score dot's cases: each row twice a normal draw with
+    one element +-60 (30x the rest).  The row's int8 scale is then set by
+    that element and the others quantize to a few levels, so the output
+    moves far from the float product's; a plain normal q moves it by about
+    one tolerance."""
+    q = torch.randn((b, t, h, d), generator=gen, device="cuda")
+    at = torch.randint(0, d, (b, t, h, 1), generator=gen, device="cuda")
+    sign = torch.randint(0, 2, (b, t, h, 1), generator=gen,
+                         device="cuda").float() * 2 - 1
+    return 2.0 * q.scatter(-1, at, 30.0 * sign)
+
+
 def _variant_case(chk, gen, kernel, kv, alibi, h, hkv, d, t, lens, main,
-                  softcap=0.0):
+                  softcap=0.0, extra=None, qk=False):
     """One case of VARIANT_CASES / DIM_CASES / SOFTCAP_CASES /
-    SCALE_F32_CASES (`kv`: "int8", "int8f32" (float32 scales), "bf16" or
-    "f32"): a shuffled pool at page size 128 and the same rows gathered
+    SCALE_F32_CASES / QK_CASES (`kv`: "int8", "int8f32" (float32 scales),
+    "bf16" or "f32"; `extra`: the extra column, by default on for int8
+    decode; `qk`: the int8 score dot): a shuffled pool at page size 128 and
+    the same rows gathered
     into a contiguous cache; the contiguous kernel and the paged kernel
     each within 4 bf16 ulps per row of its plain version, the paged kernel
     equal to the contiguous one bit for bit, and (int8 decode) the fused
     append equal to the plain version's.  With a softcap, q is scaled so
-    that it bites, and the kernel's output must lie more than 10
-    tolerances from the plain version's without it.  Times kernel, plain
-    version and SDPA over the same K/V (bf16; ALiBi as a float mask; no
-    SDPA call computes the softcap, so none is timed then)."""
+    that it bites (with `qk` too), and the kernel's output must lie more
+    than 10 tolerances from the plain version's without it.  With `qk`, q has
+    outliers (`_qk_q`) and the output must lie more than 10 tolerances from
+    the plain version's without the int8 dot; the kernel without it is
+    timed beside.  Times kernel, plain version and SDPA over the same K/V
+    (bf16; ALiBi as a float mask; no SDPA call computes the softcap, so
+    none is timed then)."""
     from neural_speed_tpu_torch.ops import flash
     from neural_speed_tpu_torch.ops.attention import alibi_slopes
     from neural_speed_tpu_torch.ops.paged_kv import gathered_layer
@@ -1541,13 +1608,19 @@ def _variant_case(chk, gen, kernel, kv, alibi, h, hkv, d, t, lens, main,
         ar = torch.arange(t, device="cuda", dtype=torch.int32)[None]
         pos = torch.where(ar < kv_lens[:, None], ar,
                           torch.full_like(ar, s - 1))
-    q = torch.randn((b, t, h, d), generator=gen, device="cuda")
+    if qk:
+        q = _qk_q(gen, b, t, h, d)
+    else:
+        q = torch.randn((b, t, h, d), generator=gen, device="cuda")
     if softcap:
-        # scores (q . k) * scale of spread 0.7 x the cap
+        # scores (q . k) * scale of spread 0.7 x the cap (the int8 dot's
+        # rows, with their outliers, each by its own norm)
         kstd = gathered_layer(pool, layer)[0].float().std().item()
-        q = q * (0.7 * softcap / (kstd * math.sqrt(d) * scale))
+        norm = q.norm(dim=-1, keepdim=True) if qk else math.sqrt(d)
+        q = q * (0.7 * softcap / (kstd * norm * scale))
     q = q.to(torch.bfloat16)
-    extra = kernel == "decode" and kv in ("int8", "int8f32")
+    if extra is None:
+        extra = kernel == "decode" and kv in ("int8", "int8f32")
     kn, vn = ((torch.randn((b, 1, hkv, d), generator=gen, device="cuda")
                ).to(torch.bfloat16) for _ in range(2)) if extra else (None,
                                                                      None)
@@ -1570,14 +1643,18 @@ def _variant_case(chk, gen, kernel, kv, alibi, h, hkv, d, t, lens, main,
                flash.prefill_paged_cuda, flash.prefill_paged_plain)
     c_cuda, c_plain, p_cuda, p_plain = fns
     kw = dict(alibi=slopes, softcap=softcap)
+    if qk:
+        kw["qk"] = True
     # the paged kernel over the pool and the contiguous kernel over the
     # gathered rows, without the append: equal bit for bit
     same = torch.equal(p_cuda(*pargs(pool, False), **kw),
                        c_cuda(*cargs(ck, False), **kw))
-    suffix = KV_SUFFIX[kv] + ("_softcap" if softcap else "")
+    suffix = (KV_SUFFIX[kv] + ("_softcap" if softcap else "")
+              + ("_qk" if qk else ""))
     what = (f"{kernel} {kv} K/V{', ALiBi' if alibi else ''}"
-            f"{f', softcap {softcap}' if softcap else ''} H={h} "
-            f"Hkv={hkv} D={d} T={t}")
+            f"{f', softcap {softcap}' if softcap else ''}"
+            f"{'' if extra or kernel != 'decode' else ', no extra column'} "
+            f"H={h} Hkv={hkv} D={d} T={t}")
     if not same:
         raise AssertionError(f"flash_{kernel}_paged{suffix} ({what}) differs "
                              f"from the contiguous kernel over the same rows")
@@ -1618,7 +1695,8 @@ def _variant_case(chk, gen, kernel, kv, alibi, h, hkv, d, t, lens, main,
         cmp = compare(got, want, 4, per_row=True)
         if softcap:
             # the softcap bites: the output without it lies far away
-            uncapped = plain(*args(mk(), False), alibi=slopes)
+            uncapped = plain(*args(mk(), False), alibi=slopes,
+                             **({"qk": True} if qk else {}))
             off = compare(got, uncapped, 4, per_row=True)["worst"]
             if not off > 10:
                 raise AssertionError(
@@ -1627,6 +1705,20 @@ def _variant_case(chk, gen, kernel, kv, alibi, h, hkv, d, t, lens, main,
             log(f"  {name}: {off:.1f} tolerances from the output without "
                 f"the softcap")
             del uncapped
+        extra_rec = None
+        if qk:
+            # the int8 dot shows: the output without it lies far away
+            off_kw = dict(kw, qk=False)
+            off = compare(got, plain(*args(mk()), **off_kw), 4,
+                          per_row=True)["worst"]
+            if not off > 10:
+                raise AssertionError(
+                    f"{name} ({what}): the output is only {off:.2f} "
+                    f"tolerances from the output without the int8 dot")
+            off_ms = time_ms(lambda: run(*args(a_k), **off_kw))
+            log(f"  {name}: {off:.1f} tolerances from the output without "
+                f"the int8 dot; the kernel without it {off_ms:.4f} ms")
+            extra_rec = dict(off_tolerances=off, qk_off_ms=off_ms)
         del got, want
         ms = time_ms(lambda: run(*args(a_k), **kw))
         plain_ms = time_ms(lambda: plain(*args(a_p), **kw), reps=3)
@@ -1650,10 +1742,11 @@ def _variant_case(chk, gen, kernel, kv, alibi, h, hkv, d, t, lens, main,
                 f"B={b} T={t} H={h} Hkv={hkv} D={d} (instance "
                 f"{flash.instance_dim(d)}) {kv} S={s} kv_len="
                 f"{'/'.join(map(str, lens))}{' ALiBi' if alibi else ''}"
+                f"{' (no extra column)' if qk and not extra else ''}"
                 f"{', page size 128, shuffled table' if paged else ''}",
                 cmp, ms, plain_ms, lib_ms,
                 nbytes + (pool.page_tables.numel() * 4 if paged else 0),
-                4.0 * pairs * h * d, main=main)
+                4.0 * pairs * h * d, main=main, extra=extra_rec)
         torch.cuda.empty_cache()
     del pool, ck
     torch.cuda.empty_cache()
@@ -1672,6 +1765,11 @@ def check_flash_dims(chk: Checks, gen: torch.Generator) -> None:
 def check_flash_softcap(chk: Checks, gen: torch.Generator) -> None:
     for case in SOFTCAP_CASES + SCALE_F32_CASES:
         _variant_case(chk, gen, *case)
+
+
+def check_flash_qk(chk: Checks, gen: torch.Generator) -> None:
+    for case in QK_CASES:
+        _variant_case(chk, gen, *case, qk=True)
 
 
 # The non-causal variant (whisper's encoder and cross attention) at
@@ -1926,7 +2024,8 @@ TINY_SEEDS = {"int4": (15, 9), "nf4": (268, 9), "int5 asymmetric": (84, 5),
               "falcon bf16": (22, 9), "int4 paged bf16": (15, 9),
               "gemma bf16": (0, 9), "phi bf16": (172, 9),
               "gpt_neox bf16": (299, 9), "phi f32": (172, 9),
-              "grok": (12, 6), "int4 f32 scales": (15, 9)}
+              "grok": (12, 6), "int4 f32 scales": (15, 9),
+              "tiny hf llama": (3, 8), "tiny hf llama qk": (393, 8)}
 
 
 TINY_CFG = dict(name="llama", vocab_size=512, hidden_size=512, n_layers=2,
@@ -2104,6 +2203,160 @@ TINY_REFILL = [412, 12, 413, 240, 264, 323, 147, 501, 28, 143, 196, 292, 209,
                67, 24, 1, 25, 77, 511, 98, 334, 384, 120, 145, 223, 135, 498,
                91, 459, 408, 432, 60, 201, 321, 252, 341, 346, 339, 32, 491,
                284, 462, 139, 185, 450, 96]
+
+
+class _SampleLog:
+    """Records the logits and active rows of every `sampling.sample` call
+    (copied to the CPU) while installed."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from neural_speed_tpu_torch.ops import sampling as smp
+
+        self._orig = smp.sample
+
+        def sample(logits, state, p, active=None):
+            act = (torch.ones(logits.shape[0], dtype=torch.bool)
+                   if active is None else active.cpu())
+            self.calls.append((logits.float().cpu(), act))
+            return self._orig(logits, state, p, active)
+
+        smp.sample = sample
+        return self
+
+    def __exit__(self, *exc):
+        from neural_speed_tpu_torch.ops import sampling as smp
+
+        smp.sample = self._orig
+
+
+# The tiny serving check of phase 3: TINY_CFG's llama as a float HF
+# checkpoint directory (`write_tiny_llama`, matrices N(0, 0.1^2): at
+# synth_hf_state_dict's 0.02 the greedy streams repeat one token), loaded
+# and quantized to int4 g64 by `Model().init(dir)`, prompts 0 and 2, greedy
+# without the repetition penalty, 8 new tokens each.  The draw's seeds,
+# one without and one with the int8 score dot (TINY_SEEDS["tiny hf
+# llama"], ["tiny hf llama qk"]), were searched on the CPU for top-2
+# margins above twice `_hold_tiny`'s tolerance at every sampling call and
+# streams of at least 4 distinct ids (without qk seed 3 was the only one
+# of 0-199; with qk 393 the first found).
+TINY_HF_LLAMA = dict(model_type="llama", vocab_size=512, hidden_size=512,
+                     num_hidden_layers=2, num_attention_heads=8,
+                     num_key_value_heads=4, intermediate_size=1408,
+                     max_position_embeddings=256, tie_word_embeddings=False)
+TINY_HF_INIT = 0.1
+TINY_SERVE_PROMPTS = [TINY_PROMPTS[0], TINY_PROMPTS[2]]
+TINY_SERVE_NEW = 8
+
+
+def write_tiny_llama(d: str, seed: int, init: float) -> None:
+    """TINY_HF_LLAMA as a local HF checkpoint directory: `config.json` and
+    `model.safetensors` (bf16, `synth_hf_state_dict` drawn on the CPU, the
+    matrices scaled from N(0, 0.02^2) to N(0, init^2))."""
+    from neural_speed_tpu_torch.models.configs import arch_from_hf_config
+    from neural_speed_tpu_torch.utils.synthetic import (synth_hf_state_dict,
+                                                        write_safetensors)
+
+    sd = synth_hf_state_dict("llama", arch_from_hf_config(TINY_HF_LLAMA),
+                             seed=seed, device="cpu")
+    sd = {k: (v.float() * (init / 0.02)).to(v.dtype) if v.dim() == 2 else v
+          for k, v in sd.items()}
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(TINY_HF_LLAMA, f)
+    write_safetensors(os.path.join(d, "model.safetensors"), sd)
+
+
+def tiny_serving_run(d: str, dev: str, qk: bool) -> tuple:
+    """The tiny llama of directory `d` through `Model().init(d)` (on the
+    card by default: `dev` "cuda" passes no device) as `generate` over
+    `Engine` and `ModelServer` over `PagedEngine` (page size 128), the int8
+    cache, with the int8 score dot (`qk`) or without.  Returns (generate's
+    ids, the server's ids, generate's sampling calls, the server's sampling
+    calls, the launches in the run)."""
+    from neural_speed_tpu_torch import _build, api
+    from neural_speed_tpu_torch.ops import flash
+    from neural_speed_tpu_torch.ops.sampling import SamplingParams
+
+    where = {} if dev == "cuda" else {"device": dev}
+    prev = flash.FLASH_INT8_DOT
+    flash.FLASH_INT8_DOT = qk
+    try:
+        before = dict(_build.launches)
+        models = {paged: api.Model().init(
+            d, weight_dtype="int4", group_size=64, scale_dtype="bf16",
+            max_batch=2, ctx_size=256, kv_quantized=True, paged=paged,
+            page_size=128, **where) for paged in (False, True)}
+        for m in models.values():
+            if m.engine.device.type != dev:
+                raise AssertionError(f"Model().init built its engine on "
+                                     f"{m.engine.device}, not {dev}")
+        with _SampleLog() as gen_log:
+            out = models[False].generate(
+                TINY_SERVE_PROMPTS, max_new_tokens=TINY_SERVE_NEW,
+                ignore_prompt=True, repetition_penalty=1.0)
+        results = {}
+        with _SampleLog() as srv_log:
+            with api.ModelServer(
+                    models[True], lambda rid, toks: results.update(
+                        {rid: list(toks)}),
+                    sampling=SamplingParams(do_sample=False,
+                                            repetition_penalty=1.0),
+                    max_new_tokens=TINY_SERVE_NEW) as srv:
+                for p in TINY_SERVE_PROMPTS:
+                    srv.issue_query(p)
+                srv.join()
+        eng = models[True].engine
+        if eng._alloc.available != eng.n_pages - 1:
+            raise AssertionError(f"tiny api.Model on {dev}: pages left "
+                                 f"allocated")
+        launches = {k: v - before.get(k, 0) for k, v in
+                    _build.launches.items() if v != before.get(k, 0)}
+    finally:
+        flash.FLASH_INT8_DOT = prev
+    return (out, [results[i] for i in range(len(out))], gen_log.calls,
+            srv_log.calls, launches)
+
+
+def check_tiny_serving(qk: bool) -> dict:
+    """The tiny llama directory through `Model().init(dir)` on the card and
+    `Model().init(dir, device="cpu")` (`tiny_serving_run`), with or without
+    the int8 score dot (`qk`): every sampling call's logits are held card
+    against CPU by `_hold_tiny`; the ids are equal and the server delivers
+    `generate`'s.  Returns the card's launches."""
+    import tempfile
+
+    label = f"tiny api.Model ({'qk' if qk else 'qk off'})"
+    seed, _ = TINY_SEEDS["tiny hf llama" + (" qk" if qk else "")]
+    with tempfile.TemporaryDirectory() as d:
+        write_tiny_llama(d, seed, TINY_HF_INIT)
+        runs = {dev: tiny_serving_run(d, dev, qk) for dev in ("cuda", "cpu")}
+    card, cpu = runs["cuda"], runs["cpu"]
+    for part, calls in (("generate", 2), ("ModelServer", 3)):
+        if len(card[calls]) != len(cpu[calls]):
+            raise AssertionError(f"{label} {part}: {len(card[calls])} "
+                                 f"sampling calls on the card, "
+                                 f"{len(cpu[calls])} on the CPU")
+        for i, ((lg, act), (lc, _)) in enumerate(zip(card[calls],
+                                                     cpu[calls])):
+            _hold_tiny({"cuda": lg, "cpu": lc}, act,
+                       f"{label} {part} sampling call {i}")
+    if card[:2] != cpu[:2] or card[0] != card[1]:
+        raise AssertionError(f"{label}: ids card {card[:2]} CPU {cpu[:2]}")
+    if any(len(g) != TINY_SERVE_NEW for g in card[0]):
+        raise AssertionError(f"{label}: budgets not delivered: {card[0]}")
+    launches = card[4]
+    want = {"qmatmul", "flash_decode_qk", "flash_decode_paged_qk"} if qk else {
+        "qmatmul", "flash_decode", "flash_decode_paged"}
+    missing = want - set(launches)
+    if missing or (not qk and any(k.endswith("_qk") for k in launches)):
+        raise AssertionError(f"{label}: card launches {launches}")
+    log(f"  {label}: Model().init(dir) on the card (seed {seed}; int4 g64, "
+        f"converted and quantized there), generate (Engine) and ModelServer (PagedEngine) "
+        f"equal to Model().init(dir, device='cpu'), ids {card[0]}, every "
+        f"sampling call held by _hold_tiny; card launches {launches}")
+    return launches
 
 
 def check_tiny_paged(label: str = "int4", kv_quantized: bool = True
@@ -4406,6 +4659,311 @@ def serve_whisper(profile: bool) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 13: continuous-batching serving through api.Model / ModelServer
+# ---------------------------------------------------------------------------
+
+# Eight requests issued at once: phase 4's four ragged ones, then four more.
+SERVE_LENS = RAGGED_LENS + [1500, 640, 128, 9]
+SERVE_BUDGETS = RAGGED_BUDGETS + [32, 12, 20, 6]
+
+
+def _alone_logits(params, cfg, prompts):
+    """Each prompt prefilled alone (B = 1, a contiguous int8 cache): its
+    last-token logits, on the CPU (float32)."""
+    from neural_speed_tpu_torch.ops import kv_cache as kvc
+    from neural_speed_tpu_torch.runtime.engine import pad_to_bucket, prefill_step
+
+    cache = kvc.init_cache(cfg.n_layers, 1, 2048, cfg.n_kv_heads,
+                           cfg.head_dim, quantized=True)
+    out = []
+    for p in prompts:
+        t = pad_to_bucket(len(p), (32, 64, 128, 256, 512, 1024, 2048))
+        ids = torch.zeros((1, t), dtype=torch.int32)
+        ids[0, :len(p)] = torch.tensor(p, dtype=torch.int32)
+        zero = torch.zeros((1,), dtype=torch.int32, device="cuda")
+        kvc.set_lengths(cache, zero)
+        logits, cache = prefill_step(
+            params, cfg, cache, ids.cuda(),
+            torch.tensor([len(p)], dtype=torch.int32, device="cuda"), zero)
+        out.append(logits[0].float().cpu())
+    return out
+
+
+def _serve_once(model, prompts, qk: bool) -> dict:
+    """The eight requests through `ModelServer` (greedy, eos_id None),
+    issued at once.  The first token of each is timed by a streamer that a
+    wrapper of the scheduler's `add_request` attaches (the server's
+    `issue_query` takes none); finishes by the response callback."""
+    from neural_speed_tpu_torch import _build, api
+    from neural_speed_tpu_torch.ops import flash
+
+    first, done, results, prefill = {}, {}, {}, {}
+    prev = flash.FLASH_INT8_DOT
+    flash.FLASH_INT8_DOT = qk
+    try:
+        def respond(rid, toks):
+            done[rid] = time.perf_counter()
+            results[rid] = list(toks)
+
+        srv = api.ModelServer(model, respond, max_new_tokens=8)
+        add = srv.sched.add_request
+
+        def add_request(prompt, max_new_tokens=128, streamer=None):
+            rid = srv.sched._next_rid
+            stream = lambda tok: first.setdefault(rid, time.perf_counter())
+            return add(prompt, max_new_tokens, streamer=stream)
+
+        srv.sched.add_request = add_request
+        # each request's prefill logits (the row its first token is sampled
+        # from), kept for the check against the prompt prefilled alone
+        commit = srv.sched._sample_and_commit
+
+        def sample_and_commit(logits, slot_map, prompt_obs=None):
+            for slot, seq in slot_map.items():
+                prefill[seq.request_id] = logits[slot].float().cpu()
+            return commit(logits, slot_map, prompt_obs)
+
+        srv.sched._sample_and_commit = sample_and_commit
+        _build.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p, n in zip(prompts, SERVE_BUDGETS):
+            srv.issue_query(p, max_new_tokens=n)
+        srv.join()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        srv.shutdown()
+    finally:
+        flash.FLASH_INT8_DOT = prev
+    n = len(prompts)
+    ttft = [(first[i] - t0) * 1e3 for i in range(n)]
+    per_tok = [(done[i] - first[i]) * 1e3 / (SERVE_BUDGETS[i] - 1)
+               for i in range(n)]
+    return dict(ids=[results[i] for i in range(n)], wall_s=wall,
+                prefill_logits=[prefill[i] for i in range(n)],
+                ttft_ms=ttft, ms_per_token=per_tok,
+                requests_per_s=n / wall,
+                tokens_per_s=sum(SERVE_BUDGETS) / wall,
+                decode_ms_per_token=statistics.median(per_tok),
+                launches=dict(_build.launches),
+                instances=dict(_build.instance_launches),
+                plain=dict(_build.plain_dispatches),
+                timings=dict(prefill_s=srv.sched.timings.prefill_s,
+                             decode_s=srv.sched.timings.decode_s,
+                             decode_tokens=srv.sched.timings.decode_tokens))
+
+
+def _hold_window(eng, prompts, qk: bool) -> dict:
+    """The first decode window of phase 13's engine, held against its plain
+    version: the scheduler over the first four prompts (greedy without the
+    repetition penalty, budget 9: the prefill's token and one 8-token
+    window), run once through the kernels and once with kernel 10's wrapper
+    swapped for its plain version on the card, with or without the int8
+    score dot (`qk`).  At each step every slot's logits lie within 2% of
+    the plain run's largest logit, and its id equals the plain run's
+    wherever the plain top-2 margin exceeds twice the slot's difference (a
+    slot is compared up to its first id that differs).  Returns the slot
+    steps compared and the largest difference."""
+    from neural_speed_tpu_torch.ops import flash
+    from neural_speed_tpu_torch.ops import sampling as smp
+    from neural_speed_tpu_torch.runtime.scheduler import (
+        ContinuousBatchingScheduler)
+
+    what = f"phase 13 decode window ({'qk' if qk else 'qk off'})"
+    sp = smp.SamplingParams(do_sample=False, repetition_penalty=1.0)
+    calls = {}
+    prev_qk, prev_fn = flash.FLASH_INT8_DOT, flash.decode_paged_cuda
+    flash.FLASH_INT8_DOT = qk
+    try:
+        for mode in ("kernel", "plain"):
+            if mode == "plain":
+                flash.decode_paged_cuda = flash.decode_paged_plain
+            sched = ContinuousBatchingScheduler(eng, sp, window=8,
+                                                pipeline_decode=False)
+            for p in prompts[:4]:
+                sched.add_request(p, 9)
+            sched.step()                          # the prefill
+            with _SampleLog() as rec:
+                sched.step()                      # one 8-token window
+            sched.run_to_completion()
+            calls[mode] = rec.calls
+    finally:
+        flash.FLASH_INT8_DOT = prev_qk
+        flash.decode_paged_cuda = prev_fn
+    if len(calls["kernel"]) != len(calls["plain"]):
+        raise AssertionError(f"{what}: {len(calls['kernel'])} steps through "
+                             f"the kernels, {len(calls['plain'])} plain")
+    live = torch.ones(len(calls["plain"][0][1]), dtype=torch.bool)
+    checked, worst, share = 0, 0.0, 0.0
+    for i, ((lk, act), (lp, _)) in enumerate(zip(calls["kernel"],
+                                                 calls["plain"])):
+        rows = act & live
+        if not rows.any():
+            break
+        tol = 0.02 * lp[rows].abs().max().item()
+        top2 = lp.topk(2, dim=-1).values
+        for r in rows.nonzero().flatten().tolist():
+            diff = (lk[r] - lp[r]).abs().max().item()
+            worst = max(worst, diff)
+            share = max(share, diff / (tol / 0.02))
+            if diff > tol:
+                raise AssertionError(f"{what}: step {i} slot {r}: logits "
+                                     f"differ by {diff} > {tol}")
+            if int(lk[r].argmax()) == int(lp[r].argmax()):
+                checked += 1
+            elif (top2[r, 0] - top2[r, 1]).item() > 2 * diff:
+                raise AssertionError(f"{what}: step {i} slot {r}: id "
+                                     f"{int(lk[r].argmax())}, plain "
+                                     f"{int(lp[r].argmax())}")
+            else:
+                live[r] = False
+    if not checked:
+        raise AssertionError(f"{what}: no step was compared")
+    log(f"  {what}: through kernel 10 against its plain version on the "
+        f"card: {checked} slot steps with equal ids, logits within "
+        f"{worst:.3g}, at most {100 * share:.3g}% of the step's largest "
+        f"logit (2% allowed)")
+    return dict(slot_steps=checked, max_abs_diff=worst,
+                max_share_of_largest=share)
+
+
+def serve_model_server(profile: bool) -> dict:
+    """Phase 13: Llama-2-7B int4 (phase 4's params, 32 layers) as an
+    `api.Model` over `PagedEngine(kv_quantized=True, max_batch=4,
+    max_len=2048, page_size=128)`, serving eight requests through
+    `ModelServer`, without and then with the int8 score dot: every budget
+    delivered; each request's prefill logits within 2% of the largest
+    logit (as `_hold_tiny`) of its prompt prefilled alone, and its first
+    token the penalized argmax of the prompt alone (the server's greedy
+    sampler applies the repetition penalty of 1.1 over the prompt) wherever
+    that top-2 margin exceeds twice the logits' measured difference; the
+    pool free after `join`, kernels A, 9 and 10 launched (10's `_qk`
+    instance under qk) and no plain version.  Then the first decode window
+    of each, through the kernels, against the same window with kernel 10's
+    plain version (`_hold_window`).  Host clock: TTFT per request
+    (issue to its first token), ms/token per request, requests/s and
+    tokens/s.  `--profile`: one traced decode window of the scheduler
+    (8 tokens, B = 4) with and without qk."""
+    import gc
+
+    from neural_speed_tpu_torch import api
+    from neural_speed_tpu_torch.ops import flash
+    from neural_speed_tpu_torch.ops import sampling as smp
+    from neural_speed_tpu_torch.runtime.scheduler import (
+        ContinuousBatchingScheduler)
+
+    params, cfg = params_7b()
+    model = api.Model()
+    model.cfg = cfg
+    model._make_engine(params, 4, 2048, True, paged=True, page_size=128)
+    eng = model.engine
+    gen = torch.Generator().manual_seed(13)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in SERVE_LENS]
+    alone = _alone_logits(eng.params, eng.cfg, prompts)
+    # the server's greedy sampler: the repetition penalty over the prompt
+    sp = smp.SamplingParams(do_sample=False)
+
+    def penalized(lg, p):
+        st = smp.observe_prompt_slot(
+            smp.init_state(0, 1, cfg.vocab_size, window=sp.penalty_window,
+                           device="cpu"), 0, p[-sp.penalty_window:])
+        return smp.apply_penalties(lg[None], st, sp)[0]
+    # the first launches and the build outside the timed runs
+    warm = ContinuousBatchingScheduler(eng)
+    warm.warmup(prompt_len=64)
+    res = {}
+    for qk in (False, True):
+        key = "qk" if qk else "qk_off"
+        r = _serve_once(model, prompts, qk)
+        what = f"phase 13 ({'qk' if qk else 'qk off'})"
+        if [len(g) for g in r["ids"]] != SERVE_BUDGETS:
+            raise AssertionError(f"{what}: delivered {[len(g) for g in r['ids']]}"
+                                 f" tokens, budgets {SERVE_BUDGETS}")
+        checked, equal, diffs = 0, 0, []
+        for i, (lg, got, g) in enumerate(zip(alone, r["prefill_logits"],
+                                             r["ids"])):
+            diff = (got - lg).abs().max().item()
+            diffs.append(diff)
+            equal += diff == 0
+            if diff > 0.02 * lg.abs().max().item():
+                raise AssertionError(
+                    f"{what}: request {i}'s prefill logits differ from its "
+                    f"prompt alone's by {diff}")
+            pen = penalized(lg, prompts[i])
+            top2 = pen.topk(2).values
+            # the penalty scales a logit by at most 1.1
+            if (top2[0] - top2[1]).item() > 2 * 1.1 * diff:
+                checked += 1
+                if g[0] != int(pen.argmax()):
+                    raise AssertionError(
+                        f"{what}: request {i}'s first token {g[0]} is not "
+                        f"the argmax {int(pen.argmax())} of its prompt "
+                        f"alone")
+        if not checked:
+            raise AssertionError(f"{what}: no first token was checked")
+        r["prefill_logits_max_diff"] = diffs
+        del r["prefill_logits"]
+        if eng._alloc.available != eng.n_pages - 1:
+            raise AssertionError(f"{what}: {eng.n_pages - 1 - eng._alloc.available}"
+                                 f" pages left allocated after join")
+        want = ("qmatmul", "flash_prefill_paged",
+                "flash_decode_paged_qk" if qk else "flash_decode_paged")
+        for k in want:
+            if r["launches"].get(k, 0) <= 0:
+                raise AssertionError(f"{what}: {k} was not launched")
+        if not qk and any(k.endswith("_qk") for k in r["launches"]):
+            raise AssertionError(f"{what}: a _qk instance ran with qk off")
+        if sum(r["plain"].values()):
+            raise AssertionError(f"{what}: a plain version ran: {r['plain']}")
+        r["first_tokens_checked"] = checked
+        log(f"  {what}: 8 requests (prompts {SERVE_LENS}, budgets "
+            f"{SERVE_BUDGETS}) in {r['wall_s'] * 1e3:.1f} ms: "
+            f"{r['requests_per_s']:.3f} requests/s, "
+            f"{r['tokens_per_s']:.2f} tokens/s; TTFT ms "
+            f"{[round(x, 1) for x in r['ttft_ms']]}; ms/token "
+            f"{[round(x, 2) for x in r['ms_per_token']]} (median "
+            f"{r['decode_ms_per_token']:.2f}); prefill logits equal to "
+            f"the prompt alone's bit for bit at {equal} of 8 (largest "
+            f"difference {max(diffs):.3g}); first tokens equal to the "
+            f"prompt alone's penalized argmax at {checked} of 8 (the "
+            f"others' margins within twice that difference); the pool "
+            f"free; launches {r['launches']}")
+        res[key] = r
+    for qk in (False, True):
+        res[f"window_hold_{'qk' if qk else 'qk_off'}"] = _hold_window(
+            eng, prompts, qk)
+    if res["qk"]["ids"] != res["qk_off"]["ids"]:
+        same = sum(a == b for a, b in zip(res["qk"]["ids"],
+                                          res["qk_off"]["ids"]))
+        log(f"  phase 13: qk changed the streams of {8 - same} of 8 "
+            f"requests (its scores differ from the float product's)")
+    log(f"  phase 13: decode ms/token (median over requests) qk off "
+        f"{res['qk_off']['decode_ms_per_token']:.2f}, qk "
+        f"{res['qk']['decode_ms_per_token']:.2f}")
+    if profile:
+        for qk in (False, True):
+            prev = flash.FLASH_INT8_DOT
+            flash.FLASH_INT8_DOT = qk
+            try:
+                sched = ContinuousBatchingScheduler(eng, window=8,
+                                                    pipeline_decode=False)
+                for p in prompts[:4]:
+                    sched.add_request(p, 17)
+                sched.step()                      # the prefill
+                label = f"decode_serving{'_qk' if qk else ''}"
+                res[f"profile_{label}"] = profile_window(
+                    lambda: sched.step(), label, 8)
+                sched.run_to_completion()
+            finally:
+                flash.FLASH_INT8_DOT = prev
+    del model, eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -4419,11 +4977,11 @@ def main() -> int:
                          "main path with torch.profiler")
     ap.add_argument("--phases", default="",
                     help="run only these phases after the build (numbers "
-                         "2-12, comma-separated; 6 needs 4); the default "
+                         "2-13, comma-separated; 6 needs 4); the default "
                          "runs every phase")
     args = ap.parse_args()
     phases = ({int(x) for x in args.phases.split(",")} if args.phases
-              else set(range(2, 13)))
+              else set(range(2, 14)))
     if 6 in phases and 4 not in phases:
         ap.error("--phases: phase 6 serves phase 4's params")
     if not torch.cuda.is_available():
@@ -4469,6 +5027,8 @@ def main() -> int:
                          check_flash_noncausal),
                         ("flash_decode flash_prefill _f32 whisper",
                          check_flash_whisper_self),
+                        ("flash_decode flash_decode_paged qk",
+                         check_flash_qk),
                         ("qmatmul_int4", check_qmatmul),
                         ("qmatmul_lut qmatmul_planar", check_fp_formats),
                         ("qmatmul_int8 qmatmul_int8_planar",
@@ -4510,6 +5070,8 @@ def main() -> int:
         for fmt in ("int8", "nf4"):
             counts.update(check_tiny_whisper(f"{fmt} g128",
                                              named_qspec(fmt, 128)))
+        for qk in (False, True):
+            counts.update(check_tiny_serving(qk))
     if not args.kernels_only and 4 in phases:
         log_phase("phase 4: Llama-2-7B-shaped int4 serving")
         params, cfg = params_7b()
@@ -4606,6 +5168,13 @@ def main() -> int:
         for run in (summary["whisper"], *summary["whisper"]["quant"].values()):
             counts.update(run["launches"])
             instances.update(run["instances"])
+    if not args.kernels_only and 13 in phases:
+        log_phase("phase 13: Llama-2-7B int4 served through api.Model / "
+                  "ModelServer (PagedEngine, int8 pool), qk off then on")
+        summary["serving"] = serve_model_server(args.profile)
+        for key in ("qk_off", "qk"):
+            counts.update(summary["serving"][key]["launches"])
+            instances.update(summary["serving"][key]["instances"])
     if not args.kernels_only:
         log(f"  launches over the paths {dict(counts)}; attention launches "
             f"per head-dim instance in phases 9-12 {dict(instances)}")

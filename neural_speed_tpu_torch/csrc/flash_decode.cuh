@@ -12,8 +12,8 @@
 // (nst_flash_decode_paged): int8 K/V (bf16 or float32 scales) with
 // extra_kv=True, fused_append=True; int8, bf16 or float32 K/V with neither;
 // ALiBi or none; logit softcap or none; causal or not; bf16 or float32
-// output; every head dim the JAX kernels take (multiples of 8 up to 256,
-// `_head_dim_ok`).
+// output; the int8 score dot (FLASH_INT8_DOT) over int8 K/V or not; every
+// head dim the JAX kernels take (multiples of 8 up to 256, `_head_dim_ok`).
 //
 // What it computes, per slot b and KV head hk, for the n_rep query heads of
 // that group (one token per slot):
@@ -96,6 +96,21 @@
 // type (OT, bf16 or float32) is a template parameter of the combine kernel
 // only, which writes the output: a second small instance.
 //
+// The int8 score dot (NST_FLASH_INT8=qk, the JAX body's `quantized and
+// FLASH_INT8_DOT` branch, flash.py:464-479): each q row is quantized to int8
+// codes with the per-row scale qsc = max(max|q|, 1e-6) / 127 (IEEE
+// division; codes rint(q / qsc) clipped to +-127), and a column's score is
+// float(int32 dot of the codes with the K codes) * qsc * k_scale * sm_scale,
+// then the softcap, ALiBi and the mask as before.  The seed column keeps the
+// float product.  It is a compile-time parameter (QK) of the int8 split
+// kernels only, exact and masked, both scale types: a runtime test in B's
+// inner loop moved B and 10 by 0.75-1.25x (the softcap, above), so the
+// kernels without it are the code they were.  Each block quantizes its
+// rows' q into shared memory (one warp per row: the row's |max| by warp
+// shuffles, then the codes); a thread scores its column with __dp4a over
+// its 16-byte (8-byte) K loads against 16-byte (8-byte) shared loads of the
+// codes, and the int32 sum is exact.
+//
 // Compiled without --use_fast_math: the quantization must match
 // kv_cache.quantize_kv bit for bit (IEEE division, round half to even), and
 // the softcap the plain versions' torch.tanh (libdevice's tanhf).
@@ -126,6 +141,28 @@ struct VStage {
   static constexpr bool kStatic = kBytes <= 32 * 1024;
 };
 
+// si[r] += qi[r] . (chunk `ch` of the int8 K row kr), for the n_rep rows:
+// the int8 score dot's int32 sums (__dp4a over 4-byte words).
+template <int R, int VB>
+__device__ __forceinline__ void score_chunk_qk(int (&si)[R],
+                                               const int8_t (*qi)[DI],
+                                               const int8_t* kr, int ch,
+                                               int n_rep) {
+  using Raw = typename nst::RowChunk<int8_t, VB>::Raw;
+  constexpr int W = VB / 4;                  // words per load
+  const nst::RowChunk<int8_t, VB> k8(kr + ch * VB);
+  const int* kw = reinterpret_cast<const int*>(&k8.raw);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (r < n_rep) {
+      const Raw q8 = *reinterpret_cast<const Raw*>(&qi[r][ch * VB]);
+      const int* qw = reinterpret_cast<const int*>(&q8);
+#pragma unroll
+      for (int w = 0; w < W; ++w) si[r] = __dp4a(kw[w], qw[w], si[r]);
+    }
+  }
+}
+
 // s[r] += q[r] . (chunk `ch` of the K row kr), for the n_rep rows.
 template <int R, class T, int VB>
 __device__ __forceinline__ void score_chunk(float (&s)[R],
@@ -146,8 +183,10 @@ __device__ __forceinline__ void score_chunk(float (&s)[R],
 // R: a power of two >= n_rep, so the per-row arrays have compile-time
 // indices and stay in registers.  T: the cache's element type (KVElem);
 // VB: bytes per row load; EXACT: D is the instance's head dim; SC: the
-// int8 cache's scale type; CAP: the softcap (Cap).
-template <int R, class T, int VB, bool EXACT, class Cache, class SC, int CAP>
+// int8 cache's scale type; CAP: the softcap (Cap); QK: the int8 score dot
+// (int8 T only).
+template <int R, class T, int VB, bool EXACT, class Cache, class SC, int CAP,
+          bool QK = false>
 __global__ void __launch_bounds__(THREADS)
 flash_decode_split(Cache cache, const __nv_bfloat16* __restrict__ q,
                    const T* __restrict__ kc, const T* __restrict__ vc,
@@ -176,7 +215,11 @@ flash_decode_split(Cache cache, const __nv_bfloat16* __restrict__ q,
   const int c0 = split * chunk;
   const int c1 = min(c0 + chunk, c_end);
 
-  __shared__ float qs[R][DI];
+  static_assert(!QK || nst::KVElem<T>::kQuantized, "qk reads int8 K");
+  __shared__ float qs[QK ? 1 : R][DI];
+  // the int8 score dot: q rows' codes and scales
+  __shared__ __align__(16) int8_t qi[QK ? R : 1][DI];
+  __shared__ float qsc[QK ? R : 1];
   __shared__ float ps[R][THREADS];
   __shared__ float red_max[R][NW];
   __shared__ float red_sum[R][NW];
@@ -186,11 +229,26 @@ flash_decode_split(Cache cache, const __nv_bfloat16* __restrict__ q,
   extern __shared__ __align__(16) unsigned char dyn_smem[];
   ST* vsm = VStage<T>::kStatic ? vsm_static : reinterpret_cast<ST*>(dyn_smem);
 
-  for (int i = tid; i < n_rep * DI; i += THREADS) {
-    const int r = i / DI, d = i % DI;
-    qs[r][d] = d < D ? __bfloat162float(
-                           q[((size_t)b * H + hk * n_rep + r) * D + d])
-                     : 0.f;
+  if constexpr (QK) {
+    for (int r = warp; r < n_rep; r += NW) {
+      const __nv_bfloat16* qr = q + ((size_t)b * H + hk * n_rep + r) * D;
+      float amax = 0.f;
+      for (int d = lane; d < D; d += 32)
+        amax = fmaxf(amax, fabsf(__bfloat162float(qr[d])));
+      const float sc = fmaxf(nst::warp_max(amax), 1e-6f) / 127.0f;
+      for (int d = lane; d < DI; d += 32) {
+        const float x = d < D ? __bfloat162float(qr[d]) : 0.f;
+        qi[r][d] = (int8_t)fminf(fmaxf(rintf(x / sc), -127.f), 127.f);
+      }
+      if (lane == 0) qsc[r] = sc;
+    }
+  } else {
+    for (int i = tid; i < n_rep * DI; i += THREADS) {
+      const int r = i / DI, d = i % DI;
+      qs[r][d] = d < D ? __bfloat162float(
+                             q[((size_t)b * H + hk * n_rep + r) * D + d])
+                       : 0.f;
+    }
   }
   float slope[R];
 #pragma unroll
@@ -228,7 +286,23 @@ flash_decode_split(Cache cache, const __nv_bfloat16* __restrict__ q,
     if (valid) {
       const size_t rc = rows(c);
       const T* kr = kc + rc * D;
-      if constexpr (EXACT) {
+      if constexpr (QK) {
+        int si[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) si[r] = 0;
+        if constexpr (EXACT) {
+#pragma unroll (CU)
+          for (int ch = 0; ch < CH; ++ch)
+            score_chunk_qk<R, VB>(si, qi, kr, ch, n_rep);
+        } else {
+#pragma unroll 1
+          for (int ch = 0; ch < nch; ++ch)
+            score_chunk_qk<R, VB>(si, qi, kr, ch, n_rep);
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          if (r < n_rep) s[r] = (float)si[r] * qsc[r];
+      } else if constexpr (EXACT) {
 #pragma unroll (CU)
         for (int ch = 0; ch < CH; ++ch)
           score_chunk<R, T, VB>(s, qs, kr, ch, n_rep);
@@ -422,15 +496,27 @@ flash_decode_combine(Cache cache, const __nv_bfloat16* __restrict__ q,
 }
 
 // The split kernel for n_rep query heads per KV head (R: the next power of
-// two up to MAX_REP) with the softcap CAP.
-template <int CAP, class T, int VB, bool EXACT, class Cache, class SC>
+// two up to MAX_REP) with the softcap CAP and the int8 score dot QK.
+template <int CAP, class T, int VB, bool EXACT, class Cache, class SC,
+          bool QK = false>
 auto split_for(int n_rep)
     -> decltype(&flash_decode_split<1, T, VB, EXACT, Cache, SC, CAP>) {
-  return n_rep <= 1   ? flash_decode_split<1, T, VB, EXACT, Cache, SC, CAP>
-         : n_rep <= 2 ? flash_decode_split<2, T, VB, EXACT, Cache, SC, CAP>
-         : n_rep <= 4 ? flash_decode_split<4, T, VB, EXACT, Cache, SC, CAP>
+  return n_rep <= 1   ? flash_decode_split<1, T, VB, EXACT, Cache, SC, CAP, QK>
+         : n_rep <= 2 ? flash_decode_split<2, T, VB, EXACT, Cache, SC, CAP, QK>
+         : n_rep <= 4 ? flash_decode_split<4, T, VB, EXACT, Cache, SC, CAP, QK>
                       : flash_decode_split<MAX_REP, T, VB, EXACT, Cache, SC,
-                                           CAP>;
+                                           CAP, QK>;
+}
+
+// split_for, with the int8 score dot when `qk` (int8 K only: the other
+// element types have no QK instance).
+template <int CAP, class T, int VB, bool EXACT, class Cache, class SC>
+auto split_qk(int n_rep, int qk)
+    -> decltype(&flash_decode_split<1, T, VB, EXACT, Cache, SC, CAP>) {
+  if constexpr (nst::KVElem<T>::kQuantized) {
+    if (qk) return split_for<CAP, T, VB, EXACT, Cache, SC, true>(n_rep);
+  }
+  return split_for<CAP, T, VB, EXACT, Cache, SC>(n_rep);
 }
 
 template <class T, int VB, bool EXACT, class SC, class Cache>
@@ -440,7 +526,7 @@ cudaError_t launch(Cache cache, const void* q, const void* k_new,
                    void* part_m, void* part_l, void* part_acc, void* out,
                    int B, int H, int Hkv, int S, int D, int layer, int chunk,
                    int extra, int fused_append, int causal, int out_f32,
-                   float sm_scale, float softcap, cudaStream_t st) {
+                   int qk, float sm_scale, float softcap, cudaStream_t st) {
   const int splits = (S + chunk - 1) / chunk;
   const int n_rep = H / Hkv;
   auto bq = static_cast<const __nv_bfloat16*>(q);
@@ -448,10 +534,10 @@ cudaError_t launch(Cache cache, const void* q, const void* k_new,
   decltype(&flash_decode_split<1, T, VB, EXACT, Cache, SC, CAP>) split_kernel;
   if constexpr (EXACT) {
     split_kernel = softcap > 0.f
-                       ? split_for<ON, T, VB, EXACT, Cache, SC>(n_rep)
-                       : split_for<OFF, T, VB, EXACT, Cache, SC>(n_rep);
+                       ? split_qk<ON, T, VB, EXACT, Cache, SC>(n_rep, qk)
+                       : split_qk<OFF, T, VB, EXACT, Cache, SC>(n_rep, qk);
   } else {
-    split_kernel = split_for<RUNTIME, T, VB, EXACT, Cache, SC>(n_rep);
+    split_kernel = split_qk<RUNTIME, T, VB, EXACT, Cache, SC>(n_rep, qk);
   }
   const int vbytes = VStage<T>::kStatic ? 0 : VStage<T>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -504,13 +590,13 @@ cudaError_t launch_int8(Cache cache, int D, const void* q, const void* k_new,
                         const void* kv_lens, void* part_m, void* part_l,
                         void* part_acc, void* out, int B, int H, int Hkv,
                         int S, int layer, int chunk, int extra,
-                        int fused_append, int causal, int out_f32,
+                        int fused_append, int causal, int out_f32, int qk,
                         float sm_scale, float softcap, cudaStream_t st) {
 #define NST_LAUNCH(VB, EXACT)                                                 \
   launch<int8_t, VB, EXACT, SC>(cache, q, k_new, v_new, kc, vc, ks, vs,       \
                                 slopes, pos, kv_lens, part_m, part_l,         \
                                 part_acc, out, B, H, Hkv, S, D, layer, chunk, \
-                                extra, fused_append, causal, out_f32,         \
+                                extra, fused_append, causal, out_f32, qk,     \
                                 sm_scale, softcap, st)
   if (D == DI) return NST_LAUNCH(16, true);
   if (D % 16 == 0) return NST_LAUNCH(16, false);
@@ -522,31 +608,33 @@ cudaError_t launch_int8(Cache cache, int D, const void* q, const void* k_new,
 // scales, 1 bf16 values, 2 float32 values (no scales, no extra column, no
 // append).  D: the head dim, a multiple of 8 at most this instance's
 // (below it, the masked kernels); int8 rows of D % 16 == 8 take 8-byte
-// loads.  causal: 1 or 0; out_f32: 1 for a float32 output, 0 for bf16.
-// softcap: 0 (off) or the logit softcap.
+// loads.  causal: 1 or 0; out_f32: 1 for a float32 output, 0 for bf16;
+// qk: 1 for the int8 score dot (int8 only), else 0.  softcap: 0 (off) or
+// the logit softcap.
 template <class Cache>
 int launch_d(Cache cache, int D, const void* q, const void* k_new,
              const void* v_new, void* kc, void* vc, void* ks, void* vs,
              const void* slopes, const void* pos, const void* kv_lens,
              void* part_m, void* part_l, void* part_acc, void* out, int B,
              int H, int Hkv, int S, int layer, int chunk, int extra,
-             int fused_append, int kv_type, int causal, int out_f32,
+             int fused_append, int kv_type, int causal, int out_f32, int qk,
              float sm_scale, float softcap, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   const bool int8 = kv_type == 0 || kv_type == 3;
   if (D > DI || D <= 0 || D % 8 || kv_type < 0 || kv_type > 3 ||
-      (!int8 && (extra || fused_append)) || (causal != 0 && causal != 1) ||
-      (out_f32 != 0 && out_f32 != 1) || !(softcap >= 0.f))
+      (!int8 && (extra || fused_append || qk)) ||
+      (causal != 0 && causal != 1) || (out_f32 != 0 && out_f32 != 1) ||
+      (qk != 0 && qk != 1) || !(softcap >= 0.f))
     return (int)cudaErrorInvalidValue;
 #define NST_LAUNCH(T, EXACT)                                                  \
   launch<T, 16, EXACT, __nv_bfloat16>(                                        \
       cache, q, k_new, v_new, kc, vc, ks, vs, slopes, pos, kv_lens, part_m,   \
       part_l, part_acc, out, B, H, Hkv, S, D, layer, chunk, extra,            \
-      fused_append, causal, out_f32, sm_scale, softcap, st)
+      fused_append, causal, out_f32, 0, sm_scale, softcap, st)
 #define NST_LAUNCH_INT8(SC)                                                   \
   launch_int8<SC>(cache, D, q, k_new, v_new, kc, vc, ks, vs, slopes, pos,     \
                   kv_lens, part_m, part_l, part_acc, out, B, H, Hkv, S,       \
-                  layer, chunk, extra, fused_append, causal, out_f32,         \
+                  layer, chunk, extra, fused_append, causal, out_f32, qk,     \
                   sm_scale, softcap, st)
   const bool exact = D == DI;
   cudaError_t err;
@@ -577,12 +665,12 @@ extern "C" int nst_flash_decode(const void* q, const void* k_new,
                                 void* out, int B, int H, int Hkv, int S, int D,
                                 int layer, int chunk, int extra,
                                 int fused_append, int kv_type, int causal,
-                                int out_f32, float sm_scale, float softcap,
-                                void* stream) {
+                                int out_f32, int qk, float sm_scale,
+                                float softcap, void* stream) {
   return launch_d(nst::ContigCache{B, Hkv, S}, D, q, k_new, v_new, kc, vc, ks,
                   vs, slopes, pos, kv_lens, part_m, part_l, part_acc, out, B,
                   H, Hkv, S, layer, chunk, extra, fused_append, kv_type,
-                  causal, out_f32, sm_scale, softcap, stream);
+                  causal, out_f32, qk, sm_scale, softcap, stream);
 }
 
 #else
@@ -594,12 +682,12 @@ extern "C" int nst_flash_decode_paged(
     const void* pos, const void* kv_lens, void* part_m, void* part_l,
     void* part_acc, void* out, int B, int H, int Hkv, int P, int ps,
     int n_blocks, int D, int layer, int chunk, int extra, int fused_append,
-    int kv_type, int causal, int out_f32, float sm_scale, float softcap,
-    void* stream) {
+    int kv_type, int causal, int out_f32, int qk, float sm_scale,
+    float softcap, void* stream) {
   return launch_d(
       nst::PagedCache{static_cast<const int*>(tables), Hkv, P, ps, n_blocks},
       D, q, k_new, v_new, kc, vc, ks, vs, slopes, pos, kv_lens, part_m,
       part_l, part_acc, out, B, H, Hkv, n_blocks * ps, layer, chunk, extra,
-      fused_append, kv_type, causal, out_f32, sm_scale, softcap, stream);
+      fused_append, kv_type, causal, out_f32, qk, sm_scale, softcap, stream);
 }
 #endif

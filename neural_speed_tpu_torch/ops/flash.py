@@ -48,9 +48,22 @@ result unrounded, as the JAX kernels store `o_ref.dtype`).  Launches are
 counted per kernel, element type (`_SUFFIX`; int8 codes with float32
 scales "_f32scale"), softcap ("_softcap") and mask ("_noncausal"), so a
 run can show which variant ran.
+
+`NST_FLASH_INT8=qk` (read once, at import, into `FLASH_INT8_DOT`, as the
+JAX package's flag) turns on the int8 score dot of the JAX decode body
+(`neural_speed_tpu/ops/flash.py:464-479`): each q row is quantized to
+int8 codes with a per-row scale `max(max|q|, 1e-6) / 127` (IEEE division,
+round half to even, clipped to +-127), the score is the exact int32 dot
+of those codes with the K codes, times the q scale, then the K scale and
+the softmax scale.  It runs where the JAX package's head-blocked Pallas
+body runs it and nowhere else (`int8_dot`); there kernels B and 10 take
+it as a compile-time variant of their int8 split kernels, counted with a
+`_qk` suffix, and their plain versions take it too.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -70,8 +83,12 @@ _SCALED = {torch.bfloat16: "", torch.float32: "_f32scale"}
 _KV_TYPE = {"": 0, "_bf16": 1, "_f32": 2, "_f32scale": 3}
 _SOFTCAP = "_softcap"
 _NONCAUSAL = "_noncausal"
+_QK = "_qk"
 # Output dtypes the kernels write, and q dtypes the launchers take.
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
+# The int8 score dot in the decode kernels (NST_FLASH_INT8=qk), read once
+# at import as the JAX package's FLASH_INT8_DOT.
+FLASH_INT8_DOT = os.environ.get("NST_FLASH_INT8", "off") == "qk"
 
 
 def extra_kv_eligible(t: int, n_heads: int, n_kv_heads: int) -> bool:
@@ -80,6 +97,29 @@ def extra_kv_eligible(t: int, n_heads: int, n_kv_heads: int) -> bool:
     per KV head and an even KV head count (the JAX rule `t * n_rep <= 8`
     with a head block of 2 or more, at t == 1)."""
     return t == 1 and n_heads // n_kv_heads <= 8 and n_kv_heads % 2 == 0
+
+
+def int8_dot(t: int, n_heads: int, n_kv_heads: int, d: int,
+             quantized: bool, *, s=None, page_size=None,
+             extra: bool = False) -> bool:
+    """Whether a call runs the int8 score dot (`FLASH_INT8_DOT`): where the
+    JAX package's head-blocked Pallas body `_mha_kernel_hblk` runs, over an
+    int8 cache, and nowhere else.
+    * A head dim the JAX kernels take (`_head_dim_ok`, flash.py:82).
+    * Contiguous cache (`s`, its rows): S % 128 == 0 (`_supported`,
+      flash.py:96) and the head-blocked launcher, t * n_rep <= 8 with an
+      even KV head count (`rp <= 8 and hb > 1`, flash.py:732), with or
+      without the extra column.
+    * Page pool (`page_size`): the extra column (`extra_kv_eligible`) and
+      page_size % 128 == 0 (`mha_paged`, flash.py:1371-1376, 1402); the
+      pool's other calls go to the body of row 9, which has no int8 dot.
+    Elsewhere the JAX package runs XLA or another body, without it."""
+    if not (FLASH_INT8_DOT and quantized and d % 8 == 0 and 8 <= d <= 256):
+        return False
+    hblk = t * (n_heads // n_kv_heads) <= 8 and n_kv_heads % 2 == 0
+    if page_size is None:
+        return hblk and s % 128 == 0
+    return extra and hblk and page_size % 128 == 0
 
 
 def instance_dim(d: int) -> int:
@@ -160,11 +200,29 @@ def _scores(qf: torch.Tensor, kf: torch.Tensor, ks, scale: float,
     return _softcap(sc * scale, softcap)
 
 
+def _scores_qk(qf: torch.Tensor, kf: torch.Tensor, ks: torch.Tensor,
+               scale: float, softcap: float = 0.0) -> torch.Tensor:
+    """The int8 score dot (flash.py:464-479): each bf16(q) row quantized
+    to int8 codes with the scale max(max|q|, 1e-6) / 127 (IEEE division,
+    round half to even, clipped to +-127), the dot with the K codes, times
+    the q scale, the K scale and the softmax scale, then the softcap.  The
+    dot of int8 codes is exact in float32 (|sum| <= 127 * 127 * 256 <
+    2**24), as the kernels' int32 sum."""
+    qb = qf.to(torch.bfloat16).float()
+    amax = qb.abs().amax(dim=-1, keepdim=True)
+    qsc = torch.maximum(amax, amax.new_full((), 1e-6)) / amax.new_full(
+        (), 127.0)
+    qi = torch.clamp(torch.round(qb / qsc), -127.0, 127.0)
+    sc = (qi @ kf.transpose(-1, -2)) * qsc
+    sc = sc * ks[..., None, :]
+    return _softcap(sc * scale, softcap)
+
+
 def decode_plain(q: torch.Tensor, k_new, v_new, k: torch.Tensor,
                  v: torch.Tensor, ks, vs, layer: int, pos: torch.Tensor,
                  kv_lens: torch.Tensor, scale: float, fused_append: bool,
                  out_dtype, alibi=None, softcap: float = 0.0,
-                 causal: bool = True) -> torch.Tensor:
+                 causal: bool = True, qk: bool = False) -> torch.Tensor:
     """Plain version of kernel B.  q [B, 1, H, D] (rounded to bf16 first);
     k/v/ks/vs the stacked cache (ks/vs None for bf16 or float32 K/V); pos
     [B]; alibi: slopes [H] or None; softcap: 0 (off) or the logit
@@ -172,7 +230,11 @@ def decode_plain(q: torch.Tensor, k_new, v_new, k: torch.Tensor,
     current token is the seed column and the cache is read below
     kv_len - 1 for live slots; `fused_append` also writes its quantized
     row in place (the scales in the cache's scale dtype).  Without them the
-    cache is read below kv_len.  Causal: only columns c <= pos."""
+    cache is read below kv_len.  Causal: only columns c <= pos.  `qk`
+    (int8 cache only): the cache columns' scores by the int8 score dot
+    (`_scores_qk`); the seed column keeps the float product."""
+    if qk and ks is None:
+        raise ValueError("the int8 score dot (qk) reads the int8 cache only")
     q = q.to(torch.bfloat16)
     b, _, h, d = q.shape
     hkv, s = k.shape[2], k.shape[3]
@@ -182,8 +244,9 @@ def decode_plain(q: torch.Tensor, k_new, v_new, k: torch.Tensor,
     kvl_cache = kv_lens - ok.to(kv_lens.dtype) if extra else kv_lens
     qg = q[:, 0].reshape(b, hkv, n_rep, d)
     kf, vf = _kv_values(k[layer]), _kv_values(v[layer])      # [B,Hkv,S,D]
-    sc = _scores(qg, kf, None if ks is None else ks[layer].float(),
-                 scale, softcap)                              # [B,Hkv,R,S]
+    score = _scores_qk if qk else _scores
+    sc = score(qg, kf, None if ks is None else ks[layer].float(), scale,
+               softcap)                                       # [B,Hkv,R,S]
     col = torch.arange(s, device=q.device)
     if alibi is not None:
         dist = col.float()[None] - pos.float()[:, None]       # [B, S]
@@ -259,13 +322,13 @@ def decode_paged_plain(q: torch.Tensor, k_new, v_new, k_pages: torch.Tensor,
                        layer: int, pos: torch.Tensor, kv_lens: torch.Tensor,
                        scale: float, fused_append: bool, out_dtype,
                        alibi=None, softcap: float = 0.0,
-                       causal: bool = True) -> torch.Tensor:
+                       causal: bool = True, qk: bool = False) -> torch.Tensor:
     """Plain version of the paged decode kernel: `decode_plain` over the
     layer gathered through the tables; with `fused_append` the live slots'
     quantized rows go to the pool at table[b, (kv_len - 1) // ps]."""
     cache = _gathered_cache(k_pages, v_pages, ks, vs, tables, layer)
     out = decode_plain(q, k_new, v_new, *cache, 0, pos, kv_lens, scale,
-                       False, out_dtype, alibi, softcap, causal)
+                       False, out_dtype, alibi, softcap, causal, qk)
     if fused_append:
         live = pos == kv_lens - 1
         ps = k_pages.shape[3]
@@ -317,11 +380,13 @@ def _quantized(suffix: str) -> bool:
     return suffix in _SCALED.values()
 
 
-def _counter(name: str, suffix: str, softcap: float, causal: bool) -> str:
+def _counter(name: str, suffix: str, softcap: float, causal: bool,
+             qk: bool = False) -> str:
     """The launch / dispatch counter of a kernel over a cache of `suffix`,
-    with or without the softcap, causal or not."""
+    with or without the softcap, causal or not, with or without the int8
+    score dot."""
     return (name + suffix + (_SOFTCAP if softcap else "")
-            + ("" if causal else _NONCAUSAL))
+            + ("" if causal else _NONCAUSAL) + (_QK if qk else ""))
 
 
 def _slopes(alibi, h: int, dev):
@@ -371,26 +436,27 @@ def _check_cache(k, v, ks, vs, layer, pos, kv_lens, q) -> str:
 
 
 def _check_decode(q, k_new, v_new, fused_append, out_dtype, hkv, suffix,
-                  what: str) -> None:
+                  what: str, qk: bool = False) -> None:
     b, t, h, d = q.shape
     extra = k_new is not None
     if not (q.is_cuda and t == 1 and h % hkv == 0 and h // hkv <= 8
             and q.dtype in _OUT_DTYPES and out_dtype in _OUT_DTYPES
             and (not fused_append or extra)
-            and (_quantized(suffix) or not extra)
+            and (_quantized(suffix) or not (extra or qk))
             and (not extra or (k_new.dtype == v_new.dtype == torch.bfloat16
                                and k_new.shape == v_new.shape
                                == (b, 1, hkv, d)))):
         raise ValueError(
             f"{what} takes CUDA tensors: bf16 or float32 q [B, 1, H, D] with "
             f"H / Hkv <= 8, optional bf16 k_new / v_new [B, 1, Hkv, D] over "
-            f"the int8 cache only (needed by fused_append), and writes bf16 "
+            f"the int8 cache only (needed by fused_append), the int8 score "
+            f"dot over the int8 cache only, and writes bf16 "
             f"or float32; got q "
             f"{q.dtype} {tuple(q.shape)} on {q.device}, k_new "
             f"{None if k_new is None else (k_new.dtype, tuple(k_new.shape))},"
             f" cache {'int8' if _quantized(suffix) else suffix[1:]}, "
             f"fused_append "
-            f"{fused_append}, out {out_dtype}")
+            f"{fused_append}, qk {qk}, out {out_dtype}")
 
 
 def _check_prefill(q, q_positions, out_dtype, hkv, what: str) -> None:
@@ -430,17 +496,17 @@ def _flags(causal: bool, out_dtype) -> tuple:
 
 def decode_cuda(q, k_new, v_new, k, v, ks, vs, layer, pos, kv_lens, scale,
                 fused_append, out_dtype, alibi=None, softcap: float = 0.0,
-                causal: bool = True) -> torch.Tensor:
+                causal: bool = True, qk: bool = False) -> torch.Tensor:
     """Kernel B: `flash_decode` over int8 K/V (`_f32scale` with float32
     scales), `flash_decode_bf16` / `flash_decode_f32` over values; each
-    `_softcap` with a softcap, `_noncausal` without the mask.  Shapes as
-    `decode_plain`."""
+    `_softcap` with a softcap, `_noncausal` without the mask, `_qk` with the
+    int8 score dot (int8 K/V only).  Shapes as `decode_plain`."""
     b, t, h, d = q.shape
     hkv, s = k.shape[2], k.shape[3]
     dev = q.device
     suffix = _check_cache(k, v, ks, vs, layer, pos, kv_lens, q)
     _check_decode(q, k_new, v_new, fused_append, out_dtype, hkv, suffix,
-                  "kernel B")
+                  "kernel B", qk)
     extra = k_new is not None
     slopes = _slopes(alibi, h, dev)
     q3 = q.to(torch.bfloat16).contiguous()
@@ -451,15 +517,15 @@ def decode_cuda(q, k_new, v_new, k, v, ks, vs, layer, pos, kv_lens, scale,
     part_m, part_l, part_acc, out = _decode_scratch(b, h, d, s, dev,
                                                     out_dtype)
     fn = _build.kernels.fn(f"flash_decode_d{instance_dim(d)}",
-                           "nst_flash_decode", 14, 12, 2)
+                           "nst_flash_decode", 14, 13, 2)
     code = fn(q3.data_ptr(), _ptr(kn), _ptr(vn), k.data_ptr(), v.data_ptr(),
               _ptr(ks), _ptr(vs), _ptr(slopes), pos32.data_ptr(),
               lens32.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
               part_acc.data_ptr(), out.data_ptr(), b, h, hkv, s, d, layer,
               DECODE_CHUNK, int(extra), int(fused_append), _KV_TYPE[suffix],
-              *_flags(causal, out_dtype), float(scale), float(softcap),
-              _build.stream_handle())
-    _launched(_counter("flash_decode", suffix, softcap, causal), d, code)
+              *_flags(causal, out_dtype), int(qk), float(scale),
+              float(softcap), _build.stream_handle())
+    _launched(_counter("flash_decode", suffix, softcap, causal, qk), d, code)
     return out
 
 
@@ -529,18 +595,18 @@ def _check_pool(kp, vp, ks, vs, tables, layer, pos, kv_lens, q) -> str:
 def decode_paged_cuda(q, k_new, v_new, kp, vp, ks, vs, tables, layer, pos,
                       kv_lens, scale, fused_append, out_dtype,
                       alibi=None, softcap: float = 0.0,
-                      causal: bool = True) -> torch.Tensor:
+                      causal: bool = True, qk: bool = False) -> torch.Tensor:
     """The paged decode kernel (paged twin of kernel B;
     `flash_decode_paged` and its `_f32scale` / `_bf16` / `_f32` element
-    types, each `_softcap` with a softcap, `_noncausal` without the mask).
-    Shapes as `decode_paged_plain`."""
+    types, each `_softcap` with a softcap, `_noncausal` without the mask,
+    `_qk` with the int8 score dot).  Shapes as `decode_paged_plain`."""
     b, t, h, d = q.shape
     hkv, n_pages, ps = kp.shape[1], kp.shape[2], kp.shape[3]
     n_blocks = tables.shape[1]
     dev = q.device
     suffix = _check_pool(kp, vp, ks, vs, tables, layer, pos, kv_lens, q)
     _check_decode(q, k_new, v_new, fused_append, out_dtype, hkv, suffix,
-                  "the paged decode kernel")
+                  "the paged decode kernel", qk)
     extra = k_new is not None
     slopes = _slopes(alibi, h, dev)
     q3 = q.to(torch.bfloat16).contiguous()
@@ -551,16 +617,16 @@ def decode_paged_cuda(q, k_new, v_new, kp, vp, ks, vs, tables, layer, pos,
     part_m, part_l, part_acc, out = _decode_scratch(b, h, d, n_blocks * ps,
                                                     dev, out_dtype)
     fn = _build.kernels.fn(f"flash_decode_paged_d{instance_dim(d)}",
-                           "nst_flash_decode_paged", 15, 14, 2)
+                           "nst_flash_decode_paged", 15, 15, 2)
     code = fn(q3.data_ptr(), _ptr(kn), _ptr(vn), kp.data_ptr(),
               vp.data_ptr(), _ptr(ks), _ptr(vs), _ptr(slopes),
               tables.data_ptr(), pos32.data_ptr(), lens32.data_ptr(),
               part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
               out.data_ptr(), b, h, hkv, n_pages, ps, n_blocks, d, layer,
               DECODE_CHUNK, int(extra), int(fused_append), _KV_TYPE[suffix],
-              *_flags(causal, out_dtype), float(scale), float(softcap),
-              _build.stream_handle())
-    _launched(_counter("flash_decode_paged", suffix, softcap, causal), d,
+              *_flags(causal, out_dtype), int(qk), float(scale),
+              float(softcap), _build.stream_handle())
+    _launched(_counter("flash_decode_paged", suffix, softcap, causal, qk), d,
               code)
     return out
 
@@ -602,16 +668,19 @@ def prefill_paged_cuda(q, kp, vp, ks, vs, tables, layer, q_positions,
 
 
 def _dispatch(q, cuda_fn, plain_fn, name: str, kv, args, alibi, softcap,
-              causal):
+              causal, qk: bool = False):
     """CPU tensors run the plain version (counted per element type of the
-    cache `kv` = (k, v, k_scale, v_scale), softcap and mask, as the
-    kernels' launches), others the kernel."""
+    cache `kv` = (k, v, k_scale, v_scale), softcap, mask and int8 score
+    dot, as the kernels' launches), others the kernel.  `qk` reaches the
+    decode kernels only."""
     kw = dict(alibi=alibi, softcap=softcap, causal=causal)
+    if qk:
+        kw["qk"] = True
     if q.device.type == "cpu":
         suffix = _kv_suffix(*kv)
         _build.plain_dispatches[_counter(
             name, "_other" if suffix is None else suffix, softcap,
-            causal)] += 1
+            causal, qk)] += 1
         return plain_fn(*args, **kw)
     return cuda_fn(*args, **kw)
 
@@ -628,7 +697,10 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, k_scale,
     `fused_append` — the cache tensors are written in place and returned
     for the JAX interface's sake.  Returns None where the JAX entry does
     (extra_kv that the decode kernel cannot take; `fused_append` without
-    extra_kv or over K/V values)."""
+    extra_kv or over K/V values).  Under `NST_FLASH_INT8=qk` (`int8_dot`)
+    one-token int8 calls go to kernel B with the int8 score dot, with or
+    without the extra column; calls of several tokens that the JAX package
+    sends to its decode body raise."""
     _check_variant(logit_softcap)
     b, t, h, d = q.shape
     hkv = k.shape[2]
@@ -639,13 +711,22 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, k_scale,
         return None
     if fused_append and extra_kv is None:
         return None
-    if extra_kv is not None or (unscaled and extra_kv_eligible(t, h, hkv)):
+    qk = int8_dot(t, h, hkv, d, not unscaled, s=k.shape[3])
+    if qk and t > 1:
+        # the JAX body takes several tokens per slot (t * n_rep <= 8)
+        raise NotImplementedError(
+            f"NST_FLASH_INT8=qk over {t} tokens per slot with at most 8 "
+            f"query rows per KV head runs the JAX package's head-blocked "
+            f"decode body over several tokens, which kernel B does not take "
+            f"yet (ROADMAP section 2)")
+    if (extra_kv is not None or qk
+            or (unscaled and extra_kv_eligible(t, h, hkv))):
         kn, vn = extra_kv if extra_kv is not None else (None, None)
         args = (q, kn, vn, k, v, k_scale, v_scale, layer, q_positions[:, 0],
                 kv_lens, scale, fused_append, out_dtype)
         out = _dispatch(q, decode_cuda, decode_plain, "flash_decode",
                         (k, v, k_scale, v_scale), args, alibi, logit_softcap,
-                        causal)
+                        causal, qk)
     else:
         args = (q, k, v, k_scale, v_scale, layer, q_positions, kv_lens,
                 scale, out_dtype)
@@ -672,7 +753,9 @@ def mha_paged(q: torch.Tensor, cache, layer: int, q_positions: torch.Tensor,
     pool written in place), or None where the JAX entry does (extra_kv the
     decode kernel cannot take).  Unlike the JAX entry, which leaves page
     sizes that are not a multiple of 128 to XLA, the kernels take any
-    multiple of 16 and raise otherwise."""
+    multiple of 16 and raise otherwise.  Under `NST_FLASH_INT8=qk`
+    (`int8_dot`) the extra-column decode at page sizes that are multiples
+    of 128 runs the int8 score dot."""
     _check_variant(logit_softcap)
     b, t, h, d = q.shape
     out_dtype = out_dtype or q.dtype
@@ -684,13 +767,15 @@ def mha_paged(q: torch.Tensor, cache, layer: int, q_positions: torch.Tensor,
         return None
     pool = (cache.k_pages, cache.v_pages, cache.k_scale, cache.v_scale,
             cache.page_tables)
+    qk = int8_dot(t, h, cache.kv_heads, d, not unscaled,
+                  page_size=cache.page_size, extra=extra_kv is not None)
     if extra_kv is not None or (unscaled and eligible):
         kn, vn = extra_kv if extra_kv is not None else (None, None)
         args = (q, kn, vn, *pool, layer, q_positions[:, 0], kv_lens, scale,
                 fused_append, out_dtype)
         out = _dispatch(q, decode_paged_cuda, decode_paged_plain,
                         "flash_decode_paged", pool[:4], args, alibi,
-                        logit_softcap, causal)
+                        logit_softcap, causal, qk)
     else:
         args = (q, *pool, layer, q_positions, kv_lens, scale, out_dtype)
         out = _dispatch(q, prefill_paged_cuda, prefill_paged_plain,

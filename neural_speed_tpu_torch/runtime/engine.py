@@ -1,8 +1,12 @@
 """Generation engine (port of `neural_speed_tpu/runtime/engine.py`: prefill,
 decode and greedy generation over the KV cache — bf16 by default, int8 with
 `kv_quantized=True`, as the JAX engines — `PagedEngine` over the paged
-pool, and the serving steps a continuous-batching scheduler drives:
-`run_prefill`, `run_decode_chunk`, `run_decode_window`).
+pool, and the serving steps that `runtime/scheduler.py`'s
+`ContinuousBatchingScheduler` drives: `run_prefill`, `run_decode_chunk`,
+`run_decode_window`, and `supports_window`, which sends it to the window
+path).  StreamingLLM eviction's settings (`n_keep`, `n_discard`,
+`shift_roped_k`, `discard_count`) come with their reader, the scheduler's
+eviction (ROADMAP section 1, item 6).
 
 JAX's jitted steps with a donated cache become plain functions that write
 the cache in place.  Prefill pads prompts to length buckets, as the JAX
@@ -223,6 +227,10 @@ class Engine:
         if self.buckets[-1] < max_len:
             self.buckets = self.buckets + (max_len,)
         self.cache = self.new_cache()
+
+    # the EOS-aware decode window (run_decode_window): the scheduler takes
+    # the window path on engines that have it, as in the JAX package
+    supports_window = True
 
     def new_cache(self) -> kvc.KVCache:
         return kvc.init_cache(
@@ -451,9 +459,5 @@ def _noop(*a, **k):
 Engine.prepare_prefill = _noop
 Engine.prepare_decode = _noop
 Engine.prepare_rows = _noop
-Engine.prefix = None
-Engine.prefix_lookup = lambda self, prompt: (0, [])
-Engine.adopt_prefix = _noop
-Engine.note_prefilled = _noop
 Engine.commit_lens = _noop
 Engine.release_slot = _noop

@@ -236,8 +236,8 @@ def _norm(out: Dict[str, tuple], name: str, e: int, bias: bool = True
 
 def hf_shapes(model_type: str, cfg: ArchConfig) -> Dict[str, tuple]:
     """Tensor names and shapes of an HF checkpoint of `model_type` (mpt,
-    bloom, falcon with one shared norm, gemma, gptj, phi, gpt_neox; grok-1
-    in the hpcai-tech key scheme) for `cfg`, as `transformers` (or that
+    bloom, falcon with one shared norm, llama, gemma, gptj, phi, gpt_neox;
+    grok-1 in the hpcai-tech key scheme) for `cfg`, as `transformers` (or that
     checkpoint) names them, without the tied head's alias; linear weights
     are [out, in] as torch stores them."""
     e, v = cfg.hidden_size, cfg.vocab_size
@@ -289,7 +289,7 @@ def hf_shapes(model_type: str, cfg: ArchConfig) -> Dict[str, tuple]:
         out["transformer.ln_f.weight"] = (e,)
         out["transformer.ln_f.bias"] = (e,)
         out["lm_head.weight"] = (v, e)
-    elif model_type == "gemma":
+    elif model_type in ("gemma", "llama"):
         out["model.embed_tokens.weight"] = (v, e)
         for i in range(cfg.n_layers):
             p = f"model.layers.{i}."
@@ -304,6 +304,8 @@ def hf_shapes(model_type: str, cfg: ArchConfig) -> Dict[str, tuple]:
             _norm(out, p + "input_layernorm", e, False)
             _norm(out, p + "post_attention_layernorm", e, False)
         _norm(out, "model.norm", e, False)
+        if not cfg.tie_word_embeddings:
+            _linear(out, "lm_head", v, e, False)
     elif model_type == "gptj":
         out["transformer.wte.weight"] = (v, e)
         for i in range(cfg.n_layers):

@@ -1,7 +1,7 @@
 """`utils/synthetic.hf_shapes` / `synth_hf_state_dict`, which draw the
 full-size float checkpoints that `chip_smoke.py` converts and serves on the
 card, against `transformers`' own models at a tiny size: for each layout
-(mpt, bloom, falcon, gemma, gptj, phi, gpt_neox) the names and shapes equal
+(llama, mpt, bloom, falcon, gemma, gptj, phi, gpt_neox) the names and shapes equal
 those of the `transformers` model's state dict, but for the tied head's
 alias, which must share the embedding's storage there; and the drawn
 checkpoint converts with `convert/hf.py` (int4 g32) into params that a CPU
@@ -23,7 +23,7 @@ from tests.test_torch_hf_head_dims import HEAD_DIM_KW
 torch.set_num_threads(1)
 
 # model_type -> (the tiny `transformers` builder's name, its config knobs)
-LAYOUTS = {"mpt": ("mpt", {}), "bloom": ("bloom", {}),
+LAYOUTS = {"llama": ("llama", {}), "mpt": ("mpt", {}), "bloom": ("bloom", {}),
            "falcon": ("falcon", {}), "gemma": ("gemma", HEAD_DIM_KW["gemma"]),
            "gptj": ("gptj", HEAD_DIM_KW["gptj"]),
            "phi": ("phi", HEAD_DIM_KW["phi"]),
