@@ -9,6 +9,11 @@
                                           # trace of the main path
     python3 chip_smoke.py --phases 3,12   # build + only these phases
     python3 chip_smoke.py --phases 13     # the serving path (api.Model)
+    python3 chip_smoke.py --phases 14     # speculative / mixed serving
+    python3 chip_smoke.py --phases 2 --only qk
+                                          # the int8 score dot's checks
+    python3 chip_smoke.py --compare-runs p.json c.json p2.json
+                                          # a pair run's outputs compared
     python3 chip_smoke.py --phases 2 --only qmatmul_lut_f32
                                           # phase 2 of the kernels so named
 
@@ -60,7 +65,13 @@ Phases, each raising on failure so the run exits non-zero:
    the int8 score dot (`NST_FLASH_INT8=qk`, QK_CASES) in B and 10 at every
    head-dim instance, both scale types, ALiBi, the softcap and without the
    extra column, q drawn with outliers, each output also held more than 10
-   tolerances from the output without it and timed beside it;
+   tolerances from the output without it and timed beside it; and kernel
+   B's int8 dot over several tokens per slot (QK_MULTI_CASES: speculative
+   decoding's verify steps at t = 2, 4 and 8 over Llama-2-7B's heads, t = 2
+   over Mixtral's 8 KV heads, float32 scales, ALiBi and non-causal at
+   t = 4, the head-dim instances at t = 4; padded rows at max_len - 1 and
+   an idle slot), each timed beside its plain version and SDPA over the
+   dequantized K/V with the same per-row mask;
 3. a tiny model through `Engine` on the card against the same model on the
    CPU (plain versions), once in int4, once per configuration of phase
    5 and as a tiny Mixtral at B = 3 and B = 1: logits within tolerance,
@@ -173,7 +184,25 @@ Phases, each raising on failure so the run exits non-zero:
    no plain version; the first decode window over four of the prompts
    held against kernel 10's plain version, without and with qk; TTFT per
    request, ms/token, requests/s and tokens/s on the host clock; with `--profile`, one traced 8-token decode window
-   of the scheduler without and with qk (idle share).
+   of the scheduler without and with qk (idle share);
+14. speculative and mixed-prefill serving with the phase-4 model over the
+   int8 cache: (a) `api.Model.generate(prompt, speculative=True,
+   speculative_k=7)` on a contiguous B = 1 engine (the single-sequence
+   helper; a 1975-token prompt, a seeded 48-token pattern repeated; 64
+   ids), qk off then on, its ids held against `Engine.generate_greedy`'s
+   wherever the top-2 margin exceeds twice the measured difference between
+   the verify forward's rows and the decode logits, its first verify
+   forward against the same forward through the attention kernel's plain
+   version (within 2% of the largest logit); (b) phase 13's eight
+   requests through `ModelServer(speculative=True)` on a contiguous B = 4
+   engine, qk off and on, then on the B = 4 `PagedEngine` at page size 128;
+   (c) `ModelServer(mixed_prefill=True, mixed_chunk=32)` on that pool;
+   each held against the same server without speculation (equal ids where
+   the margin allows), TTFT and ms/token per request, requests/s, tokens/s,
+   draft tokens accepted per verify and the share of steps in backoff;
+   then the ms of a verify step at T = 4 and 8 against a decode step at
+   B = 4 (and with `--profile` a traced T = 8 verify step).  Under qk the
+   t > 1 qk instance of B must launch; no plain version may run.
 
 It prints a `kernels` JSON line, then as its last line
 `{"ok": true, "device": {...}}`.  It imports nothing of JAX.
@@ -1770,6 +1799,116 @@ def check_flash_softcap(chk: Checks, gen: torch.Generator) -> None:
 def check_flash_qk(chk: Checks, gen: torch.Generator) -> None:
     for case in QK_CASES:
         _variant_case(chk, gen, *case, qk=True)
+
+
+# Kernel B's int8 score dot over several tokens per slot (speculative
+# decoding's verify steps, t * n_rep <= 8, the contiguous int8 cache, no
+# extra column): Llama-2-7B's heads at t = 2, 4 and 8 (t = 8: the main
+# case, phase 14's verify at spec_k 7), Mixtral's 8 KV heads at t = 2
+# (n_rep 4), float32 scales, ALiBi and the non-causal variant at t = 4, and
+# the head-dim instances 80 / 96 / 256 / 64 at t = 4.  The slots are those
+# of a joint step over phase 2's lengths: slots 0 and 2 verify t real rows
+# ending at kv_len - 1, slot 1 has t // 2 real rows and the rest padded at
+# max_len - 1, slot 3 is idle (all rows at max_len - 1 over its 900 stored
+# rows).  q has outliers (`_qk_q`): the output must lie more than 10
+# tolerances from the plain version's without the int8 dot.
+# (H, Hkv, D, t, K/V, ALiBi, causal, main)
+QK_MULTI_CASES = [
+    (32, 32, 128, 8, "int8", False, True, True),
+    (32, 32, 128, 4, "int8", False, True, False),
+    (32, 32, 128, 2, "int8", False, True, False),
+    (32, 8, 128, 2, "int8", False, True, False),
+    (32, 32, 128, 4, "int8f32", False, True, False),
+    (32, 32, 128, 4, "int8", True, True, False),
+    (32, 32, 128, 4, "int8", False, False, False),
+] + [(h, h, d, 4, "int8", False, True, False)
+     for d, h in ((80, 32), (96, 64), (256, 16), (64, 32))]
+
+
+def _qk_multi_case(chk, gen, h, hkv, d, t, kv, alibi, causal, main):
+    """One case of QK_MULTI_CASES: kernel B's `_qk_multi` launch within 4
+    bf16 ulps per row of its plain version, the cache untouched, the output
+    more than 10 tolerances from the plain version without the int8 dot;
+    times the kernel, the plain version and SDPA over the dequantized K/V
+    with the same per-row mask (ALiBi as a float mask)."""
+    from neural_speed_tpu_torch import _build
+    from neural_speed_tpu_torch.ops import flash
+    from neural_speed_tpu_torch.ops.attention import alibi_slopes
+
+    s, layer = 2048, 1
+    lens = DECODE_LENS
+    b = len(lens)
+    scale = 1.0 / math.sqrt(d)
+    codes = lambda: torch.randint(-127, 128, (2, b, hkv, s, d), generator=gen,
+                                  device="cuda", dtype=torch.int8)
+    sdt = torch.float32 if kv == "int8f32" else torch.bfloat16
+    scales = lambda: ((torch.rand((2, b, hkv, s), generator=gen,
+                                  device="cuda") + 0.5) * 0.02).to(sdt)
+    cache = [codes(), codes(), scales(), scales()]
+    keep = [a.clone() for a in cache]
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    real = [t, max(1, t // 2), t, 0]                   # rows per slot
+    pos = torch.full((b, t), s - 1, dtype=torch.int32)
+    for i, n in enumerate(real):
+        pos[i, :n] = torch.arange(lens[i] - n, lens[i])
+    pos = pos.cuda()
+    q = _qk_q(gen, b, t, h, d).to(torch.bfloat16)
+    slopes = alibi_slopes(h, "cuda") if alibi else None
+    args = (q, None, None, *cache, layer, pos, kv_lens, scale, False,
+            torch.bfloat16)
+    kw = dict(alibi=slopes, causal=causal, qk=True)
+    name = ("flash_decode" + KV_SUFFIX[kv] + ("" if causal else "_noncausal")
+            + "_qk_multi")
+    before = _build.launches[name]
+    got = flash.decode_cuda(*args, **kw)
+    want = flash.decode_plain(*args, **kw)
+    torch.cuda.synchronize()
+    if _build.launches[name] != before + 1:
+        raise AssertionError(f"{name}: the launch was not counted")
+    if not all(torch.equal(a, c) for a, c in zip(cache, keep)):
+        raise AssertionError(f"{name}: the kernel wrote to the cache")
+    what = (f"B={b} T={t} H={h} Hkv={hkv} D={d} (instance "
+            f"{flash.instance_dim(d)}) {kv} S={s} kv_len="
+            f"{'/'.join(map(str, lens))} rows {'/'.join(map(str, real))}"
+            f"{' ALiBi' if alibi else ''}{'' if causal else ' non-causal'}")
+    cmp = compare(got, want, 4, per_row=True)
+    off = compare(got, flash.decode_plain(*args, alibi=slopes,
+                                          causal=causal), 4,
+                  per_row=True)["worst"]
+    if not off > 10:
+        raise AssertionError(f"{name} ({what}): the output is only "
+                             f"{off:.2f} tolerances from the output without "
+                             f"the int8 dot")
+    del got, want
+    ms = time_ms(lambda: flash.decode_cuda(*args, **kw))
+    plain_ms = time_ms(lambda: flash.decode_plain(*args, **kw), reps=3)
+    col = torch.arange(s, device="cuda")
+    valid = col[None, None] < kv_lens[:, None, None]
+    if causal:
+        valid = valid & (col[None, None] <= pos[:, :, None])   # [B, t, S]
+    k8, v8, ks, vs = (a[layer] for a in cache)
+    kd = (k8.float() * ks.float()[..., None]).to(torch.bfloat16)
+    vd = (v8.float() * vs.float()[..., None]).to(torch.bfloat16)
+    mask = _sdpa_mask(valid, pos, slopes, s)
+    qs = q.transpose(1, 2)
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qs, kd, vd, attn_mask=mask, scale=scale, enable_gqa=hkv != h))
+    kv_bytes = 2 * d + (8 if kv == "int8f32" else 4)
+    nbytes = (2 * b * t * h * d * 2 + valid.any(1).sum().item() * hkv
+              * kv_bytes)
+    chk.add(name, "cuda", "neural_speed_tpu_torch/csrc/flash_decode.cuh",
+            "neural_speed_tpu/ops/flash.py:267", what, cmp, ms, plain_ms,
+            lib_ms, nbytes, 4.0 * valid.sum().item() * h * d, main=main,
+            extra=dict(off_tolerances=off))
+    log(f"  {name}: {off:.1f} tolerances from the output without the int8 "
+        f"dot")
+    del cache, keep, kd, vd, mask
+    torch.cuda.empty_cache()
+
+
+def check_flash_qk_multi(chk: Checks, gen: torch.Generator) -> None:
+    for case in QK_MULTI_CASES:
+        _qk_multi_case(chk, gen, *case)
 
 
 # The non-causal variant (whisper's encoder and cross attention) at
@@ -4690,11 +4829,13 @@ def _alone_logits(params, cfg, prompts):
     return out
 
 
-def _serve_once(model, prompts, qk: bool) -> dict:
-    """The eight requests through `ModelServer` (greedy, eos_id None),
-    issued at once.  The first token of each is timed by a streamer that a
-    wrapper of the scheduler's `add_request` attaches (the server's
-    `issue_query` takes none); finishes by the response callback."""
+def _serve_once(model, prompts, qk: bool, on_server=None,
+                **server_kw) -> dict:
+    """The eight requests through `ModelServer(**server_kw)` (greedy,
+    eos_id None), issued at once.  The first token of each is timed by a
+    streamer that a wrapper of the scheduler's `add_request` attaches (the
+    server's `issue_query` takes none); finishes by the response callback.
+    `on_server(srv)` may wrap more of the scheduler before the requests."""
     from neural_speed_tpu_torch import _build, api
     from neural_speed_tpu_torch.ops import flash
 
@@ -4706,7 +4847,9 @@ def _serve_once(model, prompts, qk: bool) -> dict:
             done[rid] = time.perf_counter()
             results[rid] = list(toks)
 
-        srv = api.ModelServer(model, respond, max_new_tokens=8)
+        srv = api.ModelServer(model, respond, max_new_tokens=8, **server_kw)
+        if on_server is not None:
+            on_server(srv)
         add = srv.sched.add_request
 
         def add_request(prompt, max_new_tokens=128, streamer=None):
@@ -4741,7 +4884,7 @@ def _serve_once(model, prompts, qk: bool) -> dict:
     per_tok = [(done[i] - first[i]) * 1e3 / (SERVE_BUDGETS[i] - 1)
                for i in range(n)]
     return dict(ids=[results[i] for i in range(n)], wall_s=wall,
-                prefill_logits=[prefill[i] for i in range(n)],
+                prefill_logits=[prefill.get(i) for i in range(n)],
                 ttft_ms=ttft, ms_per_token=per_tok,
                 requests_per_s=n / wall,
                 tokens_per_s=sum(SERVE_BUDGETS) / wall,
@@ -4964,6 +5107,492 @@ def serve_model_server(profile: bool) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 14: speculative and mixed-prefill serving
+# ---------------------------------------------------------------------------
+
+SPEC_PATTERN, SPEC_PROMPT_LEN, SPEC_NEW = 48, 1975, 64
+
+
+def _spec_prompt(vocab: int):
+    """A seeded 48-token pattern repeated to 1975 tokens: prompt lookup
+    finds a full 7-token draft at the first step."""
+    g = torch.Generator().manual_seed(14)
+    pat = torch.randint(0, vocab, (SPEC_PATTERN,), generator=g).tolist()
+    return (pat * (SPEC_PROMPT_LEN // SPEC_PATTERN + 1))[:SPEC_PROMPT_LEN]
+
+
+def _top2_gap(row: torch.Tensor) -> float:
+    top2 = row.float().topk(2).values
+    return (top2[0] - top2[1]).item()
+
+
+def _counts():
+    from neural_speed_tpu_torch import _build
+
+    return [collections.Counter(c) for c in (
+        _build.launches, _build.instance_launches, _build.multi_launches,
+        _build.plain_dispatches)]
+
+
+def _restore_counts(saved) -> None:
+    from neural_speed_tpu_torch import _build
+
+    for c, keep in zip((_build.launches, _build.instance_launches,
+                        _build.multi_launches, _build.plain_dispatches),
+                       saved):
+        c.clear()
+        c.update(keep)
+
+
+def _spec_single(model, prompt, qk: bool) -> dict:
+    """Phase 14 (a): `Model.generate(prompt, speculative=True,
+    speculative_k=7)` on the contiguous B = 1 engine (the single-sequence
+    helper), greedy without the penalty, against `Engine.generate_greedy`'s
+    steps (their logits kept): the ids equal up to the first position whose
+    top-2 margin is within twice the measured difference between the first
+    verify forward's rows (T = 8 for a full draft) and the same positions'
+    decode logits (T = 1); the first verify forward's logits within 2% of
+    its largest logit (`_hold_window`'s rule: the logits are bf16 values,
+    whose ulp at |logit| 64-128 is 0.78-0.39% of it) of the same forward
+    with the attention kernel's plain version on the card (B's `_qk_multi`
+    under qk, C without)."""
+    from neural_speed_tpu_torch import _build
+    from neural_speed_tpu_torch.ops import flash
+    from neural_speed_tpu_torch.runtime import speculative as tsp
+
+    eng = model.engine
+    what = f"phase 14 (a) ({'qk' if qk else 'qk off'})"
+    prev = flash.FLASH_INT8_DOT
+    flash.FLASH_INT8_DOT = qk
+    try:
+        # the sequential reference, as Engine.generate_greedy, logits kept
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = eng.prefill([prompt])
+        ref, ref_logits = [], []
+        active = torch.zeros((1,), dtype=torch.bool)
+        active[0] = True
+        for _ in range(SPEC_NEW):
+            ref_logits.append(logits[0].float().cpu())
+            tok = int(torch.argmax(logits[0]))
+            ref.append(tok)
+            logits = eng.decode(torch.full((1,), tok, dtype=torch.int32),
+                                active)
+        torch.cuda.synchronize()
+        greedy_s = time.perf_counter() - t0
+        if ref != eng.generate_greedy(prompt, SPEC_NEW):
+            raise AssertionError(f"{what}: generate_greedy differs from its "
+                                 f"own steps")
+        verifies, first, decodes = [], {}, []
+        orig = tsp._verify_forward
+        eng_decode = eng.decode
+
+        def decode(tokens, active):
+            decodes.append(1)
+            return eng_decode(tokens, active)
+
+        def verify(params, cfg, cache, ids, pos, kv_lens, comp=None):
+            out, cache = orig(params, cfg, cache, ids, pos, kv_lens, comp)
+            verifies.append(ids.shape[1])
+            if not first:
+                # the same forward (its rows are in the cache already)
+                # through the attention kernel's plain version
+                saved = _counts()
+                fns = flash.decode_cuda, flash.prefill_cuda
+                flash.decode_cuda = flash.decode_plain
+                flash.prefill_cuda = flash.prefill_plain
+                try:
+                    plain, _ = orig(params, cfg, cache, ids, pos, kv_lens,
+                                    comp)
+                finally:
+                    flash.decode_cuda, flash.prefill_cuda = fns
+                    _restore_counts(saved)
+                real = int((pos[0] < cache.max_len - 1).sum())
+                first.update(rows=out[0, :real].float().cpu(),
+                             plain=plain[0, :real].float().cpu(),
+                             ids=ids[0, :real].cpu().tolist(),
+                             at=len(decodes), t=ids.shape[1])
+            return out, cache
+
+        tsp._verify_forward = verify
+        eng.decode = decode
+        _build.reset_counts()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = model.generate([prompt], max_new_tokens=SPEC_NEW,
+                                 repetition_penalty=1.0, speculative=True,
+                                 speculative_k=7, ignore_prompt=True)[0]
+            torch.cuda.synchronize()
+            spec_s = time.perf_counter() - t0
+        finally:
+            tsp._verify_forward = orig
+            del eng.decode
+        launches = dict(_build.launches)
+        multi = dict(_build.multi_launches)
+        plain_n = sum(_build.plain_dispatches.values())
+    finally:
+        flash.FLASH_INT8_DOT = prev
+    if len(out) != SPEC_NEW or not verifies:
+        raise AssertionError(f"{what}: {len(out)} tokens, {len(verifies)} "
+                             f"verify forwards")
+    # the first verify's rows that follow the greedy prefix: its row j
+    # scores the token after ids[j], which is greedy id at + 1 + j
+    at = first["at"]
+    d = 0.0
+    for j in range(len(first["ids"])):
+        if first["ids"][:j + 1] != ref[at:at + j + 1] or at + 1 + j >= len(
+                ref_logits):
+            break
+        d = max(d, (first["rows"][j] - ref_logits[at + 1 + j]).abs().max(
+        ).item())
+    span = first["plain"].abs().max().item()
+    hold = (first["rows"] - first["plain"]).abs().max().item()
+    if hold > 0.02 * span:
+        raise AssertionError(f"{what}: the first verify forward differs from "
+                             f"its plain-attention twin by {hold} > 2% of "
+                             f"{span}")
+    under = sum(_top2_gap(r) <= 2 * d for r in ref_logits)
+    equal = 0
+    for i, (a, b) in enumerate(zip(out, ref)):
+        if a == b:
+            equal += 1
+            continue
+        gap = _top2_gap(ref_logits[i])
+        if gap > 2 * d:
+            raise AssertionError(f"{what}: id {i} is {a}, greedy {b}, at a "
+                                 f"margin {gap} > 2 x {d}")
+        break
+    if qk and launches.get("flash_decode_qk_multi", 0) <= 0:
+        raise AssertionError(f"{what}: kernel B's t > 1 qk instance was not "
+                             f"launched: {launches}")
+    if plain_n:
+        raise AssertionError(f"{what}: a plain version ran on the main path")
+    res = dict(ids_equal_to_greedy=equal, positions_under_margin=under,
+               first_verify_t=first["t"], first_verify_at=at,
+               first_verify_rows=len(first["ids"]),
+               t8_vs_t1_max_diff=d, first_verify_plain_diff=hold,
+               first_verify_span=span, verifies=len(verifies),
+               plain_decodes=len(decodes),
+               verify_t=collections.Counter(verifies),
+               # every token but the prefill's comes from a decode step or
+               # a verify (its correction plus the accepted drafts)
+               accepted_per_verify=(SPEC_NEW - 1 - len(decodes)
+                                    - len(verifies)) / len(verifies),
+               spec_ms_per_token=spec_s * 1e3 / SPEC_NEW,
+               greedy_ms_per_token=greedy_s * 1e3 / SPEC_NEW,
+               launches=launches, multi_launches=multi)
+    log(f"  {what}: {SPEC_NEW} ids of a {len(prompt)}-token prompt (a "
+        f"{SPEC_PATTERN}-token pattern): {equal} equal to generate_greedy's "
+        f"before the first difference, {under} of {SPEC_NEW} positions with "
+        f"a top-2 margin within 2 x {d:.4g} (the difference of the first "
+        f"verify's rows, T = {first['t']} after {at} plain decode steps, "
+        f"from the T = 1 logits); {len(verifies)} verify forwards "
+        f"{dict(res['verify_t'])} and {len(decodes)} plain decode steps, "
+        f"{res['accepted_per_verify']:.2f} draft tokens accepted per verify; "
+        f"first verify within {hold:.4g} of its plain-attention twin"
+        f" ({100 * hold / span:.3g}% of the largest logit, "
+        f"{hold / 2.0 ** (math.floor(math.log2(span)) - 7):.3g} bf16 ulps "
+        f"of it; 2% allowed); host ms/token "
+        f"speculative {res['spec_ms_per_token']:.2f}, greedy "
+        f"{res['greedy_ms_per_token']:.2f}; t > 1 launches {multi}")
+    return res
+
+
+class _SpecStats:
+    """Wraps a server's scheduler: joint steps (verifies), those that fed
+    prompt chunks, the draft tokens accepted, and the steps taken in
+    backoff."""
+
+    def __init__(self):
+        self.steps = self.backoff_steps = self.verifies = 0
+        self.slot_verifies = self.accepted = self.chunk_steps = 0
+
+    def install(self, srv) -> None:
+        sched = srv.sched
+        joint, step = sched._joint_step, sched.step
+
+        def joint_step(include_prefill):
+            dec = [s for s in sched.running.values()
+                   if s.status == "decoding"]
+            before = [len(s.generated) for s in dec]
+            self.chunk_steps += include_prefill and any(
+                s.status == "prefill" for s in sched.running.values())
+            joint(include_prefill)
+            self.verifies += 1
+            self.slot_verifies += len(dec)
+            self.accepted += sum(len(s.generated) - n - 1
+                                 for s, n in zip(dec, before))
+
+        def stepper():
+            self.steps += 1
+            self.backoff_steps += sched._spec_backoff > 0
+            step()
+
+        sched._joint_step, sched.step = joint_step, stepper
+
+    def as_dict(self) -> dict:
+        return dict(steps=self.steps, backoff_share=(
+            self.backoff_steps / max(1, self.steps)), verifies=self.verifies,
+            prompt_chunk_steps=self.chunk_steps,
+            accepted_per_slot_verify=self.accepted / max(
+                1, self.slot_verifies))
+
+
+def _held_against(what, got, base, prompts, params, cfg, d) -> dict:
+    """Each request's ids against the run without speculation: equal up to
+    the first difference, where the margin of the prompt and the common
+    prefix prefilled alone (the server's penalty over the observed tokens)
+    must lie within twice `d`."""
+    from neural_speed_tpu_torch.ops import sampling as smp
+    from neural_speed_tpu_torch.runtime import speculative as tsp
+
+    sp = smp.SamplingParams(do_sample=False)
+    same, compared = 0, 0
+    for i, (a, b) in enumerate(zip(got, base)):
+        k = next((j for j in range(min(len(a), len(b))) if a[j] != b[j]),
+                 None)
+        if k is None and len(a) == len(b):
+            same += 1
+            compared += len(a)
+            continue
+        k = min(len(a), len(b)) if k is None else k
+        compared += k
+        ctx = prompts[i] + a[:k]
+        row = _alone_logits(params, cfg, [ctx])[0].numpy()
+        obs = prompts[i][-sp.penalty_window:] + a[:k]
+        l = tsp._penalized_row(row, sp, obs)
+        top2 = sorted(l)[-2:]
+        if top2[1] - top2[0] > 2 * d:
+            raise AssertionError(f"{what}: request {i} differs at id {k} "
+                                 f"({a[k:k + 1]} vs {b[k:k + 1]}) at a margin "
+                                 f"{top2[1] - top2[0]} > 2 x {d}")
+    log(f"  {what}: {same} of {len(got)} requests equal to the run without "
+        f"speculation, {compared} ids compared (the others differ where the "
+        f"margin is within 2 x {d:.4g})")
+    return dict(requests_equal=same, ids_compared=compared)
+
+
+def _step_ms(fn, reps: int = 5) -> float:
+    """Median ms of fn() between CUDA events (the host's launch gaps
+    included), after two warm-up calls."""
+    for _ in range(2):
+        fn()
+    spans = []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        spans.append(a.elapsed_time(b))
+    return statistics.median(spans)
+
+
+def _verify_times(eng, params, card: str, profile: bool) -> dict:
+    """ms of a verify step of the B = 4 contiguous engine at T = 4 and 8
+    (every slot at 1975 cached tokens) against a plain decode step, qk off
+    and on, and the bytes bound of a step (the weights read once and every
+    slot's K/V)."""
+    from neural_speed_tpu_torch.ops import flash
+    from neural_speed_tpu_torch.ops import kv_cache as kvc
+
+    b, ctx, cfg = eng.max_batch, 1975, eng.cfg
+    g = torch.Generator().manual_seed(7)
+    res = {}
+    prev = flash.FLASH_INT8_DOT
+    try:
+        for qk in (False, True):
+            flash.FLASH_INT8_DOT = qk
+            for t in (4, 8):
+                ids = torch.randint(0, cfg.vocab_size, (b, t), generator=g)
+                pos = (ctx + torch.arange(t))[None].repeat(b, 1).int()
+                lens = torch.full((b,), ctx + t, dtype=torch.int32)
+                res[f"verify_t{t}{'_qk' if qk else ''}_ms"] = _step_ms(
+                    lambda: eng.run_verify_argmax(ids, pos, lens))
+            toks = torch.randint(0, cfg.vocab_size, (b,), generator=g).int()
+            active = torch.ones((b,), dtype=torch.bool)
+
+            def decode():
+                kvc.set_lengths(eng.cache, torch.full(
+                    (b,), ctx, dtype=torch.int32, device=eng.device))
+                eng.decode(toks, active)
+
+            res[f"decode{'_qk' if qk else ''}_ms"] = _step_ms(decode)
+        if profile:
+            flash.FLASH_INT8_DOT = True
+            ids = torch.randint(0, cfg.vocab_size, (b, 8), generator=g)
+            pos = (ctx + torch.arange(8))[None].repeat(b, 1).int()
+            lens = torch.full((b,), ctx + 8, dtype=torch.int32)
+            res["profile_verify_t8_qk"] = profile_window(
+                lambda: eng.run_verify_argmax(ids, pos, lens),
+                "verify_t8_qk", 1)
+    finally:
+        flash.FLASH_INT8_DOT = prev
+    kv = (b * cfg.n_layers * cfg.n_kv_heads * (ctx + 8)
+          * (2 * cfg.head_dim + 4))
+    res["bound_ms"], res["bound_by"] = bound(weight_bytes(params) + kv, 0.0,
+                                             card)
+    log(f"  phase 14 verify steps (B = {b}, {ctx} cached tokens per slot, "
+        f"CUDA events, host launch gaps included): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in res.items()
+            if k.endswith("_ms") and k != "bound_ms")
+        + f"; the bytes bound of a step "
+        f"{res['bound_ms']:.3f} ms (weights read once, K/V)")
+    return res
+
+
+def serve_speculative(card: str, profile: bool) -> dict:
+    """Phase 14 at Llama-2-7B width (phase 4's int4 params, 32 layers,
+    max_len 2048, the int8 cache): (a) `_spec_single` qk off then on; (b)
+    phase 13's eight requests through `ModelServer(speculative=True)` on the
+    contiguous B = 4 engine, qk off and on, then on phase 13's `PagedEngine`
+    (page size 128), each held against the same server without
+    speculation (`_held_against`); (c) `ModelServer(mixed_prefill=True,
+    mixed_chunk=32)` on the paged engine, held the same way.  Prints TTFT
+    and ms/token per request, requests/s, tokens/s, draft tokens accepted
+    per verify and the share of steps in backoff, and the verify step's ms
+    at T = 4 and 8 against a decode step (`_verify_times`).  Under qk the
+    t > 1 qk instance of B must launch, in (c) kernel 9 for the chunks; no
+    plain version may run."""
+    import gc
+
+    from neural_speed_tpu_torch import _build, api
+    from neural_speed_tpu_torch.runtime.scheduler import (
+        ContinuousBatchingScheduler)
+
+    params, cfg = params_7b()
+    model = api.Model()
+    model.cfg = cfg
+    res = {}
+    # (a) the single-sequence helper on a contiguous B = 1 engine
+    model._make_engine(params, 1, 2048, True, paged=False)
+    ContinuousBatchingScheduler(model.engine).warmup(prompt_len=64)
+    prompt = _spec_prompt(cfg.vocab_size)
+    for qk in (False, True):
+        res[f"single_{'qk' if qk else 'qk_off'}"] = _spec_single(
+            model, prompt, qk)
+    d = max(r["t8_vs_t1_max_diff"] for k, r in res.items()
+            if k.startswith("single"))
+    gen = torch.Generator().manual_seed(13)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in SERVE_LENS]
+
+    def served(key, qk, want_kernels, **kw):
+        stats = _SpecStats() if kw else None
+        r = _serve_once(model, prompts, qk, on_server=(
+            stats.install if stats else None), **kw)
+        r.pop("prefill_logits")
+        if [len(g) for g in r["ids"]] != SERVE_BUDGETS:
+            raise AssertionError(f"phase 14 {key}: delivered "
+                                 f"{[len(g) for g in r['ids']]} tokens")
+        for k in want_kernels:
+            if r["launches"].get(k, 0) <= 0:
+                raise AssertionError(f"phase 14 {key}: {k} was not launched: "
+                                     f"{r['launches']}")
+        if sum(r["plain"].values()):
+            raise AssertionError(f"phase 14 {key}: a plain version ran: "
+                                 f"{r['plain']}")
+        if stats:
+            r["spec"] = stats.as_dict()
+        r["multi_launches"] = dict(_build.multi_launches)
+        log(f"  phase 14 {key}: {r['requests_per_s']:.3f} requests/s, "
+            f"{r['tokens_per_s']:.2f} tokens/s; TTFT ms "
+            f"{[round(x, 1) for x in r['ttft_ms']]}; ms/token "
+            f"{[round(x, 2) for x in r['ms_per_token']]} (median "
+            f"{r['decode_ms_per_token']:.2f})"
+            + (f"; {r['spec']['verifies']} joint steps "
+               f"({r['spec']['prompt_chunk_steps']} with prompt chunks), "
+               f"{r['spec']['accepted_per_slot_verify']:.2f} draft tokens "
+               f"accepted per slot and joint step, "
+               f"{100 * r['spec']['backoff_share']:.1f}% of "
+               f"{r['spec']['steps']} steps in backoff" if stats else "")
+            + f"; t > 1 launches {r['multi_launches']}")
+        res[key] = r
+        return r
+
+    # (b) ModelServer(speculative=True) on the contiguous B = 4 engine
+    del model.engine
+    torch.cuda.empty_cache()
+    model._make_engine(params, 4, 2048, True, paged=False)
+    ContinuousBatchingScheduler(model.engine).warmup(prompt_len=64)
+    for qk in (False, True):
+        tag = "qk" if qk else "qk_off"
+        base = served(f"contiguous_{tag}", qk, ("qmatmul", "flash_prefill"))
+        spec = served(f"contiguous_spec_{tag}", qk,
+                      ("qmatmul", "flash_prefill") + (
+                          ("flash_decode_qk_multi",) if qk else ()),
+                      speculative=True)
+        res[f"contiguous_spec_{tag}"]["held"] = _held_against(
+            f"phase 14 (b) contiguous ({tag})", spec["ids"], base["ids"],
+            prompts, model.engine.params, cfg, d)
+    res["verify_times"] = _verify_times(model.engine, model.engine.params,
+                                        card, profile)
+    # (b) on the paged engine, then (c) mixed prefill there
+    del model.engine
+    torch.cuda.empty_cache()
+    model._make_engine(params, 4, 2048, True, paged=True, page_size=128)
+    ContinuousBatchingScheduler(model.engine).warmup(prompt_len=64)
+    base = served("paged", False, ("qmatmul", "flash_prefill_paged"))
+    for key, kw, kernels in (
+            ("paged_spec", dict(speculative=True),
+             ("qmatmul", "flash_prefill_paged")),
+            ("paged_mixed", dict(mixed_prefill=True, mixed_chunk=32),
+             ("qmatmul", "flash_prefill_paged"))):
+        r = served(key, False, kernels, **kw)
+        if "mixed" in key and not r["spec"]["prompt_chunk_steps"]:
+            raise AssertionError("phase 14 (c): no joint step fed a prompt "
+                                 "chunk (kernel 9 at T = 32)")
+        r["held"] = _held_against(f"phase 14 ({'c' if 'mixed' in key else 'b'}"
+                                  f") {key}", r["ids"], base["ids"], prompts,
+                                  model.engine.params, cfg, d)
+    eng = model.engine
+    if eng._alloc.available != eng.n_pages - 1:
+        raise AssertionError("phase 14: pages left allocated after the "
+                             "paged runs")
+    del model, eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def compare_runs(paths) -> dict:
+    """A pair run's `chip_smoke.json` files, in the order parent, change,
+    parent: for every case that the runs share (kernel name and shape),
+    whether the kernel's output digest is the same in all of them, and per
+    kernel the median of the cases' change / parent time ratios (against
+    the mean of the two parent runs) beside the parent / parent median."""
+    runs = []
+    for p in paths:
+        with open(p) as f:
+            runs.append({(k["name"], c["shape"]): c for k in json.load(f)[
+                "kernels"] for c in k["cases"]})
+    p1, ch, p2 = runs
+    shared = [key for key in p1 if key in ch and key in p2]
+    differ = [key for key in shared
+              if not p1[key]["digest"] == ch[key]["digest"]
+              == p2[key]["digest"]]
+    ratios, noise = collections.defaultdict(list), collections.defaultdict(
+        list)
+    for key in shared:
+        ratios[key[0]].append(ch[key]["ms"] / (0.5 * (p1[key]["ms"]
+                                                      + p2[key]["ms"])))
+        noise[key[0]].append(p2[key]["ms"] / p1[key]["ms"])
+    res = dict(cases=len(shared), digests_differ=differ,
+               median_ratio={k: statistics.median(v)
+                             for k, v in ratios.items()},
+               parent_parent={k: statistics.median(v)
+                              for k, v in noise.items()},
+               all_cases=statistics.median(
+                   [r for v in ratios.values() for r in v]),
+               all_parent_parent=statistics.median(
+                   [r for v in noise.values() for r in v]),
+               only_in_change=sorted({k[0] for k in ch if k not in p1}))
+    log(json.dumps(res))
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -4975,18 +5604,25 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace one prefill and 8 decode steps of the "
                          "main path with torch.profiler")
+    ap.add_argument("--compare-runs", nargs=3, metavar="JSON",
+                    help="compare a pair run's chip_smoke.json files "
+                         "(parent, change, parent): output digests and "
+                         "kernel-time ratios per kernel; nothing else runs")
     ap.add_argument("--phases", default="",
                     help="run only these phases after the build (numbers "
-                         "2-13, comma-separated; 6 needs 4); the default "
+                         "2-14, comma-separated; 6 needs 4); the default "
                          "runs every phase")
     args = ap.parse_args()
     phases = ({int(x) for x in args.phases.split(",")} if args.phases
-              else set(range(2, 14)))
+              else set(range(2, 15)))
     if 6 in phases and 4 not in phases:
         ap.error("--phases: phase 6 serves phase 4's params")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.compare_runs:
+        res = compare_runs(args.compare_runs)
+        return 1 if res["digests_differ"] else 0
     sys.path.insert(0, ROOT)
     from neural_speed_tpu_torch import _build
 
@@ -5029,6 +5665,7 @@ def main() -> int:
                          check_flash_whisper_self),
                         ("flash_decode flash_decode_paged qk",
                          check_flash_qk),
+                        ("flash_decode qk multi", check_flash_qk_multi),
                         ("qmatmul_int4", check_qmatmul),
                         ("qmatmul_lut qmatmul_planar", check_fp_formats),
                         ("qmatmul_int8 qmatmul_int8_planar",
@@ -5175,6 +5812,18 @@ def main() -> int:
         for key in ("qk_off", "qk"):
             counts.update(summary["serving"][key]["launches"])
             instances.update(summary["serving"][key]["instances"])
+    if not args.kernels_only and 14 in phases:
+        log_phase("phase 14: Llama-2-7B int4 speculative and mixed-prefill "
+                  "serving (the single-sequence helper, ModelServer over "
+                  "Engine and PagedEngine), qk off then on")
+        summary["speculative"] = serve_speculative(name, args.profile)
+        multi = collections.Counter()
+        for run in summary["speculative"].values():
+            counts.update(run.get("launches", {}))
+            instances.update(run.get("instances", {}))
+            multi.update(run.get("multi_launches", {}))
+        log(f"  phase 14: kernel B's t > 1 launches per token count "
+            f"{dict(multi)}")
     if not args.kernels_only:
         log(f"  launches over the paths {dict(counts)}; attention launches "
             f"per head-dim instance in phases 9-12 {dict(instances)}")

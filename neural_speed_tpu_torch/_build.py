@@ -36,12 +36,16 @@ plain_dispatches: collections.Counter = collections.Counter()
 # The attention kernels' launches per head-dim instance ("<name> d<D>"),
 # counted beside `launches` at the same place.
 instance_launches: collections.Counter = collections.Counter()
+# Kernel B's launches over several tokens per slot, per token count
+# ("<name> t<T>"), counted beside `launches` at the same place.
+multi_launches: collections.Counter = collections.Counter()
 
 
 def reset_counts() -> None:
     launches.clear()
     plain_dispatches.clear()
     instance_launches.clear()
+    multi_launches.clear()
 
 
 def resolve_device(device=None) -> torch.device:

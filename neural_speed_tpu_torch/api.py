@@ -20,8 +20,11 @@ worker thread (`runtime/server.py`).  Not ported, and raising with the
 ROADMAP section 1 item that ports them: `use_cache`, `session_path`,
 `quant_model`, `save_state`, `load_state` (item 6); `lora_path`,
 `init_from_bin`, `init_from_ne_bin` (item 8); `num_beams > 1`,
-`prefix_cache=True` (item 5); `speculative=True` (item 7); `tp > 1`
-(item 9).
+`prefix_cache=True` (item 5); `tp > 1` (item 9).  `generate(speculative=
+True)` runs prompt-lookup speculative decoding (`runtime/speculative.py`):
+one prompt over a contiguous engine through the single-sequence helpers,
+batches and paged engines through the scheduler's joint steps; `ModelServer`
+takes `speculative` / `spec_k` and `mixed_prefill` / `mixed_chunk`.
 """
 
 from __future__ import annotations
@@ -205,8 +208,10 @@ class Model:
         or sampled, with the repetition penalty (1.1 by default, as the JAX
         package), a `streamer(token)` callback and `stopping_criteria(ids)`
         (checked between tokens: it makes the scheduler step one token at a
-        time).  Returns prompt + generated ids per prompt (generated only
-        with `ignore_prompt`)."""
+        time).  `speculative=True` verifies up to `speculative_k` draft
+        tokens per forward: greedy output is the greedy sequence, sampled
+        output is distributed as sequential sampling.  Returns prompt +
+        generated ids per prompt (generated only with `ignore_prompt`)."""
         from .ops.sampling import SamplingParams
         from .runtime.scheduler import ContinuousBatchingScheduler
         from .utils.profiler import verbose_level
@@ -220,8 +225,6 @@ class Model:
             _refuse("beam search (num_beams > 1)", 5)
         if session_path is not None:
             _refuse("prompt-session files (session_path)", 6)
-        if speculative:
-            _refuse("speculative decoding (speculative=True)", 7)
         if verbose_level() >= 1:
             import sys
 
@@ -231,6 +234,11 @@ class Model:
                   f"repetition_penalty={repetition_penalty} "
                   f"num_beams={num_beams} seed={seed}", file=sys.stderr)
         ids = self._to_list_batch(input_ids)
+        if speculative:
+            return self._generate_speculative(
+                ids, max_new_tokens, do_sample, temperature, top_k, top_p,
+                repetition_penalty, seed, streamer, stopping_criteria,
+                ignore_prompt, speculative_k)
         sp = SamplingParams(
             do_sample=do_sample, temperature=temperature, top_k=top_k,
             top_p=top_p, repetition_penalty=repetition_penalty,
@@ -263,6 +271,52 @@ class Model:
             (seqs[rid] if not ignore_prompt else []) + done[rid]
             for rid in sorted(done)
         ]
+
+    def _generate_speculative(self, ids, max_new_tokens, do_sample,
+                              temperature, top_k, top_p, repetition_penalty,
+                              seed, streamer, stopping_criteria,
+                              ignore_prompt, speculative_k):
+        """generate(speculative=True), routed as the JAX package: one prompt
+        over a contiguous engine takes the single-sequence helpers (slot 0),
+        batches and paged engines the scheduler's joint steps."""
+        from .ops.sampling import SamplingParams
+        from .runtime import speculative as spec
+        from .runtime.scheduler import ContinuousBatchingScheduler
+
+        if stopping_criteria is not None:
+            raise ValueError("speculative=True needs num_beams=1, no "
+                             "stopping_criteria/session")
+        single = len(ids) == 1 and not hasattr(self.engine, "page_size")
+        if do_sample:
+            sp = SamplingParams(
+                do_sample=True, temperature=temperature, top_k=top_k,
+                top_p=top_p, repetition_penalty=repetition_penalty)
+        else:
+            sp = SamplingParams(do_sample=False,
+                                repetition_penalty=repetition_penalty)
+        if single:
+            with torch.inference_mode():
+                if do_sample:
+                    out = spec.generate_sampled_speculative(
+                        self.engine, ids[0], max_new_tokens, sp,
+                        eos_id=self.eos_id, k=speculative_k, seed=seed)
+                else:
+                    out = spec.generate_greedy_speculative(
+                        self.engine, ids[0], max_new_tokens,
+                        eos_id=self.eos_id, k=speculative_k, sp=sp)
+            if streamer is not None:
+                for t in out:
+                    streamer(t)
+            return [(ids[0] if not ignore_prompt else []) + out]
+        # one multi-token verify forward over every slot per step
+        sched = ContinuousBatchingScheduler(
+            self.engine, sp, eos_id=self.eos_id, seed=seed,
+            speculative=True, spec_k=speculative_k)
+        rids = [sched.add_request(p, max_new_tokens, streamer=streamer)
+                for p in ids]
+        done = {s.request_id: s.generated for s in sched.run_to_completion()}
+        return [(p if not ignore_prompt else []) + done[r]
+                for p, r in zip(ids, rids)]
 
     @torch.inference_mode()
     def __call__(self, input_ids, **kw):

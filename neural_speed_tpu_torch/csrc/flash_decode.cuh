@@ -12,8 +12,9 @@
 // (nst_flash_decode_paged): int8 K/V (bf16 or float32 scales) with
 // extra_kv=True, fused_append=True; int8, bf16 or float32 K/V with neither;
 // ALiBi or none; logit softcap or none; causal or not; bf16 or float32
-// output; the int8 score dot (FLASH_INT8_DOT) over int8 K/V or not; every
-// head dim the JAX kernels take (multiples of 8 up to 256, `_head_dim_ok`).
+// output; the int8 score dot (FLASH_INT8_DOT) over int8 K/V or not, over
+// the contiguous cache also at several tokens per slot; every head dim the
+// JAX kernels take (multiples of 8 up to 256, `_head_dim_ok`).
 //
 // What it computes, per slot b and KV head hk, for the n_rep query heads of
 // that group (one token per slot):
@@ -111,6 +112,24 @@
 // its 16-byte (8-byte) K loads against 16-byte (8-byte) shared loads of the
 // codes, and the int32 sum is exact.
 //
+// Several tokens per slot (the int8 dot only: the JAX launcher sends calls
+// of t tokens with t * n_rep <= 8, an even KV head count and S % 128 == 0
+// to the same body, `_mha_packed_hblk`, flash.py:732; speculative decoding
+// verifies 2-8 tokens so): the rows of a (slot, KV head) block are the
+// t * n_rep (query head, token) pairs, rep-major (row rep * t + ti, head
+// hk * n_rep + rep, token ti, as the JAX launcher packs them), q and the
+// output in the natural [B, t, H, D] layout, positions [B, t].  Each row
+// has its own position, so its own column end (min(kv_len, pos + 1) when
+// causal, kv_len when not) and ALiBi distance: the prologue writes both to
+// shared memory once, and the block reads columns up to the largest end
+// (the JAX body skips a block only past every row's limit, flash.py:445).
+// There is no extra column and no append at t > 1 (the JAX package refuses
+// them, `extra_kv_eligible`), and no such call on the pool.  It is a
+// compile-time parameter (MULTI) of the QK split kernels over the
+// contiguous cache, R chosen from t * n_rep, so the t = 1 kernels are the
+// code they were; the combine kernel runs unchanged over B * t virtual
+// slots of one token.
+//
 // Compiled without --use_fast_math: the quantization must match
 // kv_cache.quantize_kv bit for bit (IEEE division, round half to even), and
 // the softcap the plain versions' torch.tanh (libdevice's tanhf).
@@ -180,13 +199,14 @@ __device__ __forceinline__ void score_chunk(float (&s)[R],
   }
 }
 
-// R: a power of two >= n_rep, so the per-row arrays have compile-time
-// indices and stay in registers.  T: the cache's element type (KVElem);
-// VB: bytes per row load; EXACT: D is the instance's head dim; SC: the
-// int8 cache's scale type; CAP: the softcap (Cap); QK: the int8 score dot
-// (int8 T only).
+// R: a power of two >= the block's rows (n_rep, or t * n_rep with MULTI),
+// so the per-row arrays have compile-time indices and stay in registers.
+// T: the cache's element type (KVElem); VB: bytes per row load; EXACT: D
+// is the instance's head dim; SC: the int8 cache's scale type; CAP: the
+// softcap (Cap); QK: the int8 score dot (int8 T only); MULTI: t tokens per
+// slot (QK only, no extra column), each row with its own position.
 template <int R, class T, int VB, bool EXACT, class Cache, class SC, int CAP,
-          bool QK = false>
+          bool QK = false, bool MULTI = false>
 __global__ void __launch_bounds__(THREADS)
 flash_decode_split(Cache cache, const __nv_bfloat16* __restrict__ q,
                    const T* __restrict__ kc, const T* __restrict__ vc,
@@ -196,7 +216,7 @@ flash_decode_split(Cache cache, const __nv_bfloat16* __restrict__ q,
                    const int* __restrict__ lim, float* __restrict__ part_m,
                    float* __restrict__ part_l, float* __restrict__ part_acc,
                    int H, int Hkv, int S, int D, int layer, int chunk,
-                   int extra, float sm_scale, float softcap) {
+                   int extra, int t, float sm_scale, float softcap) {
   if constexpr (EXACT) D = DI;
   using E = nst::KVElem<T>;
   using ST = typename E::Stage;
@@ -208,14 +228,45 @@ flash_decode_split(Cache cache, const __nv_bfloat16* __restrict__ q,
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int splits = gridDim.x;
   const int n_rep = H / Hkv;
+  const int nr = MULTI ? t * n_rep : n_rep;  // the block's rows
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int p = pos[b], kvl = kv_lens[b];
-  const int kvl_cache = kvl - (extra && p == kvl - 1 ? 1 : 0);
-  const int c_end = min(min(kvl_cache, lim[b] + 1), S);
+  const int kvl = kv_lens[b];
+  // MULTI: each row's position and column end, set once here; the block
+  // reads columns up to the largest end
+  __shared__ int row_pos[MULTI ? R : 1];
+  __shared__ int row_end[MULTI ? R : 1];
+  int p, c_end;
+  if constexpr (MULTI) {
+    p = 0;
+    c_end = 0;
+    for (int r = 0; r < nr; ++r) {
+      const int pr = pos[b * t + r % t];
+      const int e = min(lim != nullptr ? min(kvl, pr + 1) : kvl, S);
+      c_end = max(c_end, e);
+      if (tid == r) {
+        row_pos[r] = pr;
+        row_end[r] = e;
+      }
+    }
+  } else {
+    p = pos[b];
+    const int kvl_cache = kvl - (extra && p == kvl - 1 ? 1 : 0);
+    c_end = min(min(kvl_cache, lim[b] + 1), S);
+  }
   const int c0 = split * chunk;
   const int c1 = min(c0 + chunk, c_end);
+  // the q / output / partials row of block row r: head hk * n_rep + r, or
+  // with MULTI rep-major rows r = rep * t + ti (head hk * n_rep + rep at
+  // token ti), as the JAX launcher packs them
+  auto row_of = [&](int r) -> size_t {
+    if constexpr (MULTI)
+      return ((size_t)b * t + r % t) * H + hk * n_rep + r / t;
+    else
+      return (size_t)b * H + hk * n_rep + r;
+  };
 
   static_assert(!QK || nst::KVElem<T>::kQuantized, "qk reads int8 K");
+  static_assert(!MULTI || QK, "several tokens per slot run the int8 dot");
   __shared__ float qs[QK ? 1 : R][DI];
   // the int8 score dot: q rows' codes and scales
   __shared__ __align__(16) int8_t qi[QK ? R : 1][DI];
@@ -230,8 +281,8 @@ flash_decode_split(Cache cache, const __nv_bfloat16* __restrict__ q,
   ST* vsm = VStage<T>::kStatic ? vsm_static : reinterpret_cast<ST*>(dyn_smem);
 
   if constexpr (QK) {
-    for (int r = warp; r < n_rep; r += NW) {
-      const __nv_bfloat16* qr = q + ((size_t)b * H + hk * n_rep + r) * D;
+    for (int r = warp; r < nr; r += NW) {
+      const __nv_bfloat16* qr = q + row_of(r) * D;
       float amax = 0.f;
       for (int d = lane; d < D; d += 32)
         amax = fmaxf(amax, fabsf(__bfloat162float(qr[d])));
@@ -253,7 +304,9 @@ flash_decode_split(Cache cache, const __nv_bfloat16* __restrict__ q,
   float slope[R];
 #pragma unroll
   for (int r = 0; r < R; ++r)
-    slope[r] = slopes != nullptr && r < n_rep ? slopes[hk * n_rep + r] : 0.f;
+    slope[r] = slopes != nullptr && r < nr
+                   ? slopes[hk * n_rep + (MULTI ? r / t : r)]
+                   : 0.f;
   __syncthreads();
 
   const auto rows = cache.rows(layer, b, hk);
@@ -293,15 +346,15 @@ flash_decode_split(Cache cache, const __nv_bfloat16* __restrict__ q,
         if constexpr (EXACT) {
 #pragma unroll (CU)
           for (int ch = 0; ch < CH; ++ch)
-            score_chunk_qk<R, VB>(si, qi, kr, ch, n_rep);
+            score_chunk_qk<R, VB>(si, qi, kr, ch, nr);
         } else {
 #pragma unroll 1
           for (int ch = 0; ch < nch; ++ch)
-            score_chunk_qk<R, VB>(si, qi, kr, ch, n_rep);
+            score_chunk_qk<R, VB>(si, qi, kr, ch, nr);
         }
 #pragma unroll
         for (int r = 0; r < R; ++r)
-          if (r < n_rep) s[r] = (float)si[r] * qsc[r];
+          if (r < nr) s[r] = (float)si[r] * qsc[r];
       } else if constexpr (EXACT) {
 #pragma unroll (CU)
         for (int ch = 0; ch < CH; ++ch)
@@ -323,30 +376,38 @@ flash_decode_split(Cache cache, const __nv_bfloat16* __restrict__ q,
       if (CAP == ON || (CAP == RUNTIME && softcap > 0.f)) {
 #pragma unroll
         for (int r = 0; r < R; ++r)
-          if (r < n_rep) s[r] = nst::softcap_score(s[r], softcap);
+          if (r < nr) s[r] = nst::softcap_score(s[r], softcap);
       }
       if (slopes != nullptr) {
 #pragma unroll
-        for (int r = 0; r < R; ++r) s[r] = nst::add_alibi(s[r], slope[r], c, p);
+        for (int r = 0; r < R; ++r)
+          s[r] = nst::add_alibi(s[r], slope[r], c, MULTI ? row_pos[r] : p);
       }
     }
+    // MULTI: a column is valid for row r below the row's own end
+    auto valid_row = [&](int r) {
+      if constexpr (MULTI)
+        return valid && c < row_end[r];
+      else
+        return valid;
+    };
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      if (r >= n_rep) continue;
-      const float mx = nst::warp_max(valid ? s[r] : -FLT_MAX);
+      if (r >= nr) continue;
+      const float mx = nst::warp_max(valid_row(r) ? s[r] : -FLT_MAX);
       if (lane == 0) red_max[r][warp] = mx;
     }
     __syncthreads();
     float alpha[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      if (r >= n_rep) continue;
+      if (r >= nr) continue;
       float bmax = -FLT_MAX;
 #pragma unroll
       for (int w = 0; w < NW; ++w) bmax = fmaxf(bmax, red_max[r][w]);
       const float m_new = fmaxf(m_run[r], bmax);
       alpha[r] = expf(m_run[r] - m_new);
-      const float pr = valid ? expf(s[r] - m_new) : 0.f;
+      const float pr = valid_row(r) ? expf(s[r] - m_new) : 0.f;
       ps[r][tid] = E::kQuantized ? nst::round_bf16(pr * vsc)
                                  : nst::round_bf16(pr);
       const float sm = nst::warp_sum(pr);
@@ -356,7 +417,7 @@ flash_decode_split(Cache cache, const __nv_bfloat16* __restrict__ q,
     __syncthreads();
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      if (r >= n_rep) continue;
+      if (r >= nr) continue;
       float bsum = 0.f;
 #pragma unroll
       for (int w = 0; w < NW; ++w) bsum += red_sum[r][w];
@@ -377,8 +438,8 @@ flash_decode_split(Cache cache, const __nv_bfloat16* __restrict__ q,
 
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    if (r >= n_rep) continue;
-    const size_t pi = ((size_t)b * H + hk * n_rep + r) * splits + split;
+    if (r >= nr) continue;
+    const size_t pi = row_of(r) * splits + split;
     if (tid == 0) {
       part_m[pi] = m_run[r];
       part_l[pi] = l_run[r];
@@ -508,12 +569,30 @@ auto split_for(int n_rep)
                                            CAP, QK>;
 }
 
-// split_for, with the int8 score dot when `qk` (int8 K only: the other
-// element types have no QK instance).
+// The int8-dot split kernel for t > 1 tokens per slot over `rows` = t *
+// n_rep <= MAX_REP rows (R: the next power of two, at least 2).
 template <int CAP, class T, int VB, bool EXACT, class Cache, class SC>
-auto split_qk(int n_rep, int qk)
+auto split_rows(int rows)
+    -> decltype(&flash_decode_split<1, T, VB, EXACT, Cache, SC, CAP>) {
+  return rows <= 2 ? flash_decode_split<2, T, VB, EXACT, Cache, SC, CAP, true,
+                                        true>
+         : rows <= 4 ? flash_decode_split<4, T, VB, EXACT, Cache, SC, CAP,
+                                          true, true>
+                     : flash_decode_split<MAX_REP, T, VB, EXACT, Cache, SC,
+                                          CAP, true, true>;
+}
+
+// split_for, with the int8 score dot when `qk` (int8 K only: the other
+// element types have no QK instance), over t tokens per slot when t > 1
+// (the contiguous cache only: the pool has no such call).
+template <int CAP, class T, int VB, bool EXACT, class Cache, class SC>
+auto split_qk(int n_rep, int qk, int t)
     -> decltype(&flash_decode_split<1, T, VB, EXACT, Cache, SC, CAP>) {
   if constexpr (nst::KVElem<T>::kQuantized) {
+    if constexpr (!NST_FLASH_PAGED) {
+      if (qk && t > 1)
+        return split_rows<CAP, T, VB, EXACT, Cache, SC>(t * n_rep);
+    }
     if (qk) return split_for<CAP, T, VB, EXACT, Cache, SC, true>(n_rep);
   }
   return split_for<CAP, T, VB, EXACT, Cache, SC>(n_rep);
@@ -526,7 +605,8 @@ cudaError_t launch(Cache cache, const void* q, const void* k_new,
                    void* part_m, void* part_l, void* part_acc, void* out,
                    int B, int H, int Hkv, int S, int D, int layer, int chunk,
                    int extra, int fused_append, int causal, int out_f32,
-                   int qk, float sm_scale, float softcap, cudaStream_t st) {
+                   int qk, int t, float sm_scale, float softcap,
+                   cudaStream_t st) {
   const int splits = (S + chunk - 1) / chunk;
   const int n_rep = H / Hkv;
   auto bq = static_cast<const __nv_bfloat16*>(q);
@@ -534,11 +614,19 @@ cudaError_t launch(Cache cache, const void* q, const void* k_new,
   decltype(&flash_decode_split<1, T, VB, EXACT, Cache, SC, CAP>) split_kernel;
   if constexpr (EXACT) {
     split_kernel = softcap > 0.f
-                       ? split_qk<ON, T, VB, EXACT, Cache, SC>(n_rep, qk)
-                       : split_qk<OFF, T, VB, EXACT, Cache, SC>(n_rep, qk);
+                       ? split_qk<ON, T, VB, EXACT, Cache, SC>(n_rep, qk, t)
+                       : split_qk<OFF, T, VB, EXACT, Cache, SC>(n_rep, qk, t);
   } else {
-    split_kernel = split_qk<RUNTIME, T, VB, EXACT, Cache, SC>(n_rep, qk);
+    split_kernel = split_qk<RUNTIME, T, VB, EXACT, Cache, SC>(n_rep, qk, t);
   }
+  // t > 1: the rows' limits are their positions (causal) or kv_len (null);
+  // the combine kernel then runs over B * t virtual slots of one token each
+  // (no extra column, so it reads pos / kv_lens only for `ok`, and gets the
+  // [B, t] positions for both)
+  const bool multi = t > 1;
+  const int* pos_i = static_cast<const int*>(pos);
+  const int* lim = multi ? (causal ? pos_i : nullptr)
+                         : static_cast<const int*>(causal ? pos : kv_lens);
   const int vbytes = VStage<T>::kStatic ? 0 : VStage<T>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, vbytes);
@@ -546,20 +634,18 @@ cudaError_t launch(Cache cache, const void* q, const void* k_new,
   split_kernel<<<dim3(splits, Hkv, B), THREADS, vbytes, st>>>(
       cache, bq, static_cast<const T*>(kc), static_cast<const T*>(vc),
       static_cast<const SC*>(ks), static_cast<const SC*>(vs),
-      static_cast<const float*>(slopes), static_cast<const int*>(pos),
-      static_cast<const int*>(kv_lens),
-      static_cast<const int*>(causal ? pos : kv_lens),
-      static_cast<float*>(part_m), static_cast<float*>(part_l),
-      static_cast<float*>(part_acc), H, Hkv, S, D, layer, chunk, extra,
-      sm_scale, softcap);
+      static_cast<const float*>(slopes), pos_i,
+      static_cast<const int*>(kv_lens), lim, static_cast<float*>(part_m),
+      static_cast<float*>(part_l), static_cast<float*>(part_acc), H, Hkv, S,
+      D, layer, chunk, extra, t, sm_scale, softcap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   auto combine = [&](auto kernel, auto* o) {
-    kernel<<<dim3(Hkv, B), THREADS, 0, st>>>(
+    kernel<<<dim3(Hkv, B * t), THREADS, 0, st>>>(
         cache, bq, static_cast<const __nv_bfloat16*>(k_new),
         static_cast<const __nv_bfloat16*>(v_new), static_cast<T*>(kc),
         static_cast<T*>(vc), static_cast<SC*>(ks), static_cast<SC*>(vs),
-        static_cast<const int*>(pos), static_cast<const int*>(kv_lens),
+        pos_i, multi ? pos_i : static_cast<const int*>(kv_lens),
         static_cast<const float*>(part_m), static_cast<const float*>(part_l),
         static_cast<const float*>(part_acc), o, H, Hkv, D, layer, splits,
         extra, fused_append, sm_scale, softcap);
@@ -591,12 +677,13 @@ cudaError_t launch_int8(Cache cache, int D, const void* q, const void* k_new,
                         void* part_acc, void* out, int B, int H, int Hkv,
                         int S, int layer, int chunk, int extra,
                         int fused_append, int causal, int out_f32, int qk,
-                        float sm_scale, float softcap, cudaStream_t st) {
+                        int t, float sm_scale, float softcap,
+                        cudaStream_t st) {
 #define NST_LAUNCH(VB, EXACT)                                                 \
   launch<int8_t, VB, EXACT, SC>(cache, q, k_new, v_new, kc, vc, ks, vs,       \
                                 slopes, pos, kv_lens, part_m, part_l,         \
                                 part_acc, out, B, H, Hkv, S, D, layer, chunk, \
-                                extra, fused_append, causal, out_f32, qk,     \
+                                extra, fused_append, causal, out_f32, qk, t,  \
                                 sm_scale, softcap, st)
   if (D == DI) return NST_LAUNCH(16, true);
   if (D % 16 == 0) return NST_LAUNCH(16, false);
@@ -609,8 +696,10 @@ cudaError_t launch_int8(Cache cache, int D, const void* q, const void* k_new,
 // append).  D: the head dim, a multiple of 8 at most this instance's
 // (below it, the masked kernels); int8 rows of D % 16 == 8 take 8-byte
 // loads.  causal: 1 or 0; out_f32: 1 for a float32 output, 0 for bf16;
-// qk: 1 for the int8 score dot (int8 only), else 0.  softcap: 0 (off) or
-// the logit softcap.
+// qk: 1 for the int8 score dot (int8 only), else 0.  t: tokens per slot,
+// 1 but for the int8 dot over the contiguous cache without the extra
+// column, where t * (H / Hkv) <= MAX_REP, positions [B, t] and the output
+// [B, t, H, D].  softcap: 0 (off) or the logit softcap.
 template <class Cache>
 int launch_d(Cache cache, int D, const void* q, const void* k_new,
              const void* v_new, void* kc, void* vc, void* ks, void* vs,
@@ -618,23 +707,25 @@ int launch_d(Cache cache, int D, const void* q, const void* k_new,
              void* part_m, void* part_l, void* part_acc, void* out, int B,
              int H, int Hkv, int S, int layer, int chunk, int extra,
              int fused_append, int kv_type, int causal, int out_f32, int qk,
-             float sm_scale, float softcap, void* stream) {
+             int t, float sm_scale, float softcap, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   const bool int8 = kv_type == 0 || kv_type == 3;
   if (D > DI || D <= 0 || D % 8 || kv_type < 0 || kv_type > 3 ||
       (!int8 && (extra || fused_append || qk)) ||
       (causal != 0 && causal != 1) || (out_f32 != 0 && out_f32 != 1) ||
-      (qk != 0 && qk != 1) || !(softcap >= 0.f))
+      (qk != 0 && qk != 1) || !(softcap >= 0.f) || t < 1 ||
+      (t > 1 && (!qk || extra || fused_append || NST_FLASH_PAGED ||
+                 t * (H / Hkv) > MAX_REP)))
     return (int)cudaErrorInvalidValue;
 #define NST_LAUNCH(T, EXACT)                                                  \
   launch<T, 16, EXACT, __nv_bfloat16>(                                        \
       cache, q, k_new, v_new, kc, vc, ks, vs, slopes, pos, kv_lens, part_m,   \
       part_l, part_acc, out, B, H, Hkv, S, D, layer, chunk, extra,            \
-      fused_append, causal, out_f32, 0, sm_scale, softcap, st)
+      fused_append, causal, out_f32, 0, 1, sm_scale, softcap, st)
 #define NST_LAUNCH_INT8(SC)                                                   \
   launch_int8<SC>(cache, D, q, k_new, v_new, kc, vc, ks, vs, slopes, pos,     \
                   kv_lens, part_m, part_l, part_acc, out, B, H, Hkv, S,       \
-                  layer, chunk, extra, fused_append, causal, out_f32, qk,     \
+                  layer, chunk, extra, fused_append, causal, out_f32, qk, t,  \
                   sm_scale, softcap, st)
   const bool exact = D == DI;
   cudaError_t err;
@@ -656,7 +747,9 @@ int launch_d(Cache cache, int D, const void* q, const void* k_new,
 
 #if !NST_FLASH_PAGED
 // slopes: float32 [H] ALiBi slopes, or null for none.  k_new / v_new are
-// read only with `extra`; ks / vs only for the int8 cache.
+// read only with `extra`; ks / vs only for the int8 cache.  t: tokens per
+// slot (launch_d); pos is [B] at t = 1, [B, t] above; the partials hold
+// B * t * H rows.
 extern "C" int nst_flash_decode(const void* q, const void* k_new,
                                 const void* v_new, void* kc, void* vc,
                                 void* ks, void* vs, const void* slopes,
@@ -665,12 +758,12 @@ extern "C" int nst_flash_decode(const void* q, const void* k_new,
                                 void* out, int B, int H, int Hkv, int S, int D,
                                 int layer, int chunk, int extra,
                                 int fused_append, int kv_type, int causal,
-                                int out_f32, int qk, float sm_scale,
+                                int out_f32, int qk, int t, float sm_scale,
                                 float softcap, void* stream) {
   return launch_d(nst::ContigCache{B, Hkv, S}, D, q, k_new, v_new, kc, vc, ks,
                   vs, slopes, pos, kv_lens, part_m, part_l, part_acc, out, B,
                   H, Hkv, S, layer, chunk, extra, fused_append, kv_type,
-                  causal, out_f32, qk, sm_scale, softcap, stream);
+                  causal, out_f32, qk, t, sm_scale, softcap, stream);
 }
 
 #else
@@ -688,6 +781,7 @@ extern "C" int nst_flash_decode_paged(
       nst::PagedCache{static_cast<const int*>(tables), Hkv, P, ps, n_blocks},
       D, q, k_new, v_new, kc, vc, ks, vs, slopes, pos, kv_lens, part_m,
       part_l, part_acc, out, B, H, Hkv, n_blocks * ps, layer, chunk, extra,
-      fused_append, kv_type, causal, out_f32, qk, sm_scale, softcap, stream);
+      fused_append, kv_type, causal, out_f32, qk, 1, sm_scale, softcap,
+      stream);
 }
 #endif

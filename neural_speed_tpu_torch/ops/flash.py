@@ -11,7 +11,9 @@ launcher's:
   the int8 cache), and bf16 / float32 decode after the plain append, each
   for one token per slot with at most 8 query heads per KV head and an
   even KV head count: kernel B (`csrc/flash_decode.cuh`), which with
-  `fused_append` also writes the quantized new row in place;
+  `fused_append` also writes the quantized new row in place; under the
+  int8 score dot also the calls of several tokens per slot that `int8_dot`
+  names;
 * everything else (prefill chunks; int8 decode after a plain append;
   decode with more query heads per KV head or an odd KV head count, as
   Falcon-7B's 71 over 1, Gemma-2B's 8 over 1): kernel C
@@ -58,7 +60,11 @@ of those codes with the K codes, times the q scale, then the K scale and
 the softmax scale.  It runs where the JAX package's head-blocked Pallas
 body runs it and nowhere else (`int8_dot`); there kernels B and 10 take
 it as a compile-time variant of their int8 split kernels, counted with a
-`_qk` suffix, and their plain versions take it too.
+`_qk` suffix, and their plain versions take it too.  Over the contiguous
+cache that body also takes t tokens per slot (t * n_rep <= 8, no extra
+column: speculative decoding's verify steps), and so does kernel B,
+counted `_qk_multi`, each row of a KV head (rep-major, row rep * t + ti)
+masked and ALiBi-biased by its own position.
 """
 
 from __future__ import annotations
@@ -84,6 +90,7 @@ _KV_TYPE = {"": 0, "_bf16": 1, "_f32": 2, "_f32scale": 3}
 _SOFTCAP = "_softcap"
 _NONCAUSAL = "_noncausal"
 _QK = "_qk"
+_MULTI = "_multi"     # kernel B over several tokens per slot (int8 dot)
 # Output dtypes the kernels write, and q dtypes the launchers take.
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
 # The int8 score dot in the decode kernels (NST_FLASH_INT8=qk), read once
@@ -223,43 +230,53 @@ def decode_plain(q: torch.Tensor, k_new, v_new, k: torch.Tensor,
                  kv_lens: torch.Tensor, scale: float, fused_append: bool,
                  out_dtype, alibi=None, softcap: float = 0.0,
                  causal: bool = True, qk: bool = False) -> torch.Tensor:
-    """Plain version of kernel B.  q [B, 1, H, D] (rounded to bf16 first);
+    """Plain version of kernel B.  q [B, T, H, D] (rounded to bf16 first);
     k/v/ks/vs the stacked cache (ks/vs None for bf16 or float32 K/V); pos
-    [B]; alibi: slopes [H] or None; softcap: 0 (off) or the logit
-    softcap.  With k_new/v_new [B, 1, Hkv, D] (int8 cache only) the
-    current token is the seed column and the cache is read below
-    kv_len - 1 for live slots; `fused_append` also writes its quantized
-    row in place (the scales in the cache's scale dtype).  Without them the
-    cache is read below kv_len.  Causal: only columns c <= pos.  `qk`
-    (int8 cache only): the cache columns' scores by the int8 score dot
-    (`_scores_qk`); the seed column keeps the float product."""
+    [B] (T = 1) or [B, T]; alibi: slopes [H] or None; softcap: 0 (off) or
+    the logit softcap.  With k_new/v_new [B, 1, Hkv, D] (int8 cache only,
+    T = 1) the current token is the seed column and the cache is read
+    below kv_len - 1 for live slots; `fused_append` also writes its
+    quantized row in place (the scales in the cache's scale dtype).
+    Without them the cache is read below kv_len.  Causal: only columns
+    c <= the row's position.  `qk` (int8 cache only): the cache columns'
+    scores by the int8 score dot (`_scores_qk`); the seed column keeps the
+    float product.  The T * n_rep rows of a KV head are ordered rep-major
+    (row rep * T + ti: head hk * n_rep + rep at token ti), as the JAX
+    launcher packs them; each row has its own position."""
     if qk and ks is None:
         raise ValueError("the int8 score dot (qk) reads the int8 cache only")
     q = q.to(torch.bfloat16)
-    b, _, h, d = q.shape
+    b, t, h, d = q.shape
     hkv, s = k.shape[2], k.shape[3]
     n_rep = h // hkv
     extra = k_new is not None
+    if extra and t != 1:
+        raise ValueError("the extra column takes one token per slot")
+    prow = (pos[:, None] if pos.dim() == 1 else pos).repeat(1, n_rep)
+    pos = prow[:, 0]                                          # [B] at T = 1
     ok = pos == kv_lens - 1
     kvl_cache = kv_lens - ok.to(kv_lens.dtype) if extra else kv_lens
-    qg = q[:, 0].reshape(b, hkv, n_rep, d)
+    qg = q.reshape(b, t, hkv, n_rep, d).permute(0, 2, 3, 1, 4).reshape(
+        b, hkv, n_rep * t, d)                                 # rep-major
     kf, vf = _kv_values(k[layer]), _kv_values(v[layer])      # [B,Hkv,S,D]
     score = _scores_qk if qk else _scores
     sc = score(qg, kf, None if ks is None else ks[layer].float(), scale,
                softcap)                                       # [B,Hkv,R,S]
     col = torch.arange(s, device=q.device)
     if alibi is not None:
-        dist = col.float()[None] - pos.float()[:, None]       # [B, S]
-        sc = sc + (alibi.float().reshape(1, hkv, n_rep, 1)
-                   * dist[:, None, None, :])
-    valid = col[None] < kvl_cache[:, None]
+        dist = col.float()[None, None] - prow.float()[:, :, None]  # [B,R,S]
+        slope = alibi.float().reshape(hkv, n_rep, 1).expand(
+            hkv, n_rep, t).reshape(1, hkv, n_rep * t, 1)
+        sc = sc + slope * dist[:, None]
+    valid = (col[None] < kvl_cache[:, None])[:, None]         # [B, 1, S]
     if causal:
-        valid = valid & (col[None] <= pos[:, None])
-    valid = valid[:, None, None, :].expand_as(sc)
+        valid = valid & (col[None, None] <= prow[:, :, None])
+    valid = valid[:, None].expand_as(sc)
     vsc = None if vs is None else vs[layer].float()[:, :, None, :]
     if not extra:
         acc, l = _softmax_pv(sc, valid, vsc, vf)
-        return _normalize(acc, l).reshape(b, 1, h, d).to(out_dtype)
+        out = _normalize(acc, l).reshape(b, hkv, n_rep, t, d)
+        return out.permute(0, 3, 1, 2, 4).reshape(b, t, h, d).to(out_dtype)
     kn = k_new[:, 0].float()                                  # [B, Hkv, D]
     vn = v_new[:, 0].float()
     s0 = _softcap((qg.float() * kn[:, :, None, :]).sum(-1) * scale,
@@ -436,10 +453,13 @@ def _check_cache(k, v, ks, vs, layer, pos, kv_lens, q) -> str:
 
 
 def _check_decode(q, k_new, v_new, fused_append, out_dtype, hkv, suffix,
-                  what: str, qk: bool = False) -> None:
+                  what: str, qk: bool = False, rows_ok: bool = False) -> None:
+    """`rows_ok`: the kernel takes t > 1 tokens per slot (the int8 dot over
+    the contiguous cache, without the extra column, t * n_rep <= 8)."""
     b, t, h, d = q.shape
     extra = k_new is not None
-    if not (q.is_cuda and t == 1 and h % hkv == 0 and h // hkv <= 8
+    if not (q.is_cuda and h % hkv == 0 and t * (h // hkv) <= 8
+            and (t == 1 or (rows_ok and qk and not extra))
             and q.dtype in _OUT_DTYPES and out_dtype in _OUT_DTYPES
             and (not fused_append or extra)
             and (_quantized(suffix) or not (extra or qk))
@@ -448,7 +468,9 @@ def _check_decode(q, k_new, v_new, fused_append, out_dtype, hkv, suffix,
                                == (b, 1, hkv, d)))):
         raise ValueError(
             f"{what} takes CUDA tensors: bf16 or float32 q [B, 1, H, D] with "
-            f"H / Hkv <= 8, optional bf16 k_new / v_new [B, 1, Hkv, D] over "
+            f"H / Hkv <= 8 (q [B, T, H, D] with T * H / Hkv <= 8 for the "
+            f"int8 dot without the extra column on the contiguous cache), "
+            f"optional bf16 k_new / v_new [B, 1, Hkv, D] over "
             f"the int8 cache only (needed by fused_append), the int8 score "
             f"dot over the int8 cache only, and writes bf16 "
             f"or float32; got q "
@@ -480,12 +502,13 @@ def _launched(name: str, d: int, code: int) -> None:
     _build.instance_launches[f"{name} d{di}"] += 1
 
 
-def _decode_scratch(b, h, d, s, dev, out_dtype):
+def _decode_scratch(b, h, d, s, dev, out_dtype, t: int = 1):
     splits = -(-s // DECODE_CHUNK)
-    part_m = torch.empty((b, h, splits), dtype=torch.float32, device=dev)
+    part_m = torch.empty((b * t, h, splits), dtype=torch.float32, device=dev)
     part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((b, h, splits, d), dtype=torch.float32, device=dev)
-    out = torch.empty((b, 1, h, d), dtype=out_dtype, device=dev)
+    part_acc = torch.empty((b * t, h, splits, d), dtype=torch.float32,
+                           device=dev)
+    out = torch.empty((b, t, h, d), dtype=out_dtype, device=dev)
     return part_m, part_l, part_acc, out
 
 
@@ -500,32 +523,39 @@ def decode_cuda(q, k_new, v_new, k, v, ks, vs, layer, pos, kv_lens, scale,
     """Kernel B: `flash_decode` over int8 K/V (`_f32scale` with float32
     scales), `flash_decode_bf16` / `flash_decode_f32` over values; each
     `_softcap` with a softcap, `_noncausal` without the mask, `_qk` with the
-    int8 score dot (int8 K/V only).  Shapes as `decode_plain`."""
+    int8 score dot (int8 K/V only), `_multi` over several tokens per slot
+    (the int8 dot without the extra column; also counted per T in
+    `_build.multi_launches`).  Shapes as `decode_plain`."""
     b, t, h, d = q.shape
     hkv, s = k.shape[2], k.shape[3]
     dev = q.device
     suffix = _check_cache(k, v, ks, vs, layer, pos, kv_lens, q)
     _check_decode(q, k_new, v_new, fused_append, out_dtype, hkv, suffix,
-                  "kernel B", qk)
+                  "kernel B", qk, rows_ok=True)
     extra = k_new is not None
     slopes = _slopes(alibi, h, dev)
     q3 = q.to(torch.bfloat16).contiguous()
     kn = k_new.contiguous() if extra else None
     vn = v_new.contiguous() if extra else None
-    pos32 = pos.to(torch.int32).contiguous()
+    # [B] at t = 1, [B, t] above (a [B, 1] position at t = 1 as [B])
+    pos32 = (pos.reshape(b) if t == 1 else pos).to(torch.int32).contiguous()
     lens32 = kv_lens.to(torch.int32).contiguous()
     part_m, part_l, part_acc, out = _decode_scratch(b, h, d, s, dev,
-                                                    out_dtype)
+                                                    out_dtype, t)
     fn = _build.kernels.fn(f"flash_decode_d{instance_dim(d)}",
-                           "nst_flash_decode", 14, 13, 2)
+                           "nst_flash_decode", 14, 14, 2)
     code = fn(q3.data_ptr(), _ptr(kn), _ptr(vn), k.data_ptr(), v.data_ptr(),
               _ptr(ks), _ptr(vs), _ptr(slopes), pos32.data_ptr(),
               lens32.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
               part_acc.data_ptr(), out.data_ptr(), b, h, hkv, s, d, layer,
               DECODE_CHUNK, int(extra), int(fused_append), _KV_TYPE[suffix],
-              *_flags(causal, out_dtype), int(qk), float(scale),
+              *_flags(causal, out_dtype), int(qk), t, float(scale),
               float(softcap), _build.stream_handle())
-    _launched(_counter("flash_decode", suffix, softcap, causal, qk), d, code)
+    name = _counter("flash_decode", suffix, softcap, causal, qk) + (
+        _MULTI if t > 1 else "")
+    _launched(name, d, code)
+    if t > 1:
+        _build.multi_launches[f"{name} t{t}"] += 1
     return out
 
 
@@ -668,11 +698,11 @@ def prefill_paged_cuda(q, kp, vp, ks, vs, tables, layer, q_positions,
 
 
 def _dispatch(q, cuda_fn, plain_fn, name: str, kv, args, alibi, softcap,
-              causal, qk: bool = False):
+              causal, qk: bool = False, tail: str = ""):
     """CPU tensors run the plain version (counted per element type of the
-    cache `kv` = (k, v, k_scale, v_scale), softcap, mask and int8 score
-    dot, as the kernels' launches), others the kernel.  `qk` reaches the
-    decode kernels only."""
+    cache `kv` = (k, v, k_scale, v_scale), softcap, mask, int8 score dot
+    and `tail`, as the kernels' launches), others the kernel.  `qk`
+    reaches the decode kernels only."""
     kw = dict(alibi=alibi, softcap=softcap, causal=causal)
     if qk:
         kw["qk"] = True
@@ -680,7 +710,7 @@ def _dispatch(q, cuda_fn, plain_fn, name: str, kv, args, alibi, softcap,
         suffix = _kv_suffix(*kv)
         _build.plain_dispatches[_counter(
             name, "_other" if suffix is None else suffix, softcap,
-            causal, qk)] += 1
+            causal, qk) + tail] += 1
         return plain_fn(*args, **kw)
     return cuda_fn(*args, **kw)
 
@@ -698,9 +728,10 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, k_scale,
     for the JAX interface's sake.  Returns None where the JAX entry does
     (extra_kv that the decode kernel cannot take; `fused_append` without
     extra_kv or over K/V values).  Under `NST_FLASH_INT8=qk` (`int8_dot`)
-    one-token int8 calls go to kernel B with the int8 score dot, with or
-    without the extra column; calls of several tokens that the JAX package
-    sends to its decode body raise."""
+    the int8 calls that the JAX package sends to its head-blocked decode
+    body go to kernel B with the int8 score dot: one token per slot with or
+    without the extra column, and t tokens per slot (t * n_rep <= 8, as
+    speculative decoding's verify steps) without it, counted `_multi`."""
     _check_variant(logit_softcap)
     b, t, h, d = q.shape
     hkv = k.shape[2]
@@ -712,21 +743,16 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, k_scale,
     if fused_append and extra_kv is None:
         return None
     qk = int8_dot(t, h, hkv, d, not unscaled, s=k.shape[3])
-    if qk and t > 1:
-        # the JAX body takes several tokens per slot (t * n_rep <= 8)
-        raise NotImplementedError(
-            f"NST_FLASH_INT8=qk over {t} tokens per slot with at most 8 "
-            f"query rows per KV head runs the JAX package's head-blocked "
-            f"decode body over several tokens, which kernel B does not take "
-            f"yet (ROADMAP section 2)")
     if (extra_kv is not None or qk
             or (unscaled and extra_kv_eligible(t, h, hkv))):
+        # t > 1 only under qk (the extra column and bf16 decode take t = 1)
         kn, vn = extra_kv if extra_kv is not None else (None, None)
-        args = (q, kn, vn, k, v, k_scale, v_scale, layer, q_positions[:, 0],
-                kv_lens, scale, fused_append, out_dtype)
+        args = (q, kn, vn, k, v, k_scale, v_scale, layer,
+                q_positions[:, 0] if t == 1 else q_positions, kv_lens, scale,
+                fused_append, out_dtype)
         out = _dispatch(q, decode_cuda, decode_plain, "flash_decode",
                         (k, v, k_scale, v_scale), args, alibi, logit_softcap,
-                        causal, qk)
+                        causal, qk, _MULTI if t > 1 else "")
     else:
         args = (q, k, v, k_scale, v_scale, layer, q_positions, kv_lens,
                 scale, out_dtype)

@@ -3,10 +3,12 @@ decode and greedy generation over the KV cache — bf16 by default, int8 with
 `kv_quantized=True`, as the JAX engines — `PagedEngine` over the paged
 pool, and the serving steps that `runtime/scheduler.py`'s
 `ContinuousBatchingScheduler` drives: `run_prefill`, `run_decode_chunk`,
-`run_decode_window`, and `supports_window`, which sends it to the window
-path).  StreamingLLM eviction's settings (`n_keep`, `n_discard`,
-`shift_roped_k`, `discard_count`) come with their reader, the scheduler's
-eviction (ROADMAP section 1, item 6).
+`run_decode_window`, `supports_window`, which sends it to the window
+path, and the joint steps' verify forwards `run_verify_rows` /
+`run_verify_argmax`, over `runtime/speculative.py`).  StreamingLLM
+eviction's settings (`n_keep`, `n_discard`, `shift_roped_k`,
+`discard_count`) come with their reader, the scheduler's eviction (ROADMAP
+section 1, item 6).
 
 JAX's jitted steps with a donated cache become plain functions that write
 the cache in place.  Prefill pads prompts to length buckets, as the JAX
@@ -300,6 +302,31 @@ class Engine:
             torch.as_tensor(budget).to(dev), int(n_steps), cap, sp,
             -1 if eos_id is None else int(eos_id), self.comp)
         return buf, em, toks, act, bud, sampler
+
+    # -- the scheduler's joint steps (speculative / mixed prefill) ---------
+    def _verify_args(self, *arrays):
+        return [torch.as_tensor(np.ascontiguousarray(a)).to(self.device)
+                for a in arrays]
+
+    def run_verify_rows(self, ids, pos, kv_lens, row_idx) -> torch.Tensor:
+        """Multi-token verify forward `[B, T]` at explicit positions and
+        kv lengths; returns the logit rows `row_idx [B, R]`, `[B, R, V]`."""
+        from .speculative import _verify_forward_rows
+
+        rows, self.cache = _verify_forward_rows(
+            self.params, self.cfg, self.cache,
+            *self._verify_args(ids, pos, kv_lens, row_idx), comp=self.comp)
+        return rows
+
+    def run_verify_argmax(self, ids, pos, kv_lens) -> torch.Tensor:
+        """The verify forward reduced to each position's argmax id
+        `[B, T]`."""
+        from .speculative import _verify_forward_argmax
+
+        g, self.cache = _verify_forward_argmax(
+            self.params, self.cfg, self.cache,
+            *self._verify_args(ids, pos, kv_lens), comp=self.comp)
+        return g
 
     def reorder_slots(self, src) -> None:
         raise NotImplementedError("beam search (reorder_slots) is not "

@@ -1,6 +1,6 @@
 """Continuous-batching scheduler (port of `neural_speed_tpu/runtime/
-scheduler.py`, its default path): FCFS waiting / running / finished pools
-over the engine's fixed decode slots, and iteration-level steps.
+scheduler.py`): FCFS waiting / running / finished pools over the engine's
+fixed decode slots, and iteration-level steps.
 
 A step admits and prefills a batch of waiting requests into free slots
 (`_prefill_batch`), or decodes the running slots: through the engine's
@@ -8,20 +8,31 @@ EOS-aware decode window (`_window_step`, engines with `supports_window`,
 the default) or through the chunk ladder (`_decode_step`, `window=1` or
 `chunk_size=1`), either one pipelined: the next dispatch leaves from the
 previous one's device carry, and the host commits the previous tokens
-after it.  The host bookkeeping (the `_slot_len` mirror, page reservations
-through `prepare_*` / `commit_lens` / `release_slot`, sampler state per
-slot, streamers, finish order) follows the JAX scheduler's, name for name
-and in the same order, so greedy deliveries equal the JAX package's.
+after it.  With `speculative`, decoding slots instead run joint steps
+(`_joint_step`): each proposes a prompt-lookup draft and one multi-token
+verify forward scores every slot (`runtime/speculative.py`), greedy
+accepting the longest agreeing prefix and the correction, sampled by
+rejection sampling against the draft; an EMA of the accepted tokens per
+verify picks the draft length and backs off to plain decode for a while
+when it collapses.  With `mixed_prefill`, admitted prompts are fed
+`mixed_chunk` tokens per joint step beside the decoding slots' rows
+(`_admit_mixed`).  The host bookkeeping (the `_slot_len` mirror, page
+reservations through `prepare_*` / `commit_lens` / `release_slot`, sampler
+state per slot and its host replicas, streamers, finish order) follows
+the JAX scheduler's, name for name and in the same order, so greedy
+deliveries equal the JAX package's.
 
-The sampler state is the port's `ops/sampling` (a `torch.Generator` where
-JAX has a PRNG key), so sampled ids are the port's own; a seed gives the
-same ids run after run.  Steps run under `torch.inference_mode()`.
+The device sampler state is the port's `ops/sampling` (a `torch.Generator`
+where JAX has a PRNG key), so ids it samples are the port's own; a seed
+gives the same ids run after run.  The joint steps sample on the host with
+the JAX package's stream (`numpy.random.default_rng(seed ^ 0x5EED)`), so
+there a draw depends on the logits alone.  Steps run under
+`torch.inference_mode()`.
 
 Not ported, and raising with the ROADMAP section 1 item that ports them:
-`speculative` and `mixed_prefill` (item 7), eviction when a slot's context
-fills (`_maybe_evict`, item 6) and `save_state` / `load_state` (item 6).
-The state only those paths read (the joint steps' host penalty replicas
-and device-length resync, eviction's settings, the prompt prefix a
+eviction when a slot's context fills (`_maybe_evict`, item 6, also when a
+joint step's rows would fill it) and `save_state` / `load_state` (item 6).
+The state only those paths read (eviction's settings, the prompt prefix a
 session or the prefix cache (item 5) leaves in a slot) comes with them.
 """
 
@@ -38,6 +49,8 @@ import torch
 from ..ops import sampling as smp
 from ..utils.profiler import Timings
 from .engine import Engine, pad_to_bucket
+from .speculative import (_SPEC_BUCKETS, _PenalizedGreedy, _target_dist,
+                          propose_ngram)
 
 
 class SeqStatus:
@@ -60,6 +73,10 @@ class Sequence:
     receive_time: float = dataclasses.field(default_factory=time.time)
     end_time: Optional[float] = None
     streamer: Optional[Callable[[int], None]] = None
+    # mixed prefill+decode steps: the (clamped) prompt suffix still to be
+    # written to KV, and how many of its tokens have been fed so far
+    feed: Optional[List[int]] = None
+    fed: int = 0
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -74,14 +91,11 @@ class ContinuousBatchingScheduler:
                  params: Optional[smp.SamplingParams] = None,
                  eos_id: Optional[int] = None, seed: int = 0,
                  chunk_size: int = 8, speculative: bool = False,
-                 mixed_prefill: bool = False, adaptive_chunk: bool = True,
+                 spec_k: int = 7, spec_min_k: int = 3,
+                 spec_max_ngram: int = 3, mixed_prefill: bool = False,
+                 mixed_chunk: int = 32, adaptive_chunk: bool = True,
                  pipeline_decode: bool = True,
                  window: Optional[int] = None):
-        if speculative or mixed_prefill:
-            raise NotImplementedError(
-                f"{'speculative' if speculative else 'mixed_prefill'} "
-                f"scheduling (the scheduler's joint steps) is not ported yet "
-                f"(ROADMAP section 1, item 7)")
         self.engine = engine
         self.eos_id = eos_id
         self.timings = Timings()
@@ -100,6 +114,58 @@ class ContinuousBatchingScheduler:
             window = (4 if adaptive_chunk else 1) * max(1, chunk_size)
         self.window_cap = max(1, int(window))
         self.sp = params or smp.SamplingParams(do_sample=False)
+        # -- batched speculative decoding --------------------------------
+        # every step each decoding slot proposes its own prompt-lookup draft
+        # and one multi-token verify forward scores all slots; the draft
+        # length follows an EMA of the accepted tokens per verify, and when
+        # that collapses the scheduler decodes plainly for a spell
+        # (`spec_backoff_chunks` steps) before it probes again
+        self.speculative = speculative
+        # -- mixed prefill+decode steps ----------------------------------
+        # each joint step feeds every admitted prompt its next <=
+        # mixed_chunk tokens beside the decoding slots' rows: running
+        # decodes never stall behind a long prompt
+        self.mixed_prefill = mixed_prefill
+        self.mixed_chunk = max(1, mixed_chunk)
+        if speculative or mixed_prefill:
+            mode = "speculative" if speculative else "mixed-prefill"
+            if self.sp.do_sample and (self.sp.mirostat or self.sp.tfs_z < 1.0
+                                      or self.sp.typical_p < 1.0):
+                raise ValueError(
+                    f"sampled {mode} scheduling supports temperature/"
+                    "top_k/top_p/penalties only (no host replica of "
+                    "tfs/typical/mirostat)")
+        if ((speculative or mixed_prefill)
+                and hasattr(engine, "page_size")):
+            # the JAX package writes a joint step's rows through the page
+            # table only up to page_size tokens: every row fits in a page
+            ps = int(engine.page_size)
+            if ps < 2:
+                raise ValueError("speculative/mixed scheduling on paged "
+                                 "KV needs page_size >= 2")
+            self.mixed_chunk = min(self.mixed_chunk, ps)
+            spec_k = min(spec_k, ps - 1)
+            spec_min_k = min(spec_min_k, ps - 1)
+        if mixed_prefill and engine.cfg.rope_style == "chatglm":
+            # GLM blank infilling makes prompt attention bidirectional:
+            # chunked prefill cannot feed it
+            raise NotImplementedError(
+                "mixed_prefill cannot chunk chatglm-1's bidirectional "
+                "prompt (GLM blank-infilling mask); use the default "
+                "alternating scheduler")
+        self.spec_k = spec_k
+        self.spec_min_k = spec_min_k
+        self.spec_max_ngram = spec_max_ngram
+        self.spec_backoff_chunks = 4      # plain steps per backoff spell
+        self._pens: Dict[int, object] = {}          # slot -> _PenalizedGreedy
+        # the host stream of the joint steps' draws (the device sampler
+        # drives prefill and backoff decode)
+        self._spec_rng = np.random.default_rng(np.uint64(seed) ^ 0x5EED)
+        self._spec_gain_ema = float(spec_k) / 2     # optimistic start
+        self._spec_backoff = 0
+        # joint steps mask by explicit kv lengths: the cache's lengths are
+        # pushed lazily, before a step that reads them
+        self._dev_lens_dirty = False
         self._slot_len = np.zeros((engine.max_batch,), np.int64)  # host KV mirror
         self.waiting: Deque[Sequence] = deque()
         self.running: Dict[int, Sequence] = {}  # slot -> seq
@@ -147,12 +213,22 @@ class ContinuousBatchingScheduler:
         kernels' build and first launches outside any request's latency."""
         assert not self.has_work, "warmup() must run before any request"
         budget = self.chunk_size * (6 if self.adaptive_chunk else 2) + 2
+        if self.speculative or self.mixed_prefill:
+            budget = max(budget, 2 * self.mixed_chunk
+                         + 2 * (self.spec_k + 1) + 4)
         self.add_request([1] * max(1, prompt_len), budget)
         self.run_to_completion()
         self.finished.clear()
-        # reset to the constructed state: sampler stream, per-slot mirrors
+        # reset to the constructed state: sampler streams, speculative
+        # adaptivity, per-slot mirrors
         self.sampler = self._new_sampler()
+        self._spec_rng = np.random.default_rng(np.uint64(self._seed)
+                                               ^ 0x5EED)
+        self._spec_gain_ema = float(self.spec_k) / 2
+        self._spec_backoff = 0
+        self._pens.clear()
         self._pending = None
+        self._dev_lens_dirty = False
         self._slot_len[:] = 0
         self._last_tokens[:] = 0
         self.timings = type(self.timings)()
@@ -161,15 +237,47 @@ class ContinuousBatchingScheduler:
     @torch.inference_mode()
     def step(self) -> None:
         """One scheduler iteration: admit and prefill a batch of new
-        requests, or decode the running slots."""
+        requests, or decode the running slots, or with mixed_prefill both
+        in one joint forward."""
         if self.waiting:
             # a pending decode may finish sequences and free slots; the
             # admission decision must see the post-flush state
             self._flush_pending()
-        if self.waiting and self.free_slots:
+        admit = bool(self.waiting and self.free_slots)
+        if self.mixed_prefill:
+            mid = any(q.status == SeqStatus.PREFILL
+                      for q in self.running.values())
+            decoding = any(q.status == SeqStatus.DECODING
+                           for q in self.running.values())
+            if mid or (admit and decoding):
+                self._flush_pending()
+                if admit:
+                    self._admit_mixed()
+                self._joint_step(include_prefill=True)
+                return
+        if admit:
             self._prefill_batch()
         elif self.running:
-            self._decode_step()
+            if self.speculative and self._spec_backoff == 0:
+                self._flush_pending()
+                self._joint_step(include_prefill=False)
+            else:
+                if self._spec_backoff > 0:
+                    self._spec_backoff -= 1
+                    if self._spec_backoff == 0:
+                        # probe speculation again with a clean slate
+                        self._spec_gain_ema = 1.0
+                self._decode_step()
+
+    def _sync_dev_lengths(self) -> None:
+        """Push the host KV-length mirror to the device cache (the joint
+        steps mask by explicit kv lengths; prefill and plain decode read
+        the cache's)."""
+        from ..ops import kv_cache as kvc
+
+        kvc.set_lengths(self.engine.cache,
+                        self._dev(self._slot_len.astype(np.int32)))
+        self._dev_lens_dirty = False
 
     def _penalties_active(self) -> bool:
         return (self.sp.repetition_penalty != 1.0
@@ -185,6 +293,8 @@ class ContinuousBatchingScheduler:
 
     # ------------------------------------------------------------------
     def _prefill_batch(self) -> None:
+        if self._dev_lens_dirty:
+            self._sync_dev_lengths()  # spectators' kv_lens read the cache's
         # admission: min(free slots, waiting)
         batch: List[Sequence] = []
         while self.waiting and self.free_slots:
@@ -226,7 +336,9 @@ class ContinuousBatchingScheduler:
         every pending token were consumed, no slot can finish on budget or
         run out of context (an EOS mid-chunk is fine: the extra chunk's
         tokens for that slot are discarded like mid-chunk tails)."""
-        if not self.pipeline_decode or self.waiting:
+        if (not self.pipeline_decode or self.waiting
+                or self._dev_lens_dirty or self.speculative
+                or self.mixed_prefill):
             return False
         # every dispatched slot must still be running and decoding, or the
         # stale mask would advance a freed slot's mirror and claim pages
@@ -277,6 +389,9 @@ class ContinuousBatchingScheduler:
                 tok = int(toks_np[slot, step])
                 seq.generated.append(tok)
                 self._last_tokens[slot] = tok
+                pen = self._pens.get(slot)
+                if pen is not None:
+                    pen.observe([tok])  # keep the host greedy state resumable
                 if seq.streamer is not None:
                     seq.streamer(tok)
                 if (self.eos_id is not None and tok == self.eos_id) or len(
@@ -287,6 +402,7 @@ class ContinuousBatchingScheduler:
 
     def _use_window(self) -> bool:
         return (getattr(self.engine, "supports_window", False)
+                and not self.speculative and not self.mixed_prefill
                 and self.window_cap > 1 and self.chunk_size > 1)
 
     def _decode_step(self) -> None:
@@ -305,6 +421,9 @@ class ContinuousBatchingScheduler:
                                     chunk_prev)
                 return
             self._flush_pending()
+        if self._dev_lens_dirty:
+            self._sync_dev_lengths()
+            self._sync_sampler_from_pens()
         eng = self.engine
         active_np = np.zeros((eng.max_batch,), bool)
         for slot, seq in self.running.items():
@@ -347,6 +466,9 @@ class ContinuousBatchingScheduler:
                     self._commit_window(buf, em, active_np, w)
                     return
             self._flush_pending()
+        if self._dev_lens_dirty:
+            self._sync_dev_lengths()
+            self._sync_sampler_from_pens()
         active_np = np.zeros((eng.max_batch,), bool)
         for slot, seq in self.running.items():
             if seq.status == SeqStatus.DECODING:
@@ -400,9 +522,12 @@ class ContinuousBatchingScheduler:
             cnt = int(em_np[slot])
             self._slot_len[slot] += cnt - w  # undo the pessimistic advance
             toks = buf_np[slot, :cnt].tolist()
+            pen = self._pens.get(slot)
             for tok in toks:
                 seq.generated.append(tok)
                 self._last_tokens[slot] = tok
+                if pen is not None:
+                    pen.observe([tok])
                 if seq.streamer is not None:
                     seq.streamer(tok)
             if toks and ((self.eos_id is not None
@@ -417,7 +542,8 @@ class ContinuousBatchingScheduler:
         """Window N+1 may leave from N's device carries whenever no
         admission, eviction or host-state change can interleave (EOS and
         budget stops deactivate on the device)."""
-        if not self.pipeline_decode or self.waiting:
+        if (not self.pipeline_decode or self.waiting
+                or self._dev_lens_dirty):
             return False
         for slot in np.nonzero(active_np)[0]:
             seq = self.running.get(int(slot))
@@ -431,14 +557,254 @@ class ContinuousBatchingScheduler:
             return False
         return True
 
+    # -- mixed admission (chunked prefill) ------------------------------
+    def _admit_mixed(self) -> None:
+        """Admit waiting requests into free slots for chunked prefill: the
+        prompt is fed `mixed_chunk` tokens per joint step (clamped to the
+        context as `_prefill_batch`'s bucket clamp)."""
+        while self.waiting and self.free_slots:
+            seq = self.waiting.popleft()
+            seq.slot = self.free_slots.pop()
+            seq.status = SeqStatus.PREFILL
+            cap = max(1, self.engine.max_len - 1)
+            seq.feed = list(seq.prompt)[-cap:]
+            seq.fed = 0
+            self._slot_len[seq.slot] = 0
+            self._dev_lens_dirty = True  # joint steps mask by explicit args
+            self.running[seq.slot] = seq
+
+    # -- batched speculative decoding / mixed prefill+decode ------------
+    def _joint_step(self, include_prefill: bool) -> None:
+        """One combined forward for every slot with work.
+
+        Decoding slots contribute a [last_tok, *draft] row (the draft empty
+        unless speculation is on): greedy keeps the longest agreeing prefix
+        plus the correction, sampled rejection-samples against the
+        point-mass draft, so each slot's output is the sequential one at
+        about 1 + accepted tokens per dispatch.  With include_prefill,
+        prefill slots contribute their next <= mixed_chunk prompt tokens
+        (their logits unused until the chunk that completes the prompt,
+        whose last row gives the first token)."""
+        eng = self.engine
+        slots = [(slot, seq) for slot, seq in self.running.items()
+                 if seq.status == SeqStatus.DECODING]
+        slots_p = [(slot, seq) for slot, seq in self.running.items()
+                   if seq.status == SeqStatus.PREFILL] if include_prefill \
+            else []
+        if not slots and not slots_p:
+            return
+        speculate = self.speculative and self._spec_backoff == 0
+        # the adaptive draft length: long drafts pay only when acceptance
+        # is high (the verify cost grows with the padded bucket)
+        k = self.spec_k if self._spec_gain_ema >= 2.0 else self.spec_min_k
+        b = eng.max_batch
+        drafts: Dict[int, List[int]] = {}
+        for slot, seq in slots:
+            d = (propose_ngram(seq.prompt + seq.generated, k,
+                               max_ngram=self.spec_max_ngram) or []) \
+                if speculate else []
+            # never draft past the remaining budget: only the correction
+            # token can finish a slot
+            room = seq.max_new_tokens - len(seq.generated) - 1
+            drafts[slot] = d[:max(0, room)]
+        rows: Dict[int, List[int]] = {
+            slot: [int(self._last_tokens[slot])] + drafts[slot]
+            for slot, _ in slots
+        }
+        for slot, seq in slots_p:
+            rows[slot] = list(seq.feed[seq.fed: seq.fed + self.mixed_chunk])
+        max_seq = max(len(r) for r in rows.values())
+        buckets = _SPEC_BUCKETS if self.mixed_chunk <= _SPEC_BUCKETS[-1] \
+            else _SPEC_BUCKETS + (self.mixed_chunk,)
+        if hasattr(eng, "page_size"):
+            # the padded window fits in one page too
+            ps = int(eng.page_size)
+            buckets = tuple(x for x in buckets if x <= ps)
+            if not buckets or buckets[-1] < ps:
+                buckets = buckets + (ps,)
+        pad_t = pad_to_bucket(max_seq, buckets)
+
+        active_np = np.zeros((b,), bool)
+        for slot, _ in slots:
+            active_np[slot] = True
+        # only decoding slots can run out of context, and only by their own
+        # rows (prefill slots fit by the admission clamp)
+        look = max((len(rows[slot]) for slot, _ in slots), default=0)
+        if slots and (self._slot_len[active_np] + look
+                      > eng.max_len - 1).any():
+            if self._dev_lens_dirty:
+                self._sync_dev_lengths()
+            self._maybe_evict(active_np, look)
+
+        ids = np.zeros((b, pad_t), np.int32)
+        seq_lens = np.zeros((b,), np.int32)
+        for slot, row in rows.items():
+            ids[slot, : len(row)] = row
+            seq_lens[slot] = len(row)
+        pos = np.arange(pad_t)[None, :] + self._slot_len[:, None]
+        in_range = np.arange(pad_t)[None, :] < seq_lens[:, None]
+        pos = np.where(in_range, pos, eng.max_len - 1).astype(np.int32)
+        kv_lens = (self._slot_len + seq_lens).astype(np.int32)
+        # paged KV: reserve pages up to each row's end (provisional until
+        # commit_lens below; idle slots reserve nothing)
+        eng.prepare_rows(np.where(seq_lens > 0,
+                                  self._slot_len + seq_lens, 0))
+
+        sampled = self.sp.do_sample
+        penalized = self._penalties_active()
+        timer_key = "mixed" if slots_p else "decode"
+        with self.timings.timer(timer_key, int(seq_lens.sum())):
+            if sampled or penalized:
+                # fetch the rows the accept loops read: every decode row,
+                # but only the prompt-completing row of a prefill chunk
+                need = 1
+                for slot, _ in slots:
+                    need = max(need, len(rows[slot]))
+                r = pad_to_bucket(need, buckets) if slots_p else pad_t
+                r = min(r, pad_t)
+                row_idx = np.minimum(
+                    np.broadcast_to(np.arange(r), (b, r)), pad_t - 1
+                ).astype(np.int32).copy()
+                for slot, _ in slots_p:
+                    row_idx[slot, :] = len(rows[slot]) - 1
+                rows_np = eng.run_verify_rows(
+                    ids, pos, kv_lens, row_idx).float().cpu().numpy()
+            else:
+                g_np = _host(eng.run_verify_argmax(ids, pos, kv_lens))
+
+        # prefill slots: commit the fed chunk; the completing chunk's last
+        # row gives the request's first token (on the host, with the accept
+        # loops' replicas)
+        for slot, seq in slots_p:
+            n = len(rows[slot])
+            seq.fed += n
+            self._slot_len[slot] += n
+            self._dev_lens_dirty = True
+            if seq.fed < len(seq.feed):
+                continue
+            pen = _PenalizedGreedy(seq.prompt, self.sp)
+            self._pens[slot] = pen
+            # every fetched row of a prefill slot is the completing row
+            if sampled:
+                p0 = _target_dist(rows_np[slot, 0], self.sp, pen.obs)
+                tok = int(self._spec_rng.choice(p0.shape[0], p=p0))
+            elif penalized:
+                tok = pen.pick(rows_np[slot, 0], [])
+            else:
+                tok = int(g_np[slot, n - 1])
+            pen.observe([tok])
+            seq.status = SeqStatus.DECODING
+            self._last_tokens[slot] = tok
+            seq.generated.append(tok)
+            if seq.streamer is not None:
+                seq.streamer(tok)
+            if (self.eos_id is not None and tok == self.eos_id) or len(
+                seq.generated
+            ) >= seq.max_new_tokens:
+                self._finish(slot, seq)
+
+        gain_total = 0
+        for slot, seq in slots:
+            draft = drafts[slot]
+            pen = self._pens[slot]
+            if sampled:
+                # rejection sampling against the point-mass draft (as
+                # speculative.generate_sampled_speculative)
+                rng = self._spec_rng
+                acc: List[int] = []
+                while True:
+                    j = len(acc)
+                    p_j = _target_dist(rows_np[slot, j], self.sp,
+                                       pen.obs + acc)
+                    if (j < len(draft)
+                            and not (self.eos_id is not None
+                                     and draft[j] == self.eos_id)):
+                        x = draft[j]
+                        if rng.random() < p_j[x]:
+                            acc.append(x)
+                            continue
+                        q = p_j.copy()
+                        q[x] = 0.0
+                        s = float(q.sum())
+                        if s <= 0.0:  # a point mass at x: accept is forced
+                            acc.append(x)
+                            continue
+                        nxt = int(rng.choice(q.shape[0], p=q / s))
+                        break
+                    nxt = int(rng.choice(p_j.shape[0], p=p_j))
+                    break
+                accepted = len(acc)
+                committed = acc + [nxt]
+            else:
+                if penalized:
+                    picks = lambda j: pen.pick(rows_np[slot, j], draft[:j])  # noqa: B023,E731,E501
+                else:
+                    picks = lambda j: int(g_np[slot, j])  # noqa: B023,E731
+                accepted = 0
+                while True:
+                    g = picks(accepted)
+                    if (accepted < len(draft) and g == draft[accepted]
+                            and not (self.eos_id is not None
+                                     and g == self.eos_id)):
+                        accepted += 1
+                    else:
+                        nxt = g
+                        break
+                committed = draft[:accepted] + [nxt]
+            gain_total += accepted
+            pen.observe(committed)
+            # KV advanced by last_tok + the accepted drafts; nxt's KV is
+            # written by the next step, whose input it is.  Rejected rows
+            # need no erase: kv_lens masks them and later writes overwrite.
+            self._slot_len[slot] += 1 + accepted
+            self._dev_lens_dirty = True
+            for tok in committed:
+                seq.generated.append(tok)
+                self._last_tokens[slot] = tok
+                if seq.streamer is not None:
+                    seq.streamer(tok)
+                if (self.eos_id is not None and tok == self.eos_id) or len(
+                    seq.generated
+                ) >= seq.max_new_tokens:
+                    self._finish(slot, seq)
+                    break
+
+        if speculate and slots:
+            mean_gain = gain_total / len(slots)
+            self._spec_gain_ema = 0.8 * self._spec_gain_ema + 0.2 * mean_gain
+            if self._spec_gain_ema < 0.35 and self.spec_backoff_chunks > 0:
+                # speculation is not paying: plain decode for a spell
+                self._spec_backoff = self.spec_backoff_chunks
+        # paged KV: roll the provisional reservations back to what was
+        # committed (no-op on the contiguous engine)
+        eng.commit_lens(self._slot_len)
+
     def _finish(self, slot: int, seq: Sequence) -> None:
         seq.status = SeqStatus.FINISHED
         seq.end_time = time.time()
         self.running.pop(slot, None)
         self.free_slots.append(slot)
         self.finished.append(seq)
+        self._pens.pop(slot, None)
         self.engine.release_slot(slot)
         self._slot_len[slot] = 0
+
+    def _sync_sampler_from_pens(self) -> None:
+        """Rebuild the device sampler's penalty state from the host replicas
+        (the device ring and counts go stale during joint steps, which
+        sample on the host; plain decode samples on the device)."""
+        if not ((self.speculative or self.mixed_prefill)
+                and self._penalties_active()):
+            return
+        for slot, seq in self.running.items():
+            pen = self._pens.get(slot)
+            if pen is None:
+                continue
+            self.sampler = smp.reset_slot(
+                self.sampler, slot, self.sp.mirostat_tau)
+            if pen.obs:
+                self.sampler = smp.observe_prompt_slot(
+                    self.sampler, slot, pen.obs)
 
     def _maybe_evict(self, active_np: np.ndarray,
                      lookahead: int = 1) -> None:
@@ -478,6 +844,10 @@ class ContinuousBatchingScheduler:
             tok = int(toks_np[slot])
             seq.generated.append(tok)
             self._last_tokens[slot] = tok
+            if self.speculative or self.mixed_prefill:
+                pen = _PenalizedGreedy(seq.prompt, self.sp)
+                pen.observe([tok])
+                self._pens[slot] = pen
             if seq.streamer is not None:
                 seq.streamer(tok)
             if (self.eos_id is not None and tok == self.eos_id) or len(

@@ -7,11 +7,12 @@ each finished request.  PyTorch's grad and inference modes are per thread,
 so the worker runs the scheduler under `torch.inference_mode()`.  `join`
 waits until every issued request's `response_fn` has returned (a count of
 requests in flight, lowered after each callback), or re-raises an error of
-the worker.
+the worker.  `speculative` (with `spec_k`) and `mixed_prefill` (with
+`mixed_chunk`) reach the scheduler's joint steps.
 
 Not ported, and raising with the ROADMAP section 1 item that ports them:
-beam serving (`num_beams > 1`, `beam_config`: item 5), `speculative` and
-`mixed_prefill` (item 7, raised by the scheduler), `save_state` (item 6).
+beam serving (`num_beams > 1`, `beam_config`: item 5), `save_state`
+(item 6).
 """
 
 from __future__ import annotations
@@ -37,9 +38,11 @@ class ModelServer:
         eos_id: Optional[int] = None,
         max_new_tokens: int = 128,
         speculative: bool = False,
+        spec_k: int = 7,
         num_beams: int = 1,
         beam_config=None,
         mixed_prefill: bool = False,
+        mixed_chunk: int = 32,
         warmup: bool = False,
         window: Optional[int] = None,
     ):
@@ -49,7 +52,8 @@ class ModelServer:
                                       "(ROADMAP section 1, item 5)")
         self.sched = ContinuousBatchingScheduler(
             engine, sampling, eos_id, speculative=speculative,
-            mixed_prefill=mixed_prefill, window=window,
+            spec_k=spec_k, mixed_prefill=mixed_prefill,
+            mixed_chunk=mixed_chunk, window=window,
         )
         if warmup:
             # the first kernel build and launches before real traffic

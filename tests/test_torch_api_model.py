@@ -333,8 +333,14 @@ def test_init_converts_on_the_resolved_device(ckpt, monkeypatch):
     assert seen == [torch.device("cuda")]
 
 
-def test_refusals_name_their_item(ckpt):
-    """What is not ported raises, naming its ROADMAP section 1 item."""
+def test_refusals_name_their_item(ckpt, monkeypatch):
+    """What is not ported raises, naming its ROADMAP section 1 item;
+    `generate(speculative=True)` and `ModelServer(speculative=True)` /
+    `(mixed_prefill=True)` run, their ids those of the plain path, and
+    their attention lands where `flash.int8_dot` says (the bf16 cache: the
+    verify and prefill chunks of several tokens at kernel C's plain
+    version, no int8 dot)."""
+    margins = _Margins(monkeypatch)
     d = ckpt[0]
     m = port_model(ckpt)
     cases = [
@@ -346,14 +352,11 @@ def test_refusals_name_their_item(ckpt):
         (lambda: api.Model().init_from_bin(None, "x.bin"), 8),
         (lambda: api.Model().init_from_ne_bin("x.bin"), 8),
         (lambda: m.generate(PROMPTS, num_beams=2), 5),
-        (lambda: m.generate(PROMPTS, speculative=True), 7),
         (lambda: m.generate(PROMPTS, session_path="s"), 6),
         (lambda: m.quant_model("q"), 6),
         (lambda: m.save_state("s"), 6),
         (lambda: m.load_state("s"), 6),
         (lambda: api.ModelServer(m, print, num_beams=2), 5),
-        (lambda: api.ModelServer(m, print, speculative=True), 7),
-        (lambda: api.ModelServer(m, print, mixed_prefill=True), 7),
     ]
     for fn, item in cases:
         with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
@@ -361,3 +364,27 @@ def test_refusals_name_their_item(ckpt):
     with api.ModelServer(m, print) as srv:
         with pytest.raises(NotImplementedError, match="item 6"):
             srv.save_state("s")
+    from neural_speed_tpu_torch import _build
+
+    plain = m.generate(PROMPTS, max_new_tokens=NEW, ignore_prompt=True)
+    before = dict(_build.plain_dispatches)
+    assert m.generate(PROMPTS, max_new_tokens=NEW, ignore_prompt=True,
+                      speculative=True) == plain
+    for kw in (dict(speculative=True), dict(mixed_prefill=True,
+                                            mixed_chunk=4)):
+        if "mixed_prefill" in kw:
+            # the mixed server decodes through the chunk ladder, whose
+            # tokens past the budget are discarded: their margins are not
+            # the ids'
+            margins.check()
+        got = {}
+        with api.ModelServer(m, lambda rid, ids: got.setdefault(rid, ids),
+                             max_new_tokens=NEW, **kw) as srv:
+            for p in PROMPTS:
+                srv.issue_query(p)
+            srv.join()
+        assert [got[i] for i in range(len(PROMPTS))] == plain
+    grown = {n for n, c in _build.plain_dispatches.items()
+             if c > before.get(n, 0)}
+    assert "flash_prefill_bf16" in grown and not any(
+        "_qk" in n for n in grown)

@@ -300,8 +300,10 @@ def test_qk_not_applied_where_jax_runs_xla():
 
 def test_qk_rule_and_refusals():
     """`int8_dot` follows the JAX gates; several tokens per slot that the
-    JAX package sends to its decode body raise, naming ROADMAP section 2;
-    the plain version refuses the int8 dot over K values; prefill buckets
+    JAX package sends to its decode body run kernel B's int8 dot over
+    several tokens (its plain version here, counted `_qk_multi`; held
+    against the Pallas body in `test_torch_flash_qk_multi.py`); the plain
+    version refuses the int8 dot over K values; prefill buckets
     (t * n_rep > 8) keep kernel C."""
     rule = tfl.int8_dot
     assert rule(1, 8, 4, 128, True, s=256)
@@ -326,8 +328,12 @@ def test_qk_rule_and_refusals():
     q2 = torch.randn((B, 2, H, d)).to(torch.bfloat16)
     pos = torch.tensor([[10, 11], [20, 21]], dtype=torch.int32)
     lens = torch.tensor([12, 22], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP section 2"):
-        tfl.mha(q2, k, v, ks, vs, pos, lens, scale=0.1, layer=0)
+    before = dict(_build.plain_dispatches)
+    out = tfl.mha(q2, k, v, ks, vs, pos, lens, scale=0.1, layer=0)
+    assert out.shape == q2.shape
+    grown = {n for n, c in _build.plain_dispatches.items()
+             if c > before.get(n, 0)}
+    assert grown == {"flash_decode_qk_multi"}
     q32 = torch.randn((B, 32, H, d)).to(torch.bfloat16)
     pos = torch.arange(32, dtype=torch.int32)[None].repeat(B, 1)
     lens = torch.full((B,), 32, dtype=torch.int32)

@@ -25,7 +25,9 @@ fused append; at page size 16 its XLA path).
 * `NST_FLASH_INT8=qk` (JAX's flag patched, caches cleared): the int8
   contiguous and paged engines give JAX's greedy ids, and the port's
   `_qk` plain versions ran.
-* What is not ported raises, naming its ROADMAP item.
+* Speculative and mixed scheduling run (`tests/test_torch_speculative.py`
+  and `test_torch_mixed_prefill.py` hold them against JAX); what is not
+  ported raises, naming its ROADMAP item.
 """
 
 import functools
@@ -302,13 +304,22 @@ def test_qk_matches_jax(monkeypatch):
 
 
 def test_refusals_name_their_item():
-    """What the default path does not cover raises, naming the ROADMAP
-    item: speculative / mixed scheduling (7), eviction when a slot's context
-    fills (6, before any state changes), checkpoints (6)."""
+    """Speculative and mixed scheduling run (their joint steps' attention
+    lands where `flash.int8_dot` says: with the int8 dot off, the verify
+    and prefill chunks of several tokens go to kernel C's plain version);
+    what is not ported raises, naming the ROADMAP item: eviction when a
+    slot's context fills (6, before any state changes), checkpoints (6)."""
     _, pe = engines("contiguous", True)
-    for kw in (dict(speculative=True), dict(mixed_prefill=True)):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            ContinuousBatchingScheduler(pe, **kw)
+    for kw in (dict(speculative=True), dict(mixed_prefill=True,
+                                            mixed_chunk=16)):
+        before = dict(_build.plain_dispatches)
+        sched = ContinuousBatchingScheduler(pe, **kw)
+        got = serve(sched, PROMPTS[:2], BUDGETS[:2])
+        assert [len(g) for _, g in sorted(got)] == BUDGETS[:2]
+        grown = {n for n, c in _build.plain_dispatches.items()
+                 if c > before.get(n, 0)}
+        assert "flash_prefill" in grown and not any(
+            n.endswith(("_qk", "_qk_multi")) for n in grown)
     sched = ContinuousBatchingScheduler(pe)
     with pytest.raises(NotImplementedError, match="item 6"):
         sched.save_state("x")
