@@ -71,7 +71,15 @@ Phases, each raising on failure so the run exits non-zero:
    over Mixtral's 8 KV heads, float32 scales, ALiBi and non-causal at
    t = 4, the head-dim instances at t = 4; padded rows at max_len - 1 and
    an idle slot), each timed beside its plain version and SDPA over the
-   dequantized K/V with the same per-row mask;
+   dequantized K/V with the same per-row mask; the GEMM of F, P and P's
+   INT instances at the low end of its route (M = 33 and 100: nf4, int5
+   asymmetric, int1, fp8_e4m3, GGUF Q4_0 at Llama-2-7B's qkv,
+   `check_gemm_low_m`); and the rows decode body (ROWS_CASES: Gemma-2B's
+   8 query heads over one KV head at D = 256 and Falcon-7B's 71 over one
+   at D = 64, B = 1 and 4, over int8, bf16 and float32 K/V; 12 over 3 at
+   D = 128, once with ALiBi and the softcap), contiguous and paged over a
+   shuffled table, the paged equal to the contiguous bit for bit, each
+   timed beside its plain version, SDPA and kernel C / 9 on the same call;
 3. a tiny model through `Engine` on the card against the same model on the
    CPU (plain versions), once in int4, once per configuration of phase
    5 and as a tiny Mixtral at B = 3 and B = 1: logits within tolerance,
@@ -139,7 +147,9 @@ Phases, each raising on failure so the run exits non-zero:
    MPT-7B over the default bf16 cache (bench shape with 64 greedy steps;
    the ragged requests through `Engine` and `PagedEngine`, bit-equal) and
    over int8, BLOOM-7B1 (bf16 cache, bench shape) and Falcon-7B at g64
-   (bf16 cache, bench shape).  Each prints checkpoint and weight GiB,
+   (bf16 cache, bench shape; the ragged requests through `Engine` and
+   `PagedEngine`, bit-equal: its decode runs the rows body and its paged
+   twin).  Each prints checkpoint and weight GiB,
    conversion seconds and peak GiB, TTFT, ms/token, launches per prefill
    and per decode step, and the tied LM head's ms per step; with
    `--profile`, a trace of MPT-7B's prefill and decode;
@@ -216,6 +226,7 @@ import hashlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -351,7 +362,7 @@ def _category(kernel_name: str) -> str:
         # kernel 11's instances: GROUPED = true, float32 output
         grouped = "true" in kernel_name or "<float>" in kernel_name
         return "qmatmul_grouped" if grouped else "qmatmul"
-    for key in ("flash_decode", "flash_prefill"):
+    for key in ("flash_decode", "flash_prefill", "flash_rows"):
         if key in kernel_name:
             return key
     return "other"
@@ -599,6 +610,64 @@ def check_fp_formats(chk: Checks, gen: torch.Generator) -> None:
                               and shape_name == "gateup"))
             del qt, w_bf16
             torch.cuda.empty_cache()
+
+
+# The low end of the GEMM route (M = 33 and 100, just above the GEMV's
+# M <= 32) at Llama-2-7B's qkv for the formats of rows 1-3: nf4 (F), int5
+# asymmetric and fp8_e4m3 (P), int1 and GGUF Q4_0 (P's one-plane INT
+# instances).  Drawn from a generator of their own (LOW_M_SEED), after
+# every other check.
+LOW_M_SEED = 33
+LOW_M = (33, 100)
+
+
+def check_gemm_low_m(chk: Checks, gen: torch.Generator) -> None:
+    """Kernels F, P and P's INT instances at M = 33 and 100 against
+    `qmatmul_plain` (2 bf16 ulps of the largest output, as the M = 2048
+    cases), through `qmatmul` (the route the main path takes)."""
+    from neural_speed_tpu_torch.ops import matmul
+    from neural_speed_tpu_torch.ops.qtypes import named_qspec
+    from neural_speed_tpu_torch.ops.quantize import dequantize
+    from neural_speed_tpu_torch.utils.synthetic import synth_qtensor
+
+    gen = torch.Generator(device="cuda").manual_seed(LOW_M_SEED)
+    bf = dict(scale_dtype="bfloat16")
+    kinds = {"F": ("qmatmul_lut", "neural_speed_tpu_torch/csrc/qmatmul_lut.cu",
+                   "neural_speed_tpu/ops/matmul.py:217"),
+             "P": ("qmatmul_planar",
+                   "neural_speed_tpu_torch/csrc/qmatmul_planar.cuh",
+                   "neural_speed_tpu/ops/matmul.py:376"),
+             "I": ("qmatmul_int",
+                   "neural_speed_tpu_torch/csrc/qmatmul_planar.cuh",
+                   "neural_speed_tpu/ops/matmul.py:127")}
+    for spec in (named_qspec("nf4", 128, **bf),
+                 named_qspec("int5", 128, False, **bf),
+                 named_qspec("int1", 128, **bf),
+                 named_qspec("fp8_e4m3", 128, **bf),
+                 named_qspec("int4", 32)):                # GGUF Q4_0
+        k, n = _shape("qkv", spec)
+        qt = synth_qtensor(gen, k, n, spec)
+        kname, source, replaces = kinds[matmul.kernel_for(qt)]
+        w_bf16 = dequantize(qt, torch.bfloat16)
+        for m in LOW_M:
+            x = torch.randn((m, k), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            got = matmul.qmatmul(x, qt)
+            want = matmul.qmatmul_plain(x, qt)
+            torch.cuda.synchronize()
+            # as the M = 2048 cases: the same dequantized values, float32
+            # sums in another order, one bf16 rounding of the output
+            cmp = compare(got, want, 2, per_row=False)
+            del got, want
+            ms = time_ms(lambda: matmul.qmatmul(x, qt))
+            plain_ms = time_ms(lambda: matmul.qmatmul_plain(x, qt), reps=3)
+            lib_ms = time_ms(lambda: torch.matmul(x, w_bf16))
+            chk.add(kname, "cuda", source, replaces,
+                    f"{_fmt_name(qt)} g={spec.group_size} M={m} K={k} N={n}",
+                    cmp, ms, plain_ms, lib_ms,
+                    m * k * 2 + qt.nbytes() + m * n * 2, 2.0 * m * n * k)
+        del qt, w_bf16
+        torch.cuda.empty_cache()
 
 
 def _double_quant(gen, qt):
@@ -1571,6 +1640,23 @@ QK_CASES = [
 ] + [("decode", "int8", False, h, h, d, 1, DECODE_LENS, False, 0.0, True)
      for d, h in ((80, 32), (96, 64), (256, 16), (72, 32), (64, 32))]
 # Counter suffix of each K/V type of the cases.
+# The decode body of the MQA / odd-KV-head calls (csrc/flash_rows.cuh) and
+# its paged twin: Gemma-2B's 8 query heads over one KV head at D = 256 and
+# Falcon-7B's 71 over one at D = 64, at B = 1 and B = 4, over int8, bf16
+# and float32 K/V; 12 heads over 3 at D = 128 (an odd KV head count); ALiBi
+# with the softcap once.  Each case also times kernel C / 9 (the body these
+# calls took before) on the same call.  Drawn from a generator of their own
+# (ROWS_SEED), after every other check: a pair run's other cases keep their
+# inputs.
+ROWS_SEED = 14
+ROWS_CASES = [
+    ("rows", kv, False, h, 1, d, 1, lens,
+     kv == "bf16" and h == 71 and len(lens) == 4)
+    for h, d in ((8, 256), (71, 64))
+    for lens in ([1976], DECODE_LENS)
+    for kv in ("int8", "bf16", "f32")
+] + [("rows", "int8", False, 12, 3, 128, 1, DECODE_LENS, False),
+     ("rows", "bf16", True, 12, 3, 128, 1, DECODE_LENS, False, SOFTCAP)]
 KV_SUFFIX = {"int8": "", "int8f32": "_f32scale", "bf16": "_bf16",
              "f32": "_f32"}
 
@@ -1670,6 +1756,9 @@ def _variant_case(chk, gen, kernel, kv, alibi, h, hkv, d, t, lens, main,
             layer, pos, kv_lens, scale, torch.bfloat16)
         fns = (flash.prefill_cuda, flash.prefill_plain,
                flash.prefill_paged_cuda, flash.prefill_paged_plain)
+        if kernel == "rows":    # kernel C's function at T = 1, another body
+            fns = (flash.rows_cuda, flash.prefill_plain,
+                   flash.rows_paged_cuda, flash.prefill_paged_plain)
     c_cuda, c_plain, p_cuda, p_plain = fns
     kw = dict(alibi=slopes, softcap=softcap)
     if qk:
@@ -1750,6 +1839,13 @@ def _variant_case(chk, gen, kernel, kv, alibi, h, hkv, d, t, lens, main,
             extra_rec = dict(off_tolerances=off, qk_off_ms=off_ms)
         del got, want
         ms = time_ms(lambda: run(*args(a_k), **kw))
+        if kernel == "rows":
+            # the body these calls took before (kernel C / 9), timed beside
+            prev = flash.prefill_paged_cuda if paged else flash.prefill_cuda
+            c_ms = time_ms(lambda: prev(*args(a_k), **kw))
+            log(f"  {name}: kernel {'9' if paged else 'C'} on the same "
+                f"call {c_ms:.4f} ms")
+            extra_rec = dict(extra_rec or {}, prev_body_ms=c_ms)
         plain_ms = time_ms(lambda: plain(*args(a_p), **kw), reps=3)
         lib_ms = None
         if not softcap:
@@ -1766,8 +1862,9 @@ def _variant_case(chk, gen, kernel, kv, alibi, h, hkv, d, t, lens, main,
                 f"neural_speed_tpu_torch/csrc/flash_{kernel}.cuh",
                 "neural_speed_tpu/ops/flash.py:"
                 + {("decode", False): "267", ("decode", True): "1196",
-                   ("prefill", False): "142",
-                   ("prefill", True): "1111"}[kernel, paged],
+                   ("prefill", False): "142", ("prefill", True): "1111",
+                   ("rows", False): "142",
+                   ("rows", True): "1111"}[kernel, paged],
                 f"B={b} T={t} H={h} Hkv={hkv} D={d} (instance "
                 f"{flash.instance_dim(d)}) {kv} S={s} kv_len="
                 f"{'/'.join(map(str, lens))}{' ALiBi' if alibi else ''}"
@@ -1793,6 +1890,12 @@ def check_flash_dims(chk: Checks, gen: torch.Generator) -> None:
 
 def check_flash_softcap(chk: Checks, gen: torch.Generator) -> None:
     for case in SOFTCAP_CASES + SCALE_F32_CASES:
+        _variant_case(chk, gen, *case)
+
+
+def check_flash_rows(chk: Checks, gen: torch.Generator) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(ROWS_SEED)
+    for case in ROWS_CASES:
         _variant_case(chk, gen, *case)
 
 
@@ -2076,8 +2179,9 @@ def _whisper_case(chk, gen, kernel, kv, alibi, t, lens, main, pad,
                 f"neural_speed_tpu_torch/csrc/flash_{kernel}.cuh",
                 "neural_speed_tpu/ops/flash.py:"
                 + {("decode", False): "267", ("decode", True): "1196",
-                   ("prefill", False): "142",
-                   ("prefill", True): "1111"}[kernel, paged],
+                   ("prefill", False): "142", ("prefill", True): "1111",
+                   ("rows", False): "142",
+                   ("rows", True): "1111"}[kernel, paged],
                 f"B={b} T={t} H={h} Hkv={hkv} D={d} {kv} q/out "
                 f"{'f32' if f32 else 'bf16'} S={s} kv_len="
                 f"{'/'.join(map(str, lens))} {variant}, "
@@ -3886,8 +3990,10 @@ def serve_hf(profile: bool) -> dict:
     (c) BLOOM-7B1 g128, bf16 cache: the bench shape (embedding LayerNorm,
         biases, the 250880-row tied head);
     (d) Falcon-7B g64 (K = 4544 is not a multiple of 128), bf16 cache: the
-        bench shape; 71 query heads over one KV head, so decode goes to
-        kernel C's bf16 instance.
+        bench shape, then the ragged requests through `Engine` and
+        `PagedEngine`, every logit equal bit for bit; 71 query heads over
+        one KV head, so decode goes to the rows body's bf16 instance
+        (`flash_rows_bf16`, `flash_rows_paged_bf16`).
     Each prints the checkpoint and weight GiB, the conversion's seconds and
     peak GiB, TTFT, ms/token, launches per prefill and per decode step of
     each kernel, and the plain dispatches (none may run)."""
@@ -3932,9 +4038,12 @@ def serve_hf(profile: bool) -> dict:
     cfg = falcon_7b_arch()
     params, info = _convert_hf("(d) Falcon-7B int4 g64", "falcon", cfg, 64,
                                93)
+    rows = ("flash_prefill_bf16", "flash_rows_bf16",
+            "flash_prefill_paged_bf16", "flash_rows_paged_bf16")
     res["falcon_bf16"] = dict(info, **_bench_hf(
-        "(d) Falcon-7B bf16 KV", params, cfg, "bf16",
-        ("flash_prefill_bf16", "flash_prefill_bf16"), n_steps))
+        "(d) Falcon-7B bf16 KV", params, cfg, "bf16", rows[:2], n_steps))
+    res["falcon_bf16"]["ragged"] = _ragged_hf("(d) Falcon-7B bf16 KV", params,
+                                              cfg, "bf16", rows)
     res["falcon_bf16"]["tied_head_ms"] = _head_ms(params, cfg)
     del params
     torch.cuda.empty_cache()
@@ -5557,12 +5666,24 @@ def serve_speculative(card: str, profile: bool) -> dict:
     return res
 
 
+def _redesigned(name: str, shape: str) -> bool:
+    """Cases of the GEMM body redesigned on TMA + wgmma (F, P and P's INT
+    instances at M > 32, the grouped F/P GEMM): their float32 sums run in
+    another order, so their digests may differ from the parent's."""
+    if name == "qmatmul_grouped_fp":
+        return shape.startswith("GEMM")
+    m = re.search(r"\bM=(\d+)", shape)
+    return (name in ("qmatmul_lut", "qmatmul_planar", "qmatmul_int")
+            and m is not None and int(m.group(1)) > 32)
+
+
 def compare_runs(paths) -> dict:
     """A pair run's `chip_smoke.json` files, in the order parent, change,
     parent: for every case that the runs share (kernel name and shape),
-    whether the kernel's output digest is the same in all of them, and per
-    kernel the median of the cases' change / parent time ratios (against
-    the mean of the two parent runs) beside the parent / parent median."""
+    whether the kernel's output digest is the same in all of them (the
+    redesigned GEMM's cases apart, `_redesigned`), and per kernel the median
+    of the cases' change / parent time ratios (against the mean of the two
+    parent runs) beside the parent / parent median."""
     runs = []
     for p in paths:
         with open(p) as f:
@@ -5573,6 +5694,8 @@ def compare_runs(paths) -> dict:
     differ = [key for key in shared
               if not p1[key]["digest"] == ch[key]["digest"]
               == p2[key]["digest"]]
+    redesigned = [key for key in differ if _redesigned(*key)]
+    differ = [key for key in differ if not _redesigned(*key)]
     ratios, noise = collections.defaultdict(list), collections.defaultdict(
         list)
     for key in shared:
@@ -5580,6 +5703,7 @@ def compare_runs(paths) -> dict:
                                                       + p2[key]["ms"])))
         noise[key[0]].append(p2[key]["ms"] / p1[key]["ms"])
     res = dict(cases=len(shared), digests_differ=differ,
+               redesigned_differ=len(redesigned),
                median_ratio={k: statistics.median(v)
                              for k, v in ratios.items()},
                parent_parent={k: statistics.median(v)
@@ -5676,7 +5800,11 @@ def main() -> int:
                         ("qmatmul_int qmatmul_planar", check_int_formats),
                         ("qmatmul_lut_f32 qmatmul_planar_f32 qmatmul_int_f32",
                          check_f32_formats),
-                        ("qmatmul_grouped_fp", check_grouped_fp)):
+                        ("qmatmul_grouped_fp", check_grouped_fp),
+                        ("qmatmul_lut qmatmul_planar qmatmul_int low_m",
+                         check_gemm_low_m),
+                        ("flash_rows flash_rows_paged rows",
+                         check_flash_rows)):
         if 2 in phases and any(o in names for o in args.only.split(",")):
             check(chk, gen)
     torch.cuda.empty_cache()

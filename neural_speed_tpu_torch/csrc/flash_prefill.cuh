@@ -27,8 +27,9 @@
 // ALiBi still measures c - pos[b, t].  At prefill the cache is appended
 // first, so this reads the K/V of the prompt itself.  Decode calls that
 // kernel B does not take (Falcon-7B's 71 query heads over one KV head,
-// Gemma-2B's 8 over one, an odd KV head count) come here too, one real row
-// per 64-row tile.
+// Gemma-2B's 8 over one, an odd KV head count) go to the rows body
+// (flash_rows.cuh), which packs a KV head's query heads as its tile rows;
+// here a decode call would hold one real row per 64-row tile.
 //
 // Bound: operations (4 * T^2/2 * D per head with causal skipping, ~34 GFLOP
 // per Llama-2-7B layer at T = 2048, on the bf16 tensor cores).

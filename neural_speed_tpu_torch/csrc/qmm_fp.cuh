@@ -44,26 +44,62 @@
 //    bands with the band's scale and zero point loaded once per 8 rows: with
 //    four columns only 2 rows fit in registers, and the scale loads (one per
 //    weight) set the time.
-//  * GEMM, M > 32.  Bound: operations (bf16 tensor cores).  128x128 tiles,
-//    8 warps of wmma 16x16x16, K steps of 64.  The wrapper hands x with K
-//    reordered band-major (k' = r * EF + b), so a K step is 64 / EF word
-//    rows of the narrowest plane with all their bands: the x tile is
-//    contiguous and no packed word is read twice per output tile.  The
-//    dequantized value is computed in float32 and rounded once to bf16, as
-//    the plain version (dequantize to bf16, dot with float32 accumulation).
-//    The next step's operands are loaded into registers while the current
-//    step's MMAs run.  No TMA / wgmma yet.
+//  * GEMM, M > 32.  Bound: operations (bf16 tensor cores).  The wrapper
+//    hands x with K reordered band-major (k' = r * EF + b), so a K step of
+//    64 is 64 / EF word rows of the narrowest plane with all their bands:
+//    x's tile is a plain [BM, 64] box and no packed word is read twice per
+//    output tile.  Each weight is computed in float32 exactly as the plain
+//    version does (int_value / fp8_value / the table, times its scale) and
+//    rounded once to bf16; only the order of the float32 sums differs.
+//    One block of 640 threads per SM takes a 128 x 128 tile (64 x 128 for
+//    the grouped bm = 64), warp-specialised:
+//      - warpgroup 0: two threads keep TMA loads in flight into rings in
+//        shared memory, one for x (bf16 [M, K], 128-byte swizzle, 5
+//        stages), one for the packed planes as stored (each a 4-D map over
+//        (N, rows of a band block, band blocks, experts) of uint32 words or
+//        bytes, 6 stages, so W runs ahead of x), completion on mbarriers.
+//        Byte rows whose stride is not a multiple of 16 bytes (N % 16 != 0)
+//        cannot be a TMA map: there the dequantizing threads read their
+//        words from global memory;
+//      - warpgroups 1-2 dequantize: each thread turns 32 codes of a stage
+//        into bf16 and writes them, 16 bytes at a time, into a 4-stage
+//        ring of W tiles in the 128-byte-swizzled K-major layout that
+//        wgmma reads (a transposed tile of 128 columns x 64 k').  Each
+//        thread holds the scale and zero term of its (group, column)s in
+//        registers and reloads one only when its band's group changes
+//        (once per group: at Llama's K = 4096 and g = 128 a 32-band pack
+//        loads each band's scale once for the whole K loop), issued after
+//        the previous step's stores so the load's latency is hidden; no
+//        load per weight remains.  Each thread takes 32 codes a step (8 or
+//        16 bands of 4 or 2 rows): with 16 the per-band state is all the
+//        registers the 640-thread block allows (96), so nothing else per
+//        band is kept.  Integer codes become floats by an exponent trick,
+//        fp8 pairs by one paired conversion, not one instruction each;
+//      - warpgroups 3-4 multiply: wgmma m64n128k16 (m64n64k16 at bm = 64)
+//        from both tiles in shared memory into float32 registers, one
+//        group in flight while the next stage is awaited; the output goes
+//        from the accumulators to global memory 16 bytes per store after
+//        a shuffle within each lane quad (bf16, or float32 for the grouped
+//        instances).
+//    Dequantization is off the MMA's critical path by a transform
+//    warpgroup pair rather than by the mixed-input scheme (out^T = W^T x^T
+//    with W as wgmma's register operand): the pack is read as stored, and
+//    a thread's natural unit is one word = 8-32 consecutive k' of one
+//    column, which is a 16-byte row chunk of the K-major tile but would
+//    have to be scattered over the register fragment's k pairs.  The
+//    transform and MMA warps overlap through the W ring; loads, dequant
+//    and products of different steps run at once.
 //
 // Float32 activations (`_f32` entries; the output is float32 too):
 //  * GEMV: the same kernels with the x pointer's type a template parameter
 //    (XT); x is staged as float32 either way, so only the global load
 //    differs, and the product is float32 end to end, never rounded to bf16.
 //  * GEMM: gemm_f32_kernel, an exact float32 SIMT GEMM (FFMA, float32
-//    accumulation).  The bf16 wmma tile would round x and W to bf16, and a
+//    accumulation).  The bf16 tensor-core tile would round x and W to bf16, and a
 //    TF32 product would round both to 10-bit mantissas; the JAX kernels'
 //    float32 branch does neither.  Bound: operations at the float32
 //    (non-tensor) rate.  128x128 tiles, K steps of 64 over the same
-//    band-major x and the same unpacking of W as the bf16 GEMM, both
+//    band-major x as the bf16 GEMM, W unpacked in registers, both
 //    operands dequantized / staged in shared memory as float32,
 //    double-buffered (135 KB: one block of 256 threads per SM), each thread
 //    an 8x8 micro-tile.
@@ -72,21 +108,23 @@
 // out): experts stacked on a leading axis of the planes, scales and zeros.
 // The GEMV takes one row per block row (gridDim.z) and that row's expert
 // from a per-row map; the GEMM's M tile is one block of the sorted rows
-// (64 * MI = the routing's bm), its expert read from block_expert and only
-// its block_rows live rows loaded; a tile with none writes zeros and stops.
+// (64 * MI = the routing's bm), its expert read from block_expert and its
+// planes' boxes taken at that expert's coordinate; rows past its live ones
+// are written as zeros, and a tile with none writes zeros and stops.
 // Grouped-only code is compile-time, so the F and P instances are as before.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <climits>
 
 namespace nstfp {
-
-using namespace nvcuda;
 
 enum { FMT_LUT4 = 0, FMT_INT1 = 1, FMT_INT2 = 2, FMT_INT3 = 3, FMT_INT4 = 4,
        FMT_INT5 = 5, FMT_INT6 = 6, FMT_INT7 = 7, FMT_E4M3 = 8, FMT_E5M2 = 9,
@@ -543,212 +581,686 @@ cudaError_t run_gemv_grouped(const __nv_bfloat16* x, const PackArgs& a,
 }
 
 // ---------------------------------------------------------------- GEMM ---
-constexpr int BN = 128, BK = 64;
-constexpr int LDA = BK + 8, LDB = BN + 8;
-constexpr int GEMM_THREADS = 256;
+// The bf16 tensor-core GEMM (M > 32): TMA loads, a dequantizing warpgroup
+// pair and wgmma; design in the note at the top of this file.
+namespace tc {
 
-template <int MI>
-constexpr int gemm_smem_bytes() {
-  return (int)(sizeof(__nv_bfloat16) * 2 * (64 * MI * LDA + BK * LDB) +
-               sizeof(float) * (GEMM_THREADS / 32) * 16 * 16);
+constexpr int BN = 128, BK = 64;               // output columns, K per step
+constexpr int SX = 5, SW = 6, SB = 4;          // ring stages: x, packed, bf16 W
+constexpr int PRODUCER = 128, TRANSFORM = 256, CONSUMER = 256;
+constexpr int THREADS = PRODUCER + TRANSFORM + CONSUMER;
+constexpr int TWARPS = TRANSFORM / 32;
+constexpr int MAX_EXPERTS = 1024;              // the expert axis of a plane's map
+
+// Packed bytes of one step's tile of W (BK x BN weights).
+template <int FMT>
+__host__ __device__ constexpr int w_stage_bytes() {
+  return BK * BN * Fmt<FMT>::kBits / 8;
 }
 
-// 64 * MI x 128 output tiles (F and P: MI = 2).  The grouped instance takes
-// tile i from expert block_expert[i] and loads its block_rows[i] live rows.
-template <int FMT, int MI = 2, bool GROUPED = false, typename OutT = __nv_bfloat16>
-__global__ void __launch_bounds__(GEMM_THREADS, 2)
-gemm_kernel(const __nv_bfloat16* __restrict__ xk, PackArgs a,
-            const int* __restrict__ block_expert, const int* __restrict__ block_rows,
-            OutT* __restrict__ out, int M, int K, int N, int g) {
+template <int MI>
+struct Layout {
+  static constexpr int BM = 64 * MI;
+  static constexpr int x_stage = BM * BK * 2;  // bf16, 128-byte swizzled rows
+  static constexpr int b_stage = BN * BK * 2;
+  static constexpr int w_stage = 8192;         // the widest pack (bytes)
+  static constexpr int x_off = 0;
+  static constexpr int b_off = x_off + SX * x_stage;
+  static constexpr int w_off = b_off + SB * b_stage;
+  static constexpr int bar_off = w_off + SW * w_stage;
+  static constexpr int tab_off = bar_off + 8 * 2 * (SX + SW + SB);
+  static constexpr int bytes = tab_off + 16 * 4 + 1024;  // + the 1024 alignment
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+// Waits for the phase of `parity` to complete; a wait that never ends (a
+// protocol fault) traps after ~2^34 clocks (~10 s) instead of hanging the
+// card.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  long long t0 = 0;
+  for (uint32_t tries = 0; !done; ++tries) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (tries == 0) t0 = clock64();
+    else if ((tries & 1023) == 0 && clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                       int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
+      : "memory");
+}
+__device__ __forceinline__ void tma_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                       int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The wgmma operand descriptor of a K-major tile of 128-byte rows in the
+// 128-byte swizzle (8-row atoms of 1024 bytes; the leading offset is unused).
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  const uint64_t addr = smem_addr(p);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+// Byte offset of the 16-byte chunk `ch` (8 bf16 along K) of row `row` in such
+// a tile: what TMA's CU_TENSOR_MAP_SWIZZLE_128B writes and wgmma reads.
+__device__ __forceinline__ int sw128_chunk(int row, int ch) {
+  return row * 128 + ((ch ^ (row & 7)) << 4);
+}
+
+template <int N>
+struct Wgmma;
+// m64nNk16, bf16 x bf16 -> float32, A and B K-major in shared memory,
+// accumulating into d.
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+        "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
+        "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "
+        "%61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+          "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+          "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+          "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
+          "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
+          "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+          "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+        "%31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+          "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+          "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+          "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <int R>
+__device__ __forceinline__ void keep_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// An unsigned code below 2^23 as a float, exactly, without a conversion
+// instruction (the dequantization runs beside the tensor cores).
+__device__ __forceinline__ float code_float(uint32_t c) {
+  return __int_as_float(0x4B000000u | c) - 8388608.f;
+}
+
+// The dequantized weight of `code` with its (group, column)'s scale s and
+// zero term z: z is the integer zero point or symmetric offset as a float
+// (value s * (code - z), the subtraction exact) or, with float offsets, the
+// offset (value code * s + z, each step rounded as the plain version's).
+template <int FMT>
+__device__ __forceinline__ float weight_value(uint32_t code, float s, float z,
+                                              bool float_zero, const float* tab) {
   using F = Fmt<FMT>;
-  constexpr int BM = 64 * MI;
-  constexpr int EF = F::kBands;
-  constexpr int R = BK / EF;                  // narrowest-plane rows per K step
-  constexpr int RH = F::kByte ? 8 : R / 2;    // rows one thread unpacks
-  constexpr int NW = F::kByte ? 8 : RH * F::kSlots;  // words it holds
-  extern __shared__ __align__(128) unsigned char gsm[];
-  __nv_bfloat16* As_all = reinterpret_cast<__nv_bfloat16*>(gsm);
-  __nv_bfloat16* Bs_all = As_all + 2 * BM * LDA;
-  auto Cs = reinterpret_cast<float(*)[16 * 16]>(Bs_all + 2 * BK * LDB);
-  __shared__ float tab[16];
-  if (F::kLut && threadIdx.x < 16) tab[threadIdx.x] = a.table[threadIdx.x];
+  if constexpr (F::kLut) return tab[code] * s;
+  if constexpr (F::kFp8) return fp8_value<FMT>(code) * s;
+  const float c = code_float(code);
+  if constexpr (FMT == FMT_INT1) return s * (2.f * c - 1.f);
+  return float_zero ? __fadd_rn(__fmul_rn(c, s), z) : s * (c - z);
+}
+
+// The zero term of (group, column) idx, as weight_value takes it.
+__device__ __forceinline__ float zero_term(const PackArgs& a, size_t idx, float sym) {
+  return a.zmode == Z_SYM     ? sym
+         : a.zmode == Z_INT   ? (float)static_cast<const uint8_t*>(a.zeros)[idx]
+         : a.zmode == Z_FLOAT ? __ldg(static_cast<const float*>(a.zeros) + idx)
+                              : 0.f;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pick4(const uint32_t (&v)[4], int i) {
+  return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
+}
+__device__ __forceinline__ uint4 pick4(const uint4 (&v)[4], int i) {
+  return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
+}
+
+// Transform warpgroups, packed formats (EF >= 8 bands): thread (warpgroup
+// H, column tl) dequantizes BPT bands x RPT word rows of the step (32 weights, four
+// 16-byte chunks of 8 consecutive k' = row * EF + band) and holds the scale
+// and zero term of each of its bands until the band's group changes.
+template <int FMT, int H>
+__device__ __forceinline__ void transform_packed(
+    const PackArgs& a, const uint32_t* ws_all, __nv_bfloat16* bs_all,
+    uint64_t* w_full, uint64_t* w_empty, uint64_t* b_full, uint64_t* b_empty,
+    const float* tab, int n_blk, int K, int N, int g, int steps) {
+  using F = Fmt<FMT>;
+  constexpr int EF = F::kBands, R = BK / EF;
+  constexpr int BPT = EF >= 16 ? EF / 2 : EF;  // bands per thread
+  constexpr int RPT = EF >= 16 ? R : R / 2;    // word rows per thread
+  constexpr int OCT = BPT / 8;                 // chunks per row
+  // the bands are compile-time: code_of then shifts by constants
+  constexpr int band0 = EF >= 16 ? H * BPT : 0, row0 = EF >= 16 ? 0 : H * RPT;
+  const int tl = threadIdx.x % 128, lane = tl % 32;
+  const int n = n_blk + tl;
+  const int KW = K / EF;
+  const bool float_zero = a.zmode == Z_FLOAT;
+  const float sym = (float)(1 << (F::kBits - 1));
+  float sc[BPT], zt[BPT];
+#pragma unroll
+  for (int j = 0; j < BPT; ++j) sc[j] = zt[j] = 0.f;
+  // The terms of step s's groups, loaded once per group: reload(s) runs
+  // after step s - 1's stores, so the loads' latency hides behind the next
+  // waits.  `next_any` is the first band row at which any of the thread's
+  // bands enters a new group (the same for the whole warp), so most steps
+  // test one number; a band is reloaded at the first row of its group.
+  int next_any = 0;
+  auto reload = [&](int s) {
+    const int rb = s * R;  // the step's first row in band coordinates
+    if (rb < next_any) return;
+    int nxt = INT_MAX;
+#pragma unroll
+    for (int j = 0; j < BPT; ++j) {
+      const int b = band0 + j;
+      const int G = (b * KW + rb) / g;
+      if ((s == 0 || b * KW + rb - G * g < R) && n < N) {
+        sc[j] = scale_at(a, (size_t)G * N + n);
+        zt[j] = zero_term(a, (size_t)G * N + n, sym);
+      }
+      nxt = min(nxt, (G + 1) * g - b * KW);
+    }
+    next_any = nxt;
+  };
+  reload(0);
+  for (int s = 0; s < steps; ++s) {
+    const int ws = s % SW;
+    bar_wait(&w_full[ws], (s / SW) & 1);
+    const uint32_t* wt = ws_all + ws * (Layout<1>::w_stage / 4);
+    uint32_t w[RPT][F::kSlots];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int p = 0; p < F::kPlanes; ++p) {
+        // the step's boxes lie plane after plane, each [q][R][BN] words
+        int off = 0;
+#pragma unroll
+        for (int pp = 0; pp < p; ++pp) off += F::q(pp) * R * BN;
+#pragma unroll
+        for (int jq = 0; jq < F::q(p); ++jq)
+          w[i][F::slot0(p) + jq] = wt[off + (jq * R + row0 + i) * BN + tl];
+      }
+    __syncwarp();
+    if (lane == 0) bar_arrive(&w_empty[ws]);
+    // the W ring runs SB steps ahead of the products, so this wait is
+    // short; each chunk is stored as soon as it is made (few live registers)
+    const int bst = s % SB;
+    bar_wait(&b_empty[bst], ((s / SB) & 1) ^ 1);
+    unsigned char* bt = reinterpret_cast<unsigned char*>(bs_all) + bst * Layout<1>::b_stage;
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int o = 0; o < OCT; ++o) {
+        uint32_t pk[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j0 = o * 8 + 2 * e, b0 = band0 + j0;
+          const float v0 = weight_value<FMT>(code_of<FMT>(w[i], b0), sc[j0], zt[j0],
+                                             float_zero, tab);
+          const float v1 = weight_value<FMT>(code_of<FMT>(w[i], b0 + 1), sc[j0 + 1],
+                                             zt[j0 + 1], float_zero, tab);
+          pk[e] = pack_bf16(v0, v1);
+        }
+        const int c = ((row0 + i) * EF + band0) / 8 + o;  // chunk of k'
+        *reinterpret_cast<uint4*>(bt + sw128_chunk(tl, c)) =
+            make_uint4(pk[0], pk[1], pk[2], pk[3]);
+      }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncwarp();
+    if (lane == 0) bar_arrive(&b_full[bst]);
+    if (s + 1 < steps) reload(s + 1);
+  }
+}
+
+// Transform warpgroups, byte rows (INT8, FP8: EF = 1): warp `oct` takes rows
+// 8 * oct + 0..7 of the step, lane cq columns 4 * cq + 0..3 (one 32-bit word
+// per row); the four 8-k chunks are written in a lane-rotated order so that
+// a warp's 16-byte stores spread over the banks.  `direct`: N % 16 != 0,
+// where TMA cannot take the rows' stride; the words are then read from
+// global memory.
+template <int FMT>
+__device__ __forceinline__ void transform_bytes(
+    const PackArgs& a, const uint32_t* ws_all, __nv_bfloat16* bs_all,
+    uint64_t* w_full, uint64_t* w_empty, uint64_t* b_full, uint64_t* b_empty,
+    int n_blk, int K, int N, int g, int steps, int direct) {
+  using F = Fmt<FMT>;
+  const int t = threadIdx.x - PRODUCER;
+  const int oct = t / 32, cq = t % 32, lane = cq;
+  const int col = 4 * cq, n = n_blk + col;
+  const bool float_zero = a.zmode == Z_FLOAT;
+  const float sym = (float)(1 << (F::kBits - 1));
+  const uint8_t* bytes = reinterpret_cast<const uint8_t*>(a.plane[0]);
+  float sc[4] = {0.f, 0.f, 0.f, 0.f}, zt[4] = {0.f, 0.f, 0.f, 0.f};
+  int next = 0;
+  const int rot = (cq >> 1) & 3;
+  // as transform_packed: the next step's group terms load after this
+  // step's dequantization
+  auto reload = [&](int s) {
+    const int k0 = s * BK + 8 * oct;
+    if (k0 < K && k0 >= next) {
+      const int G = k0 / g;
+      next = (G + 1) * g;
+      if (n < N) {
+        const size_t idx = (size_t)G * N + n;
+        scales4(a, idx, sc);
+        if constexpr (!F::kFp8) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) zt[j] = zero_term(a, idx + j, sym);
+        }
+      }
+    }
+  };
+  reload(0);
+  for (int s = 0; s < steps; ++s) {
+    const int k0 = s * BK + 8 * oct;
+    const bool live = k0 < K;
+    const int ws = s % SW;
+    bar_wait(&w_full[ws], (s / SW) & 1);
+    uint32_t w[8];
+    if (direct) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        w[i] = (n < N && k0 + i < K)
+                   ? __ldg(reinterpret_cast<const uint32_t*>(bytes + (size_t)(k0 + i) * N + n))
+                   : 0u;
+    } else {
+      const uint32_t* wt = ws_all + ws * (Layout<1>::w_stage / 4);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) w[i] = wt[(8 * oct + i) * (BN / 4) + cq];
+    }
+    __syncwarp();
+    if (lane == 0) bar_arrive(&w_empty[ws]);
+    uint4 ch[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t pk[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // column j's bytes of rows 2e and 2e + 1 in the low half
+        const uint32_t pair = __byte_perm(w[2 * e], w[2 * e + 1], j | ((4 + j) << 4));
+        float v0, v1;
+        if constexpr (F::kFp8) {  // two codes per conversion, exact into half
+          const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+              (__nv_fp8x2_storage_t)pair, FMT == FMT_E4M3 ? __NV_E4M3 : __NV_E5M2);
+          const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h));
+          v0 = f.x * sc[j];
+          v1 = f.y * sc[j];
+        } else {
+          v0 = weight_value<FMT>(pair & 255u, sc[j], zt[j], float_zero, nullptr);
+          v1 = weight_value<FMT>((pair >> 8) & 255u, sc[j], zt[j], float_zero, nullptr);
+        }
+        pk[e] = live ? pack_bf16(v0, v1) : 0u;
+      }
+      ch[j] = make_uint4(pk[0], pk[1], pk[2], pk[3]);
+    }
+    const int bst = s % SB;
+    bar_wait(&b_empty[bst], ((s / SB) & 1) ^ 1);
+    unsigned char* bt = reinterpret_cast<unsigned char*>(bs_all) + bst * Layout<1>::b_stage;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int j = jj ^ rot;
+      *reinterpret_cast<uint4*>(bt + sw128_chunk(col + j, oct)) = pick4(ch, j);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncwarp();
+    if (lane == 0) bar_arrive(&b_full[bst]);
+    if (s + 1 < steps) reload(s + 1);
+  }
+}
+
+// The consumer warpgroup's 64 x WN accumulator to global memory, 16 bytes
+// per store: lanes of a quad swap their pieces with shuffles so that each
+// holds 8 bf16 (or 4 float32) consecutive columns of one row.  Rows from
+// m_lim on (a grouped tile's rows past its live ones) are written as zeros.
+template <int WN>
+__device__ __forceinline__ void store_tile(const float (&acc)[WN / 2],
+                                           __nv_bfloat16* out, int row0, int col0,
+                                           int M, int m_lim, int N) {
+  const int t = threadIdx.x % 128, w = t / 32, l = t % 32, q = l % 4;
+  const int r = row0 + 16 * w + l / 4;
+#pragma unroll
+  for (int j = 0; j < WN / 8; j += 2) {
+    const uint32_t X[4] = {pack_bf16(acc[4 * j], acc[4 * j + 1]),
+                           pack_bf16(acc[4 * j + 2], acc[4 * j + 3]),
+                           pack_bf16(acc[4 * j + 4], acc[4 * j + 5]),
+                           pack_bf16(acc[4 * j + 6], acc[4 * j + 7])};
+    uint32_t Y[4] = {X[0], X[1], X[2], X[3]};
+#pragma unroll
+    for (int d = 1; d < 4; ++d) {
+      const uint32_t got = __shfl_xor_sync(0xffffffffu, pick4(X, q ^ d), d);
+      const int slot = q ^ d;
+      Y[0] = slot == 0 ? got : Y[0];
+      Y[1] = slot == 1 ? got : Y[1];
+      Y[2] = slot == 2 ? got : Y[2];
+      Y[3] = slot == 3 ? got : Y[3];
+    }
+    const int gm = r + 8 * (q & 1), gn = col0 + 8 * (j + (q >> 1));
+    if (gm < M && gn < N) {
+      const uint4 v = gm < m_lim ? make_uint4(Y[0], Y[1], Y[2], Y[3]) : make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(out + (size_t)gm * N + gn) = v;
+    }
+  }
+}
+
+template <int WN>
+__device__ __forceinline__ void store_tile(const float (&acc)[WN / 2], float* out,
+                                           int row0, int col0, int M, int m_lim, int N) {
+  const int t = threadIdx.x % 128, w = t / 32, l = t % 32, q = l % 4;
+  const int r = row0 + 16 * w + l / 4;
+  const bool odd = q & 1;
+#pragma unroll
+  for (int j = 0; j < WN / 8; ++j) {
+    // even lanes keep row r, odd lanes row r + 8; each sends the other row
+    const float s0 = odd ? acc[4 * j] : acc[4 * j + 2];
+    const float s1 = odd ? acc[4 * j + 1] : acc[4 * j + 3];
+    const float g0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+    const float g1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+    const int gm = r + (odd ? 8 : 0), gn = col0 + 8 * j + 2 * (q & 2);
+    if (gm < M && gn < N) {
+      float4 v = odd ? make_float4(g0, g1, acc[4 * j + 2], acc[4 * j + 3])
+                     : make_float4(acc[4 * j], acc[4 * j + 1], g0, g1);
+      if (gm >= m_lim) v = make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(out + (size_t)gm * N + gn) = v;
+    }
+  }
+}
+
+// 64 * MI x 128 output tiles (F and P: MI = 2).  Warpgroup 0 produces (one
+// thread issues the TMA loads of x and of the packed planes), warpgroups 1-2
+// dequantize, 3-4 multiply: with MI = 2 each takes 64 rows x 128 columns,
+// with MI = 1 (the grouped bm = 64) each 64 rows x 64 columns.  The grouped
+// instance takes tile i from expert block_expert[i]; rows of the tile past
+// its block_rows[i] live ones are written as zeros, a tile with none is
+// written as zeros and stops.
+template <int FMT, int MI, bool GROUPED, typename OutT>
+__global__ void __launch_bounds__(THREADS, 1)
+gemm_kernel(const __grid_constant__ CUtensorMap xmap,
+            const __grid_constant__ CUtensorMap wmap0,
+            const __grid_constant__ CUtensorMap wmap1,
+            const __grid_constant__ CUtensorMap wmap2, PackArgs a,
+            const int* __restrict__ block_expert, const int* __restrict__ block_rows,
+            OutT* __restrict__ out, int M, int K, int N, int g, int direct) {
+  using F = Fmt<FMT>;
+  using L = Layout<MI>;
+  constexpr int BM = L::BM;
+  constexpr int WN = MI == 2 ? BN : BN / 2;  // columns per consumer warpgroup
+  extern __shared__ unsigned char gsm_raw[];
+  unsigned char* gsm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(gsm_raw) + 1023) & ~(uintptr_t)1023);
+  auto xs = reinterpret_cast<__nv_bfloat16*>(gsm + L::x_off);
+  auto bs = reinterpret_cast<__nv_bfloat16*>(gsm + L::b_off);
+  auto ws = reinterpret_cast<uint32_t*>(gsm + L::w_off);
+  auto bars = reinterpret_cast<uint64_t*>(gsm + L::bar_off);
+  uint64_t* x_full = bars;
+  uint64_t* x_empty = x_full + SX;
+  uint64_t* w_full = x_empty + SX;
+  uint64_t* w_empty = w_full + SW;
+  uint64_t* b_full = w_empty + SW;
+  uint64_t* b_empty = b_full + SB;
+  auto tab = reinterpret_cast<float*>(gsm + L::tab_off);
 
   const int m_blk = blockIdx.y * BM, n_blk = blockIdx.x * BN;
-  int m_lim = M;
+  int m_lim = M, expert = 0;
   if constexpr (GROUPED) {
     const int live = block_rows != nullptr ? block_rows[blockIdx.y] : BM;
     if (live <= 0) {  // no assignment in this tile: its rows are zeros
-      for (int i = threadIdx.x; i < BM * BN; i += GEMM_THREADS) {
-        const int gm = m_blk + i / BN, gn = n_blk + i % BN;
-        if (gm < M && gn < N) store1(out + (size_t)gm * N + gn, 0.f);
+      for (int i = threadIdx.x; i < BM * BN / 4; i += THREADS) {
+        const int gm = m_blk + i / (BN / 4), gn = n_blk + (i % (BN / 4)) * 4;
+        const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+        if (gm < M && gn < N) store4(out + (size_t)gm * N + gn, zero);
       }
       return;
     }
     m_lim = min(M, m_blk + live);
-    select_expert<FMT>(a, block_expert[blockIdx.y], K, N, g);
+    expert = block_expert[blockIdx.y];
+    select_expert<FMT>(a, expert, K, N, g);
   }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 2, wn = warp % 2;  // warp tile: 16 * MI rows x 64 cols
-  const int KW = K / EF;
-  const int sym_offset = 1 << (F::kBits - 1);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MI][4];
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  // packed formats: one column, half of the step's rows, every band;
-  // byte rows: four columns (one 32-bit load per row), 8 of the step's 64 rows
-  const int bc = F::kByte ? (threadIdx.x % 32) * 4 : threadIdx.x % BN;
-  const int bh = F::kByte ? threadIdx.x / 32 : threadIdx.x / BN;
-  const int bn = n_blk + bc;
-  constexpr int A_PER_THREAD = BM * 8 / GEMM_THREADS;
-
-  uint4 a_reg[A_PER_THREAD];
-  uint32_t w_reg[NW];
-  auto load_step = [&](int k0) {
-#pragma unroll
-    for (int u = 0; u < A_PER_THREAD; ++u) {
-      const int i = threadIdx.x + u * GEMM_THREADS;
-      const int row = i / 8, seg = i % 8;
-      a_reg[u] = make_uint4(0, 0, 0, 0);
-      if (m_blk + row < m_lim && k0 + seg * 8 < K)
-        a_reg[u] = *reinterpret_cast<const uint4*>(
-            xk + (size_t)(m_blk + row) * K + k0 + seg * 8);
+  const int steps = (K + BK - 1) / BK;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < SX; ++i) {
+      bar_init(&x_full[i], 1);
+      bar_init(&x_empty[i], CONSUMER / 128);
     }
-    if constexpr (F::kByte) {
-      const uint8_t* bytes = reinterpret_cast<const uint8_t*>(a.plane[0]);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int k = k0 + bh * 8 + i;
-        w_reg[i] = (bn < N && k < K)
-                       ? __ldg(reinterpret_cast<const uint32_t*>(bytes + (size_t)k * N + bn))
-                       : 0u;
-      }
-    } else {
-      const int r0 = k0 / EF + bh * RH;
-#pragma unroll
-      for (int ir = 0; ir < RH; ++ir)
-#pragma unroll
-        for (int p = 0; p < F::kPlanes; ++p)
-#pragma unroll
-          for (int jq = 0; jq < F::q(p); ++jq)
-            w_reg[ir * F::kSlots + F::slot0(p) + jq] =
-                bn < N ? __ldg(a.plane[p] + (size_t)(jq * KW + r0 + ir) * N + bn) : 0u;
+    for (int i = 0; i < SW; ++i) {
+      bar_init(&w_full[i], 1);
+      bar_init(&w_empty[i], TWARPS);
     }
-  };
-
-  auto store_step = [&](int stage, int k0) {
-    __nv_bfloat16* As = As_all + stage * BM * LDA;
-    __nv_bfloat16* Bs = Bs_all + stage * BK * LDB;
-#pragma unroll
-    for (int u = 0; u < A_PER_THREAD; ++u) {
-      const int i = threadIdx.x + u * GEMM_THREADS;
-      *reinterpret_cast<uint4*>(&As[(i / 8) * LDA + (i % 8) * 8]) = a_reg[u];
+    for (int i = 0; i < SB; ++i) {
+      bar_init(&b_full[i], TWARPS);
+      bar_init(&b_empty[i], CONSUMER / 128);
     }
-    if constexpr (F::kByte) {
-      const int k = k0 + bh * 8;
-      float s[4] = {0.f, 0.f, 0.f, 0.f};
-      int zi[4] = {0, 0, 0, 0};
-      float zf[4] = {0.f, 0.f, 0.f, 0.f};
-      if (bn < N && k < K) {
-        const size_t sidx = (size_t)(k / g) * N + bn;
-        scales4(a, sidx, s);
-        if constexpr (!F::kFp8) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) zero_at(a, sidx + j, sym_offset, zi[j], zf[j]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const uint32_t code = (w_reg[i] >> (8 * j)) & 255u;
-          float v;
-          if constexpr (F::kFp8)
-            v = fp8_value<FMT>(code) * s[j];
-          else
-            v = int_value<FMT>(a, code, s[j], zi[j], zf[j]);
-          Bs[(bh * 8 + i) * LDB + bc + j] = __float2bfloat16_rn(v);
-        }
-    } else {
-      const int r0 = k0 / EF + bh * RH;
-#pragma unroll
-      for (int b = 0; b < EF; ++b) {
-        float s = 0.f, zf = 0.f;
-        int zi = 0;
-        if (bn < N) {
-          const size_t sidx = (size_t)((b * KW + r0) / g) * N + bn;
-          s = scale_at(a, sidx);
-          zero_at(a, sidx, sym_offset, zi, zf);
-        }
-#pragma unroll
-        for (int ir = 0; ir < RH; ++ir) {
-          const uint32_t code = code_of<FMT>(&w_reg[ir * F::kSlots], b);
-          const float v = F::kLut ? tab[code] * s : int_value<FMT>(a, code, s, zi, zf);
-          Bs[((bh * RH + ir) * EF + b) * LDB + bc] = __float2bfloat16_rn(v);
-        }
-      }
-    }
-  };
-
-  __syncthreads();  // the table
-  load_step(0);
-  store_step(0, 0);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (F::kLut && threadIdx.x < 16) tab[threadIdx.x] = a.table[threadIdx.x];
   __syncthreads();
-  int stage = 0;
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    const bool more = k0 + BK < K;
-    if (more) load_step(k0 + BK);
-    const __nv_bfloat16* As = As_all + stage * BM * LDA;
-    const __nv_bfloat16* Bs = Bs_all + stage * BK * LDB;
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af[MI];
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-        wmma::load_matrix_sync(af[i], &As[(wm * 16 * MI + i * 16) * LDA + kk * 16], LDA);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf;
-        wmma::load_matrix_sync(bf, &Bs[(kk * 16) * LDB + wn * 64 + j * 16], LDB);
-#pragma unroll
-        for (int i = 0; i < MI; ++i) wmma::mma_sync(acc[i][j], af[i], bf, acc[i][j]);
-      }
-    }
-    // the other stage was last read before the previous barrier
-    if (more) store_step(stage ^ 1, k0 + BK);
-    __syncthreads();
-    stage ^= 1;
-  }
 
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(Cs[warp], acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int gm = m_blk + wm * 16 * MI + i * 16 + e / 16;
-        const int gn = n_blk + wn * 64 + j * 16 + e % 16;
-        if (gm < M && gn < N) store1(out + (size_t)gm * N + gn, Cs[warp][e]);
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producers: one thread keeps x's TMA loads in flight, another
+    // the planes' (so W runs ahead of x by its own ring)
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < steps; ++s) {
+        const int xst = s % SX;
+        bar_wait(&x_empty[xst], ((s / SX) & 1) ^ 1);
+        bar_expect(&x_full[xst], L::x_stage);
+        tma_2d(reinterpret_cast<unsigned char*>(xs) + xst * L::x_stage, &xmap,
+               &x_full[xst], s * BK, m_blk);
       }
-      __syncwarp();
+    } else if (threadIdx.x == 32) {
+      constexpr int R = BK / F::kBands;
+      for (int s = 0; s < steps; ++s) {
+        const int wst = s % SW;
+        bar_wait(&w_empty[wst], ((s / SW) & 1) ^ 1);
+        if (direct) {
+          bar_arrive(&w_full[wst]);
+          continue;
+        }
+        bar_expect(&w_full[wst], w_stage_bytes<FMT>());
+        unsigned char* wt = reinterpret_cast<unsigned char*>(ws) + wst * L::w_stage;
+        if constexpr (F::kByte) {
+          tma_4d(wt, &wmap0, &w_full[wst], n_blk, s * BK, 0, expert);
+        } else {
+          const CUtensorMap* maps[3] = {&wmap0, &wmap1, &wmap2};
+          int off = 0;
+#pragma unroll
+          for (int p = 0; p < F::kPlanes; ++p) {
+            tma_4d(wt + off, maps[p], &w_full[wst], n_blk, s * R, 0, expert);
+            off += F::q(p) * R * BN * 4;
+          }
+        }
+      }
     }
+  } else if (wg <= 2) {
+    // ---- transform: packed codes -> bf16 W tiles in the wgmma layout
+    if constexpr (F::kByte)
+      transform_bytes<FMT>(a, ws, bs, w_full, w_empty, b_full, b_empty, n_blk, K, N, g,
+                           steps, direct);
+    else if (wg == 1)
+      transform_packed<FMT, 0>(a, ws, bs, w_full, w_empty, b_full, b_empty, tab, n_blk,
+                               K, N, g, steps);
+    else
+      transform_packed<FMT, 1>(a, ws, bs, w_full, w_empty, b_full, b_empty, tab, n_blk,
+                               K, N, g, steps);
+  } else {
+    // ---- consumers: wgmma over the x and W tiles as they arrive
+    const int c = wg - 3;
+    const int row_off = MI == 2 ? 64 * c : 0, col_off = MI == 2 ? 0 : WN * c;
+    float acc[WN / 2];
+#pragma unroll
+    for (int i = 0; i < WN / 2; ++i) acc[i] = 0.f;
+    for (int s = 0; s < steps; ++s) {
+      const int xst = s % SX, bst = s % SB;
+      bar_wait(&x_full[xst], (s / SX) & 1);
+      bar_wait(&b_full[bst], (s / SB) & 1);
+      const uint64_t da = sw128_desc(reinterpret_cast<unsigned char*>(xs) +
+                                     xst * L::x_stage + row_off * 128);
+      const uint64_t db = sw128_desc(reinterpret_cast<unsigned char*>(bs) +
+                                     bst * L::b_stage + col_off * 128);
+      keep_regs(acc);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)  // 32 bytes along K: 2 in 16-byte units
+        Wgmma<WN>::mma(acc, da + 2 * kk, db + 2 * kk);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      keep_regs(acc);
+      if (s > 0 && threadIdx.x % 128 == 0) {  // step s - 1's products are done
+        bar_arrive(&x_empty[(s - 1) % SX]);
+        bar_arrive(&b_empty[(s - 1) % SB]);
+      }
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    keep_regs(acc);
+    store_tile<WN>(acc, out, m_blk + row_off, n_blk + col_off, M, m_lim, N);
+  }
 }
+
+// cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// x [M, K] bf16 in boxes of BK x BM, 128-byte swizzled (the wgmma A layout).
+inline bool x_map(CUtensorMap* m, const __nv_bfloat16* x, int M, int K, int BM) {
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)BM};
+  const cuuint32_t el[2] = {1, 1};
+  return encoder()(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<__nv_bfloat16*>(x),
+                   dims, strides, box, el, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                   CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A plane as stored, [E][q * KW][N] 32-bit words (or [E][K][N] bytes), read
+// as dims (N, rows of one band block, band blocks q, experts E) in boxes of
+// (BN, rows per step, q, 1).
+inline bool plane_map(CUtensorMap* m, const void* p, bool bytes, int N, int rows,
+                      int blocks, int experts, int box_rows) {
+  const cuuint64_t el_bytes = bytes ? 1 : 4;
+  const cuuint64_t dims[4] = {(cuuint64_t)N, (cuuint64_t)rows, (cuuint64_t)blocks,
+                              (cuuint64_t)experts};
+  const cuuint64_t row = (cuuint64_t)N * el_bytes;
+  const cuuint64_t strides[3] = {row, row * rows, row * rows * blocks};
+  const cuuint32_t box[4] = {(cuuint32_t)BN, (cuuint32_t)box_rows, (cuuint32_t)blocks, 1};
+  const cuuint32_t el[4] = {1, 1, 1, 1};
+  return encoder()(m, bytes ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_UINT32,
+                   4, const_cast<void*>(p), dims, strides, box, el,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace tc
 
 template <int FMT, int MI, bool GROUPED, typename OutT>
 cudaError_t launch_gemm(const __nv_bfloat16* xk, const PackArgs& a, const int* block_expert,
                         const int* block_rows, OutT* out, int M, int K, int N, int g,
                         cudaStream_t st) {
-  constexpr int smem = gemm_smem_bytes<MI>();
-  cudaError_t err = cudaFuncSetAttribute(gemm_kernel<FMT, MI, GROUPED, OutT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  using F = Fmt<FMT>;
+  using L = tc::Layout<MI>;
+  if (tc::encoder() == nullptr) return cudaErrorNotSupported;
+  const int experts = GROUPED ? tc::MAX_EXPERTS : 1;
+  // byte rows need a 16-byte row stride for TMA; else the words come from
+  // global memory (direct)
+  const int direct = F::kByte && N % 16 != 0;
+  CUtensorMap xm, wm[3];
+  memset(wm, 0, sizeof(wm));
+  bool ok = tc::x_map(&xm, xk, M, K, L::BM);
+  if constexpr (F::kByte) {
+    if (!direct) ok = ok && tc::plane_map(&wm[0], a.plane[0], true, N, K, 1, experts, tc::BK);
+  } else {
+    const int KW = K / F::kBands;
+#pragma unroll
+    for (int p = 0; p < F::kPlanes; ++p)
+      ok = ok && tc::plane_map(&wm[p], a.plane[p], false, N, KW, F::q(p), experts,
+                               tc::BK / F::kBands);
+  }
+  if (!ok) return cudaErrorInvalidValue;
+  constexpr int smem = L::bytes;
+  auto kernel = tc::gemm_kernel<FMT, MI, GROUPED, OutT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((N + BN - 1) / BN, (M + 64 * MI - 1) / (64 * MI));
-  gemm_kernel<FMT, MI, GROUPED, OutT><<<grid, GEMM_THREADS, smem, st>>>(
-      xk, a, block_expert, block_rows, out, M, K, N, g);
+  dim3 grid((N + tc::BN - 1) / tc::BN, (M + L::BM - 1) / L::BM);
+  kernel<<<grid, tc::THREADS, smem, st>>>(xm, wm[0], wm[1], wm[2], a, block_expert,
+                                          block_rows, out, M, K, N, g, direct);
   return cudaGetLastError();
 }
 
@@ -771,6 +1283,9 @@ cudaError_t run_gemm_grouped(const __nv_bfloat16* xk, const PackArgs& a,
 }
 
 // ------------------------------------------------------- float32 GEMM ---
+// (the float32 tile constants)
+constexpr int BN = 128, BK = 64;
+constexpr int GEMM_THREADS = 256;
 constexpr int F32_BM = 128;
 constexpr int F32_LDA = F32_BM + 4, F32_LDB = BN + 4;  // rows 16-byte aligned
 constexpr int F32_A_LOADS = F32_BM * BK / 4 / GEMM_THREADS;  // float4s of x a step
@@ -785,7 +1300,8 @@ constexpr int gemm_f32_smem_bytes() {
 // broadcast) and two of W (16 consecutive float4s) for 64 FFMA.  x is
 // stored transposed ([k][m]); a warp loads 8 rows x 64 contiguous bytes of
 // it, so its transposed stores fall in 16 banks (2-way).  W is unpacked by
-// the same threads and in the same order as gemm_kernel's, into float32.
+// 128 threads of one column each (packed) or 32 x 8 of four (bytes), into
+// float32.
 template <int FMT>
 __global__ void __launch_bounds__(GEMM_THREADS, 1)
 gemm_f32_kernel(const float* __restrict__ xk, PackArgs a, float* __restrict__ out,

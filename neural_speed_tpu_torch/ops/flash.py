@@ -14,14 +14,23 @@ launcher's:
   `fused_append` also writes the quantized new row in place; under the
   int8 score dot also the calls of several tokens per slot that `int8_dot`
   names;
-* everything else (prefill chunks; int8 decode after a plain append;
-  decode with more query heads per KV head or an odd KV head count, as
-  Falcon-7B's 71 over 1, Gemma-2B's 8 over 1): kernel C
-  (`csrc/flash_prefill.cuh`).
+* decode of one token per slot that B cannot take, with more query heads
+  per KV head or an odd KV head count (Falcon-7B's 71 over 1, Gemma-2B's
+  8 over 1, 12 over 3; up to `ROWS_MAX_REP`): the rows decode body
+  (`csrc/flash_rows.cuh`), which packs a KV head's query heads as the rows
+  of one MMA tile, splits the columns into chunks across blocks and merges
+  them in a second kernel.  Here the port departs from the JAX launcher,
+  which runs these calls through the prefill body: only the body differs
+  (and with it the order of the float32 sums); the function, its rounding
+  points and the plain version (`prefill_plain` at T = 1) are kernel C's;
+* everything else (prefill chunks; int8 decode after a plain append that
+  B could take): kernel C (`csrc/flash_prefill.cuh`).
+  `decode_body` names the route of a call.
 
 `mha_paged` is the same over one layer of the paged pool (`paged_kv.py`):
-the paged twins of kernels B and C (`nst_flash_decode_paged`,
-`nst_flash_prefill_paged`, in the same libraries) resolve every cache row
+the paged twins of kernels B, C and the rows body (`nst_flash_decode_paged`,
+`nst_flash_prefill_paged`, `nst_flash_rows_paged`, in the same libraries)
+resolve every cache row
 through the slot's page table and otherwise do the same arithmetic in the
 same order, so at equal logical contents they give the contiguous
 kernels' outputs bit for bit.
@@ -75,9 +84,17 @@ import torch
 
 from .. import _build
 from .kv_cache import quantize_kv
+from .matmul import _sm_count
 from .paged_kv import gather_layer_codes, physical_rows, write_pool_rows
 
 DECODE_CHUNK = 256   # cache columns per block of kernel B
+# The decode body of the MQA / odd-KV-head calls (csrc/flash_rows.cuh):
+# column tiles of ROWS_TILE, chunks spread over at least ROWS_WAVES waves of
+# the card's SMs, and at most ROWS_MAX_REP query heads per KV head (eight
+# row warps of 16; four at the 256 instance, whose tiles fill shared memory).
+ROWS_TILE = 32
+ROWS_WAVES = 2
+ROWS_MAX_REP = {64: 128, 80: 128, 96: 128, 128: 128, 256: 64}
 # Head dims with a kernel instance of their own (libraries per dim:
 # csrc/flash_decode_d<D>.cu, flash_decode_paged_d<D>.cu,
 # flash_prefill_d<D>.cu).
@@ -104,6 +121,39 @@ def extra_kv_eligible(t: int, n_heads: int, n_kv_heads: int) -> bool:
     per KV head and an even KV head count (the JAX rule `t * n_rep <= 8`
     with a head block of 2 or more, at t == 1)."""
     return t == 1 and n_heads // n_kv_heads <= 8 and n_kv_heads % 2 == 0
+
+
+def decode_body(t: int, n_heads: int, n_kv_heads: int, d: int, *,
+                extra: bool = False, qk: bool = False,
+                quantized: bool = False) -> str:
+    """Which kernel a call of `mha` or `mha_paged` takes (the same rule
+    over the contiguous cache and the pool):
+    "B" (kernel B or its paged twin 10: the extra column, the int8 score
+    dot, or decode over values with at most 8 query heads per KV head and
+    an even KV head count), "rows" (the decode body of
+    csrc/flash_rows.cuh: one token per slot that B / 10 cannot take, more
+    than 8 query heads per KV head or an odd KV head count, up to
+    ROWS_MAX_REP of them), or "C" (kernel C or its paged twin 9: prefill,
+    int8 decode after a plain append that B could take, and the rest).
+    The JAX launcher sends the "rows" calls to the body of C; the function
+    computed is the same."""
+    if extra or qk or (not quantized and extra_kv_eligible(t, n_heads,
+                                                           n_kv_heads)):
+        return "B"
+    if (t == 1 and not extra_kv_eligible(t, n_heads, n_kv_heads)
+            and n_heads // n_kv_heads <= ROWS_MAX_REP[instance_dim(d)]):
+        return "rows"
+    return "C"
+
+
+def rows_chunking(b: int, n_kv_heads: int, s: int, n_sm: int) -> tuple:
+    """(chunk, chunks) of the rows body over a cache of `s` columns:
+    chunks of whole ROWS_TILE tiles, as many as B * Hkv * chunks >=
+    ROWS_WAVES * n_sm asks for and the columns allow; chunk * chunks >= s."""
+    tiles = max(1, -(-s // ROWS_TILE))
+    want = max(1, -(-ROWS_WAVES * n_sm // (b * n_kv_heads)))
+    chunk = max(1, tiles // want) * ROWS_TILE
+    return chunk, -(-s // chunk)
 
 
 def int8_dot(t: int, n_heads: int, n_kv_heads: int, d: int,
@@ -587,6 +637,57 @@ def prefill_cuda(q, k, v, ks, vs, layer, q_positions, kv_lens, scale,
     return out
 
 
+def _rows_scratch(b, h, d, nch, dev, out_dtype):
+    part_m = torch.empty((b, h, nch), dtype=torch.float32, device=dev)
+    part_l = torch.empty_like(part_m)
+    part_acc = torch.empty((b, h, nch, d), dtype=torch.float32, device=dev)
+    out = torch.empty((b, 1, h, d), dtype=out_dtype, device=dev)
+    return part_m, part_l, part_acc, out
+
+
+def _check_rows(q, pos, hkv, out_dtype, what: str) -> None:
+    b, t, h, d = q.shape
+    if not (t == 1 and h % hkv == 0
+            and h // hkv <= ROWS_MAX_REP[instance_dim(d)]):
+        raise ValueError(
+            f"{what} takes one token per slot and at most "
+            f"{ROWS_MAX_REP[instance_dim(d)]} query heads per KV head at head "
+            f"dim {d}; got q {tuple(q.shape)}, Hkv {hkv}")
+    _check_prefill(q, pos, out_dtype, hkv, what)
+
+
+def rows_cuda(q, k, v, ks, vs, layer, q_positions, kv_lens, scale,
+              out_dtype, alibi=None, softcap: float = 0.0,
+              causal: bool = True) -> torch.Tensor:
+    """The decode body of csrc/flash_rows.cuh (kernel C's function at
+    T = 1 for the calls B cannot take): `flash_rows` over int8 K/V
+    (`_f32scale` with float32 scales), `flash_rows_bf16` / `flash_rows_f32`
+    over values; each `_softcap` with a softcap, `_noncausal` without the
+    mask.  Shapes as `prefill_plain` at T = 1."""
+    b, t, h, d = q.shape
+    hkv, s = k.shape[2], k.shape[3]
+    dev = q.device
+    suffix = _check_cache(k, v, ks, vs, layer, q_positions, kv_lens, q)
+    _check_rows(q, q_positions, hkv, out_dtype, "the rows decode kernel")
+    slopes = _slopes(alibi, h, dev)
+    q4 = q.to(torch.bfloat16).contiguous()
+    pos32 = q_positions.reshape(b).to(torch.int32).contiguous()
+    lens32 = kv_lens.to(torch.int32).contiguous()
+    chunk, nch = rows_chunking(b, hkv, s, _sm_count(dev.index or 0))
+    part_m, part_l, part_acc, out = _rows_scratch(b, h, d, nch, dev,
+                                                  out_dtype)
+    fn = _build.kernels.fn(f"flash_rows_d{instance_dim(d)}",
+                           "nst_flash_rows", 12, 11, 2)
+    code = fn(q4.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ks), _ptr(vs),
+              _ptr(slopes), pos32.data_ptr(), lens32.data_ptr(),
+              part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
+              out.data_ptr(), b, h, hkv, s, d, layer, chunk, nch,
+              _KV_TYPE[suffix], *_flags(causal, out_dtype), float(scale),
+              float(softcap), _build.stream_handle())
+    _launched(_counter("flash_rows", suffix, softcap, causal), d, code)
+    return out
+
+
 def _check_pool(kp, vp, ks, vs, tables, layer, pos, kv_lens, q) -> str:
     """The page pool, tables, positions and lengths the paged kernels
     index.  Returns the pool's counter suffix."""
@@ -692,6 +793,42 @@ def prefill_paged_cuda(q, kp, vp, ks, vs, tables, layer, q_positions,
               code)
     return out
 
+def rows_paged_cuda(q, kp, vp, ks, vs, tables, layer, q_positions, kv_lens,
+                    scale, out_dtype, alibi=None, softcap: float = 0.0,
+                    causal: bool = True) -> torch.Tensor:
+    """The paged twin of the rows decode body (`flash_rows_paged` and its
+    `_f32scale` / `_bf16` / `_f32` element types, each `_softcap` with a
+    softcap, `_noncausal` without the mask).  Shapes as
+    `prefill_paged_plain` at T = 1."""
+    b, t, h, d = q.shape
+    hkv, n_pages, ps = kp.shape[1], kp.shape[2], kp.shape[3]
+    n_blocks = tables.shape[1]
+    dev = q.device
+    suffix = _check_pool(kp, vp, ks, vs, tables, layer, q_positions,
+                         kv_lens, q)
+    _check_rows(q, q_positions, hkv, out_dtype,
+                "the paged rows decode kernel")
+    slopes = _slopes(alibi, h, dev)
+    q4 = q.to(torch.bfloat16).contiguous()
+    pos32 = q_positions.reshape(b).to(torch.int32).contiguous()
+    lens32 = kv_lens.to(torch.int32).contiguous()
+    chunk, nch = rows_chunking(b, hkv, n_blocks * ps,
+                               _sm_count(dev.index or 0))
+    part_m, part_l, part_acc, out = _rows_scratch(b, h, d, nch, dev,
+                                                  out_dtype)
+    fn = _build.kernels.fn(f"flash_rows_d{instance_dim(d)}",
+                           "nst_flash_rows_paged", 13, 13, 2)
+    code = fn(q4.data_ptr(), kp.data_ptr(), vp.data_ptr(), _ptr(ks),
+              _ptr(vs), _ptr(slopes), tables.data_ptr(), pos32.data_ptr(),
+              lens32.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
+              part_acc.data_ptr(), out.data_ptr(), b, h, hkv, n_pages, ps,
+              n_blocks, d, layer, chunk, nch, _KV_TYPE[suffix],
+              *_flags(causal, out_dtype), float(scale), float(softcap),
+              _build.stream_handle())
+    _launched(_counter("flash_rows_paged", suffix, softcap, causal), d, code)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # entry
 # ---------------------------------------------------------------------------
@@ -743,8 +880,9 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, k_scale,
     if fused_append and extra_kv is None:
         return None
     qk = int8_dot(t, h, hkv, d, not unscaled, s=k.shape[3])
-    if (extra_kv is not None or qk
-            or (unscaled and extra_kv_eligible(t, h, hkv))):
+    body = decode_body(t, h, hkv, d, extra=extra_kv is not None, qk=qk,
+                       quantized=not unscaled)
+    if body == "B":
         # t > 1 only under qk (the extra column and bf16 decode take t = 1)
         kn, vn = extra_kv if extra_kv is not None else (None, None)
         args = (q, kn, vn, k, v, k_scale, v_scale, layer,
@@ -756,7 +894,9 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, k_scale,
     else:
         args = (q, k, v, k_scale, v_scale, layer, q_positions, kv_lens,
                 scale, out_dtype)
-        out = _dispatch(q, prefill_cuda, prefill_plain, "flash_prefill",
+        cuda_fn, name = ((rows_cuda, "flash_rows") if body == "rows"
+                         else (prefill_cuda, "flash_prefill"))
+        out = _dispatch(q, cuda_fn, prefill_plain, name,
                         (k, v, k_scale, v_scale), args, alibi, logit_softcap,
                         causal)
     if fused_append:
@@ -795,7 +935,9 @@ def mha_paged(q: torch.Tensor, cache, layer: int, q_positions: torch.Tensor,
             cache.page_tables)
     qk = int8_dot(t, h, cache.kv_heads, d, not unscaled,
                   page_size=cache.page_size, extra=extra_kv is not None)
-    if extra_kv is not None or (unscaled and eligible):
+    body = decode_body(t, h, cache.kv_heads, d, extra=extra_kv is not None,
+                       qk=qk, quantized=not unscaled)
+    if body == "B":
         kn, vn = extra_kv if extra_kv is not None else (None, None)
         args = (q, kn, vn, *pool, layer, q_positions[:, 0], kv_lens, scale,
                 fused_append, out_dtype)
@@ -804,9 +946,11 @@ def mha_paged(q: torch.Tensor, cache, layer: int, q_positions: torch.Tensor,
                         logit_softcap, causal, qk)
     else:
         args = (q, *pool, layer, q_positions, kv_lens, scale, out_dtype)
-        out = _dispatch(q, prefill_paged_cuda, prefill_paged_plain,
-                        "flash_prefill_paged", pool[:4], args, alibi,
-                        logit_softcap, causal)
+        cuda_fn, name = ((rows_paged_cuda, "flash_rows_paged")
+                         if body == "rows" else
+                         (prefill_paged_cuda, "flash_prefill_paged"))
+        out = _dispatch(q, cuda_fn, prefill_paged_plain, name, pool[:4],
+                        args, alibi, logit_softcap, causal)
     if fused_append:
         return out, pool[:4]
     return out

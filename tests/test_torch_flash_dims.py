@@ -100,6 +100,8 @@ def _route(kind, kv, h, hkv):
     """The counter of the plain version `mha` / `mha_paged` must run."""
     if kind == "decode" and tfl.extra_kv_eligible(1, h, hkv):
         name = "flash_decode"
+    elif kind == "decode":      # MQA / odd KV head count: the rows body
+        name = "flash_rows"
     else:
         name = "flash_prefill"
     return name, kv

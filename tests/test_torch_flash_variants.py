@@ -151,8 +151,10 @@ def test_contiguous_variants_match_pallas(kind, kv, h, hkv, d):
     else:
         out_j = jfl.mha(q, kc, vc, ks, vs, jnp.asarray(pos),
                         jnp.asarray(kv_lens), alibi=slopes, **kw)
-        route = ("flash_decode" if kind == "decode" and bf16
-                 and tfl.extra_kv_eligible(1, h, hkv) else "flash_prefill")
+        eligible = tfl.extra_kv_eligible(1, h, hkv)
+        route = ("flash_decode" if kind == "decode" and bf16 and eligible
+                 else "flash_rows" if kind == "decode" and not eligible
+                 else "flash_prefill")
         name = route + ("_bf16" if bf16 else "")
         before = _build.plain_dispatches[name]
         out_t = tfl.mha(torch_bf16(q), tk, tv, tks, tvs,
