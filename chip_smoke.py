@@ -31,7 +31,12 @@ Phases, each raising on failure so the run exits non-zero:
    grouped MoE kernels (kernel 11 and the grouped instances of F and P)
    run at Mixtral-8x7B's expert shapes over routes from `route_tokens`
    (uniform, one expert taking every token, one expert empty, a B = 4
-   decode step) and as the single-token GEMV.  P's one-plane INT instances
+   decode step) and as the single-token GEMV, kernel 11 also at Grok-1's
+   down projection (K = 32768) at bm = 64 and 128.  Kernel A runs at
+   M = 1, 4, the GEMV's ends and its one-pass tensor-core rows (8, 9, 16,
+   32), the GEMM's (33, 100, 1975, 2048), and at 5, 6, 7 rows
+   (`gemv_odd`); its GEMM is held against P's one-plane INT4 instance on
+   the same pack, output digests equal (`a_vs_p`).  P's one-plane INT instances
    run on the GPTQ / AWQ and GGUF packs (uint8 zero points, float32 and
    double-quantized scales, widths 1, 2, 4 and 8).  The attention variants
    (VARIANT_CASES): kernels B, C, 9 and 10 over bf16 K/V and with ALiBi
@@ -347,6 +352,11 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 
 
 def _category(kernel_name: str) -> str:
+    tc = re.search(r"gemm_kernel<\d+, \d+, (true|false), [^,]+, (true|false)>",
+                   kernel_name)
+    if tc and tc.group(2) == "true":
+        # kernel A's and kernel 11's GEMMs: the tc template with A4 = true
+        return "qmatmul_grouped" if tc.group(1) == "true" else "qmatmul"
     if "nstfp::" in kernel_name:
         # F, P and P's one-plane INT instances; the grouped ones take
         # GROUPED = true, the float32-activation ones float32 x and out;
@@ -478,6 +488,15 @@ class Checks:
 # ---------------------------------------------------------------------------
 
 
+# Kernel A at Llama-2-7B's projections (qkv, o, gate/up, down repadded to
+# K = 11264, head) and rows: decode (1, 4), the GEMV's ends and its one-pass
+# tensor-core body (8, 9, 16, 32: speculative verify steps), the GEMM from
+# its low end to the bench prefill (33, 100, 1975, 2048).
+QMATMUL_SHAPES = [(4096, 12288), (4096, 4096), (4096, 22016), (11264, 4096),
+                  (4096, 32000)]
+QMATMUL_M = (1, 4, 8, 9, 16, 32, 33, 100, 1975, 2048)
+
+
 def check_qmatmul(chk: Checks, gen: torch.Generator) -> None:
     from neural_speed_tpu_torch.ops import matmul
     from neural_speed_tpu_torch.ops.qtypes import QSpec, QType
@@ -485,13 +504,11 @@ def check_qmatmul(chk: Checks, gen: torch.Generator) -> None:
     from neural_speed_tpu_torch.utils.synthetic import synth_qtensor
 
     spec = QSpec(QType.INT, 4, 128, True, scale_dtype="bfloat16")
-    shapes = [(4096, 12288), (4096, 4096), (4096, 22016), (11264, 4096),
-              (4096, 32000)]
-    for k, n in shapes:
+    for k, n in QMATMUL_SHAPES:
         qt = synth_qtensor(gen, k, n, spec)
         w_bf16 = dequantize(qt, torch.bfloat16)
         # M = 8192: the ragged prefill (B = 4 at the 2048 bucket)
-        for m in (1, 4, 2048) + ((8192,) if (k, n) == (4096, 4096) else ()):
+        for m in QMATMUL_M + ((8192,) if (k, n) == (4096, 4096) else ()):
             x = (torch.randn((m, k), generator=gen, device="cuda")
                  ).to(torch.bfloat16)
             got = matmul.qmatmul_cuda(x, qt)
@@ -504,11 +521,16 @@ def check_qmatmul(chk: Checks, gen: torch.Generator) -> None:
             ms = time_ms(lambda: matmul.qmatmul_cuda(x, qt))
             plain_ms = time_ms(lambda: matmul.qmatmul_plain(x, qt), reps=3)
             lib_ms = time_ms(lambda: torch.matmul(x, w_bf16))
+            extra = None
+            if m > matmul.GEMV_MAX_M:
+                # the GEMM's x in band-major order: a copy on the host side
+                extra = dict(band_major_ms=time_ms(
+                    lambda: matmul._band_major(x, 8)))
             nbytes = m * k * 2 + k * n // 2 + (k // 128) * n * 2 + m * n * 2
             chk.add("qmatmul_int4", "cuda", "neural_speed_tpu_torch/csrc/qmatmul.cu",
                     "neural_speed_tpu/ops/matmul.py:127", f"M={m} K={k} N={n}",
                     cmp, ms, plain_ms, lib_ms, nbytes, 2.0 * m * n * k,
-                    main=(m, k, n) == (1, 4096, 22016))
+                    main=(m, k, n) == (1, 4096, 22016), extra=extra)
 
 
 # The Llama-2-7B projections: qkv, o, gate/up, down, head.  The down
@@ -667,6 +689,143 @@ def check_gemm_low_m(chk: Checks, gen: torch.Generator) -> None:
                     cmp, ms, plain_ms, lib_ms,
                     m * k * 2 + qt.nbytes() + m * n * 2, 2.0 * m * n * k)
         del qt, w_bf16
+        torch.cuda.empty_cache()
+
+
+ODD_ROWS_SEED = 16
+
+
+def check_gemv_odd_rows(chk: Checks, gen: torch.Generator) -> None:
+    """Kernel A's GEMV at 5, 6 and 7 rows (a speculative verify step of
+    T = 2 over 3 slots is 6), at the five Llama shapes, against the plain
+    version (2 bf16 ulps, as `check_qmatmul`): a body of 4 rows taken
+    once would leave rows 4.. unwritten.  Drawn from a generator of its
+    own (ODD_ROWS_SEED)."""
+    from neural_speed_tpu_torch.ops import matmul
+    from neural_speed_tpu_torch.ops.qtypes import QSpec, QType
+    from neural_speed_tpu_torch.utils.synthetic import synth_qtensor
+
+    gen = torch.Generator(device="cuda").manual_seed(ODD_ROWS_SEED)
+    spec = QSpec(QType.INT, 4, 128, True, scale_dtype="bfloat16")
+    for k, n in QMATMUL_SHAPES:
+        qt = synth_qtensor(gen, k, n, spec)
+        for m in (5, 6, 7):
+            x = torch.randn((m, k), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            got = matmul.qmatmul_cuda(x, qt)
+            want = matmul.qmatmul_plain(x, qt)
+            torch.cuda.synchronize()
+            cmp = compare(got, want, 2, per_row=False)
+            del got, want
+            ms = time_ms(lambda: matmul.qmatmul_cuda(x, qt))
+            plain_ms = time_ms(lambda: matmul.qmatmul_plain(x, qt), reps=3)
+            chk.add("qmatmul_int4", "cuda",
+                    "neural_speed_tpu_torch/csrc/qmatmul.cu",
+                    "neural_speed_tpu/ops/matmul.py:127",
+                    f"odd rows M={m} K={k} N={n}", cmp, ms, plain_ms, None,
+                    m * k * 2 + k * n // 2 + (k // 128) * n * 2 + m * n * 2,
+                    2.0 * m * n * k)
+        del qt
+        torch.cuda.empty_cache()
+
+
+GEMM_ROWS_SEED = 17
+GEMM_ROWS_CALLS = 20
+
+
+def check_gemm_rows(chk: Checks, gen: torch.Generator) -> None:
+    """Kernel A's GEMM is deterministic and each row's output depends on
+    that row only, as `Engine` and `PagedEngine` need to give equal logits:
+    GEMM_ROWS_CALLS calls on the same rows, each after an L2 flush (the
+    weights cold, as on the main path), give one digest, at 8192 and 1975
+    rows, and the first 1975 rows of an 8192-row call equal the 1975-row
+    call's.  At the Llama-2-7B shapes and MPT-7B's MLP (16384 wide).
+    Drawn from a generator of its own (GEMM_ROWS_SEED)."""
+    from neural_speed_tpu_torch.ops import matmul
+    from neural_speed_tpu_torch.ops.qtypes import QSpec, QType
+    from neural_speed_tpu_torch.utils.synthetic import synth_qtensor
+
+    gen = torch.Generator(device="cuda").manual_seed(GEMM_ROWS_SEED)
+    spec = QSpec(QType.INT, 4, 128, True, scale_dtype="bfloat16")
+    for k, n in QMATMUL_SHAPES + [(4096, 16384), (16384, 4096)]:
+        qt = synth_qtensor(gen, k, n, spec)
+        x = torch.randn((8192, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        firsts = {}
+        for m in (8192, 1975):
+            xm = x[:m].contiguous()
+            first = matmul.qmatmul_cuda(xm, qt)
+            bad_calls = 0
+            for _ in range(GEMM_ROWS_CALLS):
+                _flush_l2()
+                bad = (matmul.qmatmul_cuda(xm, qt) != first).nonzero()
+                if bad.numel():
+                    bad_calls += 1
+                    log(f"  qmatmul_int4 GEMM rows M={m} K={k} N={n}: a call "
+                        f"differs at {bad.shape[0]} outputs, first "
+                        f"{bad[0].tolist()}")
+            if bad_calls:
+                raise AssertionError(
+                    f"kernel A M={m} K={k} N={n}: {bad_calls} of "
+                    f"{GEMM_ROWS_CALLS} calls on the same rows differ")
+            firsts[m] = first
+        bad = (firsts[1975] != firsts[8192][:1975]).nonzero()
+        if bad.numel():
+            raise AssertionError(
+                f"kernel A K={k} N={n}: rows 0..1974 alone differ from the "
+                f"same rows of an 8192-row call at {bad.shape[0]} outputs, "
+                f"first {bad[0].tolist()}")
+        log(f"  qmatmul_int4 GEMM rows K={k} N={n}: {GEMM_ROWS_CALLS} calls "
+            f"each at 8192 and 1975 rows, after L2 flushes, bit-equal; rows "
+            f"0..1974 the same in both")
+        del qt, x, firsts, xm, first
+        torch.cuda.empty_cache()
+
+
+A_VS_P_SEED = 15
+
+
+def check_a_vs_p(chk: Checks, gen: torch.Generator) -> None:
+    """Kernel A's GEMM against P's one-plane INT4 instance on the same pack
+    (its bf16 scales handed to P as float32, the same values) at the five
+    Llama shapes, M = 2048: both run the TMA + wgmma template on the same
+    band-major x, A dequantizing in bf16x2 and P in float32, so the bf16
+    weights and the order of the sums are the same: the output digests
+    must be equal.  Each is also held against the plain version (2 bf16
+    ulps).  Drawn from a generator of its own (A_VS_P_SEED)."""
+    import dataclasses
+
+    from neural_speed_tpu_torch.ops import matmul
+    from neural_speed_tpu_torch.ops.qtypes import QSpec, QType
+    from neural_speed_tpu_torch.utils.synthetic import synth_qtensor
+
+    gen = torch.Generator(device="cuda").manual_seed(A_VS_P_SEED)
+    spec = QSpec(QType.INT, 4, 128, True, scale_dtype="bfloat16")
+    for k, n in QMATMUL_SHAPES:
+        qt = synth_qtensor(gen, k, n, spec)
+        qp = dataclasses.replace(qt, scales=qt.scales.float())
+        assert matmul.kernel_for(qt) == "A" and matmul.kernel_for(qp) == "I"
+        x = torch.randn((2048, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        got_a, got_p = matmul.qmatmul_cuda(x, qt), matmul.qmatmul_int_cuda(x, qp)
+        want = matmul.qmatmul_plain(x, qt)
+        torch.cuda.synchronize()
+        cmp_a = compare(got_a, want, 2, per_row=False)
+        cmp_p = compare(got_p, want, 2, per_row=False)
+        if cmp_a["digest"] != cmp_p["digest"]:
+            raise AssertionError(
+                f"kernel A and P's INT4 instance differ at K={k} N={n}: "
+                f"largest |A - P| {(got_a.float() - got_p.float()).abs().max().item()}")
+        del got_a, got_p, want
+        ms = time_ms(lambda: matmul.qmatmul_cuda(x, qt))
+        p_ms = time_ms(lambda: matmul.qmatmul_int_cuda(x, qp))
+        plain_ms = time_ms(lambda: matmul.qmatmul_plain(x, qt), reps=3)
+        chk.add("qmatmul_int4", "cuda", "neural_speed_tpu_torch/csrc/qmatmul.cu",
+                "neural_speed_tpu/ops/matmul.py:127",
+                f"A = P digest M=2048 K={k} N={n}", cmp_a, ms, plain_ms, None,
+                2048 * k * 2 + k * n // 2 + (k // 128) * n * 2 + 2048 * n * 2,
+                2.0 * 2048 * n * k, extra=dict(p_ms=p_ms, p_digest=cmp_p["digest"]))
+        del qt, qp, x
         torch.cuda.empty_cache()
 
 
@@ -1059,6 +1218,11 @@ def compare_rows(got: torch.Tensor, want: torch.Tensor, rel: float) -> dict:
 
 # Mixtral-8x7B's expert projections (K, N): gate and up, down.
 MOE_SHAPES = {"gate/up": (4096, 14336), "down": (14336, 4096)}
+# Grok-1's down projection (hpcai-tech/grok-1: intermediate 32768, hidden
+# 6144), whose K sends the JAX package's rule to bm = 64; the card routes
+# it at bm = 128 (`moe.choose_bm`).
+GROK_DOWN = {"grok-1 down": (32768, 6144)}
+GROK_ROUTES = [("uniform", 2048, 64), ("uniform", 2048, 128)]
 N_EXPERTS, TOP_K = 8, 2
 
 
@@ -1100,7 +1264,7 @@ def _check_stack(chk: Checks, gen: torch.Generator, kname: str, source: str,
 
     rel = 2.0 ** -12
     for proj in projs:
-        k, n = MOE_SHAPES[proj]
+        k, n = {**MOE_SHAPES, **GROK_DOWN}[proj]
         st = synth_stacked(gen, N_EXPERTS, k, n, spec)
         fmt = _fmt_name(st.expert(0))
         w_bf16 = [dequantize(st.expert(e), torch.bfloat16)
@@ -1170,15 +1334,18 @@ def check_grouped(chk: Checks, gen: torch.Generator) -> None:
     empty: padding blocks and empty segments), of a B = 4 decode step
     (8 rows in 9 blocks of 128, mostly padding) and of 2048 tokens at
     bm = 64; the GEMV over 2 rows, an expert each (the single-token
-    decode)."""
+    decode); then Grok-1's down projection (K = 32768) over 2048 tokens at
+    bm = 64 and 128, and its GEMV."""
     from neural_speed_tpu_torch.ops import moe
     from neural_speed_tpu_torch.ops.qtypes import named_qspec
 
-    _check_stack(chk, gen, "qmatmul_grouped",
-                 "neural_speed_tpu_torch/csrc/qmatmul_grouped.cu",
-                 named_qspec("int4", 128, scale_dtype="bfloat16"),
-                 GROUPED_ROUTES, moe.grouped_qmatmul_cuda,
-                 moe.grouped_qmatmul_rows_cuda, main=True)
+    spec = named_qspec("int4", 128, scale_dtype="bfloat16")
+    for routes, projs in ((GROUPED_ROUTES, tuple(MOE_SHAPES)),
+                          (GROK_ROUTES, tuple(GROK_DOWN))):
+        _check_stack(chk, gen, "qmatmul_grouped",
+                     "neural_speed_tpu_torch/csrc/qmatmul_grouped.cu", spec,
+                     routes, moe.grouped_qmatmul_cuda,
+                     moe.grouped_qmatmul_rows_cuda, main=True, projs=projs)
 
 
 def check_grouped_fp(chk: Checks, gen: torch.Generator) -> None:
@@ -5667,14 +5834,15 @@ def serve_speculative(card: str, profile: bool) -> dict:
 
 
 def _redesigned(name: str, shape: str) -> bool:
-    """Cases of the GEMM body redesigned on TMA + wgmma (F, P and P's INT
-    instances at M > 32, the grouped F/P GEMM): their float32 sums run in
-    another order, so their digests may differ from the parent's."""
-    if name == "qmatmul_grouped_fp":
+    """Cases of the bodies this tree redesigned, whose float32 sums may run
+    in another order than the parent's, so their digests may differ:
+    kernel A's GEMM (M > 32, on the TMA + wgmma template) and its
+    tensor-core GEMV (8 < M <= 32), kernel 11's GEMM.  Every other case
+    must keep its digest."""
+    if name == "qmatmul_grouped":
         return shape.startswith("GEMM")
     m = re.search(r"\bM=(\d+)", shape)
-    return (name in ("qmatmul_lut", "qmatmul_planar", "qmatmul_int")
-            and m is not None and int(m.group(1)) > 32)
+    return name == "qmatmul_int4" and m is not None and int(m.group(1)) > 8
 
 
 def compare_runs(paths) -> dict:
@@ -5804,7 +5972,10 @@ def main() -> int:
                         ("qmatmul_lut qmatmul_planar qmatmul_int low_m",
                          check_gemm_low_m),
                         ("flash_rows flash_rows_paged rows",
-                         check_flash_rows)):
+                         check_flash_rows),
+                        ("a_vs_p", check_a_vs_p),
+                        ("gemv_odd", check_gemv_odd_rows),
+                        ("gemm_rows", check_gemm_rows)):
         if 2 in phases and any(o in names for o in args.only.split(",")):
             check(chk, gen)
     torch.cuda.empty_cache()

@@ -7,41 +7,37 @@
 // the port) carries the 4-bit codes of rows kb + i*K/8, i = 0..7, at bits
 // 4i..4i+3.  Value = s[k / g, n] * (code - 8).
 //
-// Two launch shapes, as in the TPU kernel's compute-dtype rule (the bodies
-// live in qmm_int4.cuh, shared with kernel 11):
+// Three launch shapes, as in the TPU kernel's compute-dtype rule:
 //
-//  * GEMV, M <= 32 (decode, and the LM head at prefill).  Bound: bytes.  The
+//  * GEMV, M <= 8 (decode, and the LM head at prefill).  Bound: bytes.  The
 //    int4 words are read once (0.5 byte per weight) and dominate the traffic:
-//    ~3.4 GB per Llama-2-7B decode step, ~1.0 ms at 3.35 TB/s.  Design: each
-//    thread owns four columns and reads each word row as one 16-byte load,
-//    coalesced along N; it loads 8 word rows before any arithmetic (enough
-//    bytes in flight to cover the memory latency), unpacks the 8 codes of
-//    each word in registers and multiplies them with x rows staged in shared
-//    memory (f32, the slice of K this block covers).  The math is f32:
-//    s * (code - 8) is exact there.  At N = 4096 there are only 8 column
-//    blocks for 132 SMs, so K is split across blocks (gridDim.y) and a second
-//    small kernel sums the f32 partials in a fixed order (deterministic, no
-//    atomics).
-//
+//    ~3.4 GB per Llama-2-7B decode step, ~1.0 ms at 3.35 TB/s.  Body:
+//    qmm_int4.cuh's gemv_int4_kernel with MT = 1, 2, 4 or 8 rows, float32
+//    math on exact weights, K split across blocks with a second kernel
+//    summing the float32 partials in a fixed order.
+//  * GEMV, 8 < M <= 32 (speculative verify steps: T = 8 at B = 4 is 32
+//    rows).  Bound: bytes, the same words.  qmm_int4.cuh's gemv_mma_kernel
+//    reads each word once for all the rows (one launch, then the split-K
+//    sum): TF32 tensor-core products of exact operands, float32 sums; the
+//    wrapper hands x in band-major order, as to the GEMM.
 //  * GEMM, M > 32 (prefill projections).  Bound: operations (2 M N K on the
-//    bf16 tensor cores; 369 GFLOP for gate/up at M = 2048).  Design: 128x128
-//    output tiles, 8 warps of nvcuda::wmma bf16 16x16x16 with f32
-//    accumulation.  Each K step takes 8 word rows: the 8 bands of those rows
-//    are 64 values of K, so every word is read from memory once per M tile
-//    and unpacked into a bf16 tile in shared memory.  Two shared-memory
-//    stages: the next step's operands are loaded into registers while the
-//    current step's MMAs run, then unpacked into the other stage (one
-//    barrier per K step).
-//    The dequantized value is rounded to bf16 before the product, as the JAX
-//    package's XLA path does (dequantize(qt, bf16) then a dot with f32
-//    accumulation).  No TMA/wgmma yet: that is later work.
+//    bf16 tensor cores; 369 GFLOP for gate/up at M = 2048).  qmm_fp.cuh's
+//    TMA + wgmma template (namespace tc, the kernel of F, P and their
+//    grouped instances) with A4 = true: kernel A's format dequantized two
+//    weights at a time in bf16x2 (a4_chunk), bit-identical to the float32
+//    s * (code - 8) rounded once to bf16, as the JAX package's XLA path does
+//    (dequantize(qt, bf16), then a dot with f32 accumulation).  The wrapper
+//    hands x in band-major order (k' = r * 8 + band, ops/matmul.py's
+//    _band_major), so a K step of 64 is 8 word rows with all their bands.
 //
 // Host entries return cudaGetLastError() after their launches.
 
+#include "qmm_fp.cuh"
 #include "qmm_int4.cuh"
 
 using namespace nst_int4;
 
+// x: in band-major order when M > 8 (the tensor-core body).
 extern "C" int nst_qmatmul_int4_gemv(const void* x, const void* words,
                                      const void* scales, void* partial,
                                      void* out, int M, int K, int N, int g,
@@ -52,33 +48,32 @@ extern "C" int nst_qmatmul_int4_gemv(const void* x, const void* words,
   auto sp = static_cast<const __nv_bfloat16*>(scales);
   auto pp = static_cast<float*>(partial);
   auto op = static_cast<__nv_bfloat16*>(out);
-  cudaError_t err = cudaSuccess;
-  for (int m0 = 0; m0 < M && err == cudaSuccess; m0 += 8) {
-    const int rows = M - m0;
-    if (rows >= 8 || M > 8)
-      err = launch_gemv<8, false>(xp, wp, sp, nullptr, pp, op, M, K, N, g, splits,
-                           m0, 1, st);
-    else if (rows > 2)
-      err = launch_gemv<4, false>(xp, wp, sp, nullptr, pp, op, M, K, N, g, splits,
-                           m0, 1, st);
-    else if (rows == 2)
-      err = launch_gemv<2, false>(xp, wp, sp, nullptr, pp, op, M, K, N, g, splits,
-                           m0, 1, st);
-    else
-      err = launch_gemv<1, false>(xp, wp, sp, nullptr, pp, op, M, K, N, g, splits,
-                           m0, 1, st);
-  }
+  cudaError_t err;
+  if (M > 8)
+    err = launch_gemv_mma(xp, wp, sp, pp, op, M, K, N, g, splits, st);
+  else if (M > 4)
+    err = launch_gemv<8, false>(xp, wp, sp, nullptr, pp, op, M, K, N, g, splits, 0, 1, st);
+  else if (M > 2)
+    err = launch_gemv<4, false>(xp, wp, sp, nullptr, pp, op, M, K, N, g, splits, 0, 1, st);
+  else if (M == 2)
+    err = launch_gemv<2, false>(xp, wp, sp, nullptr, pp, op, M, K, N, g, splits, 0, 1, st);
+  else
+    err = launch_gemv<1, false>(xp, wp, sp, nullptr, pp, op, M, K, N, g, splits, 0, 1, st);
   if (err == cudaSuccess && splits > 1)
     err = launch_reduce(pp, op, M, N, splits, st);
   return (int)err;
 }
 
-extern "C" int nst_qmatmul_int4_gemm(const void* x, const void* words,
+// xk: x with K in band-major order.
+extern "C" int nst_qmatmul_int4_gemm(const void* xk, const void* words,
                                      const void* scales, void* out, int M,
                                      int K, int N, int g, void* stream) {
-  return (int)launch_gemm<2, false>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint32_t*>(words),
-      static_cast<const __nv_bfloat16*>(scales), nullptr, nullptr,
-      static_cast<__nv_bfloat16*>(out), M, K, N, g,
-      static_cast<cudaStream_t>(stream));
+  nstfp::PackArgs a{};
+  a.plane[0] = static_cast<const uint32_t*>(words);
+  a.scales = scales;
+  a.scale_bf16 = 1;
+  a.zmode = nstfp::Z_SYM;
+  return (int)nstfp::launch_gemm<nstfp::FMT_INT4, 2, false, __nv_bfloat16, true>(
+      static_cast<const __nv_bfloat16*>(xk), a, nullptr, nullptr,
+      static_cast<__nv_bfloat16*>(out), M, K, N, g, static_cast<cudaStream_t>(stream));
 }

@@ -4,7 +4,10 @@
 // instances (qmatmul_grouped_fp.cuh): out[M, N] = x[M, K] @ W, bf16 in and
 // out (float32 out for the grouped instances), or float32 in and out (the
 // `_f32` entries: the JAX kernels' float32-activation branch, quantized
-// Whisper's path).
+// Whisper's path).  Its bf16 GEMM (namespace tc) is also the GEMM of kernel
+// A (qmatmul.cu) and kernel 11 (qmatmul_grouped.cu), with A4 = true: their
+// format (int4, the symmetric offset, bf16 scales) dequantized in bf16x2
+// (a4_chunk).
 //
 // W is the JAX package's planar pack, read as stored.  A plane of width w
 // packs e = 32 / w K sub-bands per uint32 word: word [r, n] of that plane
@@ -777,16 +780,41 @@ __device__ __forceinline__ uint4 pick4(const uint4 (&v)[4], int i) {
   return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
 }
 
+// Kernel A's format (A4: int4, the symmetric offset, bf16 scales): the 8
+// codes of one word as 8 bf16 weights in band order, about 2 instructions a
+// weight.  Byte j of the word holds the codes of bands 2j (low nibble) and
+// 2j + 1 (high): one prmt puts byte j of the word and of the word >> 4 in
+// the two halves, one lop3 keeps their low nibbles and ors in 0x4300 (bf16
+// 128), giving the pair (128 + c, 128 + c'); hsub2 of 136 leaves c - 8
+// exactly and hmul2 by the bands' bf16 scale pair rounds s * (c - 8) once,
+// the value float32 s * (c - 8) rounds to.
+__device__ __forceinline__ uint4 a4_chunk(uint32_t w, const __nv_bfloat162 (&sp)[4]) {
+  const uint32_t w4 = w >> 4;
+  const __nv_bfloat162 k136 = __floats2bfloat162_rn(136.f, 136.f);
+  uint32_t pk[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t t = __byte_perm(w, w4, (j | (j << 4) | ((4 + j) << 8) | ((4 + j) << 12)));
+    const uint32_t v = (t & 0x000F000Fu) | 0x43004300u;
+    const __nv_bfloat162 h =
+        __hmul2(__hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v), k136), sp[j]);
+    pk[j] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  return make_uint4(pk[0], pk[1], pk[2], pk[3]);
+}
+
 // Transform warpgroups, packed formats (EF >= 8 bands): thread (warpgroup
 // H, column tl) dequantizes BPT bands x RPT word rows of the step (32 weights, four
 // 16-byte chunks of 8 consecutive k' = row * EF + band) and holds the scale
-// and zero term of each of its bands until the band's group changes.
-template <int FMT, int H>
+// and zero term of each of its bands until the band's group changes (A4:
+// kernel A's format through a4_chunk, the scales held as bf16 pairs).
+template <int FMT, int H, bool A4>
 __device__ __forceinline__ void transform_packed(
     const PackArgs& a, const uint32_t* ws_all, __nv_bfloat16* bs_all,
     uint64_t* w_full, uint64_t* w_empty, uint64_t* b_full, uint64_t* b_empty,
     const float* tab, int n_blk, int K, int N, int g, int steps) {
   using F = Fmt<FMT>;
+  static_assert(!A4 || FMT == FMT_INT4, "A4 is kernel A's int4 format");
   constexpr int EF = F::kBands, R = BK / EF;
   constexpr int BPT = EF >= 16 ? EF / 2 : EF;  // bands per thread
   constexpr int RPT = EF >= 16 ? R : R / 2;    // word rows per thread
@@ -801,6 +829,7 @@ __device__ __forceinline__ void transform_packed(
   float sc[BPT], zt[BPT];
 #pragma unroll
   for (int j = 0; j < BPT; ++j) sc[j] = zt[j] = 0.f;
+  __nv_bfloat162 sp[4];  // A4: the scales of bands (2j, 2j + 1)
   // The terms of step s's groups, loaded once per group: reload(s) runs
   // after step s - 1's stores, so the loads' latency hides behind the next
   // waits.  `next_any` is the first band row at which any of the thread's
@@ -822,6 +851,10 @@ __device__ __forceinline__ void transform_packed(
       nxt = min(nxt, (G + 1) * g - b * KW);
     }
     next_any = nxt;
+    if constexpr (A4) {  // bf16 scales: the pairs are exact
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sp[j] = __floats2bfloat162_rn(sc[2 * j], sc[2 * j + 1]);
+    }
   };
   reload(0);
   for (int s = 0; s < steps; ++s) {
@@ -848,24 +881,30 @@ __device__ __forceinline__ void transform_packed(
     const int bst = s % SB;
     bar_wait(&b_empty[bst], ((s / SB) & 1) ^ 1);
     unsigned char* bt = reinterpret_cast<unsigned char*>(bs_all) + bst * Layout<1>::b_stage;
+    if constexpr (A4) {  // one word row = one 16-byte chunk (EF = 8)
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
+      for (int i = 0; i < RPT; ++i)
+        *reinterpret_cast<uint4*>(bt + sw128_chunk(tl, row0 + i)) = a4_chunk(w[i][0], sp);
+    } else {
 #pragma unroll
-      for (int o = 0; o < OCT; ++o) {
-        uint32_t pk[4];
+      for (int i = 0; i < RPT; ++i)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int j0 = o * 8 + 2 * e, b0 = band0 + j0;
-          const float v0 = weight_value<FMT>(code_of<FMT>(w[i], b0), sc[j0], zt[j0],
-                                             float_zero, tab);
-          const float v1 = weight_value<FMT>(code_of<FMT>(w[i], b0 + 1), sc[j0 + 1],
-                                             zt[j0 + 1], float_zero, tab);
-          pk[e] = pack_bf16(v0, v1);
+        for (int o = 0; o < OCT; ++o) {
+          uint32_t pk[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int j0 = o * 8 + 2 * e, b0 = band0 + j0;
+            const float v0 = weight_value<FMT>(code_of<FMT>(w[i], b0), sc[j0], zt[j0],
+                                               float_zero, tab);
+            const float v1 = weight_value<FMT>(code_of<FMT>(w[i], b0 + 1), sc[j0 + 1],
+                                               zt[j0 + 1], float_zero, tab);
+            pk[e] = pack_bf16(v0, v1);
+          }
+          const int c = ((row0 + i) * EF + band0) / 8 + o;  // chunk of k'
+          *reinterpret_cast<uint4*>(bt + sw128_chunk(tl, c)) =
+              make_uint4(pk[0], pk[1], pk[2], pk[3]);
         }
-        const int c = ((row0 + i) * EF + band0) / 8 + o;  // chunk of k'
-        *reinterpret_cast<uint4*>(bt + sw128_chunk(tl, c)) =
-            make_uint4(pk[0], pk[1], pk[2], pk[3]);
-      }
+    }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncwarp();
     if (lane == 0) bar_arrive(&b_full[bst]);
@@ -1032,8 +1071,8 @@ __device__ __forceinline__ void store_tile(const float (&acc)[WN / 2], float* ou
 // with MI = 1 (the grouped bm = 64) each 64 rows x 64 columns.  The grouped
 // instance takes tile i from expert block_expert[i]; rows of the tile past
 // its block_rows[i] live ones are written as zeros, a tile with none is
-// written as zeros and stops.
-template <int FMT, int MI, bool GROUPED, typename OutT>
+// written as zeros and stops.  A4: kernel A's format (transform_packed).
+template <int FMT, int MI, bool GROUPED, typename OutT, bool A4>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_kernel(const __grid_constant__ CUtensorMap xmap,
             const __grid_constant__ CUtensorMap wmap0,
@@ -1137,11 +1176,11 @@ gemm_kernel(const __grid_constant__ CUtensorMap xmap,
       transform_bytes<FMT>(a, ws, bs, w_full, w_empty, b_full, b_empty, n_blk, K, N, g,
                            steps, direct);
     else if (wg == 1)
-      transform_packed<FMT, 0>(a, ws, bs, w_full, w_empty, b_full, b_empty, tab, n_blk,
-                               K, N, g, steps);
+      transform_packed<FMT, 0, A4>(a, ws, bs, w_full, w_empty, b_full, b_empty, tab,
+                                   n_blk, K, N, g, steps);
     else
-      transform_packed<FMT, 1>(a, ws, bs, w_full, w_empty, b_full, b_empty, tab, n_blk,
-                               K, N, g, steps);
+      transform_packed<FMT, 1, A4>(a, ws, bs, w_full, w_empty, b_full, b_empty, tab,
+                                   n_blk, K, N, g, steps);
   } else {
     // ---- consumers: wgmma over the x and W tiles as they arrive
     const int c = wg - 3;
@@ -1229,7 +1268,7 @@ inline bool plane_map(CUtensorMap* m, const void* p, bool bytes, int N, int rows
 
 }  // namespace tc
 
-template <int FMT, int MI, bool GROUPED, typename OutT>
+template <int FMT, int MI, bool GROUPED, typename OutT, bool A4 = false>
 cudaError_t launch_gemm(const __nv_bfloat16* xk, const PackArgs& a, const int* block_expert,
                         const int* block_rows, OutT* out, int M, int K, int N, int g,
                         cudaStream_t st) {
@@ -1254,7 +1293,7 @@ cudaError_t launch_gemm(const __nv_bfloat16* xk, const PackArgs& a, const int* b
   }
   if (!ok) return cudaErrorInvalidValue;
   constexpr int smem = L::bytes;
-  auto kernel = tc::gemm_kernel<FMT, MI, GROUPED, OutT>;
+  auto kernel = tc::gemm_kernel<FMT, MI, GROUPED, OutT, A4>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;

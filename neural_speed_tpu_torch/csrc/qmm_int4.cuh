@@ -1,60 +1,39 @@
-// Int4 dequant-matmul bodies for Hopper (sm_90a), shared by kernel A
+// Int4 dequant-matmul GEMVs for Hopper (sm_90a), shared by kernel A
 // (qmatmul.cu: one weight, bf16 output) and kernel 11 (qmatmul_grouped.cu:
-// experts stacked [E, K/8, N], the expert of each row block or row read on
-// the device, float32 output).
+// experts stacked [E, K/8, N], the expert of each row read on the device,
+// float32 output).  Their GEMMs (M > 32) run on qmm_fp.cuh's TMA + wgmma
+// template (namespace tc, kernel A's format through its A4 dequantization).
 //
 // W is the JAX package's planar pack: word [kb, n] (uint32, held as int32 by
 // the port) carries the 4-bit codes of rows kb + i*K/8, i = 0..7, at bits
 // 4i..4i+3.  Value = s[k / g, n] * (code - 8).
 //
-//  * GEMV, M <= 32.  Bound: bytes.  The int4 words are read once (0.5 byte
-//    per weight) and dominate the traffic.  Design: each thread owns four
-//    columns and reads each word row as one 16-byte load, coalesced along
-//    N; it loads 8 word rows before any arithmetic (enough bytes in flight
-//    to cover the memory latency), unpacks the 8 codes of each word in
-//    registers and multiplies them with x rows staged in shared memory
-//    (f32, the slice of K this block covers).  The math is f32:
-//    s * (code - 8) is exact there.  When the columns give too few blocks
-//    for 132 SMs, K is split across blocks (gridDim.y) and a second small
-//    kernel sums the f32 partials in a fixed order (deterministic, no
-//    atomics).  gridDim.z walks row groups of MT rows; the grouped instance
-//    takes MT = 1 and reads the expert of its row from a per-row map.
+// Bound: bytes.  The int4 words are read once (0.5 byte per weight) and
+// dominate the traffic.  The math is f32 on exact weights (s * (code - 8)
+// is exact there).  When the columns give too few blocks for 132 SMs, K is
+// split across blocks (gridDim.y) and a second small kernel sums the f32
+// partials in a fixed order (deterministic, no atomics).
 //
-//  * GEMM, M > 32.  Bound: operations (2 M N K on the bf16 tensor cores).
-//    Design: BM x 128 output tiles (BM = 64 * MI), 8 warps of nvcuda::wmma
-//    bf16 16x16x16 with f32 accumulation.  Each K step takes 8 word rows:
-//    the 8 bands of those rows are 64 values of K, so every word is read
-//    from memory once per M tile and unpacked into a bf16 tile in shared
-//    memory.  Two shared-memory stages: the next step's operands are loaded
-//    into registers while the current step's MMAs run, then unpacked into
-//    the other stage (one barrier per K step).  The dequantized value is
-//    rounded to bf16 before the product, as the JAX package's XLA path does
-//    (dequantize(qt, bf16) then a dot with f32 accumulation).  The grouped
-//    instance (GROUPED = true) takes M tile i from expert block_expert[i];
-//    with a live-row map (block_rows[i] rows of tile i hold assignments, at
-//    its head) it loads only those rows of x (the rest of the tile is
-//    zeros, as the zero row they read), and a tile with none writes its
-//    zeros and stops.  The grouped parts are compile-time: kernel A's
-//    instance uses all 128 registers that two blocks per SM allow and
-//    spilled once runtime grouped branches were added to it.  The grouped
-//    instance holds its expert offsets as 32-bit element offsets and its 8
-//    scales as bf16, which cut its spills and its time on the card against
-//    64-bit pointer offsets and float scales; skipping the MMAs of warps
-//    past the live rows sped up decode steps but slowed prefill more, so
-//    it is not done.  No TMA/wgmma yet: that is later work.
+//  * M <= 8 (gemv_int4_kernel, MT = 1, 2, 4 or 8 rows): each thread owns
+//    four columns and reads each word row as one 16-byte load, coalesced
+//    along N; it loads 8 word rows before any arithmetic (enough bytes in
+//    flight to cover the memory latency), unpacks the 8 codes of each word
+//    in registers and multiplies them with x rows staged in shared memory
+//    (f32, the slice of K this block covers).  The grouped instance takes
+//    MT = 1, one row per block row (gridDim.z), and reads the expert of its
+//    row from a per-row map.
+//  * 8 < M <= 32 (gemv_mma_kernel): every row in one pass over the words,
+//    on the tensor cores in TF32 (note at the kernel): FFMA over 32 rows
+//    would take ~90 us at gate/up against a ~13 us bytes bound, and a
+//    launch per 8 rows reads the words once per launch.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace nst_int4 {
-
-using namespace nvcuda;
 
 constexpr int GEMV_THREADS = 128;
 constexpr int GEMV_COLS = 4;   // one 16-byte word load per row
@@ -69,11 +48,6 @@ __device__ __forceinline__ void store1(__nv_bfloat16* o, float v) {
   *o = __float2bfloat16_rn(v);
 }
 __device__ __forceinline__ void store1(float* o, float v) { *o = v; }
-
-__device__ __forceinline__ float as_float(float v) { return v; }
-__device__ __forceinline__ float as_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 __device__ __forceinline__ void store4(__nv_bfloat16* o, const float* v) {
   __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(o);
@@ -212,191 +186,183 @@ cudaError_t launch_reduce(const float* partial, OutT* out, int M, int N,
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------- GEMM ---
-constexpr int BN = 128, KWT = 8, BK = 8 * KWT;
-constexpr int LDA = BK + 8, LDB = BN + 8;
-constexpr int GEMM_THREADS = 256;
+// ------------------------------------------------- GEMV, 8 < M <= 32 ---
+// One pass over the words for up to 32 rows: mma.sync m16n8k8 in TF32 with
+// float32 accumulation.  Both operands are exact in TF32: x is bf16, and
+// s * (code - 8) has at most 8 + 3 significant bits (TF32 keeps 11), so
+// every product is exact and only the float32 sums' order differs from the
+// M <= 8 bodies.  A warp takes 32 columns and K in steps of 8 word rows
+// (64 values of K), one MMA per band, n-tile and m-tile: MMA column j of
+// n-tile jn is column c0 + 4j + jn, so a lane's four columns of a word row
+// are one 16-byte load; the MMA's k index t / t + 4 is word row 2t / 2t + 1
+// of the step, and the wrapper hands x in band-major order (k' = row * 8 +
+// band), so a lane's x values of a step are two 16-byte loads per row (the
+// 8 bands of its two word rows).  Lane (g, t) then holds output columns
+// c0 + 8t .. c0 + 8t + 7 of rows g and g + 8: 16-byte stores.  Each step
+// issues the next step's words, then its own scales and x (L1 hits after
+// the first step), before any product.  MT16 m-tiles of 16 rows (1 for
+// M <= 16, 2 above); K split across blocks as the other GEMVs, the float32
+// partials summed by splitk_reduce_kernel.
+constexpr int MMA_WARPS = 4;
+constexpr int MMA_BN = 32 * MMA_WARPS;  // columns per block
 
-template <int MI>
-constexpr int gemm_smem_bytes() {
-  return (int)(sizeof(__nv_bfloat16) * 2 * (64 * MI * LDA + BK * LDB) +
-               sizeof(float) * (GEMM_THREADS / 32) * 16 * 16);
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int MI, bool GROUPED, typename OutT>
-__global__ void __launch_bounds__(GEMM_THREADS, 2)
-gemm_int4_kernel(const __nv_bfloat16* __restrict__ x,
-                 const uint32_t* __restrict__ words,
-                 const __nv_bfloat16* __restrict__ scales,
-                 const int* __restrict__ block_expert,
-                 const int* __restrict__ block_rows, OutT* __restrict__ out,
-                 int M, int K, int N, int g) {
-  constexpr int BM = 64 * MI;
-  // two stages of the A and B tiles, then the epilogue's per-warp tiles
-  extern __shared__ __align__(128) unsigned char gsm[];
-  __nv_bfloat16* As_all = reinterpret_cast<__nv_bfloat16*>(gsm);
-  __nv_bfloat16* Bs_all = As_all + 2 * BM * LDA;
-  auto Cs = reinterpret_cast<float(*)[16 * 16]>(Bs_all + 2 * BK * LDB);
+// code - 8 of band `band` of a word as a float, exactly, without a
+// conversion instruction: 2^23 + code as a float's bits, less 2^23 + 8.
+__device__ __forceinline__ float code_minus8(uint32_t word, int band) {
+  return __int_as_float(((word >> (4 * band)) & 15u) | 0x4B000000u) - 8388616.f;
+}
 
-  const int m_blk = blockIdx.y * BM, n_blk = blockIdx.x * BN;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 2, wn = warp % 2;  // warp tile: 16*MI rows x 64 cols
+// Band b of 8 bf16 in band order (a uint4) as a TF32 operand.
+__device__ __forceinline__ uint32_t band_tf32(const uint4& v, int b) {
+  const uint32_t w = word_lane(v, b / 2);
+  return b % 2 ? w & 0xFFFF0000u : w << 16;
+}
+
+__device__ __forceinline__ void store8(__nv_bfloat16* o, const float* v) {
+  __nv_bfloat162 p[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) p[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(p);
+}
+__device__ __forceinline__ void store8(float* o, const float* v) {
+  reinterpret_cast<float4*>(o)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(o)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// xk: x [M, K] bf16 with K in band-major order.
+template <int MT16, typename OutT>
+__global__ void __launch_bounds__(32 * MMA_WARPS)
+gemv_mma_kernel(const __nv_bfloat16* __restrict__ xk,
+                const uint32_t* __restrict__ words,
+                const __nv_bfloat16* __restrict__ scales,
+                float* __restrict__ partial, OutT* __restrict__ out, int M,
+                int K, int N, int g, int rows_per_split) {
   const int KW = K / 8;
+  const int lane = threadIdx.x % 32, gq = lane / 4, t = lane % 4;
+  const int c0 = blockIdx.x * MMA_BN + (threadIdx.x / 32) * 32;
+  const int split = blockIdx.y;
+  const int kb0 = split * rows_per_split;
+  const int kb1 = min(kb0 + rows_per_split, KW);
+  const int n4 = c0 + 4 * gq;  // this lane's four columns
+  const bool live = n4 < N;
 
-  // the grouped instance: the expert's offsets in words and scales (the
-  // wrapper keeps E * K/8 * N below 2**32) and the end of the live rows
-  uint32_t wofs = 0, sofs = 0;
-  int m_lim = M;
-  if constexpr (GROUPED) {
-    const uint32_t e = (uint32_t)block_expert[blockIdx.y];
-    wofs = e * (uint32_t)(KW * N);
-    sofs = e * (uint32_t)((K / g) * N);
-    const int live = block_rows != nullptr ? block_rows[blockIdx.y] : BM;
-    if (live <= 0) {  // no assignment in this tile: its rows are zeros
-      for (int i = threadIdx.x; i < BM * BN; i += GEMM_THREADS) {
-        const int gm = m_blk + i / BN, gn = n_blk + i % BN;
-        if (gm < M && gn < N) store1(out + (size_t)gm * N + gn, 0.f);
-      }
-      return;
+  float acc[MT16][4][4];
+#pragma unroll
+  for (int i = 0; i < MT16; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  // x rows g and g + 8 of each m-tile (rows past M read nothing)
+  const uint4* xr[MT16][2];
+  bool xok[MT16][2];
+#pragma unroll
+  for (int i = 0; i < MT16; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = 16 * i + gq + 8 * h;
+      xok[i][h] = m < M;
+      xr[i][h] = reinterpret_cast<const uint4*>(xk + (size_t)min(m, M - 1) * K);
     }
-    m_lim = min(M, m_blk + live);
-  }
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MI][4];
+  auto load_words = [&](int kb, uint4 (&w)[2]) {
 #pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const int bc = threadIdx.x % BN;         // B-tile column of this thread
-  const int br0 = (threadIdx.x / BN) * 4;  // its 4 word rows
-  const int bn = n_blk + bc;
-  constexpr int A_PER_THREAD = BM * 8 / GEMM_THREADS;
-
-  // The next K step's operands are loaded into registers while the current
-  // step's MMAs run, and unpacked into the other shared-memory stage after.
-  using ScaleReg = std::conditional_t<GROUPED, __nv_bfloat16, float>;
-  uint4 a_reg[A_PER_THREAD];
-  uint32_t w_reg[4];
-  ScaleReg s_reg[8];
-  auto load_step = [&](int kb0) {
-#pragma unroll
-    for (int u = 0; u < A_PER_THREAD; ++u) {
-      const int i = threadIdx.x + u * GEMM_THREADS;
-      const int row = i / 8, band = i % 8;
-      a_reg[u] = make_uint4(0, 0, 0, 0);
-      if (m_blk + row < (GROUPED ? m_lim : M))
-        a_reg[u] = *reinterpret_cast<const uint4*>(
-            x + (size_t)(m_blk + row) * K + band * KW + kb0);
-    }
-    // kernel A's loads are kept apart, as written before the grouped
-    // instance existed: a shared form cost its GEMM ~6% (same registers)
-    if constexpr (GROUPED) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        w_reg[j] = bn < N ? words[wofs + (size_t)(kb0 + br0 + j) * N + bn]
-                          : 0u;
-#pragma unroll
-      for (int band = 0; band < 8; ++band)
-        s_reg[band] =
-            bn < N ? scales[sofs + (size_t)((band * KW + kb0) / g) * N + bn]
-                   : __float2bfloat16_rn(0.f);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        w_reg[j] = bn < N ? words[(size_t)(kb0 + br0 + j) * N + bn] : 0u;
-#pragma unroll
-      for (int band = 0; band < 8; ++band)
-        s_reg[band] = bn < N ? __bfloat162float(
-                                   scales[(size_t)((band * KW + kb0) / g) * N + bn])
-                             : 0.f;
-    }
+    for (int r = 0; r < 2; ++r)
+      w[r] = live ? __ldg(reinterpret_cast<const uint4*>(
+                        words + (size_t)(kb + 2 * t + r) * N + n4))
+                  : make_uint4(0u, 0u, 0u, 0u);
   };
-
-  auto store_step = [&](int stage) {
-    __nv_bfloat16* As = As_all + stage * BM * LDA;
-    __nv_bfloat16* Bs = Bs_all + stage * BK * LDB;
-    // A tile: tile column band*8 + c holds x[:, band*KW + kb0 + c]
-#pragma unroll
-    for (int u = 0; u < A_PER_THREAD; ++u) {
-      const int i = threadIdx.x + u * GEMM_THREADS;
-      *reinterpret_cast<uint4*>(&As[(i / 8) * LDA + (i % 8) * 8]) = a_reg[u];
-    }
-    // B tile: row band*8 + r holds W[band*KW + kb0 + r, :], as bf16
+  uint4 w[2], wn[2];
+  if (kb0 < kb1) load_words(kb0, w);
+  for (int kb = kb0; kb < kb1; kb += 8) {
+    if (kb + 8 < kb1) load_words(kb + 8, wn);
+    // the step's scales (one group per band for its 8 rows) and x
+    uint2 sr[8];
 #pragma unroll
     for (int band = 0; band < 8; ++band)
+      sr[band] = live ? __ldg(reinterpret_cast<const uint2*>(
+                            scales + (size_t)((band * KW + kb) / g) * N + n4))
+                      : make_uint2(0u, 0u);
+    uint4 xv[MT16][2][2];  // [m-tile][row g / g + 8][word row 2t / 2t + 1]
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int code = (int)((w_reg[j] >> (4 * band)) & 15u) - 8;
-        Bs[(band * 8 + br0 + j) * LDB + bc] =
-            __float2bfloat16_rn(as_float(s_reg[band]) * (float)code);
-      }
-  };
-
-  load_step(0);
-  store_step(0);
-  __syncthreads();
-  int stage = 0;
-  for (int kb0 = 0; kb0 < KW; kb0 += KWT) {
-    const bool more = kb0 + KWT < KW;
-    if (more) load_step(kb0 + KWT);
-    const __nv_bfloat16* As = As_all + stage * BM * LDA;
-    const __nv_bfloat16* Bs = Bs_all + stage * BK * LDB;
+    for (int i = 0; i < MT16; ++i)
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a[MI];
+      for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int i = 0; i < MI; ++i)
-        wmma::load_matrix_sync(
-            a[i], &As[(wm * 16 * MI + i * 16) * LDA + kk * 16], LDA);
+        for (int r = 0; r < 2; ++r)
+          xv[i][h][r] = xok[i][h] ? __ldg(xr[i][h] + kb + 2 * t + r)
+                                  : make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // one B fragment at a time keeps the kernel at two blocks per SM
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> b;
-        wmma::load_matrix_sync(b, &Bs[(kk * 16) * LDB + wn * 64 + j * 16],
-                               LDB);
+    for (int band = 0; band < 8; ++band) {
+      const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&sr[band].x);
+      const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&sr[band].y);
+      const float s[4] = {__low2float(lo), __high2float(lo), __low2float(hi),
+                          __high2float(hi)};
+      uint32_t a[MT16][4];
 #pragma unroll
-        for (int i = 0; i < MI; ++i)
-          wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
+      for (int i = 0; i < MT16; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          a[i][h] = band_tf32(xv[i][h][0], band);      // MMA k index t
+          a[i][h + 2] = band_tf32(xv[i][h][1], band);  // MMA k index t + 4
+        }
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn) {
+        const uint32_t b0 = __float_as_uint(s[jn] * code_minus8(word_lane(w[0], jn), band));
+        const uint32_t b1 = __float_as_uint(s[jn] * code_minus8(word_lane(w[1], jn), band));
+#pragma unroll
+        for (int i = 0; i < MT16; ++i) mma_tf32(acc[i][jn], a[i], b0, b1);
       }
     }
-    // the other stage was last read before the previous barrier
-    if (more) store_step(stage ^ 1);
-    __syncthreads();
-    stage ^= 1;
+    w[0] = wn[0];
+    w[1] = wn[1];
   }
-
+  // lane (g, t): columns c0 + 8t + 4e + jn of rows g (e = 0: acc[.][jn][0],
+  // e = 1: [1]) and g + 8 ([2], [3])
+  const int n8 = c0 + 8 * t;
+  if (n8 >= N) return;
 #pragma unroll
-  for (int i = 0; i < MI; ++i)
+  for (int i = 0; i < MT16; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(Cs[warp], acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int gm = m_blk + wm * 16 * MI + i * 16 + e / 16;
-        const int gn = n_blk + wn * 64 + j * 16 + e % 16;
-        if (gm < M && gn < N) store1(out + (size_t)gm * N + gn, Cs[warp][e]);
-      }
-      __syncwarp();
+    for (int h = 0; h < 2; ++h) {
+      const int m = 16 * i + gq + 8 * h;
+      if (m >= M) continue;
+      float v[8];
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int jn = 0; jn < 4; ++jn) v[4 * e + jn] = acc[i][jn][2 * h + e];
+      if (gridDim.y == 1)
+        store8(out + (size_t)m * N + n8, v);
+      else
+        store8(partial + ((size_t)split * M + m) * N + n8, v);
     }
 }
 
-// One GEMM launch: ceil(N / 128) x ceil(M / (64 * MI)) tiles.
-template <int MI, bool GROUPED, typename OutT>
-cudaError_t launch_gemm(const __nv_bfloat16* x, const uint32_t* words,
-                        const __nv_bfloat16* scales, const int* block_expert,
-                        const int* block_rows, OutT* out, int M, int K, int N,
-                        int g, cudaStream_t stream) {
-  constexpr int smem = gemm_smem_bytes<MI>();
-  cudaError_t err = cudaFuncSetAttribute(
-      gemm_int4_kernel<MI, GROUPED, OutT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((N + BN - 1) / BN, (M + 64 * MI - 1) / (64 * MI));
-  gemm_int4_kernel<MI, GROUPED, OutT><<<grid, GEMM_THREADS, smem, stream>>>(
-      x, words, scales, block_expert, block_rows, out, M, K, N, g);
+// One launch over M in (8, 32] rows; xk in band-major order.
+template <typename OutT>
+cudaError_t launch_gemv_mma(const __nv_bfloat16* xk, const uint32_t* words,
+                            const __nv_bfloat16* scales, float* partial, OutT* out,
+                            int M, int K, int N, int g, int splits,
+                            cudaStream_t stream) {
+  const int KW = K / 8;
+  const int rows = ((KW + splits - 1) / splits + 7) / 8 * 8;
+  dim3 grid((N + MMA_BN - 1) / MMA_BN, splits);
+  if (M > 16)
+    gemv_mma_kernel<2, OutT><<<grid, 32 * MMA_WARPS, 0, stream>>>(
+        xk, words, scales, partial, out, M, K, N, g, rows);
+  else
+    gemv_mma_kernel<1, OutT><<<grid, 32 * MMA_WARPS, 0, stream>>>(
+        xk, words, scales, partial, out, M, K, N, g, rows);
   return cudaGetLastError();
 }
 

@@ -144,7 +144,7 @@ def _moe_grouped(x: torch.Tensor, stacked: dict, topi: torch.Tensor,
     kk = topi.shape[-1]
     eid = topi.reshape(n * kk)
     max_k = max(st.local_view().shape[0] for st in stacked.values())
-    bm = moe_ops.choose_bm(max_k, x.dtype)
+    bm = moe_ops.choose_bm(max_k, x.dtype, x.device)
     r = moe_ops.route_tokens(eid, cfg.moe.num_experts, kk, bm)
 
     xz = torch.cat([x.reshape(n, h), x.new_zeros((1, h))], dim=0)

@@ -5,7 +5,9 @@ plain PyTorch versions (`qmatmul_plain`, `qmatmul_int8_plain`).  A CUDA
 tensor goes through the kernel that takes the pack, or raises naming the
 format; it never runs a plain version:
 
-* kernel A (`csrc/qmatmul.cu`): one int4 plane, symmetric, bf16 scales;
+* kernel A (`csrc/qmatmul.cu`): one int4 plane, symmetric, bf16 scales (its
+  GEMM is the TMA + `wgmma` template of F and P, `csrc/qmm_fp.cuh`, with a
+  bf16x2 dequantization of its own);
 * kernel F (`csrc/qmatmul_lut.cu`): NF4 / FP4 codes through a 16-entry table
   (the canonical one or a converter's `spec.lut`);
 * kernel P (`csrc/qmatmul_planar.cuh`, one library per format): INT 3/5/6/7
@@ -36,8 +38,7 @@ through their `_f32` entries (counted as `qmatmul_lut_f32`,
 GEMM is an exact float32 product (no bf16, no TF32).  `kernel_route` sends
 kernel A's packs (int4 / symmetric / bf16 scales) to "I" for float32 x:
 those instances take the symmetric offset and bf16 scales already, while
-kernel A's bodies (`qmm_int4.cuh`) are shared with kernel 11, whose bf16
-path stays as it is.  A float32 x is never rounded to bf16 to reuse a bf16
+kernel A's bodies take bf16 x only.  A float32 x is never rounded to bf16 to reuse a bf16
 kernel, and never handed to the plain version on the card.
 
 Compute dtype of `qmatmul` (the TPU kernel's `_compute_dtype` rule): float32
@@ -59,6 +60,11 @@ from .qtypes import QSpec, QType, plane_widths
 from .quantize import QTensor, dequantize, lut_values, unpack_codes
 
 GEMV_MAX_M = 32
+# Kernel A's GEMV reads the words once for every row: rows 1..8 on the
+# CUDA cores, 9..32 on the tensor cores, 128 columns per block there
+# (`csrc/qmm_int4.cuh`, MMA_BN).
+GEMV_SIMT_MAX_M = 8
+GEMV_MMA_COLS = 128
 
 
 def compute_dtype(x_dtype: torch.dtype, m: int) -> torch.dtype:
@@ -139,16 +145,20 @@ def qmatmul_cuda(x2: torch.Tensor, qt: QTensor, out_dtype=None) -> torch.Tensor:
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
     stream = _build.stream_handle()
     if m <= GEMV_MAX_M:
-        splits = _gemv_splits(k, n, _sm_count(x2.device.index or 0))
+        splits = _gemv_splits(k, n, _sm_count(x2.device.index or 0), 8,
+                              512 if m <= GEMV_SIMT_MAX_M else GEMV_MMA_COLS)
         partial = (torch.empty((splits, m, n), dtype=torch.float32,
                                device=x2.device) if splits > 1 else out)
+        # the tensor-core body reads x in band-major order, as the GEMM
+        xg = x2 if m <= GEMV_SIMT_MAX_M else _band_major(x2, 8)
         fn = _build.kernels.fn("qmatmul", "nst_qmatmul_int4_gemv", 5, 5)
-        code = fn(x2.data_ptr(), words.data_ptr(), qt.scales.data_ptr(),
+        code = fn(xg.data_ptr(), words.data_ptr(), qt.scales.data_ptr(),
                   partial.data_ptr(), out.data_ptr(), m, k, n, g, splits,
                   stream)
     else:
+        xk = _band_major(x2, 8)
         fn = _build.kernels.fn("qmatmul", "nst_qmatmul_int4_gemm", 4, 4)
-        code = fn(x2.data_ptr(), words.data_ptr(), qt.scales.data_ptr(),
+        code = fn(xk.data_ptr(), words.data_ptr(), qt.scales.data_ptr(),
                   out.data_ptr(), m, k, n, g, stream)
     _build.check(code, "qmatmul")
     _build.launches["qmatmul"] += 1
@@ -264,8 +274,9 @@ _ZMODES = {"none": 0, "sym": 1, "int": 2, "float": 3}
 
 def _band_major(x2: torch.Tensor, bands: int) -> torch.Tensor:
     """x with K reordered so that the `bands` values one word row feeds are
-    adjacent (k' = row * bands + band): the GEMMs of kernels F and P then
-    read contiguous K tiles of x, whatever the pack's band stride."""
+    adjacent (k' = row * bands + band): the GEMMs of kernels A, F, P and
+    11 then read contiguous K tiles of x, whatever the pack's band
+    stride."""
     if bands == 1:
         return x2
     m, k = x2.shape

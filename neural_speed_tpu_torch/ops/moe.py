@@ -16,7 +16,8 @@ path as a `lax.switch` over the selected experts, which the port replaces
 with one launch per projection for all top_k experts.
 
 A CPU tensor goes through the plain versions; a CUDA tensor through kernel
-11 (`csrc/qmatmul_grouped.cu`: int4, symmetric, bf16 scales), through the
+11 (`csrc/qmatmul_grouped.cu`: int4, symmetric, bf16 scales; its GEMM on
+the TMA + `wgmma` template of `csrc/qmm_fp.cuh`), through the
 grouped instances of kernels F and P (`csrc/qmatmul_grouped_fp.cuh`, one
 library per format: NF4 / FP4 and one-plane INT 1/2/4/8 with the symmetric
 offset or uint8 zero points, bf16 or float32 scales), or raises naming the
@@ -174,10 +175,16 @@ def route_tokens(eid: torch.Tensor, num_experts: int, top_k: int,
                    block_expert.to(torch.int32), block_rows.to(torch.int32))
 
 
-def choose_bm(max_k: int, dtype) -> int:
-    """M block: 128 rows unless a [bm, K] block of x would exceed 4 MB
-    (then 64), the JAX package's rule, kept so routes compare at equal
-    bm."""
+def choose_bm(max_k: int, dtype, device=None) -> int:
+    """M block.  On the CPU the JAX package's rule: 128 rows unless a
+    [bm, K] block of x would exceed 4 MB of the TPU's VMEM (then 64), so
+    the plain versions route as the reference does.  On the card 128 rows
+    whatever K: the grouped GEMMs stream x through TMA in 64-wide K steps
+    and never hold such a block, and 128-row tiles dequantize each expert
+    tile for twice the rows.  A token's output does not depend on bm (each
+    row is its expert's product; padding rows are skipped)."""
+    if device is not None and torch.device(device).type == "cuda":
+        return 128
     nbytes = 2 if dtype == torch.bfloat16 else 4
     return 128 if max_k * nbytes * 128 <= 4 * 1024 * 1024 else 64
 
@@ -321,8 +328,7 @@ def _grouped_checks(x2: torch.Tensor, st: StackedExperts, what: str,
     words = st.data[0]
     tensors = (x2, words, st.scales, *extra)
     ok = (grouped_kernel_eligible(st) and x2.dtype == torch.bfloat16
-          and x2.shape[1] == k and words.numel() < 2 ** 32
-          and words.dtype == torch.int32
+          and x2.shape[1] == k and words.dtype == torch.int32
           and words.shape == (e, k // 8, n)
           and st.scales.shape == (e, k // g, n)
           and all(t.is_cuda and t.device == x2.device and t.is_contiguous()
@@ -331,7 +337,7 @@ def _grouped_checks(x2: torch.Tensor, st: StackedExperts, what: str,
         raise ValueError(
             f"kernel 11 ({what}) takes contiguous, 16-byte aligned CUDA "
             f"tensors: bf16 x [M, K] and int4/symmetric/bf16-scale experts "
-            f"stacked [E, K/8, N] (fewer than 2**32 words) with K % 64 == 0, "
+            f"stacked [E, K/8, N] with K % 64 == 0, "
             f"N % 8 == 0, g % 8 == 0; "
             f"got x {x2.dtype} {tuple(x2.shape)} on {x2.device}, pack "
             f"{_describe_stack(st)} on {words.device}")
@@ -356,9 +362,10 @@ def grouped_qmatmul_cuda(xs: torch.Tensor, st: StackedExperts,
             f"block maps [M / bm]; got bm {bm}, M {m}, maps "
             f"{[(t.dtype, tuple(t.shape)) for t in idx]}")
     k, n = st.shape
+    xk = _band_major(xs, 8)
     out = torch.empty((m, n), dtype=torch.float32, device=xs.device)
     fn = _build.kernels.fn("qmatmul_grouped", "nst_qmatmul_grouped_gemm", 6, 5)
-    code = fn(xs.data_ptr(), st.data[0].data_ptr(), st.scales.data_ptr(),
+    code = fn(xk.data_ptr(), st.data[0].data_ptr(), st.scales.data_ptr(),
               block_expert.data_ptr(),
               0 if block_rows is None else block_rows.data_ptr(),
               out.data_ptr(), m, k, n, st.spec.effective_group(k), bm,
