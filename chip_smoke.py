@@ -85,6 +85,16 @@ Phases, each raising on failure so the run exits non-zero:
    D = 128, once with ALiBi and the softcap), contiguous and paged over a
    shuffled table, the paged equal to the contiguous bit for bit, each
    timed beside its plain version, SDPA and kernel C / 9 on the same call;
+   kernels G and H (int8 compute, `check_int8_formats`) at the five Llama
+   shapes at M = 9, 16, 32 (the GEMV), 1975, 2048 (the GEMM), and 31, 33,
+   100 at qkv and o, over every width they take (int4 symmetric and
+   asymmetric with bf16 or float32 scales, int8; int2, int3, int5, int6,
+   int7, symmetric and asymmetric) and per token, each timed beside
+   `torch._int_mm` on a row-major and a column-major B (the faster kept,
+   its layout recorded); their bf16 output as the model path calls them,
+   grouped and per token (`check_int8_epilogue`); and their repeat check
+   (`check_int8_rows`: 20 calls after L2 flushes give one digest at 8192,
+   1975 and 32 rows, and rows 0..1974 equal at 8192 and 1975);
 3. a tiny model through `Engine` on the card against the same model on the
    CPU (plain versions), once in int4, once per configuration of phase
    5 and as a tiny Mixtral at B = 3 and B = 1: logits within tolerance,
@@ -1073,35 +1083,87 @@ def compare_f32(got: torch.Tensor, want: torch.Tensor, groups: int) -> dict:
     largest |want|: the integer partials of kernels G and H are exact, so
     only the order of the float32 sum over the K groups differs, and each of
     its additions rounds by at most half an ulp of a partial sum in either
-    version."""
+    version.  With a digest of `got`'s bytes, as `compare`."""
     diff = (got - want).abs()
     scale = want.abs().amax()
     tol = groups * 2.0 ** -23 * scale + ATOL * 1e-3
+    raw = got.detach().contiguous().view(torch.uint8).cpu().numpy()
     return dict(err=diff.max().item(),
                 rel=(diff / scale.clamp_min(ATOL)).max().item(),
                 worst=(diff / tol).max().item(),
+                digest=hashlib.sha256(raw.tobytes()).hexdigest()[:16],
                 tol=f"{groups} float32 ulps of the largest |output| of the "
                     "tensor")
 
 
+# Kernels G (int4) and H (int3) at Llama-2-7B's five projections and rows:
+# the GEMV's (9, 16, 32: one and two m16 tiles), the bench prefill (1975,
+# 2048); the GEMV's and the GEMM's edges (31, 33, 100) at qkv and o.
+INT8_M = (9, 16, 32, 1975, 2048)
+INT8_EDGE_M = (31, 33, 100)
+
+
+def _int8_weights(qt) -> torch.Tensor:
+    """The pack's int8 weight values code - zero point, [K, N] row-major."""
+    from neural_speed_tpu_torch.ops.quantize import unpack_codes
+
+    spec = qt.spec
+    k = qt.shape[0]
+    g = spec.effective_group(k)
+    codes = unpack_codes(qt.data, spec.bits, k).to(torch.int32)
+    zero = (spec.code_offset if qt.zeros is None else
+            torch.repeat_interleave(qt.zeros.to(torch.int32), g, 0))
+    return (codes - zero).to(torch.int8)
+
+
+def int8_library_ms(xq: torch.Tensor, w_int8: torch.Tensor):
+    """The yardstick of kernels G and H: `torch._int_mm(xq, W)` (int32 out,
+    no scales) with W row-major ([K, N] contiguous) and column-major (its
+    transpose contiguous, transposed back); the faster of the two and its
+    layout, or (None, None) where the call refuses the shape (M <= 16,
+    ...)."""
+    best = (None, None)
+    for layout, w in (("row-major", w_int8),
+                      ("column-major", w_int8.t().contiguous().t())):
+        try:
+            torch._int_mm(xq, w)
+        except RuntimeError:
+            continue
+        ms = time_ms(lambda: torch._int_mm(xq, w))
+        if best[0] is None or ms < best[0]:
+            best = (ms, layout)
+        del w
+    return best
+
+
 def check_int8_formats(chk: Checks, gen: torch.Generator) -> None:
-    """Kernels G and H against `qmatmul_int8_plain` at the 7B shapes."""
+    """Kernels G and H against `qmatmul_int8_plain` at the 7B shapes: the
+    GEMV (M <= 32) and the GEMM, every width the kernels take (G: int4
+    symmetric / asymmetric with bf16 or float32 scales, int8 symmetric; H:
+    int2, int3, int5, int6, int7, symmetric and asymmetric), grouped and per
+    token.  Float32 out (the bf16 epilogue: `check_int8_epilogue`)."""
     from neural_speed_tpu_torch.ops import matmul
     from neural_speed_tpu_torch.ops.qtypes import named_qspec
-    from neural_speed_tpu_torch.ops.quantize import unpack_codes
     from neural_speed_tpu_torch.utils.synthetic import synth_qtensor
 
     bf = dict(group_size=128, scale_dtype="bfloat16")
     int4, int3 = named_qspec("int4", **bf), named_qspec("int3", **bf)
-    all_m, two_m = (32, 2048, 1975), (32, 2048)
-    g_cases = [(int4, name, all_m, False) for name in SHAPES_7B]
+    two_m = (32, 2048)
+    g_cases = [(int4, name, INT8_M + (INT8_EDGE_M if name in ("qkv", "o")
+                                      else ()), False) for name in SHAPES_7B]
     g_cases += [(named_qspec("int4", symmetric=False, **bf), "o", two_m, False),
+                (named_qspec("int4", 128), "o", two_m, False),
                 (named_qspec("int8", **bf), "o", two_m, False),
                 (named_qspec("int8", 128), "qkv", (1975,), False),
                 (int4, "o", two_m, True)]
-    h_cases = [(int3, name, all_m, False) for name in SHAPES_7B]
+    h_cases = [(int3, name, INT8_M + (INT8_EDGE_M if name in ("qkv", "o")
+                                      else ()), False) for name in SHAPES_7B]
     h_cases += [(named_qspec("int5", symmetric=False, **bf), "o", two_m, False),
                 (named_qspec("int6", 128), "o", two_m, False),
+                (named_qspec("int2", **bf), "o", two_m, False),
+                (named_qspec("int2", symmetric=False, **bf), "o", two_m, False),
+                (named_qspec("int7", **bf), "o", two_m, False),
+                (named_qspec("int7", symmetric=False, **bf), "o", two_m, False),
                 (int3, "o", two_m, True)]
     kernels = (
         ("qmatmul_int8", g_cases, "neural_speed_tpu_torch/csrc/qmatmul_int8.cu",
@@ -1113,11 +1175,7 @@ def check_int8_formats(chk: Checks, gen: torch.Generator) -> None:
         for spec, shape_name, ms_list, per_token in cases:
             k, n = _shape(shape_name, spec)
             qt = synth_qtensor(gen, k, n, spec)
-            codes = unpack_codes(qt.data, spec.bits, k).to(torch.int32)
-            zero = (spec.code_offset if qt.zeros is None else
-                    torch.repeat_interleave(qt.zeros.to(torch.int32), 128, 0))
-            w_int8 = (codes - zero).to(torch.int8)
-            del codes, zero
+            w_int8 = _int8_weights(qt)
             for m in ms_list:
                 x = torch.randn((m, k), generator=gen, device="cuda")
                 xq, ascale = matmul._act_quant(x, k if per_token else 128)
@@ -1131,11 +1189,7 @@ def check_int8_formats(chk: Checks, gen: torch.Generator) -> None:
                 ms = time_ms(lambda: matmul.qmatmul_int8_cuda(xq, ascale, qt))
                 plain_ms = time_ms(
                     lambda: matmul.qmatmul_int8_plain(xq, ascale, qt), reps=3)
-                try:  # the library call refuses some shapes (M <= 16, ...)
-                    torch._int_mm(xq, w_int8)
-                    lib_ms = time_ms(lambda: torch._int_mm(xq, w_int8))
-                except RuntimeError:
-                    lib_ms = None
+                lib_ms, layout = int8_library_ms(xq, w_int8)
                 nbytes = (m * k + (0 if per_token else m * (k // 128) * 4)
                           + qt.nbytes() + m * n * 4)
                 chk.add(kname, "cuda", source, replaces,
@@ -1143,8 +1197,116 @@ def check_int8_formats(chk: Checks, gen: torch.Generator) -> None:
                         f"M={m} K={k} N={n}", cmp, ms, plain_ms, lib_ms,
                         nbytes, 2.0 * m * n * k, peak="int8",
                         main=(spec is main_spec and m == 2048
-                              and shape_name == "gateup" and not per_token))
+                              and shape_name == "gateup" and not per_token),
+                        extra=dict(library_layout=layout))
             del qt, w_int8
+            torch.cuda.empty_cache()
+
+
+INT8_EPILOGUE_SEED = 19
+INT8_ROWS_SEED = 18
+
+
+def check_int8_epilogue(chk: Checks, gen: torch.Generator) -> None:
+    """The model path's calls of kernels G and H (`qmatmul_int8` from
+    `linear`): bf16 written once by the kernel, grouped (`comp="int8"`: the
+    plain version's float32 output rounded to bf16) and per token
+    (`comp="int8t"`: the float32 output times the per-token scale, then
+    rounded), at o and gate/up, M = 32 and 2048, int4 and int3; 2 bf16 ulps
+    (one rounding each side after float32 sums in another order).  Drawn
+    from a generator of its own (INT8_EPILOGUE_SEED)."""
+    from neural_speed_tpu_torch.ops import matmul
+    from neural_speed_tpu_torch.ops.qtypes import named_qspec
+    from neural_speed_tpu_torch.utils.synthetic import synth_qtensor
+
+    gen = torch.Generator(device="cuda").manual_seed(INT8_EPILOGUE_SEED)
+    bf = dict(group_size=128, scale_dtype="bfloat16")
+    for kname, fmt in (("qmatmul_int8", "int4"), ("qmatmul_int8_planar", "int3")):
+        spec = named_qspec(fmt, **bf)
+        for shape_name in ("o", "gateup"):
+            k, n = _shape(shape_name, spec)
+            qt = synth_qtensor(gen, k, n, spec)
+            for m in (32, 2048):
+                x = torch.randn((m, k), generator=gen, device="cuda")
+                for per_token in (False, True):
+                    xq, ascale = matmul._act_quant(x, k if per_token else 128)
+                    grouped = None if per_token else ascale
+                    rs = ascale if per_token else None
+                    got = matmul.qmatmul_int8_cuda(xq, grouped, qt,
+                                                   torch.bfloat16, rs)
+                    want = matmul.qmatmul_int8_plain(xq, grouped, qt)
+                    if per_token:
+                        want = want * ascale
+                    want = want.to(torch.bfloat16)
+                    torch.cuda.synchronize()
+                    cmp = compare(got, want, 2, per_row=False)
+                    del got, want
+                    ms = time_ms(lambda: matmul.qmatmul_int8_cuda(
+                        xq, grouped, qt, torch.bfloat16, rs))
+                    plain_ms = time_ms(lambda: matmul.qmatmul_int8_plain(
+                        xq, grouped, qt), reps=3)
+                    chk.add(kname, "cuda",
+                            f"neural_speed_tpu_torch/csrc/{kname}.cu",
+                            "neural_speed_tpu/ops/matmul.py:"
+                            + ("814" if kname == "qmatmul_int8" else "880"),
+                            f"bf16 out {fmt}{' per-token' if per_token else ''}"
+                            f" M={m} K={k} N={n}", cmp, ms, plain_ms,
+                            None, m * k + qt.nbytes() + m * n * 2,
+                            2.0 * m * n * k, peak="int8")
+            del qt
+            torch.cuda.empty_cache()
+
+
+def check_int8_rows(chk: Checks, gen: torch.Generator) -> None:
+    """Kernels G and H are deterministic and each row's output depends on
+    that row only (as `check_gemm_rows` holds kernel A): GEMM_ROWS_CALLS
+    calls on the same rows, each after an L2 flush, give one digest at 8192
+    and 1975 rows (the GEMM) and at 32 (the GEMV and its cluster
+    reduction), and the first 1975 rows of an 8192-row call equal the
+    1975-row call's.  int4 and int3 at the five Llama-2-7B shapes.  Drawn
+    from a generator of its own (INT8_ROWS_SEED)."""
+    from neural_speed_tpu_torch.ops import matmul
+    from neural_speed_tpu_torch.ops.qtypes import named_qspec
+    from neural_speed_tpu_torch.utils.synthetic import synth_qtensor
+
+    gen = torch.Generator(device="cuda").manual_seed(INT8_ROWS_SEED)
+    bf = dict(group_size=128, scale_dtype="bfloat16")
+    for kname, fmt in (("qmatmul_int8", "int4"), ("qmatmul_int8_planar", "int3")):
+        spec = named_qspec(fmt, **bf)
+        for shape_name in SHAPES_7B:
+            k, n = _shape(shape_name, spec)
+            qt = synth_qtensor(gen, k, n, spec)
+            x = torch.randn((8192, k), generator=gen, device="cuda")
+            xq, ascale = matmul._act_quant(x, 128)
+            del x
+            firsts = {}
+            for m in (8192, 1975, 32):
+                xm, am = xq[:m].contiguous(), ascale[:m].contiguous()
+                first = matmul.qmatmul_int8_cuda(xm, am, qt)
+                bad_calls = 0
+                for _ in range(GEMM_ROWS_CALLS):
+                    _flush_l2()
+                    bad = (matmul.qmatmul_int8_cuda(xm, am, qt) != first).nonzero()
+                    if bad.numel():
+                        bad_calls += 1
+                        log(f"  {kname} rows M={m} K={k} N={n}: a call "
+                            f"differs at {bad.shape[0]} outputs, first "
+                            f"{bad[0].tolist()}")
+                if bad_calls:
+                    raise AssertionError(
+                        f"{kname} M={m} K={k} N={n}: {bad_calls} of "
+                        f"{GEMM_ROWS_CALLS} calls on the same rows differ")
+                firsts[m] = first
+            bad = (firsts[1975] != firsts[8192][:1975]).nonzero()
+            if bad.numel():
+                raise AssertionError(
+                    f"{kname} K={k} N={n}: rows 0..1974 alone differ from the "
+                    f"same rows of an 8192-row call at {bad.shape[0]} outputs, "
+                    f"first {bad[0].tolist()}")
+            log(f"  {kname} rows {fmt} K={k} N={n}: {GEMM_ROWS_CALLS} calls "
+                f"each at 8192, 1975 and 32 rows, after L2 flushes, "
+                f"bit-equal; rows 0..1974 the same at 8192 and 1975")
+            del qt, xq, ascale, firsts, xm, am, first
             torch.cuda.empty_cache()
 
 
@@ -5837,10 +5999,13 @@ def _redesigned(name: str, shape: str) -> bool:
     """Cases of the bodies this tree redesigned, whose float32 sums may run
     in another order than the parent's, so their digests may differ:
     kernel A's GEMM (M > 32, on the TMA + wgmma template) and its
-    tensor-core GEMV (8 < M <= 32), kernel 11's GEMM.  Every other case
-    must keep its digest."""
+    tensor-core GEMV (8 < M <= 32), kernel 11's GEMM, and every case of
+    kernels G and H (both bodies redesigned).  Every other case must keep
+    its digest."""
     if name == "qmatmul_grouped":
         return shape.startswith("GEMM")
+    if name in ("qmatmul_int8", "qmatmul_int8_planar"):
+        return True
     m = re.search(r"\bM=(\d+)", shape)
     return name == "qmatmul_int4" and m is not None and int(m.group(1)) > 8
 
@@ -5962,6 +6127,8 @@ def main() -> int:
                         ("qmatmul_lut qmatmul_planar", check_fp_formats),
                         ("qmatmul_int8 qmatmul_int8_planar",
                          check_int8_formats),
+                        ("qmatmul_int8 qmatmul_int8_planar int8_epilogue",
+                         check_int8_epilogue),
                         ("ragged qmatmul_lut qmatmul_planar qmatmul_int8 "
                          "qmatmul_int8_planar", check_ragged_shapes),
                         ("qmatmul_grouped", check_grouped),
@@ -5975,7 +6142,9 @@ def main() -> int:
                          check_flash_rows),
                         ("a_vs_p", check_a_vs_p),
                         ("gemv_odd", check_gemv_odd_rows),
-                        ("gemm_rows", check_gemm_rows)):
+                        ("gemm_rows", check_gemm_rows),
+                        ("qmatmul_int8 qmatmul_int8_planar int8_rows gemm_rows",
+                         check_int8_rows)):
         if 2 in phases and any(o in names for o in args.only.split(",")):
             check(chk, gen)
     torch.cuda.empty_cache()

@@ -6,9 +6,13 @@
 //
 // One int8 tensor-core dot per plane over its raw codes, shifted by the
 // plane's position; the zero-point (or symmetric offset) term
-// xsum[m, group] * zp[group, n] is subtracted once per group in int32, with
-// xsum the row sum of the quantized activations; then the float32 rescale by
-// ascale * wscale.  Bounds and design: qmm_int8.cuh.
+// xsum[m, chunk] * zp[group, n] is subtracted once per K step of the most
+// significant plane in int32, with xsum the row sum of the quantized
+// activations over the step's K (the GEMV takes it from its fragments); then the float32 rescale by
+// ascale * wscale, the output written once in bf16 or float32 (times the
+// per-token scale where there is one).  Bounds and design: qmm_int8.cuh.
+// The GEMM's tensor maps are encoded per call in run_gemm, as qmm_fp.cuh's
+// tc host code does.
 //
 // Host entries return cudaGetLastError() after their launches; a width the
 // kernel does not take returns cudaErrorInvalidValue.
@@ -18,12 +22,13 @@
 using namespace nsti8;
 
 extern "C" int nst_qmatmul_int8_planar_gemv(
-    const void* xq, const void* ascale, const void* p0, const void* p1,
-    const void* p2, const void* scales, const void* zeros, void* out, void* partial,
-    int M, int K, int N, int g, int bits, int cr0, int cr1, int cr2, int scale_bf16,
-    int splits, void* stream) {
-  const I8Args a = make_args(xq, ascale, p0, p1, p2, scales, zeros, out, partial, M, K,
-                             N, g, cr0, cr1, cr2, scale_bf16, splits);
+    const void* xq, const void* ascale, const void* rscale, const void* xsum,
+    const void* p0, const void* p1, const void* p2, const void* scales,
+    const void* zeros, void* out, int M, int K, int N, int g, int bits, int ldx,
+    int cr0, int cr1, int cr2, int scale_bf16, int out_bf16, int splits,
+    void* stream) {
+  const I8Args a = make_args(xq, ascale, rscale, xsum, p0, p1, p2, scales, zeros, out, M,
+                             K, N, g, ldx, cr0, cr1, cr2, scale_bf16, out_bf16, splits);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (bits) {
     case 2: return (int)run_gemv<2>(a, st);
@@ -36,12 +41,13 @@ extern "C" int nst_qmatmul_int8_planar_gemv(
 }
 
 extern "C" int nst_qmatmul_int8_planar_gemm(
-    const void* xq, const void* ascale, const void* p0, const void* p1,
-    const void* p2, const void* scales, const void* zeros, void* out, void* partial,
-    int M, int K, int N, int g, int bits, int cr0, int cr1, int cr2, int scale_bf16,
-    int splits, void* stream) {
-  const I8Args a = make_args(xq, ascale, p0, p1, p2, scales, zeros, out, partial, M, K,
-                             N, g, cr0, cr1, cr2, scale_bf16, splits);
+    const void* xq, const void* ascale, const void* rscale, const void* xsum,
+    const void* p0, const void* p1, const void* p2, const void* scales,
+    const void* zeros, void* out, int M, int K, int N, int g, int bits, int ldx,
+    int cr0, int cr1, int cr2, int scale_bf16, int out_bf16, int splits,
+    void* stream) {
+  const I8Args a = make_args(xq, ascale, rscale, xsum, p0, p1, p2, scales, zeros, out, M,
+                             K, N, g, ldx, cr0, cr1, cr2, scale_bf16, out_bf16, splits);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (bits) {
     case 2: return (int)run_gemm<2>(a, st);

@@ -502,10 +502,39 @@ def _chunk_rows(g: int, kw: int) -> int:
     return 0
 
 
+# The GEMV of kernels G and H: 128 columns a block, K split over the blocks
+# of a cluster of at most 8 (`csrc/qmm_int8.cuh`, GEMV_COLS).
+INT8_GEMV_COLS = 128
+INT8_GEMV_MAX_SPLITS = 8
+
+
+def int8_gemv_splits(k: int, n: int, widths, n_sm: int) -> int:
+    """K splits (the cluster size, a power of 2 up to 8) of the int8 GEMV:
+    doubled while the column blocks fill fewer than two blocks per SM and
+    every split of the narrowest plane keeps at least one 32-row step."""
+    col_blocks = -(-n // INT8_GEMV_COLS)
+    kw = min(k * w // 32 if w < 8 else k for w in widths)
+    splits = 1
+    while (splits < INT8_GEMV_MAX_SPLITS and col_blocks * splits < 2 * n_sm
+           and kw // (2 * splits) >= 32):
+        splits *= 2
+    return splits
+
+
+def int8_xsum(xq: torch.Tensor, rows: int) -> torch.Tensor:
+    """Row sums of `xq [M, K]` over K steps of `rows`, exact int32
+    `[M, K / rows]`: the zero-point term of kernel H's GEMM."""
+    m, k = xq.shape
+    return xq.view(m, k // rows, rows).sum(-1, dtype=torch.int32)
+
+
 def qmatmul_int8_cuda(xq: torch.Tensor, ascale: Optional[torch.Tensor],
-                      qt: QTensor) -> torch.Tensor:
+                      qt: QTensor, out_dtype=torch.float32,
+                      row_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel G or H on `xq [M, K]` int8 with `ascale [M, K/g]` float32 (or
-    None: per token); output float32 `[M, N]`."""
+    None: per token); output `[M, N]` in `out_dtype` (bf16 or float32),
+    each row times `row_scale[m]` (float32 `[M]`, the per-token scale)
+    where given, before the one rounding."""
     spec = qt.spec
     letter = int8_kernel_for(qt)
     m, k = xq.shape
@@ -516,46 +545,51 @@ def qmatmul_int8_cuda(xq: torch.Tensor, ascale: Optional[torch.Tensor],
     widths = plane_widths(spec.bits) if letter else ()
     chunks = [_chunk_rows(g, k * w // 32 if w < 8 else k) for w in widths]
     tensors = (xq, *qt.data, scales) + tuple(
-        t for t in (ascale, qt.zeros) if t is not None)
+        t for t in (ascale, qt.zeros, row_scale) if t is not None)
     ok = (letter and _planes_ok(qt) and qt.k_shards == 1
           and xq.dtype == torch.int8 and k == qt.shape[0] and n % 8 == 0
           and g % 8 == 0 and k % g == 0 and all(chunks)
           and scales.shape == (groups, n)
+          and out_dtype in (torch.bfloat16, torch.float32)
           and (qt.zeros is None or (qt.zeros.dtype == torch.uint8
                                     and qt.zeros.shape == (groups, n)))
           and (ascale is None or (ascale.dtype == torch.float32
                                   and ascale.shape == (m, groups)))
+          and (row_scale is None or (row_scale.dtype == torch.float32
+                                     and row_scale.numel() == m))
           and _cuda_ok(*tensors))
     if not ok:
         raise ValueError(
             f"kernels G and H take contiguous, 16-byte aligned CUDA tensors: "
             f"int8 x [M, K], float32 activation scales [M, K/g], an INT "
             f"2..8 pack with no or uint8 zero points (8-bit: symmetric), "
-            f"g % 8 == 0 dividing K and the bands, N % 8 == 0; got x "
-            f"{xq.dtype} {tuple(xq.shape)} on {xq.device}, pack "
-            f"{_describe(qt)} on {qt.data[0].device}")
+            f"g % 8 == 0 dividing K and the bands, N % 8 == 0, a bf16 or "
+            f"float32 output; got x {xq.dtype} {tuple(xq.shape)} on "
+            f"{xq.device}, pack {_describe(qt)} on {qt.data[0].device}, "
+            f"output {out_dtype}")
     name = "qmatmul_int8" if letter == "G" else "qmatmul_int8_planar"
-    out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
     planes = list(qt.data) + [qt.data[0]] * (3 - len(qt.data))
     chunks += [0] * (3 - len(chunks))
-    route, splits, partial = "gemm", 1, out
+    # the GEMM's TMA map of xq needs a row stride of a multiple of 16 bytes
+    ldx = -(-k // 16) * 16
+    xk = xq if ldx == k else torch.nn.functional.pad(xq, (0, ldx - k))
+    route, splits, xsum = "gemm", 1, None
     if m <= GEMV_MAX_M:
-        # N / 128 column blocks x M / 8 row groups: split the word rows of
-        # every plane so that about eight blocks land on each SM
         route = "gemv"
-        blocks = -(-n // 128) * -(-m // 8)
-        most = min(k * w // 32 if w < 8 else k for w in widths) // 8
-        splits = max(1, min(-(-8 * _sm_count(xq.device.index or 0) // blocks),
-                            most, 64))
-        if splits > 1:
-            partial = torch.empty((splits, m, n), dtype=torch.float32,
-                                  device=xq.device)
-    fn = _build.kernels.fn(name, f"nst_{name}_{route}", 9, 10)
-    code = fn(xq.data_ptr(), 0 if ascale is None else ascale.data_ptr(),
+        splits = int8_gemv_splits(k, n, widths,
+                                  _sm_count(xq.device.index or 0))
+    elif letter == "H":
+        xsum = int8_xsum(xq, chunks[0])
+    fn = _build.kernels.fn(name, f"nst_{name}_{route}", 10, 12)
+    code = fn(xk.data_ptr(), 0 if ascale is None else ascale.data_ptr(),
+              0 if row_scale is None else row_scale.data_ptr(),
+              0 if xsum is None else xsum.data_ptr(),
               *(p.data_ptr() for p in planes), scales.data_ptr(),
               0 if qt.zeros is None else qt.zeros.data_ptr(), out.data_ptr(),
-              partial.data_ptr(), m, k, n, g, spec.bits, *chunks,
-              int(scales.dtype == torch.bfloat16), splits,
+              m, k, n, g, spec.bits, ldx, *chunks,
+              int(scales.dtype == torch.bfloat16),
+              int(out_dtype == torch.bfloat16), splits,
               _build.stream_handle())
     _build.check(code, name)
     _build.launches[name] += 1
@@ -582,8 +616,13 @@ def qmatmul_int8(x: torch.Tensor, qt: QTensor, out_dtype=None,
     if xq.device.type == "cpu":
         _build.plain_dispatches["qmatmul_int8"] += 1
         out = qmatmul_int8_plain(xq, grouped, qt)
-    else:
-        out = qmatmul_int8_cuda(xq, grouped, qt)
-    if per_token:
-        out = out * ascale
+        if per_token:
+            out = out * ascale
+        return out.reshape(*lead, n).to(out_dtype)
+    # the kernels write bf16 or float32 once, the per-token scale applied
+    # before the rounding: the value of (out * ascale).to(out_dtype)
+    kdt = out_dtype if out_dtype in (torch.bfloat16, torch.float32) \
+        else torch.float32
+    out = qmatmul_int8_cuda(xq, grouped, qt, kdt,
+                            ascale if per_token else None)
     return out.reshape(*lead, n).to(out_dtype)
