@@ -94,7 +94,15 @@ Phases, each raising on failure so the run exits non-zero:
    its layout recorded); their bf16 output as the model path calls them,
    grouped and per token (`check_int8_epilogue`); and their repeat check
    (`check_int8_rows`: 20 calls after L2 flushes give one digest at 8192,
-   1975 and 32 rows, and rows 0..1974 equal at 8192 and 1975);
+   1975 and 32 rows, and rows 0..1974 equal at 8192 and 1975); kernels C
+   and 9 at the edges of their body (PREFILL_CASES: T = 1, 4 and 8, one
+   consumer warpgroup, the last two at the end of each slot's kv_len as
+   verify steps; 65 at the end; 1975 over kv_len 1975, over int8 and
+   bf16 K/V) and kernel 9 at page size 48, each C / 9 case at B = 1 from
+   position 0 timed beside SDPA with the mask and with `is_causal` over
+   the real rows (the faster kept as the library time, its call named);
+   and their repeat check (`flash_prefill_repeat`: 20 calls after L2
+   flushes give one digest at the headline case and at page size 16);
 3. a tiny model through `Engine` on the card against the same model on the
    CPU (plain versions), once in int4, once per configuration of phase
    5 and as a tiny Mixtral at B = 3 and B = 1: logits within tolerance,
@@ -1640,6 +1648,32 @@ def _check_flash_decode(chk: Checks, gen: torch.Generator, hkv: int) -> None:
             main=hkv == 32)
 
 
+def _library_ms(qs, kd, vd, mask, gqa: bool, lens, scale: float):
+    """SDPA's time over the same bf16 K/V: with the boolean mask (which
+    keeps PyTorch off its flash backend) and, at B = 1, with `is_causal`
+    over the slot's real rows (prompt rows 0..n-1 over columns 0..n-1: the
+    same function on every real row).  Returns the faster and a record of
+    both, with the faster one's name."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    masked = time_ms(lambda: sdpa(qs, kd, vd, attn_mask=mask, scale=scale,
+                                  enable_gqa=gqa))
+    rec = dict(library_masked_ms=masked, library_causal_ms=None,
+               library_call="sdpa attn_mask")
+    if len(lens) == 1:
+        n = lens[0]
+        causal = time_ms(lambda: sdpa(
+            qs[:, :, :n], kd[:, :, :n], vd[:, :, :n], is_causal=True,
+            scale=scale, enable_gqa=gqa))
+        rec["library_causal_ms"] = causal
+        if causal < masked:
+            rec["library_call"] = f"sdpa is_causal over {n} rows"
+    log(f"  library: SDPA with the mask {masked:.4f} ms, is_causal "
+        + ("n/a" if rec["library_causal_ms"] is None
+           else f"{rec['library_causal_ms']:.4f} ms"))
+    return min(v for v in (masked, rec["library_causal_ms"]) if v is not None
+               ), rec
+
+
 def check_flash_prefill(chk: Checks, gen: torch.Generator) -> None:
     from neural_speed_tpu_torch.ops import flash
 
@@ -1676,9 +1710,8 @@ def check_flash_prefill(chk: Checks, gen: torch.Generator) -> None:
         mask = ((col[None, None] < kv_lens[:, None, None])
                 & (col[None, None] <= pos[:, :, None]))          # [B, T, S]
         qs = q.transpose(1, 2)
-        lib_ms = time_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qs, kd, vd, attn_mask=mask[:, None], enable_gqa=hkv != h))
+        lib_ms, lib = _library_ms(qs, kd, vd, mask[:, None], hkv != h, lens,
+                                  scale)
         pairs = mask.sum().item()
         nbytes = 2 * b * t * h * d * 2 + sum(lens) * hkv * (2 * d + 4)
         chk.add("flash_prefill", "cuda",
@@ -1686,7 +1719,7 @@ def check_flash_prefill(chk: Checks, gen: torch.Generator) -> None:
                 "neural_speed_tpu/ops/flash.py:142",
                 f"B={b} T={t} (real rows {'/'.join(map(str, lens))}) H={h} "
                 f"Hkv={hkv} S={s}", cmp, ms, plain_ms, lib_ms, nbytes,
-                4.0 * pairs * h * d, main=b == 1 and hkv == 32)
+                4.0 * pairs * h * d, main=b == 1 and hkv == 32, extra=lib)
         del cache, q, kd, vd, mask
         torch.cuda.empty_cache()
 
@@ -1829,12 +1862,15 @@ def check_flash_prefill_paged(chk: Checks, gen: torch.Generator) -> None:
     from neural_speed_tpu_torch.ops import flash
     from neural_speed_tpu_torch.ops.paged_kv import gathered_layer
 
-    t, h, d, s, layer = 2048, 32, 128, 2048, 0
+    t, h, d, layer = 2048, 32, 128, 0
     scale = 1.0 / math.sqrt(d)
     for lens, ps, hkv in (([1975, 900, 300, 37], 128, 32), ([1975], 128, 32),
                           ([1975], 16, 32), ([1975, 900, 300, 37], 128, 8),
-                          ([1975], 128, 8)):
+                          ([1975], 128, 8), ([1975], 48, 32)):
         b = len(lens)
+        # a whole number of pages that the contiguous kernel can also read
+        # (S a multiple of 64): 2112 = 44 pages of 48
+        s = 2048 if ps != 48 else 2112
         pool = _random_pool(gen, 1, b, hkv, s, d, ps)
         kv_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
         ar = torch.arange(t, device="cuda", dtype=torch.int32)[None]
@@ -1867,9 +1903,8 @@ def check_flash_prefill_paged(chk: Checks, gen: torch.Generator) -> None:
         mask = ((col[None, None] < kv_lens[:, None, None])
                 & (col[None, None] <= pos[:, :, None]))          # [B, T, S]
         qs = q.transpose(1, 2)
-        lib_ms = time_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qs, kd, vd, attn_mask=mask[:, None], enable_gqa=hkv != h))
+        lib_ms, lib = _library_ms(qs, kd, vd, mask[:, None], hkv != h, lens,
+                                  scale)
         pairs = mask.sum().item()
         nbytes = (2 * b * t * h * d * 2 + sum(lens) * hkv * (2 * d + 4)
                   + pool.page_tables.numel() * 4)
@@ -1879,7 +1914,7 @@ def check_flash_prefill_paged(chk: Checks, gen: torch.Generator) -> None:
                 f"B={b} T={t} (real rows {'/'.join(map(str, lens))}) H={h} "
                 f"Hkv={hkv} S={s} page size {ps}, shuffled table", cmp, ms,
                 plain_ms, lib_ms, nbytes, 4.0 * pairs * h * d,
-                main=b == 1 and ps == 128 and hkv == 32)
+                main=b == 1 and ps == 128 and hkv == 32, extra=lib)
         del pool, q, kd, vd, mask
         torch.cuda.empty_cache()
 
@@ -1986,6 +2021,21 @@ ROWS_CASES = [
     for kv in ("int8", "bf16", "f32")
 ] + [("rows", "int8", False, 12, 3, 128, 1, DECODE_LENS, False),
      ("rows", "bf16", True, 12, 3, 128, 1, DECODE_LENS, False, SOFTCAP)]
+# Kernels C and 9 on the calls of their new body's edges, each contiguous
+# and paged (bit-equal) at Llama-2-7B's heads over int8 and bf16 K/V: T = 1
+# (decode through C: one live row per block), 4 and 8 at the end of each
+# slot's kv_len (speculative verify steps, B = 4 ragged; all three take one
+# consumer warpgroup), 65 at the end (a prefill chunk over two warpgroups)
+# and 1975 from position 0 over kv_len 1975 (a ragged last row tile and
+# column tile).  (K/V, T, kv_lens, at the end of kv_len)  Drawn from a
+# generator of their own (PREFILL_SEED), after every other check.
+PREFILL_SEED = 18
+PREFILL_CASES = [(kv, t, lens, at_end) for kv in ("int8", "bf16")
+                 for t, lens, at_end in (
+                     (1, DECODE_LENS, False), (4, DECODE_LENS, True),
+                     (8, DECODE_LENS, True), (65, [1975, 900, 300, 65], True),
+                     (1975, [1975], False))]
+PREFILL_REPEAT_CALLS = 20
 KV_SUFFIX = {"int8": "", "int8f32": "_f32scale", "bf16": "_bf16",
              "f32": "_f32"}
 
@@ -2017,7 +2067,7 @@ def _qk_q(gen, b, t, h, d):
 
 
 def _variant_case(chk, gen, kernel, kv, alibi, h, hkv, d, t, lens, main,
-                  softcap=0.0, extra=None, qk=False):
+                  softcap=0.0, extra=None, qk=False, at_end=False):
     """One case of VARIANT_CASES / DIM_CASES / SOFTCAP_CASES /
     SCALE_F32_CASES / QK_CASES (`kv`: "int8", "int8f32" (float32 scales),
     "bf16" or "f32"; `extra`: the extra column, by default on for int8
@@ -2031,9 +2081,12 @@ def _variant_case(chk, gen, kernel, kv, alibi, h, hkv, d, t, lens, main,
     than 10 tolerances from the plain version's without it.  With `qk`, q has
     outliers (`_qk_q`) and the output must lie more than 10 tolerances from
     the plain version's without the int8 dot; the kernel without it is
-    timed beside.  Times kernel, plain version and SDPA over the same K/V
-    (bf16; ALiBi as a float mask; no SDPA call computes the softcap, so
-    none is timed then)."""
+    timed beside.  `at_end`: a call of t > 1 tokens at the end of each
+    slot's kv_len (a speculative verify step or a prefill chunk), not a
+    prompt from position 0.  Times kernel, plain version and SDPA over the
+    same K/V (bf16; ALiBi as a float mask; at B = 1 from position 0 also
+    SDPA's `is_causal` over the real rows, `_library_ms`; no SDPA call
+    computes the softcap, so none is timed then)."""
     from neural_speed_tpu_torch.ops import flash
     from neural_speed_tpu_torch.ops.attention import alibi_slopes
     from neural_speed_tpu_torch.ops.paged_kv import gathered_layer
@@ -2050,7 +2103,8 @@ def _variant_case(chk, gen, kernel, kv, alibi, h, hkv, d, t, lens, main,
         pos[-1] = s - 1
     else:
         ar = torch.arange(t, device="cuda", dtype=torch.int32)[None]
-        pos = torch.where(ar < kv_lens[:, None], ar,
+        start = (kv_lens - t).clamp_min(0)[:, None] if at_end else 0
+        pos = torch.where(ar < kv_lens[:, None], start + ar,
                           torch.full_like(ar, s - 1))
     if qk:
         q = _qk_q(gen, b, t, h, d)
@@ -2181,10 +2235,15 @@ def _variant_case(chk, gen, kernel, kv, alibi, h, hkv, d, t, lens, main,
             kd, vd = gathered_layer(pool, layer)
             mask = _sdpa_mask(valid, pos, slopes, s)
             qs = q.transpose(1, 2)
-            lib_ms = time_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qs, kd, vd, attn_mask=mask, scale=scale,
-                    enable_gqa=hkv != h))
+            if kernel == "prefill" and t > 1 and not (alibi or at_end):
+                lib_ms, lib = _library_ms(qs, kd, vd, mask, hkv != h, lens,
+                                          scale)
+                extra_rec = dict(extra_rec or {}, **lib)
+            else:
+                lib_ms = time_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qs, kd, vd, attn_mask=mask, scale=scale,
+                        enable_gqa=hkv != h))
             del kd, vd, mask
         del a_k, a_p
         chk.add(name, "cuda",
@@ -2198,12 +2257,67 @@ def _variant_case(chk, gen, kernel, kv, alibi, h, hkv, d, t, lens, main,
                 f"{flash.instance_dim(d)}) {kv} S={s} kv_len="
                 f"{'/'.join(map(str, lens))}{' ALiBi' if alibi else ''}"
                 f"{' (no extra column)' if qk and not extra else ''}"
+                f"{' at the end of kv_len' if at_end else ''}"
                 f"{', page size 128, shuffled table' if paged else ''}",
                 cmp, ms, plain_ms, lib_ms,
                 nbytes + (pool.page_tables.numel() * 4 if paged else 0),
                 4.0 * pairs * h * d, main=main, extra=extra_rec)
         torch.cuda.empty_cache()
     del pool, ck
+    torch.cuda.empty_cache()
+
+
+def check_flash_prefill_cases(chk: Checks, gen: torch.Generator) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(PREFILL_SEED)
+    for kv, t, lens, at_end in PREFILL_CASES:
+        _variant_case(chk, gen, "prefill", kv, False, 32, 32, 128, t, lens,
+                      False, at_end=at_end)
+
+
+def check_flash_prefill_repeat(chk: Checks, gen: torch.Generator) -> None:
+    """Kernels C and 9 are deterministic: PREFILL_REPEAT_CALLS calls on the
+    same inputs, each after an L2 flush, give one digest, at the headline
+    case (int8, B = 1, T = 2048 with 1975 real rows, Llama-2-7B's heads)
+    and at page size 16 over a shuffled table.  A ring stage overwritten
+    before it was consumed would show as a call that differs (such a race
+    in the GEMM template's rings gave one wrong call in ~300, within no
+    tolerance check's reach).  Drawn from a generator of its own."""
+    from neural_speed_tpu_torch.ops import flash
+
+    gen = torch.Generator(device="cuda").manual_seed(PREFILL_SEED + 1)
+    t, h, d, s, lens = 2048, 32, 128, 2048, [1975]
+    scale = 1.0 / math.sqrt(d)
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    ar = torch.arange(t, device="cuda", dtype=torch.int32)[None]
+    pos = torch.where(ar < kv_lens[:, None], ar, torch.full_like(ar, s - 1))
+    q = torch.randn((1, t, h, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    cache = _random_cache(gen, 1, 1, h, s, d)
+    pool = _random_pool(gen, 1, 1, h, s, d, 16)
+    for what, fn in (
+            ("flash_prefill", lambda: flash.prefill_cuda(
+                q, cache.k, cache.v, cache.k_scale, cache.v_scale, 0, pos,
+                kv_lens, scale, torch.bfloat16)),
+            ("flash_prefill_paged page size 16",
+             lambda: flash.prefill_paged_cuda(
+                 q, pool.k_pages, pool.v_pages, pool.k_scale, pool.v_scale,
+                 pool.page_tables, 0, pos, kv_lens, scale, torch.bfloat16))):
+        first = fn()
+        differing = 0
+        for _ in range(PREFILL_REPEAT_CALLS):
+            _flush_l2()
+            bad = (fn() != first).nonzero()
+            if bad.numel():
+                differing += 1
+                log(f"  {what}: a call differs at {bad.shape[0]} outputs, "
+                    f"first {bad[0].tolist()}")
+        log(f"  flash_prefill_repeat {what}: {PREFILL_REPEAT_CALLS} calls "
+            f"after L2 flushes, {differing} differing")
+        if differing:
+            raise AssertionError(f"{what}: {differing} of "
+                                 f"{PREFILL_REPEAT_CALLS} calls on the same "
+                                 "inputs differ")
+    del cache, pool, q
     torch.cuda.empty_cache()
 
 
@@ -5997,17 +6111,11 @@ def serve_speculative(card: str, profile: bool) -> dict:
 
 def _redesigned(name: str, shape: str) -> bool:
     """Cases of the bodies this tree redesigned, whose float32 sums may run
-    in another order than the parent's, so their digests may differ:
-    kernel A's GEMM (M > 32, on the TMA + wgmma template) and its
-    tensor-core GEMV (8 < M <= 32), kernel 11's GEMM, and every case of
-    kernels G and H (both bodies redesigned).  Every other case must keep
-    its digest."""
-    if name == "qmatmul_grouped":
-        return shape.startswith("GEMM")
-    if name in ("qmatmul_int8", "qmatmul_int8_planar"):
-        return True
-    m = re.search(r"\bM=(\d+)", shape)
-    return name == "qmatmul_int4" and m is not None and int(m.group(1)) > 8
+    in another order than the parent's, so their digests may differ: every
+    case of kernels C and 9 (one new body: the order of the float32 sums
+    and the running max that P is rounded against changed).  Every other
+    case must keep its digest."""
+    return name.startswith("flash_prefill")
 
 
 def compare_runs(paths) -> dict:
@@ -6045,7 +6153,11 @@ def compare_runs(paths) -> dict:
                    [r for v in ratios.values() for r in v]),
                all_parent_parent=statistics.median(
                    [r for v in noise.values() for r in v]),
-               only_in_change=sorted({k[0] for k in ch if k not in p1}))
+               only_in_change=sorted({k[0] for k in ch if k not in p1}),
+               redesigned_cases=[
+                   (key[0], key[1], ch[key]["ms"] / (0.5 * (p1[key]["ms"]
+                                                            + p2[key]["ms"])))
+                   for key in shared if _redesigned(*key)])
     log(json.dumps(res))
     return res
 
@@ -6144,7 +6256,11 @@ def main() -> int:
                         ("gemv_odd", check_gemv_odd_rows),
                         ("gemm_rows", check_gemm_rows),
                         ("qmatmul_int8 qmatmul_int8_planar int8_rows gemm_rows",
-                         check_int8_rows)):
+                         check_int8_rows),
+                        ("flash_prefill flash_prefill_paged prefill_cases",
+                         check_flash_prefill_cases),
+                        ("flash_prefill flash_prefill_repeat",
+                         check_flash_prefill_repeat)):
         if 2 in phases and any(o in names for o in args.only.split(",")):
             check(chk, gen)
     torch.cuda.empty_cache()

@@ -29,8 +29,7 @@ launcher's:
 
 `mha_paged` is the same over one layer of the paged pool (`paged_kv.py`):
 the paged twins of kernels B, C and the rows body (`nst_flash_decode_paged`,
-`nst_flash_prefill_paged`, `nst_flash_rows_paged`, in the same libraries)
-resolve every cache row
+`nst_flash_prefill_paged`, `nst_flash_rows_paged`) resolve every cache row
 through the slot's page table and otherwise do the same arithmetic in the
 same order, so at equal logical contents they give the contiguous
 kernels' outputs bit for bit.
@@ -97,8 +96,23 @@ ROWS_WAVES = 2
 ROWS_MAX_REP = {64: 128, 80: 128, 96: 128, 128: 128, 256: 64}
 # Head dims with a kernel instance of their own (libraries per dim:
 # csrc/flash_decode_d<D>.cu, flash_decode_paged_d<D>.cu,
-# flash_prefill_d<D>.cu).
+# flash_prefill_d<D>.cu, flash_prefill_paged_d<D>.cu).
 HEAD_DIMS = (64, 80, 96, 128, 256)
+# Kernels C and 9 (csrc/flash_prefill.cuh): a block's (query rows, cache
+# columns) per head-dim instance, and the call length up to which a block
+# takes one consumer warpgroup (64 rows) instead.
+PREFILL_TILES = {64: (128, 64), 80: (128, 64), 96: (128, 64),
+                 128: (128, 64), 256: (64, 64)}
+PREFILL_FEW_ROWS = 64
+
+
+def prefill_tile(t: int, d: int) -> tuple:
+    """The (rows, columns) tile of a block of kernel C / 9 for a call of
+    `t` tokens per slot at head dim `d`."""
+    rows, cols = PREFILL_TILES[instance_dim(d)]
+    return (64 if t <= PREFILL_FEW_ROWS else rows), cols
+
+
 # Counter suffix of each cache element type (int8 codes by their scales'
 # dtype), and its code for the C entries.
 _SUFFIX = {torch.int8: "", torch.bfloat16: "_bf16", torch.float32: "_f32"}
@@ -781,7 +795,7 @@ def prefill_paged_cuda(q, kp, vp, ks, vs, tables, layer, q_positions,
     pos32 = q_positions.to(torch.int32).contiguous()
     lens32 = kv_lens.to(torch.int32).contiguous()
     out = torch.empty((b, t, h, d), dtype=out_dtype, device=q.device)
-    fn = _build.kernels.fn(f"flash_prefill_d{instance_dim(d)}",
+    fn = _build.kernels.fn(f"flash_prefill_paged_d{instance_dim(d)}",
                            "nst_flash_prefill_paged", 10, 12, 2)
     code = fn(q4.data_ptr(), kp.data_ptr(), vp.data_ptr(), _ptr(ks),
               _ptr(vs), _ptr(slopes), tables.data_ptr(), pos32.data_ptr(),
