@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time kernels C and 9 (`csrc/flash_prefill.cuh`) in variants of their
-header, on one NVIDIA GPU.
+"""Time kernels C and 9 (`csrc/flash_prefill.cuh`), or the GEMV of kernels F
+and P (`csrc/qmm_fp.cuh`), in variants of their header, on one NVIDIA GPU.
 
     python3 chip_levers.py base no_convert timed    # the variants named
     python3 chip_levers.py --dims 128,256 base      # at these head dims
+    python3 chip_levers.py --gemv --check base splits_ceil   # F / P GEMV
 
 A variant (VARIANTS) is a list of (old, new) strings replaced in a copy of
 `flash_prefill.cuh`; the copy is built alone (with `common.cuh` and
@@ -16,7 +17,13 @@ is printed beside the time; a variant that skips work fails it by design).
 `timed` adds `clock64` counters to the heaviest block of head 0 and prints,
 per call, the cycles its consumer warpgroup spent waiting for tiles, in
 Q K^T, in the softmax and in P V, and the cycles warpgroup 0 spent waiting
-and converting.  Results go to levers.json in `chip_smoke.OUT_DIR`.
+and converting.  With `--gemv` a variant (GEMV_VARIANTS) replaces strings
+of `qmm_fp.cuh`; the F, P and grouped F/P sources are built (every one for
+`base`, so that its ptxas table lists every GEMV instance: registers,
+stack, spills) and the GEMV is timed on GEMV_CASES against `qmatmul_plain`
+(2 bf16 ulps of the largest output); `--check` first holds every format
+and row count of GEMV_CHECK_FORMATS against the plain version.  Results go
+to levers.json (levers_gemv.json with `--gemv`) in `chip_smoke.OUT_DIR`.
 """
 
 import argparse
@@ -102,6 +109,234 @@ VARIANTS = {
     ],
 }
 
+# The GEMV's variants: (old, new) strings of `qmm_fp.cuh`, and the formats
+# whose sources a variant builds (None: every F / P / grouped source); a
+# Python-side lever replaces a wrapper function while it is timed
+# (`_py_hooks`).
+GEMV_VARIANTS = {
+    "base": ([], None),
+    # the CUDA-core GEMV's K splits by kernel A's rule, which rounds the
+    # split count up (a second, short wave of blocks)
+    "splits_ceil": ([], ("int5", "int3", "int7")),
+    # the parent commit's GEMV (`archive_check/parent`: its sources, its
+    # splits, a launch per 8 rows) on the same inputs
+    "parent": ([], ("int1", "int2", "int3", "int4", "int5", "int7", "nf4",
+                    "fp8_e4m3")),
+}
+# (label, format, group, symmetric, float offsets, shape (K, N), M, scale
+# dtype)
+_BF = "bfloat16"
+GEMV_CASES = [
+    ("int1 M=1 qkv", "int1", 128, True, False, (4096, 12288), 1, _BF),
+    ("int1 M=1 o", "int1", 128, True, False, (4096, 4096), 1, _BF),
+    ("int1 M=1 gateup", "int1", 128, True, False, (4096, 22016), 1, _BF),
+    ("nf4 M=1 qkv", "nf4", 128, True, False, (4096, 12288), 1, _BF),
+    ("nf4 M=4 o", "nf4", 128, True, False, (4096, 4096), 4, _BF),
+    ("nf4 M=4 gateup", "nf4", 128, True, False, (4096, 22016), 4, _BF),
+    ("nf4 M=8 gateup", "nf4", 128, True, False, (4096, 22016), 8, _BF),
+    ("q2_k M=8 qkv", "int2", 16, False, True, (4096, 12288), 8, "float32"),
+    ("q2_k M=8 gateup", "int2", 16, False, True, (4096, 22016), 8, "float32"),
+    ("gptq M=1 qkv", "int4", 128, False, False, (4096, 12288), 1, "float32"),
+    ("gptq M=5 qkv", "int4", 128, False, False, (4096, 12288), 5, "float32"),
+    ("gptq M=8 qkv", "int4", 128, False, False, (4096, 12288), 8, "float32"),
+    ("gptq M=8 gateup", "int4", 128, False, False, (4096, 22016), 8, "float32"),
+    ("q4_0 M=8 qkv", "int4", 32, True, False, (4096, 12288), 8, "float32"),
+    ("q4_0 M=8 gateup", "int4", 32, True, False, (4096, 22016), 8, "float32"),
+    ("int2 asym M=1 o", "int2", 128, False, False, (4096, 4096), 1, "float32"),
+    ("int5 asym M=1 qkv", "int5", 128, False, False, (4096, 12288), 1, _BF),
+    ("int5 asym M=1 down", "int5", 128, False, False, (12288, 4096), 1, _BF),
+    ("int5 asym M=4 qkv", "int5", 128, False, False, (4096, 12288), 4, _BF),
+    ("int5 asym M=8 qkv", "int5", 128, False, False, (4096, 12288), 8, _BF),
+    ("int3 M=1 qkv", "int3", 128, True, False, (4096, 12288), 1, _BF),
+    ("int7 M=1 qkv", "int7", 128, True, False, (4096, 12288), 1, _BF),
+    ("int7 M=8 qkv", "int7", 128, True, False, (4096, 12288), 8, _BF),
+    ("nf4 M=4 qkv", "nf4", 128, True, False, (4096, 12288), 4, _BF),
+    ("e4m3 M=8 qkv", "fp8_e4m3", 128, True, False, (4096, 12288), 8, _BF),
+    ("nf4 M=16 qkv", "nf4", 128, True, False, (4096, 12288), 16, _BF),
+    ("e4m3 M=16 qkv", "fp8_e4m3", 128, True, False, (4096, 12288), 16, _BF),
+]
+
+# Held against `qmatmul_plain` only (no timing) with `--check`: every
+# format and zero mode of F and P at Llama's o (4096, 4096) and these rows,
+# bf16 x, and float32 x at a few.
+GEMV_CHECK_FORMATS = [
+    ("nf4", "nf4", 128, True, False), ("fp4 f32s", "fp4", 128, True, False),
+    ("int1", "int1", 128, True, False), ("int2 asym", "int2", 128, False, False),
+    ("q2_k", "int2", 16, False, True), ("int3", "int3", 128, True, False),
+    ("gptq", "int4", 128, False, False), ("q4_0", "int4", 32, True, False),
+    ("q4_1 g8", "int4", 8, False, True), ("int5 asym", "int5", 128, False, False),
+    ("int5 off", "int5", 64, False, True), ("int6", "int6", 128, True, False),
+    ("int7", "int7", 128, True, False), ("q8_0", "int8", 32, True, False),
+    ("int8 asym", "int8", 128, False, False), ("int8 off", "int8", 16, False, True),
+    ("e4m3", "fp8_e4m3", 128, True, False), ("e5m2", "fp8_e5m2", 128, True, False)]
+GEMV_CHECK_M = (1, 4, 5, 8, 9, 16, 31, 32)
+GEMV_CHECK_M_F32 = (1, 4, 9, 32)
+
+
+def check_gemv() -> list:
+    """Every GEMV_CHECK_FORMATS pack at every GEMV_CHECK_M (bf16) and
+    GEMV_CHECK_M_F32 (float32 x) against the plain version: the largest
+    error over its tolerance per case (2 bf16 ulps of the largest output;
+    float32: 256 float32 ulps)."""
+    import torch
+
+    import chip_smoke as cs
+    from neural_speed_tpu_torch.ops import matmul
+    from neural_speed_tpu_torch.ops.qtypes import named_qspec
+    from neural_speed_tpu_torch.utils.synthetic import synth_qtensor
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows, bad = [], []
+    for label, fmt, g, sym, off in GEMV_CHECK_FORMATS:
+        sd = "bfloat16" if label in ("nf4", "int1", "int5 asym") else "float32"
+        qt = synth_qtensor(gen, 4096, 4096, named_qspec(fmt, g, sym, sd))
+        if off:
+            qt = cs._float_offsets(gen, qt)
+        for dt, ms_ in ((torch.bfloat16, GEMV_CHECK_M),
+                        (torch.float32, GEMV_CHECK_M_F32)):
+            for m in ms_:
+                x = torch.randn((m, 4096), generator=gen, device="cuda").to(dt)
+                got = matmul.qmatmul(x, qt)
+                want = matmul.qmatmul_plain(x, qt)
+                torch.cuda.synchronize()
+                if dt == torch.bfloat16:
+                    worst = cs.compare(got, want, 2, per_row=False)["worst"]
+                else:
+                    ref = x.double() @ __import__(
+                        "neural_speed_tpu_torch.ops.quantize", fromlist=["x"]
+                    ).dequantize(qt, torch.float32).double()
+                    worst = cs.compare_f64(got, ref)["worst"]
+                rows.append((label, str(dt).replace("torch.", ""), m, worst))
+                if not worst <= 1.0:
+                    bad.append(rows[-1])
+        print(f"check {label}: " + json.dumps([round(r[3], 3) for r in rows
+                                               if r[0] == label]), flush=True)
+    print(f"check: {len(rows)} cases, {len(bad)} beyond the tolerance: "
+          + json.dumps(bad), flush=True)
+    return rows
+
+
+def _py_hooks(name):
+    """Python-side levers: (module, attribute, replacement) while a variant
+    is timed."""
+    from neural_speed_tpu_torch.ops import matmul
+
+    ceil = (matmul, "fp_gemv_simt_splits",
+            lambda k, n, bands, cols, n_sm, per_sm=4: matmul._gemv_splits(
+                k, n, n_sm, bands, cols))
+    if name == "splits_ceil":  # the rule `_gemv_splits` keeps for kernel A
+        return [ceil]
+    if name == "parent":  # every M <= 32 through the CUDA-core entry
+        return [ceil, (matmul, "fp_gemv_body", lambda m, dt: "simt")]
+    return []
+
+
+def ptxas_table(log: str, pattern: str = "gemv|splitk") -> list:
+    """(function, registers, stack bytes, spill bytes) of each entry of a
+    `-Xptxas -v` log whose (demangled) name matches `pattern`."""
+    import re
+    import subprocess
+
+    rows, fn = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            fn, stack, spill = m.group(1), None, None
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and fn:
+            stack, spill = int(m.group(1)), int(m.group(2)) + int(m.group(3))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            rows.append([fn, int(m.group(1)), stack, spill])
+            fn = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True).stdout.split("\n")
+        for r, nm in zip(rows, names):
+            r[0] = nm or r[0]
+    except OSError:
+        pass
+    return sorted({tuple(r) for r in rows if re.search(pattern, r[0])})
+
+
+def _gemv_sources(tmp: Path, reps, fmts, parent: bool = False) -> None:
+    csrc = ROOT / "neural_speed_tpu_torch" / "csrc"
+    if parent:  # the parent commit unpacked by `git archive`
+        csrc = ROOT / "archive_check" / "parent" / "neural_speed_tpu_torch" / "csrc"
+    for f in csrc.iterdir():
+        stem = f.stem
+        keep = f.name in ("qmm_fp.cuh", "qmatmul_planar.cuh",
+                          "qmatmul_grouped_fp.cuh")
+        if f.suffix == ".cu" and stem.startswith(
+                ("qmatmul_planar_", "qmatmul_grouped_fp_", "qmatmul_lut")):
+            key = stem.rsplit("_", 1)[1]
+            key = {"lut": "nf4", "e4m3": "fp8_e4m3", "e5m2": "fp8_e5m2"}.get(key, key)
+            keep = fmts is None or key in fmts
+        if keep:
+            shutil.copy(f, tmp / f.name)
+    src = (tmp / "qmm_fp.cuh").read_text()
+    for old, new in reps:
+        if src.count(old) != 1:
+            raise ValueError(f"the header has not one copy of {old[:60]!r}")
+        src = src.replace(old, new)
+    (tmp / "qmm_fp.cuh").write_text(src)
+
+
+def run_gemv(names, check: bool = False) -> dict:
+    import torch
+
+    import chip_smoke as cs
+    from neural_speed_tpu_torch import _build
+    from neural_speed_tpu_torch.ops import matmul
+    from neural_speed_tpu_torch.ops.qtypes import named_qspec
+    from neural_speed_tpu_torch.utils.synthetic import synth_qtensor
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = {}
+    for label, fmt, g, sym, off, (k, n), m, sdt in GEMV_CASES:
+        qt = synth_qtensor(gen, k, n, named_qspec(fmt, g, sym, sdt))
+        if off:
+            qt = cs._float_offsets(gen, qt)
+        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        cases[label] = (fmt, x, qt)
+    res = {}
+    for name in names:
+        reps, fmts = GEMV_VARIANTS[name]
+        tmp = Path(tempfile.mkdtemp())
+        _gemv_sources(tmp, reps, fmts, parent=name == "parent")
+        _build.CSRC, _build.BUILD_DIR = tmp, tmp / "build"
+        _build.kernels = _build._Library()
+        t0 = time.time()
+        _build.kernels.build()
+        table = ptxas_table(_build.kernels.build_log)
+        for row in table:
+            print("  ptxas " + json.dumps(row), flush=True)
+        if check and fmts is None:
+            res[name + " check"] = check_gemv()
+        out = {}
+        saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in _py_hooks(name)]
+        for mod, attr, fn in _py_hooks(name):
+            setattr(mod, attr, fn)
+        for label, (fmt, x, qt) in cases.items():
+            if fmts is not None and fmt not in fmts:
+                continue
+            ms = cs.time_ms(lambda: matmul.qmatmul(x, qt))
+            err = cs.compare(matmul.qmatmul(x, qt), matmul.qmatmul_plain(x, qt),
+                             2, per_row=False)["worst"]
+            out[label] = (ms, err)
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+        torch.cuda.synchronize()
+        res[name] = dict(times=out, ptxas=table)
+        print(f"{name} (built in {time.time() - t0:.1f} s): "
+              + json.dumps({k: [round(v[0], 4), round(v[1], 3)]
+                            for k, v in out.items()}), flush=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
 
 def _sources(tmp: Path, dims, reps) -> None:
     csrc = ROOT / "neural_speed_tpu_torch" / "csrc"
@@ -121,8 +356,14 @@ def _sources(tmp: Path, dims, reps) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("variants", nargs="+", choices=sorted(VARIANTS))
+    ap.add_argument("variants", nargs="+",
+                    choices=sorted(set(VARIANTS) | set(GEMV_VARIANTS)))
     ap.add_argument("--dims", default="128")
+    ap.add_argument("--gemv", action="store_true",
+                    help="the variants are GEMV_VARIANTS of qmm_fp.cuh")
+    ap.add_argument("--check", action="store_true",
+                    help="with --gemv: hold every format and row count "
+                         "against the plain version first (GEMV_CHECKS)")
     args = ap.parse_args()
     import torch
 
@@ -135,6 +376,16 @@ def main() -> int:
     from neural_speed_tpu_torch.ops import flash
 
     os.makedirs(cs.OUT_DIR, exist_ok=True)
+    import subprocess
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    if args.gemv:
+        res = run_gemv(args.variants, args.check)
+        with open(os.path.join(cs.OUT_DIR, "levers_gemv.json"), "w") as f:
+            json.dump(res, f, indent=1)
+        return 0
     dims = [int(x) for x in args.dims.split(",")]
     gen = torch.Generator(device="cuda").manual_seed(0)
     t, h, s, lens = 2048, 32, 2048, [1975]

@@ -103,6 +103,15 @@ Phases, each raising on failure so the run exits non-zero:
    the real rows (the faster kept as the library time, its call named);
    and their repeat check (`flash_prefill_repeat`: 20 calls after L2
    flushes give one digest at the headline case and at page size 16);
+   the GEMV of F, P and P's INT instances where the main path runs it
+   (`check_fp_gemv`: 8, 16 and 32 rows at Llama-2-7B's qkv and gate/up in
+   nf4, int5 asymmetric, int3, int7, fp8_e4m3, GPTQ, GGUF Q4_0 and Q2_K;
+   1 and 4 rows of int3 and int7; 5, 9 and 31 rows of int5 and GPTQ at
+   qkv), its repeat check (`fp_gemv_repeat`: 20 calls after L2 flushes
+   give one digest at 1, 4, 9 and 32 rows) and its launch check
+   (`fp_gemv_launches`: torch.profiler sees one GEMV launch per call, and
+   at most one reduce, at every M <= 32).  A plain version that takes
+   PLAIN_ONCE_MS or more is timed once (`plain_time_ms`);
 3. a tiny model through `Engine` on the card against the same model on the
    CPU (plain versions), once in int4, once per configuration of phase
    5 and as a tiny Mixtral at B = 3 and B = 1: logits within tolerance,
@@ -369,6 +378,17 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
                        f"within a {sleep_ms / 2:.1f} ms sleep per call")
 
 
+PLAIN_ONCE_MS = 5.0
+
+
+def plain_time_ms(fn) -> float:
+    """A plain version's device time: one timed call after one warm-up, and
+    the median of three only when that call took less than PLAIN_ONCE_MS
+    (a plain version is the yardstick of correctness, not of speed)."""
+    once = time_ms(fn, reps=1, warmup=1)
+    return once if once >= PLAIN_ONCE_MS else time_ms(fn, reps=3)
+
+
 def _category(kernel_name: str) -> str:
     tc = re.search(r"gemm_kernel<\d+, \d+, (true|false), [^,]+, (true|false)>",
                    kernel_name)
@@ -377,9 +397,10 @@ def _category(kernel_name: str) -> str:
         return "qmatmul_grouped" if tc.group(1) == "true" else "qmatmul"
     if "nstfp::" in kernel_name:
         # F, P and P's one-plane INT instances; the grouped ones take
-        # GROUPED = true, the float32-activation ones float32 x and out;
+        # GROUPED = true (the third template argument of gemm_kernel and
+        # gemv_row_kernel), the float32-activation ones float32 x and out;
         # both write float32 through splitk_reduce_kernel<float>
-        if "true" in kernel_name:
+        if re.search(r"(gemm_kernel|gemv_row_kernel)<\d+, \d+, true", kernel_name):
             return "qmatmul_grouped_fp"
         if "gemm_f32" in kernel_name or "float, float" in kernel_name:
             return "qmatmul_fp_f32"
@@ -472,6 +493,7 @@ class Checks:
     def __init__(self, card: str):
         self.card = card
         self.records = {}
+        self.notes = {}   # checks that record no kernel case
 
     def add(self, name, route, source, replaces, shape, cmp, ms, plain_ms,
             lib_ms, nbytes, flops, main=False, peak="bf16", extra=None):
@@ -537,7 +559,7 @@ def check_qmatmul(chk: Checks, gen: torch.Generator) -> None:
             cmp = compare(got, want, 2, per_row=False)
             del got, want
             ms = time_ms(lambda: matmul.qmatmul_cuda(x, qt))
-            plain_ms = time_ms(lambda: matmul.qmatmul_plain(x, qt), reps=3)
+            plain_ms = plain_time_ms(lambda: matmul.qmatmul_plain(x, qt))
             lib_ms = time_ms(lambda: torch.matmul(x, w_bf16))
             extra = None
             if m > matmul.GEMV_MAX_M:
@@ -640,7 +662,7 @@ def check_fp_formats(chk: Checks, gen: torch.Generator) -> None:
                 cmp = compare(got, want, 2, per_row=False)
                 ms = time_ms(lambda: launch(x, qt))
                 del got, want
-                plain_ms = time_ms(lambda: matmul.qmatmul_plain(x, qt), reps=3)
+                plain_ms = plain_time_ms(lambda: matmul.qmatmul_plain(x, qt))
                 lib_ms = time_ms(lambda: torch.matmul(x, w_bf16))
                 nbytes = m * k * 2 + qt.nbytes() + m * n * 2
                 chk.add(kname, "cuda", source, replaces,
@@ -700,7 +722,7 @@ def check_gemm_low_m(chk: Checks, gen: torch.Generator) -> None:
             cmp = compare(got, want, 2, per_row=False)
             del got, want
             ms = time_ms(lambda: matmul.qmatmul(x, qt))
-            plain_ms = time_ms(lambda: matmul.qmatmul_plain(x, qt), reps=3)
+            plain_ms = plain_time_ms(lambda: matmul.qmatmul_plain(x, qt))
             lib_ms = time_ms(lambda: torch.matmul(x, w_bf16))
             chk.add(kname, "cuda", source, replaces,
                     f"{_fmt_name(qt)} g={spec.group_size} M={m} K={k} N={n}",
@@ -710,6 +732,179 @@ def check_gemm_low_m(chk: Checks, gen: torch.Generator) -> None:
         torch.cuda.empty_cache()
 
 
+# The GEMV of F, P and P's one-plane INT instances (`csrc/qmm_fp.cuh`) where
+# the main path runs it: decode (1, 4 rows), odd row counts (5, 9, 31) and
+# speculative verify steps (8, 16, 32 rows: T = 2..8 over 4 slots), at
+# Llama-2-7B's qkv and gate/up, in the formats of phases 5 and 8.  Drawn
+# from a generator of its own (FP_GEMV_SEED), after every other check.
+FP_GEMV_SEED = 19
+FP_GEMV_REPEAT_CALLS = 20
+
+
+def _fp_gemv_formats():
+    """(label, spec, pack transform, extra (shape, rows) cases)."""
+    from neural_speed_tpu_torch.ops.qtypes import named_qspec
+
+    bf = dict(scale_dtype="bfloat16")
+    decode = [("qkv", (1, 4)), ("gateup", (1, 4))]
+    odd = [("qkv", (5, 9, 31))]
+    return [("nf4", named_qspec("nf4", 128, **bf), None, []),
+            ("int5 asym", named_qspec("int5", 128, False, **bf), None, odd),
+            ("int3", named_qspec("int3", 128, **bf), None, decode),
+            ("int7", named_qspec("int7", 128, **bf), None, decode),
+            ("fp8_e4m3", named_qspec("fp8_e4m3", 128, **bf), None, []),
+            ("gptq", named_qspec("int4", 128, False), None, odd),
+            ("q4_0", named_qspec("int4", 32), None, []),
+            ("q2_k", named_qspec("int2", 16, False), _float_offsets, [])]
+
+
+_FP_KERNELS = {
+    "F": ("qmatmul_lut", "neural_speed_tpu_torch/csrc/qmatmul_lut.cu",
+          "neural_speed_tpu/ops/matmul.py:217"),
+    "P": ("qmatmul_planar", "neural_speed_tpu_torch/csrc/qmatmul_planar.cuh",
+          "neural_speed_tpu/ops/matmul.py:376"),
+    "I": ("qmatmul_int", "neural_speed_tpu_torch/csrc/qmatmul_planar.cuh",
+          "neural_speed_tpu/ops/matmul.py:127")}
+
+
+def _fp_gemv_pack(gen, spec, transform, shape_name):
+    from neural_speed_tpu_torch.utils.synthetic import synth_qtensor
+
+    k, n = _shape(shape_name, spec)
+    qt = synth_qtensor(gen, k, n, spec)
+    return qt if transform is None else transform(gen, qt)
+
+
+def check_fp_gemv(chk: Checks, gen: torch.Generator) -> None:
+    """The GEMV of F, P and P's INT instances through `qmatmul` (the main
+    path's route) at 8, 16 and 32 rows at qkv and gate/up in every format of
+    `_fp_gemv_formats`, and its extra decode and odd-row cases, against
+    `qmatmul_plain` (2 bf16 ulps of the largest output, as every F / P
+    case), each timed beside the plain version and `torch.matmul` on the
+    dequantized bf16 weight."""
+    from neural_speed_tpu_torch.ops import matmul
+    from neural_speed_tpu_torch.ops.quantize import dequantize
+
+    gen = torch.Generator(device="cuda").manual_seed(FP_GEMV_SEED)
+    for label, spec, transform, extra in _fp_gemv_formats():
+        cases = [("qkv", (8, 16, 32)), ("gateup", (8, 16, 32))] + extra
+        for shape_name in dict.fromkeys(name for name, _ in cases):
+            qt = _fp_gemv_pack(gen, spec, transform, shape_name)
+            k, n = qt.shape
+            kname, source, replaces = _FP_KERNELS[matmul.kernel_for(qt)]
+            w_bf16 = dequantize(qt, torch.bfloat16)
+            for m in sorted(m for name, ms_ in cases if name == shape_name
+                            for m in ms_):
+                x = torch.randn((m, k), generator=gen, device="cuda").to(
+                    torch.bfloat16)
+                got = matmul.qmatmul(x, qt)
+                want = matmul.qmatmul_plain(x, qt)
+                torch.cuda.synchronize()
+                cmp = compare(got, want, 2, per_row=False)
+                del got, want
+                ms = time_ms(lambda: matmul.qmatmul(x, qt))
+                plain_ms = plain_time_ms(lambda: matmul.qmatmul_plain(x, qt))
+                lib_ms = time_ms(lambda: torch.matmul(x, w_bf16))
+                chk.add(kname, "cuda", source, replaces,
+                        f"gemv {label} {_fmt_name(qt)} g={spec.group_size} "
+                        f"{shape_name} M={m} K={k} N={n}", cmp, ms, plain_ms,
+                        lib_ms, m * k * 2 + qt.nbytes() + m * n * 2,
+                        2.0 * m * n * k)
+            del qt, w_bf16
+            torch.cuda.empty_cache()
+
+
+def check_fp_gemv_repeat(chk: Checks, gen: torch.Generator) -> None:
+    """The GEMV is deterministic: FP_GEMV_REPEAT_CALLS calls on the same
+    rows, each after an L2 flush, give one digest, at 1, 4, 9 and 32 rows
+    (both bodies, the CUDA-core splits' reduce and the cluster's), int5
+    asymmetric and GPTQ at qkv.  Drawn from a generator of its own."""
+    from neural_speed_tpu_torch.ops import matmul
+
+    gen = torch.Generator(device="cuda").manual_seed(FP_GEMV_SEED + 1)
+    for label, spec, transform, _ in _fp_gemv_formats():
+        if label not in ("int5 asym", "gptq"):
+            continue
+        qt = _fp_gemv_pack(gen, spec, transform, "qkv")
+        k, n = qt.shape
+        for m in (1, 4, 9, 32):
+            x = torch.randn((m, k), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            first = matmul.qmatmul(x, qt)
+            bad = 0
+            for _ in range(FP_GEMV_REPEAT_CALLS):
+                _flush_l2()
+                bad += int(not torch.equal(matmul.qmatmul(x, qt), first))
+            digest = compare(first, first, 2, per_row=False)["digest"]
+            chk.notes.setdefault("fp_gemv_repeat", []).append(
+                dict(pack=label, m=m, k=k, n=n, calls=FP_GEMV_REPEAT_CALLS,
+                     differing=bad, digest=digest))
+            log(f"  fp_gemv_repeat {label} M={m} K={k} N={n}: "
+                f"{FP_GEMV_REPEAT_CALLS} calls after L2 flushes, {bad} "
+                f"differing (digest {digest})")
+            if bad:
+                raise AssertionError(f"F / P GEMV {label} M={m}: {bad} of "
+                                     f"{FP_GEMV_REPEAT_CALLS} calls differ")
+        del qt
+        torch.cuda.empty_cache()
+
+
+def _kernel_names(fn) -> list:
+    """The CUDA kernels one fn() call launches, by torch.profiler (a session
+    that records no kernel is run again, up to three times)."""
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in _kernel_events(prof)]
+        if names:
+            return names
+    raise RuntimeError("torch.profiler recorded no CUDA kernel")
+
+
+def check_fp_gemv_launches(chk: Checks, gen: torch.Generator) -> None:
+    """One GEMV launch per call, plus at most one reduce (the CUDA-core
+    body's splits), at every M <= 32 for int5 asymmetric (multi-plane) and
+    GPTQ (one plane), at 1, 4, 8, 9, 16 and 32 rows for nf4 and fp8_e4m3
+    (bytes), and at 1, 9 and 32 rows of float32 x (quantized Whisper's
+    path): the kernels torch.profiler records for one `qmatmul` call."""
+    from neural_speed_tpu_torch.ops import matmul
+
+    gen = torch.Generator(device="cuda").manual_seed(FP_GEMV_SEED + 2)
+    every, some = tuple(range(1, matmul.GEMV_MAX_M + 1)), (1, 4, 8, 9, 16, 32)
+    rows = {"int5 asym": every, "gptq": every, "nf4": some, "fp8_e4m3": some}
+    seen = {}
+    for label, spec, transform, _ in _fp_gemv_formats():
+        if label not in rows:
+            continue
+        qt = _fp_gemv_pack(gen, spec, transform, "qkv")
+        k = qt.shape[0]
+        cases = [(m, torch.bfloat16) for m in rows[label]]
+        if label in ("int5 asym", "gptq"):
+            cases += [(m, torch.float32) for m in (1, 9, 32)]
+        for m, dt in cases:
+            x = torch.randn((m, k), generator=gen, device="cuda").to(dt)
+            names = _kernel_names(lambda: matmul.qmatmul(x, qt))
+            gemv = [nm for nm in names if "gemv" in nm]
+            rest = [nm for nm in names if "gemv" not in nm]
+            ok = len(gemv) == 1 and all("splitk_reduce" in nm for nm in rest) \
+                and len(rest) <= 1
+            key = f"{label} {str(dt).replace('torch.', '')} M={m}"
+            seen[key] = [nm.split("(")[0].replace("void ", "") for nm in names]
+            if not ok:
+                raise AssertionError(f"F / P GEMV {key}: launches {names}")
+        del qt
+        torch.cuda.empty_cache()
+    chk.notes["fp_gemv_launches"] = seen
+    bodies = collections.Counter(tuple(v) for v in seen.values())
+    log(f"  fp_gemv_launches: {len(seen)} calls, each one GEMV launch and at "
+        f"most one reduce; kernels per call: "
+        + json.dumps({" + ".join(k): v for k, v in bodies.items()}))
+
+
+ODD_ROWS_SEED = 16
 ODD_ROWS_SEED = 16
 
 
@@ -736,7 +931,7 @@ def check_gemv_odd_rows(chk: Checks, gen: torch.Generator) -> None:
             cmp = compare(got, want, 2, per_row=False)
             del got, want
             ms = time_ms(lambda: matmul.qmatmul_cuda(x, qt))
-            plain_ms = time_ms(lambda: matmul.qmatmul_plain(x, qt), reps=3)
+            plain_ms = plain_time_ms(lambda: matmul.qmatmul_plain(x, qt))
             chk.add("qmatmul_int4", "cuda",
                     "neural_speed_tpu_torch/csrc/qmatmul.cu",
                     "neural_speed_tpu/ops/matmul.py:127",
@@ -837,7 +1032,7 @@ def check_a_vs_p(chk: Checks, gen: torch.Generator) -> None:
         del got_a, got_p, want
         ms = time_ms(lambda: matmul.qmatmul_cuda(x, qt))
         p_ms = time_ms(lambda: matmul.qmatmul_int_cuda(x, qp))
-        plain_ms = time_ms(lambda: matmul.qmatmul_plain(x, qt), reps=3)
+        plain_ms = plain_time_ms(lambda: matmul.qmatmul_plain(x, qt))
         chk.add("qmatmul_int4", "cuda", "neural_speed_tpu_torch/csrc/qmatmul.cu",
                 "neural_speed_tpu/ops/matmul.py:127",
                 f"A = P digest M=2048 K={k} N={n}", cmp_a, ms, plain_ms, None,
@@ -929,7 +1124,7 @@ def check_int_formats(chk: Checks, gen: torch.Generator) -> None:
                 cmp = compare(got, want, 2, per_row=False)
                 ms = time_ms(lambda: matmul.qmatmul(x, qt))
                 del got, want
-                plain_ms = time_ms(lambda: matmul.qmatmul_plain(x, qt), reps=3)
+                plain_ms = plain_time_ms(lambda: matmul.qmatmul_plain(x, qt))
                 lib_ms = time_ms(lambda: torch.matmul(x, w_bf16))
                 nbytes = m * k * 2 + qt.nbytes() + m * n * 2
                 dq = "/dq" if qt.sscale is not None else ""
@@ -1073,7 +1268,7 @@ def check_f32_formats(chk: Checks, gen: torch.Generator) -> None:
                                          f"values {in_bf16.item()})")
                 del got, want, ref, rounded
                 ms = time_ms(lambda: matmul.qmatmul(x, qt))
-                plain_ms = time_ms(lambda: matmul.qmatmul_plain(x, qt), reps=3)
+                plain_ms = plain_time_ms(lambda: matmul.qmatmul_plain(x, qt))
                 lib_ms = time_ms(lambda: torch.matmul(x, w32))
                 nbytes = m * k * 4 + qt.nbytes() + m * n * 4
                 chk.add(kname, "cuda", *sources[kname], what, cmp, ms,
@@ -1195,8 +1390,8 @@ def check_int8_formats(chk: Checks, gen: torch.Generator) -> None:
                 cmp = compare_f32(got, want, k // 128)
                 del got, want
                 ms = time_ms(lambda: matmul.qmatmul_int8_cuda(xq, ascale, qt))
-                plain_ms = time_ms(
-                    lambda: matmul.qmatmul_int8_plain(xq, ascale, qt), reps=3)
+                plain_ms = plain_time_ms(
+                    lambda: matmul.qmatmul_int8_plain(xq, ascale, qt))
                 lib_ms, layout = int8_library_ms(xq, w_int8)
                 nbytes = (m * k + (0 if per_token else m * (k // 128) * 4)
                           + qt.nbytes() + m * n * 4)
@@ -1251,8 +1446,8 @@ def check_int8_epilogue(chk: Checks, gen: torch.Generator) -> None:
                     del got, want
                     ms = time_ms(lambda: matmul.qmatmul_int8_cuda(
                         xq, grouped, qt, torch.bfloat16, rs))
-                    plain_ms = time_ms(lambda: matmul.qmatmul_int8_plain(
-                        xq, grouped, qt), reps=3)
+                    plain_ms = plain_time_ms(lambda: matmul.qmatmul_int8_plain(
+                        xq, grouped, qt))
                     chk.add(kname, "cuda",
                             f"neural_speed_tpu_torch/csrc/{kname}.cu",
                             "neural_speed_tpu/ops/matmul.py:"
@@ -1460,8 +1655,8 @@ def _check_stack(chk: Checks, gen: torch.Generator, kname: str, source: str,
             lib = lambda: [torch.matmul(xs[o:o + c], w_bf16[e])
                            for o, c, e in seg if c]
             ms = time_ms(run)
-            plain_ms = time_ms(lambda: moe.grouped_qmatmul_plain(
-                xs, st, r.block_expert, bm), reps=3)
+            plain_ms = plain_time_ms(lambda: moe.grouped_qmatmul_plain(
+                xs, st, r.block_expert, bm))
             lib_ms = time_ms(lib)
             rows = n_tok * TOP_K
             touched = sum(1 for c in counts if c)
@@ -1484,8 +1679,8 @@ def _check_stack(chk: Checks, gen: torch.Generator, kname: str, source: str,
         torch.cuda.synchronize()
         cmp = compare_rows(got, want, rel)
         ms = time_ms(run)
-        plain_ms = time_ms(lambda: moe.grouped_qmatmul_rows_plain(
-            x2, st, row_e), reps=3)
+        plain_ms = plain_time_ms(lambda: moe.grouped_qmatmul_rows_plain(
+            x2, st, row_e))
         lib_ms = time_ms(lambda: [torch.matmul(x2[j:j + 1], w_bf16[e])
                                   for j, e in enumerate((6, 1))])
         nbytes = TOP_K * (expert_bytes + k * 2 + n * 4)
@@ -1629,7 +1824,7 @@ def _check_flash_decode(chk: Checks, gen: torch.Generator, hkv: int) -> None:
     # within 4 bf16 ulps of the largest output of the (slot, head) row
     cmp = compare(got, want, 4, per_row=True)
     ms = time_ms(lambda: flash.decode_cuda(*args(ck)))
-    plain_ms = time_ms(lambda: flash.decode_plain(*args(cp)), reps=3)
+    plain_ms = plain_time_ms(lambda: flash.decode_plain(*args(cp)))
     kd, vd = _dequant_layer(cache, layer)
     live = torch.arange(s, device="cuda")[None] < torch.where(
         pos == kv_lens - 1, kv_lens - 1, kv_lens)[:, None]
@@ -1704,7 +1899,7 @@ def check_flash_prefill(chk: Checks, gen: torch.Generator) -> None:
         del got, want
         torch.cuda.empty_cache()
         ms = time_ms(lambda: flash.prefill_cuda(*args))
-        plain_ms = time_ms(lambda: flash.prefill_plain(*args), reps=3)
+        plain_ms = plain_time_ms(lambda: flash.prefill_plain(*args))
         kd, vd = _dequant_layer(cache, layer)
         col = torch.arange(s, device="cuda")
         mask = ((col[None, None] < kv_lens[:, None, None])
@@ -1830,8 +2025,7 @@ def check_flash_decode_paged(chk: Checks, gen: torch.Generator) -> None:
             raise AssertionError(f"flash_decode_paged (page size {ps}) "
                                  f"changed {changed} K rows, not {3 * hkv}")
         ms = time_ms(lambda: flash.decode_paged_cuda(*args(pk)))
-        plain_ms = time_ms(lambda: flash.decode_paged_plain(*args(pp)),
-                           reps=3)
+        plain_ms = plain_time_ms(lambda: flash.decode_paged_plain(*args(pp)))
         kd, vd = gathered_layer(pool, layer)
         live = torch.arange(s, device="cuda")[None] < torch.where(
             pos == kv_lens - 1, kv_lens - 1, kv_lens)[:, None]
@@ -1897,7 +2091,7 @@ def check_flash_prefill_paged(chk: Checks, gen: torch.Generator) -> None:
         del got, want
         torch.cuda.empty_cache()
         ms = time_ms(lambda: flash.prefill_paged_cuda(*args))
-        plain_ms = time_ms(lambda: flash.prefill_paged_plain(*args), reps=3)
+        plain_ms = plain_time_ms(lambda: flash.prefill_paged_plain(*args))
         kd, vd = gathered_layer(pool, layer)
         col = torch.arange(s, device="cuda")
         mask = ((col[None, None] < kv_lens[:, None, None])
@@ -2229,7 +2423,7 @@ def _variant_case(chk, gen, kernel, kv, alibi, h, hkv, d, t, lens, main,
             log(f"  {name}: kernel {'9' if paged else 'C'} on the same "
                 f"call {c_ms:.4f} ms")
             extra_rec = dict(extra_rec or {}, prev_body_ms=c_ms)
-        plain_ms = time_ms(lambda: plain(*args(a_p), **kw), reps=3)
+        plain_ms = plain_time_ms(lambda: plain(*args(a_p), **kw))
         lib_ms = None
         if not softcap:
             kd, vd = gathered_layer(pool, layer)
@@ -2427,7 +2621,7 @@ def _qk_multi_case(chk, gen, h, hkv, d, t, kv, alibi, causal, main):
                              f"the int8 dot")
     del got, want
     ms = time_ms(lambda: flash.decode_cuda(*args, **kw))
-    plain_ms = time_ms(lambda: flash.decode_plain(*args, **kw), reps=3)
+    plain_ms = plain_time_ms(lambda: flash.decode_plain(*args, **kw))
     col = torch.arange(s, device="cuda")
     valid = col[None, None] < kv_lens[:, None, None]
     if causal:
@@ -2610,7 +2804,7 @@ def _whisper_case(chk, gen, kernel, kv, alibi, t, lens, main, pad,
             del other
         del got, want
         ms = time_ms(lambda: run(*args(c), **kw))
-        plain_ms = time_ms(lambda: plain(*args(c), **kw), reps=3)
+        plain_ms = plain_time_ms(lambda: plain(*args(c), **kw))
         kd, vd = gathered_layer(pool, layer, io)
         mask = _sdpa_mask(valid, pos, slopes, s)
         qs = q.transpose(1, 2)
@@ -6111,11 +6305,16 @@ def serve_speculative(card: str, profile: bool) -> dict:
 
 def _redesigned(name: str, shape: str) -> bool:
     """Cases of the bodies this tree redesigned, whose float32 sums may run
-    in another order than the parent's, so their digests may differ: every
-    case of kernels C and 9 (one new body: the order of the float32 sums
-    and the running max that P is rounded against changed).  Every other
-    case must keep its digest."""
-    return name.startswith("flash_prefill")
+    in another order than the parent's, so their digests may differ: the
+    GEMV of F, P and P's INT instances (M <= 32, bf16 and float32 x) and the
+    grouped F/P GEMV, which shares its CUDA-core body.  Every other case
+    must keep its digest."""
+    if name == "qmatmul_grouped_fp":
+        return shape.startswith("GEMV")
+    m = re.search(r"\bM=(\d+)", shape)
+    return (name.replace("_f32", "") in ("qmatmul_lut", "qmatmul_planar",
+                                         "qmatmul_int")
+            and m is not None and int(m.group(1)) <= 32)
 
 
 def compare_runs(paths) -> dict:
@@ -6260,7 +6459,11 @@ def main() -> int:
                         ("flash_prefill flash_prefill_paged prefill_cases",
                          check_flash_prefill_cases),
                         ("flash_prefill flash_prefill_repeat",
-                         check_flash_prefill_repeat)):
+                         check_flash_prefill_repeat),
+                        ("qmatmul_lut qmatmul_planar qmatmul_int fp_gemv",
+                         check_fp_gemv),
+                        ("fp_gemv_repeat", check_fp_gemv_repeat),
+                        ("fp_gemv_launches", check_fp_gemv_launches)):
         if 2 in phases and any(o in names for o in args.only.split(",")):
             check(chk, gen)
     torch.cuda.empty_cache()
@@ -6427,7 +6630,8 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card_line,
                        build_s=_build.kernels.build_seconds,
-                       kernels=kernels, e2e=summary), f, indent=1)
+                       kernels=kernels, checks=chk.notes, e2e=summary), f,
+                  indent=1)
     log_phase("done")
     log(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "cases"}
                                 for r in kernels]}))

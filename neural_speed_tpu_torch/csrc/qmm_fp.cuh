@@ -35,18 +35,42 @@
 //                  with cuda_fp8.h (exact into half for both types)
 // Scales are bf16 or float32 (a run-time flag), one row per K group of g.
 //
-// Two launch shapes, as in kernel A (qmatmul.cu):
-//  * GEMV, M <= 32.  Bound: bytes (the packed planes, read once).  x is
-//    staged in shared memory as float32, indexed by (band, row); the value is
-//    computed in float32 exactly as the plain version does.  K is split
-//    across blocks (gridDim.y) and a second kernel sums the float32 partials
-//    in order.  One-plane and byte formats: a thread owns four columns and
-//    loads 8 rows of 16 bytes (4 for fp8), coalesced along N, before any
-//    arithmetic.  Multi-plane formats: a thread owns one column and holds
-//    the words of 8 rows of every plane (up to 56 registers), then walks the
-//    bands with the band's scale and zero point loaded once per 8 rows: with
-//    four columns only 2 rows fit in registers, and the scale loads (one per
-//    weight) set the time.
+// Launch shapes:
+//  * GEMV, M <= 32.  Bound: bytes (the packed planes, read once; their
+//    scales and zero terms beside them).  One GEMV launch per call at any
+//    M, every packed word read once per call (per 8 rows with float32 x).
+//    - Decode, both bodies: an integer code becomes a float by the exponent
+//      trick, magic(c) = 2^23 + c as a float's bits, less zsub = magic(z)
+//      (the symmetric offset or the uint8 zero point: the zero term sits in
+//      the subtrahend, so c - z is exact), a byte by one prmt; fp8 codes by
+//      a paired conversion (exact into half); no integer-to-float
+//      conversion instruction per weight.
+//    - M <= 8 with bf16 x, and every M with float32 x (blocks of 8 rows in
+//      gridDim.z): CUDA cores, x staged in shared memory as float32 and the
+//      value computed in float32 exactly as the plain version does (s * t,
+//      or t * s + m rounded after each step for float offsets, a template
+//      flag); K split across blocks (gridDim.y), the float32 partials summed
+//      in order by a second kernel (splitk_reduce_kernel).  One-plane and
+//      byte formats: a thread owns four columns (a 16-byte word row, 4
+//      bytes of a byte row), 8 rows a chunk, each band's scales and zero
+//      terms loaded once a chunk for the 4 columns.  Multi-plane formats:
+//      a thread owns one column, holds R1 rows of every plane (8, or 4 at
+//      more than 3 words a row) and the scale and zero term of each band in
+//      registers until the band's group changes (`next_any`).
+//    - 8 < M <= 32 with bf16 x: tensor cores, every row in one pass
+//      (gemv_mma_kernel: mma.sync m16n8k8 in TF32, one or two m16 tiles of
+//      rows as A, the weights as B; notes at the kernel).  Numerics: x is
+//      bf16 and every B term is exact in TF32 (c - z with |c - z| <= 255;
+//      2c - 1; fp8 values), so each MMA forms exact products over 8 rows of
+//      one band inside one group, summed in float32; the group's scale then
+//      multiplies that float32 partial, and float offsets add m * (the
+//      rows' sum of x over the k-step, by an MMA with B = 1).  Table formats
+//      (NF4 / FP4 / a converter's table) take each float32 entry as a bf16
+//      hi + lo pair (two MMAs; within 2^-17 of the entry).  So no weight is
+//      rounded to bf16: only the order and place of the float32 roundings
+//      differ from the plain version's.  K is split over the blocks of a
+//      thread-block cluster (at most 8) whose partials are summed in rank
+//      order through distributed shared memory: no second kernel.
 //  * GEMM, M > 32.  Bound: operations (bf16 tensor cores).  The wrapper
 //    hands x with K reordered band-major (k' = r * EF + b), so a K step of
 //    64 is 64 / EF word rows of the narrowest plane with all their bands:
@@ -94,9 +118,10 @@
 //    and products of different steps run at once.
 //
 // Float32 activations (`_f32` entries; the output is float32 too):
-//  * GEMV: the same kernels with the x pointer's type a template parameter
-//    (XT); x is staged as float32 either way, so only the global load
-//    differs, and the product is float32 end to end, never rounded to bf16.
+//  * GEMV: the CUDA-core body at every M <= 32 (x's pointer type a template
+//    parameter, XT); x is staged as float32 either way, so only the global
+//    load differs, and the product is float32 end to end, never rounded to
+//    bf16 and never on the tensor cores.
 //  * GEMM: gemm_f32_kernel, an exact float32 SIMT GEMM (FFMA, float32
 //    accumulation).  The bf16 tensor-core tile would round x and W to bf16, and a
 //    TF32 product would round both to 10-bit mantissas; the JAX kernels'
@@ -126,6 +151,8 @@
 #include <string.h>
 
 #include <climits>
+#include <cooperative_groups.h>
+#include <type_traits>
 
 namespace nstfp {
 
@@ -270,60 +297,176 @@ __device__ __forceinline__ void store4(float* o, const float* v) {
   *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
+// fn(std::integral_constant<int, I>) for I = I0 .. N - 1: a loop whose index
+// is a constant expression (plane indices: a slot index computed in a
+// runtime loop can leave a word array in local memory).
+template <int I, int N, typename Fn>
+__device__ __forceinline__ void static_for(Fn&& fn) {
+  if constexpr (I < N) {
+    fn(std::integral_constant<int, I>{});
+    static_for<I + 1, N>(fn);
+  }
+}
+
 // The code of band b from the words of one row of the narrowest plane:
 // w[slot] is the word of plane p at row (slot - slot0(p)) * KW + r.
-template <int FMT>
+template <int FMT, int P = 0>
 __device__ __forceinline__ uint32_t code_of(const uint32_t* w, int b) {
   using F = Fmt<FMT>;
-  uint32_t code = 0;
-#pragma unroll
-  for (int p = 0; p < F::kPlanes; ++p) {
-    const int W = F::width(p), q = F::q(p);
-    const uint32_t word = w[F::slot0(p) + b % q];
-    code |= ((word >> (W * (b / q))) & ((1u << W) - 1u)) << F::shift(p);
+  if constexpr (P >= F::kPlanes) {
+    return 0u;
+  } else {
+    constexpr int W = F::width(P), q = F::q(P), s0 = F::slot0(P), sh = F::shift(P);
+    const uint32_t word = w[s0 + b % q];
+    return (((word >> (W * (b / q))) & ((1u << W) - 1u)) << sh) | code_of<FMT, P + 1>(w, b);
   }
-  return code;
+}
+
+// The same for a band b known only at run time but with b % 4 == BI (every
+// plane's q divides 4): the word's slot stays a constant.
+template <int FMT, int BI, int P = 0>
+__device__ __forceinline__ uint32_t code_of_rt(const uint32_t* w, int b) {
+  using F = Fmt<FMT>;
+  if constexpr (P >= F::kPlanes) {
+    return 0u;
+  } else {
+    constexpr int W = F::width(P), q = F::q(P), s0 = F::slot0(P), sh = F::shift(P);
+    static_assert(4 % q == 0, "a plane's q divides 4");
+    const uint32_t word = w[s0 + BI % q];
+    return (((word >> (W * (b / q))) & ((1u << W) - 1u)) << sh) |
+           code_of_rt<FMT, BI, P + 1>(w, b);
+  }
 }
 
 // ---------------------------------------------------------------- GEMV ---
+// Decode shared by the GEMV bodies (see the note at the top of the file).
+
+// 2^23 + c as a float (c < 2^23): an integer code as a float without a
+// conversion instruction; magic(c) - magic(z) is c - z exactly.
+__device__ __forceinline__ float magic(uint32_t c) {
+  return __int_as_float(0x4B000000u | c);
+}
+
+// The term of an integer code that its scale multiplies: code - z as
+// magic(code) - zsub, zsub = magic(z) (z the symmetric offset or the uint8
+// zero point; 0 for float offsets, whose term is the code), or 2 * code - 1
+// for INT1 whatever the zero points.  Exact: |term| <= 255.
+template <int FMT>
+__device__ __forceinline__ float int_term(uint32_t code, float zsub) {
+  if constexpr (FMT == FMT_INT1) return magic(code << 1) - 8388609.f;
+  else return magic(code) - zsub;
+}
+
+// Byte j of w as magic(byte): one prmt.
+__device__ __forceinline__ float magic_byte(uint32_t w, int j) {
+  return __int_as_float(__byte_perm(w, 0x4B00u, 0x5440u | (uint32_t)j));
+}
+
+// The zero term of a (group, column): zsub for int_term (Z_NONE, Z_SYM,
+// Z_INT) or the float offset m (Z_FLOAT).
+__device__ __forceinline__ float zero_term_of(const PackArgs& a, size_t idx, uint32_t sym) {
+  if (a.zmode == Z_FLOAT) return __ldg(static_cast<const float*>(a.zeros) + idx);
+  if (a.zmode == Z_INT) return magic(static_cast<const uint8_t*>(a.zeros)[idx]);
+  return magic(a.zmode == Z_SYM ? sym : 0u);
+}
+
+// Four neighbouring columns' zero terms (idx % 4 == 0), one load.
+__device__ __forceinline__ void zero_terms4(const PackArgs& a, size_t idx, uint32_t sym,
+                                            float z[4]) {
+  if (a.zmode == Z_FLOAT) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(a.zeros) + idx));
+    z[0] = v.x; z[1] = v.y; z[2] = v.z; z[3] = v.w;
+  } else if (a.zmode == Z_INT) {
+    const uint32_t v = __ldg(reinterpret_cast<const unsigned int*>(
+        static_cast<const uint8_t*>(a.zeros) + idx));
+#pragma unroll
+    for (int j = 0; j < 4; ++j) z[j] = magic_byte(v, j);
+  } else {
+    z[0] = z[1] = z[2] = z[3] = magic(a.zmode == Z_SYM ? sym : 0u);
+  }
+}
+
+// A weight from its term t, scale s and zero term z: s * t, or with float
+// offsets t * s + m rounded after each step, as the plain version's two
+// float32 operations are.
+template <bool ZF>
+__device__ __forceinline__ float dq_value(float t, float s, float z) {
+  if constexpr (ZF) return __fadd_rn(__fmul_rn(t, s), z);
+  else return s * t;
+}
+
+// Two fp8 codes (the low 16 bits of v) as floats, one paired conversion
+// (exact into half, then into float).
+template <int FMT>
+__device__ __forceinline__ float2 fp8x2_value(uint32_t v) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(v & 0xFFFFu),
+                                                   FMT == FMT_E4M3 ? __NV_E4M3 : __NV_E5M2);
+  return __half22float2(*reinterpret_cast<const __half2*>(&h));
+}
+
+// The group row of band b's word row r: b * KW / g + r / g when g divides
+// KW (rq = r / g, one division per row step), else (b * KW + r) / g.
+__device__ __forceinline__ int group_of(int b, int r, int rq, int KW, int kwg, int g) {
+  return kwg >= 0 ? b * kwg + rq : (b * KW + r) / g;
+}
+
+// ------------------------------------------------- GEMV, CUDA cores ---
+// M <= 8 (bf16 x), or any M <= 32 with float32 x: one launch, MT rows per
+// block row (gridDim.z blocks of rows); K split across blocks (gridDim.y),
+// partials summed by splitk_reduce_kernel.
 constexpr int GEMV_THREADS = 128;
 constexpr int GEMV_COLS = 4;
 constexpr int GEMV_BN = GEMV_THREADS * GEMV_COLS;
+constexpr int GEMV_SIMT_MAX_M = 8;
 
-// One-plane and byte formats: four columns per thread, 8 rows per chunk.
-// The grouped instance (MT = 1) takes row m0 + blockIdx.z and its expert.
-template <int FMT, int MT, bool GROUPED = false, typename OutT = __nv_bfloat16,
-          typename XT = __nv_bfloat16>
-__global__ void __launch_bounds__(GEMV_THREADS)
-gemv_kernel(const XT* __restrict__ x, PackArgs a,
-            const int* __restrict__ row_expert, float* __restrict__ partial,
-            OutT* __restrict__ out, int M, int K, int N, int g, int rows_per_split,
-            int m0) {
-  using F = Fmt<FMT>;
-  static_assert(F::kSlots == 1, "multi-plane formats go through gemv1_kernel");
-  static_assert(!GROUPED || MT == 1, "the grouped GEMV takes one row per block row");
-  constexpr int EF = F::kBands, R = 8;
-  extern __shared__ float xs[];  // [MT][EF][rows_per_split]
-  __shared__ float tab[16];
-  if constexpr (GROUPED) {
-    m0 += blockIdx.z;
-    select_expert<FMT>(a, row_expert[m0], K, N, g);
-  }
-  const int KW = K / EF;
-  const int split = blockIdx.y;
-  const int kb0 = split * rows_per_split;
-  const int nrows = max(0, min(kb0 + rows_per_split, KW) - kb0);
-  const int n = (blockIdx.x * GEMV_THREADS + threadIdx.x) * GEMV_COLS;
+// Blocks an SM gemv1_kernel is built for: register caps of 128 (one row)
+// and 170 (more; 255 for int7 at 8 rows, which spilled at 170: a cap of 255
+// for the others took every register and lost occupancy).
+__host__ __device__ constexpr int simt1_min_blocks(int fmt, int mt) {
+  return mt == 1 ? 4 : mt == 8 && fmt == FMT_INT7 ? 2 : 3;
+}
 
+// x rows m0.. of the split's K range into shared memory as float32,
+// [MT][EF][rows_per_split] (band b, row r: x[m][b * KW + kb0 + r]).
+template <int MT, int EF, typename XT>
+__device__ __forceinline__ void stage_x(const XT* x, float* xs, int m0, int M, int K, int KW,
+                                        int kb0, int nrows, int rows_per_split) {
   for (int idx = threadIdx.x; idx < MT * EF * rows_per_split; idx += GEMV_THREADS) {
     const int r = idx % rows_per_split;
     const int band = (idx / rows_per_split) % EF;
     const int m = idx / (EF * rows_per_split);
     float v = 0.f;
-    if (m0 + m < M && r < nrows)
-      v = x_value(x, (size_t)(m0 + m) * K + band * KW + kb0 + r);
+    if (m0 + m < M && r < nrows) v = x_value(x, (size_t)(m0 + m) * K + band * KW + kb0 + r);
     xs[idx] = v;
   }
+}
+
+// One-plane and byte formats: four columns per thread (a 16-byte word row,
+// or 4 bytes of a byte row), 8 rows per chunk, the chunk's scales and zero
+// terms of each band loaded once (4 columns per load).  The grouped
+// instance (MT = 1) takes row m0 + blockIdx.z and its expert.
+template <int FMT, int MT, bool GROUPED, typename OutT, typename XT, bool ZF>
+__device__ __forceinline__ void gemv_body(const XT* __restrict__ x, PackArgs a,
+                                          const int* __restrict__ row_expert,
+                                          float* __restrict__ partial, OutT* __restrict__ out,
+                                          int M, int K, int N, int g, int rows_per_split,
+                                          int m0) {
+  using F = Fmt<FMT>;
+  static_assert(F::kSlots == 1, "multi-plane formats go through gemv1_kernel");
+  static_assert(!GROUPED || MT == 1, "the grouped GEMV takes one row per block row");
+  constexpr int EF = F::kBands, R = MT == 8 ? 4 : 8;
+  extern __shared__ float xs[];  // [MT][EF][rows_per_split]
+  __shared__ float tab[16];
+  m0 += blockIdx.z * MT;
+  if constexpr (GROUPED) select_expert<FMT>(a, row_expert[m0], K, N, g);
+  const int KW = K / EF;
+  const int kwg = KW % g == 0 ? KW / g : -1;
+  const int split = blockIdx.y;
+  const int kb0 = split * rows_per_split;
+  const int nrows = max(0, min(kb0 + rows_per_split, KW) - kb0);
+  const int n = (blockIdx.x * GEMV_THREADS + threadIdx.x) * GEMV_COLS;
+
+  stage_x<MT, EF>(x, xs, m0, M, K, KW, kb0, nrows, rows_per_split);
   if (F::kLut && threadIdx.x < 16) tab[threadIdx.x] = a.table[threadIdx.x];
   __syncthreads();
   if (n >= N) return;
@@ -333,37 +476,39 @@ gemv_kernel(const XT* __restrict__ x, PackArgs a,
   for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int j = 0; j < GEMV_COLS; ++j) acc[m][j] = 0.f;
-  const int sym_offset = 1 << (F::kBits - 1);
+  const uint32_t sym = 1u << (F::kBits - 1);
+  constexpr bool zf = ZF;
 
   for (int c = 0; c < nrows; c += R) {
     const int kb = kb0 + c;
+    const int rq = kb / g;
     if constexpr (F::kByte) {
       uint32_t w[R];
 #pragma unroll
       for (int i = 0; i < R; ++i)
         w[i] = __ldg(reinterpret_cast<const uint32_t*>(
             reinterpret_cast<const uint8_t*>(a.plane[0]) + (size_t)(kb + i) * N + n));
-      const size_t sidx = (size_t)(kb / g) * N + n;
-      float s[4];
+      const size_t sidx = (size_t)rq * N + n;
+      float s[4], z[4], zs[4];
       scales4(a, sidx, s);
-      int zi[GEMV_COLS];
-      float zf[GEMV_COLS];
+      if constexpr (!F::kFp8) {
+        zero_terms4(a, sidx, sym, z);
 #pragma unroll
-      for (int j = 0; j < GEMV_COLS; ++j) {
-        zi[j] = 0;
-        zf[j] = 0.f;
-        if constexpr (!F::kFp8) zero_at(a, sidx + j, sym_offset, zi[j], zf[j]);
+        for (int j = 0; j < GEMV_COLS; ++j) zs[j] = zf ? 8388608.f : z[j];
       }
 #pragma unroll
       for (int i = 0; i < R; ++i) {
         float wv[GEMV_COLS];
+        if constexpr (F::kFp8) {
+          const float2 lo = fp8x2_value<FMT>(w[i]), hi = fp8x2_value<FMT>(w[i] >> 16);
+          wv[0] = lo.x * s[0];
+          wv[1] = lo.y * s[1];
+          wv[2] = hi.x * s[2];
+          wv[3] = hi.y * s[3];
+        } else {
 #pragma unroll
-        for (int j = 0; j < GEMV_COLS; ++j) {
-          const uint32_t code = (w[i] >> (8 * j)) & 255u;
-          if constexpr (F::kFp8)
-            wv[j] = fp8_value<FMT>(code) * s[j];
-          else
-            wv[j] = int_value<FMT>(a, code, s[j], zi[j], zf[j]);
+          for (int j = 0; j < GEMV_COLS; ++j)
+            wv[j] = dq_value<ZF>(magic_byte(w[i], j) - zs[j], s[j], z[j]);
         }
 #pragma unroll
         for (int m = 0; m < MT; ++m) {
@@ -379,13 +524,14 @@ gemv_kernel(const XT* __restrict__ x, PackArgs a,
         w[i] = __ldg(reinterpret_cast<const uint4*>(a.plane[0] + (size_t)(kb + i) * N + n));
 #pragma unroll
       for (int b = 0; b < EF; ++b) {
-        const size_t sidx = (size_t)((b * KW + kb) / g) * N + n;
-        float s[4];
+        const size_t sidx = (size_t)group_of(b, kb, rq, KW, kwg, g) * N + n;
+        float s[4], z[4] = {0.f, 0.f, 0.f, 0.f}, zs[4] = {0.f, 0.f, 0.f, 0.f};
         scales4(a, sidx, s);
-        int zi[GEMV_COLS];
-        float zf[GEMV_COLS];
+        if constexpr (!F::kLut && FMT != FMT_INT1) {  // INT1: 2c - 1 whatever the zeros
+          zero_terms4(a, sidx, sym, z);
 #pragma unroll
-        for (int j = 0; j < GEMV_COLS; ++j) zero_at(a, sidx + j, sym_offset, zi[j], zf[j]);
+          for (int j = 0; j < GEMV_COLS; ++j) zs[j] = zf ? 8388608.f : z[j];
+        }
 #pragma unroll
         for (int i = 0; i < R; ++i) {
           float wv[GEMV_COLS];
@@ -393,8 +539,13 @@ gemv_kernel(const XT* __restrict__ x, PackArgs a,
           for (int j = 0; j < GEMV_COLS; ++j) {
             const uint32_t code =
                 (lane4(w[i], j) >> (F::kBits * b)) & ((1u << F::kBits) - 1u);
-            wv[j] = F::kLut ? tab[code] * s[j]
-                            : int_value<FMT>(a, code, s[j], zi[j], zf[j]);
+            if constexpr (F::kLut)
+              wv[j] = tab[code] * s[j];
+            else if constexpr (FMT == FMT_INT1)  // s * (2c - 1): s, its sign flipped at c = 0
+              wv[j] = __uint_as_float(__float_as_uint(s[j]) ^
+                                      ((~lane4(w[i], j) << (31 - b)) & 0x80000000u));
+            else
+              wv[j] = dq_value<ZF>(int_term<FMT>(code, zs[j]), s[j], z[j]);
           }
 #pragma unroll
           for (int m = 0; m < MT; ++m) {
@@ -417,88 +568,117 @@ gemv_kernel(const XT* __restrict__ x, PackArgs a,
   }
 }
 
-// Multi-plane GEMV: one column per thread, 8 rows of every plane in registers.
-constexpr int GEMV1_ROWS = 8;
-
-template <int FMT, int MT, int B>
-__device__ __forceinline__ void gemv1_band(const uint32_t (&w)[GEMV1_ROWS][Fmt<FMT>::kSlots],
-                                           const PackArgs& a, const float* xs,
-                                           int rows_per_split, int c, int kb, int KW,
-                                           int g, int N, int n, float (&acc)[MT]) {
-  using F = Fmt<FMT>;
-  const size_t sidx = (size_t)((B * KW + kb) / g) * N + n;
-  const float s = scale_at(a, sidx);
-  int zi;
-  float zf;
-  zero_at(a, sidx, 1 << (F::kBits - 1), zi, zf);
-  float wv[GEMV1_ROWS];
-#pragma unroll
-  for (int i = 0; i < GEMV1_ROWS; ++i) {
-    uint32_t code = 0;
-#pragma unroll
-    for (int p = 0; p < F::kPlanes; ++p) {
-      const int W = F::width(p), q = F::q(p);  // B is a constant: no local memory
-      code |= ((w[i][F::slot0(p) + B % q] >> (W * (B / q))) & ((1u << W) - 1u))
-              << F::shift(p);
-    }
-    wv[i] = int_value<FMT>(a, code, s, zi, zf);
-  }
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    const float* xp = &xs[(m * F::kBands + B) * rows_per_split + c];
-    const float4 x0 = *reinterpret_cast<const float4*>(xp);
-    const float4 x1 = *reinterpret_cast<const float4*>(xp + 4);
-    float t = acc[m];
-    t = fmaf(x0.x, wv[0], t); t = fmaf(x0.y, wv[1], t);
-    t = fmaf(x0.z, wv[2], t); t = fmaf(x0.w, wv[3], t);
-    t = fmaf(x1.x, wv[4], t); t = fmaf(x1.y, wv[5], t);
-    t = fmaf(x1.z, wv[6], t); t = fmaf(x1.w, wv[7], t);
-    acc[m] = t;
-  }
-  if constexpr (B + 1 < F::kBands)
-    gemv1_band<FMT, MT, B + 1>(w, a, xs, rows_per_split, c, kb, KW, g, N, n, acc);
+// Register caps (blocks an SM): 128 (4) at one row and at 8 rows (4-row
+// chunks), at 4 rows 102 (5) for the table and 170 (3) for the rest.
+// Without a cap ptxas took 64-80 registers and spilled INT1 / INT8 at one
+// row, and 218-224 at 8 rows (8-row chunks: 2 blocks an SM); at a cap of
+// 102 the 4-row INT1 / INT2 / INT4 instances spilled.  `matmul.fp_gemv_simt_per_sm` sizes the grid to the
+// same counts.
+__host__ __device__ constexpr int simt_min_blocks(int fmt, int mt) {
+  return mt == 4 ? (fmt == FMT_LUT4 ? 5 : 3) : 4;
+}
+template <int FMT, int MT, bool GROUPED = false, typename OutT = __nv_bfloat16,
+          typename XT = __nv_bfloat16, bool ZF = false>
+__global__ void __launch_bounds__(GEMV_THREADS, 4)
+gemv_row_kernel(const XT* __restrict__ x, PackArgs a, const int* __restrict__ row_expert,
+                float* __restrict__ partial, OutT* __restrict__ out, int M, int K, int N,
+                int g, int rows_per_split, int m0) {
+  gemv_body<FMT, MT, GROUPED, OutT, XT, ZF>(x, a, row_expert, partial, out, M, K, N, g,
+                                            rows_per_split, m0);
+}
+template <int FMT, int MT, typename OutT, typename XT, bool ZF>
+__global__ void __launch_bounds__(GEMV_THREADS, simt_min_blocks(FMT, MT))
+gemv_kernel(const XT* __restrict__ x, PackArgs a, float* __restrict__ partial,
+            OutT* __restrict__ out, int M, int K, int N, int g, int rows_per_split, int m0) {
+  gemv_body<FMT, MT, false, OutT, XT, ZF>(x, a, nullptr, partial, out, M, K, N, g,
+                                          rows_per_split, m0);
 }
 
-template <int FMT, int MT, typename XT, typename OutT>
-__global__ void __launch_bounds__(GEMV_THREADS)
+// Multi-plane GEMV: one column per thread, R1 rows of every plane in
+// registers a chunk (8 at one row of x and at most 3 words a row, else 4),
+// and the scale and zero term of each band held in registers until the
+// band's group changes: a band is reloaded at the first row of its group
+// (`next_any`: the first row at which any band enters a new group).
+template <int FMT, int MT, typename XT, typename OutT, bool ZF>
+__global__ void __launch_bounds__(GEMV_THREADS, simt1_min_blocks(FMT, MT))
 gemv1_kernel(const XT* __restrict__ x, PackArgs a, float* __restrict__ partial,
              OutT* __restrict__ out, int M, int K, int N, int g, int rows_per_split,
              int m0) {
   using F = Fmt<FMT>;
-  constexpr int EF = F::kBands;
+  constexpr int EF = F::kBands, R1 = F::kSlots > 3 || MT > 1 ? 4 : 8;
   extern __shared__ __align__(16) float xs1[];  // [MT][EF][rows_per_split]
+  m0 += blockIdx.z * MT;
   const int KW = K / EF;
+  const int kwg = KW % g == 0 ? KW / g : -1;
   const int split = blockIdx.y;
   const int kb0 = split * rows_per_split;
   const int nrows = max(0, min(kb0 + rows_per_split, KW) - kb0);
   const int n = blockIdx.x * GEMV_THREADS + threadIdx.x;
 
-  for (int idx = threadIdx.x; idx < MT * EF * rows_per_split; idx += GEMV_THREADS) {
-    const int r = idx % rows_per_split;
-    const int band = (idx / rows_per_split) % EF;
-    const int m = idx / (EF * rows_per_split);
-    float v = 0.f;
-    if (m0 + m < M && r < nrows)
-      v = x_value(x, (size_t)(m0 + m) * K + band * KW + kb0 + r);
-    xs1[idx] = v;
-  }
+  stage_x<MT, EF>(x, xs1, m0, M, K, KW, kb0, nrows, rows_per_split);
   __syncthreads();
   if (n >= N) return;
 
   float acc[MT];
 #pragma unroll
   for (int m = 0; m < MT; ++m) acc[m] = 0.f;
-  for (int c = 0; c < nrows; c += GEMV1_ROWS) {
-    const int kb = kb0 + c;
-    uint32_t w[GEMV1_ROWS][F::kSlots];
+  const uint32_t sym = 1u << (F::kBits - 1);
+  constexpr bool zf = ZF;
+  float sc[EF], zt[EF];
+  int next_any = 0;
+  auto reload = [&](int kb, bool first) {
+    const int rq = kb / g;
+    int nxt = INT_MAX;
 #pragma unroll
-    for (int i = 0; i < GEMV1_ROWS; ++i)
+    for (int b = 0; b < EF; ++b) {
+      const int G = group_of(b, kb, rq, KW, kwg, g);
+      const int start = G * g - b * KW;  // the group's first row in band b
+      if (first || start == kb) {
+        sc[b] = scale_at(a, (size_t)G * N + n);
+        zt[b] = zero_term_of(a, (size_t)G * N + n, sym);
+      }
+      nxt = min(nxt, start + g);
+    }
+    next_any = nxt;
+  };
+  // the R1 word rows of every plane from kb
+  auto load = [&](int kb, uint32_t (&w)[R1][F::kSlots]) {
 #pragma unroll
-      for (int p = 0; p < F::kPlanes; ++p)
+    for (int i = 0; i < R1; ++i)
+      static_for<0, F::kPlanes>([&](auto pc) {
+        constexpr int p = decltype(pc)::value;
 #pragma unroll
         for (int jq = 0; jq < F::q(p); ++jq)
           w[i][F::slot0(p) + jq] = __ldg(a.plane[p] + (size_t)(jq * KW + kb + i) * N + n);
-    gemv1_band<FMT, MT, 0>(w, a, xs1, rows_per_split, c, kb, KW, g, N, n, acc);
+      });
+  };
+  for (int c = 0; c < nrows; c += R1) {
+    const int kb = kb0 + c;
+    uint32_t w[R1][F::kSlots];
+    load(kb, w);
+    if (c == 0 || kb >= next_any) reload(kb, c == 0);
+#pragma unroll
+    for (int b = 0; b < EF; ++b) {
+      const float zs = zf ? 8388608.f : zt[b];
+      float wv[R1];
+#pragma unroll
+      for (int i = 0; i < R1; ++i)
+        wv[i] = dq_value<ZF>(int_term<FMT>(code_of<FMT>(w[i], b), zs), sc[b], zt[b]);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const float* xp = &xs1[(m * EF + b) * rows_per_split + c];
+        float t = acc[m];
+#pragma unroll
+        for (int i4 = 0; i4 < R1; i4 += 4) {
+          const float4 xv = *reinterpret_cast<const float4*>(xp + i4);
+          t = fmaf(xv.x, wv[i4], t);
+          t = fmaf(xv.y, wv[i4 + 1], t);
+          t = fmaf(xv.z, wv[i4 + 2], t);
+          t = fmaf(xv.w, wv[i4 + 3], t);
+        }
+        acc[m] = t;
+      }
+    }
   }
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
@@ -531,38 +711,529 @@ cudaError_t launch_reduce(const float* partial, OutT* out, int M, int N, int spl
   return cudaGetLastError();
 }
 
-template <int FMT, int MT, typename XT, typename OutT>
-cudaError_t launch_gemv(const XT* x, const PackArgs& a, float* partial, OutT* out, int M,
-                        int K, int N, int g, int splits, int m0, cudaStream_t stream) {
+// Formats whose packs may carry float offsets (w = code * s + m).
+template <int FMT>
+constexpr bool takes_offsets() {
+  return FMT != FMT_INT1 && !Fmt<FMT>::kLut && !Fmt<FMT>::kFp8;
+}
+
+// One launch over every row: MT rows per block row, (M + MT - 1) / MT block
+// rows.
+template <int FMT, int MT, typename XT, typename OutT, bool ZF>
+cudaError_t launch_gemv_zf(const XT* x, const PackArgs& a, float* partial, OutT* out, int M,
+                           int K, int N, int g, int splits, cudaStream_t stream) {
   const int KW = K / Fmt<FMT>::kBands;
   const int rows = ((KW + splits - 1) / splits + 7) / 8 * 8;
   const size_t smem = (size_t)MT * Fmt<FMT>::kBands * rows * sizeof(float);
+  const int zg = (M + MT - 1) / MT;
   if constexpr (Fmt<FMT>::kSlots > 1) {
-    dim3 grid((N + GEMV_THREADS - 1) / GEMV_THREADS, splits);
-    gemv1_kernel<FMT, MT, XT, OutT><<<grid, GEMV_THREADS, smem, stream>>>(
-        x, a, partial, out, M, K, N, g, rows, m0);
+    dim3 grid((N + GEMV_THREADS - 1) / GEMV_THREADS, splits, zg);
+    gemv1_kernel<FMT, MT, XT, OutT, ZF><<<grid, GEMV_THREADS, smem, stream>>>(
+        x, a, partial, out, M, K, N, g, rows, 0);
   } else {
-    dim3 grid((N + GEMV_BN - 1) / GEMV_BN, splits);
-    gemv_kernel<FMT, MT, false, OutT, XT><<<grid, GEMV_THREADS, smem, stream>>>(
-        x, a, nullptr, partial, out, M, K, N, g, rows, m0);
+    dim3 grid((N + GEMV_BN - 1) / GEMV_BN, splits, zg);
+    if constexpr (MT == 1)
+      gemv_row_kernel<FMT, MT, false, OutT, XT, ZF><<<grid, GEMV_THREADS, smem, stream>>>(
+          x, a, nullptr, partial, out, M, K, N, g, rows, 0);
+    else
+      gemv_kernel<FMT, MT, OutT, XT, ZF><<<grid, GEMV_THREADS, smem, stream>>>(
+          x, a, partial, out, M, K, N, g, rows, 0);
   }
   return cudaGetLastError();
 }
 
-// bf16 x and out, or float32 x and out (XT = OutT = float)
+template <int FMT, int MT, typename XT, typename OutT>
+cudaError_t launch_gemv(const XT* x, const PackArgs& a, float* partial, OutT* out, int M,
+                        int K, int N, int g, int splits, cudaStream_t stream) {
+  if constexpr (takes_offsets<FMT>()) {
+    if (a.zmode == Z_FLOAT)
+      return launch_gemv_zf<FMT, MT, XT, OutT, true>(x, a, partial, out, M, K, N, g, splits,
+                                                     stream);
+  }
+  return launch_gemv_zf<FMT, MT, XT, OutT, false>(x, a, partial, out, M, K, N, g, splits,
+                                                  stream);
+}
+
+// ------------------------------------------------ GEMV, tensor cores ---
+// 8 < M <= 32, bf16 x: every row in one pass over the pack, mma.sync
+// m16n8k8 in TF32 on exact operands (note at the top of the file).  A warp
+// takes 32 columns, MMA column j of n-tile jn being column c0 + 4j + jn, so
+// a lane's four B columns of a word row are one 16-byte load (4 bytes for
+// byte rows); a step is SR word rows of the narrowest plane with all their
+// bands, SR / 8 k-steps of 8 rows each, the MMA's k index t / t + 4 being
+// word row 2t / 2t + 1 of the k-step.  Lane (gq, t) then holds output
+// columns c0 + 8t .. c0 + 8t + 7 of rows gq and gq + 8 of each m-tile.
+// x's step (the SR rows of every band, rows past M zero) and the scale and
+// zero rows of the groups the step's rows lie in are staged in shared
+// memory by cp.async, double-buffered (per-lane loads of each band's
+// factors took about 44% of the body's time on an H100, PERF.md §6); the
+// lane's packed words of the next step are loaded while this one is
+// computed.  K is split over the blocks of a thread-block cluster
+// (gridDim.y = cluster size <= 8), whose float32 partials are summed in
+// rank order through distributed shared memory.
+constexpr int MMA_WARPS = 4;
+constexpr int MMA_BN = 32 * MMA_WARPS;  // columns per block
+constexpr int MMA_MAX_SPLITS = 8;
+
+template <int FMT>
+struct MmaStep {
+  static constexpr int EF = Fmt<FMT>::kBands;
+  static constexpr int SR = EF >= 16 ? 8 : 128 / EF;  // word rows per step
+  static constexpr int SUB = SR / 8;                   // k-steps per step
+};
+
+// A stage: x's SR word rows of every band (rows past M zero), then the
+// scale rows and zero rows of the groups each band's rows of the step lie
+// in (at most SR / 8 a band: row b * SR / 8 + i holds band b's i-th group
+// of the step) for the block's columns, as stored (bf16 or float32
+// scales; uint8 zero points, or float offsets with ZF), then after both
+// stages the split's partials.
+template <int FMT, int MT16, bool ZF, bool SBF>
+struct MmaSmem {
+  static constexpr int EF = Fmt<FMT>::kBands, SR = MmaStep<FMT>::SR;
+  static constexpr int MP = 16 * MT16;  // rows of the m-tiles
+  // one row's x, [EF][SR] bf16, padded by 16 bytes so that the 8 rows a
+  // warp reads at once fall in different banks
+  static constexpr int XROW = EF * SR * 2 + 16;
+  static constexpr int ROWS = EF * (SR / 8);  // factor rows: SR / 8 a band
+  static constexpr int ES = SBF ? 2 : 4, EZ = ZF ? 4 : 1;
+  static constexpr int S = MP * XROW;
+  static constexpr int Z = S + ROWS * MMA_BN * ES;
+  static constexpr int STAGE = Z + ROWS * MMA_BN * EZ;
+  static constexpr int PART = MP * MMA_BN * 4;  // the split's partials
+  static constexpr int BYTES = 2 * STAGE + PART;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// d += a * b: m16n8k8, TF32 operands, float32 accumulation.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ZF: float offsets (w = code * s + m): the MMA takes the codes, and
+// m * (the rows' sums of x over the k-step) is added beside s * product.
+// SBF: bf16 scales (else float32).
+template <int FMT, int MT16, bool ZF, bool SBF>
+__global__ void __launch_bounds__(32 * MMA_WARPS, 1)
+gemv_mma_kernel(const __nv_bfloat16* __restrict__ x, PackArgs a,
+                __nv_bfloat16* __restrict__ out, int M, int K, int N, int g) {
+  using F = Fmt<FMT>;
+  using L = MmaSmem<FMT, MT16, ZF, SBF>;
+  constexpr int EF = F::kBands, SR = MmaStep<FMT>::SR, SUB = MmaStep<FMT>::SUB;
+  constexpr int NS = F::kSlots, NW = F::kByte ? 1 : 4;  // words of a row / columns a word
+  extern __shared__ __align__(16) unsigned char msm[];
+  float* part = reinterpret_cast<float*>(msm + 2 * L::STAGE);  // [MP][MMA_BN]
+  __shared__ uint32_t tab_hl[16];  // LUT4: each entry as bf16 hi (low half) + lo
+  const int S = gridDim.y, split = blockIdx.y;
+  const int KW = K / EF;
+  const int kwg = KW % g == 0 ? KW / g : -1;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gq = lane / 4, t = lane % 4;
+  const int ncb = blockIdx.x * MMA_BN, c0 = ncb + 32 * warp;
+  const int n4 = c0 + 4 * gq;  // B columns n4 + jn
+  const int n8 = c0 + 8 * t;   // C columns n8 + 4e + jn
+  const bool live4 = n4 < N;
+  const bool zint = a.zmode == Z_INT;
+  const int RS = ((KW + S - 1) / S + 7) / 8 * 8;
+  const int rlo = min(split * RS, KW), rhi = min(rlo + RS, KW);
+  const int steps = (rhi - rlo + SR - 1) / SR;
+  const uint32_t sym = 1u << (F::kBits - 1);
+
+  // rows M.. of both stages stay zero; cp.async fills rows < M
+  for (int i = threadIdx.x; i < 2 * L::STAGE / 16; i += 32 * MMA_WARPS) {
+    const int off = i * 16 % L::STAGE;
+    if (off < L::S && off / L::XROW >= M)
+      reinterpret_cast<uint4*>(msm)[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  if constexpr (F::kLut) {
+    if (threadIdx.x < 16) {
+      const float v = a.table[threadIdx.x];
+      const __nv_bfloat16 hi = __float2bfloat16_rn(v);
+      const __nv_bfloat16 lo = __float2bfloat16_rn(v - __bfloat162float(hi));
+      tab_hl[threadIdx.x] = (uint32_t)__bfloat16_as_ushort(hi) |
+                            ((uint32_t)__bfloat16_as_ushort(lo) << 16);
+    }
+  }
+  // the step at word row r0 into stage `buf`: x (16 bytes = 8 rows of a
+  // band), then each k-step's scale and zero rows of the block's columns
+  auto stage = [&](int r0, int buf) {
+    unsigned char* st = msm + buf * L::STAGE;
+    constexpr int CH = SR / 8;
+    for (int idx = threadIdx.x; idx < M * EF * CH; idx += 32 * MMA_WARPS) {
+      const int m = idx / (EF * CH), b = (idx / CH) % EF, q = idx % CH;
+      const int r = r0 + 8 * q;
+      const bool ok = r < rhi;
+      cp_async16(st + m * L::XROW + (b * SR + 8 * q) * 2,
+                 ok ? (const void*)(x + (size_t)m * K + b * KW + r) : (const void*)x,
+                 ok ? 16 : 0);
+    }
+    const unsigned char* sc = static_cast<const unsigned char*>(a.scales);
+    const unsigned char* zp = static_cast<const unsigned char*>(a.zeros);
+    const int rend = min(r0 + SR, rhi), rq0 = r0 / g, rq1 = (rend - 1) / g;
+    // factor row b * SUB + i: group G0(b) + i, up to band b's last group
+    // of the step
+    auto row_group = [&](int idx, int per, int& slot) {
+      const int b = idx / (SUB * per), i = (idx / per) % SUB;
+      const int G0 = group_of(b, r0, rq0, KW, kwg, g);
+      slot = b * SUB + i;
+      return G0 + i <= group_of(b, rend - 1, rq1, KW, kwg, g) ? G0 + i : -1;
+    };
+    constexpr int SQ = MMA_BN * L::ES / 16;  // 16-byte chunks of a scale row
+    for (int idx = threadIdx.x; idx < EF * SUB * SQ; idx += 32 * MMA_WARPS) {
+      int slot;
+      const int G = row_group(idx, SQ, slot), q = idx % SQ, c = ncb + q * (16 / L::ES);
+      if (G < 0) continue;
+      const bool ok = c < N;
+      cp_async16(st + L::S + slot * MMA_BN * L::ES + q * 16,
+                 ok ? (const void*)(sc + ((size_t)G * N + c) * L::ES) : a.scales, ok ? 16 : 0);
+    }
+    if constexpr (ZF) {
+      constexpr int ZQ = MMA_BN * 4 / 16;
+      for (int idx = threadIdx.x; idx < EF * SUB * ZQ; idx += 32 * MMA_WARPS) {
+        int slot;
+        const int G = row_group(idx, ZQ, slot), c = ncb + 4 * (idx % ZQ);
+        if (G < 0) continue;
+        const bool ok = c < N;
+        cp_async16(st + L::Z + slot * MMA_BN * 4 + 16 * (idx % ZQ),
+                   ok ? (const void*)(zp + ((size_t)G * N + c) * 4) : a.zeros, ok ? 16 : 0);
+      }
+    } else if (zint) {
+      constexpr int ZQ = MMA_BN / 4;  // 4 zero points a copy
+      for (int idx = threadIdx.x; idx < EF * SUB * ZQ; idx += 32 * MMA_WARPS) {
+        int slot;
+        const int G = row_group(idx, ZQ, slot), c = ncb + 4 * (idx % ZQ);
+        if (G < 0) continue;
+        const bool ok = c < N;
+        cp_async4(st + L::Z + slot * MMA_BN + 4 * (idx % ZQ),
+                  ok ? (const void*)(zp + (size_t)G * N + c) : a.zeros, ok ? 4 : 0);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  // the lane's words of the step at r0: k-step j, word row 2t + u
+  auto load = [&](int r0, uint32_t (&w)[SUB][2][NS][NW]) {
+#pragma unroll
+    for (int j = 0; j < SUB; ++j)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int r = r0 + 8 * j + 2 * t + u;
+        const bool ok = live4 && r0 + 8 * j < rhi;
+        if constexpr (F::kByte) {
+          w[j][u][0][0] = ok ? __ldg(reinterpret_cast<const uint32_t*>(
+                                   reinterpret_cast<const uint8_t*>(a.plane[0]) +
+                                   (size_t)r * N + n4))
+                             : 0u;
+        } else {
+          static_for<0, F::kPlanes>([&](auto pc) {
+            constexpr int p = decltype(pc)::value;
+#pragma unroll
+            for (int jq = 0; jq < F::q(p); ++jq) {
+              const uint4 v = ok ? __ldg(reinterpret_cast<const uint4*>(
+                                       a.plane[p] + (size_t)(jq * KW + r) * N + n4))
+                                 : make_uint4(0u, 0u, 0u, 0u);
+              uint32_t* d = w[j][u][F::slot0(p) + jq];
+              d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+            }
+          });
+        }
+      }
+  };
+
+  float acc[MT16][4][4];
+#pragma unroll
+  for (int i = 0; i < MT16; ++i)
+#pragma unroll
+    for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][jn][e] = 0.f;
+  uint32_t w[SUB][2][NS][NW], wn[SUB][2][NS][NW];
+  __syncthreads();  // the zeroed rows and the table, before any cp.async lands
+  if (steps > 0) {
+    stage(rlo, 0);
+    load(rlo, w);
+  }
+  for (int s = 0; s < steps; ++s) {
+    const int r0 = rlo + s * SR;
+    if (s + 1 < steps) {
+      stage(r0 + SR, (s + 1) & 1);
+      load(r0 + SR, wn);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();
+    const unsigned char* xs = msm + (s & 1) * L::STAGE;
+    const float zconst = magic(a.zmode == Z_SYM ? sym : 0u);
+    // the stage row of k-step j's group, counted from the step's first
+    // group: where g divides the band rows (or one band), the same for
+    // every band, by a countdown
+    int offj[SUB];
+    {
+      int off = 0, left = g - r0 % g;
+#pragma unroll
+      for (int j = 0; j < SUB; ++j) {
+        if (8 * j >= left) {
+          ++off;
+          left += g;
+        }
+        offj[j] = off;
+      }
+    }
+    // bands in blocks of BU, the block loop not unrolled: a word's slot
+    // stays a constant (b % BU), and the live registers are one block's (32
+    // bands unrolled took 255 registers and spilled)
+    constexpr int BU = EF < 4 ? EF : 4;
+#pragma unroll 1
+    for (int b0 = 0; b0 < EF; b0 += BU) {
+      static_for<0, BU>([&](auto bc) {
+        constexpr int BI = decltype(bc)::value;
+        const int b = b0 + BI;
+        // the stage row of k-step J's group
+        auto row_of = [&](auto jc) {
+          constexpr int J = decltype(jc)::value;
+          int row = b * SUB;
+          if constexpr (SUB > 1)
+            row += kwg >= 0 || EF == 1 ? offj[J] : ((b * KW + r0) % g + 8 * J) / g;
+          return row;
+        };
+        // the scales of the C columns n8 .. n8 + 7 of a stage row
+        auto scales_of = [&](int row, float (&s8)[8]) {
+          if constexpr (SBF) {
+            const uint4 v = *reinterpret_cast<const uint4*>(
+                xs + L::S + (row * MMA_BN + n8 - ncb) * 2);
+            const uint32_t w4[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              s8[2 * e] = __uint_as_float(w4[e] << 16);
+              s8[2 * e + 1] = __uint_as_float(w4[e] & 0xFFFF0000u);
+            }
+          } else {
+            const float4* sp = reinterpret_cast<const float4*>(
+                xs + L::S + (row * MMA_BN + n8 - ncb) * 4);
+            const float4 v0 = sp[0], v1 = sp[1];
+            s8[0] = v0.x; s8[1] = v0.y; s8[2] = v0.z; s8[3] = v0.w;
+            s8[4] = v1.x; s8[5] = v1.y; s8[6] = v1.z; s8[7] = v1.w;
+          }
+        };
+        // ZF: the float offsets of the C columns of a stage row
+        auto offsets_of = [&](int row, float (&m8)[8]) {
+          const float4* mp = reinterpret_cast<const float4*>(
+              xs + L::Z + (row * MMA_BN + n8 - ncb) * 4);
+          const float4 v0 = mp[0], v1 = mp[1];
+          m8[0] = v0.x; m8[1] = v0.y; m8[2] = v0.z; m8[3] = v0.w;
+          m8[4] = v1.x; m8[5] = v1.y; m8[6] = v1.z; m8[7] = v1.w;
+        };
+        // k-step J's operands: B the terms of word rows 2t (k index t) and
+        // 2t + 1 (t + 4) of the B columns n4 .. n4 + 3 (bl: the table's lo),
+        // A x rows gq and gq + 8 of each m-tile
+        auto operands = [&](auto jc, int row, uint32_t (&bt)[2][4], uint32_t (&bl)[2][4],
+                            uint32_t (&af)[MT16][4]) {
+          constexpr int J = decltype(jc)::value;
+          float zs[4];
+          if constexpr (!F::kLut && !F::kFp8) {
+            if constexpr (ZF) {
+              zs[0] = zs[1] = zs[2] = zs[3] = 8388608.f;
+            } else {
+              const uint32_t zb = zint ? *reinterpret_cast<const uint32_t*>(
+                                             xs + L::Z + row * MMA_BN + n4 - ncb)
+                                       : 0u;
+#pragma unroll
+              for (int jn = 0; jn < 4; ++jn) zs[jn] = zint ? magic_byte(zb, jn) : zconst;
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            if constexpr (F::kFp8) {
+              const float2 lo = fp8x2_value<FMT>(w[J][u][0][0]);
+              const float2 hi = fp8x2_value<FMT>(w[J][u][0][0] >> 16);
+              bt[u][0] = __float_as_uint(lo.x);
+              bt[u][1] = __float_as_uint(lo.y);
+              bt[u][2] = __float_as_uint(hi.x);
+              bt[u][3] = __float_as_uint(hi.y);
+            } else {
+#pragma unroll
+              for (int jn = 0; jn < 4; ++jn) {
+                if constexpr (F::kByte) {
+                  bt[u][jn] = __float_as_uint(magic_byte(w[J][u][0][0], jn) - zs[jn]);
+                } else {
+                  uint32_t cw[NS];
+#pragma unroll
+                  for (int q = 0; q < NS; ++q) cw[q] = w[J][u][q][jn];
+                  const uint32_t code = code_of_rt<FMT, BI>(cw, b);
+                  if constexpr (F::kLut) {  // one 4-byte read: both halves
+                    const uint32_t hl = tab_hl[code];
+                    bt[u][jn] = hl << 16;
+                    bl[u][jn] = hl & 0xFFFF0000u;
+                  } else {
+                    bt[u][jn] = __float_as_uint(int_term<FMT>(code, zs[jn]));
+                  }
+                }
+              }
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < MT16; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const uint32_t v = *reinterpret_cast<const uint32_t*>(
+                  xs + (16 * i + gq + 8 * h) * L::XROW + (b * SR + 8 * J + 2 * t) * 2);
+              af[i][h] = v << 16;
+              af[i][h + 2] = v & 0xFFFF0000u;
+            }
+        };
+        // each k-step's product times its group's scale (and offset)
+        static_for<0, SUB>([&](auto jc) {
+          constexpr int J = decltype(jc)::value;
+          if (r0 + 8 * J < rhi) {
+            const int row = row_of(jc);
+            float s8[8];
+            scales_of(row, s8);
+            uint32_t bt[2][4], bl[2][4], af[MT16][4];
+            operands(jc, row, bt, bl, af);
+#pragma unroll
+            for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+              for (int i = 0; i < MT16; ++i) {
+                float dd[4] = {0.f, 0.f, 0.f, 0.f};
+                mma_tf32(dd, af[i], bt[0][jn], bt[1][jn]);
+                if constexpr (F::kLut) mma_tf32(dd, af[i], bl[0][jn], bl[1][jn]);
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                  acc[i][jn][e] = fmaf(s8[4 * (e & 1) + jn], dd[e], acc[i][jn][e]);
+              }
+            if constexpr (ZF) {  // m * the sums of x, by an MMA with B = 1
+              float m8[8];
+              offsets_of(row, m8);
+#pragma unroll
+              for (int i = 0; i < MT16; ++i) {
+                float dd[4] = {0.f, 0.f, 0.f, 0.f};
+                mma_tf32(dd, af[i], 0x3F800000u, 0x3F800000u);
+#pragma unroll
+                for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+                  for (int e = 0; e < 4; ++e)
+                    acc[i][jn][e] = fmaf(m8[4 * (e & 1) + jn], dd[e & 2], acc[i][jn][e]);
+              }
+            }
+          }
+        });
+      });
+    }
+    __syncthreads();  // the stage is free for step s + 2
+#pragma unroll
+    for (int j = 0; j < SUB; ++j)
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int q = 0; q < NS; ++q)
+#pragma unroll
+          for (int c = 0; c < NW; ++c) w[j][u][q][c] = wn[j][u][q][c];
+  }
+
+  // this split's partials: [row][column of the block]
+#pragma unroll
+  for (int i = 0; i < MT16; ++i)
+#pragma unroll
+    for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        part[(16 * i + gq + 8 * (e >> 1)) * MMA_BN + 32 * warp + 8 * t + 4 * (e & 1) + jn] =
+            acc[i][jn][e];
+  // the cluster's splits summed in rank order, each block a slice of the
+  // columns
+  namespace cg = cooperative_groups;
+  cg::cluster_group cl = cg::this_cluster();
+  cl.sync();
+  const int cols = MMA_BN / S, c_lo = split * cols;
+  for (int idx = threadIdx.x; idx < M * cols; idx += 32 * MMA_WARPS) {
+    const int row = idx / cols, col = c_lo + idx % cols;
+    float v = 0.f;
+    for (int rk = 0; rk < S; ++rk) v += cl.map_shared_rank(part, rk)[row * MMA_BN + col];
+    if (ncb + col < N) out[(size_t)row * N + ncb + col] = __float2bfloat16_rn(v);
+  }
+  cl.sync();  // no block leaves while another reads its partials
+}
+
+template <int FMT, int MT16, bool ZF, bool SBF>
+cudaError_t launch_gemv_mma(const __nv_bfloat16* x, const PackArgs& a, __nv_bfloat16* out,
+                            int M, int K, int N, int g, int splits, cudaStream_t st) {
+  constexpr int smem = MmaSmem<FMT, MT16, ZF, SBF>::BYTES;
+  auto kernel = gemv_mma_kernel<FMT, MT16, ZF, SBF>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + MMA_BN - 1) / MMA_BN, splits, 1);
+  cfg.blockDim = dim3(32 * MMA_WARPS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = splits;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, x, a, out, M, K, N, g);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <int FMT, int MT16, bool SBF>
+cudaError_t launch_gemv_mma_z(const __nv_bfloat16* x, const PackArgs& a, __nv_bfloat16* out,
+                              int M, int K, int N, int g, int splits, cudaStream_t st) {
+  if constexpr (takes_offsets<FMT>()) {
+    if (a.zmode == Z_FLOAT)
+      return launch_gemv_mma<FMT, MT16, true, SBF>(x, a, out, M, K, N, g, splits, st);
+  }
+  return launch_gemv_mma<FMT, MT16, false, SBF>(x, a, out, M, K, N, g, splits, st);
+}
+
+template <int FMT, int MT16>
+cudaError_t launch_gemv_mma_s(const __nv_bfloat16* x, const PackArgs& a, __nv_bfloat16* out,
+                              int M, int K, int N, int g, int splits, cudaStream_t st) {
+  return a.scale_bf16 ? launch_gemv_mma_z<FMT, MT16, true>(x, a, out, M, K, N, g, splits, st)
+                      : launch_gemv_mma_z<FMT, MT16, false>(x, a, out, M, K, N, g, splits, st);
+}
+
+// bf16 x and out, or float32 x and out (XT = OutT = float): one GEMV launch
+// per call (plus the reduce of the CUDA-core body's splits).  `splits`: the
+// CUDA-core body's K splits, or the tensor-core body's cluster size (a power
+// of 2 up to 8; 8 < M <= 32 with bf16 x).
 template <int FMT, typename XT, typename OutT>
 cudaError_t run_gemv(const XT* x, const PackArgs& a, float* partial, OutT* out, int M,
                      int K, int N, int g, int splits, cudaStream_t st) {
-  cudaError_t err = cudaSuccess;
-  for (int m0 = 0; m0 < M && err == cudaSuccess; m0 += 8) {
-    const int rows = M - m0;
-    if (rows > 4 || M > 8)
-      err = launch_gemv<FMT, 8, XT, OutT>(x, a, partial, out, M, K, N, g, splits, m0, st);
-    else if (rows > 1)
-      err = launch_gemv<FMT, 4, XT, OutT>(x, a, partial, out, M, K, N, g, splits, m0, st);
-    else
-      err = launch_gemv<FMT, 1, XT, OutT>(x, a, partial, out, M, K, N, g, splits, m0, st);
+  if (M < 1 || M > 32) return cudaErrorInvalidValue;
+  if constexpr (std::is_same<XT, __nv_bfloat16>::value) {
+    if (M > GEMV_SIMT_MAX_M) {
+      if (splits < 1 || splits > MMA_MAX_SPLITS || (splits & (splits - 1)))
+        return cudaErrorInvalidValue;
+      return M > 16 ? launch_gemv_mma_s<FMT, 2>(x, a, out, M, K, N, g, splits, st)
+                    : launch_gemv_mma_s<FMT, 1>(x, a, out, M, K, N, g, splits, st);
+    }
   }
+  cudaError_t err;
+  if (M > 4)
+    err = launch_gemv<FMT, 8, XT, OutT>(x, a, partial, out, M, K, N, g, splits, st);
+  else if (M > 1)
+    err = launch_gemv<FMT, 4, XT, OutT>(x, a, partial, out, M, K, N, g, splits, st);
+  else
+    err = launch_gemv<FMT, 1, XT, OutT>(x, a, partial, out, M, K, N, g, splits, st);
   if (err == cudaSuccess && splits > 1) err = launch_reduce(partial, out, M, N, splits, st);
   return err;
 }
@@ -576,7 +1247,7 @@ cudaError_t run_gemv_grouped(const __nv_bfloat16* x, const PackArgs& a,
   const int rows = ((KW + splits - 1) / splits + 7) / 8 * 8;
   const size_t smem = (size_t)Fmt<FMT>::kBands * rows * sizeof(float);
   dim3 grid((N + GEMV_BN - 1) / GEMV_BN, splits, M);
-  gemv_kernel<FMT, 1, true, float><<<grid, GEMV_THREADS, smem, st>>>(
+  gemv_row_kernel<FMT, 1, true, float><<<grid, GEMV_THREADS, smem, st>>>(
       x, a, row_expert, partial, out, M, K, N, g, rows, 0);
   cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess && splits > 1) err = launch_reduce(partial, out, M, N, splits, st);

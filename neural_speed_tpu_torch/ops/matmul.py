@@ -122,6 +122,94 @@ def _gemv_splits(k: int, n: int, n_sm: int, bands: int = 8,
     return -(-kw // rows)
 
 
+# The GEMV of kernels F, P and P's one-plane INT instances (`csrc/qmm_fp.cuh`):
+# rows 1..8 with bf16 x, and every M <= 32 with float32 x, on the CUDA cores
+# (one launch, K split over `_gemv_splits` blocks whose partials one reduce
+# kernel sums); rows 9..32 with bf16 x on the tensor cores in one pass, 128
+# columns a block, K split over a thread-block cluster of at most 8 blocks
+# summed through distributed shared memory (no reduce).
+FP_GEMV_MMA_COLS = 128
+FP_GEMV_MAX_SPLITS = 8
+
+
+def fp_gemv_body(m: int, x_dtype: torch.dtype) -> str:
+    """The F / P GEMV body that takes `m <= 32` rows: "mma" (the tensor
+    cores) or "simt" (the CUDA cores)."""
+    if x_dtype == torch.bfloat16 and GEMV_SIMT_MAX_M < m <= GEMV_MAX_M:
+        return "mma"
+    return "simt"
+
+
+def fp_gemv_simt_splits(k: int, n: int, bands: int, block_cols: int,
+                        n_sm: int, per_sm: int = 4) -> int:
+    """K splits of the CUDA-core GEMV of F and P: at most as many blocks as
+    the SMs hold at once (`per_sm` each: the bodies' register caps),
+    rounding the split count down so that the grid is one wave where
+    `_gemv_splits`' rounding up would leave a second, short one; each
+    split a multiple of 8 word rows and at most 1280 / bands of them (x's
+    slice stays within 40 KB of shared memory at 8 rows of x)."""
+    kw = k // bands
+    col_blocks = -(-n // block_cols)
+    per_col = max(1, per_sm * n_sm // col_blocks)
+    rows = -(-kw // per_col)
+    rows = min(max(8, -(-rows // 8) * 8), 1280 // bands // 8 * 8)
+    return -(-kw // rows)
+
+
+def fp_gemv_simt_per_sm(m: int, multi_plane: bool, table: bool) -> int:
+    """Blocks an SM holds of the CUDA-core GEMV (`csrc/qmm_fp.cuh`'s register
+    caps, `simt_min_blocks` / `simt1_min_blocks`): 4 at one row of x; above
+    it 3 of the multi-plane body; of the one-plane body 4 at 5-8 rows, and
+    at 2-4 rows 4 of the table's (5 fit) and 3 of the rest."""
+    if m == 1:
+        return 4
+    if multi_plane:
+        return 3
+    return 4 if m > 4 or table else 3
+
+
+def fp_gemv_mma_step(bands: int) -> int:
+    """Word rows of the narrowest plane per step of the tensor-core GEMV
+    (`MmaStep::SR`): 8 at 16 or 32 bands, 128 / bands below (byte rows:
+    128), so a step holds 128 or 256 values of K."""
+    return 8 if bands >= 16 else 128 // bands
+
+
+def fp_gemv_mma_splits(k: int, n: int, bands: int, n_sm: int) -> int:
+    """K splits (the cluster size, a power of 2 up to 8) of the tensor-core
+    GEMV: doubled while its column blocks fill fewer than two blocks per SM
+    and every split keeps at least one step of the narrowest plane."""
+    col_blocks = -(-n // FP_GEMV_MMA_COLS)
+    kw = k // bands
+    step = fp_gemv_mma_step(bands)
+    splits = 1
+    while (splits < FP_GEMV_MAX_SPLITS and col_blocks * splits < 2 * n_sm
+           and kw // (2 * splits) >= step):
+        splits *= 2
+    return splits
+
+
+def fp_gemv_launches(m: int, k: int, n: int, bands: int, multi_plane: bool,
+                     x_dtype: torch.dtype, n_sm: int, table: bool = False) -> list:
+    """The kernels one F / P GEMV call launches, in order, as (kernel, grid)
+    pairs, as the C entry `run_gemv` (`csrc/qmm_fp.cuh`) launches them for
+    the splits `_fp_launch` hands it: one GEMV launch at every M <= 32,
+    then the reduce of the CUDA-core body's splits."""
+    if fp_gemv_body(m, x_dtype) == "mma":
+        splits = fp_gemv_mma_splits(k, n, bands, n_sm)
+        return [("gemv_mma_kernel",
+                 (-(-n // FP_GEMV_MMA_COLS), splits, 1))]
+    cols = 128 if multi_plane else 512
+    splits = fp_gemv_simt_splits(k, n, bands, cols, n_sm,
+                                 fp_gemv_simt_per_sm(m, multi_plane, table))
+    mt = 8 if m > 4 else 4 if m > 1 else 1
+    name = "gemv1_kernel" if multi_plane else "gemv_kernel"
+    launches = [(name, (-(-n // cols), splits, -(-m // mt)))]
+    if splits > 1:
+        launches.append(("splitk_reduce_kernel", (-(-m * n // 256), 1, 1)))
+    return launches
+
+
 def qmatmul_cuda(x2: torch.Tensor, qt: QTensor, out_dtype=None) -> torch.Tensor:
     """Kernel A on `x2 [M, K]` bf16; output bf16."""
     out_dtype = out_dtype or x2.dtype
@@ -286,8 +374,9 @@ def _band_major(x2: torch.Tensor, bands: int) -> torch.Tensor:
 def _fp_launch(name: str, lib: str, x2: torch.Tensor, qt: QTensor, planes,
                extra_ptrs, extra_ints, counter: str = "") -> torch.Tensor:
     """Shared launch of kernels F and P (entries `nst_<name>_gemv/_gemm` of
-    the library `lib`, `..._f32` for float32 x): the split-K GEMV for
-    M <= 32, the GEMM above (bf16 tensor cores, or exact float32).  The
+    the library `lib`, `..._f32` for float32 x): the GEMV for M <= 32 (one
+    launch: `fp_gemv_launches`), the GEMM above (bf16 tensor cores, or
+    exact float32).  The
     output takes x's dtype.  The launch counts under `counter` (default
     `name`), with `_f32` appended for float32 x."""
     m, k = x2.shape
@@ -301,11 +390,18 @@ def _fp_launch(name: str, lib: str, x2: torch.Tensor, qt: QTensor, planes,
     ptrs = [p.data_ptr() for p in planes] + [scales.data_ptr()] + extra_ptrs
     stream = _build.stream_handle()
     if m <= GEMV_MAX_M:
-        # multi-plane packs: one column per thread, 128 per block
-        splits = _gemv_splits(k, n, _sm_count(x2.device.index or 0), bands,
-                              128 if len(planes_of(qt.spec)) > 1 else 512)
-        partial = (torch.empty((splits, m, n), dtype=torch.float32,
-                               device=x2.device) if splits > 1 else out)
+        n_sm = _sm_count(x2.device.index or 0)
+        if fp_gemv_body(m, x2.dtype) == "mma":
+            # the cluster's splits are summed in shared memory
+            splits, partial = fp_gemv_mma_splits(k, n, bands, n_sm), out
+        else:
+            # multi-plane packs: one column per thread, 128 per block
+            multi = len(planes_of(qt.spec)) > 1
+            splits = fp_gemv_simt_splits(
+                k, n, bands, 128 if multi else 512, n_sm,
+                fp_gemv_simt_per_sm(m, multi, qt.spec.is_lut))
+            partial = (torch.empty((splits, m, n), dtype=torch.float32,
+                                   device=x2.device) if splits > 1 else out)
         fn = _build.kernels.fn(lib, f"nst_{name}_gemv{f32}", len(ptrs) + 3,
                                6 + len(extra_ints))
         code = fn(x2.data_ptr(), *ptrs, partial.data_ptr(), out.data_ptr(),
