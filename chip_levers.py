@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
-"""Time kernels C and 9 (`csrc/flash_prefill.cuh`), or the GEMV of kernels F
-and P (`csrc/qmm_fp.cuh`), in variants of their header, on one NVIDIA GPU.
+"""Time kernels C and 9 (`csrc/flash_prefill.cuh`), or the GEMV or the
+float32 GEMM of kernels F and P (`csrc/qmm_fp.cuh`), in variants of their
+header, on one NVIDIA GPU.
 
     python3 chip_levers.py base no_convert timed    # the variants named
     python3 chip_levers.py --dims 128,256 base      # at these head dims
     python3 chip_levers.py --gemv --check base splits_ceil   # F / P GEMV
+    python3 chip_levers.py --f32 base parent        # the float32 GEMM
+    python3 chip_levers.py --acc                    # its accumulation lever
+    python3 chip_levers.py --rate                   # wgmma issue rates
 
 A variant (VARIANTS) is a list of (old, new) strings replaced in a copy of
 `flash_prefill.cuh`; the copy is built alone (with `common.cuh` and
@@ -22,8 +26,15 @@ of `qmm_fp.cuh`; the F, P and grouped F/P sources are built (every one for
 `base`, so that its ptxas table lists every GEMV instance: registers,
 stack, spills) and the GEMV is timed on GEMV_CASES against `qmatmul_plain`
 (2 bf16 ulps of the largest output); `--check` first holds every format
-and row count of GEMV_CHECK_FORMATS against the plain version.  Results go
-to levers.json (levers_gemv.json with `--gemv`) in `chip_smoke.OUT_DIR`.
+and row count of GEMV_CHECK_FORMATS against the plain version.  `--f32`
+builds F's and P's sources alone per F32_VARIANTS variant (`parent`: the
+parent commit's, unpacked into `archive_check/parent`) and holds the float32
+GEMM on every `chip_smoke._f32_cases` pack at whisper's shapes and Llama o
+against a float64 product, timed, with a repeat check (`run_f32`); `--acc`
+runs the accumulation lever (ACC_LEVER_CU, `run_acc`); `--rate` the issue
+rate probe (RATE_PROBE_CU).  Results go to levers.json (levers_gemv.json,
+levers_f32.json, levers_acc.json, levers_rate.json) in
+`chip_smoke.OUT_DIR`.
 """
 
 import argparse
@@ -338,6 +349,498 @@ def run_gemv(names, check: bool = False) -> dict:
     return res
 
 
+# The float32 GEMM's accumulation lever (`--acc`): a plain 3xTF32 GEMM on
+# `wgmma` (one warpgroup, 64 x 128 tiles, K steps of 64; x and the float32
+# weight staged by plain loads, W split into TF32 hi + lo pairs in the
+# 128-byte-swizzled K-major tiles, x split in registers).  MODE: 0 the
+# three products (lo_x hi_w, hi_x lo_w, hi_x hi_w) accumulated over the
+# whole K in the tensor-core accumulator; 1 a fresh accumulator every K
+# step, added into a float32 register total (round to nearest); 2 one
+# product (hi_x hi_w: 1xTF32); 3 as 0 with hi_x hi_w first; 4 as 0 with
+# A's fragment rows and columns swapped (a layout probe: it must fail).
+ACC_LEVER_CU = r"""
+#include "qmm_fp.cuh"
+
+using namespace nstfp;
+using namespace nstfp::tc;
+
+namespace {
+constexpr int LBM = 64, LBK = 64, LXS = LBK + 4;
+constexpr int LEVER_SMEM = 65536 + LBM * LXS * 4 + 1024;
+
+template <int MODE>
+__global__ void __launch_bounds__(128, 1)
+acc_lever_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                 float* __restrict__ out, int M, int K, int N) {
+  extern __shared__ unsigned char lsm_raw[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(lsm_raw) + 1023) & ~(uintptr_t)1023);
+  unsigned char* wh = sm;          // [2][128][32] TF32, 128-byte swizzle
+  unsigned char* wl = sm + 32768;
+  float* xs = reinterpret_cast<float*>(sm + 65536);
+  const int t = threadIdx.x, wq = t / 32, lane = t % 32, g = lane / 4, q = lane % 4;
+  const int m0 = blockIdx.y * LBM, n0 = blockIdx.x * tc::BN;
+  float acc[64], tot[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = tot[i] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += LBK) {
+    for (int i = t; i < LBM * LBK; i += 128) {
+      const int r = i / LBK, k = i % LBK;
+      xs[r * LXS + k] = (m0 + r < M && k0 + k < K) ? x[(size_t)(m0 + r) * K + k0 + k] : 0.f;
+    }
+    for (int k = 0; k < LBK; ++k) {
+      const int n = n0 + t;
+      const float v = (n < N && k0 + k < K) ? w[(size_t)(k0 + k) * N + n] : 0.f;
+      const uint32_t h = tf32_rna(v), l = tf32_rna(v - __uint_as_float(h));
+      const int off = (k / 32) * 16384 + sw128_chunk(t, (k % 32) / 4) + (k % 4) * 4;
+      *reinterpret_cast<uint32_t*>(wh + off) = h;
+      *reinterpret_cast<uint32_t*>(wl + off) = l;
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+#pragma unroll 1
+    for (int kk = 0; kk < LBK / 8; ++kk) {
+      const float* xr = xs + (16 * wq + g) * LXS + 8 * kk + q;
+      float a[4] = {xr[0], xr[8 * LXS], xr[4], xr[8 * LXS + 4]};
+      if (MODE == 4) {
+        const float s = a[1];
+        a[1] = a[2];
+        a[2] = s;
+      }
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        hi[j] = tf32_rna(a[j]);
+        lo[j] = tf32_rna(a[j] - __uint_as_float(hi[j]));
+      }
+      const uint64_t dh = sw128_desc(wh + (kk / 4) * 16384) + 2 * (kk % 4);
+      const uint64_t dl = sw128_desc(wl + (kk / 4) * 16384) + 2 * (kk % 4);
+      const int sd = (MODE == 1 && kk == 0) ? 0 : 1;
+      keep_regs(acc);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      if (MODE == 2) {
+        wgmma_tf32_rs(acc, hi, dh, sd);
+      } else if (MODE == 3) {
+        wgmma_tf32_rs(acc, hi, dh, sd);
+        wgmma_tf32_rs(acc, lo, dh, 1);
+        wgmma_tf32_rs(acc, hi, dl, 1);
+      } else {
+        wgmma_tf32_rs(acc, lo, dh, sd);
+        wgmma_tf32_rs(acc, hi, dl, 1);
+        wgmma_tf32_rs(acc, hi, dh, 1);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      keep_regs(acc);
+    }
+    if (MODE == 1) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) tot[i] += acc[i];
+    }
+    __syncthreads();
+  }
+  store_tile<128>(MODE == 1 ? tot : acc, out, m0, n0, M, M, N);
+}
+
+template <int MODE>
+cudaError_t launch_lever(const float* x, const float* w, float* out, int M, int K, int N,
+                         cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(acc_lever_kernel<MODE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         LEVER_SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid((N + tc::BN - 1) / tc::BN, (M + LBM - 1) / LBM);
+  acc_lever_kernel<MODE><<<grid, 128, LEVER_SMEM, st>>>(x, w, out, M, K, N);
+  return cudaGetLastError();
+}
+}  // namespace
+
+extern "C" int nst_acc_lever(const void* x, const void* w, void* out, int M, int K, int N,
+                             int mode, void* stream) {
+  const float* xf = static_cast<const float*>(x);
+  const float* wf = static_cast<const float*>(w);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case 0: return (int)launch_lever<0>(xf, wf, o, M, K, N, st);
+    case 1: return (int)launch_lever<1>(xf, wf, o, M, K, N, st);
+    case 2: return (int)launch_lever<2>(xf, wf, o, M, K, N, st);
+    case 3: return (int)launch_lever<3>(xf, wf, o, M, K, N, st);
+    case 4: return (int)launch_lever<4>(xf, wf, o, M, K, N, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+"""
+ACC_MODES = {0: "3xTF32, whole K in the accumulator",
+             1: "3xTF32, a fresh accumulator per K step folded into float32",
+             2: "1xTF32", 3: "3xTF32, whole K, hi x hi first",
+             4: "3xTF32 with A's fragment layout swapped (probe)"}
+# (label, format, group, symmetric) at whisper's fc2 (K = 5120) over its
+# 1500 frames and Llama-2-7B's o (K = 4096) at 2048 rows
+ACC_FORMATS = [("int8 sym f32", "int8", 128, True), ("nf4", "nf4", 128, True),
+               ("int5 asym", "int5", 128, False)]
+ACC_SHAPES = [("fc2", 5120, 1280, 1500), ("llama o", 4096, 4096, 2048)]
+
+
+def acc_rounding_probe(lever) -> dict:
+    """How the tensor cores round a TF32 sum into the float32 accumulator:
+    one wgmma puts 1.0 (or -1.0) in the accumulator, the next adds f ulps
+    of it (f = 0.25, 0.5, 0.75), exactly representable in TF32; the result
+    minus the start, in ulps of 1.0 (0 or 1 for round to nearest at 0.75:
+    1; toward zero: 0).  The same sum inside one wgmma (both products in
+    one k8 step) is printed beside it."""
+    import torch
+
+    fr = (0.25, 0.5, 0.75)
+    m, k, n = 64, 64, 128
+    x = torch.zeros((m, k), device="cuda")
+    w = torch.zeros((k, n), device="cuda")
+    w[0], w[1], w[8] = 1.0, 1.0, 1.0
+    for i, f in enumerate(fr):
+        for sgn in (1.0, -1.0):
+            r = 2 * i + (sgn < 0)
+            x[r, 0], x[r, 8] = sgn, sgn * f * 2.0 ** -23            # two steps
+            x[32 + r, 0], x[32 + r, 1] = sgn, sgn * f * 2.0 ** -23  # one step
+    out = torch.empty((m, n), device="cuda")
+    lever(x, w, out, 0)
+    torch.cuda.synchronize()
+    res = {}
+    for i, f in enumerate(fr):
+        for sgn in (1.0, -1.0):
+            r = 2 * i + (sgn < 0)
+            res[f"{sgn * f:+.2f} ulp across steps"] = (
+                (out[r, 0].double().abs() - 1.0) / 2.0 ** -23).item()
+            res[f"{sgn * f:+.2f} ulp in one step"] = (
+                (out[32 + r, 0].double().abs() - 1.0) / 2.0 ** -23).item()
+    return res
+
+
+def run_acc() -> dict:
+    """Step 0 of the float32 GEMM's design: compare_f64's worst for each
+    ACC_MODES variant of the lever on ACC_FORMATS x ACC_SHAPES (the
+    dequantized float32 weight, x drawn as check_f32_formats draws it), the
+    accumulator's rounding (acc_rounding_probe), the lever's ms, and the
+    `ptxas -v` table of every GEMM instance of this tree's F / P sources
+    (the float32 GEMM's among them)."""
+    import torch
+
+    import chip_smoke as cs
+    from neural_speed_tpu_torch import _build
+    from neural_speed_tpu_torch.ops.quantize import dequantize
+    from neural_speed_tpu_torch.ops.qtypes import named_qspec
+    from neural_speed_tpu_torch.utils.synthetic import synth_qtensor
+
+    tmp = Path(tempfile.mkdtemp())
+    _gemv_sources(tmp, [], None)
+    for f in tmp.glob("qmatmul_grouped_fp*"):
+        f.unlink()
+    (tmp / "acc_lever.cu").write_text(ACC_LEVER_CU)
+    _build.CSRC, _build.BUILD_DIR = tmp, tmp / "build"
+    _build.kernels = _build._Library()
+    t0 = time.time()
+    _build.kernels.build()
+    print(f"built in {time.time() - t0:.1f} s", flush=True)
+    table = ptxas_table(_build.kernels.build_log, "gemm|acc_lever")
+    for row in table:
+        print("  ptxas " + json.dumps(row), flush=True)
+    fn = _build.kernels.fn("acc_lever", "nst_acc_lever", 3, 4)
+
+    def lever(x, w, out, mode):
+        _build.check(fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), x.shape[0],
+                        x.shape[1], w.shape[1], mode, _build.stream_handle()),
+                     "acc_lever")
+
+    res = dict(ptxas=table, probe=acc_rounding_probe(lever), cases={})
+    print("rounding probe: " + json.dumps(res["probe"]), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for shape, k, n, m in ACC_SHAPES:
+        for label, fmt, g, sym in ACC_FORMATS:
+            qt = synth_qtensor(gen, k, n, named_qspec(fmt, g, sym))
+            w = dequantize(qt, torch.float32).contiguous()
+            x = torch.randn((m, k), generator=gen, device="cuda") * 1.37
+            ref = x.double() @ w.double()
+            row = {}
+            for mode in ACC_MODES:
+                out = torch.empty((m, n), device="cuda")
+                lever(x, w, out, mode)
+                torch.cuda.synchronize()
+                row[mode] = dict(worst=cs.compare_f64(out, ref)["worst"],
+                                 ms=cs.time_ms(lambda: lever(x, w, out, mode)))
+            row["plain f32 matmul"] = dict(
+                worst=cs.compare_f64(x @ w, ref)["worst"],
+                ms=cs.time_ms(lambda: x @ w))
+            key = f"{label} {shape} M={m} K={k} N={n}"
+            res["cases"][key] = row
+            print(f"{key}: " + json.dumps({str(md): [round(v["worst"], 4),
+                                                     round(v["ms"], 4)]
+                                           for md, v in row.items()}),
+                  flush=True)
+            del qt, w, x, ref
+    print("modes: " + json.dumps(ACC_MODES), flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+# The tensor cores' issue rate (`--rate`): one block of two warpgroups,
+# each issuing groups of 12 wgmma on zeroed shared-memory tiles into its own
+# accumulator and waiting for each group, clock64 around 200 groups;
+# printed as cycles per wgmma.  MODE: 0 m64n128k16 bf16 (A and B from
+# shared memory), 1 m64n128k8 TF32 with A from registers (the float32
+# GEMM's form), 2 the same with one warpgroup alone.
+RATE_PROBE_CU = r"""
+#include <cstdio>
+#include "qmm_fp.cuh"
+
+using namespace nstfp::tc;
+
+namespace {
+template <int MODE>
+__global__ void __launch_bounds__(256, 1) rate_kernel(long long* out) {
+  extern __shared__ unsigned char rsm_raw[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(rsm_raw) + 1023) & ~(uintptr_t)1023);
+  for (int i = threadIdx.x; i < 65536 / 16; i += blockDim.x)
+    reinterpret_cast<uint4*>(sm)[i] = make_uint4(0, 0, 0, 0);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  const int c = threadIdx.x / 128;
+  if (MODE == 2 && c == 1) return;
+  const uint64_t da = sw128_desc(sm + c * 8192), db = sw128_desc(sm + 32768);
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  const long long t0 = clock64();
+  for (int it = 0; it < 200; ++it) {
+    keep_regs(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int k = 0; k < 12; ++k) {
+      const uint32_t za[4] = {0u, 0u, 0u, 0u};
+      if (MODE == 0)
+        Wgmma<128>::mma(acc, da + 2 * (k % 4), db + 2 * (k % 4));
+      else
+        wgmma_tf32_rs(acc, za, db + 2 * (k % 4), 1);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    keep_regs(acc);
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  keep_regs(acc);
+  const long long t1 = clock64();
+  if (threadIdx.x % 128 == 0) out[c] = t1 - t0;
+  if (acc[0] != 0.f) out[2] = 1;
+}
+
+template <int MODE>
+int launch(long long* out, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(rate_kernel<MODE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, 66560);
+  if (err != cudaSuccess) return (int)err;
+  rate_kernel<MODE><<<1, 256, 66560, st>>>(out);
+  return (int)cudaGetLastError();
+}
+}  // namespace
+
+extern "C" int nst_rate_probe(void* out, int mode, void* stream) {
+  long long* o = static_cast<long long*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case 0: return launch<0>(o, st);
+    case 1: return launch<1>(o, st);
+    case 2: return launch<2>(o, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+"""
+RATE_MODES = {0: "bf16 m64n128k16, 2 warpgroups",
+              1: "tf32 m64n128k8, A from registers, 2 warpgroups",
+              2: "tf32 m64n128k8, A from registers, 1 warpgroup"}
+
+
+def run_rate() -> dict:
+    """RATE_PROBE_CU's cycles per wgmma for each RATE_MODES mode (median of
+    5 launches, the slower warpgroup)."""
+    import statistics
+
+    import torch
+
+    from neural_speed_tpu_torch import _build
+
+    tmp = Path(tempfile.mkdtemp())
+    shutil.copy(ROOT / "neural_speed_tpu_torch" / "csrc" / "qmm_fp.cuh", tmp)
+    (tmp / "rate_probe.cu").write_text(RATE_PROBE_CU)
+    _build.CSRC, _build.BUILD_DIR = tmp, tmp / "build"
+    _build.kernels = _build._Library()
+    _build.kernels.build()
+    fn = _build.kernels.fn("rate_probe", "nst_rate_probe", 1, 1)
+    res = {}
+    for mode, what in RATE_MODES.items():
+        per = []
+        for _ in range(5):
+            out = torch.zeros(3, dtype=torch.int64, device="cuda")
+            _build.check(fn(out.data_ptr(), mode, _build.stream_handle()), "rate")
+            torch.cuda.synchronize()
+            per.append(max(out[:2].tolist()) / (200 * 12))
+        res[what] = statistics.median(per)
+        print(f"  {what}: {res[what]:.1f} cycles per wgmma", flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+# The float32 GEMM's variants (`--f32`): (old, new) strings of
+# `qmm_fp.cuh`; "parent" builds the parent commit's sources
+# (`archive_check/parent`, unpacked by `git archive`) unchanged.
+_F32_MMAS = ("        wgmma_tf32_rs(acc, xl[p], bh + 2 * kk, kk == 0 ? 0 : 1);\n"
+             "        wgmma_tf32_rs(acc, xh[p], bl + 2 * kk, 1);\n"
+             "        wgmma_tf32_rs(acc, xh[p], bh + 2 * kk, 1);\n")
+_F32_LEVER = ("nf4", "int8", "int5")
+F32_VARIANTS = {
+    "base": ([], None),
+    # no products (the loads, the transform, the splits and the barriers)
+    "no_mma": ([(_F32_MMAS, "        acc[kk] += __uint_as_float(xh[p][0] ^ xl[p][1]);\n")],
+               _F32_LEVER),
+    # the transform writes (almost) nothing: one weight of eight computed,
+    # no W tile stored (the products run on stale tiles)
+    "no_transform": ([
+        ("          store_tf32x8(bt, tl, ((row0 + i) * EF + band0) / 8 + o, v);\n",
+         "          if (v[0] == 1.2345f) store_tf32x8(bt, tl, ((row0 + i) * EF + band0) / 8 + o, v);\n"),
+        ("        store_tf32x8(bt, col + j, oct, v);\n",
+         "        if (v[0] == 1.2345f) store_tf32x8(bt, col + j, oct, v);\n"),
+    ], _F32_LEVER),
+    # clock64 counters in block (0, 0), printed at its end: per transform
+    # warp (packed formats) the cycles of the whole loop, in the hook (the
+    # packs' loads thread 0 issues), waiting for the packed tile and for a
+    # free W slot; per consumer warpgroup the loop, the waits for W and x,
+    # the k8 steps' reads, splits and issues, and the last wait for the
+    # products
+    "timed": ([
+        ("#include <climits>\n", "#include <climits>\n#include <cstdio>\n"),
+        ("  reload(0);\n  for (int s = 0; s < steps; ++s) {\n    hook(s);\n"
+         "    const int ws = s % RG::kSW;\n    bar_wait(&w_full[ws], (s / RG::kSW) & 1);\n",
+         "  reload(0);\n  long long pf_hook = 0, pf_w = 0, pf_b = 0, pf_all = clock64();\n"
+         "  for (int s = 0; s < steps; ++s) {\n    long long pt0 = clock64();\n    hook(s);\n"
+         "    long long pt1 = clock64();\n"
+         "    const int ws = s % RG::kSW;\n    bar_wait(&w_full[ws], (s / RG::kSW) & 1);\n"
+         "    pf_hook += pt1 - pt0; pf_w += clock64() - pt1;\n"),
+        ("    const int bst = s % RG::kSB;\n    bar_wait(&b_empty[bst], ((s / RG::kSB) & 1) ^ 1);\n"
+         "    unsigned char* bt = reinterpret_cast<unsigned char*>(bs_all) + bst * RG::kBStage;\n"
+         "    if constexpr (A4) {",
+         "    const int bst = s % RG::kSB;\n    long long pt3 = clock64();\n"
+         "    bar_wait(&b_empty[bst], ((s / RG::kSB) & 1) ^ 1);\n    pf_b += clock64() - pt3;\n"
+         "    unsigned char* bt = reinterpret_cast<unsigned char*>(bs_all) + bst * RG::kBStage;\n"
+         "    if constexpr (A4) {"),
+        ("    if (s + 1 < steps) reload(s + 1);\n  }\n}\n\n// Transform warpgroups, byte rows",
+         "    if (s + 1 < steps) reload(s + 1);\n  }\n"
+         "  if (RG::kTf32 && blockIdx.x == 0 && blockIdx.y == 0 && lane == 0)\n"
+         "    printf(\"T warp %d steps %d all %lld hook %lld wfull %lld bempty %lld\\n\", "
+         "(int)(threadIdx.x / 32), steps, clock64() - pf_all, pf_hook, pf_w, pf_b);\n"
+         "}\n\n// Transform warpgroups, byte rows"),
+        ("    for (int s = 0; s < steps; ++s) {\n      const int xst = s % SX, bst = s % SB;\n"
+         "      bar_wait(&b_full[bst], (s / SB) & 1);\n      bar_wait(&x_full[xst * 2 + c], (s / SX) & 1);\n",
+         "    long long pc_b = 0, pc_i = 0, pc_w = 0, pc_all = clock64(), pc0;\n"
+         "    for (int s = 0; s < steps; ++s) {\n      const int xst = s % SX, bst = s % SB;\n"
+         "      pc0 = clock64();\n"
+         "      bar_wait(&b_full[bst], (s / SB) & 1);\n      bar_wait(&x_full[xst * 2 + c], (s / SX) & 1);\n"
+         "      pc_b += clock64() - pc0;\n"),
+        ("      const uint64_t bl = sw128_desc(bs + bst * b_stage + TF32_TILE);\n",
+         "      const uint64_t bl = sw128_desc(bs + bst * b_stage + TF32_TILE);\n"
+         "      pc0 = clock64();\n"),
+        ("      asm volatile(\"wgmma.wait_group.sync.aligned 0;\\n\" ::: \"memory\");\n"
+         "      keep_regs(acc);\n      if (t == 0) {  // step s's products",
+         "      pc_i += clock64() - pc0; pc0 = clock64();\n"
+         "      asm volatile(\"wgmma.wait_group.sync.aligned 0;\\n\" ::: \"memory\");\n"
+         "      pc_w += clock64() - pc0;\n"
+         "      keep_regs(acc);\n      if (t == 0) {  // step s's products"),
+        ("    store_tile<BN>(tot, out, m_blk + 64 * c, n_blk, M, M, N);\n",
+         "    if (blockIdx.x == 0 && blockIdx.y == 0 && t == 0)\n"
+         "      printf(\"C wg %d steps %d all %lld wait %lld issue %lld drain %lld\\n\", "
+         "c, steps, clock64() - pc_all, pc_b, pc_i, pc_w);\n"
+         "    store_tile<BN>(tot, out, m_blk + 64 * c, n_blk, M, M, N);\n"),
+    ], ("nf4", "int5")),
+    # the parent's sources as they are (its float32 SIMT GEMM)
+    "parent": ([], None),
+}
+# the cases a lever variant (a format list above) is timed on
+F32_LEVER_CASES = ("q/k/v/o M=1500", "fc1 M=1500", "fc2 M=1500", "llama o M=2048")
+F32_M = {"q/k/v/o": (33, 100, 1500), "fc1": (33, 100, 1500),
+         "fc2": (33, 100, 1500), "llama o": (33, 100, 2048)}
+F32_REPEAT = 20
+
+
+def run_f32(names) -> dict:
+    """Each F32_VARIANTS variant of the float32 GEMM built alone (kernel F's
+    and P's sources), its `ptxas -v` table, and on every `chip_smoke.
+    _f32_cases` pack at whisper-large-v2's and Llama-2-7B o's shapes and
+    F32_M rows: compare_f64's worst against a float64 product of the same
+    dequantized weight, the kernel's ms, and F32_REPEAT calls of the fc1
+    case at M = 1500 compared byte for byte."""
+    import torch
+
+    import chip_smoke as cs
+    from neural_speed_tpu_torch import _build
+    from neural_speed_tpu_torch.ops import matmul
+    from neural_speed_tpu_torch.ops.quantize import dequantize
+    from neural_speed_tpu_torch.utils.synthetic import synth_qtensor
+
+    shapes = dict(cs.WHISPER_LINEARS, **{"llama o": cs.SHAPES_7B["o"]})
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = []
+    for kname, letter, spec, transform in cs._f32_cases():
+        for shape, (k, n) in shapes.items():
+            qt = synth_qtensor(gen, k, n, spec)
+            if transform is not None:
+                qt = transform(gen, qt)
+            w64 = dequantize(qt, torch.float32).double()
+            for m in F32_M[shape]:
+                x = torch.randn((m, k), generator=gen, device="cuda") * 1.37
+                cases.append((f"{cs._fmt_name(qt)} {shape} M={m}", x, qt,
+                              x.double() @ w64))
+            del w64
+    res = {}
+    for name in names:
+        tmp = Path(tempfile.mkdtemp())
+        reps, fmts = F32_VARIANTS[name]
+        _gemv_sources(tmp, reps, fmts, parent=name == "parent")
+        for f in tmp.glob("qmatmul_grouped_fp*"):
+            f.unlink()
+        _build.CSRC, _build.BUILD_DIR = tmp, tmp / "build"
+        _build.kernels = _build._Library()
+        t0 = time.time()
+        _build.kernels.build()
+        table = ptxas_table(_build.kernels.build_log, "gemm_tf32x3|gemm_f32")
+        for row in table:
+            print("  ptxas " + json.dumps(row), flush=True)
+        notes = sorted({ln.strip() for ln in _build.kernels.build_log.splitlines()
+                        if "wgmma" in ln})
+        for ln in notes:
+            print("  ptxas note: " + ln, flush=True)
+        out = {}
+        for label, x, qt, ref in cases:
+            if fmts is not None and not (
+                    label.endswith(F32_LEVER_CASES)
+                    and label.split("/")[0].split(" ")[0] in fmts):
+                continue
+            got = matmul.qmatmul(x, qt)
+            torch.cuda.synchronize()
+            worst = cs.compare_f64(got, ref)["worst"]
+            out[label] = (cs.time_ms(lambda: matmul.qmatmul(x, qt)), worst)
+            print(f"  {name} {label}: {out[label][0]:.4f} ms, worst "
+                  f"{worst:.4f}", flush=True)
+        label, x, qt, _ = next(c for c in cases if c[0].endswith("fc1 M=1500")
+                               and (fmts is None or c[0].split("/")[0] in fmts))
+        first = matmul.qmatmul(x, qt)
+        differ = sum(int(not torch.equal(matmul.qmatmul(x, qt), first))
+                     for _ in range(F32_REPEAT))
+        print(f"  {name} repeat {label}: {differ} of {F32_REPEAT} calls "
+              f"differ", flush=True)
+        res[name] = dict(times=out, ptxas=table, ptxas_notes=notes,
+                         repeat_differ=differ,
+                         build_s=time.time() - t0)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
 def _sources(tmp: Path, dims, reps) -> None:
     csrc = ROOT / "neural_speed_tpu_torch" / "csrc"
     for f in csrc.iterdir():
@@ -356,11 +859,20 @@ def _sources(tmp: Path, dims, reps) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("variants", nargs="+",
-                    choices=sorted(set(VARIANTS) | set(GEMV_VARIANTS)))
+    ap.add_argument("variants", nargs="*",
+                    choices=sorted(set(VARIANTS) | set(GEMV_VARIANTS)
+                                   | set(F32_VARIANTS)))
     ap.add_argument("--dims", default="128")
     ap.add_argument("--gemv", action="store_true",
                     help="the variants are GEMV_VARIANTS of qmm_fp.cuh")
+    ap.add_argument("--acc", action="store_true",
+                    help="the float32 GEMM's accumulation lever (ACC_MODES) "
+                         "and the ptxas table of the F / P GEMMs; no "
+                         "variants are named")
+    ap.add_argument("--rate", action="store_true",
+                    help="the tensor cores' issue rate (RATE_MODES)")
+    ap.add_argument("--f32", action="store_true",
+                    help="the variants are F32_VARIANTS of the float32 GEMM")
     ap.add_argument("--check", action="store_true",
                     help="with --gemv: hold every format and row count "
                          "against the plain version first (GEMV_CHECKS)")
@@ -381,6 +893,22 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
+    if args.acc:
+        res = run_acc()
+        with open(os.path.join(cs.OUT_DIR, "levers_acc.json"), "w") as f:
+            json.dump(res, f, indent=1)
+        return 0
+    if args.rate:
+        res = run_rate()
+        with open(os.path.join(cs.OUT_DIR, "levers_rate.json"), "w") as f:
+            json.dump(res, f, indent=1)
+        if not args.f32:
+            return 0
+    if args.f32:
+        res = run_f32(args.variants)
+        with open(os.path.join(cs.OUT_DIR, "levers_f32.json"), "w") as f:
+            json.dump(res, f, indent=1)
+        return 0
     if args.gemv:
         res = run_gemv(args.variants, args.check)
         with open(os.path.join(cs.OUT_DIR, "levers_gemv.json"), "w") as f:

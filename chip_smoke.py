@@ -64,9 +64,12 @@ Phases, each raising on failure so the run exits non-zero:
    float32 output must not be a bf16 value; the float32-activation
    instances of F, P and P's INT instances (`check_f32_formats`: nf4,
    int5 asymmetric, int3, fp8_e4m3, float offsets, int8, int4 asymmetric
-   and kernel A's pack) at whisper-large-v2's linears (M = 1, 4, 1500)
-   and Llama-2-7B's o at M = 2048, within 256 float32 ulps of a float64
-   product, a TF32 product and the kernel on bf16-rounded x failing it;
+   and kernel A's pack) at whisper-large-v2's linears (M = 1, 4, 1500;
+   fc1 also at 33 and 100) and Llama-2-7B's o at M = 33, 100 and 2048,
+   within 256 float32 ulps of a float64 product, a TF32 product and the
+   kernel on bf16-rounded x failing it (the GEMM's bound: 3xTF32 on the
+   tensor cores), and 20 calls of fc1 at M = 1500 per instance giving the
+   same bytes (`check_f32_repeat`);
    the int8 score dot (`NST_FLASH_INT8=qk`, QK_CASES) in B and 10 at every
    head-dim instance, both scale types, ALiBi, the softcap and without the
    extra column, q drawn with outliers, each output also held more than 10
@@ -289,10 +292,12 @@ def peaks_for(name: str):
 
 def bound(nbytes: float, flops: float, name: str, peak: str = "bf16"):
     """The least ms for the work: bytes at the memory rate against
-    operations at the dense bf16 peak, the int8 peak (twice it) or the
-    float32 (non-tensor) peak."""
+    operations at the dense bf16 peak, the int8 peak (twice it), the
+    float32 (non-tensor) peak, or "tf32x3": a float32-accurate product as
+    three TF32 products on the tensor cores (TF32 at half the bf16 peak,
+    three times the work: the bf16 peak / 6)."""
     bw, fl, f32 = peaks_for(name)
-    rate = {"bf16": fl, "int8": 2 * fl, "f32": f32}[peak]
+    rate = {"bf16": fl, "int8": 2 * fl, "f32": f32, "tf32x3": fl / 6}[peak]
     tb, tf = nbytes / bw * 1e3, flops / rate * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
@@ -402,7 +407,7 @@ def _category(kernel_name: str) -> str:
         # both write float32 through splitk_reduce_kernel<float>
         if re.search(r"(gemm_kernel|gemv_row_kernel)<\d+, \d+, true", kernel_name):
             return "qmatmul_grouped_fp"
-        if "gemm_f32" in kernel_name or "float, float" in kernel_name:
+        if "gemm_tf32x3" in kernel_name or "float, float" in kernel_name:
             return "qmatmul_fp_f32"
         if "<float>" in kernel_name:
             return "splitk_reduce_f32"
@@ -851,8 +856,11 @@ def check_fp_gemv_repeat(chk: Checks, gen: torch.Generator) -> None:
 
 def _kernel_names(fn) -> list:
     """The CUDA kernels one fn() call launches, by torch.profiler (a session
-    that records no kernel is run again, up to three times)."""
-    for _ in range(3):
+    that records no kernel is run again after a second's pause, up to six
+    times: three sessions in a row have recorded nothing)."""
+    for attempt in range(6):
+        if attempt:
+            time.sleep(1.0)
         torch.cuda.synchronize()
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -1163,9 +1171,11 @@ def compare_f64(got: torch.Tensor, ref: torch.Tensor) -> dict:
     diff = (got.double() - ref).abs()
     scale = ref.abs().amax()
     tol = F32_ULPS * 2.0 ** -23 * scale
+    raw = got.detach().contiguous().view(torch.uint8).cpu().numpy()
     return dict(err=diff.max().item(),
                 rel=(diff / scale).max().item(),
                 worst=(diff / tol).max().item(),
+                digest=hashlib.sha256(raw.tobytes()).hexdigest()[:16],
                 tol=f"{F32_ULPS} float32 ulps of the largest |output| of the "
                     "tensor")
 
@@ -1195,7 +1205,9 @@ def check_f32_formats(chk: Checks, gen: torch.Generator) -> None:
     instances through `qmatmul` (the route whisper takes; kernel A's pack
     must route to "I"), against the plain version and a float64 product of
     the same dequantized weight (`compare_f64`), at whisper-large-v2's
-    shapes at M = 1, 4 and 1500 and Llama-2-7B's o at M = 2048.  x is drawn
+    shapes at M = 1, 4 and 1500 (fc1 also at the GEMM's edges, 33 and 100)
+    and Llama-2-7B's o at M = 33, 100 and 2048.  The GEMM's bound is the
+    3xTF32 rate (`bound`'s "tf32x3"), the GEMV's its bytes.  x is drawn
     so that its low mantissa bits matter (normal draws times 1.37).  Each
     case also checks that a TF32 product of the same operands fails the
     tolerance, that the kernel fed x rounded to bf16 lands more than 10
@@ -1216,8 +1228,9 @@ def check_f32_formats(chk: Checks, gen: torch.Generator) -> None:
             "neural_speed_tpu/ops/matmul.py:376"),
         "qmatmul_int_f32": ("neural_speed_tpu_torch/csrc/qmatmul_planar.cuh",
                             "neural_speed_tpu/ops/matmul.py:127")}
-    shapes = [(name, kn, (1, 4, 1500)) for name, kn in WHISPER_LINEARS.items()]
-    shapes.append(("llama o", SHAPES_7B["o"], (2048,)))
+    shapes = [(name, kn, (1, 4, 33, 100, 1500) if name == "fc1" else (1, 4, 1500))
+              for name, kn in WHISPER_LINEARS.items()]
+    shapes.append(("llama o", SHAPES_7B["o"], (33, 100, 2048)))
     mains = {("qmatmul_lut_f32", "nf4/f32s"),
              ("qmatmul_planar_f32", "int5/asym/f32s"),
              ("qmatmul_int_f32", "int8/f32s")}
@@ -1251,16 +1264,20 @@ def check_f32_formats(chk: Checks, gen: torch.Generator) -> None:
                 # the kernel against the plain version (both float32 sums
                 # of the same products), and each against the float64 one
                 cmp = compare_f64(got, want.double())
+                vs64 = {}
                 for out, label in ((got, "kernel"), (want, "plain version")):
-                    if not compare_f64(out, ref)["worst"] <= 1.0:
+                    vs64[label] = compare_f64(out, ref)["worst"]
+                    if not vs64[label] <= 1.0:
                         raise AssertionError(f"{kname} {what}: the {label} "
                                              f"misses the float64 product")
                 tf32 = compare_f64(_tf32(x).double() @ w_tf32, ref)["worst"]
                 off = compare_f64(rounded, ref)["worst"]
                 in_bf16 = (got.to(torch.bfloat16).float() == got).float(
                 ).mean()
-                log(f"    {kname} {what}: a TF32 product at "
-                    f"{tf32:.1f} tolerances, the kernel on bf16-rounded x at "
+                log(f"    {kname} {what}: against the float64 product the "
+                    f"kernel at {vs64['kernel']:.3f} tolerances, the plain "
+                    f"version at {vs64['plain version']:.3f}, a TF32 product "
+                    f"at {tf32:.1f}, the kernel on bf16-rounded x at "
                     f"{off:.1f}; {in_bf16.item():.1%} of outputs bf16 values")
                 if not (tf32 > 1.0 and off > 10.0 and in_bf16.item() < 0.5):
                     raise AssertionError(f"{kname} {what}: the check is blind "
@@ -1274,11 +1291,47 @@ def check_f32_formats(chk: Checks, gen: torch.Generator) -> None:
                 chk.add(kname, "cuda", *sources[kname], what, cmp, ms,
                         plain_ms, lib_ms, nbytes, 2.0 * m * n * k,
                         main=((kname, _fmt_name(qt)) in mains and m == 1500
-                              and shape_name == "fc1"), peak="f32",
-                        extra=dict(tf32_over_tol=tf32, bf16_x_over_tol=off,
+                              and shape_name == "fc1"),
+                        peak="tf32x3" if m > matmul.GEMV_MAX_M else "f32",
+                        extra=dict(f64_over_tol=vs64["kernel"],
+                                   tf32_over_tol=tf32, bf16_x_over_tol=off,
                                    bf16_valued_share=in_bf16.item()))
             del qt, w32, w64, w_tf32
             torch.cuda.empty_cache()
+
+
+F32_REPEAT_CALLS = 20
+
+
+def check_f32_repeat(chk: Checks, gen: torch.Generator) -> None:
+    """The float32 GEMM's determinism: F32_REPEAT_CALLS calls of whisper's
+    fc1 at M = 1500 through each instance (F nf4, P int5 asymmetric, I int8,
+    the AudioModel default), each with a cold L2, give the first call's
+    bytes (no atomics: each output is written once, its sums in a fixed
+    order).  Its own generator, so earlier checks keep their inputs."""
+    from neural_speed_tpu_torch.ops import matmul
+    from neural_speed_tpu_torch.utils.synthetic import synth_qtensor
+
+    del gen
+    rgen = torch.Generator(device="cuda").manual_seed(19)
+    k, n = WHISPER_LINEARS["fc1"]
+    res = {}
+    cases = _f32_cases()
+    for kname, _, spec, _ in (cases[0], cases[1], cases[5]):  # nf4, int5, int8
+        qt = synth_qtensor(rgen, k, n, spec)
+        x = torch.randn((1500, k), generator=rgen, device="cuda") * 1.37
+        first = matmul.qmatmul(x, qt)
+        differ = 0
+        for _ in range(F32_REPEAT_CALLS):
+            _flush_l2()
+            differ += int(not torch.equal(matmul.qmatmul(x, qt), first))
+        res[f"{kname} {_fmt_name(qt)}"] = differ
+        del qt, x, first
+    log(f"  float32 GEMM repeat (whisper fc1, M=1500, {F32_REPEAT_CALLS} "
+        f"calls each): calls that differ from the first {res}")
+    chk.notes["f32_repeat"] = res
+    if len(res) != 3 or any(res.values()):
+        raise AssertionError(f"float32 GEMM repeat: {res}")
 
 
 def compare_f32(got: torch.Tensor, want: torch.Tensor, groups: int) -> dict:
@@ -5539,6 +5592,9 @@ def serve_whisper(profile: bool) -> dict:
             fmt: serve_whisper_quant(d, wav, fmt, sym, full, profile and full)
             for fmt, sym, full in (("int8", True, True), ("nf4", True, False),
                                    ("int5", False, False))}
+        log("  whisper-large-v2 encode ms (one 30 s chunk): float32 "
+            f"{res['encode_ms']:.2f}, " + ", ".join(
+                f"{fmt} {q['encode_ms']:.2f}" for fmt, q in res["quant"].items()))
     gc.collect()
     torch.cuda.empty_cache()
     return res
@@ -6306,15 +6362,11 @@ def serve_speculative(card: str, profile: bool) -> dict:
 def _redesigned(name: str, shape: str) -> bool:
     """Cases of the bodies this tree redesigned, whose float32 sums may run
     in another order than the parent's, so their digests may differ: the
-    GEMV of F, P and P's INT instances (M <= 32, bf16 and float32 x) and the
-    grouped F/P GEMV, which shares its CUDA-core body.  Every other case
-    must keep its digest."""
-    if name == "qmatmul_grouped_fp":
-        return shape.startswith("GEMV")
+    float32 GEMM of F, P and P's INT instances (float32 x, M > 32: 3xTF32
+    on the tensor cores).  Every other case must keep its digest."""
     m = re.search(r"\bM=(\d+)", shape)
-    return (name.replace("_f32", "") in ("qmatmul_lut", "qmatmul_planar",
-                                         "qmatmul_int")
-            and m is not None and int(m.group(1)) <= 32)
+    return (name in ("qmatmul_lut_f32", "qmatmul_planar_f32", "qmatmul_int_f32")
+            and m is not None and int(m.group(1)) > 32)
 
 
 def compare_runs(paths) -> dict:
@@ -6446,6 +6498,8 @@ def main() -> int:
                         ("qmatmul_int qmatmul_planar", check_int_formats),
                         ("qmatmul_lut_f32 qmatmul_planar_f32 qmatmul_int_f32",
                          check_f32_formats),
+                        ("qmatmul_lut_f32 qmatmul_planar_f32 qmatmul_int_f32 "
+                         "f32_repeat", check_f32_repeat),
                         ("qmatmul_grouped_fp", check_grouped_fp),
                         ("qmatmul_lut qmatmul_planar qmatmul_int low_m",
                          check_gemm_low_m),

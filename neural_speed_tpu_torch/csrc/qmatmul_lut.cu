@@ -9,8 +9,9 @@
 // 16 floats lie in 16 banks, so a lookup by random codes has no conflict.
 // Bounds and design: qmm_fp.cuh (GEMV: bytes; GEMM: operations).  The value
 // is table[code] * s in float32, rounded once to bf16 at M > 32 with bf16 x;
-// the `_f32` entries take float32 x and write float32, exact float32 at
-// every M (GEMM: qmm_fp.cuh's gemm_f32_kernel).
+// the `_f32` entries take float32 x and write float32: the GEMV in float32,
+// the GEMM 3xTF32 on the tensor cores (qmm_fp.cuh's tc::gemm_tf32x3_kernel),
+// within float32-level error.
 //
 // Host entries return cudaGetLastError() after their launches.
 

@@ -25,8 +25,9 @@
 // with the same four entry names: in one unit nvcc compiles the ten formats
 // one after another, apart they compile side by side.  The `_f32` entries
 // take float32 x and write float32 (the JAX kernels' float32-activation
-// branch): the GEMV with a float32 load of x, the GEMM exact float32
-// (qmm_fp.cuh's gemm_f32_kernel).  Host entries return cudaGetLastError()
+// branch): the GEMV with a float32 load of x, the GEMM 3xTF32 on the tensor
+// cores within float32-level error (qmm_fp.cuh's tc::gemm_tf32x3_kernel).
+// Host entries return cudaGetLastError()
 // after their launches.
 
 #pragma once

@@ -122,15 +122,37 @@
 //    parameter, XT); x is staged as float32 either way, so only the global
 //    load differs, and the product is float32 end to end, never rounded to
 //    bf16 and never on the tensor cores.
-//  * GEMM: gemm_f32_kernel, an exact float32 SIMT GEMM (FFMA, float32
-//    accumulation).  The bf16 tensor-core tile would round x and W to bf16, and a
-//    TF32 product would round both to 10-bit mantissas; the JAX kernels'
-//    float32 branch does neither.  Bound: operations at the float32
-//    (non-tensor) rate.  128x128 tiles, K steps of 64 over the same
-//    band-major x as the bf16 GEMM, W unpacked in registers, both
-//    operands dequantized / staged in shared memory as float32,
-//    double-buffered (135 KB: one block of 256 threads per SM), each thread
-//    an 8x8 micro-tile.
+//  * GEMM (M > 32): tc::gemm_tf32x3_kernel, 3xTF32 on the tensor cores,
+//    within float32-level error (chip_smoke.py's check_f32_formats: 256
+//    float32 ulps of the largest output against a float64 product of the
+//    same weight, which a single TF32 product fails).  Each operand v is
+//    split into TF32 hi = rna(v) and lo = rna(v - hi) (hi + lo is v or one
+//    float32 ulp away) and each k8 step forms lo_x hi_w + hi_x lo_w +
+//    hi_x hi_w, small terms first (lo_x lo_w, below 2^-22 of a product, is
+//    left out).  The tensor cores truncate each wgmma's sum into the
+//    accumulator (chip_levers.py --acc: 0.75 ulp of 1.0 added is dropped),
+//    so over a whole K the sum drifts toward zero by about half an ulp per
+//    wgmma (1.0-1.4 tolerances at K = 4096-5120); each K step of 32 k'
+//    therefore starts a fresh accumulator and adds it into a float32 total
+//    (to nearest), which keeps the error near 0.02 tolerances.  Bound:
+//    operations at three TF32 products (the bf16 peak / 6).  128 x 128
+//    tiles, K steps of 32 k' over the same band-major x as the bf16 GEMM
+//    (one 128-byte swizzle row of float32), 384 threads (12 warps leave 168
+//    registers a thread: the accumulator and the total take 64 each):
+//      - warpgroup 0 dequantizes with the bf16 GEMM's transforms (`Ring`:
+//        one warpgroup takes every band and row of a step) and writes each
+//        weight as a TF32 pair into K-major 128-byte-swizzled hi and lo
+//        tiles (wgmma cannot transpose 32-bit operands); its thread 0 keeps
+//        the packs' TMA loads 4 steps ahead on the bf16 GEMM's plane maps;
+//      - warpgroups 1-2 take 64 rows each: each loads its own rows of x
+//        (TMA, float32 boxes of 32 x 64 in the 128-byte swizzle, 4 steps
+//        ahead), reads a k8 step's A fragment from them, splits it in
+//        registers and issues the three m64n128k8 products with A from
+//        registers and W's pair from shared memory, one k8 step's group in
+//        flight while the next is read.
+//    Shared memory: x 4 x 16 KB, W pairs 4 x 32 KB, packs 6 x 4 KB (217
+//    KB, one block per SM).  Each output is written once by one thread and
+//    its sums run in a fixed order: the same inputs give the same bytes.
 //
 // Grouped instances (GROUPED = true, one-plane and byte formats; float32
 // out): experts stacked on a leading axis of the planes, scales and zeros.
@@ -1266,10 +1288,10 @@ constexpr int THREADS = PRODUCER + TRANSFORM + CONSUMER;
 constexpr int TWARPS = TRANSFORM / 32;
 constexpr int MAX_EXPERTS = 1024;              // the expert axis of a plane's map
 
-// Packed bytes of one step's tile of W (BK x BN weights).
-template <int FMT>
+// Packed bytes of one step's tile of W (KB x BN weights).
+template <int FMT, int KB = BK>
 __host__ __device__ constexpr int w_stage_bytes() {
-  return BK * BN * Fmt<FMT>::kBits / 8;
+  return KB * BN * Fmt<FMT>::kBits / 8;
 }
 
 template <int MI>
@@ -1404,6 +1426,14 @@ struct Wgmma<64> {
   }
 };
 
+// v rounded to TF32 (10-bit mantissa, to nearest, ties away), as a float's
+// bits with the low 13 bits zero: cvt.rna.tf32.f32's value for every finite
+// v (the magnitude's bits rounded up at bit 12, a carry moving into the
+// exponent), in two integer operations instead of a conversion.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+}
+
 template <int R>
 __device__ __forceinline__ void keep_regs(float (&d)[R]) {
 #pragma unroll
@@ -1474,24 +1504,72 @@ __device__ __forceinline__ uint4 a4_chunk(uint32_t w, const __nv_bfloat162 (&sp)
   return make_uint4(pk[0], pk[1], pk[2], pk[3]);
 }
 
+// Where the transform warpgroups work: K per step, the packed ring's and the
+// W ring's stages and stage bytes, the number of transform warpgroups (two
+// in the bf16 GEMM, which split a step's bands or rows between them; one in
+// the float32 GEMM), the first transform thread, and the W tiles written:
+// bf16, or TF32 hi + lo pairs (store_tf32x8).
+template <int BK_, int SW_, int SB_, int W_STAGE_, int B_STAGE_, int NH_, int T0_,
+          bool TF32_>
+struct Ring {
+  static constexpr int kBK = BK_, kSW = SW_, kSB = SB_, kWStage = W_STAGE_,
+                       kBStage = B_STAGE_, kNH = NH_, kT0 = T0_;
+  static constexpr bool kTf32 = TF32_;
+};
+using Bf16Ring = Ring<BK, SW, SB, Layout<1>::w_stage, Layout<1>::b_stage, 2, PRODUCER, false>;
+
+// The float32 GEMM's W stage: a hi and a lo tile of BN columns x 32 k' in
+// TF32, each column one 128-byte swizzled row (the K-major layout wgmma reads
+// for 32-bit operands).
+constexpr int TF32_TILE = BN * 32 * 4;
+
+// Eight consecutive k' of one W column (octet c of the step) as TF32 pairs,
+// hi = rna(v) and lo = rna(v - hi): hi + lo is v or one float32 ulp of v
+// away (v - hi has up to 12 significant bits, lo keeps 11).  Chunks 2c and
+// 2c + 1 of its row in the hi tile at bt and in the lo tile after it.
+__device__ __forceinline__ void store_tf32x8(unsigned char* bt, int row, int c,
+                                             const float (&v)[8]) {
+  uint32_t h[8], l[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    h[e] = tf32_rna(v[e]);
+    l[e] = tf32_rna(v[e] - __uint_as_float(h[e]));
+  }
+  const int c0 = sw128_chunk(row, 2 * c), c1 = sw128_chunk(row, 2 * c + 1);
+  *reinterpret_cast<uint4*>(bt + c0) = make_uint4(h[0], h[1], h[2], h[3]);
+  *reinterpret_cast<uint4*>(bt + c1) = make_uint4(h[4], h[5], h[6], h[7]);
+  *reinterpret_cast<uint4*>(bt + TF32_TILE + c0) = make_uint4(l[0], l[1], l[2], l[3]);
+  *reinterpret_cast<uint4*>(bt + TF32_TILE + c1) = make_uint4(l[4], l[5], l[6], l[7]);
+}
+
+// A transform's hook at the top of each step (the float32 GEMM's loads); the
+// bf16 GEMM has none.
+struct NoHook {
+  __device__ __forceinline__ void operator()(int) const {}
+};
+
 // Transform warpgroups, packed formats (EF >= 8 bands): thread (warpgroup
 // H, column tl) dequantizes BPT bands x RPT word rows of the step (32 weights, four
 // 16-byte chunks of 8 consecutive k' = row * EF + band) and holds the scale
 // and zero term of each of its bands until the band's group changes (A4:
-// kernel A's format through a4_chunk, the scales held as bf16 pairs).
-template <int FMT, int H, bool A4>
+// kernel A's format through a4_chunk, the scales held as bf16 pairs).  One
+// warpgroup (the float32 GEMM: steps of 32 k') takes every band and row.
+template <int FMT, int H, bool A4, typename RG = Bf16Ring, typename Hook = NoHook>
 __device__ __forceinline__ void transform_packed(
     const PackArgs& a, const uint32_t* ws_all, __nv_bfloat16* bs_all,
     uint64_t* w_full, uint64_t* w_empty, uint64_t* b_full, uint64_t* b_empty,
-    const float* tab, int n_blk, int K, int N, int g, int steps) {
+    const float* tab, int n_blk, int K, int N, int g, int steps, Hook hook = Hook{}) {
   using F = Fmt<FMT>;
   static_assert(!A4 || FMT == FMT_INT4, "A4 is kernel A's int4 format");
-  constexpr int EF = F::kBands, R = BK / EF;
-  constexpr int BPT = EF >= 16 ? EF / 2 : EF;  // bands per thread
-  constexpr int RPT = EF >= 16 ? R : R / 2;    // word rows per thread
+  static_assert(!A4 || !RG::kTf32, "A4 writes bf16 tiles");
+  constexpr int EF = F::kBands, R = RG::kBK / EF;
+  constexpr bool split = RG::kNH == 2;
+  constexpr int BPT = split && EF >= 16 ? EF / 2 : EF;  // bands per thread
+  constexpr int RPT = split && EF < 16 ? R / 2 : R;     // word rows per thread
   constexpr int OCT = BPT / 8;                 // chunks per row
   // the bands are compile-time: code_of then shifts by constants
-  constexpr int band0 = EF >= 16 ? H * BPT : 0, row0 = EF >= 16 ? 0 : H * RPT;
+  constexpr int band0 = split && EF >= 16 ? H * BPT : 0;
+  constexpr int row0 = split && EF < 16 ? H * RPT : 0;
   const int tl = threadIdx.x % 128, lane = tl % 32;
   const int n = n_blk + tl;
   const int KW = K / EF;
@@ -1529,9 +1607,10 @@ __device__ __forceinline__ void transform_packed(
   };
   reload(0);
   for (int s = 0; s < steps; ++s) {
-    const int ws = s % SW;
-    bar_wait(&w_full[ws], (s / SW) & 1);
-    const uint32_t* wt = ws_all + ws * (Layout<1>::w_stage / 4);
+    hook(s);
+    const int ws = s % RG::kSW;
+    bar_wait(&w_full[ws], (s / RG::kSW) & 1);
+    const uint32_t* wt = ws_all + ws * (RG::kWStage / 4);
     uint32_t w[RPT][F::kSlots];
 #pragma unroll
     for (int i = 0; i < RPT; ++i)
@@ -1549,13 +1628,25 @@ __device__ __forceinline__ void transform_packed(
     if (lane == 0) bar_arrive(&w_empty[ws]);
     // the W ring runs SB steps ahead of the products, so this wait is
     // short; each chunk is stored as soon as it is made (few live registers)
-    const int bst = s % SB;
-    bar_wait(&b_empty[bst], ((s / SB) & 1) ^ 1);
-    unsigned char* bt = reinterpret_cast<unsigned char*>(bs_all) + bst * Layout<1>::b_stage;
+    const int bst = s % RG::kSB;
+    bar_wait(&b_empty[bst], ((s / RG::kSB) & 1) ^ 1);
+    unsigned char* bt = reinterpret_cast<unsigned char*>(bs_all) + bst * RG::kBStage;
     if constexpr (A4) {  // one word row = one 16-byte chunk (EF = 8)
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
         *reinterpret_cast<uint4*>(bt + sw128_chunk(tl, row0 + i)) = a4_chunk(w[i][0], sp);
+    } else if constexpr (RG::kTf32) {
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int o = 0; o < OCT; ++o) {
+          float v[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            v[e] = weight_value<FMT>(code_of<FMT>(w[i], band0 + o * 8 + e), sc[o * 8 + e],
+                                     zt[o * 8 + e], float_zero, tab);
+          store_tf32x8(bt, tl, ((row0 + i) * EF + band0) / 8 + o, v);
+        }
     } else {
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
@@ -1589,13 +1680,13 @@ __device__ __forceinline__ void transform_packed(
 // a warp's 16-byte stores spread over the banks.  `direct`: N % 16 != 0,
 // where TMA cannot take the rows' stride; the words are then read from
 // global memory.
-template <int FMT>
+template <int FMT, typename RG = Bf16Ring, typename Hook = NoHook>
 __device__ __forceinline__ void transform_bytes(
     const PackArgs& a, const uint32_t* ws_all, __nv_bfloat16* bs_all,
     uint64_t* w_full, uint64_t* w_empty, uint64_t* b_full, uint64_t* b_empty,
-    int n_blk, int K, int N, int g, int steps, int direct) {
+    int n_blk, int K, int N, int g, int steps, int direct, Hook hook = Hook{}) {
   using F = Fmt<FMT>;
-  const int t = threadIdx.x - PRODUCER;
+  const int t = threadIdx.x - RG::kT0;
   const int oct = t / 32, cq = t % 32, lane = cq;
   const int col = 4 * cq, n = n_blk + col;
   const bool float_zero = a.zmode == Z_FLOAT;
@@ -1607,7 +1698,7 @@ __device__ __forceinline__ void transform_bytes(
   // as transform_packed: the next step's group terms load after this
   // step's dequantization
   auto reload = [&](int s) {
-    const int k0 = s * BK + 8 * oct;
+    const int k0 = s * RG::kBK + 8 * oct;
     if (k0 < K && k0 >= next) {
       const int G = k0 / g;
       next = (G + 1) * g;
@@ -1623,10 +1714,11 @@ __device__ __forceinline__ void transform_bytes(
   };
   reload(0);
   for (int s = 0; s < steps; ++s) {
-    const int k0 = s * BK + 8 * oct;
+    hook(s);
+    const int k0 = s * RG::kBK + 8 * oct;
     const bool live = k0 < K;
-    const int ws = s % SW;
-    bar_wait(&w_full[ws], (s / SW) & 1);
+    const int ws = s % RG::kSW;
+    bar_wait(&w_full[ws], (s / RG::kSW) & 1);
     uint32_t w[8];
     if (direct) {
 #pragma unroll
@@ -1635,12 +1727,47 @@ __device__ __forceinline__ void transform_bytes(
                    ? __ldg(reinterpret_cast<const uint32_t*>(bytes + (size_t)(k0 + i) * N + n))
                    : 0u;
     } else {
-      const uint32_t* wt = ws_all + ws * (Layout<1>::w_stage / 4);
+      const uint32_t* wt = ws_all + ws * (RG::kWStage / 4);
 #pragma unroll
       for (int i = 0; i < 8; ++i) w[i] = wt[(8 * oct + i) * (BN / 4) + cq];
     }
     __syncwarp();
     if (lane == 0) bar_arrive(&w_empty[ws]);
+    if constexpr (RG::kTf32) {
+      // the W ring runs SB steps ahead of the products, so this wait is
+      // short; each column's 8 rows are split and stored as they are made
+      const int bst = s % RG::kSB;
+      bar_wait(&b_empty[bst], ((s / RG::kSB) & 1) ^ 1);
+      unsigned char* bt = reinterpret_cast<unsigned char*>(bs_all) + bst * RG::kBStage;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = jj ^ rot;
+        const float s_j = j == 0 ? sc[0] : j == 1 ? sc[1] : j == 2 ? sc[2] : sc[3];
+        const float z_j = j == 0 ? zt[0] : j == 1 ? zt[1] : j == 2 ? zt[2] : zt[3];
+        float v[8];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // column j's bytes of rows 2e and 2e + 1 in the low half
+          const uint32_t pair =
+              __byte_perm(w[2 * e], w[2 * e + 1], (uint32_t)j | ((4u + j) << 4));
+          if constexpr (F::kFp8) {
+            const float2 f = fp8x2_value<FMT>(pair);
+            v[2 * e] = f.x * s_j;
+            v[2 * e + 1] = f.y * s_j;
+          } else {
+            v[2 * e] = weight_value<FMT>(pair & 255u, s_j, z_j, float_zero, nullptr);
+            v[2 * e + 1] = weight_value<FMT>((pair >> 8) & 255u, s_j, z_j, float_zero, nullptr);
+          }
+          if (!live) v[2 * e] = v[2 * e + 1] = 0.f;
+        }
+        store_tf32x8(bt, col + j, oct, v);
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncwarp();
+      if (lane == 0) bar_arrive(&b_full[bst]);
+      if (s + 1 < steps) reload(s + 1);
+      continue;
+    }
     uint4 ch[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -1664,9 +1791,9 @@ __device__ __forceinline__ void transform_bytes(
       }
       ch[j] = make_uint4(pk[0], pk[1], pk[2], pk[3]);
     }
-    const int bst = s % SB;
-    bar_wait(&b_empty[bst], ((s / SB) & 1) ^ 1);
-    unsigned char* bt = reinterpret_cast<unsigned char*>(bs_all) + bst * Layout<1>::b_stage;
+    const int bst = s % RG::kSB;
+    bar_wait(&b_empty[bst], ((s / RG::kSB) & 1) ^ 1);
+    unsigned char* bt = reinterpret_cast<unsigned char*>(bs_all) + bst * RG::kBStage;
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       const int j = jj ^ rot;
@@ -1886,6 +2013,208 @@ gemm_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
+// ------------------------------------------------ float32 GEMM (3xTF32) ---
+// float32 x and out, M > 32 (design in the note at the top of this file):
+// 128 x 128 output tiles, K steps of 32 k' (one 128-byte swizzle row of
+// float32), 384 threads: warpgroup 0 dequantizes (its thread 0 also issues
+// the packs' TMA loads), warpgroups 1-2 load their own 64 rows of x and
+// multiply.
+namespace f32 {
+constexpr int BK = 32, SX = 4, SW = 6, SB = 4;  // ring stages: x, packed, W pairs
+constexpr int BM = 128, THREADS = 384;
+constexpr int x_tile = BM * BK * 4;            // float32, 128-byte swizzled rows
+constexpr int b_stage = 2 * TF32_TILE;         // W: hi + lo
+constexpr int w_stage = BK * BN;               // the widest pack (bytes)
+constexpr int x_off = 0;
+constexpr int b_off = x_off + SX * x_tile;
+constexpr int w_off = b_off + SB * b_stage;
+constexpr int bar_off = w_off + SW * w_stage;
+constexpr int tab_off = bar_off + 8 * (2 * SX + 2 * SW + 2 * SB);
+constexpr int smem = tab_off + 16 * 4 + 1024;  // + the 1024 alignment
+}  // namespace f32
+using Tf32Ring = Ring<f32::BK, f32::SW, f32::SB, f32::w_stage, f32::b_stage, 1, 0, true>;
+
+// m64n128k8, tf32 x tf32 -> float32: A (4 TF32 words a thread, the
+// mma.sync m16n8k8 layout per warp: (g, t), (g + 8, t), (g, t + 4),
+// (g + 8, t + 4), g = lane / 4, t = lane % 4) from registers, B K-major in
+// shared memory; d = A B + d, or A B when scale_d is 0.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+      "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
+      "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "
+      "%61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
+        "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
+        "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <int FMT>
+__global__ void __launch_bounds__(f32::THREADS, 1)
+gemm_tf32x3_kernel(const __grid_constant__ CUtensorMap xmap,
+                   const __grid_constant__ CUtensorMap wmap0,
+                   const __grid_constant__ CUtensorMap wmap1,
+                   const __grid_constant__ CUtensorMap wmap2, PackArgs a,
+                   float* __restrict__ out, int M, int K, int N, int g, int direct) {
+  using F = Fmt<FMT>;
+  // this kernel's ring (tc's own BK, SX, SW, SB are the bf16 GEMM's)
+  constexpr int BK = f32::BK, SX = f32::SX, SW = f32::SW, SB = f32::SB;
+  constexpr int BM = f32::BM, x_tile = f32::x_tile;
+  constexpr int b_stage = f32::b_stage, w_stage = f32::w_stage;
+  extern __shared__ unsigned char gsm_raw[];
+  unsigned char* gsm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(gsm_raw) + 1023) & ~(uintptr_t)1023);
+  unsigned char* xs = gsm + f32::x_off;
+  unsigned char* bs = gsm + f32::b_off;
+  auto ws = reinterpret_cast<uint32_t*>(gsm + f32::w_off);
+  auto bars = reinterpret_cast<uint64_t*>(gsm + f32::bar_off);
+  uint64_t* x_full = bars;  // [SX][2]: each consumer warpgroup's rows
+  uint64_t* w_full = x_full + 2 * SX;
+  uint64_t* w_empty = w_full + SW;
+  uint64_t* b_full = w_empty + SW;
+  uint64_t* b_empty = b_full + SB;
+  auto tab = reinterpret_cast<float*>(gsm + f32::tab_off);
+
+  const int m_blk = blockIdx.y * BM, n_blk = blockIdx.x * BN;
+  const int steps = (K + BK - 1) / BK;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2 * SX; ++i) bar_init(&x_full[i], 1);
+    for (int i = 0; i < SW; ++i) {
+      bar_init(&w_full[i], 1);
+      bar_init(&w_empty[i], 4);  // one per transform warp
+    }
+    for (int i = 0; i < SB; ++i) {
+      bar_init(&b_full[i], 4);
+      bar_init(&b_empty[i], 2);  // one per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (F::kLut && threadIdx.x < 16) tab[threadIdx.x] = a.table[threadIdx.x];
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- transform: packed codes -> TF32 hi + lo W tiles.  Thread 0 also
+    // keeps the packs' loads SW - 2 steps ahead: at the top of step s, the
+    // tile of step s + SW - 2 (its slot held step s - 2, released by now).
+    auto load_w = [&](int j) {
+      const int wst = j % SW;
+      bar_wait(&w_empty[wst], ((j / SW) & 1) ^ 1);
+      if (direct) {
+        bar_arrive(&w_full[wst]);
+        return;
+      }
+      bar_expect(&w_full[wst], w_stage_bytes<FMT, BK>());
+      unsigned char* wt = reinterpret_cast<unsigned char*>(ws) + wst * w_stage;
+      if constexpr (F::kByte) {
+        tma_4d(wt, &wmap0, &w_full[wst], n_blk, j * BK, 0, 0);
+      } else {
+        constexpr int R = BK / F::kBands;
+        int off = 0;
+        static_for<0, F::kPlanes>([&](auto p) {
+          const CUtensorMap* m = p.value == 0 ? &wmap0 : p.value == 1 ? &wmap1 : &wmap2;
+          tma_4d(wt + off, m, &w_full[wst], n_blk, j * R, 0, 0);
+          off += F::q(p.value) * R * BN * 4;
+        });
+      }
+    };
+    auto hook = [&](int s) {
+      if (threadIdx.x != 0) return;
+      if (s == 0) {
+        for (int j = 0; j < SW - 1 && j < steps; ++j) load_w(j);
+      } else if (s + SW - 2 < steps) {
+        load_w(s + SW - 2);
+      }
+    };
+    auto bs16 = reinterpret_cast<__nv_bfloat16*>(bs);
+    if constexpr (F::kByte)
+      transform_bytes<FMT, Tf32Ring>(a, ws, bs16, w_full, w_empty, b_full, b_empty, n_blk,
+                                     K, N, g, steps, direct, hook);
+    else
+      transform_packed<FMT, 0, false, Tf32Ring>(a, ws, bs16, w_full, w_empty, b_full,
+                                                b_empty, tab, n_blk, K, N, g, steps, hook);
+  } else {
+    // ---- consumers, 64 rows each: a warpgroup loads its own rows of x
+    // (TMA, SX steps ahead), reads each k8 step's A fragment from them,
+    // splits it into TF32 hi + lo in registers, and multiplies by W's pair
+    // from shared memory: lo_x hi_w, hi_x lo_w, hi_x hi_w (the small terms
+    // first) into a fresh accumulator, added into a float32 total once the
+    // step's products are done.  A k8 step's products form one group; one
+    // group stays in flight while the next k8 step's x is read and split
+    // (two register sets).
+    const int c = threadIdx.x / 128 - 1, t = threadIdx.x % 128;
+    const int lane = t % 32, q = lane % 4;
+    const int rows = 64 * c * 128;             // this warpgroup's rows in an x tile
+    const int r0 = 16 * (t / 32) + lane / 4;   // A rows r0 and r0 + 8 of them
+    const int sw = r0 & 7;
+    auto load_x = [&](int j) {
+      uint64_t* full = &x_full[(j % SX) * 2 + c];
+      bar_expect(full, x_tile / 2);
+      tma_2d(xs + (j % SX) * x_tile + rows, &xmap, full, j * BK, m_blk + 64 * c);
+    };
+    if (t == 0)
+      for (int j = 0; j < SX && j < steps; ++j) load_x(j);
+    float acc[64], tot[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = tot[i] = 0.f;
+    uint32_t xh[2][4], xl[2][4];
+    for (int s = 0; s < steps; ++s) {
+      const int xst = s % SX, bst = s % SB;
+      bar_wait(&b_full[bst], (s / SB) & 1);
+      bar_wait(&x_full[xst * 2 + c], (s / SX) & 1);
+      const unsigned char* xr = xs + xst * x_tile + rows + r0 * 128 + 4 * q;
+      const uint64_t bh = sw128_desc(bs + bst * b_stage);
+      const uint64_t bl = sw128_desc(bs + bst * b_stage + TF32_TILE);
+#pragma unroll
+      for (int kk = 0; kk < BK / 8; ++kk) {
+        const int p = kk & 1;
+        const int o0 = ((2 * kk) ^ sw) << 4, o1 = ((2 * kk + 1) ^ sw) << 4;
+        const float v[4] = {*reinterpret_cast<const float*>(xr + o0),
+                            *reinterpret_cast<const float*>(xr + 8 * 128 + o0),
+                            *reinterpret_cast<const float*>(xr + o1),
+                            *reinterpret_cast<const float*>(xr + 8 * 128 + o1)};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          xh[p][j] = tf32_rna(v[j]);
+          xl[p][j] = tf32_rna(v[j] - __uint_as_float(xh[p][j]));
+        }
+        keep_regs(acc);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        // 32 bytes along K a k8 step: 2 in the descriptor's 16-byte units
+        wgmma_tf32_rs(acc, xl[p], bh + 2 * kk, kk == 0 ? 0 : 1);
+        wgmma_tf32_rs(acc, xh[p], bl + 2 * kk, 1);
+        wgmma_tf32_rs(acc, xh[p], bh + 2 * kk, 1);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        keep_regs(acc);
+      }
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      keep_regs(acc);
+      if (t == 0) {  // step s's products are done: its W pair and x slot are free
+        bar_arrive(&b_empty[bst]);
+        if (s + SX < steps) load_x(s + SX);
+      }
+#pragma unroll
+      for (int i = 0; i < 64; ++i) tot[i] += acc[i];
+    }
+    store_tile<BN>(tot, out, m_blk + 64 * c, n_blk, M, M, N);
+  }
+}
+
 // cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda).
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -1914,6 +2243,19 @@ inline bool x_map(CUtensorMap* m, const __nv_bfloat16* x, int M, int K, int BM) 
   const cuuint32_t el[2] = {1, 1};
   return encoder()(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<__nv_bfloat16*>(x),
                    dims, strides, box, el, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                   CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// x [M, K] float32 in boxes of 32 x 64 (one 128-byte swizzle row of K, a
+// consumer warpgroup's rows).
+inline bool x_map_f32(CUtensorMap* m, const float* x, int M, int K) {
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)f32::BK, (cuuint32_t)(f32::BM / 2)};
+  const cuuint32_t el[2] = {1, 1};
+  return encoder()(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(x), dims,
+                   strides, box, el, CU_TENSOR_MAP_INTERLEAVE_NONE,
                    CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -1992,203 +2334,35 @@ cudaError_t run_gemm_grouped(const __nv_bfloat16* xk, const PackArgs& a,
   return cudaErrorInvalidValue;
 }
 
-// ------------------------------------------------------- float32 GEMM ---
-// (the float32 tile constants)
-constexpr int BN = 128, BK = 64;
-constexpr int GEMM_THREADS = 256;
-constexpr int F32_BM = 128;
-constexpr int F32_LDA = F32_BM + 4, F32_LDB = BN + 4;  // rows 16-byte aligned
-constexpr int F32_A_LOADS = F32_BM * BK / 4 / GEMM_THREADS;  // float4s of x a step
-
-constexpr int gemm_f32_smem_bytes() {
-  return (int)(sizeof(float) * 2 * BK * (F32_LDA + F32_LDB));
-}
-
-// 128x128 tiles of out = xk @ W in exact float32.  Thread (ty, tx) of the
-// 16x16 grid owns rows {ty*4, 64 + ty*4} + 0..3 and the same columns from
-// tx: per k it reads two float4 of x (one address per half-warp:
-// broadcast) and two of W (16 consecutive float4s) for 64 FFMA.  x is
-// stored transposed ([k][m]); a warp loads 8 rows x 64 contiguous bytes of
-// it, so its transposed stores fall in 16 banks (2-way).  W is unpacked by
-// 128 threads of one column each (packed) or 32 x 8 of four (bytes), into
-// float32.
-template <int FMT>
-__global__ void __launch_bounds__(GEMM_THREADS, 1)
-gemm_f32_kernel(const float* __restrict__ xk, PackArgs a, float* __restrict__ out,
-                int M, int K, int N, int g) {
-  using F = Fmt<FMT>;
-  constexpr int EF = F::kBands;
-  constexpr int R = BK / EF;                  // narrowest-plane rows per K step
-  constexpr int RH = F::kByte ? 8 : R / 2;    // rows one thread unpacks
-  constexpr int NW = F::kByte ? 8 : RH * F::kSlots;  // words it holds
-  extern __shared__ __align__(16) float fsm[];
-  float* As_all = fsm;                        // [2][BK][F32_LDA]
-  float* Bs_all = fsm + 2 * BK * F32_LDA;     // [2][BK][F32_LDB]
-  __shared__ float tab[16];
-  if (F::kLut && threadIdx.x < 16) tab[threadIdx.x] = a.table[threadIdx.x];
-
-  const int m_blk = blockIdx.y * F32_BM, n_blk = blockIdx.x * BN;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int KW = K / EF;
-  const int sym_offset = 1 << (F::kBits - 1);
-  const int bc = F::kByte ? (threadIdx.x % 32) * 4 : threadIdx.x % BN;
-  const int bh = F::kByte ? threadIdx.x / 32 : threadIdx.x / BN;
-  const int bn = n_blk + bc;
-  // load u of a warp: rows (wc % 16) * 8 + 0..7, float4 segments
-  // (wc / 16) * 4 + 0..3 of the step's 16, wc = u * 8 + warp
-  auto a_row = [&](int u) { return ((u * 8 + warp) % 16) * 8 + lane % 8; };
-  auto a_seg = [&](int u) { return ((u * 8 + warp) / 16) * 4 + lane / 8; };
-
-  float4 a_reg[F32_A_LOADS];
-  uint32_t w_reg[NW];
-  auto load_step = [&](int k0) {
-#pragma unroll
-    for (int u = 0; u < F32_A_LOADS; ++u) {
-      const int row = m_blk + a_row(u), k = k0 + a_seg(u) * 4;
-      a_reg[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (row < M && k < K)
-        a_reg[u] = __ldg(reinterpret_cast<const float4*>(xk + (size_t)row * K + k));
-    }
-    if constexpr (F::kByte) {
-      const uint8_t* bytes = reinterpret_cast<const uint8_t*>(a.plane[0]);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int k = k0 + bh * 8 + i;
-        w_reg[i] = (bn < N && k < K)
-                       ? __ldg(reinterpret_cast<const uint32_t*>(bytes + (size_t)k * N + bn))
-                       : 0u;
-      }
-    } else {
-      const int r0 = k0 / EF + bh * RH;
-#pragma unroll
-      for (int ir = 0; ir < RH; ++ir)
-#pragma unroll
-        for (int p = 0; p < F::kPlanes; ++p)
-#pragma unroll
-          for (int jq = 0; jq < F::q(p); ++jq)
-            w_reg[ir * F::kSlots + F::slot0(p) + jq] =
-                bn < N ? __ldg(a.plane[p] + (size_t)(jq * KW + r0 + ir) * N + bn) : 0u;
-    }
-  };
-
-  auto store_step = [&](int stage, int k0) {
-    float* As = As_all + stage * BK * F32_LDA;
-    float* Bs = Bs_all + stage * BK * F32_LDB;
-#pragma unroll
-    for (int u = 0; u < F32_A_LOADS; ++u) {
-      float* col = As + a_seg(u) * 4 * F32_LDA + a_row(u);
-      col[0] = a_reg[u].x;
-      col[F32_LDA] = a_reg[u].y;
-      col[2 * F32_LDA] = a_reg[u].z;
-      col[3 * F32_LDA] = a_reg[u].w;
-    }
-    if constexpr (F::kByte) {
-      const int k = k0 + bh * 8;
-      float s[4] = {0.f, 0.f, 0.f, 0.f};
-      int zi[4] = {0, 0, 0, 0};
-      float zf[4] = {0.f, 0.f, 0.f, 0.f};
-      if (bn < N && k < K) {
-        const size_t sidx = (size_t)(k / g) * N + bn;
-        scales4(a, sidx, s);
-        if constexpr (!F::kFp8) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) zero_at(a, sidx + j, sym_offset, zi[j], zf[j]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        float v[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const uint32_t code = (w_reg[i] >> (8 * j)) & 255u;
-          if constexpr (F::kFp8)
-            v[j] = fp8_value<FMT>(code) * s[j];
-          else
-            v[j] = int_value<FMT>(a, code, s[j], zi[j], zf[j]);
-        }
-        *reinterpret_cast<float4*>(&Bs[(bh * 8 + i) * F32_LDB + bc]) =
-            make_float4(v[0], v[1], v[2], v[3]);
-      }
-    } else {
-      const int r0 = k0 / EF + bh * RH;
-#pragma unroll
-      for (int b = 0; b < EF; ++b) {
-        float s = 0.f, zf = 0.f;
-        int zi = 0;
-        if (bn < N) {
-          const size_t sidx = (size_t)((b * KW + r0) / g) * N + bn;
-          s = scale_at(a, sidx);
-          zero_at(a, sidx, sym_offset, zi, zf);
-        }
-#pragma unroll
-        for (int ir = 0; ir < RH; ++ir) {
-          const uint32_t code = code_of<FMT>(&w_reg[ir * F::kSlots], b);
-          Bs[((bh * RH + ir) * EF + b) * F32_LDB + bc] =
-              F::kLut ? tab[code] * s : int_value<FMT>(a, code, s, zi, zf);
-        }
-      }
-    }
-  };
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  __syncthreads();  // the table
-  load_step(0);
-  store_step(0, 0);
-  __syncthreads();
-  int stage = 0;
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    const bool more = k0 + BK < K;
-    if (more) load_step(k0 + BK);
-    const float* As = As_all + stage * BK * F32_LDA;
-    const float* Bs = Bs_all + stage * BK * F32_LDB;
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk * F32_LDA + ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk * F32_LDA + 64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk * F32_LDB + tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk * F32_LDB + 64 + tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    // the other stage was last read before the previous barrier
-    if (more) store_step(stage ^ 1, k0 + BK);
-    __syncthreads();
-    stage ^= 1;
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int gm = m_blk + (i / 4) * 64 + ty * 4 + i % 4;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int gn = n_blk + h * 64 + tx * 4;  // N % 8 == 0: whole float4s
-      if (gn < N)
-        *reinterpret_cast<float4*>(out + (size_t)gm * N + gn) = make_float4(
-            acc[i][h * 4], acc[i][h * 4 + 1], acc[i][h * 4 + 2], acc[i][h * 4 + 3]);
-    }
-  }
-}
-
+// The float32 GEMM (M > 32): x [M, K] float32 in band-major K order, out
+// float32; tc::gemm_tf32x3_kernel on the bf16 GEMM's plane maps, at 32 k' a
+// step.
 template <int FMT>
 cudaError_t run_gemm_f32(const float* xk, const PackArgs& a, float* out, int M, int K,
                          int N, int g, cudaStream_t st) {
-  constexpr int smem = gemm_f32_smem_bytes();
-  cudaError_t err = cudaFuncSetAttribute(gemm_f32_kernel<FMT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  using F = Fmt<FMT>;
+  if (tc::encoder() == nullptr) return cudaErrorNotSupported;
+  const int direct = F::kByte && N % 16 != 0;
+  CUtensorMap xm, wm[3];
+  memset(wm, 0, sizeof(wm));
+  bool ok = tc::x_map_f32(&xm, xk, M, K);
+  if constexpr (F::kByte) {
+    if (!direct) ok = ok && tc::plane_map(&wm[0], a.plane[0], true, N, K, 1, 1, tc::f32::BK);
+  } else {
+    const int KW = K / F::kBands;
+#pragma unroll
+    for (int p = 0; p < F::kPlanes; ++p)
+      ok = ok && tc::plane_map(&wm[p], a.plane[p], false, N, KW, F::q(p), 1,
+                               tc::f32::BK / F::kBands);
+  }
+  if (!ok) return cudaErrorInvalidValue;
+  auto kernel = tc::gemm_tf32x3_kernel<FMT>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         tc::f32::smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((N + BN - 1) / BN, (M + F32_BM - 1) / F32_BM);
-  gemm_f32_kernel<FMT><<<grid, GEMM_THREADS, smem, st>>>(xk, a, out, M, K, N, g);
+  dim3 grid((N + tc::BN - 1) / tc::BN, (M + tc::f32::BM - 1) / tc::f32::BM);
+  kernel<<<grid, tc::f32::THREADS, tc::f32::smem, st>>>(xm, wm[0], wm[1], wm[2], a, out, M,
+                                                        K, N, g, direct);
   return cudaGetLastError();
 }
 

@@ -28,8 +28,9 @@ Quantized whisper (`convert_whisper(..., qspec)`) runs its linears through
 package's kernels do (`_compute_dtype`'s float32 branch): the plain version
 on the CPU; on the card the `_f32` instances of kernels F, P and P's
 one-plane INT instances (int8 g128, the `AudioModel` default, goes to the
-last), a float32 GEMV per decode step and an exact float32 GEMM (no TF32)
-over the encoder's 1500 frames and the cross K/V.
+last), a float32 GEMV per decode step and, over the encoder's 1500 frames
+and the cross K/V, a GEMM in 3xTF32 on the tensor cores, within
+float32-level error (the `check_f32_formats` contract of `chip_smoke.py`).
 """
 
 from __future__ import annotations

@@ -35,7 +35,8 @@ Float32 activations (the JAX kernels' float32 branch; quantized Whisper's
 path): F, P and P's one-plane INT instances take float32 x and write float32
 through their `_f32` entries (counted as `qmatmul_lut_f32`,
 `qmatmul_planar_f32`, `qmatmul_int_f32`): the GEMV loads x as float32, the
-GEMM is an exact float32 product (no bf16, no TF32).  `kernel_route` sends
+GEMM is 3xTF32 on the tensor cores, within float32-level error (the
+`check_f32_formats` contract of `chip_smoke.py`; no bf16 rounding).  `kernel_route` sends
 kernel A's packs (int4 / symmetric / bf16 scales) to "I" for float32 x:
 those instances take the symmetric offset and bf16 scales already, while
 kernel A's bodies take bf16 x only.  A float32 x is never rounded to bf16 to reuse a bf16
@@ -376,8 +377,7 @@ def _fp_launch(name: str, lib: str, x2: torch.Tensor, qt: QTensor, planes,
     """Shared launch of kernels F and P (entries `nst_<name>_gemv/_gemm` of
     the library `lib`, `..._f32` for float32 x): the GEMV for M <= 32 (one
     launch: `fp_gemv_launches`), the GEMM above (bf16 tensor cores, or
-    exact float32).  The
-    output takes x's dtype.  The launch counts under `counter` (default
+    3xTF32 for float32 x).  The output takes x's dtype.  The launch counts under `counter` (default
     `name`), with `_f32` appended for float32 x."""
     m, k = x2.shape
     n = qt.shape[1]
