@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time kernels C and 9 (`csrc/flash_prefill.cuh`), or the GEMV or the
-float32 GEMM of kernels F and P (`csrc/qmm_fp.cuh`), in variants of their
-header, on one NVIDIA GPU.
+"""Time kernels C and 9 (`csrc/flash_prefill.cuh`), the GEMV or the
+float32 GEMM of kernels F and P (`csrc/qmm_fp.cuh`), or kernel B
+(`csrc/flash_decode.cuh`), in variants of their header, on one NVIDIA GPU.
 
     python3 chip_levers.py base no_convert timed    # the variants named
     python3 chip_levers.py --dims 128,256 base      # at these head dims
@@ -9,6 +9,9 @@ header, on one NVIDIA GPU.
     python3 chip_levers.py --f32 base parent        # the float32 GEMM
     python3 chip_levers.py --acc                    # its accumulation lever
     python3 chip_levers.py --rate                   # wgmma issue rates
+    python3 chip_levers.py --decode parent timed    # kernel B's parent body
+    python3 chip_levers.py --decode base new_timed  # ... and this tree's
+    python3 chip_levers.py --decode-cases TREE out.json  # B / 10's cases
 
 A variant (VARIANTS) is a list of (old, new) strings replaced in a copy of
 `flash_prefill.cuh`; the copy is built alone (with `common.cuh` and
@@ -32,8 +35,13 @@ parent commit's, unpacked into `archive_check/parent`) and holds the float32
 GEMM on every `chip_smoke._f32_cases` pack at whisper's shapes and Llama o
 against a float64 product, timed, with a repeat check (`run_f32`); `--acc`
 runs the accumulation lever (ACC_LEVER_CU, `run_acc`); `--rate` the issue
-rate probe (RATE_PROBE_CU).  Results go to levers.json (levers_gemv.json,
-levers_f32.json, levers_acc.json, levers_rate.json) in
+rate probe (RATE_PROBE_CU).  `--decode` builds the `flash_decode_d<D>.cu`
+sources alone per DECODE_VARIANTS variant (the parent commit's header from
+`archive_check/parent`, called through its own C entry) or TREE_VARIANTS
+variant (this tree's) and times kernel B on DECODE_CASES against the plain
+version (`run_decode`); `--decode-cases` runs chip_smoke.py's B / 10
+cases from a tree for a pair run (`run_decode_cases`).  Results go to levers.json (levers_gemv.json,
+levers_f32.json, levers_acc.json, levers_rate.json, levers_decode.json) in
 `chip_smoke.OUT_DIR`.
 """
 
@@ -841,6 +849,345 @@ def run_f32(names) -> dict:
     return res
 
 
+# Kernels B and 10 (`--decode`): the parent commit's body (`parent`: the
+# split kernel and the combine kernel of `archive_check/parent`, called
+# through its own C entry) and the same with clock64 counters in block
+# (0, 0, 0) of the split kernel (`timed`: per 128-column sub-chunk, the
+# cycles of thread 0 in the V loads, the scores, the row maxima, the
+# softmax, P V and the three barriers); `base` is this tree's body through
+# `flash.decode_cuda`.  Cases (DECODE_CASES): Llama-2-7B's 32 KV heads and
+# Mixtral's 8 under 32 query heads, int8 (the extra column and the fused
+# append) and bf16 K/V, at B = 1 (kv_len 1976) and B = 4 (phase 2's ragged
+# lengths, a spectator), and Grok-1's 48 over 8 with the softcap (int8).
+_SUB_END = ("          acc[r][f] = acc[r][f] * alpha[r] + a;\n        }\n      }\n"
+            "    }\n    __syncthreads();\n  }\n")
+_GT = "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"({}));"
+DECODE_VARIANTS = {
+    "parent": [],
+    "timed": [
+        ("#include \"common.cuh\"\n", "#include \"common.cuh\"\n#include <cstdio>\n"),
+        ("  for (int cs = c0; cs < c1; cs += THREADS) {\n    const int c = cs + tid;",
+         "  long long tl = 0, ts = 0, tm = 0, tx = 0, tp = 0, tsy = 0, tt, "
+         "t00 = clock64();\n  int nsub = 0;\n"
+         "  for (int cs = c0; cs < c1; cs += THREADS) {\n    const int c = cs + tid;"),
+        ("    const int ncols = min(THREADS, c1 - cs);\n",
+         "    const int ncols = min(THREADS, c1 - cs);\n    tt = clock64();\n"),
+        ("    float s[R];\n#pragma unroll\n    for (int r = 0; r < R; ++r) s[r] = 0.f;\n"
+         "    float vsc = 1.f;",
+         "    tl += clock64() - tt; tt = clock64();\n"
+         "    float s[R];\n#pragma unroll\n    for (int r = 0; r < R; ++r) s[r] = 0.f;\n"
+         "    float vsc = 1.f;"),
+        ("    // MULTI: a column is valid for row r below the row's own end",
+         "    ts += clock64() - tt; tt = clock64();\n"
+         "    // MULTI: a column is valid for row r below the row's own end"),
+        ("      if (lane == 0) red_max[r][warp] = mx;\n    }\n    __syncthreads();\n"
+         "    float alpha[R];",
+         "      if (lane == 0) red_max[r][warp] = mx;\n    }\n"
+         "    tm += clock64() - tt; tt = clock64();\n    __syncthreads();\n"
+         "    tsy += clock64() - tt; tt = clock64();\n    float alpha[R];"),
+        ("      m_run[r] = m_new;\n    }\n    __syncthreads();",
+         "      m_run[r] = m_new;\n    }\n    tx += clock64() - tt; tt = clock64();\n"
+         "    __syncthreads();\n    tsy += clock64() - tt; tt = clock64();"),
+        (_SUB_END,
+         _SUB_END.replace("    }\n    __syncthreads();\n  }\n",
+                          "    }\n    tp += clock64() - tt; tt = clock64();\n"
+                          "    __syncthreads();\n    tsy += clock64() - tt; ++nsub;\n  }\n"
+                          "  if (tid == 0 && blockIdx.x == 0 && blockIdx.y == 0 && "
+                          "blockIdx.z == 0)\n    printf(\"TIMED sub %d load %lld score %lld "
+                          "max %lld softmax %lld pv %lld sync %lld all %lld\\n\", nsub, tl, "
+                          "ts, tm, tx, tp, tsy, clock64() - t00);\n")),
+    ],
+}
+# Variants of this tree's header (`--decode base ...`): `new_timed` prints,
+# for every block of (KV head 0, slot 0), the globaltimer (ns) at its start
+# and its offsets after the prologue, the walk, the counter's atomic and
+# the end, and warp 0's cycles waiting on its ring and in its whole walk.
+TREE_VARIANTS = {
+    "base": [],
+    "new_timed": [
+        ("#include \"common.cuh\"\n", "#include \"common.cuh\"\n#include <cstdio>\n"),
+        ("  if constexpr (EXACT) D = DI;\n  using E = nst::KVElem<T>;",
+         "  unsigned long long g0, g1, g2, g3, g4;\n  " + _GT.format("g0")
+         + "\n  if constexpr (EXACT) D = DI;\n  using E = nst::KVElem<T>;"),
+        ("  // ---- the warp's walk:", "  " + _GT.format("g1")
+         + "\n  long long cw = 0, cl = clock64(), ct;\n  // ---- the warp's walk:"),
+        ("      cp_wait<STAGES - 2>();\n      __syncwarp();\n",
+         "      ct = clock64();\n      cp_wait<STAGES - 2>();\n      __syncwarp();\n"
+         "      cw += clock64() - ct;\n"),
+        ("  cp_wait<0>();\n", "  cp_wait<0>();\n  cl = clock64() - cl;\n  "
+         + _GT.format("g2") + "\n"),
+        ("  if (!s_last) return;", "  " + _GT.format("g3") + "\n"
+         "  if (hk == 0 && b == 0 && tid == 0 && !s_last)\n"
+         "    printf(\"NB split %d last 0 start %llu pro %llu walk %llu atomic %llu "
+         "wait %lld loop %lld steps %d\\n\", split, g0, g1 - g0, g2 - g0, g3 - g0, "
+         "cw, cl, nsteps);\n  if (!s_last) return;"),
+        ("    if (!append) return;",
+         "    " + _GT.format("g4") + "\n"
+         "    if (hk == 0 && b == 0 && tid == 0)\n"
+         "      printf(\"NB split %d last 1 start %llu pro %llu walk %llu atomic %llu "
+         "end %llu wait %lld loop %lld steps %d\\n\", split, g0, g1 - g0, g2 - g0, "
+         "g3 - g0, g4 - g0, cw, cl, nsteps);\n"
+         "    if (!append) return;"),
+    ],
+}
+# (label, K/V, H, Hkv, B, softcap, D): D = 128 but for phase 2's head-dim
+# cases at one query head per KV head (80, the masked 72 through the 80
+# instance, 96 in bf16, whisper's 20 heads of 64)
+DECODE_CASES = [(f"{kv} H=32 Hkv={hkv} B={b}", kv, 32, hkv, b, 0.0, 128)
+                for kv in ("int8", "bf16") for hkv in (32, 8) for b in (1, 4)] + [
+    (f"grok softcap int8 H=48 Hkv=8 B={b}", "int8", 48, 8, b, 30.0, 128)
+    for b in (1, 4)] + [
+    (f"{kv} D={d} H={h} Hkv={h} B=4", kv, h, h, 4, 0.0, d)
+    for kv, d, h in (("int8", 80, 32), ("int8", 72, 32), ("bf16", 96, 64),
+                     ("int8", 64, 20), ("f32", 256, 16))]
+
+
+def _decode_inputs(gen, kv, h, hkv, b, softcap, d):
+    """One DECODE_CASES case: q, the current k / v (int8), the contiguous
+    cache (one layer), pos and kv_lens at head dim d, S = 2048."""
+    import torch
+
+    import chip_smoke as cs
+
+    s = 2048
+    lens = [1976] if b == 1 else cs.DECODE_LENS
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    pos = kv_lens - 1
+    if b > 1:
+        pos[-1] = s - 1                     # a spectator parked at S - 1
+    cache = cs._gathered(cs._random_pool(gen, 1, b, hkv, s, d, 128, kv), 0)
+    q = torch.randn((b, 1, h, d), generator=gen, device="cuda")
+    if softcap:
+        k = cache[0].float() * (1.0 if cache[2] is None
+                                else cache[2].float()[..., None])
+        q = q * (0.7 * softcap / k.std().item())
+    q = q.to(torch.bfloat16)
+    extra = kv == "int8"
+    kn, vn = ((torch.randn((b, 1, hkv, d), generator=gen, device="cuda")
+               .to(torch.bfloat16)) for _ in range(2)) if extra else (None, None)
+    return q, kn, vn, cache, pos, kv_lens, 1 / math.sqrt(d)
+
+
+def _parent_decode(lib, q, kn, vn, cache, pos, kv_lens, scale, softcap,
+                   out_dtype):
+    """The parent's `nst_flash_decode` (14 pointers, 14 ints, 2 floats; its
+    combine kernel as a second launch), with the fused append."""
+    import ctypes
+
+    import torch
+
+    from neural_speed_tpu_torch import _build
+
+    b, _, h, d = q.shape
+    k, v, ks, vs = cache
+    hkv, s = k.shape[2], k.shape[3]
+    chunk = 256
+    splits = -(-s // chunk)
+    part_m = torch.empty((b, h, splits), dtype=torch.float32, device="cuda")
+    part_l = torch.empty_like(part_m)
+    part_acc = torch.empty((b, h, splits, d), dtype=torch.float32, device="cuda")
+    out = torch.empty((b, 1, h, d), dtype=out_dtype, device="cuda")
+    f = lib.nst_flash_decode
+    f.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 14
+                  + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    extra = kn is not None
+    kv_type = 0 if ks is not None else (1 if k.dtype == torch.bfloat16 else 2)
+    code = f(q.data_ptr(), ptr(kn), ptr(vn), k.data_ptr(), v.data_ptr(), ptr(ks),
+             ptr(vs), 0, pos.data_ptr(), kv_lens.data_ptr(), part_m.data_ptr(),
+             part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(), b, h, hkv, s, d,
+             0, chunk, int(extra), int(extra), kv_type, 1, 0, 0, 1, scale, softcap,
+             _build.stream_handle())
+    _build.check(code, "the parent's nst_flash_decode")
+    return out
+
+
+def _kernel_ms(fn) -> dict:
+    """Device ms of each kernel one fn() call launches (torch.profiler)."""
+    import torch
+
+    import chip_smoke as cs
+
+    for _ in range(6):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = cs._kernel_events(prof)
+        if ev:
+            out = {}
+            for e in ev:
+                key = cs._kernel_name(e.name).split("<")[0].split("::")[-1]
+                out[key] = out.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
+            return out
+        time.sleep(1.0)
+    return {}
+
+
+def run_decode(names) -> dict:
+    """Each DECODE_VARIANTS variant on every DECODE_CASES case: the output
+    against `flash.decode_plain` (the largest error over its 4-ulp row
+    tolerance), the kernel's ms (`time_ms`: CUDA events, cold L2, median of
+    10), each launched kernel's device ms (torch.profiler), and for
+    `timed` the counters' line; the ptxas table of the variant's build."""
+    import ctypes
+
+    import torch
+
+    import chip_smoke as cs
+    from neural_speed_tpu_torch import _build
+    from neural_speed_tpu_torch.ops import flash
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = {c[0]: _decode_inputs(gen, *c[1:]) + (c[5],) for c in DECODE_CASES}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    res = {}
+    for name in names:
+        tmp = Path(tempfile.mkdtemp())
+        parent = name in DECODE_VARIANTS
+        reps = DECODE_VARIANTS[name] if parent else TREE_VARIANTS[name]
+        csrc = (ROOT / "archive_check" / "parent" if parent else ROOT) / \
+            "neural_speed_tpu_torch" / "csrc"
+        for f in csrc.iterdir():
+            if f.name in ("common.cuh", "flash_decode.cuh") or (
+                    f.name.startswith("flash_decode_d") and f.suffix == ".cu"):
+                shutil.copy(f, tmp / f.name)
+        src = (tmp / "flash_decode.cuh").read_text()
+        for old, new in reps:
+            if src.count(old) != 1:
+                raise ValueError(f"the header has not one copy of {old[:60]!r}")
+            src = src.replace(old, new)
+        (tmp / "flash_decode.cuh").write_text(src)
+        _build.CSRC, _build.BUILD_DIR = tmp, tmp / "build"
+        _build.kernels = _build._Library()
+        t0 = time.time()
+        libs = _build.kernels.build()
+        table = ptxas_table(_build.kernels.build_log, "flash_decode")
+        for row in table:
+            print("  ptxas " + json.dumps(row), flush=True)
+        out = {}
+        for label, (q, kn, vn, cache, pos, kv_lens, scale, cap) in cases.items():
+            if parent and cache[0].dtype == torch.float32:
+                continue   # the parent's float32 K/V gave NaN through this call
+            fresh = lambda: [None if a is None else a.clone() for a in cache]
+            if parent:
+                lib = libs[f"flash_decode_d{flash.instance_dim(q.shape[-1])}"]
+                run = lambda c: _parent_decode(lib, q, kn, vn,
+                                               c, pos, kv_lens, scale, cap,
+                                               torch.bfloat16)
+            else:
+                run = lambda c: flash.decode_cuda(
+                    q, kn, vn, *c, 0, pos, kv_lens, scale, kn is not None,
+                    torch.bfloat16, softcap=cap)
+            want = flash.decode_plain(q, kn, vn, *fresh(), 0, pos, kv_lens, scale,
+                                      kn is not None, torch.bfloat16, softcap=cap)
+            work = fresh()
+            got = run(work)
+            torch.cuda.synchronize()
+            worst = cs.compare(got, want, 4, per_row=True)["worst"]
+            ms = cs.time_ms(lambda: run(work))
+            per_kernel = _kernel_ms(lambda: run(work))
+            b, hkv = q.shape[0], cache[0].shape[2]
+            out[label] = dict(ms=ms, worst=worst, kernels=per_kernel)
+            print(f"  {name} {label}: {ms:.4f} ms, worst {worst:.3f}, kernels "
+                  + json.dumps({k: round(v, 4) for k, v in per_kernel.items()})
+                  + (f"; parent grid {8 * hkv * b} blocks on {n_sm} SMs"
+                     if parent else ""), flush=True)
+        torch.cuda.synchronize()
+        res[name] = dict(times=out, ptxas=table, build_s=time.time() - t0,
+                         source_s=dict(_build.kernels.source_seconds))
+        print(f"{name}: built in {time.time() - t0:.1f} s", flush=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+def run_decode_cases(tree: Path, out: Path) -> int:
+    """One run of a pair run of kernels B and 10 (`--decode-cases TREE
+    JSON`): from the tree given (the parent's or this one, holding this
+    chip_smoke.py), the `flash_decode*.cu` sources built alone into
+    `<tree>/build_pair` (that build reloaded when it is there: the parent's
+    second run), then every B / 10 case of chip_smoke.py's phase 2 in one
+    order on one generator (`check_flash_decode`, `_paged`, the decode
+    cases of VARIANT / DIM / SOFTCAP / SCALE_F32 / QK / QK_MULTI /
+    NONCAUSAL / WHISPER_SELF, `b1`, `decode_repeat`; not the prefill cases,
+    nor `decode_launches`, which fails on the parent by design).  Failures
+    are reported, not raised; the records go to `out` as chip_smoke.json's
+    `kernels`, for `chip_smoke.py --compare-runs`."""
+    import ctypes
+    import traceback
+
+    os.chdir(tree)
+    sys.path.insert(0, str(tree))
+    import torch
+
+    import chip_smoke as cs
+    from neural_speed_tpu_torch import _build
+
+    src = tree / "build_pair" / "src"
+    src.mkdir(parents=True, exist_ok=True)
+    for f in (tree / "neural_speed_tpu_torch" / "csrc").iterdir():
+        if f.suffix == ".cuh" or (f.name.startswith("flash_decode")
+                                  and f.suffix == ".cu"):
+            shutil.copy(f, src / f.name)
+    _build.CSRC, _build.BUILD_DIR = src, tree / "build_pair" / "build"
+    _build.kernels = _build._Library()
+    stems = sorted(p.stem for p in src.glob("*.cu"))
+    sos = [_build.BUILD_DIR / f"lib{s}.so" for s in stems]
+    t0 = time.time()
+    if all(p.exists() for p in sos):
+        _build.kernels._libs = {s: ctypes.CDLL(str(p))
+                                for s, p in zip(stems, sos)}
+        print("reused the build", flush=True)
+    else:
+        _build.kernels.build()
+        print(f"built in {time.time() - t0:.1f} s " + json.dumps(
+            {k: round(v, 1) for k, v in _build.kernels.source_seconds.items()}),
+            flush=True)
+    chk = cs.Checks(torch.cuda.get_device_name(0))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    fails = []
+
+    def run(label, fn):
+        try:
+            fn()
+        except Exception:  # noqa: BLE001 - reported, and the run goes on
+            fails.append(label)
+            print(f"FAIL {label}\n{traceback.format_exc()[-3000:]}",
+                  flush=True)
+
+    t1 = time.time()
+    run("check_flash_decode", lambda: cs.check_flash_decode(chk, gen))
+    run("check_flash_decode_paged",
+        lambda: cs.check_flash_decode_paged(chk, gen))
+    for case in (cs.VARIANT_CASES + cs.DIM_CASES + cs.SOFTCAP_CASES
+                 + cs.SCALE_F32_CASES):
+        if case[0] == "decode":
+            run(str(case), lambda: cs._variant_case(chk, gen, *case))
+    for case in cs.QK_CASES:
+        run("qk " + str(case),
+            lambda: cs._variant_case(chk, gen, *case, qk=True))
+    for case in cs.QK_MULTI_CASES:
+        run("multi " + str(case), lambda: cs._qk_multi_case(chk, gen, *case))
+    for case in cs.NONCAUSAL_CASES:
+        if case[0] == "decode":
+            run("noncausal " + str(case),
+                lambda: cs._whisper_case(chk, gen, *case))
+    for case in cs.WHISPER_SELF_CASES:
+        if case[0] == "decode":
+            run("self " + str(case), lambda: cs._whisper_case(
+                chk, gen, *case, causal=True, s=cs.WHISPER_TGT))
+    run("b1", lambda: cs.check_flash_decode_b1(chk, gen))
+    run("repeat", lambda: cs.check_flash_decode_repeat(chk, gen))
+    print(f"checks in {time.time() - t1:.1f} s; FAILED {len(fails)}: {fails}",
+          flush=True)
+    with open(out, "w") as f:
+        json.dump(dict(kernels=[dict(name=r["name"], cases=r["cases"])
+                                for r in chk.records.values()],
+                       checks=chk.notes, fails=fails), f, indent=1)
+    return 1 if fails else 0
+
+
 def _sources(tmp: Path, dims, reps) -> None:
     csrc = ROOT / "neural_speed_tpu_torch" / "csrc"
     for f in csrc.iterdir():
@@ -861,7 +1208,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("variants", nargs="*",
                     choices=sorted(set(VARIANTS) | set(GEMV_VARIANTS)
-                                   | set(F32_VARIANTS)))
+                                   | set(F32_VARIANTS) | set(DECODE_VARIANTS)
+                                   | set(TREE_VARIANTS)))
     ap.add_argument("--dims", default="128")
     ap.add_argument("--gemv", action="store_true",
                     help="the variants are GEMV_VARIANTS of qmm_fp.cuh")
@@ -873,6 +1221,12 @@ def main() -> int:
                     help="the tensor cores' issue rate (RATE_MODES)")
     ap.add_argument("--f32", action="store_true",
                     help="the variants are F32_VARIANTS of the float32 GEMM")
+    ap.add_argument("--decode", action="store_true",
+                    help="the variants are DECODE_VARIANTS of kernel B")
+    ap.add_argument("--decode-cases", nargs=2, metavar=("TREE", "JSON"),
+                    help="kernels B and 10's phase-2 cases from TREE, "
+                         "their sources built alone, records to JSON "
+                         "(one run of a pair run; run_decode_cases)")
     ap.add_argument("--check", action="store_true",
                     help="with --gemv: hold every format and row count "
                          "against the plain version first (GEMV_CHECKS)")
@@ -882,6 +1236,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_levers: no CUDA device", file=sys.stderr)
         return 2
+    if args.decode_cases:
+        return run_decode_cases(Path(args.decode_cases[0]).resolve(),
+                                Path(args.decode_cases[1]).resolve())
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     from neural_speed_tpu_torch import _build
@@ -907,6 +1264,11 @@ def main() -> int:
     if args.f32:
         res = run_f32(args.variants)
         with open(os.path.join(cs.OUT_DIR, "levers_f32.json"), "w") as f:
+            json.dump(res, f, indent=1)
+        return 0
+    if args.decode:
+        res = run_decode(args.variants)
+        with open(os.path.join(cs.OUT_DIR, "levers_decode.json"), "w") as f:
             json.dump(res, f, indent=1)
         return 0
     if args.gemv:

@@ -113,8 +113,16 @@ Phases, each raising on failure so the run exits non-zero:
    qkv), its repeat check (`fp_gemv_repeat`: 20 calls after L2 flushes
    give one digest at 1, 4, 9 and 32 rows) and its launch check
    (`fp_gemv_launches`: torch.profiler sees one GEMV launch per call, and
-   at most one reduce, at every M <= 32).  A plain version that takes
-   PLAIN_ONCE_MS or more is timed once (`plain_time_ms`);
+   at most one reduce, at every M <= 32); kernels B and 10 at B = 1 (a
+   live slot at kv_len 1976: int8 and bf16 K/V at 32 and 8 KV heads,
+   Grok-1's softcap at n_rep 6; each paged twin at page size 128, the int8
+   ones also at 16: DECODE_B1_CASES), their launch check
+   (`decode_launches`: torch.profiler sees one kernel per `decode_cuda` /
+   `decode_paged_cuda` call) and their repeat check (`decode_repeat`: 20
+   calls after L2 flushes give one digest at the headline case and at page
+   size 16).  Kernels B and 10 are timed over DECODE_REPS calls, the other
+   kernels over TIME_REPS; each check logs its seconds.  A plain version
+   that takes PLAIN_ONCE_MS or more is timed once (`plain_time_ms`);
 3. a tiny model through `Engine` on the card against the same model on the
    CPU (plain versions), once in int4, once per configuration of phase
    5 and as a tiny Mixtral at B = 3 and B = 1: logits within tolerance,
@@ -314,6 +322,19 @@ def log_phase(msg: str) -> None:
     log(f"{msg} [{time.time() - _T0:.1f} s]")
 
 
+def _kernel_name(name: str) -> str:
+    """A profiler kernel name without its return type, the anonymous
+    namespace and its argument list: "void (anonymous namespace)::f<int>(
+    float*)" -> "f<int>"."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    depth = 0
+    for i in range(len(name) - 1, -1, -1):  # the "(" that opens the last ")"
+        depth += {")": 1, "(": -1}.get(name[i], 0)
+        if depth == 0 and name[i] == "(":
+            return name[:i]
+    return name
+
+
 def _kernel_events(prof):
     from torch.autograd import DeviceType
 
@@ -344,7 +365,15 @@ def _sleep_cycles_per_ms() -> float:
     return _TIMING["cycles"]
 
 
-def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+# Timed calls per case: TIME_REPS for the kernels this tree did not change
+# (phase 2's depth, cut to keep the default run inside its time limit),
+# DECODE_REPS for kernels B and 10 (redesigned here, held against the
+# parent in a pair run).
+TIME_REPS = 5
+DECODE_REPS = 10
+
+
+def time_ms(fn, reps: int = TIME_REPS, warmup: int = 2) -> float:
     """Device time of one fn() call: the median over `reps` calls of CUDA
     events recorded just before and just after the call, each call after an
     L2 flush.  Before each call a sleep kernel holds the stream while the
@@ -872,12 +901,48 @@ def _kernel_names(fn) -> list:
     raise RuntimeError("torch.profiler recorded no CUDA kernel")
 
 
+def _kernel_groups(fns) -> list:
+    """The CUDA kernels each of fns launches, from one torch.profiler
+    session over all of them: a sleep kernel launched before each call
+    (its name read from a session of its own) marks where the call's
+    kernels begin.  The profiler has stopped recording after some tens of
+    sessions in one process (a full run lost the GEMV launch check so), so
+    the launch checks take one session for a batch of calls, after a first
+    round outside it; a session that records no kernel, or not one mark a
+    call, is run again after a second's pause, up to six times."""
+    for fn in fns:        # a first round: uploads and allocations of first use
+        fn()
+    mark = _kernel_names(lambda: torch.cuda._sleep(1))
+    if len(mark) != 1:
+        raise RuntimeError(f"a sleep launched {mark}")
+    for attempt in range(6):
+        if attempt:
+            time.sleep(1.0)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for fn in fns:
+                torch.cuda._sleep(1)
+                fn()
+            torch.cuda.synchronize()
+        groups = []
+        for e in sorted(_kernel_events(prof), key=lambda e: e.time_range.start):
+            if e.name == mark[0]:
+                groups.append([])
+            elif groups:
+                groups[-1].append(e.name)
+        if len(groups) == len(fns):
+            return groups
+    raise RuntimeError("torch.profiler did not record one mark a call")
+
+
 def check_fp_gemv_launches(chk: Checks, gen: torch.Generator) -> None:
     """One GEMV launch per call, plus at most one reduce (the CUDA-core
     body's splits), at every M <= 32 for int5 asymmetric (multi-plane) and
     GPTQ (one plane), at 1, 4, 8, 9, 16 and 32 rows for nf4 and fp8_e4m3
     (bytes), and at 1, 9 and 32 rows of float32 x (quantized Whisper's
-    path): the kernels torch.profiler records for one `qmatmul` call."""
+    path): the kernels torch.profiler records for each `qmatmul` call (one
+    session a pack, `_kernel_groups`)."""
     from neural_speed_tpu_torch.ops import matmul
 
     gen = torch.Generator(device="cuda").manual_seed(FP_GEMV_SEED + 2)
@@ -892,15 +957,16 @@ def check_fp_gemv_launches(chk: Checks, gen: torch.Generator) -> None:
         cases = [(m, torch.bfloat16) for m in rows[label]]
         if label in ("int5 asym", "gptq"):
             cases += [(m, torch.float32) for m in (1, 9, 32)]
-        for m, dt in cases:
-            x = torch.randn((m, k), generator=gen, device="cuda").to(dt)
-            names = _kernel_names(lambda: matmul.qmatmul(x, qt))
+        xs = [torch.randn((m, k), generator=gen, device="cuda").to(dt)
+              for m, dt in cases]
+        groups = _kernel_groups([lambda x=x: matmul.qmatmul(x, qt) for x in xs])
+        for (m, dt), names in zip(cases, groups):
             gemv = [nm for nm in names if "gemv" in nm]
             rest = [nm for nm in names if "gemv" not in nm]
             ok = len(gemv) == 1 and all("splitk_reduce" in nm for nm in rest) \
                 and len(rest) <= 1
             key = f"{label} {str(dt).replace('torch.', '')} M={m}"
-            seen[key] = [nm.split("(")[0].replace("void ", "") for nm in names]
+            seen[key] = [_kernel_name(nm) for nm in names]
             if not ok:
                 raise AssertionError(f"F / P GEMV {key}: launches {names}")
         del qt
@@ -1876,7 +1942,7 @@ def _check_flash_decode(chk: Checks, gen: torch.Generator, hkv: int) -> None:
     # per term, summed with random signs), plus the bf16 output rounding:
     # within 4 bf16 ulps of the largest output of the (slot, head) row
     cmp = compare(got, want, 4, per_row=True)
-    ms = time_ms(lambda: flash.decode_cuda(*args(ck)))
+    ms = time_ms(lambda: flash.decode_cuda(*args(ck)), reps=DECODE_REPS)
     plain_ms = plain_time_ms(lambda: flash.decode_plain(*args(cp)))
     kd, vd = _dequant_layer(cache, layer)
     live = torch.arange(s, device="cuda")[None] < torch.where(
@@ -2077,7 +2143,8 @@ def check_flash_decode_paged(chk: Checks, gen: torch.Generator) -> None:
         if changed != 3 * hkv:                  # one row per live slot, head
             raise AssertionError(f"flash_decode_paged (page size {ps}) "
                                  f"changed {changed} K rows, not {3 * hkv}")
-        ms = time_ms(lambda: flash.decode_paged_cuda(*args(pk)))
+        ms = time_ms(lambda: flash.decode_paged_cuda(*args(pk)),
+                     reps=DECODE_REPS)
         plain_ms = plain_time_ms(lambda: flash.decode_paged_plain(*args(pp)))
         kd, vd = gathered_layer(pool, layer)
         live = torch.arange(s, device="cuda")[None] < torch.where(
@@ -2314,13 +2381,15 @@ def _qk_q(gen, b, t, h, d):
 
 
 def _variant_case(chk, gen, kernel, kv, alibi, h, hkv, d, t, lens, main,
-                  softcap=0.0, extra=None, qk=False, at_end=False):
+                  softcap=0.0, extra=None, qk=False, at_end=False,
+                  spectator=True, ps=128):
     """One case of VARIANT_CASES / DIM_CASES / SOFTCAP_CASES /
     SCALE_F32_CASES / QK_CASES (`kv`: "int8", "int8f32" (float32 scales),
     "bf16" or "f32"; `extra`: the extra column, by default on for int8
     decode; `qk`: the int8 score dot): a shuffled pool at page size 128 and
     the same rows gathered
-    into a contiguous cache; the contiguous kernel and the paged kernel
+    into a contiguous cache (at a page size other than 128 the contiguous
+    kernel is not recorded: the case at 128 holds it); the contiguous kernel and the paged kernel
     each within 4 bf16 ulps per row of its plain version, the paged kernel
     equal to the contiguous one bit for bit, and (int8 decode) the fused
     append equal to the plain version's.  With a softcap, q is scaled so
@@ -2330,7 +2399,8 @@ def _variant_case(chk, gen, kernel, kv, alibi, h, hkv, d, t, lens, main,
     the plain version's without the int8 dot; the kernel without it is
     timed beside.  `at_end`: a call of t > 1 tokens at the end of each
     slot's kv_len (a speculative verify step or a prefill chunk), not a
-    prompt from position 0.  Times kernel, plain version and SDPA over the
+    prompt from position 0.  `spectator`: at t = 1 the last slot is parked
+    at max_len - 1 (False: every slot live); `ps`: the pool's page size.  Times kernel, plain version and SDPA over the
     same K/V (bf16; ALiBi as a float mask; at B = 1 from position 0 also
     SDPA's `is_causal` over the real rows, `_library_ms`; no SDPA call
     computes the softcap, so none is timed then)."""
@@ -2338,7 +2408,7 @@ def _variant_case(chk, gen, kernel, kv, alibi, h, hkv, d, t, lens, main,
     from neural_speed_tpu_torch.ops.attention import alibi_slopes
     from neural_speed_tpu_torch.ops.paged_kv import gathered_layer
 
-    s, ps, layer = 2048, 128, 1
+    s, layer = 2048, 1
     b = len(lens)
     scale = 1.0 / math.sqrt(d)
     slopes = alibi_slopes(h, "cuda") if alibi else None
@@ -2347,7 +2417,8 @@ def _variant_case(chk, gen, kernel, kv, alibi, h, hkv, d, t, lens, main,
     kv_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
     if t == 1:      # live slots at kv_len - 1, the last one a spectator
         pos = (kv_lens - 1)[:, None].clone()
-        pos[-1] = s - 1
+        if spectator:
+            pos[-1] = s - 1
     else:
         ar = torch.arange(t, device="cuda", dtype=torch.int32)[None]
         start = (kv_lens - t).clamp_min(0)[:, None] if at_end else 0
@@ -2417,6 +2488,8 @@ def _variant_case(chk, gen, kernel, kv, alibi, h, hkv, d, t, lens, main,
     nbytes = (2 * b * t * h * d * 2 + valid.any(1).sum().item() * hkv
               * kv_bytes + (2 * b * hkv * d * 2 if extra else 0))
     for paged in (False, True):
+        if not paged and ps != 128:
+            continue
         name = f"flash_{kernel}{'_paged' if paged else ''}{suffix}"
         mk = (lambda: _clone_pool(pool)) if paged else (
             lambda: [None if a is None else a.clone() for a in ck])
@@ -2468,7 +2541,8 @@ def _variant_case(chk, gen, kernel, kv, alibi, h, hkv, d, t, lens, main,
                 f"the int8 dot; the kernel without it {off_ms:.4f} ms")
             extra_rec = dict(off_tolerances=off, qk_off_ms=off_ms)
         del got, want
-        ms = time_ms(lambda: run(*args(a_k), **kw))
+        ms = time_ms(lambda: run(*args(a_k), **kw),
+                     reps=DECODE_REPS if kernel == "decode" else TIME_REPS)
         if kernel == "rows":
             # the body these calls took before (kernel C / 9), timed beside
             prev = flash.prefill_paged_cuda if paged else flash.prefill_cuda
@@ -2505,7 +2579,7 @@ def _variant_case(chk, gen, kernel, kv, alibi, h, hkv, d, t, lens, main,
                 f"{'/'.join(map(str, lens))}{' ALiBi' if alibi else ''}"
                 f"{' (no extra column)' if qk and not extra else ''}"
                 f"{' at the end of kv_len' if at_end else ''}"
-                f"{', page size 128, shuffled table' if paged else ''}",
+                f"{f', page size {ps}, shuffled table' if paged else ''}",
                 cmp, ms, plain_ms, lib_ms,
                 nbytes + (pool.page_tables.numel() * 4 if paged else 0),
                 4.0 * pairs * h * d, main=main, extra=extra_rec)
@@ -2673,7 +2747,7 @@ def _qk_multi_case(chk, gen, h, hkv, d, t, kv, alibi, causal, main):
                              f"{off:.2f} tolerances from the output without "
                              f"the int8 dot")
     del got, want
-    ms = time_ms(lambda: flash.decode_cuda(*args, **kw))
+    ms = time_ms(lambda: flash.decode_cuda(*args, **kw), reps=DECODE_REPS)
     plain_ms = plain_time_ms(lambda: flash.decode_plain(*args, **kw))
     col = torch.arange(s, device="cuda")
     valid = col[None, None] < kv_lens[:, None, None]
@@ -2702,6 +2776,128 @@ def _qk_multi_case(chk, gen, h, hkv, d, t, kv, alibi, causal, main):
 def check_flash_qk_multi(chk: Checks, gen: torch.Generator) -> None:
     for case in QK_MULTI_CASES:
         _qk_multi_case(chk, gen, *case)
+
+
+# Kernels B and 10 at B = 1 (one request decoding: the grid is B * Hkv *
+# splits, so the split count sets how much of the card works), kv_len 1976,
+# the slot live (the extra column and the fused append over int8): int8
+# and bf16 K/V at Llama-2-7B's 32 KV heads and Mixtral's 8 (32 query
+# heads), Grok-1's softcap at n_rep 6 (48 over 8); each paged twin over a
+# shuffled pool at page size 128, and the int8 cases also at 16.  (K/V, H,
+# Hkv, softcap, page size)  Drawn from a generator of their own
+# (DECODE_SEED): a pair run's other cases keep their inputs.
+DECODE_SEED = 21
+DECODE_B1_CASES = [(kv, 32, hkv, 0.0, ps) for kv in ("int8", "bf16")
+                   for hkv in (32, 8)
+                   for ps in ((128, 16) if kv == "int8" else (128,))] + [
+    ("int8", 48, 8, SOFTCAP, 128)]
+DECODE_REPEAT_CALLS = 20
+
+
+def check_flash_decode_b1(chk: Checks, gen: torch.Generator) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(DECODE_SEED)
+    for kv, h, hkv, cap, ps in DECODE_B1_CASES:
+        _variant_case(chk, gen, "decode", kv, False, h, hkv, 128, 1, [1976],
+                      False, cap, spectator=False, ps=ps)
+
+
+def _decode_calls(gen):
+    """Kernel B / 10 calls for the launch and repeat checks: (label,
+    call), each call on inputs of its own (int8 at the main path's B = 4,
+    Llama-2-7B's heads, the extra column and the fused append; bf16 at 8
+    KV heads; the int8 score dot at t = 1 and t = 4; the pool at page sizes
+    16 and 128)."""
+    from neural_speed_tpu_torch.ops import flash
+
+    b, h, d, s = 4, 32, 128, 2048
+    scale = 1.0 / math.sqrt(d)
+    kv_lens = torch.tensor(DECODE_LENS, dtype=torch.int32, device="cuda")
+    pos = kv_lens - 1
+    pos[-1] = s - 1
+    calls = []
+    for label, kv, hkv, qk, t, ps in (
+            ("int8 Hkv=32", "int8", 32, False, 1, None),
+            ("bf16 Hkv=8", "bf16", 8, False, 1, None),
+            ("int8 qk Hkv=32", "int8", 32, True, 1, None),
+            ("int8 qk t=2 Hkv=8", "int8", 8, True, 2, None),
+            ("paged int8 Hkv=32 page size 128", "int8", 32, False, 1, 128),
+            ("paged int8 Hkv=32 page size 16", "int8", 32, False, 1, 16)):
+        pool = _random_pool(gen, 1, b, hkv, s, d, ps or 128, kv)
+        q = torch.randn((b, t, h, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        extra = kv == "int8" and t == 1
+        kn, vn = ((torch.randn((b, 1, hkv, d), generator=gen, device="cuda")
+                   .to(torch.bfloat16)) for _ in range(2)) if extra else (
+                       None, None)
+        if t > 1:
+            p = (kv_lens[:, None] - t + torch.arange(
+                t, device="cuda", dtype=torch.int32)[None]).contiguous()
+        else:
+            p = pos
+        if ps is None:
+            c = _gathered(pool, 0)
+            fn = (lambda q=q, kn=kn, vn=vn, c=c, p=p, extra=extra, qk=qk:
+                  flash.decode_cuda(q, kn, vn, *c, 0, p, kv_lens, scale,
+                                    extra, torch.bfloat16, qk=qk))
+        else:
+            fn = (lambda q=q, kn=kn, vn=vn, c=pool, extra=extra:
+                  flash.decode_paged_cuda(
+                      q, kn, vn, c.k_pages, c.v_pages, c.k_scale, c.v_scale,
+                      c.page_tables, 0, pos, kv_lens, scale, extra,
+                      torch.bfloat16))
+        calls.append((label, fn))
+    return calls
+
+
+def check_flash_decode_launches(chk: Checks, gen: torch.Generator) -> None:
+    """One kernel launch per `decode_cuda` / `decode_paged_cuda` call: the
+    kernels torch.profiler records for each call (one session for all,
+    `_kernel_groups`).  Fails on the parent's body (a split kernel and a
+    combine kernel) by design."""
+    gen = torch.Generator(device="cuda").manual_seed(DECODE_SEED + 1)
+    calls = _decode_calls(gen)
+    groups = _kernel_groups([fn for _, fn in calls])
+    seen = {}
+    for (label, _), names in zip(calls, groups):
+        seen[label] = [_kernel_name(nm) for nm in names]
+        if len(names) != 1 or "flash_decode" not in names[0]:
+            raise AssertionError(f"kernel B / 10 {label}: launches {names}")
+    chk.notes["decode_launches"] = seen
+    log(f"  decode_launches: {len(seen)} calls, one launch each: "
+        + json.dumps(sorted({v[0] for v in seen.values()})))
+
+
+def check_flash_decode_repeat(chk: Checks, gen: torch.Generator) -> None:
+    """Kernels B and 10 are deterministic: DECODE_REPEAT_CALLS calls on the
+    same inputs, each after an L2 flush, give one digest at the headline
+    case (int8, B = 4, Llama-2-7B's heads, the fused append rewriting the
+    same row) and over the pool at page size 16.  The splits are merged in
+    split order by whichever block finishes last: an arrival-order merge
+    or a partial read before it was written would show as a call that
+    differs."""
+    gen = torch.Generator(device="cuda").manual_seed(DECODE_SEED + 2)
+    for label, fn in _decode_calls(gen):
+        if label not in ("int8 Hkv=32", "paged int8 Hkv=32 page size 16"):
+            continue
+        first = fn()
+        differing = 0
+        for _ in range(DECODE_REPEAT_CALLS):
+            _flush_l2()
+            bad = (fn() != first).nonzero()
+            if bad.numel():
+                differing += 1
+                log(f"  {label}: a call differs at {bad.shape[0]} outputs, "
+                    f"first {bad[0].tolist()}")
+        digest = compare(first, first, 4, per_row=True)["digest"]
+        chk.notes.setdefault("decode_repeat", []).append(
+            dict(case=label, calls=DECODE_REPEAT_CALLS, differing=differing,
+                 digest=digest))
+        log(f"  decode_repeat {label}: {DECODE_REPEAT_CALLS} calls after L2 "
+            f"flushes, {differing} differing (digest {digest})")
+        if differing:
+            raise AssertionError(f"kernel B / 10 {label}: {differing} of "
+                                 f"{DECODE_REPEAT_CALLS} calls differ")
+    torch.cuda.empty_cache()
 
 
 # The non-causal variant (whisper's encoder and cross attention) at
@@ -2856,7 +3052,8 @@ def _whisper_case(chk, gen, kernel, kv, alibi, t, lens, main, pad,
                 f"{'non-' if causal else ''}causal output")
             del other
         del got, want
-        ms = time_ms(lambda: run(*args(c), **kw))
+        ms = time_ms(lambda: run(*args(c), **kw),
+                     reps=DECODE_REPS if kernel == "decode" else TIME_REPS)
         plain_ms = plain_time_ms(lambda: plain(*args(c), **kw))
         kd, vd = gathered_layer(pool, layer, io)
         mask = _sdpa_mask(valid, pos, slopes, s)
@@ -6361,12 +6558,11 @@ def serve_speculative(card: str, profile: bool) -> dict:
 
 def _redesigned(name: str, shape: str) -> bool:
     """Cases of the bodies this tree redesigned, whose float32 sums may run
-    in another order than the parent's, so their digests may differ: the
-    float32 GEMM of F, P and P's INT instances (float32 x, M > 32: 3xTF32
-    on the tensor cores).  Every other case must keep its digest."""
-    m = re.search(r"\bM=(\d+)", shape)
-    return (name in ("qmatmul_lut_f32", "qmatmul_planar_f32", "qmatmul_int_f32")
-            and m is not None and int(m.group(1)) > 32)
+    in another order than the parent's, so their digests may differ: kernels
+    B and 10 (`flash_decode...`, `flash_decode_paged...`: both products on
+    the tensor cores, the splits merged in the same launch).  Every other
+    case must keep its digest."""
+    return name.startswith("flash_decode")
 
 
 def compare_runs(paths) -> dict:
@@ -6486,6 +6682,10 @@ def main() -> int:
                         ("flash_decode flash_decode_paged qk",
                          check_flash_qk),
                         ("flash_decode qk multi", check_flash_qk_multi),
+                        ("flash_decode flash_decode_paged b1",
+                         check_flash_decode_b1),
+                        ("flash_decode flash_decode_paged decode_repeat",
+                         check_flash_decode_repeat),
                         ("qmatmul_int4", check_qmatmul),
                         ("qmatmul_lut qmatmul_planar", check_fp_formats),
                         ("qmatmul_int8 qmatmul_int8_planar",
@@ -6517,9 +6717,12 @@ def main() -> int:
                         ("qmatmul_lut qmatmul_planar qmatmul_int fp_gemv",
                          check_fp_gemv),
                         ("fp_gemv_repeat", check_fp_gemv_repeat),
-                        ("fp_gemv_launches", check_fp_gemv_launches)):
+                        ("fp_gemv_launches", check_fp_gemv_launches),
+                        ("decode_launches", check_flash_decode_launches)):
         if 2 in phases and any(o in names for o in args.only.split(",")):
+            t_check = time.time()
             check(chk, gen)
+            log(f"  [{check.__name__}: {time.time() - t_check:.1f} s]")
     torch.cuda.empty_cache()
     summary = {}
     counts = collections.Counter()

@@ -86,13 +86,23 @@ from .kv_cache import quantize_kv
 from .matmul import _sm_count
 from .paged_kv import gather_layer_codes, physical_rows, write_pool_rows
 
-DECODE_CHUNK = 256   # cache columns per block of kernel B
-# The decode body of the MQA / odd-KV-head calls (csrc/flash_rows.cuh):
-# column tiles of ROWS_TILE, chunks spread over at least ROWS_WAVES waves of
-# the card's SMs, and at most ROWS_MAX_REP query heads per KV head (eight
-# row warps of 16; four at the 256 instance, whose tiles fill shared memory).
+# The split decode bodies (kernels B and 10, csrc/flash_decode.cuh, and the
+# rows body, csrc/flash_rows.cuh) split the columns into chunks of whole
+# tiles, enough of them for SPLIT_WAVES waves of the card's SMs where the
+# columns allow (`split_columns`).
+SPLIT_WAVES = 2
+# Kernels B and 10: a warp walks DECODE_STEP columns a step, a block's warps
+# a step together; splits of whole DECODE_TILE tiles (rows of up to a tile
+# stay in one split, where P is rounded against their largest score), at
+# most DECODE_MAX_SPLITS.
+DECODE_STEP = 16
+DECODE_TILE = 128
+DECODE_MAX_SPLITS = 256
+# The decode body of the MQA / odd-KV-head calls: column tiles of
+# ROWS_TILE, and at most ROWS_MAX_REP query heads per KV head (eight row
+# warps of 16; four at the 256 instance, whose tiles fill shared memory).
 ROWS_TILE = 32
-ROWS_WAVES = 2
+ROWS_WAVES = SPLIT_WAVES
 ROWS_MAX_REP = {64: 128, 80: 128, 96: 128, 128: 128, 256: 64}
 # Head dims with a kernel instance of their own (libraries per dim:
 # csrc/flash_decode_d<D>.cu, flash_decode_paged_d<D>.cu,
@@ -160,14 +170,26 @@ def decode_body(t: int, n_heads: int, n_kv_heads: int, d: int, *,
     return "C"
 
 
-def rows_chunking(b: int, n_kv_heads: int, s: int, n_sm: int) -> tuple:
-    """(chunk, chunks) of the rows body over a cache of `s` columns:
-    chunks of whole ROWS_TILE tiles, as many as B * Hkv * chunks >=
-    ROWS_WAVES * n_sm asks for and the columns allow; chunk * chunks >= s."""
-    tiles = max(1, -(-s // ROWS_TILE))
-    want = max(1, -(-ROWS_WAVES * n_sm // (b * n_kv_heads)))
-    chunk = max(1, tiles // want) * ROWS_TILE
+def split_columns(b: int, n_kv_heads: int, s: int, n_sm: int, tile: int,
+                  max_splits: int = 0) -> tuple:
+    """(chunk, chunks) of a split decode body over a cache of `s` columns
+    for `b` slots: chunks of whole `tile`-column tiles, as many as
+    b * Hkv * chunks >= SPLIT_WAVES * n_sm asks for and the columns allow,
+    at most `max_splits` (0: no cap); chunk * chunks >= s.  The host cannot
+    read the slots' lengths without a sync, so the count depends on `s`
+    only: blocks past a slot's column end exit at once."""
+    tiles = max(1, -(-s // tile))
+    want = max(1, -(-SPLIT_WAVES * n_sm // (b * n_kv_heads)))
+    per = max(1, tiles // want)
+    if max_splits:
+        per = max(per, -(-tiles // max_splits))
+    chunk = per * tile
     return chunk, -(-s // chunk)
+
+
+def rows_chunking(b: int, n_kv_heads: int, s: int, n_sm: int) -> tuple:
+    """(chunk, chunks) of the rows body: `split_columns` over ROWS_TILE."""
+    return split_columns(b, n_kv_heads, s, n_sm, ROWS_TILE)
 
 
 def int8_dot(t: int, n_heads: int, n_kv_heads: int, d: int,
@@ -566,8 +588,22 @@ def _launched(name: str, d: int, code: int) -> None:
     _build.instance_launches[f"{name} d{di}"] += 1
 
 
-def _decode_scratch(b, h, d, s, dev, out_dtype, t: int = 1):
-    splits = -(-s // DECODE_CHUNK)
+# Kernels B / 10's per-(slot, KV head) counters, per device: zeros, and
+# left zero by every launch (the last block of a group resets its own), so
+# a call needs no memset.  Calls on one stream share them; calls on two
+# streams at once would not.
+_COUNTERS = {}
+
+
+def _decode_counters(dev, n: int) -> torch.Tensor:
+    buf = _COUNTERS.get(dev)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros((max(n, 1024),), dtype=torch.int32, device=dev)
+        _COUNTERS[dev] = buf
+    return buf
+
+
+def _decode_scratch(b, h, d, splits, dev, out_dtype, t: int = 1):
     part_m = torch.empty((b * t, h, splits), dtype=torch.float32, device=dev)
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty((b * t, h, splits, d), dtype=torch.float32,
@@ -604,15 +640,19 @@ def decode_cuda(q, k_new, v_new, k, v, ks, vs, layer, pos, kv_lens, scale,
     # [B] at t = 1, [B, t] above (a [B, 1] position at t = 1 as [B])
     pos32 = (pos.reshape(b) if t == 1 else pos).to(torch.int32).contiguous()
     lens32 = kv_lens.to(torch.int32).contiguous()
-    part_m, part_l, part_acc, out = _decode_scratch(b, h, d, s, dev,
+    chunk, splits = split_columns(b, hkv, s, _sm_count(dev.index or 0),
+                                  DECODE_TILE, DECODE_MAX_SPLITS)
+    part_m, part_l, part_acc, out = _decode_scratch(b, h, d, splits, dev,
                                                     out_dtype, t)
+    counters = _decode_counters(dev, b * hkv)
     fn = _build.kernels.fn(f"flash_decode_d{instance_dim(d)}",
-                           "nst_flash_decode", 14, 14, 2)
+                           "nst_flash_decode", 15, 14, 2)
     code = fn(q3.data_ptr(), _ptr(kn), _ptr(vn), k.data_ptr(), v.data_ptr(),
               _ptr(ks), _ptr(vs), _ptr(slopes), pos32.data_ptr(),
               lens32.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-              part_acc.data_ptr(), out.data_ptr(), b, h, hkv, s, d, layer,
-              DECODE_CHUNK, int(extra), int(fused_append), _KV_TYPE[suffix],
+              part_acc.data_ptr(), counters.data_ptr(), out.data_ptr(), b, h,
+              hkv, s, d, layer, chunk, int(extra), int(fused_append),
+              _KV_TYPE[suffix],
               *_flags(causal, out_dtype), int(qk), t, float(scale),
               float(softcap), _build.stream_handle())
     name = _counter("flash_decode", suffix, softcap, causal, qk) + (
@@ -759,16 +799,21 @@ def decode_paged_cuda(q, k_new, v_new, kp, vp, ks, vs, tables, layer, pos,
     vn = v_new.contiguous() if extra else None
     pos32 = pos.to(torch.int32).contiguous()
     lens32 = kv_lens.to(torch.int32).contiguous()
-    part_m, part_l, part_acc, out = _decode_scratch(b, h, d, n_blocks * ps,
-                                                    dev, out_dtype)
+    chunk, splits = split_columns(b, hkv, n_blocks * ps,
+                                  _sm_count(dev.index or 0), DECODE_TILE,
+                                  DECODE_MAX_SPLITS)
+    part_m, part_l, part_acc, out = _decode_scratch(b, h, d, splits, dev,
+                                                    out_dtype)
+    counters = _decode_counters(dev, b * hkv)
     fn = _build.kernels.fn(f"flash_decode_paged_d{instance_dim(d)}",
-                           "nst_flash_decode_paged", 15, 15, 2)
+                           "nst_flash_decode_paged", 16, 15, 2)
     code = fn(q3.data_ptr(), _ptr(kn), _ptr(vn), kp.data_ptr(),
               vp.data_ptr(), _ptr(ks), _ptr(vs), _ptr(slopes),
               tables.data_ptr(), pos32.data_ptr(), lens32.data_ptr(),
               part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-              out.data_ptr(), b, h, hkv, n_pages, ps, n_blocks, d, layer,
-              DECODE_CHUNK, int(extra), int(fused_append), _KV_TYPE[suffix],
+              counters.data_ptr(), out.data_ptr(), b, h, hkv, n_pages, ps,
+              n_blocks, d, layer, chunk, int(extra), int(fused_append),
+              _KV_TYPE[suffix],
               *_flags(causal, out_dtype), int(qk), float(scale),
               float(softcap), _build.stream_handle())
     _launched(_counter("flash_decode_paged", suffix, softcap, causal, qk), d,
